@@ -6,20 +6,37 @@
 
 Phases; any failure fails the run (nothing is caught):
   1. the card's name and power limit, the torch and CUDA versions;
-  2. build the three CUDA kernels from kubernetes_tpu_torch/kernels/csrc
+  2. build the six CUDA kernels from kubernetes_tpu_torch/kernels/csrc
      (one nvcc per source, started together);
-  3. hold each kernel against its plain PyTorch version on the card at the
-     density shapes (C=64 pods, N=8192 node rows, R=4 resources), on seeded
-     inputs with score ties, zero allocatable, unschedulable nodes, pods
-     feasible nowhere, a nominated-pod overlay and duplicate picks; exact
-     equality is required, and both are timed with CUDA events (median);
+  3. hold each kernel against its plain PyTorch version on the card, on
+     seeded inputs; exact equality is required, and both are timed with
+     CUDA events (median of 50):
+     - at the density shapes (C=64 pods, N=8192 node rows, R=4 resources),
+       with score ties, zero allocatable, unschedulable nodes, pods
+       feasible nowhere, a nominated-pod overlay and duplicate picks:
+       build_dom, eval_chunk, select_host, resolve_commit;
+     - at the inter-pod-affinity shapes (C=64, N=1024, G=ET=2048, TK=4,
+       DV=16) with zone and hostname terms, required, preferred and
+       existing terms, namespace selectors and a selector matching a
+       thousand groups: build_dom, eval_chunk, ipa_eval, select_host,
+       conflict_pairs (a whole 4096-pod batch) and resolve_commit with the
+       affinity-term commit;
   4. drive the density workload (5000 nodes, 2048 warm-up + 30000 pods,
      batch 4096, chunk 64, default profile) through TorchScheduler, with the
      launch counts set to 0 just before and read just after; every pod
      must bind, the host mirror must equal the device state and no node may
-     exceed its allocatable; then drive it again with the plain versions on
-     the card and require identical bindings;
-  5. print the per-kernel JSON line, the card line, and last the device line.
+     exceed its allocatable; a traced run gives the device idle share; then
+     drive it again with the plain versions on the card and require
+     identical bindings;
+  5. the same for the inter-pod-affinity workload (1000 nodes in 10 zones,
+     1024 warm-up + 10000 pods, batch 4096, chunk 64): every pod binds, no
+     two pods of one anti-affinity colour share a zone, the host mirror
+     equals the device state, every kernel launched, bindings equal the
+     plain path's; pods/s, the idle share, deferrals, the pack width and
+     the host-to-device feature bytes are printed;
+  6. print the per-kernel JSON line (launches per path, and the numbers of
+     every shape a kernel was measured at), the card line, and last the
+     device line.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the
 package is missing.
@@ -28,13 +45,16 @@ package is missing.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
 import time
 
-# H100 SXM memory bandwidth (NVIDIA data sheet), for the bytes bound.
+# H100 SXM memory bandwidth and float32 rate outside the tensor cores
+# (NVIDIA data sheet), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 # Timed calls per kernel and per plain version (the median is kept).
 REPS = 50
 
@@ -157,6 +177,71 @@ def exact(errs: dict, name: str, what: str, a, b) -> None:
         raise AssertionError(f"{name} {what}: {int((diff != 0).sum())} entries differ, max |err| {err}")
 
 
+def clone_dom(dom):
+    """A copy of the domain tables the commit updates in place."""
+    return dom._replace(group_dom=dom.group_dom.clone(), et_dom=dom.et_dom.clone())
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def eval_bytes(state, pf: dict, nom) -> int:
+    """eval_chunk: the node state and the pod features it reads, once;
+    feasible, total and the fail mask written once."""
+    c, n = pf["req"].shape[0], state.valid.shape[0]
+    node = nbytes(state.valid, state.name_id, state.unschedulable, state.num_pods,
+                  state.allowed_pods, state.alloc, state.req, state.nonzero_req, *(nom or ()))
+    keys = ["nodename_id", "tolerates_unschedulable", "req", "nonzero"]
+    if nom is not None:
+        keys += ["priority", "nominated_row"]
+    return node + nbytes(*(pf[k] for k in keys)) + c * n * (1 + 8) + c * 4
+
+
+def select_bytes(c: int, n: int) -> int:
+    """select_host: feasible and total read once, steps and nominated rows
+    read, pick, best and feasible count written."""
+    return c * n * (1 + 8) + c * (8 + 4) + c * (4 + 8 + 4)
+
+
+def dom_cost(state, et_slot, group_dom, et_dom) -> tuple[int, int]:
+    """build_dom: (bytes, int32 adds).  Both count tables are read once
+    (a zero count must be seen to be skipped), topo_vals and et_slot once,
+    both tables written once; one add per non-zero count and key."""
+    tk = state.topo_vals.shape[1]
+    b = nbytes(state.group_counts, state.et_counts, state.topo_vals, et_slot, group_dom, et_dom)
+    adds = int((state.group_counts != 0).sum()) * tk + int((state.et_counts != 0).sum())
+    return b, adds
+
+
+def set_bound(entry: dict, nbytes_: int, ops: int = 0) -> None:
+    """The least time for the work: the larger of the bytes over HBM
+    bandwidth and the operations over the float32 rate."""
+    t_bytes, t_ops = nbytes_ / HBM_BYTES_PER_S, ops / F32_FLOPS
+    entry.update(bytes=nbytes_, ops=ops, bound_ms=max(t_bytes, t_ops) * 1e3,
+                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_dom(errs: dict, label: str, state, et_slot, dv: int, reps: int) -> dict:
+    """build_dom against its plain version, exactly, and timed."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import plain
+
+    kg, ke = kernels.build_dom(state, et_slot, dv)
+    pg, pe = plain.build_dom(state, et_slot, dv)
+    torch.cuda.synchronize()
+    exact(errs, "build_dom", f"[{label}] group_dom", kg, pg)
+    exact(errs, "build_dom", f"[{label}] et_dom", ke, pe)
+    print(f"build_dom [{label}]: exact; {int(pg.sum())} group and {int(pe.sum())} term "
+          f"carriers in domains")
+    out = timed(lambda _: kernels.build_dom(state, et_slot, dv),
+                lambda _: plain.build_dom(state, et_slot, dv), reps)
+    set_bound(out, *dom_cost(state, et_slot, kg, ke))
+    return out
+
+
 def timed(kernel_fn, plain_fn, reps: int, setup=None) -> dict:
     ms, call_ms = median_ms(kernel_fn, reps, setup)
     plain_ms, plain_call_ms = median_ms(plain_fn, reps, setup)
@@ -166,22 +251,23 @@ def timed(kernel_fn, plain_fn, reps: int, setup=None) -> dict:
 def check_kernels(dev, reps: int) -> dict:
     """Phase 3: every kernel against its plain version; returns, per
     kernel, its timings, bytes bound and largest error over every output."""
-    import dataclasses
-
     import numpy as np
     import torch
 
     from kubernetes_tpu_torch import kernels
-    from kubernetes_tpu_torch.engine.pass_ import _dom_aggregates, eval_spec
+    from kubernetes_tpu_torch.engine.pass_ import build_dom, eval_spec
     from kubernetes_tpu_torch.framework.config import (
         DEFAULT_PROFILE, MOST_ALLOCATED, ScoringStrategy, fit_only_profile,
     )
     from kubernetes_tpu_torch.kernels import plain
-    from kubernetes_tpu_torch.ops.helpers import make_topo_onehot
 
     builder, pf, nom, steps, rng = kernel_inputs(1234, dev)
     state = builder.state()
     schema, res_col = builder.schema, builder.res_col
+    result = {}
+    errs: dict[str, float] = {}
+    et_slot0 = torch.zeros(schema.ET, dtype=torch.int32, device=dev)
+    result["build_dom"] = check_dom(errs, "density", state, et_slot0, schema.DV, reps)
     ported = {"NodeUnschedulable", "NodeName", "NodeResourcesFit", "NodeResourcesBalancedAllocation"}
     most = dataclasses.replace(
         DEFAULT_PROFILE,
@@ -193,8 +279,6 @@ def check_kernels(dev, reps: int) -> dict:
         tie_break_seed=12345,
     )
     variants = {"default": DEFAULT_PROFILE, "most_allocated": most, "fit_only": fit_only_profile()}
-    result = {}
-    errs: dict[str, float] = {}
     for label, prof in variants.items():
         active = frozenset(ported & (set(prof.filters) | {s for s, _ in prof.scorers}))
         spec = eval_spec(prof, schema, res_col, active)
@@ -224,8 +308,7 @@ def check_kernels(dev, reps: int) -> dict:
                 lambda _: plain.select_host(pfe, pt, steps, 0, pf["nominated_row"]), reps)
     # resolve_commit: duplicate picks on nearly full rows, invalid rows,
     # unschedulable pods and a random conflict table.
-    onehot = make_topo_onehot(state.topo_vals, schema.DV)
-    group_dom0, _ = _dom_aggregates(state, onehot, torch.zeros(schema.ET, dtype=torch.int32, device=dev), schema.DV)
+    dom0 = build_dom(state, et_slot0, torch.zeros(schema.ET, dtype=torch.bool, device=dev), schema.DV)
     free_cpu = (state.alloc[:, 0] - state.req[:, 0]).cpu().numpy()
     tight = np.nonzero((free_cpu > 0) & (free_cpu < 2500))[0][:6]
     picks = torch.from_numpy(rng.choice(tight, 64).astype(np.int32)).to(dev)
@@ -235,31 +318,24 @@ def check_kernels(dev, reps: int) -> dict:
     pairs = torch.from_numpy(rng.random((64, 64)) < 0.01).to(dev)
     pfk = dict(pf, valid=valid)
     for strict in (False, True):
-        sk, gk = state.clone(), group_dom0.clone()
-        sp, gp = state.clone(), group_dom0.clone()
-        ok_ = kernels.resolve_commit(sk, gk, pfk, picks, pairs, strict)
-        op_ = plain.resolve_commit(sp, gp, pfk, picks, pairs, strict)
+        sk, dk = state.clone(), clone_dom(dom0)
+        sp, dp = state.clone(), clone_dom(dom0)
+        ok_ = kernels.resolve_commit(sk, dk, pfk, picks, pairs, strict)
+        op_ = plain.resolve_commit(sp, dp, pfk, picks, pairs, strict)
         torch.cuda.synchronize()
         exact(errs, "resolve_commit", f"(strict={strict}) picks", ok_, op_)
-        exact(errs, "resolve_commit", f"(strict={strict}) group_dom", gk, gp)
+        exact(errs, "resolve_commit", f"(strict={strict}) group_dom", dk.group_dom, dp.group_dom)
         for f in ("req", "nonzero_req", "num_pods", "group_counts"):
             exact(errs, "resolve_commit", f"(strict={strict}) state.{f}", getattr(sk, f), getattr(sp, f))
         print(f"resolve_commit(strict={strict}): exact; "
               f"{int((op_ == -2).sum())} deferred, {int((op_ >= 0).sum())} committed")
-    clones = lambda: (state.clone(), group_dom0.clone())  # noqa: E731
+    clones = lambda: (state.clone(), clone_dom(dom0))  # noqa: E731
     result["resolve_commit"] = timed(
         lambda a: kernels.resolve_commit(a[0], a[1], pfk, picks, pairs, False),
         lambda a: plain.resolve_commit(a[0], a[1], pfk, picks, pairs, False), reps, clones)
     # Least time for the same work: the bytes each function must move
     # (inputs read once, outputs written once) over HBM bandwidth.
     c, n = pf["req"].shape[0], state.valid.shape[0]
-    node_bytes = sum(t.numel() * t.element_size() for t in (
-        state.valid, state.name_id, state.unschedulable, state.num_pods,
-        state.allowed_pods, state.alloc, state.req, state.nonzero_req, *nom))
-    pod_bytes = sum(pf[k].numel() * pf[k].element_size() for k in (
-        "nodename_id", "tolerates_unschedulable", "req", "nonzero", "priority", "nominated_row"))
-    eval_bytes = node_bytes + pod_bytes + c * n * (1 + 8) + c * 4
-    select_bytes = c * n * (1 + 8) + c * (8 + 4) + c * (4 + 8 + 4)
     # resolve_commit touches only the picked rows: their alloc, req,
     # nonzero_req, num_pods, allowed_pods and topo_vals, and one
     # group_counts cell and TK group_dom cells per distinct (group, row).
@@ -269,38 +345,355 @@ def check_kernels(dev, reps: int) -> dict:
     cell_bytes = cells * (4 + schema.TK * 4) * 2
     pod_side = c * (4 + 1 + schema.R * 8 + 2 * 8 + 4) + c * c + c * 4
     commit_bytes = row_bytes + cell_bytes + pod_side
-    for name, nbytes in (("eval_chunk", eval_bytes), ("select_host", select_bytes),
-                         ("resolve_commit", commit_bytes)):
-        result[name]["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
-        result[name]["bytes"] = nbytes
+    for name, nb in (("eval_chunk", eval_bytes(state, pf, nom)), ("select_host", select_bytes(c, n)),
+                     ("resolve_commit", commit_bytes)):
+        set_bound(result[name], nb)
+    for name in result:
         result[name]["max_abs_err"] = errs[name]
     return result
 
 
-def run_density(impl: str, trace: bool = False):
-    """The density burst through TorchScheduler.  With ``trace``, the
-    measured window also records host spans (featurize, the rest of
-    dispatch, the result fetch that waits for the device, the rest of
-    completion) and a torch.profiler trace of the card's kernels."""
+HOST = "kubernetes.io/hostname"
+ZONE = "topology.kubernetes.io/zone"
+
+
+def ipa_cluster(seed: int, dev):
+    """1000 nodes in 10 zones (1024 rows) and 3000 bound pods whose labels
+    and terms intern about 1100 label groups and 1100 affinity terms (G =
+    ET = 2048): zone anti-affinity to their own colour (1000 colours), zone
+    affinity (50 colours), hostname anti-affinity, preferred zone and
+    hostname terms, and pods in two labelled namespaces."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.api.wrappers import make_node, make_pod
+    from kubernetes_tpu_torch.cache import Cache
+    from kubernetes_tpu_torch.snapshot import SnapshotBuilder
+
+    rng = np.random.default_rng(seed)
+    builder = SnapshotBuilder(device=dev)
+    cache = Cache(builder)
+    builder.set_namespace_labels("team-a", {"team": "a"})
+    builder.set_namespace_labels("team-b", {"team": "b"})
+    for i in range(1000):
+        cache.add_node(make_node(f"n{i}").capacity({"cpu": "16", "memory": "64Gi", "pods": 110})
+                       .zone(f"zone-{i % 10}").obj())
+    for j in range(3000):
+        node = f"n{rng.integers(1000)}"
+        kind = j % 6
+        if kind in (0, 1):
+            w = make_pod(f"b{j}").label("color", f"c{j % 1000}").pod_anti_affinity_in(
+                "color", [f"c{j % 1000}"], ZONE)
+        elif kind == 2:
+            w = make_pod(f"b{j}").label("acolor", f"a{j % 50}").pod_affinity_in(
+                "acolor", [f"a{j % 50}"], ZONE)
+        elif kind == 3:
+            w = make_pod(f"b{j}", namespace="team-a" if j % 2 else "team-b").label(
+                "app", f"web{j % 4}").pod_anti_affinity_in("app", [f"web{j % 4}"], HOST)
+        elif kind == 4:
+            w = make_pod(f"b{j}").label("app", f"db{j % 3}").preferred_pod_affinity_in(
+                "app", [f"web{j % 4}"], ZONE, weight=30).preferred_pod_affinity_in(
+                "app", [f"db{j % 3}"], HOST, weight=20, anti=True)
+        else:
+            w = make_pod(f"b{j}").label("color", f"c{j % 1000}").label("tier", "x")
+        cache.add_pod(w.req({"cpu": "100m", "memory": "128Mi"}).node(node).obj())
+    return builder, cache, rng
+
+
+def ipa_chunk_pods(rng) -> list:
+    """64 pods covering every branch of the op: required zone and hostname
+    affinity (present, absent and lonely self-matching), required zone and
+    hostname anti-affinity, ± preferred zone and hostname terms, a
+    namespaceSelector term, a selector matching a thousand groups (Exists
+    on "color"), and plain pods that existing pods' terms match."""
+    from kubernetes_tpu_torch.api import types as t
+    from kubernetes_tpu_torch.api.wrappers import make_pod
+
+    exists = t.PodAffinityTerm(
+        label_selector=t.LabelSelector(match_expressions=(
+            t.LabelSelectorRequirement("color", t.OP_EXISTS),)),
+        topology_key=ZONE)
+    pods = []
+    for k in range(64):
+        w = make_pod(f"q{k}").req({"cpu": "100m", "memory": "128Mi"})
+        x = int(rng.integers(1000))
+        kind = k % 10
+        if kind == 0:
+            w = w.label("acolor", f"a{x % 50}").pod_affinity_in("acolor", [f"a{x % 50}"], ZONE)
+        elif kind == 1:
+            w = w.label("app", "solo").pod_affinity_in("app", ["solo"], HOST)  # lonely, self-matching
+        elif kind == 2:
+            w = w.pod_affinity_in("app", [f"web{x % 4}"], HOST).pod_affinity_in("color", [f"c{x}"], ZONE)
+        elif kind == 3:
+            w = w.label("color", f"c{x}").pod_anti_affinity_in("color", [f"c{x}"], ZONE)
+        elif kind == 4:
+            w = w.label("app", f"web{x % 4}").pod_anti_affinity_in("app", [f"db{x % 3}"], HOST)
+        elif kind == 5:
+            w = w.label("app", f"db{x % 3}").preferred_pod_affinity_in(
+                "color", [f"c{x}"], ZONE, weight=int(rng.integers(1, 101))).preferred_pod_affinity_in(
+                "app", [f"web{x % 4}"], HOST, weight=int(rng.integers(1, 101)), anti=True)
+        elif kind == 6:
+            w = w.label("app", f"web{x % 4}").ns_selector_pod_affinity_in(
+                "app", [f"web{x % 4}"], HOST, "team", ["a"], anti=True)
+        elif kind == 7:
+            w._attach_pod_term(exists, True, None)
+            w = w.label("tier", "y")
+        elif kind == 8:
+            w = w.label("color", f"c{x}")  # existing anti terms repel it
+        else:
+            w = w.label("app", f"web{x % 4}").preferred_pod_affinity_in(
+                "app", [f"db{x % 3}"], ZONE, weight=50)
+        pods.append(w.obj())
+    return pods
+
+
+def ipa_inputs(seed: int, dev):
+    """The IPA cluster, its domain tables, one featurized 64-pod chunk with
+    eval_chunk's result, and one featurized 4096-pod batch of the
+    workload's pods (for conflict_pairs)."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.engine.features import build_pod_batch
+    from kubernetes_tpu_torch.engine.pass_ import build_dom, eval_spec, ipa_spec
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.kernels import plain
+    from kubernetes_tpu_torch.workloads import pod_ipa_heavy
+
+    builder, _cache, rng = ipa_cluster(seed, dev)
+    # The workload's pods in a shuffled order, so chunks hold same-colour pods.
+    order = rng.permutation(4096)
+    big, _, big_active = build_pod_batch([pod_ipa_heavy(int(i)) for i in order], builder,
+                                         DEFAULT_PROFILE, 4096)
+    batch, _, active = build_pod_batch(ipa_chunk_pods(rng), builder, DEFAULT_PROFILE, 64)
+    if "InterPodAffinity" not in active or "InterPodAffinity" not in big_active:
+        raise AssertionError("the IPA inputs leave InterPodAffinity inactive")
+    inv = builder.batch_invariants()
+    state = builder.state()
+    schema = builder.schema
+    if (schema.G, schema.ET, schema.N, schema.DV) != (2048, 2048, 1024, 16):
+        raise AssertionError(f"IPA shapes: {schema}")
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    pf = {k: to(v) for k, v in batch.items()}
+    pf["nominated_row"] = torch.full((64,), -1, dtype=torch.int32, device=dev)
+    big_pf = {k: to(v) for k, v in big.items()}
+    dom = build_dom(state, to(inv["et_slot"]), to(inv["et_host"]), schema.DV)
+    spec = eval_spec(DEFAULT_PROFILE, schema, builder.res_col, active)
+    ipa = ipa_spec(DEFAULT_PROFILE, schema, builder.res_col, active)
+    ipa = dataclasses.replace(ipa, ctx=dataclasses.replace(ipa.ctx, dom=dom))
+    base = plain.eval_chunk(state, pf, spec, None)
+    return dict(builder=builder, state=state, dom=dom, pf=pf, big_pf=big_pf, spec=spec,
+                ipa=ipa, base=base, rng=rng)
+
+
+def check_ipa_kernels(dev, reps: int) -> dict:
+    """Phase 3, the inter-pod-affinity shapes: build_dom, eval_chunk,
+    ipa_eval, select_host, conflict_pairs and resolve_commit (with the
+    affinity-term commit) against their plain versions, exactly; returns
+    each one's timings, bound and largest error."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.kernels import plain
+
+    x = ipa_inputs(4321, dev)
+    state, dom, pf, big_pf, ipa, spec = x["state"], x["dom"], x["pf"], x["big_pf"], x["ipa"], x["spec"]
+    schema = x["builder"].schema
+    errs: dict[str, float] = {}
+    result = {"build_dom": check_dom(errs, "ipa", state, dom.et_slot, schema.DV, reps)}
+    c, n = pf["valid"].shape[0], state.valid.shape[0]
+    base = x["base"]
+    kb = kernels.eval_chunk(state, pf, spec, None)
+    torch.cuda.synchronize()
+    for what, a, b in zip(("feasible", "total", "fail_mask"), kb, base):
+        exact(errs, "eval_chunk", f"[ipa] {what}", a, b)
+    result["eval_chunk"] = timed(lambda _: kernels.eval_chunk(state, pf, spec, None),
+                                 lambda _: plain.eval_chunk(state, pf, spec, None), reps)
+    fresh = lambda: tuple(t.clone() for t in base)  # noqa: E731
+    score_only = dataclasses.replace(
+        ipa, filters=tuple(f for f in ipa.filters if f != "InterPodAffinity"))
+    for label, spec_ in (("score only", score_only), ("filter+score", ipa)):
+        kf, kt, km = kernels.ipa_eval(state, pf, *fresh(), spec_)
+        pfe, pt, pm = plain.ipa_eval(state, pf, *fresh(), spec_)
+        torch.cuda.synchronize()
+        for what, a, b in (("feasible", kf, pfe), ("total", kt, pt), ("fail_mask", km, pm)):
+            exact(errs, "ipa_eval", f"[{label}] {what}", a, b)
+    rejected = int((base[0] & ~pfe).sum())
+    print(f"ipa_eval: exact; {rejected} of {int(base[0].sum())} feasible (pod, node) pairs "
+          f"rejected by InterPodAffinity, {int((pfe.sum(dim=1) == 0).sum())} pods feasible nowhere")
+    result["ipa_eval"] = timed(
+        lambda a: kernels.ipa_eval(state, pf, *a, ipa),
+        lambda a: plain.ipa_eval(state, pf, *a, ipa), reps, fresh)
+    seed_mul = ((DEFAULT_PROFILE.tie_break_seed & 0xFFFFFFFF) * 2654435761) & 0xFFFFFFFF
+    steps = torch.from_numpy(x["rng"].integers(0, 2**32, size=c, dtype=np.int64)).to(dev)
+    nomr = pf["nominated_row"]
+    ks = kernels.select_host(pfe, pt, steps, seed_mul, nomr)
+    ps = plain.select_host(pfe, pt, steps, seed_mul, nomr)
+    torch.cuda.synchronize()
+    for what, a, b in zip(("pick", "best", "feasible_count"), ks, ps):
+        exact(errs, "select_host", f"[ipa] {what}", a, b)
+    print(f"eval_chunk/select_host [ipa]: exact; {int((ps[0] >= 0).sum())} pods placed")
+    result["select_host"] = timed(lambda _: kernels.select_host(pfe, pt, steps, seed_mul, nomr),
+                                  lambda _: plain.select_host(pfe, pt, steps, seed_mul, nomr), reps)
+    # conflict_pairs: the workload's 4096-pod batch as 64 chunks, and the
+    # mixed chunk.
+    for label, src, nch in (("workload batch", big_pf, 64), ("mixed chunk", pf, 1)):
+        kp = kernels.conflict_pairs(src, nch, 64)
+        pp = plain.conflict_pairs(src, nch, 64)
+        torch.cuda.synchronize()
+        exact(errs, "conflict_pairs", f"[{label}]", kp, pp)
+        print(f"conflict_pairs [{label}]: exact; {int(pp.sum())} pairs")
+    result["conflict_pairs"] = timed(
+        lambda _: kernels.conflict_pairs(big_pf, 64, 64),
+        lambda _: plain.conflict_pairs(big_pf, 64, 64), reps)
+    # resolve_commit with own-term commits: each pod's pick is a node its
+    # evaluation left feasible (or none), the pairs are the chunk's own.
+    picks = torch.where(pfe.any(dim=1), pfe.to(torch.int32).argmax(dim=1), -1).to(torch.int32)
+    pairs = pp[0]
+    for strict in (False, True):
+        sk, dk = state.clone(), clone_dom(dom)
+        sp, dp = state.clone(), clone_dom(dom)
+        ok_ = kernels.resolve_commit(sk, dk, pf, picks, pairs, strict)
+        op_ = plain.resolve_commit(sp, dp, pf, picks, pairs, strict)
+        torch.cuda.synchronize()
+        exact(errs, "resolve_commit", f"[ipa] (strict={strict}) picks", ok_, op_)
+        exact(errs, "resolve_commit", f"[ipa] (strict={strict}) group_dom", dk.group_dom, dp.group_dom)
+        exact(errs, "resolve_commit", f"[ipa] (strict={strict}) et_dom", dk.et_dom, dp.et_dom)
+        for f in ("req", "nonzero_req", "num_pods", "group_counts", "et_counts"):
+            exact(errs, "resolve_commit", f"[ipa] (strict={strict}) state.{f}", getattr(sk, f), getattr(sp, f))
+        moved = int((sp.et_counts - state.et_counts).sum())
+        print(f"resolve_commit[ipa](strict={strict}): exact; {int((op_ == -2).sum())} deferred, "
+              f"{int((op_ >= 0).sum())} committed, {moved} own-term commits")
+    result["resolve_commit"] = timed(
+        lambda a: kernels.resolve_commit(a[0], a[1], pf, picks, pairs, False),
+        lambda a: plain.resolve_commit(a[0], a[1], pf, picks, pairs, False), reps,
+        lambda: (state.clone(), clone_dom(dom)))
+    tk = schema.TK
+    k = big_pf["valid"].shape[0]
+    bg = big_pf["group"].view(64, 64)
+    bo = big_pf["ipa_own_terms"].view(64, 64, -1)
+    brs = big_pf["ipa_rs_groups"].shape[1]
+    pair_bytes = nbytes(big_pf["group"], big_pf["ipa_own_terms"]) + 64 * 64 * 64
+    for b in range(64):
+        ug = int(torch.unique(bg[b]).numel())
+        ue = int(torch.unique(bo[b][bo[b] >= 0]).numel())
+        pair_bytes += 64 * ug * (1 + brs) + 64 * ue * 2
+    att = picks >= 0
+    rows = int(torch.unique(picks[att]).numel())
+    cells = int(torch.unique((pf["group"].long() * n + picks.long())[att]).numel())
+    own = pf["ipa_own_terms"].long()
+    own_ok = (own >= 0) & att[:, None]
+    own_cells = int(torch.unique((own * n + picks.long()[:, None])[own_ok]).numel())
+    commit_bytes = (rows * (schema.R * 8 * 3 + 2 * 8 * 2 + 4 * 3 + tk * 4)
+                    + cells * (4 + tk * 4) * 2 + own_cells * (4 + 4 + 4) * 2
+                    + c * (4 + 1 + schema.R * 8 + 2 * 8 + 4 + own.shape[1] * 4) + c * c + c * 4)
+    for name, nb in (("eval_chunk", eval_bytes(state, pf, None)), ("ipa_eval", ipa_bytes(state, dom, pf)),
+                     ("select_host", select_bytes(c, n)), ("conflict_pairs", pair_bytes),
+                     ("resolve_commit", commit_bytes)):
+        set_bound(result[name], nb)
+    for name in result:
+        result[name]["max_abs_err"] = errs[name]
+    ra, rs, npf = (pf[f"ipa_{p}_valid"].shape[1] for p in ("ra", "rs", "pf"))
+    print(f"IPA shapes: C={c}, N={n}, G={schema.G}, ET={schema.ET}, TK={tk}, DV={schema.DV}, "
+          f"K={k}; own terms per pod {ra}+{rs}+{npf}")
+    return result
+
+
+def sectors(rows, cols, width: int, per: int) -> int:
+    """Bytes of the distinct 32-byte sectors that entries (rows, cols) of a
+    row-major (*, width) array of ``per`` entries per sector fall in."""
+    import torch
+
+    if rows.numel() == 0:
+        return 0
+    stride = width // per + 1
+    return int(torch.unique(rows.long() * stride + cols.long() // per).numel()) * 32
+
+
+def ipa_bytes(state, dom, pf: dict) -> int:
+    """ipa_eval: the bytes it must move for this chunk's data.  Read in
+    full: topo_vals, the small per-term features, et_match, and the group
+    masks of the pods' valid terms (the all-terms mask of pods with
+    required affinity, the rs and pf mask of each valid term).  Read only
+    where the pod matched a term: et_anti, et_w, et_slot and et_host, in
+    32-byte sectors.  Domain tables: one group_dom (DV) row per distinct
+    (group, slot) of a valid domain term, one et_dom row per distinct used
+    existing domain term; hostname terms read one group_counts or
+    et_counts row per distinct group or term instead.  feasible and total
+    are read and written once, the fail mask too."""
+    import torch
+
+    c, n = pf["valid"].shape[0], state.valid.shape[0]
+    tk, dv = state.topo_vals.shape[1], dom.group_dom.shape[2]
+    g, et = pf["ipa_ra_allmask"].shape[1], pf["ipa_et_match"].shape[1]
+    small = nbytes(pf["ipa_ra_self"], pf["ipa_pf_w"], *(
+        pf[f"ipa_{p}_{f}"] for p in ("ra", "rs", "pf") for f in ("valid", "slot", "host")))
+    ra_valid = pf["ipa_ra_valid"]
+    masks = g * (int(ra_valid.any(dim=1).sum()) + int(pf["ipa_rs_valid"].sum())
+                 + int(pf["ipa_pf_valid"].sum()))
+    # Per own term (c, t): its group mask and slot; required affinity uses
+    # the all-terms mask for every term.
+    own = [(pf["ipa_ra_allmask"][:, None, :].expand(-1, ra_valid.shape[1], -1), "ra")]
+    own += [(pf[f"ipa_{p}_groups"], p) for p in ("rs", "pf")]
+    dom_keys, host_groups = [], []
+    for mask, p in own:
+        valid, host, slot = pf[f"ipa_{p}_valid"], pf[f"ipa_{p}_host"], pf[f"ipa_{p}_slot"]
+        ci, ti, gi = torch.nonzero(mask & (valid & ~host)[:, :, None], as_tuple=True)
+        dom_keys.append(gi.long() * tk + slot[ci, ti].long())
+        host_groups.append(torch.nonzero(mask & (valid & host)[:, :, None], as_tuple=True)[2])
+    n_dom = int(torch.unique(torch.cat(dom_keys)).numel())
+    n_host = int(torch.unique(torch.cat(host_groups)).numel())
+    match = pf["ipa_et_match"]
+    mr, mc = torch.nonzero(match, as_tuple=True)
+    terms = torch.unique(mc)  # et_slot and et_host are one row
+    zero = torch.zeros_like(terms)
+    per_term = (sectors(mr, mc, et, 32) + sectors(mr, mc, et, 4)  # et_anti, et_w
+                + sectors(zero, terms, et, 8) + sectors(zero, terms, et, 32))  # et_slot, et_host
+    used = (match & (pf["ipa_et_anti"] | (pf["ipa_et_w"] != 0))).any(dim=0)
+    tables = (n_dom * dv * 4 + n_host * n * 4 + int((used & ~dom.et_host).sum()) * dv * 4
+              + int((used & dom.et_host).sum()) * n * 4)
+    return (nbytes(state.topo_vals) + small + masks + nbytes(match) + per_term + tables
+            + 2 * c * n * (1 + 8) + 2 * c * 4)
+
+
+def ipa_anti_ok(outcomes) -> None:
+    """No two pods of one anti-affinity colour in one zone."""
+    seen: dict[tuple, str] = {}
+    for o in outcomes:
+        aff = o.pod.spec.affinity
+        if aff is None or aff.pod_anti_affinity is None:
+            continue
+        zone = int(o.node_name.rsplit("-", 1)[1]) % 10
+        key = (o.pod.metadata.labels["color"], zone)
+        if key in seen:
+            raise AssertionError(f"{o.pod.name} and {seen[key]} share colour and zone {key}")
+        seen[key] = o.pod.name
+
+
+def run_workload(impl: str, nodes, warm, measured, batch: int, chunk: int, trace: bool = False):
+    """One burst through TorchScheduler: the nodes, the warm-up pods
+    (scheduled first), then the measured pods, timed.  With ``trace``, the
+    measured window also records host spans (featurize, the host-to-device
+    copies of the batch features, the rest of dispatch, the result fetch
+    that waits for the device, the rest of completion) and a
+    torch.profiler trace of the card's kernels."""
     import torch
 
     from kubernetes_tpu_torch import scheduler as sched_mod
     from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
-    from kubernetes_tpu_torch.workloads import (
-        DENSITY_BATCH, DENSITY_CHUNK, DENSITY_MEASURED_PODS, DENSITY_NODES,
-        basic_nodes, pod_basic, warm_pods,
-    )
 
-    s = sched_mod.TorchScheduler(DEFAULT_PROFILE, batch_size=DENSITY_BATCH, chunk_size=DENSITY_CHUNK, _impl=impl)
-    for node in basic_nodes(DENSITY_NODES):
+    s = sched_mod.TorchScheduler(DEFAULT_PROFILE, batch_size=batch, chunk_size=chunk, _impl=impl)
+    for node in nodes:
         s.add_node(node)
-    for pod in warm_pods():
+    for pod in warm:
         s.add_pod(pod)
     out = s.schedule_all_pending()
     torch.cuda.synchronize()
-    for i in range(DENSITY_MEASURED_PODS):
-        s.add_pod(pod_basic(i))
-    spans = {"featurize": 0.0, "dispatch": 0.0, "fetch": 0.0, "complete": 0.0}
+    for pod in measured:
+        s.add_pod(pod)
+    spans = {"featurize": 0.0, "h2d": 0.0, "dispatch": 0.0, "fetch": 0.0, "complete": 0.0}
+    h2d_bytes = [0]
     prof = None
     orig_featurize = sched_mod.build_pod_batch
     if trace:
@@ -313,7 +706,13 @@ def run_density(impl: str, trace: bool = False):
                     spans[name] += time.perf_counter() - t
             return wrapped
 
+        def to_device(batch_np):
+            h2d_bytes[0] += sum(getattr(v, "nbytes", 0) for v in batch_np.values())
+            return orig_to_device(batch_np)
+
+        orig_to_device = s._to_device
         sched_mod.build_pod_batch = span("featurize", orig_featurize)
+        s._to_device = span("h2d", to_device)
         s._dispatch_batch = span("dispatch", s._dispatch_batch)
         s._fetch = span("fetch", s._fetch)
         s._complete_batch = span("complete", s._complete_batch)
@@ -321,7 +720,7 @@ def run_density(impl: str, trace: bool = False):
             activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
         prof.__enter__()
     t0 = time.perf_counter()
-    measured = s.schedule_all_pending()
+    measured_out = s.schedule_all_pending()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     if trace:
@@ -331,12 +730,40 @@ def run_density(impl: str, trace: bool = False):
         for ev in prof.key_averages():
             if ev.device_type == torch.autograd.DeviceType.CUDA:
                 device[ev.key] = getattr(ev, "device_time_total", 0.0) / 1e3
-        # featurize runs inside dispatch (and the host tail inside complete);
-        # fetch (the wait for the device's results) inside complete.
-        other = spans["dispatch"] + spans["complete"] - spans["featurize"] - spans["fetch"]
-        spans = {"featurize_s": spans["featurize"], "fetch_wait_s": spans["fetch"],
+        # featurize and the copies run inside dispatch (and the host tail
+        # inside complete); fetch (the wait for the device's results)
+        # inside complete.
+        other = (spans["dispatch"] + spans["complete"] - spans["featurize"] - spans["h2d"]
+                 - spans["fetch"])
+        spans = {"featurize_s": spans["featurize"], "h2d_s": spans["h2d"],
+                 "h2d_bytes": h2d_bytes[0], "fetch_wait_s": spans["fetch"],
                  "other_host_s": other, "device_ms_by_kernel": device}
-    return s, out + measured, len(measured), dt, spans
+    return s, out + measured_out, len(measured_out), dt, spans
+
+
+def run_density(impl: str, trace: bool = False):
+    """The density burst (harness.py:469)."""
+    from kubernetes_tpu_torch.workloads import (
+        DENSITY_BATCH, DENSITY_CHUNK, DENSITY_MEASURED_PODS, DENSITY_NODES,
+        basic_nodes, pod_basic, warm_pods,
+    )
+
+    return run_workload(impl, basic_nodes(DENSITY_NODES), warm_pods(),
+                        [pod_basic(i) for i in range(DENSITY_MEASURED_PODS)],
+                        DENSITY_BATCH, DENSITY_CHUNK, trace)
+
+
+def run_ipa(impl: str, trace: bool = False):
+    """The inter-pod-affinity burst (harness.py:431-464)."""
+    from kubernetes_tpu_torch.workloads import (
+        IPA_BATCH, IPA_CHUNK, IPA_MEASURED_PODS, IPA_NODES, IPA_WARM_PODS, IPA_ZONES,
+        basic_nodes, pod_ipa_heavy, warm_pods,
+    )
+
+    return run_workload(impl, basic_nodes(IPA_NODES, zones=IPA_ZONES),
+                        warm_pods(IPA_WARM_PODS, pod_ipa_heavy),
+                        [pod_ipa_heavy(i) for i in range(IPA_MEASURED_PODS)],
+                        IPA_BATCH, IPA_CHUNK, trace)
 
 
 def check_density(s, outcomes, expected: int, label: str) -> dict:
@@ -384,62 +811,115 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"  {name}: {line.strip()}")
 
-    timing = check_kernels(dev, REPS)
-    for name, tm in timing.items():
-        print(f"{name}: device ms: kernel {tm['ms']:.4f}, plain {tm['plain_ms']:.4f}, "
-              f"bound {tm['bound_ms']:.5f} ({tm['bytes']} bytes); call ms with the host's "
-              f"launch overhead: kernel {tm['call_ms']:.4f}, plain {tm['plain_call_ms']:.4f}  [{card}]")
+    shapes = {"density": check_kernels(dev, REPS), "ipa": check_ipa_kernels(dev, REPS)}
+    for shape, table in shapes.items():
+        for name, tm in table.items():
+            print(f"{name} [{shape} shapes]: device ms: kernel {tm['ms']:.4f}, plain {tm['plain_ms']:.4f}, "
+                  f"bound {tm['bound_ms']:.5f} ({tm['bound_by']}: {tm['bytes']} bytes, {tm['ops']} "
+                  f"operations); call ms with the host's launch overhead: kernel {tm['call_ms']:.4f}, "
+                  f"plain {tm['plain_call_ms']:.4f}  [{card}]")
 
-    launches = {name: None for name in build.KERNELS}  # the main path did not run
+    # Launches per path: the density path runs every kernel but the two
+    # affinity ones, the IPA path all six.
+    density_kernels = ("build_dom", "eval_chunk", "select_host", "resolve_commit")
+    by_path: dict[str, dict] = {}  # empty: the main paths did not run
     if not args.kernels_only:
         kernels.reset_launches()
         s, out, measured, dt, _ = run_density("kernel")
-        launches = kernels.launch_counts()
+        density_launches = kernels.launch_counts()
         bind_k = check_density(s, out, 32048, "kernel path")
         print(f"density (kernels): {len(out)} pods bound over 5000 nodes; measured "
               f"{measured} pods in {dt:.3f}s = {measured / dt:.1f} pods/s; "
-              f"deferred {s.deferred}; launches {launches}  [{card}]")
-        for name, count in launches.items():
-            if count == 0:
-                raise AssertionError(f"{name} was never launched on the main path")
+              f"deferred {s.deferred}; domain tables rebuilt {s.dom_carry_rebuilds}, carried "
+              f"{s.dom_carry_hits}; launches {density_launches}  [{card}]")
+        for name, count in density_launches.items():
+            if (count == 0) == (name in density_kernels):
+                raise AssertionError(f"density path: {name} launched {count} times")
         s3, out3, _m3, dt3, spans = run_density("kernel", trace=True)
         if check_density(s3, out3, 32048, "traced kernel path") != bind_k:
             raise AssertionError("the traced run bound differently")
-        busy = sum(spans["device_ms_by_kernel"].values()) / 1e3
-        top = sorted(spans["device_ms_by_kernel"].items(), key=lambda kv: -kv[1])[:6]
-        print(f"density traced window {dt3:.3f}s: featurize {spans['featurize_s']:.3f}s, "
-              f"waiting on device results {spans['fetch_wait_s']:.3f}s, other host "
-              f"{spans['other_host_s']:.3f}s; device busy {busy:.3f}s "
-              f"({'not measured' if busy == 0 else f'{1 - busy / dt3:.3f} idle share'})  [{card}]")
-        for key, ms in top:
-            print(f"  device {ms:9.3f} ms  {key[:90]}")
+        print_trace("density", dt3, spans, card)
         s2, out2, measured2, dt2, _ = run_density("plain")
         bind_p = check_density(s2, out2, 32048, "plain path")
-        if bind_k != bind_p:
-            diff = [k for k in bind_k if bind_k[k] != bind_p.get(k)]
-            raise AssertionError(f"kernel and plain bindings differ for {len(diff)} pods, e.g. {diff[:5]}")
+        compare_bindings(bind_k, bind_p)
         print(f"density (plain versions on the card): identical bindings; measured "
               f"{measured2} pods in {dt2:.3f}s = {measured2 / dt2:.1f} pods/s  [{card}]")
 
-    sources = {
-        "eval_chunk": ("kubernetes_tpu_torch/kernels/csrc/eval_chunk.cu", "kubernetes_tpu/engine/pass_.py:494"),
-        "select_host": ("kubernetes_tpu_torch/kernels/csrc/select_host.cu", "kubernetes_tpu/engine/pass_.py:136"),
-        "resolve_commit": ("kubernetes_tpu_torch/kernels/csrc/resolve_commit.cu", "kubernetes_tpu/engine/pass_.py:570"),
+        kernels.reset_launches()
+        s, out, measured, dt, _ = run_ipa("kernel")
+        ipa_launches = kernels.launch_counts()
+        bind_k = check_density(s, out, 11024, "IPA kernel path")
+        ipa_anti_ok(out)
+        print(f"IPA (kernels): {len(out)} pods bound over 1000 nodes in 10 zones; measured "
+              f"{measured} pods in {dt:.3f}s = {measured / dt:.1f} pods/s; deferred "
+              f"{s.deferred}; packed batches {s.packed_batches}, planned collisions "
+              f"{s.pack_collisions}, last pack width {s.pack_width}; domain tables rebuilt "
+              f"{s.dom_carry_rebuilds}, carried {s.dom_carry_hits}; schema G={s.builder.schema.G} "
+              f"ET={s.builder.schema.ET}; launches {ipa_launches}  [{card}]")
+        for name, count in ipa_launches.items():
+            if count == 0:
+                raise AssertionError(f"{name} was never launched on the IPA path")
+        s3, out3, _m3, dt3, spans = run_ipa("kernel", trace=True)
+        if check_density(s3, out3, 11024, "traced IPA kernel path") != bind_k:
+            raise AssertionError("the traced IPA run bound differently")
+        print_trace("IPA", dt3, spans, card)
+        s2, out2, measured2, dt2, _ = run_ipa("plain")
+        bind_p = check_density(s2, out2, 11024, "IPA plain path")
+        compare_bindings(bind_k, bind_p)
+        print(f"IPA (plain versions on the card): identical bindings; measured "
+              f"{measured2} pods in {dt2:.3f}s = {measured2 / dt2:.1f} pods/s  [{card}]")
+        by_path = {"density": density_launches, "ipa": ipa_launches}
+
+    csrc = "kubernetes_tpu_torch/kernels/csrc/"
+    replaces = {
+        "build_dom": "kubernetes_tpu/engine/pass_.py:96",
+        "eval_chunk": "kubernetes_tpu/engine/pass_.py:494",
+        "ipa_eval": "kubernetes_tpu/ops/interpodaffinity.py:283",
+        "select_host": "kubernetes_tpu/engine/pass_.py:136",
+        "resolve_commit": "kubernetes_tpu/engine/pass_.py:570",
+        "conflict_pairs": "kubernetes_tpu/engine/pass_.py:266",
     }
-    line = {"kernels": [
-        {
-            "name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
-            "launches": launches[name], "max_abs_err": timing[name]["max_abs_err"], "ms": timing[name]["ms"],
-            "plain_ms": timing[name]["plain_ms"], "bound_ms": timing[name]["bound_ms"],
-            "bound_by": "bytes", "library_ms": None,
-        }
-        for name in build.KERNELS
-    ]}
+    # The top-level numbers of a kernel come from the shapes of the path it
+    # was first ported for (density: eval_chunk, select_host,
+    # resolve_commit; IPA: build_dom, ipa_eval, conflict_pairs); "by_shape"
+    # holds every shape it was measured at.  "launches" sums the main
+    # paths' runs, "launches_by_path" splits them.
+    first = {name: "ipa" for name in build.KERNELS}
+    first.update(eval_chunk="density", select_host="density", resolve_commit="density")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    line = {"kernels": []}
+    for name in build.KERNELS:
+        top = shapes[first[name]][name]
+        counts = {path: c[name] for path, c in by_path.items()}
+        line["kernels"].append({
+            "name": name, "route": "cuda", "source": f"{csrc}{name}.cu", "replaces": replaces[name],
+            "launches": sum(counts.values()) if counts else None, "launches_by_path": counts,
+            "max_abs_err": max(t[name]["max_abs_err"] for t in shapes.values() if name in t),
+            **{k: top[k] for k in keys}, "library_ms": None,
+            "by_shape": {shape: {k: t[name][k] for k in keys} for shape, t in shapes.items() if name in t},
+        })
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0
+
+
+def print_trace(label: str, dt: float, spans: dict, card: str) -> None:
+    busy = sum(spans["device_ms_by_kernel"].values()) / 1e3
+    top = sorted(spans["device_ms_by_kernel"].items(), key=lambda kv: -kv[1])[:8]
+    print(f"{label} traced window {dt:.3f}s: featurize {spans['featurize_s']:.3f}s, host-to-device "
+          f"features {spans['h2d_s']:.3f}s ({spans['h2d_bytes']} bytes), waiting on device results "
+          f"{spans['fetch_wait_s']:.3f}s, other host {spans['other_host_s']:.3f}s; device busy "
+          f"{busy:.3f}s ({'not measured' if busy == 0 else f'{1 - busy / dt:.3f} idle share'})  [{card}]")
+    for key, ms in top:
+        print(f"  device {ms:9.3f} ms  {key[:90]}")
+
+
+def compare_bindings(bind_k: dict, bind_p: dict) -> None:
+    if bind_k != bind_p:
+        diff = [k for k in bind_k if bind_k[k] != bind_p.get(k)]
+        raise AssertionError(f"kernel and plain bindings differ for {len(diff)} pods, e.g. {diff[:5]}")
 
 
 if __name__ == "__main__":

@@ -3,8 +3,9 @@
 The port's own copy of ``kubernetes_tpu/api/types.py``, trimmed to what the
 first port slice reads: quantities, pods, nodes, the affinity/spread/taint
 specs (read by the not-yet-ported ops' ``is_active`` predicates so such
-pods fail loudly) and the volume reference.  PV/PVC/CSI/DRA objects, PDBs,
-Leases and the scalar selector evaluators come with their slices.
+pods fail loudly), the volume reference and the label-selector evaluator
+that inter-pod affinity matches terms with.  PV/PVC/CSI/DRA objects, PDBs,
+Leases and the node-selector evaluators come with their slices.
 
 These are plain Python dataclasses, not a port of the generated Go types
 (reference: staging/src/k8s.io/api/core/v1/types.go).  Quantities are
@@ -501,3 +502,38 @@ class Volume:
     pvc: str = ""  # PVC name (pod's namespace)
     device_id: str = ""  # in-tree volume unique device id
     read_only: bool = False
+
+
+# ---------------------------------------------------------------------------
+# Scalar (host-side) selector evaluation: the reference semantics the
+# vectorized group index (intern.GroupIndex) reproduces.
+# ---------------------------------------------------------------------------
+
+
+def label_selector_matches(sel: Optional[LabelSelector], labels: dict[str, str]) -> bool:
+    """Mirror of metav1.LabelSelectorAsSelector + Matches
+    (staging/src/k8s.io/apimachinery/pkg/apis/meta/v1/helpers.go).
+    None selects nothing; empty selects everything."""
+    if sel is None:
+        return False
+    for k, v in sel.match_labels:
+        if labels.get(k) != v:
+            return False
+    for req in sel.match_expressions:
+        has = req.key in labels
+        val = labels.get(req.key)
+        if req.operator == OP_IN:
+            if not has or val not in req.values:
+                return False
+        elif req.operator == OP_NOT_IN:
+            if has and val in req.values:
+                return False
+        elif req.operator == OP_EXISTS:
+            if not has:
+                return False
+        elif req.operator == OP_DOES_NOT_EXIST:
+            if has:
+                return False
+        else:
+            raise ValueError(f"bad label selector operator {req.operator}")
+    return True

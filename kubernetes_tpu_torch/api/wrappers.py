@@ -181,6 +181,38 @@ class PodWrapper:
     def pod_anti_affinity_in(self, key: str, values: list[str], topo: str) -> "PodWrapper":
         return self._attach_pod_term(self._pod_term(key, values, topo), True, None)
 
+    def preferred_pod_affinity_in(
+        self, key: str, values: list[str], topo: str, weight: int = 1, anti: bool = False
+    ) -> "PodWrapper":
+        return self._attach_pod_term(self._pod_term(key, values, topo), anti, weight)
+
+    def ns_selector_pod_affinity_in(
+        self,
+        key: str,
+        values: list[str],
+        topo: str,
+        ns_key: str,
+        ns_values: list[str],
+        anti: bool = False,
+        preferred_weight: int | None = None,
+    ) -> "PodWrapper":
+        """(Anti-)affinity term selecting pods across namespaces via a
+        namespaceSelector."""
+        term = t.PodAffinityTerm(
+            label_selector=t.LabelSelector(
+                match_expressions=(
+                    t.LabelSelectorRequirement(key, t.OP_IN, tuple(values)),
+                )
+            ),
+            topology_key=topo,
+            namespace_selector=t.LabelSelector(
+                match_expressions=(
+                    t.LabelSelectorRequirement(ns_key, t.OP_IN, tuple(ns_values)),
+                )
+            ),
+        )
+        return self._attach_pod_term(term, anti, preferred_weight)
+
     def spread_constraint(
         self,
         max_skew: int,

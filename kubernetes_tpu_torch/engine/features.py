@@ -5,11 +5,11 @@ that the device pass needs is computed once per pod here (resource vectors,
 interned ids) and shipped as one (K, …) batch.  Padding rows carry
 valid=False and are ignored by the commit.
 
-The port featurizes only the first slice's ops.  An unported op that is
+The port featurizes only the ported ops.  An unported op that is
 active for any pod of the batch raises NotImplementedError, and so does a
 pod whose commit would touch state the port's commit does not write yet
-(host ports, pod (anti-)affinity terms): such a pod must fail loudly, never
-be scheduled as if its constraints were absent.
+(host ports): such a pod must fail loudly, never be scheduled as if its
+constraints were absent.
 """
 
 from __future__ import annotations
@@ -19,8 +19,10 @@ import numpy as np
 from ..api import types as t
 from ..framework.config import Profile
 from ..ops import common as opcommon
-from ..snapshot import SnapshotBuilder
+from ..snapshot import SnapshotBuilder, _bucket
 
+# The pod's own (anti-)affinity term ids, committed into et_counts; -1 pads.
+opcommon.feature_fill("ipa_own_terms", -1)
 # Injected by the scheduler after featurization (nomination is pod status).
 opcommon.feature_fill("nominated_row", -1)
 
@@ -60,8 +62,6 @@ def _check_ported(ops, reps, fctx, deltas) -> None:
     for d in deltas:
         if d["ports"]:
             raise NotImplementedError("host-port commits (NodePorts) are not yet ported")
-        if d["own_terms"]:
-            raise NotImplementedError("affinity-term commits (InterPodAffinity) are not yet ported")
 
 
 def build_pod_batch(
@@ -121,7 +121,11 @@ def build_pod_batch(
             continue
         delta = builder.pod_delta_vectors(pod)
         _check_ported((), (), fctx, (delta,))
+        own = delta["own_terms"]
+        own_terms = np.full(_bucket(max(len(own), 1), 1), -1, np.int32)
+        own_terms[: len(own)] = own
         feats = {
+            "ipa_own_terms": own_terms,
             "req": delta["req"],
             "nonzero": delta["nonzero"],
             "group": np.int32(delta["group"]),

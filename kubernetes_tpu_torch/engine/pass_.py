@@ -2,23 +2,30 @@
 
 Counterpart of ``kubernetes_tpu/engine/pass_.py`` (build_pass, :345-744).
 The JAX pass is a ``lax.scan`` over chunks of C pods; here it is a Python
-loop over chunks that launches three kernels per chunk on the current
-stream and does no host sync inside the loop:
+loop over chunks that launches its kernels per chunk on the current stream
+and does no host sync inside the loop:
 
   eval_chunk      filters + weighted score of the chunk against all N nodes
+  ipa_eval        InterPodAffinity's filter and normalized score on top of
+                  eval_chunk's result (only when the op is active)
   select_host     one pick per pod (hashed tie-break, nominated fast path)
   resolve_commit  chunk deferral + exact cumulative fit, then the commit
 
-With chunk=1 each step is one reference scheduling cycle.  With chunk>1
-pods that could observe an earlier chunk-mate's commit defer (pick = -2),
-and the fused strict tail re-runs the chunks holding deferred pods against
-the committed state.  Result picks: node row ≥ 0, -1 unschedulable, -2
-deferred to the scheduler's host tail.
+and, once per batch before the loop, ``build_dom`` (the per-domain tables,
+unless carried from the previous batch) and, when the batch carries
+affinity features, ``conflict_pairs`` (the chunk-mate conflict table).
 
-The domain tables (``group_dom``/``et_dom``) are built once per pass (or
-carried from the previous batch under ``carry_dom``) and updated in place by
-the commit.  The cluster state is also updated IN PLACE: the returned state
-is the same tensors as the input.
+With chunk=1 each step is one reference scheduling cycle.  With chunk>1
+pods that could observe an earlier chunk-mate's commit defer (pick = -2);
+the fused strict tail (node-axis-only op sets) or the scheduler's host tail
+re-runs them against the committed state.  Result picks: node row ≥ 0, -1
+unschedulable, -2 deferred.
+
+The domain tables (``group_dom``/``et_dom``) are built once per pass by
+``build_dom`` (or carried from the previous batch under ``carry_dom``),
+bound on the ops' ``PassContext.dom`` and updated in place by the commit.
+The cluster state is also updated IN PLACE: the returned state is the
+same tensors as the input.
 
 Truncated (parity) mode, percentage_of_nodes_to_score != 100, is a later
 slice and raises NotImplementedError.
@@ -26,6 +33,7 @@ slice and raises NotImplementedError.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -34,8 +42,8 @@ import torch
 from .. import kernels
 from ..framework.config import Profile
 from ..kernels import plain
+from ..kernels.plain import IPA
 from ..ops import common as opcommon
-from ..ops.helpers import make_topo_onehot
 from ..snapshot import ClusterState, Schema
 
 
@@ -62,56 +70,46 @@ class DomTables(NamedTuple):
     """Per-domain aggregate tables (pass_.py:76-93): built once per pass
     and maintained incrementally by the commit."""
 
-    onehot: torch.Tensor  # (N, TK, DV) f32 — topo one-hot
     group_dom: torch.Tensor  # (G, TK, DV) f32 — pods of group g in domain (k, d)
     et_dom: torch.Tensor  # (ET, DV) f32 — carriers of term t in its key's domain d
-    et_vals: torch.Tensor  # (ET, N) i32 — node's domain id at term t's topo slot
     et_slot: torch.Tensor  # (ET,) i32 — term t's topology-key slot
     et_host: torch.Tensor  # (ET,) bool — term t's key is the hostname key
 
 
-def _dom_aggregates(
-    state: ClusterState, onehot: torch.Tensor, et_slot: torch.Tensor, dv: int
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """(group_dom, et_dom): the per-domain aggregate products (pass_.py:96).
-    Plain f32 products with TF32 off: the counts stay exact below 2^24."""
-    group_dom = torch.einsum("gn,nkd->gkd", state.group_counts.to(torch.float32), onehot)
-    et_f = state.et_counts.to(torch.float32)  # (ET, N)
-    tk = state.topo_vals.shape[1]
-    et_dom = torch.zeros((et_f.shape[0], dv), dtype=torch.float32, device=et_f.device)
-    for k in range(tk):
-        sel = torch.where((et_slot == k)[:, None], et_f, 0.0)
-        et_dom = et_dom + sel @ onehot[:, k, :]
-    return group_dom.contiguous(), et_dom
+def build_dom(
+    state: ClusterState, et_slot: torch.Tensor, et_host: torch.Tensor, dv: int,
+    aggregates=kernels.build_dom,
+) -> DomTables:
+    """Full rebuild of the domain tables from the cluster state
+    (``aggregates``: the build_dom kernel or its plain version)."""
+    group_dom, et_dom = aggregates(state, et_slot, dv)
+    return DomTables(group_dom, et_dom, et_slot, et_host)
 
 
-def build_dom(state: ClusterState, et_slot: torch.Tensor, et_host: torch.Tensor, dv: int) -> DomTables:
-    """Full rebuild of the domain tables from the cluster state."""
-    onehot = make_topo_onehot(state.topo_vals, dv)
-    group_dom, et_dom = _dom_aggregates(state, onehot, et_slot, dv)
-    et_vals = state.topo_vals[:, et_slot.to(torch.int64)].T.contiguous()
-    return DomTables(onehot, group_dom, et_dom, et_vals, et_slot, et_host)
-
-
-def _conflict_pairs(pf: dict, nchunks: int, c: int) -> torch.Tensor:
+def _conflict_pairs(pf: dict, nchunks: int, c: int, pairs_fn) -> torch.Tensor:
     """(nchunks, C, C) bool: does pod i's commit possibly affect pod j's
-    decision (pass_.py:266)?  Pairs come from hard group reads of the
-    affinity and spread ops, shared affinity terms, shared host-port keys,
-    and shared volume or DRA ids.  None of the features that create them
-    exists in this slice's batches (the ops that produce them raise when
-    active, and so do pods with ports or affinity terms), so every pair is
-    empty; resolve_commit consumes the table.  A batch that carries such a
-    feature raises, so the slice that ports its op must port this too."""
+    decision (pass_.py:266)?  Pairs come from inter-pod affinity's hard
+    reads: pod label-group writes against required (anti-)affinity group
+    masks, and own-term writes against matched existing anti-affinity terms
+    (``pairs_fn``, the conflict_pairs kernel or its plain version).  A batch
+    without affinity features (density) keeps the all-false table and
+    launches nothing.  The other sources — spread's group reads, host-port
+    keys, volume and DRA ids — belong to unported ops: a batch that carries
+    such a feature raises, so the slice that ports the op must port its
+    pairs too."""
     found = sorted(_PAIR_FEATURES.intersection(pf))
     if found:
         raise NotImplementedError(f"conflict pairs from {found} are not yet ported")
+    if c > 1 and "ipa_ra_allmask" in pf:
+        return pairs_fn(pf, nchunks, c)
     return torch.zeros((nchunks, c, c), dtype=torch.bool, device=pf["valid"].device)
 
 
-# Batch features from which the JAX pass derives conflict pairs.
+# Batch features of unported ops from which the JAX pass derives conflict
+# pairs.
 _PAIR_FEATURES = frozenset({
-    "ipa_ra_allmask", "ipa_rs_groups", "tps_h_groups", "ipa_et_match", "ipa_own_terms",
-    "port_keys", "vol_dev_ids", "vol_csi_ids", "vol_unbound", "dra_claim_ids", "dra_claim_unalloc",
+    "tps_h_groups", "port_keys", "vol_dev_ids", "vol_csi_ids", "vol_unbound",
+    "dra_claim_ids", "dra_claim_unalloc",
 })
 
 
@@ -124,8 +122,14 @@ PINNED_SAFE_OPS = frozenset({
     "ThroughputAware", "LearnedScorer",
 })
 
-_KERNEL_FNS = (kernels.eval_chunk, kernels.select_host, kernels.resolve_commit)
-_PLAIN_FNS = (plain.eval_chunk, plain.select_host, plain.resolve_commit)
+_KERNEL_FNS = (
+    kernels.build_dom, kernels.eval_chunk, kernels.ipa_eval, kernels.select_host,
+    kernels.resolve_commit, kernels.conflict_pairs,
+)
+_PLAIN_FNS = (
+    plain.build_dom, plain.eval_chunk, plain.ipa_eval, plain.select_host,
+    plain.resolve_commit, plain.conflict_pairs,
+)
 
 
 def _to_device(x, device: torch.device) -> torch.Tensor:
@@ -134,15 +138,14 @@ def _to_device(x, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
-def eval_spec(
+def _pass_ops(
     profile: Profile,
     schema: Schema,
     builder_res_col: dict[str, int],
-    active: frozenset[str] | None = None,
-) -> kernels.EvalSpec:
-    """What eval_chunk evaluates for one (profile, schema, active-op-set):
-    the active filters in fail-bit order, the active (scorer, weight) pairs
-    and the ops' static config.  An active op that is not yet ported
+    active: frozenset[str] | None,
+):
+    """(PassContext, active filters in fail-bit order, active (scorer,
+    weight) pairs) of one pass.  An active op that is not yet ported
     raises."""
     ops = [opcommon.get(n) for n in profile.filters if active is None or n in active]
     scored = [(opcommon.get(n), w) for n, w in profile.scorers if active is None or n in active]
@@ -153,11 +156,43 @@ def eval_spec(
     for op in {o.name: o for o in ops + [o for o, _ in scored]}.values():
         if op.static is not None:
             static.update(op.static(profile, schema, builder_res_col))
+    ctx = opcommon.PassContext(profile=profile, schema=schema, static=static)
+    filters = tuple(op.name for op in ops if op.filter is not None)
+    scorers = tuple((op.name, w) for op, w in scored if op.score is not None)
+    return ctx, filters, scorers
+
+
+def eval_spec(
+    profile: Profile,
+    schema: Schema,
+    builder_res_col: dict[str, int],
+    active: frozenset[str] | None = None,
+) -> kernels.EvalSpec:
+    """What eval_chunk evaluates for one (profile, schema, active-op-set):
+    the active filters in fail-bit order, the active (scorer, weight) pairs
+    and the ops' static config — all but InterPodAffinity, which ipa_eval
+    applies on top (ipa_spec)."""
+    ctx, filters, scorers = _pass_ops(profile, schema, builder_res_col, active)
     return kernels.EvalSpec(
-        ctx=opcommon.PassContext(profile=profile, schema=schema, static=static),
-        filters=tuple(op.name for op in ops if op.filter is not None),
-        scorers=tuple((op.name, w) for op, w in scored if op.score is not None),
+        ctx=ctx,
+        filters=tuple(n for n in filters if n != IPA),
+        scorers=tuple((n, w) for n, w in scorers if n != IPA),
     )
+
+
+def ipa_spec(
+    profile: Profile,
+    schema: Schema,
+    builder_res_col: dict[str, int],
+    active: frozenset[str] | None = None,
+) -> kernels.IpaSpec | None:
+    """What ipa_eval applies for one pass (its fail bit and score weight),
+    or None when InterPodAffinity is inactive."""
+    ctx, filters, scorers = _pass_ops(profile, schema, builder_res_col, active)
+    weights = dict(scorers)
+    if IPA not in filters and IPA not in weights:
+        return None
+    return kernels.IpaSpec(ctx=ctx, filters=filters, weight=weights.get(IPA, 0))
 
 
 def build_pass(
@@ -194,16 +229,23 @@ def build_pass(
     if _impl not in ("kernel", "plain"):
         raise ValueError(f"_impl must be 'kernel' or 'plain', not {_impl!r}")
     spec = eval_spec(profile, schema, builder_res_col, active)
+    ipa0 = ipa_spec(profile, schema, builder_res_col, active)
     effective = frozenset(spec.filters) | frozenset(n for n, _ in spec.scorers)
-    eval_fn, select_fn, commit_fn = _PLAIN_FNS if _impl == "plain" else _KERNEL_FNS
+    if ipa0 is not None:
+        effective |= {IPA}
+    dom_fn, eval_fn, ipa_fn, select_fn, commit_fn, pairs_fn = (
+        _PLAIN_FNS if _impl == "plain" else _KERNEL_FNS
+    )
     c = chunk
     fuse_tail = chunk > 1 and effective <= PINNED_SAFE_OPS
     seed_mul = ((profile.tie_break_seed & 0xFFFFFFFF) * 2654435761) & 0xFFFFFFFF
 
-    def step(state, group_dom, pf, steps, pairs, nom) -> PassResult:
+    def step(state, dom, ipa, pf, steps, pairs, nom) -> PassResult:
         feasible, total, fails = eval_fn(state, pf, spec, nom)
+        if ipa is not None:
+            ipa_fn(state, pf, feasible, total, fails, ipa)
         picks, bests, feas = select_fn(feasible, total, steps, seed_mul, pf.get("nominated_row"))
-        out = commit_fn(state, group_dom, pf, picks, pairs, c == 1)
+        out = commit_fn(state, dom, pf, picks, pairs, c == 1)
         return PassResult(out, bests, feas, torch.zeros_like(feas), fails)
 
     def _run(state, batch, inv, seed_base, dom_group=None, dom_et=None, dom_valid=None):
@@ -225,23 +267,26 @@ def build_pass(
         et_host = _to_device(inv["et_host"], dev)
         if carry_dom and bool(dom_valid):
             # The previous pass maintained these tables; skip the rebuild.
-            et_vals = state.topo_vals[:, et_slot.to(torch.int64)].T.contiguous()
-            onehot = make_topo_onehot(state.topo_vals, schema.DV)
-            dom = DomTables(onehot, dom_group, dom_et, et_vals, et_slot, et_host)
+            dom = DomTables(dom_group, dom_et, et_slot, et_host)
         else:
-            dom = build_dom(state, et_slot, et_host, schema.DV)
+            dom = build_dom(state, et_slot, et_host, schema.DV, dom_fn)
         nom = None
         if "nom_req" in inv:
             nom = tuple(_to_device(inv[key], dev) for key in ("nom_req", "nom_cnt", "nom_prio"))
+        # The ops read the domain tables through PassContext.dom, bound for
+        # this pass (the tables are the same tensors the commit updates).
+        ipa = None
+        if ipa0 is not None:
+            ipa = dataclasses.replace(ipa0, ctx=dataclasses.replace(ipa0.ctx, dom=dom))
         nchunks = k // c
-        pairs = _conflict_pairs(tb, nchunks, c)
+        pairs = _conflict_pairs(tb, nchunks, c, pairs_fn)
 
         def chunk_of(i: int, src: dict) -> dict:
             return {key: v[i * c : (i + 1) * c] for key, v in src.items()}
 
         def run_chunks(src: dict, idx) -> list[PassResult]:
             return [
-                step(state, dom.group_dom, chunk_of(i, src), steps[i * c : (i + 1) * c], pairs[i], nom)
+                step(state, dom, ipa, chunk_of(i, src), steps[i * c : (i + 1) * c], pairs[i], nom)
                 for i in idx
             ]
 

@@ -1,8 +1,11 @@
 """The hand-written CUDA kernels of the batch pass, and their wrappers.
 
+  build_dom       csrc/build_dom.cu       per-domain tables, once per pass
   eval_chunk      csrc/eval_chunk.cu      filters + weighted score, (C, N)
+  ipa_eval        csrc/ipa_eval.cu        InterPodAffinity filter + score on top
   select_host     csrc/select_host.cu     argmax with hashed tie-break
   resolve_commit  csrc/resolve_commit.cu  chunk deferral, cumulative fit, commit
+  conflict_pairs  csrc/conflict_pairs.cu  chunk-mate conflict table, per batch
 
 Each wrapper checks its inputs and launches its kernel on the current CUDA
 stream for tensors on a CUDA device, or runs the plain version
@@ -27,6 +30,9 @@ _FILTER_CODES = {"NodeUnschedulable": 0, "NodeName": 1, "NodeResourcesFit": 2}
 _SCORERS = ("NodeResourcesFit", "NodeResourcesBalancedAllocation")
 _MAX_BALANCED = 8
 _MAX_CHUNK = 64
+# Shared memory an ipa_eval block may use for its per-pod tables (of the
+# H100's 227 KB a block can have).
+IPA_SMEM_CAP = 200 * 1024
 
 
 @dataclass
@@ -47,6 +53,33 @@ class EvalSpec:
             cfg = _eval_config(self, device)
             self._device_config[device] = cfg
         return cfg
+
+
+@dataclass(frozen=True)
+class IpaSpec:
+    """What ipa_eval applies on top of eval_chunk for one pass: the pass
+    context (its ``dom`` bound to the pass's domain tables), every active
+    filter in fail-bit order (InterPodAffinity's bit is its position) and
+    the op's score weight (0 when it does not score)."""
+
+    ctx: object  # ops.common.PassContext
+    filters: tuple[str, ...]
+    weight: int
+
+
+def ipa_smem_bytes(ra: int, rs: int, pf: int, tk: int, dv: int) -> int:
+    """Dynamic shared memory of one ipa_eval block: the own-term tallies
+    ((RA+RS+PF) x DV), the forbidden and weighted tables (2 x TK x DV) and
+    the list lengths, as int32.  Raises NotImplementedError above
+    IPA_SMEM_CAP: such a pass needs the tables in device memory, which
+    this kernel does not do."""
+    nbytes = 4 * ((ra + rs + pf) * dv + 2 * tk * dv + (1 + rs + pf) + 2)
+    if nbytes > IPA_SMEM_CAP:
+        raise NotImplementedError(
+            f"ipa_eval: {nbytes} bytes of per-pod tables exceed its shared-memory cap "
+            f"IPA_SMEM_CAP={IPA_SMEM_CAP} (terms {ra}+{rs}+{pf}, TK={tk}, DV={dv})"
+        )
+    return nbytes
 
 
 def _eval_config(spec: EvalSpec, device: torch.device) -> dict:
@@ -120,6 +153,32 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return False
 
 
+def build_dom(state, et_slot, dv: int):
+    """(group_dom (G, TK, DV) f32, et_dom (ET, DV) f32): the per-domain
+    aggregate tables of the state's group and term carrier counts."""
+    if _on_cpu(state.group_counts):
+        return plain.build_dom(state, et_slot, dv)
+    dev = state.group_counts.device
+    g, n = state.group_counts.shape
+    et = state.et_counts.shape[0]
+    tk = state.topo_vals.shape[1]
+    i32 = torch.int32
+    args = [
+        _check("group_counts", state.group_counts, i32, (g, n), dev),
+        _check("et_counts", state.et_counts, i32, (et, n), dev),
+        _check("topo_vals", state.topo_vals, i32, (n, tk), dev),
+        _check("et_slot", et_slot, i32, (et,), dev),
+    ]
+    group_dom = torch.empty((g, tk, dv), dtype=torch.float32, device=dev)
+    et_dom = torch.empty((et, dv), dtype=torch.float32, device=dev)
+    build.launch(
+        "build_dom", *[_ptr(a) for a in args], g, et, n, tk, dv, _ptr(group_dom), _ptr(et_dom),
+        _stream(dev),
+    )
+    build_dom.launches += 1
+    return group_dom, et_dom
+
+
 def eval_chunk(state, pf: dict, spec: EvalSpec, nom):
     """Filters + weighted score of one chunk: (feasible (C, N) bool,
     total (C, N) i64, fail_mask (C,) i32).  ``nom`` is the nominated-pod
@@ -191,6 +250,88 @@ def eval_chunk(state, pf: dict, spec: EvalSpec, nom):
     return feasible, total, fail
 
 
+def ipa_eval(state, pf: dict, feasible, total, fail, ipa: IpaSpec):
+    """InterPodAffinity's filter and score on top of eval_chunk's
+    (feasible (C, N) bool, total (C, N) i64, fail_mask (C,) i32), IN PLACE;
+    returns the three tensors.  The domain tables come from
+    ``ipa.ctx.dom``."""
+    if _on_cpu(feasible):
+        return plain.ipa_eval(state, pf, feasible, total, fail, ipa)
+    bit = plain.ipa_bit(ipa)
+    dom = ipa.ctx.dom
+    dev = feasible.device
+    c, n = feasible.shape
+    tk = state.topo_vals.shape[1]
+    g = state.group_counts.shape[0]
+    et = state.et_counts.shape[0]
+    dv = dom.group_dom.shape[2]
+    ra, rs, npf = (pf[f"ipa_{p}_valid"].shape[1] for p in ("ra", "rs", "pf"))
+    smem = ipa_smem_bytes(ra, rs, npf, tk, dv)
+    b, i32, i64 = torch.bool, torch.int32, torch.int64
+    node_args = [
+        _check("topo_vals", state.topo_vals, i32, (n, tk), dev),
+        _check("group_counts", state.group_counts, i32, (g, n), dev),
+        _check("et_counts", state.et_counts, i32, (et, n), dev),
+        _check("group_dom", dom.group_dom, torch.float32, (g, tk, dv), dev),
+        _check("et_dom", dom.et_dom, torch.float32, (et, dv), dev),
+        _check("et_slot", dom.et_slot, i32, (et,), dev),
+        _check("et_host", dom.et_host, b, (et,), dev),
+    ]
+    pod_args = []
+    for key, dtype, shape in (
+        ("ipa_ra_valid", b, (c, ra)), ("ipa_ra_slot", i32, (c, ra)), ("ipa_ra_host", b, (c, ra)),
+        ("ipa_ra_allmask", b, (c, g)), ("ipa_ra_self", b, (c,)),
+        ("ipa_rs_valid", b, (c, rs)), ("ipa_rs_slot", i32, (c, rs)), ("ipa_rs_host", b, (c, rs)),
+        ("ipa_rs_groups", b, (c, rs, g)),
+        ("ipa_pf_valid", b, (c, npf)), ("ipa_pf_slot", i32, (c, npf)), ("ipa_pf_host", b, (c, npf)),
+        ("ipa_pf_groups", b, (c, npf, g)), ("ipa_pf_w", i64, (c, npf)),
+        ("ipa_et_match", b, (c, et)), ("ipa_et_anti", b, (c, et)), ("ipa_et_w", i64, (c, et)),
+    ):
+        pod_args.append(_check(key, pf[key], dtype, shape, dev))
+    _check("feasible", feasible, b, (c, n), dev)
+    _check("total", total, i64, (c, n), dev)
+    _check("fail_mask", fail, i32, (c,), dev)
+    glist = torch.empty((c, 1 + rs + npf, g), dtype=i32, device=dev)
+    elist = torch.empty((c, 2, et), dtype=i32, device=dev)
+    raw = torch.empty((c, n), dtype=i64, device=dev)
+    build.launch(
+        "ipa_eval", c, n, tk, dv, g, et, ra, rs, npf, bit, int(ipa.weight),
+        *[_ptr(a) for a in node_args], *[_ptr(a) for a in pod_args],
+        _ptr(feasible), _ptr(total), _ptr(fail), _ptr(glist), _ptr(elist), _ptr(raw),
+        smem, _stream(dev),
+    )
+    ipa_eval.launches += 1
+    return feasible, total, fail
+
+
+def conflict_pairs(pf: dict, nchunks: int, c: int):
+    """(nchunks, C, C) bool chunk-mate conflict table of a batch whose pods
+    carry inter-pod-affinity features."""
+    if _on_cpu(pf["valid"]):
+        return plain.conflict_pairs(pf, nchunks, c)
+    dev = pf["valid"].device
+    k = nchunks * c
+    g = pf["ipa_ra_allmask"].shape[1]
+    rs = pf["ipa_rs_groups"].shape[1]
+    et = pf["ipa_et_match"].shape[1]
+    a = pf["ipa_own_terms"].shape[1]
+    args = [
+        _check("group", pf["group"], torch.int32, (k,), dev),
+        _check("ipa_ra_allmask", pf["ipa_ra_allmask"], torch.bool, (k, g), dev),
+        _check("ipa_rs_groups", pf["ipa_rs_groups"], torch.bool, (k, rs, g), dev),
+        _check("ipa_et_match", pf["ipa_et_match"], torch.bool, (k, et), dev),
+        _check("ipa_et_anti", pf["ipa_et_anti"], torch.bool, (k, et), dev),
+        _check("ipa_own_terms", pf["ipa_own_terms"], torch.int32, (k, a), dev),
+    ]
+    pairs = torch.empty((nchunks, c, c), dtype=torch.bool, device=dev)
+    build.launch(
+        "conflict_pairs", *[_ptr(x) for x in args], nchunks, c, g, rs, et, a, _ptr(pairs),
+        _stream(dev),
+    )
+    conflict_pairs.launches += 1
+    return pairs
+
+
 def select_host(feasible, total, steps, seed_mul: int, nominated_row):
     """(pick (C,) i32, best (C,) i64, feasible count (C,) i32) per pod."""
     if _on_cpu(feasible):
@@ -214,11 +355,13 @@ def select_host(feasible, total, steps, seed_mul: int, nominated_row):
     return pick, best, feas
 
 
-def resolve_commit(state, group_dom, pf: dict, picks, pairs, strict: bool):
+def resolve_commit(state, dom, pf: dict, picks, pairs, strict: bool):
     """Chunk deferral, cumulative fit and commit, in place on ``state`` and
-    ``group_dom``; returns the output picks (C,) i32."""
+    the domain tables ``dom`` (group_dom, et_dom); returns the output picks
+    (C,) i32."""
     if _on_cpu(picks):
-        return plain.resolve_commit(state, group_dom, pf, picks, pairs, strict)
+        return plain.resolve_commit(state, dom, pf, picks, pairs, strict)
+    group_dom = dom.group_dom
     dev = picks.device
     c = picks.shape[0]
     if not 1 <= c <= _MAX_CHUNK:
@@ -241,6 +384,14 @@ def resolve_commit(state, group_dom, pf: dict, picks, pairs, strict: bool):
     _check("state.group_counts", state.group_counts, i32, (g, n), dev)
     _check("state.topo_vals", state.topo_vals, i32, (n, tk), dev)
     _check("group_dom", group_dom, torch.float32, (g, tk, dv), dev)
+    et = state.et_counts.shape[0]
+    _check("state.et_counts", state.et_counts, i32, (et, n), dev)
+    _check("et_dom", dom.et_dom, torch.float32, (et, dv), dev)
+    _check("et_slot", dom.et_slot, i32, (et,), dev)
+    own = pf.get("ipa_own_terms")  # None: no pod carries terms to commit
+    na = 0 if own is None else own.shape[1]
+    if own is not None:
+        _check("ipa_own_terms", own, i32, (c, na), dev)
     out = torch.empty(c, dtype=i32, device=dev)
     build.launch(
         "resolve_commit",
@@ -248,17 +399,24 @@ def resolve_commit(state, group_dom, pf: dict, picks, pairs, strict: bool):
         _ptr(pf["req"]), _ptr(pf["nonzero"]), _ptr(pf["group"]),
         _ptr(state.alloc), _ptr(state.req), _ptr(state.nonzero_req),
         _ptr(state.num_pods), _ptr(state.allowed_pods), _ptr(state.group_counts),
-        _ptr(group_dom), _ptr(state.topo_vals), c, n, r, tk, dv,
+        _ptr(group_dom), _ptr(state.topo_vals), _ptr(own), _ptr(state.et_counts),
+        _ptr(dom.et_dom), _ptr(dom.et_slot), c, n, r, tk, dv, na,
         _ptr(out), _stream(dev),
     )
     resolve_commit.launches += 1
     return out
 
 
-eval_chunk.launches = 0
-select_host.launches = 0
-resolve_commit.launches = 0
-WRAPPERS = {"eval_chunk": eval_chunk, "select_host": select_host, "resolve_commit": resolve_commit}
+WRAPPERS = {
+    "build_dom": build_dom,
+    "eval_chunk": eval_chunk,
+    "ipa_eval": ipa_eval,
+    "select_host": select_host,
+    "resolve_commit": resolve_commit,
+    "conflict_pairs": conflict_pairs,
+}
+for _fn in WRAPPERS.values():
+    _fn.launches = 0
 
 
 def reset_launches() -> None:

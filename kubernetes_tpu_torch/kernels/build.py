@@ -18,7 +18,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-KERNELS = ("eval_chunk", "select_host", "resolve_commit")
+KERNELS = ("build_dom", "eval_chunk", "ipa_eval", "select_host", "resolve_commit", "conflict_pairs")
 
 _SRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
@@ -33,9 +33,12 @@ _P, _I, _L, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
 # argtypes of each launcher (pointers and the stream as c_void_p so ctypes
 # never truncates them to 32 bits).
 _SIGNATURES: dict[str, list] = {
+    "build_dom": [_P] * 4 + [_I] * 5 + [_P, _P, _P],
     "eval_chunk": [_P] * 18 + [_P, _I, _I, _P, _I, _I, _L, _I, _L, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "ipa_eval": [_I] * 10 + [_L] + [_P] * 30 + [_I, _P],
     "select_host": [_P, _P, _P, _U, _P, _I, _I, _P, _P, _P, _P],
-    "resolve_commit": [_P, _P, _P, _I] + [_P] * 11 + [_I] * 5 + [_P, _P],
+    "resolve_commit": [_P, _P, _P, _I] + [_P] * 15 + [_I] * 6 + [_P, _P],
+    "conflict_pairs": [_P] * 6 + [_I] * 6 + [_P, _P],
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

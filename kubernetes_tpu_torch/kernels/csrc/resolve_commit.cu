@@ -1,9 +1,12 @@
 // resolve_commit: chunk conflict resolution plus the commit of placed pods.
 //
 // Replaces kubernetes_tpu/engine/pass_.py:570-617 (the chunk step's
-// interaction deferral and exact cumulative fit) and the base-field commit
-// of _commit_chunk (:166-192): req, nonzero_req, num_pods, group_counts and
-// the carried group_dom table.
+// interaction deferral and exact cumulative fit) and _commit_chunk
+// (:166-210): req, nonzero_req, num_pods, group_counts and the carried
+// group_dom table, and the pod's own (anti-)affinity terms: et_counts[e,
+// row] += 1 and et_dom[e, d] += 1 where d is the node's value at term e's
+// own topology slot (values outside [0, DV), such as hostname values, are
+// dropped, as the JAX scatter drops them).
 //
 // One block per chunk, one thread per pod (C <= 64).  With chunk > 1:
 //   (a) a valid pod behind an attempting chunk-mate that conflicts with it
@@ -19,7 +22,7 @@
 // come out as -2 (deferred), -1 (invalid or unschedulable) or the row.
 //
 // Bound: operations on a handful of bytes (C*C*R int64 prefix sums plus
-// C*(R+2+2+TK) atomics); one block does the whole chunk, so its time is
+// C*(R+2+2+TK+2A) atomics); one block does the whole chunk, so its time is
 // launch latency.
 #include <stdint.h>
 
@@ -45,7 +48,11 @@ struct CommitArgs {
   int* group_counts;             // (G, N)
   float* group_dom;              // (G, TK, DV)
   const int* topo_vals;          // (N, TK)
-  int C, N, R, TK, DV;
+  const int* own;                // (C, A) own term ids, -1 pad; null: none
+  int* et_counts;                // (ET, N)
+  float* et_dom;                 // (ET, DV)
+  const int* et_slot;            // (ET,)
+  int C, N, R, TK, DV, A;
   int* out_picks;  // (C,)
 };
 
@@ -118,6 +125,13 @@ __global__ void resolve_commit_kernel(CommitArgs a) {
         atomicAdd(a.group_dom + ((size_t)g * a.TK + k) * a.DV + d, 1.0f);
       }
     }
+    for (int q = 0; a.own != nullptr && q < a.A; ++q) {
+      const int e = a.own[(size_t)j * a.A + q];
+      if (e < 0) continue;
+      atomicAdd(a.et_counts + (size_t)e * a.N + row, 1);
+      const int d = a.topo_vals[(size_t)row * a.TK + a.et_slot[e]];
+      if (d >= 0 && d < a.DV) atomicAdd(a.et_dom + (size_t)e * a.DV + d, 1.0f);
+    }
   }
   if (in) a.out_picks[j] = defer ? -2 : (v ? p : -1);
 }
@@ -129,7 +143,8 @@ extern "C" int resolve_commit_launch(
     const void* pod_req, const void* pod_nonzero, const void* group,
     const void* alloc, void* req, void* nonzero_req, void* num_pods,
     const void* allowed_pods, void* group_counts, void* group_dom,
-    const void* topo_vals, int C, int N, int R, int TK, int DV,
+    const void* topo_vals, const void* own, void* et_counts, void* et_dom,
+    const void* et_slot, int C, int N, int R, int TK, int DV, int A,
     void* out_picks, void* stream) {
   if (C > kMaxChunk || C < 1) return (int)cudaErrorInvalidValue;
   CommitArgs a;
@@ -148,6 +163,11 @@ extern "C" int resolve_commit_launch(
   a.group_counts = static_cast<int*>(group_counts);
   a.group_dom = static_cast<float*>(group_dom);
   a.topo_vals = static_cast<const int*>(topo_vals);
+  a.own = static_cast<const int*>(own);
+  a.et_counts = static_cast<int*>(et_counts);
+  a.et_dom = static_cast<float*>(et_dom);
+  a.et_slot = static_cast<const int*>(et_slot);
+  a.A = A;
   a.C = C;
   a.N = N;
   a.R = R;

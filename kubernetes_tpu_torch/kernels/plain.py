@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three batch-pass kernels.
+"""Plain PyTorch versions of the batch-pass kernels.
 
 Each function computes what its CUDA kernel computes, with the same
 signature, and is the reference the kernel is held against on the card
@@ -13,9 +13,28 @@ import dataclasses
 import torch
 
 from ..ops import common as opcommon
+from ..ops import interpodaffinity as ipa_op
+from ..ops.helpers import make_topo_onehot
+
+IPA = "InterPodAffinity"
 
 _MASK32 = 0xFFFFFFFF
 NEG_SCORE = -(2**62)
+
+
+def build_dom(state, et_slot, dv: int):
+    """(group_dom (G, TK, DV) f32, et_dom (ET, DV) f32): the per-domain
+    aggregate products (pass_.py:96-119) of the carrier counts with the
+    topology one-hot.  Plain f32 products with TF32 off: the counts stay
+    exact below 2^24."""
+    onehot = make_topo_onehot(state.topo_vals, dv)
+    group_dom = torch.einsum("gn,nkd->gkd", state.group_counts.to(torch.float32), onehot)
+    et_f = state.et_counts.to(torch.float32)  # (ET, N)
+    et_dom = torch.zeros((et_f.shape[0], dv), dtype=torch.float32, device=et_f.device)
+    for k in range(state.topo_vals.shape[1]):
+        sel = torch.where((et_slot == k)[:, None], et_f, 0.0)
+        et_dom = et_dom + sel @ onehot[:, k, :]
+    return group_dom.contiguous(), et_dom
 
 
 def eval_chunk(state, pf: dict, spec, nom):
@@ -36,6 +55,65 @@ def eval_chunk(state, pf: dict, spec, nom):
     for name, weight in spec.scorers:
         total = total + opcommon.get(name).score(state, pf, ctx, feasible) * weight
     return feasible, torch.where(feasible, total, 0), fail
+
+
+def ipa_bit(ipa) -> int:
+    """InterPodAffinity's fail bit for an IpaSpec, or -1 when the op only
+    scores.  ipa_eval runs after eval_chunk, so every filter eval_chunk
+    evaluates must precede InterPodAffinity in the profile's filter order:
+    its bit is then the position after theirs."""
+    if IPA not in ipa.filters:
+        return -1
+    bit = ipa.filters.index(IPA)
+    if bit != len(ipa.filters) - 1:
+        raise NotImplementedError(
+            f"filters {list(ipa.filters[bit + 1:])} after {IPA}: ipa_eval runs after eval_chunk"
+        )
+    return bit
+
+
+def ipa_eval(state, pf: dict, feasible, total, fail, ipa):
+    """InterPodAffinity on top of eval_chunk's (feasible, total, fail_mask),
+    IN PLACE: the filter (ops/interpodaffinity.py filter_fn) sets the op's
+    fail bit for nodes that passed every earlier filter and clears them
+    from ``feasible``; the score adds weight × the normalized score on the
+    final feasible set; ``total`` is 0 on every infeasible node.  The
+    domain tables come from ``ipa.ctx.dom``.  Returns the three tensors."""
+    bit = ipa_bit(ipa)
+    if bit >= 0:
+        ok = ipa_op.filter_fn(state, pf, ipa.ctx)
+        newly = (feasible & ~ok).any(dim=1)
+        fail |= torch.where(newly, 1 << bit, 0).to(torch.int32)
+        feasible &= ok
+    if ipa.weight:
+        total += ipa_op.score_fn(state, pf, ipa.ctx, feasible) * ipa.weight
+    total.masked_fill_(~feasible, 0)
+    return feasible, total, fail
+
+
+def conflict_pairs(pf: dict, nchunks: int, c: int):
+    """(nchunks, C, C) bool — _conflict_pairs' affinity terms
+    (pass_.py:287-306) with gathers in place of the one-hot einsums:
+    pairs[i, j] = reads_g[j, group[i]] ∨ ∃a hard_t[j, own[i, a]], where
+    reads_g = ipa_ra_allmask ∨ any(ipa_rs_groups) and hard_t = ipa_et_match
+    ∧ ipa_et_anti, over the pods of one chunk, diagonal cleared."""
+    dev = pf["valid"].device
+    g = pf["ipa_ra_allmask"].shape[1]
+    reads = (pf["ipa_ra_allmask"] | pf["ipa_rs_groups"].any(dim=1)).view(nchunks, c, g)
+    group = pf["group"].to(torch.int64).clamp(0, g - 1).view(nchunks, 1, c).expand(-1, c, -1)
+    # reads.gather(...)[b, j, i] = reads[b, j, group[b, i]]
+    pairs = reads.gather(2, group).transpose(1, 2)
+    hard = (pf["ipa_et_match"] & pf["ipa_et_anti"]).view(nchunks, c, -1)
+    et = hard.shape[2]
+    own = pf["ipa_own_terms"].to(torch.int64)
+    own = own.view(nchunks, c, own.shape[1])
+    for a in range(own.shape[2]):
+        ids = own[:, :, a]
+        idx = ids.clamp(0, et - 1)[:, None, :].expand(-1, c, -1)
+        hit = hard.gather(2, idx).transpose(1, 2) & ((ids >= 0) & (ids < et))[:, :, None]
+        pairs = pairs | hit
+    eye = torch.eye(c, dtype=torch.bool, device=dev)
+    return (pairs & ~eye).contiguous()
 
 
 def hash_u32(x: torch.Tensor) -> torch.Tensor:
@@ -69,11 +147,15 @@ def select_host(feasible, total, steps, seed_mul: int, nominated_row):
     return pick, best, feasible.sum(dim=1).to(torch.int32)
 
 
-def resolve_commit(state, group_dom, pf: dict, picks, pairs, strict: bool):
+def resolve_commit(state, dom, pf: dict, picks, pairs, strict: bool):
     """Chunk deferral + exact cumulative fit (pass_.py:570-617) and the
-    base-field commit (_commit_chunk, :166-192), IN PLACE on ``state`` and
-    ``group_dom``.  Returns the chunk's output picks (-2 deferred, -1
+    commit (_commit_chunk, :166-210): the base fields, and the pod's own
+    affinity terms into et_counts and et_dom (at the node's value at each
+    term's own slot; values outside [0, DV) are dropped, as the JAX
+    scatter drops them), IN PLACE on ``state`` and the domain tables
+    ``dom``.  Returns the chunk's output picks (-2 deferred, -1
     invalid/unschedulable)."""
+    group_dom = dom.group_dom
     valid = pf["valid"]
     c = valid.shape[0]
     att = valid & (picks >= 0)
@@ -111,4 +193,18 @@ def resolve_commit(state, group_dom, pf: dict, picks, pairs, strict: bool):
     inc = (att[:, None] & (dvals >= 0) & (dvals < dv)).to(torch.float32)
     flat = (group[:, None] * tk + torch.arange(tk, device=dvals.device)[None, :]) * dv + dvals.clamp(0, dv - 1)
     group_dom.view(-1).index_add_(0, flat.reshape(-1), inc.reshape(-1))
+    own = pf.get("ipa_own_terms")
+    if own is not None:
+        et_counts, et_dom = state.et_counts, dom.et_dom
+        n = et_counts.shape[1]
+        act = att[:, None] & (own >= 0)  # (C, A)
+        safe = own.clamp(min=0).to(torch.int64)
+        et_counts.view(-1).index_add_(
+            0, (safe * n + rows[:, None]).reshape(-1), act.to(torch.int32).reshape(-1)
+        )
+        d_a = dvals.gather(1, dom.et_slot.to(torch.int64)[safe])  # (C, A)
+        inc_a = (act & (d_a >= 0) & (d_a < dv)).to(torch.float32)
+        et_dom.view(-1).index_add_(
+            0, (safe * dv + d_a.clamp(0, dv - 1)).reshape(-1), inc_a.reshape(-1)
+        )
     return torch.where(defer, -2, torch.where(valid, picks, -1)).to(torch.int32)

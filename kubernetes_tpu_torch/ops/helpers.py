@@ -7,10 +7,9 @@ import torch
 
 
 def make_topo_onehot(topo_vals: torch.Tensor, dv: int) -> torch.Tensor:
-    """(N, TK, DV) f32 one-hot of the per-node topology values.  Node
-    topology never changes while a batch commits pods, so the engine builds
-    it once per pass.  Hostname-key values exceed DV by design (excluded
-    from the vocabulary) and match no column."""
+    """(N, TK, DV) f32 one-hot of the per-node topology values, which the
+    plain domain-table build contracts with.  Hostname-key values exceed DV
+    by design (excluded from the vocabulary) and match no column."""
     vals = torch.arange(dv, device=topo_vals.device, dtype=topo_vals.dtype)
     return (
         (topo_vals[:, :, None] == vals[None, None, :]) & (topo_vals >= 0)[:, :, None]

@@ -4,11 +4,11 @@ Each is registered with a copy of its ``is_active`` predicate only, so the
 engine can tell when one of them would do something for a batch.
 ``engine.features.build_pod_batch`` then raises NotImplementedError: a pod
 with taints to tolerate, node affinity, host ports, volumes, topology
-spread, pod (anti-)affinity, claims or images must fail loudly, never be
-scheduled as if those constraints were absent.  Predicates copied from
-kubernetes_tpu/ops: tainttoleration.py:65, nodeaffinity.py:335,
-nodeports.py:66, volumes.py:156,195,229,252, podtopologyspread.py:347,
-interpodaffinity.py:361, dynamicresources.py:86, imagelocality.py:78.
+spread, claims or images must fail loudly, never be scheduled as if those
+constraints were absent.  Predicates copied from kubernetes_tpu/ops:
+tainttoleration.py:65, nodeaffinity.py:335, nodeports.py:66,
+volumes.py:156,195,229,252, podtopologyspread.py:347, dynamicresources.py:86,
+imagelocality.py:78.
 """
 
 from __future__ import annotations
@@ -53,13 +53,6 @@ def _spread_active(pod: t.Pod, fctx: FeaturizeContext) -> bool:
     return bool(prof is not None and prof.pts_default_constraints and pod.metadata.labels)
 
 
-def _interpod_affinity_active(pod: t.Pod, fctx: FeaturizeContext) -> bool:
-    if len(fctx.interns.terms) > 0:
-        return True
-    aff = pod.spec.affinity
-    return bool(aff and (aff.pod_affinity or aff.pod_anti_affinity))
-
-
 def _dra_active(pod: t.Pod, fctx: FeaturizeContext) -> bool:
     return bool(pod.spec.resource_claims)
 
@@ -81,7 +74,6 @@ for _name, _pred in (
     ("VolumeRestrictions", _volume_restrictions_active),
     ("NodeVolumeLimits", _volume_limits_active),
     ("PodTopologySpread", _spread_active),
-    ("InterPodAffinity", _interpod_affinity_active),
     ("DynamicResources", _dra_active),
     ("ImageLocality", _image_locality_active),
 ):

@@ -7,9 +7,10 @@ pods through the host strict tail, then bind the picks through the cache
 (the device already committed them) and park unschedulable pods.
 
 It keeps the JAX scheduler's ``_dispatch_batch``/``_complete_batch`` logic
-(scheduler.py:3451-3624, 3764-3930) for this slice: the nominated-pod
+(scheduler.py:3451-3624, 3764-3930) for the ported ops: the nominated-pod
 overlay (empty: preemption is not ported), the carried domain tables and
-their validity token, the ``_cycle`` tie-break seeds, the uniform-batch
+their validity token, the ``_cycle`` tie-break seeds, conflict-aware chunk
+packing of affinity batches (engine/packing.py), the uniform-batch
 expansion, and the strict tail in two rounds.  Preemption, gangs,
 extenders, the pinned pass, journaling and the pipelined prefetch are
 later slices; a pod that would need one raises NotImplementedError.
@@ -26,6 +27,7 @@ from . import resolve_device
 from .api import types as t
 from .cache import Cache
 from .engine.features import build_pod_batch, pin_name, pod_sig
+from .engine.packing import pack_batch
 from .engine.pass_ import PassCache, filter_op_names
 from .framework.config import DEFAULT_PROFILE, Profile
 from .intern import InternTable
@@ -94,6 +96,14 @@ class TorchScheduler:
         # preempt, which this slice does not port.
         self._min_bound_priority: int | None = None
         self.deferred = 0  # chunk deferrals resolved by the strict tail
+        # Batches that carried the domain tables / rebuilt them (build_dom).
+        self.dom_carry_hits = 0
+        self.dom_carry_rebuilds = 0
+        # Conflict-aware packing (scheduler.py:3518-3557): batches reordered,
+        # residual same-chunk collisions planned, the last packed width.
+        self.packed_batches = 0
+        self.pack_collisions = 0
+        self.pack_width: int | None = None
 
     # -- cluster events --------------------------------------------------------
 
@@ -180,6 +190,25 @@ class TorchScheduler:
         chunk = self.chunk_size
         cycle0 = self._cycle
         batch["step_offset"] = np.arange(self.batch_size, dtype=np.int32)
+        if chunk > 1 and active & {"PodTopologySpread", "InterPodAffinity", "NodePorts"}:
+            # Conflict-aware chunk packing: same-class pods land in different
+            # chunk slices at the widest collision-tolerant width, with
+            # class-relative order kept.  Tie-break seeds ride the pod: row r
+            # draws the seed of its original position.
+            npods = len(infos)
+            plan = pack_batch(batch, npods, chunk)
+            chunk = plan.width
+            if plan.perm is not None:
+                infos = [infos[j] for j in plan.perm]
+                deltas = [deltas[j] for j in plan.perm]
+                pods = [qp.pod for qp in infos]
+                full = np.arange(self.batch_size, dtype=np.int64)
+                full[:npods] = plan.perm
+                batch = {key: np.asarray(arr)[full] for key, arr in batch.items()}
+                nomrow = batch["nominated_row"]
+                self.packed_batches += 1
+            self.pack_collisions += plan.collisions
+            self.pack_width = plan.width
         run = self.passes.get(
             profile, self.builder.schema, self.builder.res_col, active, chunk, carry_dom=True
         )
@@ -200,6 +229,10 @@ class TorchScheduler:
         if chunk > 1:
             batch_d["uniform_all"] = uniform
         dom_in = self._dom_carry if dom_ok else (None, None)
+        if dom_ok:
+            self.dom_carry_hits += 1
+        else:
+            self.dom_carry_rebuilds += 1
         new_state, result, dom_out = run(
             state, batch_d, inv, cycle0, dom_in[0], dom_in[1], dom_ok
         )

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from .api import types as t
-from .intern import InternTable
+from .intern import GroupIndex, InternTable, TermIndex
 
 # Sentinel for "label value is not an integer" (Gt/Lt operators).
 INT_SENTINEL = np.int64(-(2**62))
@@ -255,6 +255,16 @@ class SnapshotBuilder:
         self.interns = interns or InternTable()
         self.schema = schema or Schema()
         self.device = torch.device(device)
+        # Vectorized selector↔group matching and the incremental (ET, G)
+        # term↔group match matrix of inter-pod affinity's featurization.
+        self.group_index = GroupIndex(self.interns)
+        # Namespace → labels, for namespaceSelector matching in affinity
+        # terms (interpodaffinity/plugin.go GetNamespaceLabelsSnapshot).
+        # Update via set_namespace_labels, which bumps ns_epoch for the
+        # featurization cache.
+        self.namespace_labels: dict[str, dict[str, str]] = {}
+        self.ns_epoch = 0
+        self.term_index = TermIndex(self.interns, self.group_index, self.namespace_labels)
         self.host = _host_arrays(self.schema)
         self._device: ClusterState | None = None
         # Monotonic host-mutation counter: the validity token of derived
@@ -388,6 +398,13 @@ class SnapshotBuilder:
             et_host[tid] = topo_key == it.HOSTNAME_KEY
         return {"et_slot": et_slot, "et_host": et_host}
 
+    def set_namespace_labels(self, namespace: str, labels: dict[str, str]) -> None:
+        """Namespace label updates (the namespace informer feeding
+        namespaceSelector matching).  Mutate ONLY through this method: the
+        featurization cache keys on ns_epoch."""
+        self.namespace_labels[namespace] = dict(labels)
+        self.ns_epoch += 1
+
     def feature_version(self) -> tuple:
         """Token identifying everything pod featurization can read besides
         the pod itself (the JAX builder's, minus the catalogs of the
@@ -399,6 +416,7 @@ class SnapshotBuilder:
             len(it.groups),
             len(it.namespaces),
             len(it.taints),
+            self.ns_epoch,
         )
 
     def clear_node_row(self, row: int) -> None:

@@ -1,10 +1,16 @@
-"""The headline density workload, for the port's own runs.
+"""The workloads the port runs: own copies of the harness's shapes.
 
-Own copy of the shapes of ``density_5kn_30kpods_default``
-(kubernetes_tpu/benchmarks/harness.py:273-312, 469): 5000 nodes of 16 CPU,
-64 GiB and 110 pods over 3 zones in one region; 2048 warm-up pods and 30000
-measured pods of 900m CPU and 2 GiB, labelled with one of 10 apps; batch
-4096, chunk 64, default profile.
+``density_5kn_30kpods_default`` (kubernetes_tpu/benchmarks/harness.py:273-312,
+469): 5000 nodes of 16 CPU, 64 GiB and 110 pods over 3 zones in one region;
+2048 warm-up pods and 30000 measured pods of 900m CPU and 2 GiB, labelled
+with one of 10 apps; batch 4096, chunk 64, default profile.
+
+``interpodaffinity_1kn_10kpods`` (harness.py:431-464): 1000 such nodes over
+10 zones; 1024 warm-up pods and 10000 measured pods of 100m CPU and 256 MiB.
+Even pods carry one of 1000 colours and a required zone anti-affinity to
+their own colour; odd pods carry one of 50 affinity colours and a required
+zone affinity to their own colour (the lonely-pod rule seats the first).
+Batch 4096, chunk 64, default profile.
 """
 
 from __future__ import annotations
@@ -17,6 +23,14 @@ DENSITY_WARM_PODS = 2048
 DENSITY_MEASURED_PODS = 30000
 DENSITY_BATCH = 4096
 DENSITY_CHUNK = 64
+
+IPA_NODES = 1000
+IPA_ZONES = 10
+IPA_WARM_PODS = 1024
+IPA_MEASURED_PODS = 10000
+IPA_BATCH = 4096
+IPA_CHUNK = 64
+ZONE = "topology.kubernetes.io/zone"
 
 
 def basic_nodes(n: int, zones: int = 3, cpu: str = "16", mem: str = "64Gi") -> list[t.Node]:
@@ -39,11 +53,34 @@ def pod_basic(i: int) -> t.Pod:
     )
 
 
-def warm_pods(count: int = DENSITY_WARM_PODS) -> list[t.Pod]:
+def pod_ipa_heavy(
+    i: int, anti_colours: int = 1000, aff_colours: int = 50, topology: str = ZONE
+) -> t.Pod:
+    """harness.py:_pod_ipa_heavy.  The colour counts and the topology key
+    vary for scaled-down runs (the harness's are the defaults)."""
+    j = i // 2
+    if i % 2:
+        return (
+            make_pod(f"pod-{i}")
+            .req({"cpu": "100m", "memory": "256Mi"})
+            .label("acolor", f"a{j % aff_colours}")
+            .pod_affinity_in("acolor", [f"a{j % aff_colours}"], topology)
+            .obj()
+        )
+    return (
+        make_pod(f"pod-{i}")
+        .req({"cpu": "100m", "memory": "256Mi"})
+        .label("color", f"c{j % anti_colours}")
+        .pod_anti_affinity_in("color", [f"c{j % anti_colours}"], topology)
+        .obj()
+    )
+
+
+def warm_pods(count: int = DENSITY_WARM_PODS, template=pod_basic) -> list[t.Pod]:
     """The harness's warm-up pods: the measured template at offset 10**6."""
     out = []
     for i in range(count):
-        p = pod_basic(10**6 + i)
+        p = template(10**6 + i)
         p.metadata.name = f"warm-{i}"
         out.append(p)
     return out

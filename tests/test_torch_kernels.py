@@ -2,8 +2,9 @@
 
 A CUDA kernel has no CPU mode, so these tests need a card and skip
 without one; ``python3 chip_smoke.py`` runs the same checks (and the
-density workload) on the H100.  Run them there with
-``python -m pytest tests/test_torch_kernels.py -m cuda``."""
+density and inter-pod-affinity workloads at full size) on the H100.  Run
+them there with ``python -m pytest --noconftest tests/test_torch_kernels.py
+-m cuda`` (tests/conftest.py imports JAX, which that machine lacks)."""
 
 import pytest
 import torch
@@ -21,7 +22,54 @@ def test_kernels_match_plain_versions_exactly(cuda_device):
     import chip_smoke
 
     timing = chip_smoke.check_kernels(cuda_device, reps=1)
-    assert set(timing) == {"eval_chunk", "select_host", "resolve_commit"}
+    assert set(timing) == {"build_dom", "eval_chunk", "select_host", "resolve_commit"}
+
+
+@pytest.mark.cuda
+def test_ipa_kernels_match_plain_versions_exactly(cuda_device):
+    import chip_smoke
+
+    timing = chip_smoke.check_ipa_kernels(cuda_device, reps=1)
+    assert set(timing) == {"build_dom", "eval_chunk", "ipa_eval", "select_host", "resolve_commit",
+                           "conflict_pairs"}
+
+
+@pytest.mark.cuda
+def test_ipa_shared_memory_cap_raises_before_launch(cuda_device):
+    import chip_smoke
+    from kubernetes_tpu_torch import kernels
+
+    x = chip_smoke.ipa_inputs(7, cuda_device)
+    # More required-affinity terms than the shared-memory tables can hold.
+    pf = dict(x["pf"], ipa_ra_valid=torch.zeros((64, 4096), dtype=torch.bool, device=cuda_device))
+    before = kernels.ipa_eval.launches
+    with pytest.raises(NotImplementedError, match="IPA_SMEM_CAP"):
+        kernels.ipa_eval(x["state"], pf, *(t.clone() for t in x["base"]), x["ipa"])
+    assert kernels.ipa_eval.launches == before
+
+
+@pytest.mark.cuda
+def test_scheduler_ipa_kernel_path_matches_plain_path(cuda_device):
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+    from kubernetes_tpu_torch.workloads import basic_nodes, pod_ipa_heavy
+
+    binds = {}
+    for impl in ("kernel", "plain"):
+        s = TorchScheduler(DEFAULT_PROFILE, batch_size=128, chunk_size=16, _impl=impl)
+        for n in basic_nodes(40, zones=10):
+            s.add_node(n)
+        for i in range(600):
+            s.add_pod(pod_ipa_heavy(i, anti_colours=50, aff_colours=7))
+        kernels.reset_launches()
+        binds[impl] = {o.pod.name: o.node_name for o in s.schedule_all_pending()}
+        assert s.builder.host_mirror_equal()
+        if impl == "kernel":
+            assert min(kernels.launch_counts().values()) > 0
+            assert s.deferred > 0
+    assert binds["kernel"] == binds["plain"]
+    assert all(v is not None for v in binds["kernel"].values())
 
 
 @pytest.mark.cuda
@@ -42,6 +90,11 @@ def test_scheduler_kernel_path_matches_plain_path(cuda_device):
         binds[impl] = {o.pod.name: o.node_name for o in s.schedule_all_pending()}
         assert s.builder.host_mirror_equal()
         if impl == "kernel":
-            assert min(kernels.launch_counts().values()) > 0
+            # Density batches carry no affinity features: the affinity
+            # kernels launch nothing.
+            counts = kernels.launch_counts()
+            assert min(counts[k] for k in ("build_dom", "eval_chunk", "select_host",
+                                           "resolve_commit")) > 0
+            assert counts["ipa_eval"] == counts["conflict_pairs"] == 0
     assert binds["kernel"] == binds["plain"]
     assert all(v is not None for v in binds["kernel"].values())

@@ -129,7 +129,9 @@ def test_priority_order_and_gated_pods():
 @pytest.mark.parametrize(
     "pod",
     [
-        tpod("aff").req({"cpu": "1"}).label("app", "a").pod_affinity_in("app", ["a"], "zone").obj(),
+        # Pod affinity is ported; the spread constraint beside it is not.
+        tpod("aff").req({"cpu": "1"}).label("app", "a").pod_affinity_in("app", ["a"], "zone")
+        .spread_constraint(1, "zone", "DoNotSchedule", "app", ["a"]).obj(),
         tpod("sel").req({"cpu": "1"}).node_selector({"disk": "ssd"}).obj(),
         tpod("port").req({"cpu": "1"}).host_port(8080).obj(),
     ],
@@ -167,7 +169,9 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys, kubernetes_tpu_torch, kubernetes_tpu_torch.scheduler, "
-        "kubernetes_tpu_torch.workloads, kubernetes_tpu_torch.kernels.build\n"
+        "kubernetes_tpu_torch.workloads, kubernetes_tpu_torch.kernels.build, "
+        "kubernetes_tpu_torch.engine.packing, kubernetes_tpu_torch.ops.interpodaffinity, "
+        "kubernetes_tpu_torch.intern, chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'kubernetes_tpu' or m.startswith('kubernetes_tpu.'))\n"
         "print(bad)\n"

@@ -6,8 +6,8 @@
 
 Phases; any failure fails the run (nothing is caught):
   1. the card's name and power limit, the torch and CUDA versions;
-  2. build the six CUDA kernels from kubernetes_tpu_torch/kernels/csrc
-     (one nvcc per source, started together);
+  2. build the CUDA kernels from kubernetes_tpu_torch/kernels/csrc (one
+     nvcc per source, started together);
   3. hold each kernel against its plain PyTorch version on the card, on
      seeded inputs; exact equality is required, and both are timed with
      CUDA events (median of 50):
@@ -21,20 +21,34 @@ Phases; any failure fails the run (nothing is caught):
        thousand groups: build_dom, eval_chunk, ipa_eval, select_host,
        conflict_pairs (a whole 4096-pod batch) and resolve_commit with the
        affinity-term commit;
-  4. drive the density workload (5000 nodes, 2048 warm-up + 30000 pods,
-     batch 4096, chunk 64, default profile) through TorchScheduler, with the
-     launch counts set to 0 just before and read just after; every pod
-     must bind, the host mirror must equal the device state and no node may
-     exceed its allocatable; a traced run gives the device idle share; then
-     drive it again with the plain versions on the card and require
-     identical bindings;
-  5. the same for the inter-pod-affinity workload (1000 nodes in 10 zones,
-     1024 warm-up + 10000 pods, batch 4096, chunk 64): every pod binds, no
-     two pods of one anti-affinity colour share a zone, the host mirror
-     equals the device state, every kernel launched, bindings equal the
-     plain path's; pods/s, the idle share, deferrals, the pack width and
-     the host-to-device feature bytes are printed;
-  6. print the per-kernel JSON line (launches per path, and the numbers of
+     - at the two spread shapes (spread_na: C=8, N=1024; inclusion: C=8,
+       N=8192), on mixed chunks (zone and hostname constraints, nodes
+       missing a key, minDomains, self-match, Honor and Ignore policies,
+       ScheduleAnyway, feasible sets with holes, nodeSelector, ORed
+       required terms with Gt/Lt/DoesNotExist, matchFields names, a
+       profile with addedAffinity, NoSchedule/NoExecute/PreferNoSchedule
+       taints with matching and non-matching tolerations) and on the
+       workload's pods: node_filters and conflict_pairs (a 4096-pod batch),
+       spread_filter, eval_chunk with the precomputed planes, late_scores,
+       select_host and resolve_commit;
+  4. drive each main path through TorchScheduler, with the launch counts
+     set to 0 just before and read just after; every pod must bind, the
+     host mirror must equal the device state, no node may exceed its
+     allocatable, the path's kernels must launch and no other; a traced run
+     gives the device idle share; then the plain versions on the card must
+     bind identically:
+     - density (5000 nodes, 2048 warm-up + 30000 pods, batch 4096, chunk 64);
+     - inter-pod affinity (1000 nodes in 10 zones, 1024 + 10000 pods): no
+       two pods of one anti-affinity colour share a zone;
+     - spread + node affinity (1000 nodes in 3 zones, 1024 + 5000 pods):
+       per app, the zone counts differ by at most maxSkew 2;
+     - node inclusion policy (5000 nodes in 10 zones, the odd ones tainted,
+       1024 + 5000 pods): no pod on a tainted node, and per app the counts
+       over the untainted zones differ by at most maxSkew 1;
+     pods/s, the idle share, deferrals, the pack width, the host-to-device
+     feature bytes and the data moves outside the hand kernels (dirty-row
+     index_copy_ flushes, uniform-batch expand copies) are printed;
+  5. print the per-kernel JSON line (launches per path, and the numbers of
      every shape a kernel was measured at), the card line, and last the
      device line.
 
@@ -671,6 +685,492 @@ def ipa_anti_ok(outcomes) -> None:
         seen[key] = o.pod.name
 
 
+# -- the spread shapes: PodTopologySpread, NodeAffinity, TaintToleration ----
+
+SPREAD_SHAPES = {
+    # label: (nodes, zones, bound pods, workload pod template name)
+    "spread_na": (1000, 3, 3000, "pod_spread_na"),
+    "inclusion": (5000, 10, 6000, "pod_inclusion"),
+}
+
+
+def spread_cluster(shape: str, seed: int, dev):
+    """The workload's nodes (spread_na: 1000 in 3 zones; inclusion: 5000 in
+    10 zones, the odd ones tainted dedicated=gpu:NoSchedule) with extra
+    labels and taints for the mixed pods: every 97th node lacks the zone
+    key, disk and num labels (num non-integer on some), PreferNoSchedule,
+    NoExecute and NoSchedule taints on a few; and bound pods of the 10
+    apps (two versions, two namespaces) on untainted nodes."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.api import types as t
+    from kubernetes_tpu_torch.api.wrappers import make_node, make_pod
+    from kubernetes_tpu_torch.cache import Cache
+    from kubernetes_tpu_torch.snapshot import SnapshotBuilder
+
+    n_nodes, zones, bound, _tmpl = SPREAD_SHAPES[shape]
+    rng = np.random.default_rng(seed)
+    builder = SnapshotBuilder(device=dev)
+    cache = Cache(builder)
+    clean = []
+    for i in range(n_nodes):
+        w = make_node(f"node-{i}").capacity({"cpu": "16", "memory": "64Gi", "pods": 110})
+        if i % 97 != 13:
+            w = w.zone(f"zone-{i % zones}")
+        if i % 3:
+            w = w.label("disk", "ssd" if i % 3 == 1 else "hdd")
+        w = w.label("num", str(i % 50) if i % 31 else "x")
+        tainted = (shape == "inclusion" and i % 2) or i % 11 == 4
+        if tainted:
+            w = w.taint("dedicated", "gpu", t.EFFECT_NO_SCHEDULE)
+        if i % 7 == 2:
+            w = w.taint("soft", "x", t.EFFECT_PREFER_NO_SCHEDULE)
+        if i % 13 == 5:
+            w = w.taint("evict", "y", t.EFFECT_NO_EXECUTE)
+        if not tainted and i % 13 != 5:
+            clean.append(i)
+        cache.add_node(w.obj())
+    for j in range(bound):
+        ns = "default" if j % 9 else "other"
+        pod = (make_pod(f"b{j}", ns).req({"cpu": "100m", "memory": "256Mi"})
+               .label("app", f"app-{j % 10}").label("ver", f"v{j % 2}")
+               .node(f"node-{clean[int(rng.integers(len(clean)))]}").obj())
+        cache.add_pod(pod)
+    return builder, rng
+
+
+def spread_mixed_pods(rng, zones: int, n_nodes: int) -> list:
+    """32 pods covering every branch of the three ops: zone and hostname
+    constraints, DoNotSchedule and ScheduleAnyway, minDomains above the zone
+    count, self-matching and foreign selectors, matchLabelKeys, Honor and
+    Ignore policies; nodeSelector, ORed required terms with Gt/Lt/Exists/
+    DoesNotExist/NotIn, matchFields names, preferred weights; matching and
+    non-matching NoSchedule, NoExecute and PreferNoSchedule tolerations."""
+    from kubernetes_tpu_torch.api import types as t
+    from kubernetes_tpu_torch.api.wrappers import make_pod
+
+    R = t.NodeSelectorRequirement
+    pods = []
+    for k in range(32):
+        app = f"app-{int(rng.integers(10))}"
+        w = make_pod(f"m{k}").req({"cpu": "100m", "memory": "256Mi"}).label("app", app).label(
+            "ver", f"v{k % 2}")
+        kind = k % 8
+        honor = t.POLICY_HONOR if rng.integers(2) else t.POLICY_IGNORE
+        if kind == 0:
+            w = (w.spread_constraint(1, ZONE, t.DO_NOT_SCHEDULE, "app", [app])
+                 .spread_constraint(1, HOST, t.DO_NOT_SCHEDULE, "app", [app], node_taints_policy=honor)
+                 .toleration(key="dedicated", op=t.TOLERATION_OP_EXISTS))
+        elif kind == 1:
+            w = (w.spread_constraint(2, ZONE, t.SCHEDULE_ANYWAY, "app", [app])
+                 .spread_constraint(1, HOST, t.SCHEDULE_ANYWAY, "app", [app], match_label_keys=("ver",))
+                 .preferred_node_affinity_in("disk", ["ssd"], weight=int(rng.integers(1, 100)))
+                 .preferred_node_affinity_in(ZONE, ["zone-1"], weight=int(rng.integers(1, 100))))
+        elif kind == 2:
+            w = (w.spread_constraint(1, ZONE, t.DO_NOT_SCHEDULE, "app", [app], min_domains=zones + 2,
+                                     node_taints_policy=t.POLICY_HONOR)
+                 .node_selector({"disk": "ssd"}))
+        elif kind == 3:
+            pod = w.spread_constraint(1, ZONE, t.SCHEDULE_ANYWAY, "app", [app],
+                                      node_affinity_policy=t.POLICY_IGNORE).obj()
+            pod.spec.affinity = t.Affinity(node_affinity=t.NodeAffinity(required=t.NodeSelector(terms=(
+                t.NodeSelectorTerm(match_expressions=(R("num", t.OP_GT, ("20",)), R("disk", t.OP_DOES_NOT_EXIST))),
+                t.NodeSelectorTerm(match_expressions=(R(ZONE, t.OP_IN, ("zone-1",)), R("num", t.OP_LT, ("30",)))),
+                t.NodeSelectorTerm(match_expressions=(R(ZONE, t.OP_NOT_IN, ("zone-0",)), R("disk", t.OP_EXISTS))),
+            ))))
+            pods.append(pod)
+            continue
+        elif kind == 4:
+            pod = (w.spread_constraint(2, ZONE, t.DO_NOT_SCHEDULE, "app", [app])
+                   .toleration(key="evict", value="y", effect=t.EFFECT_NO_EXECUTE).obj())
+            names = tuple(f"node-{int(x)}" for x in rng.choice(n_nodes, 40, replace=False))
+            pod.spec.affinity = t.Affinity(node_affinity=t.NodeAffinity(required=t.NodeSelector(terms=(
+                t.NodeSelectorTerm(match_fields=(R("metadata.name", t.OP_IN, names),)),))))
+            pods.append(pod)
+            continue
+        elif kind == 5:
+            other = f"app-{(int(app.split('-')[1]) + 1) % 10}"
+            w = (w.spread_constraint(1, ZONE, t.DO_NOT_SCHEDULE, "app", [other])  # no self-match
+                 .node_affinity_in("num", ["7", "8", "9"])
+                 .toleration(key="dedicated", value="cpu"))  # wrong value: not tolerated
+        elif kind == 6:
+            w = (w.spread_constraint(1, HOST, t.DO_NOT_SCHEDULE, "app", [app], node_taints_policy=t.POLICY_HONOR)
+                 .spread_constraint(1, ZONE, t.SCHEDULE_ANYWAY, "app", [app], node_taints_policy=t.POLICY_HONOR)
+                 .toleration(key="soft", op=t.TOLERATION_OP_EXISTS, effect=t.EFFECT_PREFER_NO_SCHEDULE))
+        else:
+            w = w.node_selector({"never-seen": "x"})  # feasible nowhere
+        pods.append(w.obj())
+    return pods
+
+
+def _added_affinity():
+    from kubernetes_tpu_torch.api import types as t
+
+    return t.NodeAffinity(
+        required=t.NodeSelector(terms=(t.NodeSelectorTerm(match_expressions=(
+            t.NodeSelectorRequirement("num", t.OP_EXISTS),)),)),
+        preferred=(t.PreferredSchedulingTerm(5, t.NodeSelectorTerm(match_expressions=(
+            t.NodeSelectorRequirement("disk", t.OP_IN, ("hdd",)),))),),
+    )
+
+
+def spread_inputs(shape: str, seed: int, dev):
+    """The cluster of one spread shape, a featurized 4096-pod batch of the
+    workload's pods, and the 32 mixed pods featurized under the default
+    profile and under one with addedAffinity."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import workloads
+    from kubernetes_tpu_torch.engine.features import build_pod_batch
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+
+    n_nodes, zones, _bound, tmpl = SPREAD_SHAPES[shape]
+    builder, rng = spread_cluster(shape, seed, dev)
+    make = getattr(workloads, tmpl)
+    mixed = spread_mixed_pods(rng, zones, n_nodes)
+    added = dataclasses.replace(DEFAULT_PROFILE, added_affinity=_added_affinity())
+    # Twice: the first round interns every group and label, so the second
+    # round's features all have the final schema's widths.
+    for _round in range(2):
+        big, _, big_active = build_pod_batch([make(i) for i in range(4096)], builder, DEFAULT_PROFILE, 4096)
+        batches = {}
+        for label, prof in (("default", DEFAULT_PROFILE), ("added_affinity", added)):
+            batch, _, active = build_pod_batch(mixed, builder, prof, 32)
+            batches[label] = (prof, batch, active)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    out = {"builder": builder, "state": builder.state(), "rng": rng, "big_active": big_active,
+           "big_pf": {k: to(v) for k, v in big.items()}, "mixed": {}}
+    for label, (prof, batch, active) in batches.items():
+        pf = {k: to(v) for k, v in batch.items()}
+        pf["nominated_row"] = torch.full((32,), -1, dtype=torch.int32, device=dev)
+        out["mixed"][label] = (prof, pf, active)
+    out["big_pf"]["nominated_row"] = torch.full((4096,), -1, dtype=torch.int32, device=dev)
+    want = {"PodTopologySpread", "NodeAffinity", "TaintToleration"}
+    for label, (_p, _pf, active) in out["mixed"].items():
+        if not want <= active:
+            raise AssertionError(f"the mixed pods leave {want - active} inactive ({label})")
+    return out
+
+
+def rounding_case(dev, errs: dict) -> None:
+    """late_scores at a rounding boundary: a hostname ScheduleAnyway
+    constraint over 17 scored nodes, one holding 9 matching pods, scores
+    9·log(19) = 26.49995..., 5e-5 below the rounding point; the kernel
+    must equal the plain version and round it to 26."""
+    import torch
+
+    from kubernetes_tpu_torch.api import types as t
+    from kubernetes_tpu_torch.api.wrappers import make_node, make_pod
+    from kubernetes_tpu_torch.cache import Cache
+    from kubernetes_tpu_torch.engine.features import build_pod_batch
+    from kubernetes_tpu_torch.engine.pass_ import eval_spec, late_spec
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import plain
+    from kubernetes_tpu_torch.ops import podtopologyspread as spread_op
+    from kubernetes_tpu_torch.snapshot import SnapshotBuilder
+
+    builder = SnapshotBuilder(device=dev)
+    cache = Cache(builder)
+    for i in range(17):
+        cache.add_node(make_node(f"r{i}").capacity({"cpu": "64", "memory": "64Gi", "pods": 110}).obj())
+    for i in range(9):
+        cache.add_pod(make_pod(f"e{i}").req({"cpu": "100m"}).label("app", "web").node("r0").obj())
+    pods = [make_pod(f"q{k}").req({"cpu": "100m"}).label("app", "web").spread_constraint(
+        1, HOST, t.SCHEDULE_ANYWAY, "app", ["web"]).obj() for k in range(8)]
+    for _round in range(2):
+        batch, _, active = build_pod_batch(pods, builder, DEFAULT_PROFILE, 8)
+    state = builder.state()
+    pf = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    spec = eval_spec(DEFAULT_PROFILE, builder.schema, builder.res_col, active)
+    late = late_spec(DEFAULT_PROFILE, builder.schema, builder.res_col, active)
+    bits = plain.node_filters(state, pf, spec.ctx)
+    feas = state.valid[None, :].expand(8, -1).contiguous()
+    zero = torch.zeros(feas.shape, dtype=torch.int64, device=dev)
+    kt = kernels.late_scores(state, pf, feas, zero.clone(), bits, late)
+    pt = plain.late_scores(state, pf, feas, zero.clone(), bits, late)
+    torch.cuda.synchronize()
+    exact(errs, "late_scores", "[rounding boundary]", kt, pt)
+    _scored, raw = spread_op.raw_score(state, pf, spec.ctx, feas, (bits & 1) != 0, (bits & 2) != 0)
+    row = builder.interns.node_names.get("r0")
+    row = int(torch.nonzero(state.name_id == row)[0, 0])
+    if int(raw[0, row]) != 26:
+        raise AssertionError(f"rounding boundary: raw score {int(raw[0, row])}, want 26")
+    print("late_scores [rounding boundary]: exact; 9·log(19) rounds to 26")
+
+
+def _chunk(pf: dict, i: int, c: int) -> dict:
+    return {k: v[i * c:(i + 1) * c].contiguous() for k, v in pf.items()}
+
+
+def check_spread_kernels(dev, shape: str, reps: int) -> dict:
+    """Phase 3, one spread shape (spread_na: C=8, N=1024; inclusion: C=8,
+    N=8192): node_filters, spread_filter, eval_chunk with their planes,
+    late_scores, select_host, resolve_commit and conflict_pairs against
+    their plain versions, exactly, on the 32 mixed pods (four chunks of 8,
+    default profile and addedAffinity, the final feasible set and a random
+    one) and on the workload's pods; returns each one's timings (on the
+    workload's first chunk, and node_filters and conflict_pairs on its
+    4096-pod batch), bound and largest error."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.engine.pass_ import build_dom, eval_spec, late_spec
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.kernels import plain
+
+    x = spread_inputs(shape, 2468, dev)
+    builder, state, rng = x["builder"], x["state"], x["rng"]
+    schema, res_col = builder.schema, builder.res_col
+    errs: dict[str, float] = {}
+    c, n = 8, state.valid.shape[0]
+    seed_mul = ((DEFAULT_PROFILE.tie_break_seed & 0xFFFFFFFF) * 2654435761) & 0xFFFFFFFF
+    stats = {"rejected_by_spread": 0, "rejected_by_na": 0, "rejected_by_taint": 0, "pods_nowhere": 0}
+
+    def run_chunk(label, prof, pf, active, bits, timing=False):
+        spec = eval_spec(prof, schema, res_col, active)
+        late = late_spec(prof, schema, res_col, active)
+        ks = kernels.spread_filter(state, pf, bits, spec.ctx)
+        ps = plain.spread_filter(state, pf, bits, spec.ctx)
+        torch.cuda.synchronize()
+        exact(errs, "spread_filter", f"[{label}]", ks, ps)
+        ke = kernels.eval_chunk(state, pf, spec, None, (bits, ps))
+        pe = plain.eval_chunk(state, pf, spec, None, (bits, ps))
+        torch.cuda.synchronize()
+        for what, a, b in zip(("feasible", "total", "fail_mask"), ke, pe):
+            exact(errs, "eval_chunk", f"[{label}] {what}", a, b)
+        stats["rejected_by_spread"] += int((state.valid & ~ps).sum())
+        stats["rejected_by_na"] += int((state.valid & ((bits & 1) == 0)).sum())
+        stats["rejected_by_taint"] += int((state.valid & ((bits & 2) == 0)).sum())
+        holes = pe[0] & torch.from_numpy(rng.random((c, n)) < 0.7).to(dev)
+        for what, feas in (("final feasible", pe[0]), ("feasible with holes", holes)):
+            base = torch.where(feas, pe[1], 0)
+            kt = kernels.late_scores(state, pf, feas, base.clone(), bits, late)
+            pt = plain.late_scores(state, pf, feas, base.clone(), bits, late)
+            torch.cuda.synchronize()
+            exact(errs, "late_scores", f"[{label}] {what}", kt, pt)
+        pl = plain.late_scores(state, pf, pe[0], pe[1].clone(), bits, late)
+        steps = torch.from_numpy(rng.integers(0, 2**32, size=c, dtype=np.int64)).to(dev)
+        ksel = kernels.select_host(pe[0], pl, steps, seed_mul, pf["nominated_row"])
+        psel = plain.select_host(pe[0], pl, steps, seed_mul, pf["nominated_row"])
+        torch.cuda.synchronize()
+        for what, a, b in zip(("pick", "best", "feasible_count"), ksel, psel):
+            exact(errs, "select_host", f"[{label}] {what}", a, b)
+        stats["pods_nowhere"] += int((psel[2] == 0).sum())
+        if not timing:
+            return None
+        out = {
+            "spread_filter": timed(lambda _: kernels.spread_filter(state, pf, bits, spec.ctx),
+                                   lambda _: plain.spread_filter(state, pf, bits, spec.ctx), reps),
+            "eval_chunk": timed(lambda _: kernels.eval_chunk(state, pf, spec, None, (bits, ps)),
+                                lambda _: plain.eval_chunk(state, pf, spec, None, (bits, ps)), reps),
+            "late_scores": timed(lambda a: kernels.late_scores(state, pf, pe[0], a, bits, late),
+                                 lambda a: plain.late_scores(state, pf, pe[0], a, bits, late), reps,
+                                 lambda: pe[1].clone()),
+            "select_host": timed(lambda _: kernels.select_host(pe[0], pl, steps, seed_mul, pf["nominated_row"]),
+                                 lambda _: plain.select_host(pe[0], pl, steps, seed_mul, pf["nominated_row"]),
+                                 reps),
+        }
+        return out, spec, late, pe, pl, psel[0], ps
+
+    if shape == "spread_na":
+        rounding_case(dev, errs)
+    # The mixed pods: node_filters over the 32-pod batch, then four chunks.
+    for label, (prof, pf, active) in x["mixed"].items():
+        ctx = eval_spec(prof, schema, res_col, active).ctx
+        kb = kernels.node_filters(state, pf, ctx)
+        pb = plain.node_filters(state, pf, ctx)
+        torch.cuda.synchronize()
+        exact(errs, "node_filters", f"[{label}]", kb, pb)
+        for i in range(4):
+            run_chunk(f"{label} chunk {i}", prof, _chunk(pf, i, c), active, pb[i * c:(i + 1) * c].contiguous())
+        kp = kernels.conflict_pairs(pf, 4, c)
+        pp = plain.conflict_pairs(pf, 4, c)
+        torch.cuda.synchronize()
+        exact(errs, "conflict_pairs", f"[{label}]", kp, pp)
+    # The workload's pods: node_filters and conflict_pairs over the batch,
+    # the other kernels on its first chunk (timed there).
+    big, active = x["big_pf"], x["big_active"]
+    ctx = eval_spec(DEFAULT_PROFILE, schema, res_col, active).ctx
+    kb = kernels.node_filters(state, big, ctx)
+    pb = plain.node_filters(state, big, ctx)
+    kp = kernels.conflict_pairs(big, 512, c)
+    pp = plain.conflict_pairs(big, 512, c)
+    torch.cuda.synchronize()
+    exact(errs, "node_filters", "[workload batch]", kb, pb)
+    exact(errs, "conflict_pairs", "[workload batch]", kp, pp)
+    pf0, bits0 = _chunk(big, 0, c), pb[:c].contiguous()
+    result, spec0, late0, pe0, pl0, picks0, ps0 = run_chunk("workload chunk", DEFAULT_PROFILE, pf0, active,
+                                                              bits0, timing=True)
+    result["node_filters"] = timed(lambda _: kernels.node_filters(state, big, ctx),
+                                   lambda _: plain.node_filters(state, big, ctx), reps)
+    result["conflict_pairs"] = timed(lambda _: kernels.conflict_pairs(big, 512, c),
+                                     lambda _: plain.conflict_pairs(big, 512, c), reps)
+    # resolve_commit on the workload chunk: its picks, the chunk's pairs.
+    et_slot = torch.zeros(schema.ET, dtype=torch.int32, device=dev)
+    dom = build_dom(state, et_slot, torch.zeros(schema.ET, dtype=torch.bool, device=dev), schema.DV)
+    for strict in (False, True):
+        sk, dk = state.clone(), clone_dom(dom)
+        sp, dp = state.clone(), clone_dom(dom)
+        ok_ = kernels.resolve_commit(sk, dk, pf0, picks0, pp[0], strict)
+        op_ = plain.resolve_commit(sp, dp, pf0, picks0, pp[0], strict)
+        torch.cuda.synchronize()
+        exact(errs, "resolve_commit", f"[{shape}] (strict={strict}) picks", ok_, op_)
+        for f in ("req", "nonzero_req", "num_pods", "group_counts"):
+            exact(errs, "resolve_commit", f"[{shape}] (strict={strict}) state.{f}", getattr(sk, f), getattr(sp, f))
+    result["resolve_commit"] = timed(
+        lambda a: kernels.resolve_commit(a[0], a[1], pf0, picks0, pp[0], False),
+        lambda a: plain.resolve_commit(a[0], a[1], pf0, picks0, pp[0], False), reps,
+        lambda: (state.clone(), clone_dom(dom)))
+    # Bounds: the bytes each must move for this run's inputs.
+    k = big["valid"].shape[0]
+    att = picks0 >= 0
+    rows = int(torch.unique(picks0[att]).numel())
+    commit_bytes = (rows * (schema.R * 8 * 3 + 2 * 8 * 2 + 4 * 3 + schema.TK * 4) * 2
+                    + c * (4 + 1 + schema.R * 8 + 2 * 8 + 4) + c * c + c * 4)
+    for name, nb in (("node_filters", nf_bytes(state, big, ctx)),
+                     ("spread_filter", spread_bytes(state, pf0, "tps_h") + c * n),
+                     ("eval_chunk", eval_bytes(state, pf0, None) + 2 * c * n),
+                     ("late_scores", late_bytes(state, pf0, late0, c)),
+                     ("select_host", select_bytes(c, n)), ("conflict_pairs", spread_pair_bytes(big, c)),
+                     ("resolve_commit", commit_bytes)):
+        set_bound(result[name], nb)
+    for name in result:
+        result[name]["max_abs_err"] = errs[name]
+    print(f"{shape} shapes: C={c}, N={n}, K={k}, G={schema.G}, TK={schema.TK}, DV={schema.DV}, "
+          f"LS={schema.LS}, TS={schema.TS}, TV={schema.TV}; mixed chunks: {stats}; workload chunk: "
+          f"{int(pe0[0].sum())} feasible (pod, node) pairs, spread rejects {int((state.valid & ~ps0).sum())}")
+    return result
+
+
+def spread_bytes(state, pf: dict, prefix: str) -> int:
+    """spread_filter's (and the spread part of late_scores') reads for this
+    chunk's data: the constraints' valid flags; and only where a constraint
+    is valid, its features and group mask, the 32-byte sectors of the
+    topology values in its key's column, node validity, the node_filters
+    bits row of each pod with an inclusion policy, and one group_counts row
+    per distinct group the valid constraints select."""
+    import torch
+
+    n = state.valid.shape[0]
+    valid = pf[f"{prefix}_valid"]
+    b = nbytes(valid)
+    if not bool(valid.any()):
+        return b
+    nv = int(valid.sum())
+    b += nv * sum(pf[f"{prefix}_{f}"].element_size()
+                  for f in ("slot", "skew", "mindom", "self", "hostname", "aff", "taint"))
+    groups = pf[f"{prefix}_groups"] & valid[:, :, None]
+    b += nv * groups.shape[2]
+    slots = torch.unique(pf[f"{prefix}_slot"][valid]).long()
+    offsets = torch.arange(n, device=slots.device)[:, None] * state.topo_vals.shape[1] + slots[None, :]
+    b += int(torch.unique(offsets * 4 // 32).numel()) * 32
+    b += nbytes(state.valid)
+    policy = valid & (pf[f"{prefix}_aff"] | pf[f"{prefix}_taint"])
+    b += int(policy.any(dim=1).sum()) * n
+    used = int(torch.unique(torch.nonzero(groups, as_tuple=True)[2]).numel())
+    return b + used * n * 4
+
+
+def label_bytes(state) -> int:
+    """The nodes' label slots and names, which a requirement program reads."""
+    return nbytes(state.label_key_ids, state.label_pair_ids, state.label_int_vals, state.name_id)
+
+
+def program_bytes(pf: dict, prefix: str, rows, fields) -> int:
+    """The requirement programs (``prefix``_op/key/vals/int...) of the pods in ``rows``."""
+    return nbytes(*(pf[f"{prefix}_{f}"][rows] for f in fields))
+
+
+def nf_bytes(state, pf: dict, ctx) -> int:
+    """node_filters for this batch's data: the bits written; the selector
+    pairs and flags; all label slots and the programs of the pods with
+    required (or added) terms where there are any, else the label pair
+    slots where some pod has a selector pair; the hard intolerance masks,
+    and the taint slots only where some pod has an intolerable taint."""
+    k, n = pf["valid"].shape[0], state.valid.shape[0]
+    b = k * n
+    if "na_sel_pairs" in pf:
+        sel, has_req = pf["na_sel_pairs"], pf["na_has_required"]
+        fields = ("op", "key", "vals", "int", "term_valid")
+        b += nbytes(sel, has_req)
+        prog, evaluates = program_bytes(pf, "na_req", has_req, fields), has_req
+        if ctx.profile.added_affinity is not None:
+            has_add = pf["na_has_added"]
+            b += nbytes(has_add)
+            prog += program_bytes(pf, "na_add", has_add, fields)
+            evaluates = has_req | has_add
+        if bool(evaluates.any()):
+            b += prog + label_bytes(state)
+        elif bool((sel >= 0).any()):
+            b += nbytes(state.label_pair_ids)
+    if "taint_intol_hard" in pf:
+        intol = pf["taint_intol_hard"]
+        b += nbytes(intol)
+        if bool(intol.any()):
+            b += nbytes(state.taint_ids)
+    return b
+
+
+def late_bytes(state, pf: dict, late, c: int) -> int:
+    """late_scores for this chunk's data: the feasible set read, `total`
+    read and written, and what each scoring op must read: NodeAffinity the
+    term weights, and the label slots and preferred programs only where a
+    pod has a term of non-zero weight; TaintToleration the soft
+    intolerance masks, and the taint slots only where some pod has an
+    intolerable PreferNoSchedule taint; spread as spread_bytes for the
+    ScheduleAnyway constraints."""
+    n = state.valid.shape[0]
+    b = c * n + 2 * c * n * 8
+    if late.na_weight:
+        w = pf["na_pref_weight"]
+        b += nbytes(w)
+        rows = (w != 0).any(dim=1)
+        if bool(rows.any()):
+            b += label_bytes(state) + program_bytes(pf, "na_pref", rows, ("op", "key", "vals", "int"))
+    if late.taint_weight:
+        intol = pf["taint_intol_pref"]
+        b += nbytes(intol)
+        if bool(intol.any()):
+            b += nbytes(state.taint_ids)
+    if late.spread_weight:
+        b += spread_bytes(state, pf, "tps_s")
+    return b
+
+
+def spread_pair_bytes(pf: dict, c: int) -> int:
+    """conflict_pairs on a spread batch: the group ids once, per chunk and
+    reader j one DoNotSchedule mask byte per constraint at each distinct
+    group of the chunk, the table written once."""
+    import torch
+
+    k = pf["valid"].shape[0]
+    ch = pf["tps_h_groups"].shape[1]
+    g = pf["group"].view(k // c, c)
+    distinct = sum(int(torch.unique(g[b]).numel()) for b in range(k // c))
+    return nbytes(pf["group"]) + distinct * c * ch + k * c
+
+
+def spread_gates(outcomes, n_nodes: int, zones: int, max_skew: int, tainted) -> None:
+    """Per app, the pod counts per zone differ by at most maxSkew (over the
+    zones that hold untainted nodes); no pod on a tainted node."""
+    from collections import Counter
+
+    counts = Counter()
+    for o in outcomes:
+        i = int(o.node_name.rsplit("-", 1)[1])
+        if tainted(i):
+            raise AssertionError(f"{o.pod.name} bound to the tainted node {o.node_name}")
+        counts[(o.pod.metadata.labels["app"], i % zones)] += 1
+    eligible = sorted({i % zones for i in range(n_nodes) if not tainted(i)})
+    for app in sorted({a for a, _ in counts}):
+        per_zone = [counts[(app, z)] for z in eligible]
+        if max(per_zone) - min(per_zone) > max_skew:
+            raise AssertionError(f"{app}: zone counts {per_zone} differ by more than {max_skew}")
+
+
 def run_workload(impl: str, nodes, warm, measured, batch: int, chunk: int, trace: bool = False):
     """One burst through TorchScheduler: the nodes, the warm-up pods
     (scheduled first), then the measured pods, timed.  With ``trace``, the
@@ -683,7 +1183,26 @@ def run_workload(impl: str, nodes, warm, measured, batch: int, chunk: int, trace
     from kubernetes_tpu_torch import scheduler as sched_mod
     from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
 
+    from kubernetes_tpu_torch.snapshot import _NODE_AXIS
+
     s = sched_mod.TorchScheduler(DEFAULT_PROFILE, batch_size=batch, chunk_size=chunk, _impl=impl)
+    # Data movement outside the hand kernels, counted over the whole run:
+    # the dirty-row flush (one index_copy_ per node-axis field) and the
+    # uniform batch's broadcast (one expand copy per feature).
+    moves = {"index_copy_": 0, "expand": 0}
+    orig_state, orig_expand = s.builder.state, sched_mod._expand_uniform
+
+    def state():
+        b = s.builder
+        if not (b._dirty_all or b._device is None) and b._dirty_rows:
+            moves["index_copy_"] += len(_NODE_AXIS)
+        return orig_state()
+
+    def expand(small, k):
+        moves["expand"] += len(small)
+        return orig_expand(small, k)
+
+    s.builder.state, sched_mod._expand_uniform = state, expand
     for node in nodes:
         s.add_node(node)
     for pod in warm:
@@ -723,6 +1242,8 @@ def run_workload(impl: str, nodes, warm, measured, batch: int, chunk: int, trace
     measured_out = s.schedule_all_pending()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    s.builder.state, sched_mod._expand_uniform = orig_state, orig_expand
+    s.data_moves = moves
     if trace:
         prof.__exit__(None, None, None)
         sched_mod.build_pod_batch = orig_featurize
@@ -766,6 +1287,31 @@ def run_ipa(impl: str, trace: bool = False):
                         IPA_BATCH, IPA_CHUNK, trace)
 
 
+def run_spread_na(impl: str, trace: bool = False):
+    """The spread + node-affinity burst (harness.py:408-430)."""
+    from kubernetes_tpu_torch.workloads import (
+        SPREAD_BATCH, SPREAD_CHUNK, SPREAD_MEASURED_PODS, SPREAD_NODES, SPREAD_WARM_PODS,
+        SPREAD_ZONES, basic_nodes, pod_spread_na, warm_pods,
+    )
+
+    return run_workload(impl, basic_nodes(SPREAD_NODES, zones=SPREAD_ZONES),
+                        warm_pods(SPREAD_WARM_PODS, pod_spread_na),
+                        [pod_spread_na(i) for i in range(SPREAD_MEASURED_PODS)],
+                        SPREAD_BATCH, SPREAD_CHUNK, trace)
+
+
+def run_inclusion(impl: str, trace: bool = False):
+    """The node-inclusion-policy burst (harness.py:1185-1219)."""
+    from kubernetes_tpu_torch.workloads import (
+        INCLUSION_MEASURED_PODS, INCLUSION_WARM_PODS, SPREAD_BATCH, SPREAD_CHUNK,
+        inclusion_nodes, pod_inclusion, warm_pods,
+    )
+
+    return run_workload(impl, inclusion_nodes(), warm_pods(INCLUSION_WARM_PODS, pod_inclusion),
+                        [pod_inclusion(i) for i in range(INCLUSION_MEASURED_PODS)],
+                        SPREAD_BATCH, SPREAD_CHUNK, trace)
+
+
 def check_density(s, outcomes, expected: int, label: str) -> dict:
     import numpy as np
 
@@ -782,6 +1328,59 @@ def check_density(s, outcomes, expected: int, label: str) -> dict:
     if int(h["num_pods"].sum()) != expected:
         raise AssertionError(f"{label}: {int(h['num_pods'].sum())} pods on nodes, want {expected}")
     return bind
+
+
+# The main paths: (runner, pods bound, kernels that must launch, gate).
+def _paths():
+    from kubernetes_tpu_torch import workloads as w
+
+    base = ("build_dom", "eval_chunk", "select_host", "resolve_commit")
+    spread = base + ("conflict_pairs", "node_filters", "spread_filter", "late_scores")
+    return {
+        "density": (run_density, w.DENSITY_WARM_PODS + w.DENSITY_MEASURED_PODS, base, None),
+        "ipa": (run_ipa, w.IPA_WARM_PODS + w.IPA_MEASURED_PODS, base + ("ipa_eval", "conflict_pairs"),
+                ipa_anti_ok),
+        "spread_na": (run_spread_na, w.SPREAD_WARM_PODS + w.SPREAD_MEASURED_PODS, spread,
+                      lambda out: spread_gates(out, w.SPREAD_NODES, w.SPREAD_ZONES, w.SPREAD_MAX_SKEW,
+                                               lambda i: False)),
+        "inclusion": (run_inclusion, w.INCLUSION_WARM_PODS + w.INCLUSION_MEASURED_PODS, spread,
+                      lambda out: spread_gates(out, w.INCLUSION_NODES, w.INCLUSION_ZONES,
+                                               w.INCLUSION_MAX_SKEW, lambda i: i % 2 == 1)),
+    }
+
+
+def drive(path: str, card: str) -> tuple[dict, dict]:
+    """Phases 4-7: one main path through the kernels (launch counts set to
+    0 just before and read just after), traced, and through the plain
+    versions; gates, launch counts and identical bindings required.
+    Returns (launch counts, data moves)."""
+    from kubernetes_tpu_torch import kernels
+
+    runner, expected, must, gate = _paths()[path]
+    kernels.reset_launches()
+    s, out, measured, dt, _ = runner("kernel")
+    launches = kernels.launch_counts()
+    bind_k = check_density(s, out, expected, f"{path} kernel path")
+    if gate is not None:
+        gate(out)
+    print(f"{path} (kernels): {len(out)} pods bound; measured {measured} pods in {dt:.3f}s = "
+          f"{measured / dt:.1f} pods/s; deferred {s.deferred}; packed batches {s.packed_batches}, "
+          f"planned collisions {s.pack_collisions}, last pack width {s.pack_width}; domain tables "
+          f"rebuilt {s.dom_carry_rebuilds}, carried {s.dom_carry_hits}; schema N={s.builder.schema.N} "
+          f"G={s.builder.schema.G} ET={s.builder.schema.ET} DV={s.builder.schema.DV}; launches {launches}; "
+          f"data moves {s.data_moves}  [{card}]")
+    for name, count in launches.items():
+        if (count == 0) == (name in must):
+            raise AssertionError(f"{path} path: {name} launched {count} times")
+    s3, out3, _m3, dt3, spans = runner("kernel", trace=True)
+    if check_density(s3, out3, expected, f"traced {path} kernel path") != bind_k:
+        raise AssertionError(f"the traced {path} run bound differently")
+    print_trace(path, dt3, spans, card)
+    s2, out2, measured2, dt2, _ = runner("plain")
+    compare_bindings(bind_k, check_density(s2, out2, expected, f"{path} plain path"))
+    print(f"{path} (plain versions on the card): identical bindings; measured {measured2} pods in "
+          f"{dt2:.3f}s = {measured2 / dt2:.1f} pods/s  [{card}]")
+    return launches, s.data_moves
 
 
 def main() -> int:
@@ -811,7 +1410,9 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"  {name}: {line.strip()}")
 
-    shapes = {"density": check_kernels(dev, REPS), "ipa": check_ipa_kernels(dev, REPS)}
+    shapes = {"density": check_kernels(dev, REPS), "ipa": check_ipa_kernels(dev, REPS),
+              "spread_na": check_spread_kernels(dev, "spread_na", REPS),
+              "inclusion": check_spread_kernels(dev, "inclusion", REPS)}
     for shape, table in shapes.items():
         for name, tm in table.items():
             print(f"{name} [{shape} shapes]: device ms: kernel {tm['ms']:.4f}, plain {tm['plain_ms']:.4f}, "
@@ -819,56 +1420,12 @@ def main() -> int:
                   f"operations); call ms with the host's launch overhead: kernel {tm['call_ms']:.4f}, "
                   f"plain {tm['plain_call_ms']:.4f}  [{card}]")
 
-    # Launches per path: the density path runs every kernel but the two
-    # affinity ones, the IPA path all six.
-    density_kernels = ("build_dom", "eval_chunk", "select_host", "resolve_commit")
     by_path: dict[str, dict] = {}  # empty: the main paths did not run
+    moves: dict[str, dict] = {}
     if not args.kernels_only:
-        kernels.reset_launches()
-        s, out, measured, dt, _ = run_density("kernel")
-        density_launches = kernels.launch_counts()
-        bind_k = check_density(s, out, 32048, "kernel path")
-        print(f"density (kernels): {len(out)} pods bound over 5000 nodes; measured "
-              f"{measured} pods in {dt:.3f}s = {measured / dt:.1f} pods/s; "
-              f"deferred {s.deferred}; domain tables rebuilt {s.dom_carry_rebuilds}, carried "
-              f"{s.dom_carry_hits}; launches {density_launches}  [{card}]")
-        for name, count in density_launches.items():
-            if (count == 0) == (name in density_kernels):
-                raise AssertionError(f"density path: {name} launched {count} times")
-        s3, out3, _m3, dt3, spans = run_density("kernel", trace=True)
-        if check_density(s3, out3, 32048, "traced kernel path") != bind_k:
-            raise AssertionError("the traced run bound differently")
-        print_trace("density", dt3, spans, card)
-        s2, out2, measured2, dt2, _ = run_density("plain")
-        bind_p = check_density(s2, out2, 32048, "plain path")
-        compare_bindings(bind_k, bind_p)
-        print(f"density (plain versions on the card): identical bindings; measured "
-              f"{measured2} pods in {dt2:.3f}s = {measured2 / dt2:.1f} pods/s  [{card}]")
-
-        kernels.reset_launches()
-        s, out, measured, dt, _ = run_ipa("kernel")
-        ipa_launches = kernels.launch_counts()
-        bind_k = check_density(s, out, 11024, "IPA kernel path")
-        ipa_anti_ok(out)
-        print(f"IPA (kernels): {len(out)} pods bound over 1000 nodes in 10 zones; measured "
-              f"{measured} pods in {dt:.3f}s = {measured / dt:.1f} pods/s; deferred "
-              f"{s.deferred}; packed batches {s.packed_batches}, planned collisions "
-              f"{s.pack_collisions}, last pack width {s.pack_width}; domain tables rebuilt "
-              f"{s.dom_carry_rebuilds}, carried {s.dom_carry_hits}; schema G={s.builder.schema.G} "
-              f"ET={s.builder.schema.ET}; launches {ipa_launches}  [{card}]")
-        for name, count in ipa_launches.items():
-            if count == 0:
-                raise AssertionError(f"{name} was never launched on the IPA path")
-        s3, out3, _m3, dt3, spans = run_ipa("kernel", trace=True)
-        if check_density(s3, out3, 11024, "traced IPA kernel path") != bind_k:
-            raise AssertionError("the traced IPA run bound differently")
-        print_trace("IPA", dt3, spans, card)
-        s2, out2, measured2, dt2, _ = run_ipa("plain")
-        bind_p = check_density(s2, out2, 11024, "IPA plain path")
-        compare_bindings(bind_k, bind_p)
-        print(f"IPA (plain versions on the card): identical bindings; measured "
-              f"{measured2} pods in {dt2:.3f}s = {measured2 / dt2:.1f} pods/s  [{card}]")
-        by_path = {"density": density_launches, "ipa": ipa_launches}
+        for path in _paths():
+            by_path[path], moves[path] = drive(path, card)
+        print(f"data moves outside the hand kernels, launches per path: {moves}  [{card}]")
 
     csrc = "kubernetes_tpu_torch/kernels/csrc/"
     replaces = {
@@ -878,21 +1435,27 @@ def main() -> int:
         "select_host": "kubernetes_tpu/engine/pass_.py:136",
         "resolve_commit": "kubernetes_tpu/engine/pass_.py:570",
         "conflict_pairs": "kubernetes_tpu/engine/pass_.py:266",
+        "node_filters": "kubernetes_tpu/ops/nodeaffinity.py:285",
+        "spread_filter": "kubernetes_tpu/ops/podtopologyspread.py:219",
+        "late_scores": "kubernetes_tpu/ops/podtopologyspread.py:261",
     }
     # The top-level numbers of a kernel come from the shapes of the path it
     # was first ported for (density: eval_chunk, select_host,
-    # resolve_commit; IPA: build_dom, ipa_eval, conflict_pairs); "by_shape"
-    # holds every shape it was measured at.  "launches" sums the main
-    # paths' runs, "launches_by_path" splits them.
-    first = {name: "ipa" for name in build.KERNELS}
-    first.update(eval_chunk="density", select_host="density", resolve_commit="density")
+    # resolve_commit; IPA: build_dom, ipa_eval, conflict_pairs; spread_na:
+    # node_filters, spread_filter, late_scores); "by_shape" holds every
+    # shape it was measured at.  "launches" sums the main paths' runs,
+    # "launches_by_path" splits them.
+    first = {name: "ipa" for name in kernels.WRAPPERS}
+    first.update(eval_chunk="density", select_host="density", resolve_commit="density",
+                 node_filters="spread_na", spread_filter="spread_na", late_scores="spread_na")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
-    line = {"kernels": []}
-    for name in build.KERNELS:
+    line = {"kernels": [], "data_moves_by_path": moves}
+    for name in kernels.WRAPPERS:
         top = shapes[first[name]][name]
         counts = {path: c[name] for path, c in by_path.items()}
         line["kernels"].append({
-            "name": name, "route": "cuda", "source": f"{csrc}{name}.cu", "replaces": replaces[name],
+            "name": name, "route": "cuda", "source": f"{csrc}{build.ENTRIES[name]}.cu",
+            "replaces": replaces[name],
             "launches": sum(counts.values()) if counts else None, "launches_by_path": counts,
             "max_abs_err": max(t[name]["max_abs_err"] for t in shapes.values() if name in t),
             **{k: top[k] for k in keys}, "library_ms": None,

@@ -240,6 +240,24 @@ class TopologySpreadConstraint:
     match_label_keys: tuple[str, ...] = ()
 
 
+def spread_effective_selector(
+    c: "TopologySpreadConstraint", pod_labels
+) -> Optional[LabelSelector]:
+    """The constraint's selector with matchLabelKeys merged in: each listed
+    key present on the pod adds an exact-match requirement with the pod's
+    value; absent keys are skipped (filtering.go mergeLabelSetWithSelector)."""
+    if not c.match_label_keys:
+        return c.label_selector
+    extra = tuple((k, pod_labels[k]) for k in c.match_label_keys if k in pod_labels)
+    if not extra:
+        return c.label_selector
+    base = c.label_selector or LabelSelector()
+    return LabelSelector(
+        match_labels=base.match_labels + extra,
+        match_expressions=base.match_expressions,
+    )
+
+
 # ---------------------------------------------------------------------------
 
 EFFECT_NO_SCHEDULE = "NoSchedule"

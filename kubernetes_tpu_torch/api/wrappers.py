@@ -137,6 +137,36 @@ class PodWrapper:
         self._pod.spec.affinity = t.Affinity(na, a.pod_affinity, a.pod_anti_affinity)
         return self
 
+    def preferred_node_affinity_in(
+        self, key: str, values: list[str], weight: int = 1
+    ) -> "PodWrapper":
+        term = t.NodeSelectorTerm(
+            match_expressions=(t.NodeSelectorRequirement(key, t.OP_IN, tuple(values)),)
+        )
+        a = self._affinity()
+        na = a.node_affinity or t.NodeAffinity()
+        na = t.NodeAffinity(
+            required=na.required,
+            preferred=na.preferred + (t.PreferredSchedulingTerm(weight, term),),
+        )
+        self._pod.spec.affinity = t.Affinity(na, a.pod_affinity, a.pod_anti_affinity)
+        return self
+
+    def node_name_affinity(self, node_name: str) -> "PodWrapper":
+        """DaemonSet-style pinning: required node affinity on the
+        metadata.name matchField."""
+        term = t.NodeSelectorTerm(
+            match_fields=(t.NodeSelectorRequirement("metadata.name", t.OP_IN, (node_name,)),)
+        )
+        a = self._affinity()
+        na = a.node_affinity or t.NodeAffinity()
+        req = na.required or t.NodeSelector()
+        na = t.NodeAffinity(
+            required=t.NodeSelector(req.terms + (term,)), preferred=na.preferred
+        )
+        self._pod.spec.affinity = t.Affinity(na, a.pod_affinity, a.pod_anti_affinity)
+        return self
+
     def _pod_term(self, label_key: str, label_values: list[str], topo: str) -> t.PodAffinityTerm:
         return t.PodAffinityTerm(
             label_selector=t.LabelSelector(

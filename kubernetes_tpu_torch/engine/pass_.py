@@ -5,15 +5,22 @@ The JAX pass is a ``lax.scan`` over chunks of C pods; here it is a Python
 loop over chunks that launches its kernels per chunk on the current stream
 and does no host sync inside the loop:
 
+  spread_filter   PodTopologySpread's filter (when it filters this pass),
+                  a mask that eval_chunk reads
   eval_chunk      filters + weighted score of the chunk against all N nodes
   ipa_eval        InterPodAffinity's filter and normalized score on top of
                   eval_chunk's result (only when the op is active)
+  late_scores     the NodeAffinity, TaintToleration and PodTopologySpread
+                  scores, which normalize over the final feasible set
   select_host     one pick per pod (hashed tie-break, nominated fast path)
   resolve_commit  chunk deferral + exact cumulative fit, then the commit
 
 and, once per batch before the loop, ``build_dom`` (the per-domain tables,
-unless carried from the previous batch) and, when the batch carries
-affinity features, ``conflict_pairs`` (the chunk-mate conflict table).
+unless carried from the previous batch), ``node_filters`` (NodeAffinity's
+and TaintToleration's filters of every pod of the batch, when either
+filters or spread's inclusion policies read them) and, when the batch
+carries affinity or spread features, ``conflict_pairs`` (the chunk-mate
+conflict table).
 
 With chunk=1 each step is one reference scheduling cycle.  With chunk>1
 pods that could observe an earlier chunk-mate's commit defer (pick = -2);
@@ -42,7 +49,7 @@ import torch
 from .. import kernels
 from ..framework.config import Profile
 from ..kernels import plain
-from ..kernels.plain import IPA
+from ..kernels.plain import IPA, NA, PTS, TT
 from ..ops import common as opcommon
 from ..snapshot import ClusterState, Schema
 
@@ -88,19 +95,19 @@ def build_dom(
 
 def _conflict_pairs(pf: dict, nchunks: int, c: int, pairs_fn) -> torch.Tensor:
     """(nchunks, C, C) bool: does pod i's commit possibly affect pod j's
-    decision (pass_.py:266)?  Pairs come from inter-pod affinity's hard
-    reads: pod label-group writes against required (anti-)affinity group
-    masks, and own-term writes against matched existing anti-affinity terms
+    decision (pass_.py:266)?  Pairs come from the hard reads of inter-pod
+    affinity (required (anti-)affinity group masks, matched existing
+    anti-affinity terms against own-term writes) and of topology spread
+    (DoNotSchedule group masks), against each pod's label-group write
     (``pairs_fn``, the conflict_pairs kernel or its plain version).  A batch
-    without affinity features (density) keeps the all-false table and
-    launches nothing.  The other sources — spread's group reads, host-port
-    keys, volume and DRA ids — belong to unported ops: a batch that carries
-    such a feature raises, so the slice that ports the op must port its
-    pairs too."""
+    with neither (density) keeps the all-false table and launches nothing.
+    The other sources — host-port keys, volume and DRA ids — belong to
+    unported ops: a batch that carries such a feature raises, so the slice
+    that ports the op must port its pairs too."""
     found = sorted(_PAIR_FEATURES.intersection(pf))
     if found:
         raise NotImplementedError(f"conflict pairs from {found} are not yet ported")
-    if c > 1 and "ipa_ra_allmask" in pf:
+    if c > 1 and ("ipa_ra_allmask" in pf or "tps_h_groups" in pf):
         return pairs_fn(pf, nchunks, c)
     return torch.zeros((nchunks, c, c), dtype=torch.bool, device=pf["valid"].device)
 
@@ -108,8 +115,7 @@ def _conflict_pairs(pf: dict, nchunks: int, c: int, pairs_fn) -> torch.Tensor:
 # Batch features of unported ops from which the JAX pass derives conflict
 # pairs.
 _PAIR_FEATURES = frozenset({
-    "tps_h_groups", "port_keys", "vol_dev_ids", "vol_csi_ids", "vol_unbound",
-    "dra_claim_ids", "dra_claim_unalloc",
+    "port_keys", "vol_dev_ids", "vol_csi_ids", "vol_unbound", "dra_claim_ids", "dra_claim_unalloc",
 })
 
 
@@ -124,12 +130,16 @@ PINNED_SAFE_OPS = frozenset({
 
 _KERNEL_FNS = (
     kernels.build_dom, kernels.eval_chunk, kernels.ipa_eval, kernels.select_host,
-    kernels.resolve_commit, kernels.conflict_pairs,
+    kernels.resolve_commit, kernels.conflict_pairs, kernels.node_filters,
+    kernels.spread_filter, kernels.late_scores,
 )
 _PLAIN_FNS = (
     plain.build_dom, plain.eval_chunk, plain.ipa_eval, plain.select_host,
-    plain.resolve_commit, plain.conflict_pairs,
+    plain.resolve_commit, plain.conflict_pairs, plain.node_filters,
+    plain.spread_filter, plain.late_scores,
 )
+# Scorers that normalize over the final feasible set, added by late_scores.
+_LATE = (NA, TT, PTS)
 
 
 def _to_device(x, device: torch.device) -> torch.Tensor:
@@ -171,13 +181,32 @@ def eval_spec(
     """What eval_chunk evaluates for one (profile, schema, active-op-set):
     the active filters in fail-bit order, the active (scorer, weight) pairs
     and the ops' static config — all but InterPodAffinity, which ipa_eval
-    applies on top (ipa_spec)."""
+    applies on top (ipa_spec), and the scores late_scores adds
+    (late_spec).  NodeAffinity's, TaintToleration's and
+    PodTopologySpread's filters are read from precomputed planes."""
     ctx, filters, scorers = _pass_ops(profile, schema, builder_res_col, active)
     return kernels.EvalSpec(
         ctx=ctx,
         filters=tuple(n for n in filters if n != IPA),
-        scorers=tuple((n, w) for n, w in scorers if n != IPA),
+        scorers=tuple((n, w) for n, w in scorers if n != IPA and n not in _LATE),
     )
+
+
+def late_spec(
+    profile: Profile,
+    schema: Schema,
+    builder_res_col: dict[str, int],
+    active: frozenset[str] | None = None,
+) -> kernels.LateSpec | None:
+    """What late_scores adds for one pass (the weights of NodeAffinity,
+    TaintToleration and PodTopologySpread), or None when none of them
+    scores."""
+    ctx, _filters, scorers = _pass_ops(profile, schema, builder_res_col, active)
+    weights = dict(scorers)
+    if not any(n in weights for n in _LATE):
+        return None
+    return kernels.LateSpec(ctx=ctx, na_weight=weights.get(NA, 0),
+                            taint_weight=weights.get(TT, 0), spread_weight=weights.get(PTS, 0))
 
 
 def ipa_spec(
@@ -230,21 +259,29 @@ def build_pass(
         raise ValueError(f"_impl must be 'kernel' or 'plain', not {_impl!r}")
     spec = eval_spec(profile, schema, builder_res_col, active)
     ipa0 = ipa_spec(profile, schema, builder_res_col, active)
-    effective = frozenset(spec.filters) | frozenset(n for n, _ in spec.scorers)
-    if ipa0 is not None:
-        effective |= {IPA}
-    dom_fn, eval_fn, ipa_fn, select_fn, commit_fn, pairs_fn = (
-        _PLAIN_FNS if _impl == "plain" else _KERNEL_FNS
-    )
+    late = late_spec(profile, schema, builder_res_col, active)
+    _ctx, filters, scorers = _pass_ops(profile, schema, builder_res_col, active)
+    effective = frozenset(filters) | frozenset(n for n, _ in scorers)
+    (dom_fn, eval_fn, ipa_fn, select_fn, commit_fn, pairs_fn, nodes_fn, spread_fn,
+     late_fn) = _PLAIN_FNS if _impl == "plain" else _KERNEL_FNS
+    # node_filters runs when eval_chunk reads its bits (NodeAffinity or
+    # TaintToleration filters) or spread's inclusion policies do.
+    spread_filters = PTS in spec.filters
+    need_nodes = bool({NA, TT} & set(spec.filters)) or PTS in effective
     c = chunk
     fuse_tail = chunk > 1 and effective <= PINNED_SAFE_OPS
     seed_mul = ((profile.tie_break_seed & 0xFFFFFFFF) * 2654435761) & 0xFFFFFFFF
 
-    def step(state, dom, ipa, pf, steps, pairs, nom) -> PassResult:
-        feasible, total, fails = eval_fn(state, pf, spec, nom)
+    def step(state, dom, ipa, pf, steps, pairs, nom, node_bits) -> PassResult:
+        spread_ok = spread_fn(state, pf, node_bits, spec.ctx) if spread_filters else None
+        feasible, total, fails = eval_fn(state, pf, spec, nom, (node_bits, spread_ok))
         if ipa is not None:
             ipa_fn(state, pf, feasible, total, fails, ipa)
+        if late is not None:
+            late_fn(state, pf, feasible, total, node_bits, late)
         picks, bests, feas = select_fn(feasible, total, steps, seed_mul, pf.get("nominated_row"))
+        # No spread branch in the commit: spread reads group_counts, which
+        # the base commit maintains (pass_.py:166-192).
         out = commit_fn(state, dom, pf, picks, pairs, c == 1)
         return PassResult(out, bests, feas, torch.zeros_like(feas), fails)
 
@@ -280,13 +317,17 @@ def build_pass(
             ipa = dataclasses.replace(ipa0, ctx=dataclasses.replace(ipa0.ctx, dom=dom))
         nchunks = k // c
         pairs = _conflict_pairs(tb, nchunks, c, pairs_fn)
+        # NodeAffinity's and TaintToleration's filters read only node state
+        # that no commit changes: one evaluation serves every chunk.
+        node_bits = nodes_fn(state, tb, spec.ctx) if need_nodes else None
 
         def chunk_of(i: int, src: dict) -> dict:
             return {key: v[i * c : (i + 1) * c] for key, v in src.items()}
 
         def run_chunks(src: dict, idx) -> list[PassResult]:
             return [
-                step(state, dom, ipa, chunk_of(i, src), steps[i * c : (i + 1) * c], pairs[i], nom)
+                step(state, dom, ipa, chunk_of(i, src), steps[i * c : (i + 1) * c], pairs[i], nom,
+                     None if node_bits is None else node_bits[i * c : (i + 1) * c])
                 for i in idx
             ]
 
@@ -299,7 +340,8 @@ def build_pass(
             # is featurization-identical, so if the first one is feasible
             # nowhere, every pod fails identically and nothing commits.
             pf0 = {key: v[:1] for key, v in tb.items()}
-            feas0_mask, total0, fail0 = eval_fn(state, pf0, spec, nom)
+            ext0 = (None if node_bits is None else node_bits[:1], None)
+            feas0_mask, total0, fail0 = eval_fn(state, pf0, spec, nom, ext0)
             _p0, _b0, feas0 = select_fn(feas0_mask, total0, steps[:1], seed_mul, pf0.get("nominated_row"))
             if int(feas0[0]) == 0 and bool(tb["valid"][0]):
                 valid = tb["valid"]

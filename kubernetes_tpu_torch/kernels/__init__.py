@@ -6,6 +6,10 @@
   select_host     csrc/select_host.cu     argmax with hashed tie-break
   resolve_commit  csrc/resolve_commit.cu  chunk deferral, cumulative fit, commit
   conflict_pairs  csrc/conflict_pairs.cu  chunk-mate conflict table, per batch
+  node_filters    csrc/node_filters.cu    NodeAffinity + TaintToleration filter bits, per batch
+  spread_filter   csrc/spread_eval.cu     PodTopologySpread's filter, per chunk, before eval_chunk
+  late_scores     csrc/spread_eval.cu     NodeAffinity, TaintToleration and spread scores over the
+                                          final feasible set, per chunk, after ipa_eval
 
 Each wrapper checks its inputs and launches its kernel on the current CUDA
 stream for tensors on a CUDA device, or runs the plain version
@@ -23,16 +27,23 @@ from dataclasses import dataclass, field
 import torch
 
 from ..framework.config import LEAST_ALLOCATED, MOST_ALLOCATED
+from ..ops.helpers import log_table
 from . import build, plain
 
-# Filter codes of eval_chunk (2 bits each, packed in fail-bit order).
-_FILTER_CODES = {"NodeUnschedulable": 0, "NodeName": 1, "NodeResourcesFit": 2}
+# Filter codes of eval_chunk (2 bits each, packed in fail-bit order).  Code
+# 3 reads a precomputed plane, chosen by a second 2-bit field (_EXT_SEL):
+# node_filters' bit 0 (NodeAffinity) or 1 (TaintToleration), or
+# spread_filter's mask (PodTopologySpread).
+_EXT_SEL = {name: i for i, name in enumerate(plain.EXT_FILTERS)}
+_FILTER_CODES = {"NodeUnschedulable": 0, "NodeName": 1, "NodeResourcesFit": 2, **dict.fromkeys(_EXT_SEL, 3)}
 _SCORERS = ("NodeResourcesFit", "NodeResourcesBalancedAllocation")
 _MAX_BALANCED = 8
 _MAX_CHUNK = 64
 # Shared memory an ipa_eval block may use for its per-pod tables (of the
 # H100's 227 KB a block can have).
 IPA_SMEM_CAP = 200 * 1024
+# The same for a spread_filter or late_scores block's domain tables.
+SPREAD_SMEM_CAP = 200 * 1024
 
 
 @dataclass
@@ -65,6 +76,33 @@ class IpaSpec:
     ctx: object  # ops.common.PassContext
     filters: tuple[str, ...]
     weight: int
+
+
+@dataclass(frozen=True)
+class LateSpec:
+    """What late_scores adds after the filters for one pass: the pass
+    context and the score weights of NodeAffinity, TaintToleration and
+    PodTopologySpread (0 for an op that does not score in this pass)."""
+
+    ctx: object  # ops.common.PassContext
+    na_weight: int
+    taint_weight: int
+    spread_weight: int
+
+
+def spread_smem_bytes(k: int, dv: int) -> int:
+    """Dynamic shared memory of one spread_filter or late_scores block with
+    ``k`` constraints: the (K, DV) count and presence tables and the
+    per-constraint scalars.  Raises NotImplementedError above
+    SPREAD_SMEM_CAP: such a pass needs the tables in device memory, which
+    these kernels do not do."""
+    nbytes = 8 * k + 8 * 4 + 4 * (2 * k * dv + 3 * k + 1)
+    if nbytes > SPREAD_SMEM_CAP:
+        raise NotImplementedError(
+            f"spread_eval: {nbytes} bytes of per-pod domain tables exceed its shared-memory cap "
+            f"SPREAD_SMEM_CAP={SPREAD_SMEM_CAP} ({k} constraints, DV={dv})"
+        )
+    return nbytes
 
 
 def ipa_smem_bytes(ra: int, rs: int, pf: int, tk: int, dv: int) -> int:
@@ -103,9 +141,10 @@ def _eval_config(spec: EvalSpec, device: torch.device) -> dict:
     bal = static.get("balanced_cols", ())
     if len(bal) > _MAX_BALANCED:
         raise NotImplementedError(f"eval_chunk kernel: more than {_MAX_BALANCED} balanced resources")
-    codes = 0
+    codes = ext_sel = 0
     for b, name in enumerate(spec.filters):
         codes |= _FILTER_CODES[name] << (2 * b)
+        ext_sel |= _EXT_SEL.get(name, 0) << (2 * b)
     return {
         "R": r,
         "fit_ignored": ignored.to(device),
@@ -121,7 +160,10 @@ def _eval_config(spec: EvalSpec, device: torch.device) -> dict:
         "score_bal": int("NodeResourcesBalancedAllocation" in weights),
         "bal_weight": int(weights.get("NodeResourcesBalancedAllocation", 0)),
         "filter_codes": codes,
+        "ext_sel": ext_sel,
         "n_filters": len(spec.filters),
+        "node_bits": any(n in (plain.NA, plain.TT) for n in spec.filters),
+        "spread": plain.PTS in spec.filters,
     }
 
 
@@ -179,12 +221,15 @@ def build_dom(state, et_slot, dv: int):
     return group_dom, et_dom
 
 
-def eval_chunk(state, pf: dict, spec: EvalSpec, nom):
+def eval_chunk(state, pf: dict, spec: EvalSpec, nom, ext=None):
     """Filters + weighted score of one chunk: (feasible (C, N) bool,
     total (C, N) i64, fail_mask (C,) i32).  ``nom`` is the nominated-pod
-    overlay (nom_req, nom_cnt, nom_prio) or None."""
+    overlay (nom_req, nom_cnt, nom_prio) or None; ``ext`` is (node_bits
+    (C, N) u8, spread_ok (C, N) bool), the precomputed planes of
+    NodeAffinity, TaintToleration and PodTopologySpread (either None when
+    no active filter reads it)."""
     if _on_cpu(state.valid):
-        return plain.eval_chunk(state, pf, spec, nom)
+        return plain.eval_chunk(state, pf, spec, nom, ext)
     dev = state.valid.device
     cfg = spec.device_config(dev)
     n = state.valid.shape[0]
@@ -232,6 +277,13 @@ def eval_chunk(state, pf: dict, spec: EvalSpec, nom):
         if t is None and needed[key]:
             raise ValueError(f"eval_chunk: pod feature {key!r} missing")
         feats.append(None if t is None else _check(key, t, dtype, shape, dev))
+    node_bits, spread_ok = ext if ext is not None else (None, None)
+    planes = []
+    for name, t, dtype, want in (("node_bits", node_bits, torch.uint8, cfg["node_bits"]),
+                                 ("spread_ok", spread_ok, b, cfg["spread"])):
+        if want and t is None:
+            raise ValueError(f"eval_chunk: plane {name!r} missing")
+        planes.append(_check(name, t, dtype, (c, n), dev) if want else None)
     feasible = torch.empty((c, n), dtype=b, device=dev)
     total = torch.empty((c, n), dtype=i64, device=dev)
     fail = torch.zeros(c, dtype=i32, device=dev)
@@ -239,11 +291,12 @@ def eval_chunk(state, pf: dict, spec: EvalSpec, nom):
         "eval_chunk",
         *[_ptr(a) for a in args],
         *[_ptr(a) for a in feats],
+        *[_ptr(a) for a in planes],
         _ptr(cfg["fit_ignored"]),
         _ptr(cfg["strat_cols"]), cfg["n_strat"], cfg["most_allocated"],
         _ptr(cfg["bal_cols"]), cfg["n_bal"],
         cfg["score_fit"], cfg["fit_weight"], cfg["score_bal"], cfg["bal_weight"],
-        cfg["filter_codes"], cfg["n_filters"], c, n, r,
+        cfg["filter_codes"], cfg["n_filters"], cfg["ext_sel"], c, n, r,
         _ptr(feasible), _ptr(total), _ptr(fail), _stream(dev),
     )
     eval_chunk.launches += 1
@@ -306,26 +359,32 @@ def ipa_eval(state, pf: dict, feasible, total, fail, ipa: IpaSpec):
 
 def conflict_pairs(pf: dict, nchunks: int, c: int):
     """(nchunks, C, C) bool chunk-mate conflict table of a batch whose pods
-    carry inter-pod-affinity features."""
+    carry inter-pod-affinity or topology-spread features (or both)."""
     if _on_cpu(pf["valid"]):
         return plain.conflict_pairs(pf, nchunks, c)
     dev = pf["valid"].device
     k = nchunks * c
-    g = pf["ipa_ra_allmask"].shape[1]
-    rs = pf["ipa_rs_groups"].shape[1]
-    et = pf["ipa_et_match"].shape[1]
-    a = pf["ipa_own_terms"].shape[1]
-    args = [
-        _check("group", pf["group"], torch.int32, (k,), dev),
-        _check("ipa_ra_allmask", pf["ipa_ra_allmask"], torch.bool, (k, g), dev),
-        _check("ipa_rs_groups", pf["ipa_rs_groups"], torch.bool, (k, rs, g), dev),
-        _check("ipa_et_match", pf["ipa_et_match"], torch.bool, (k, et), dev),
-        _check("ipa_et_anti", pf["ipa_et_anti"], torch.bool, (k, et), dev),
-        _check("ipa_own_terms", pf["ipa_own_terms"], torch.int32, (k, a), dev),
-    ]
+    ipa, spread = "ipa_ra_allmask" in pf, "tps_h_groups" in pf
+    if not (ipa or spread):
+        raise ValueError("conflict_pairs: the batch carries no affinity or spread features")
+    g = pf["ipa_ra_allmask"].shape[1] if ipa else pf["tps_h_groups"].shape[2]
+    rs = pf["ipa_rs_groups"].shape[1] if ipa else 0
+    et = pf["ipa_et_match"].shape[1] if ipa else 0
+    a = pf["ipa_own_terms"].shape[1] if ipa else 0
+    ch = pf["tps_h_groups"].shape[1] if spread else 0
+    args = [_check("group", pf["group"], torch.int32, (k,), dev)]
+    for key, dtype, shape, on in (
+        ("ipa_ra_allmask", torch.bool, (k, g), ipa),
+        ("ipa_rs_groups", torch.bool, (k, rs, g), ipa),
+        ("ipa_et_match", torch.bool, (k, et), ipa),
+        ("ipa_et_anti", torch.bool, (k, et), ipa),
+        ("ipa_own_terms", torch.int32, (k, a), ipa),
+        ("tps_h_groups", torch.bool, (k, ch, g), spread),
+    ):
+        args.append(_check(key, pf[key], dtype, shape, dev) if on else None)
     pairs = torch.empty((nchunks, c, c), dtype=torch.bool, device=dev)
     build.launch(
-        "conflict_pairs", *[_ptr(x) for x in args], nchunks, c, g, rs, et, a, _ptr(pairs),
+        "conflict_pairs", *[_ptr(x) for x in args], nchunks, c, g, rs, et, a, ch, _ptr(pairs),
         _stream(dev),
     )
     conflict_pairs.launches += 1
@@ -407,6 +466,165 @@ def resolve_commit(state, dom, pf: dict, picks, pairs, strict: bool):
     return out
 
 
+def _program(pf: dict, prefix: str, c: int, dev, weight: bool = False) -> tuple[list, tuple]:
+    """A NodeAffinity requirement program's tensors, checked: (op, key,
+    vals, int, term_valid or weight) and its (T, Q, V)."""
+    t_, q_, v_ = pf[f"{prefix}_vals"].shape[1:]
+    last = ("weight", torch.int64) if weight else ("term_valid", torch.bool)
+    out = [
+        _check(f"{prefix}_op", pf[f"{prefix}_op"], torch.int32, (c, t_, q_), dev),
+        _check(f"{prefix}_key", pf[f"{prefix}_key"], torch.int32, (c, t_, q_), dev),
+        _check(f"{prefix}_vals", pf[f"{prefix}_vals"], torch.int32, (c, t_, q_, v_), dev),
+        _check(f"{prefix}_int", pf[f"{prefix}_int"], torch.int64, (c, t_, q_), dev),
+        _check(f"{prefix}_{last[0]}", pf[f"{prefix}_{last[0]}"], last[1], (c, t_), dev),
+    ]
+    return out, (t_, q_, v_)
+
+
+def _label_args(state, dev) -> list:
+    n, ls = state.label_key_ids.shape
+    return [
+        _check("label_key_ids", state.label_key_ids, torch.int32, (n, ls), dev),
+        _check("label_pair_ids", state.label_pair_ids, torch.int32, (n, ls), dev),
+        _check("label_int_vals", state.label_int_vals, torch.int64, (n, ls), dev),
+        _check("name_id", state.name_id, torch.int32, (n,), dev),
+        _check("taint_ids", state.taint_ids, torch.int32, (n, state.taint_ids.shape[1]), dev),
+    ]
+
+
+def node_filters(state, pf: dict, ctx):
+    """(K, N) u8 per-batch node filter bits of a batch's K pods: bit 0
+    NodeAffinity's filter (with ``ctx.profile``'s added affinity), bit 1
+    TaintToleration's; a bit whose features the batch lacks is 1."""
+    if _on_cpu(state.valid):
+        return plain.node_filters(state, pf, ctx)
+    dev = state.valid.device
+    k, n = pf["valid"].shape[0], state.valid.shape[0]
+    ls, ts = state.label_key_ids.shape[1], state.taint_ids.shape[1]
+    do_na = "na_sel_pairs" in pf
+    do_add = do_na and ctx.profile.added_affinity is not None
+    do_taint = "taint_intol_hard" in pf
+    none5 = [None] * 5
+    sel, has_req, req, req_dims = None, None, none5, (1, 1, 1)
+    has_add, add, add_dims = None, none5, (1, 1, 1)
+    s = 1
+    if do_na:
+        s = pf["na_sel_pairs"].shape[1]
+        sel = _check("na_sel_pairs", pf["na_sel_pairs"], torch.int32, (k, s), dev)
+        has_req = _check("na_has_required", pf["na_has_required"], torch.bool, (k,), dev)
+        req, req_dims = _program(pf, "na_req", k, dev)
+    if do_add:
+        has_add = _check("na_has_added", pf["na_has_added"], torch.bool, (k,), dev)
+        add, add_dims = _program(pf, "na_add", k, dev)
+    tv = pf["taint_intol_hard"].shape[1] if do_taint else 1
+    intol = _check("taint_intol_hard", pf["taint_intol_hard"], torch.bool, (k, tv), dev) if do_taint else None
+    out = torch.empty((k, n), dtype=torch.uint8, device=dev)
+    build.launch(
+        "node_filters",
+        *[_ptr(a) for a in _label_args(state, dev)],
+        _ptr(sel), _ptr(has_req), *[_ptr(a) for a in req],
+        _ptr(has_add), *[_ptr(a) for a in add],
+        _ptr(intol), _ptr(out),
+        n, ls, ts, k, s, *req_dims, *add_dims, tv, int(do_na), int(do_add), int(do_taint),
+        _stream(dev),
+    )
+    node_filters.launches += 1
+    return out
+
+
+_SPREAD_FEATURES = (
+    ("valid", torch.bool), ("slot", torch.int32), ("skew", torch.int32),
+    ("mindom", torch.int32), ("self", torch.bool), ("hostname", torch.bool),
+    ("aff", torch.bool), ("taint", torch.bool),
+)
+
+
+def _spread_args(state, pf: dict, prefix: str, c: int, dev) -> tuple[list, int]:
+    """A chunk's spread constraint features and the group masks, checked."""
+    k = pf[f"{prefix}_valid"].shape[1]
+    g = state.group_counts.shape[0]
+    out = [_check(f"{prefix}_{f}", pf[f"{prefix}_{f}"], dtype, (c, k), dev) for f, dtype in _SPREAD_FEATURES]
+    out.append(_check(f"{prefix}_groups", pf[f"{prefix}_groups"], torch.bool, (c, k, g), dev))
+    return out, k
+
+
+def spread_filter(state, pf: dict, node_bits, ctx):
+    """(C, N) bool: PodTopologySpread's filter for one chunk, the inclusion
+    policies read from the chunk's node_filters bits (C, N)."""
+    if _on_cpu(state.valid):
+        return plain.spread_filter(state, pf, node_bits, ctx)
+    dev = state.valid.device
+    n, tk = state.topo_vals.shape
+    g = state.group_counts.shape[0]
+    dv = ctx.schema.DV
+    c = pf["valid"].shape[0]
+    feats, ch = _spread_args(state, pf, "tps_h", c, dev)
+    smem = spread_smem_bytes(ch, dv)
+    node = [
+        _check("topo_vals", state.topo_vals, torch.int32, (n, tk), dev),
+        _check("valid", state.valid, torch.bool, (n,), dev),
+        _check("group_counts", state.group_counts, torch.int32, (g, n), dev),
+        _check("node_bits", node_bits, torch.uint8, (c, n), dev),
+    ]
+    glist = torch.empty((c, ch, g), dtype=torch.int32, device=dev)
+    out = torch.empty((c, n), dtype=torch.bool, device=dev)
+    build.launch(
+        "spread_filter", *[_ptr(a) for a in node], *[_ptr(a) for a in feats], _ptr(glist), _ptr(out),
+        c, n, tk, dv, g, ch, smem, _stream(dev),
+    )
+    spread_filter.launches += 1
+    return out
+
+
+def late_scores(state, pf: dict, feasible, total, node_bits, late: LateSpec):
+    """Adds NodeAffinity's, TaintToleration's and PodTopologySpread's
+    weighted scores, normalized over the final ``feasible`` (C, N), into
+    ``total`` (C, N) i64 IN PLACE (0 stays on infeasible nodes); spread's
+    inclusion policies read the node_filters bits.  Returns ``total``."""
+    if _on_cpu(feasible):
+        return plain.late_scores(state, pf, feasible, total, node_bits, late)
+    dev = feasible.device
+    c, n = feasible.shape
+    tk = state.topo_vals.shape[1]
+    g = state.group_counts.shape[0]
+    ls, ts = state.label_key_ids.shape[1], state.taint_ids.shape[1]
+    dv = late.ctx.schema.DV
+    _check("feasible", feasible, torch.bool, (c, n), dev)
+    _check("total", total, torch.int64, (c, n), dev)
+    node = _label_args(state, dev) + [
+        _check("topo_vals", state.topo_vals, torch.int32, (n, tk), dev),
+        _check("valid", state.valid, torch.bool, (n,), dev),
+        _check("group_counts", state.group_counts, torch.int32, (g, n), dev),
+    ]
+    pref, dims = [None] * 5, (1, 1, 1)
+    if late.na_weight:
+        pref, dims = _program(pf, "na_pref", c, dev, weight=True)
+    tv = 1
+    intol = None
+    if late.taint_weight:
+        tv = pf["taint_intol_pref"].shape[1]
+        intol = _check("taint_intol_pref", pf["taint_intol_pref"], torch.bool, (c, tv), dev)
+    soft, cs = [None] * 9, 0
+    table, nb = None, None
+    if late.spread_weight:
+        soft, cs = _spread_args(state, pf, "tps_s", c, dev)
+        table = log_table(max(n, dv), dev)
+        nb = _check("node_bits", node_bits, torch.uint8, (c, n), dev)
+    smem = spread_smem_bytes(cs, dv)
+    glist = torch.empty((c, max(cs, 1), g), dtype=torch.int32, device=dev)
+    raw = torch.empty((3, c, n), dtype=torch.int64, device=dev)
+    build.launch(
+        "late_scores",
+        *[_ptr(a) for a in node], _ptr(nb), _ptr(feasible), _ptr(total),
+        *[_ptr(a) for a in pref], _ptr(intol), *[_ptr(a) for a in soft], _ptr(table),
+        _ptr(glist), _ptr(raw),
+        c, n, ls, ts, tk, dv, g, *dims, tv, cs, max(n, dv) + 1,
+        int(late.na_weight), int(late.taint_weight), int(late.spread_weight), smem, _stream(dev),
+    )
+    late_scores.launches += 1
+    return total
+
+
 WRAPPERS = {
     "build_dom": build_dom,
     "eval_chunk": eval_chunk,
@@ -414,6 +632,9 @@ WRAPPERS = {
     "select_host": select_host,
     "resolve_commit": resolve_commit,
     "conflict_pairs": conflict_pairs,
+    "node_filters": node_filters,
+    "spread_filter": spread_filter,
+    "late_scores": late_scores,
 }
 for _fn in WRAPPERS.values():
     _fn.launches = 0

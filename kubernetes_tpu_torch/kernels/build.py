@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, keyed by a hash of the sources and
 flags, under ``kernels/_build/`` (listed in .gitignore), then loaded with
 ctypes.  Builds of several sources run as parallel ``nvcc`` processes.
-There is no fallback: a missing compiler, a failed build or a failed load
-raises.
+A library exports one ``<entry>_launch`` per entry point (``spread_eval``
+has two) and one ``<name>_error_string``.  There is no fallback: a missing
+compiler, a failed build or a failed load raises.
 """
 
 from __future__ import annotations
@@ -18,7 +19,13 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-KERNELS = ("build_dom", "eval_chunk", "ipa_eval", "select_host", "resolve_commit", "conflict_pairs")
+KERNELS = (
+    "build_dom", "eval_chunk", "ipa_eval", "select_host", "resolve_commit", "conflict_pairs",
+    "node_filters", "spread_eval",
+)
+# Entry point → the library (source) that holds it.
+ENTRIES = {name: name for name in KERNELS if name != "spread_eval"}
+ENTRIES.update(spread_filter="spread_eval", late_scores="spread_eval")
 
 _SRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
@@ -34,11 +41,14 @@ _P, _I, _L, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
 # never truncates them to 32 bits).
 _SIGNATURES: dict[str, list] = {
     "build_dom": [_P] * 4 + [_I] * 5 + [_P, _P, _P],
-    "eval_chunk": [_P] * 18 + [_P, _I, _I, _P, _I, _I, _L, _I, _L, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "eval_chunk": [_P] * 20 + [_P, _I, _I, _P, _I, _I, _L, _I, _L, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "ipa_eval": [_I] * 10 + [_L] + [_P] * 30 + [_I, _P],
     "select_host": [_P, _P, _P, _U, _P, _I, _I, _P, _P, _P, _P],
     "resolve_commit": [_P, _P, _P, _I] + [_P] * 15 + [_I] * 6 + [_P, _P],
-    "conflict_pairs": [_P] * 6 + [_I] * 6 + [_P, _P],
+    "conflict_pairs": [_P] * 7 + [_I] * 7 + [_P, _P],
+    "node_filters": [_P] * 20 + [_I] * 15 + [_P],
+    "spread_filter": [_P] * 15 + [_I] * 7 + [_P],
+    "late_scores": [_P] * 29 + [_I] * 13 + [_L] * 3 + [_I, _P],
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -99,14 +109,16 @@ def build(names=KERNELS) -> dict[str, str]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of one kernel, built on first use."""
+    """The loaded library of one kernel source, built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
         build((name,))
         lib = ctypes.CDLL(str(_target(name)))
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
+        for entry, src in ENTRIES.items():
+            if src == name:
+                fn = getattr(lib, f"{entry}_launch")
+                fn.argtypes = _SIGNATURES[entry]
+                fn.restype = ctypes.c_int
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
@@ -114,10 +126,11 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(name: str, *args) -> None:
-    """Call one kernel's launcher; raise on a non-zero cudaGetLastError()."""
+def launch(entry: str, *args) -> None:
+    """Call one entry point's launcher; raise on a non-zero cudaGetLastError()."""
+    name = ENTRIES[entry]
     lib = library(name)
-    rc = getattr(lib, f"{name}_launch")(*args)
+    rc = getattr(lib, f"{entry}_launch")(*args)
     if rc != 0:
         msg = getattr(lib, f"{name}_error_string")(rc).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc} ({msg})")

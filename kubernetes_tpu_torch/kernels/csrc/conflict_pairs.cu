@@ -1,20 +1,24 @@
 // conflict_pairs: the chunk-mate conflict table of a whole batch.
 //
-// Replaces the inter-pod-affinity branch of kubernetes_tpu/engine/pass_.py
-// _conflict_pairs (:266-306), evaluated per scan step by the JAX pass:
+// Replaces the inter-pod-affinity and topology-spread branches of
+// kubernetes_tpu/engine/pass_.py _conflict_pairs (:266-306), evaluated per
+// scan step by the JAX pass:
 //   pairs[b, i, j] = reads_g[j, group[i]] or (exists a: hard_t[j, own[i, a]])
 // for pods i != j of chunk b, where reads_g = ipa_ra_allmask or
 // any(ipa_rs_groups) (the groups pod j's required (anti-)affinity reads)
-// and hard_t = ipa_et_match and ipa_et_anti (the existing anti-affinity
-// terms pod j matches).  The JAX pass builds these with einsums of one-hot
-// matrices; here each entry is a handful of gathers.
+// or any(tps_h_groups) (the groups pod j's DoNotSchedule spread
+// constraints count), and hard_t = ipa_et_match and ipa_et_anti (the
+// existing anti-affinity terms pod j matches).  The affinity pointers are
+// null for a spread-only batch, the spread pointer for an affinity-only
+// one.  The JAX pass builds these with einsums of one-hot matrices; here
+// each entry is a handful of gathers.
 //
 // One thread per (chunk, i, j): nchunks * C * C threads, one launch per
 // batch (features do not change between chunks).
 //
-// Bound: bytes.  It reads, per pair, one mask byte per group read and two
-// term bytes per own term of i, and writes one byte; the group and own-term
-// ids are read once per pod.
+// Bound: bytes.  It reads, per pair, one mask byte per group read (RS +
+// CH + 1 of them) and two term bytes per own term of i, and writes one
+// byte; the group and own-term ids are read once per pod.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -27,7 +31,8 @@ __global__ void conflict_pairs_kernel(const int* __restrict__ group,            
                                       const unsigned char* __restrict__ et_match,    // (K, ET)
                                       const unsigned char* __restrict__ et_anti,     // (K, ET)
                                       const int* __restrict__ own,                   // (K, A)
-                                      int nchunks, int C, int G, int RS, int ET, int A,
+                                      const unsigned char* __restrict__ tps_groups,  // (K, CH, G)
+                                      int nchunks, int C, int G, int RS, int ET, int A, int CH,
                                       unsigned char* __restrict__ pairs) {  // (nchunks, C, C)
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long total = (long long)nchunks * C * C;
@@ -41,8 +46,9 @@ __global__ void conflict_pairs_kernel(const int* __restrict__ group,            
     const size_t pj = (size_t)b * C + j;
     int g = group[pi];
     g = g < 0 ? 0 : (g >= G ? G - 1 : g);
-    p = ra_allmask[pj * G + g] != 0;
+    if (ra_allmask != nullptr) p = ra_allmask[pj * G + g] != 0;
     for (int t = 0; !p && t < RS; ++t) p = rs_groups[(pj * RS + t) * G + g] != 0;
+    for (int t = 0; !p && t < CH; ++t) p = tps_groups[(pj * CH + t) * G + g] != 0;
     for (int q = 0; !p && q < A; ++q) {
       const int e = own[pi * A + q];
       if (e >= 0 && e < ET) p = et_match[pj * ET + e] && et_anti[pj * ET + e];
@@ -55,9 +61,9 @@ __global__ void conflict_pairs_kernel(const int* __restrict__ group,            
 
 extern "C" int conflict_pairs_launch(const void* group, const void* ra_allmask,
                                      const void* rs_groups, const void* et_match,
-                                     const void* et_anti, const void* own, int nchunks,
-                                     int C, int G, int RS, int ET, int A, void* pairs,
-                                     void* stream) {
+                                     const void* et_anti, const void* own,
+                                     const void* tps_groups, int nchunks, int C, int G, int RS,
+                                     int ET, int A, int CH, void* pairs, void* stream) {
   const long long total = (long long)nchunks * C * C;
   const int threads = 256;
   const long long blocks = (total + threads - 1) / threads;
@@ -66,8 +72,9 @@ extern "C" int conflict_pairs_launch(const void* group, const void* ra_allmask,
   conflict_pairs_kernel<<<(unsigned int)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(group), static_cast<const unsigned char*>(ra_allmask),
       static_cast<const unsigned char*>(rs_groups), static_cast<const unsigned char*>(et_match),
-      static_cast<const unsigned char*>(et_anti), static_cast<const int*>(own), nchunks, C, G,
-      RS, ET, A, static_cast<unsigned char*>(pairs));
+      static_cast<const unsigned char*>(et_anti), static_cast<const int*>(own),
+      static_cast<const unsigned char*>(tps_groups), nchunks, C, G, RS, ET, A, CH,
+      static_cast<unsigned char*>(pairs));
   return (int)cudaGetLastError();
 }
 

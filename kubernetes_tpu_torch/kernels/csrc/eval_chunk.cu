@@ -6,7 +6,11 @@
 // NodeResourcesFit's filter and score (ops/noderesources.py:58,142, with
 // the LeastAllocated / MostAllocated scorers :110-125) and
 // NodeResourcesBalancedAllocation (:163).  RequestedToCapacityRatio is
-// refused by the Python wrapper before launch.
+// refused by the Python wrapper before launch.  NodeAffinity,
+// TaintToleration and PodTopologySpread take filter code 3: their results
+// are precomputed planes (node_filters' bits 0 and 1 per batch,
+// spread_filter's mask per chunk) that this kernel reads at the op's place
+// in the filter order, so fail bits stay in profile order.
 //
 // One thread per (pod, node).  Filters run in profile order from
 // state.valid; a filter's fail bit is set only for nodes that passed every
@@ -32,6 +36,7 @@ namespace {
 constexpr int kUnschedulable = 0;
 constexpr int kNodeName = 1;
 constexpr int kFit = 2;
+constexpr int kExt = 3;  // precomputed plane, chosen by ext_sel
 constexpr int kMaxBalanced = 8;
 
 struct EvalArgs {
@@ -55,6 +60,9 @@ struct EvalArgs {
   const long long* pod_nonzero;          // (C, 2)
   const int* priority;                   // (C,)
   const int* nominated_row;              // (C,)
+  // Precomputed filter planes (null when no filter reads them).
+  const unsigned char* node_bits;        // (C, N): bit 0 NodeAffinity, bit 1 TaintToleration
+  const unsigned char* spread_ok;        // (C, N): PodTopologySpread
   // Static profile config.
   const unsigned char* fit_ignored;  // (R,)
   const long long* strat_cols;       // (S, 3): kind, col, weight
@@ -68,6 +76,7 @@ struct EvalArgs {
   long long bal_weight;
   int filter_codes;  // 2 bits per filter, in fail-bit order
   int n_filters;
+  int ext_sel;       // 2 bits per kExt filter: 0, 1 node_bits' bit; 2 spread_ok
   int C, N, R;
   // Outputs.
   unsigned char* feasible;  // (C, N)
@@ -187,8 +196,12 @@ __global__ void eval_chunk_kernel(EvalArgs a) {
       } else if (code == kNodeName) {
         const int want = a.nodename_id[c];
         ok = want == -1 || a.name_id[n] == want;
-      } else {
+      } else if (code == kFit) {
         ok = fit_filter(a, c, n);
+      } else {
+        const int sel = (a.ext_sel >> (2 * b)) & 3;
+        const size_t o = (size_t)c * a.N + n;
+        ok = sel == 2 ? a.spread_ok[o] != 0 : ((a.node_bits[o] >> sel) & 1) != 0;
       }
       if (feas && !ok) bits |= 1u << b;
       feas = feas && ok;
@@ -214,11 +227,12 @@ extern "C" int eval_chunk_launch(
     const void* req, const void* nonzero_req, const void* nom_req,
     const void* nom_cnt, const void* nom_prio, const void* nodename_id,
     const void* tol_unsched, const void* pod_req, const void* pod_nonzero,
-    const void* priority, const void* nominated_row, const void* fit_ignored,
+    const void* priority, const void* nominated_row, const void* node_bits,
+    const void* spread_ok, const void* fit_ignored,
     const void* strat_cols, int n_strat, int most_allocated,
     const void* bal_cols, int n_bal, int score_fit, long long fit_weight,
     int score_bal, long long bal_weight, int filter_codes, int n_filters,
-    int C, int N, int R, void* feasible, void* total, void* fail_mask,
+    int ext_sel, int C, int N, int R, void* feasible, void* total, void* fail_mask,
     void* stream) {
   if (n_bal > kMaxBalanced) return (int)cudaErrorInvalidValue;
   EvalArgs a;
@@ -239,6 +253,8 @@ extern "C" int eval_chunk_launch(
   a.pod_nonzero = static_cast<const long long*>(pod_nonzero);
   a.priority = static_cast<const int*>(priority);
   a.nominated_row = static_cast<const int*>(nominated_row);
+  a.node_bits = static_cast<const unsigned char*>(node_bits);
+  a.spread_ok = static_cast<const unsigned char*>(spread_ok);
   a.fit_ignored = static_cast<const unsigned char*>(fit_ignored);
   a.strat_cols = static_cast<const long long*>(strat_cols);
   a.n_strat = n_strat;
@@ -251,6 +267,7 @@ extern "C" int eval_chunk_launch(
   a.bal_weight = bal_weight;
   a.filter_codes = filter_codes;
   a.n_filters = n_filters;
+  a.ext_sel = ext_sel;
   a.C = C;
   a.N = N;
   a.R = R;

@@ -14,9 +14,19 @@ import torch
 
 from ..ops import common as opcommon
 from ..ops import interpodaffinity as ipa_op
+from ..ops import nodeaffinity as na_op
+from ..ops import podtopologyspread as spread_op
+from ..ops import tainttoleration as taint_op
 from ..ops.helpers import make_topo_onehot
 
 IPA = "InterPodAffinity"
+NA, TT, PTS = "NodeAffinity", "TaintToleration", "PodTopologySpread"
+# Filters eval_chunk reads from a precomputed plane instead of evaluating:
+# NodeAffinity and TaintToleration from node_filters' bits 0 and 1,
+# PodTopologySpread from spread_filter's mask.
+EXT_FILTERS = (NA, TT, PTS)
+# Pods per block of the plain node_filters (bounds its temporaries).
+_NODE_FILTER_BLOCK = 256
 
 _MASK32 = 0xFFFFFFFF
 NEG_SCORE = -(2**62)
@@ -37,9 +47,23 @@ def build_dom(state, et_slot, dv: int):
     return group_dom.contiguous(), et_dom
 
 
-def eval_chunk(state, pf: dict, spec, nom):
+def ext_filter(name: str, ext) -> torch.Tensor:
+    """(C, N) bool result of an EXT_FILTERS op from its plane: ``ext`` is
+    (node_bits (C, N) u8, spread_ok (C, N) bool), either may be None when
+    no filter reads it."""
+    node_bits, spread_ok = ext if ext is not None else (None, None)
+    plane = spread_ok if name == PTS else node_bits
+    if plane is None:
+        raise ValueError(f"eval_chunk: {name} needs its precomputed plane")
+    if name == PTS:
+        return plane.to(torch.bool)
+    return (plane & (1 if name == NA else 2)) != 0
+
+
+def eval_chunk(state, pf: dict, spec, nom, ext=None):
     """(feasible (C, N) bool, total (C, N) i64, fail_mask (C,) i32) of one
     chunk — eval_pod's filter chain and weighted score sum (pass_.py:494-539).
+    The EXT_FILTERS ops' results come from ``ext`` (see ext_filter).
     ``total`` is 0 on infeasible nodes (select_host never reads it there)."""
     ctx = dataclasses.replace(spec.ctx, nom=nom)
     c = pf["req"].shape[0]
@@ -47,7 +71,10 @@ def eval_chunk(state, pf: dict, spec, nom):
     feasible = state.valid[None, :].expand(c, n).clone()
     fail = torch.zeros(c, dtype=torch.int32, device=feasible.device)
     for bit, name in enumerate(spec.filters):
-        ok = opcommon.get(name).filter(state, pf, ctx)
+        if name in EXT_FILTERS:
+            ok = ext_filter(name, ext)
+        else:
+            ok = opcommon.get(name).filter(state, pf, ctx)
         newly = feasible & ~ok
         fail = fail | torch.where(newly.any(dim=1), 1 << bit, 0).to(torch.int32)
         feasible = feasible & ok
@@ -92,28 +119,85 @@ def ipa_eval(state, pf: dict, feasible, total, fail, ipa):
 
 
 def conflict_pairs(pf: dict, nchunks: int, c: int):
-    """(nchunks, C, C) bool — _conflict_pairs' affinity terms
-    (pass_.py:287-306) with gathers in place of the one-hot einsums:
-    pairs[i, j] = reads_g[j, group[i]] ∨ ∃a hard_t[j, own[i, a]], where
-    reads_g = ipa_ra_allmask ∨ any(ipa_rs_groups) and hard_t = ipa_et_match
-    ∧ ipa_et_anti, over the pods of one chunk, diagonal cleared."""
+    """(nchunks, C, C) bool — _conflict_pairs' hard reads (pass_.py:266-306)
+    with gathers in place of the one-hot einsums: pairs[i, j] =
+    reads_g[j, group[i]] ∨ ∃a hard_t[j, own[i, a]], where reads_g is
+    InterPodAffinity's ipa_ra_allmask ∨ any(ipa_rs_groups) and spread's
+    any(tps_h_groups) (whichever the batch carries) and hard_t =
+    ipa_et_match ∧ ipa_et_anti, over the pods of one chunk, diagonal
+    cleared."""
     dev = pf["valid"].device
-    g = pf["ipa_ra_allmask"].shape[1]
-    reads = (pf["ipa_ra_allmask"] | pf["ipa_rs_groups"].any(dim=1)).view(nchunks, c, g)
+    reads = None
+    if "ipa_ra_allmask" in pf:
+        reads = pf["ipa_ra_allmask"] | pf["ipa_rs_groups"].any(dim=1)
+    if "tps_h_groups" in pf:
+        spread = pf["tps_h_groups"].any(dim=1)
+        reads = spread if reads is None else reads | spread
+    g = reads.shape[1]
+    reads = reads.view(nchunks, c, g)
     group = pf["group"].to(torch.int64).clamp(0, g - 1).view(nchunks, 1, c).expand(-1, c, -1)
     # reads.gather(...)[b, j, i] = reads[b, j, group[b, i]]
     pairs = reads.gather(2, group).transpose(1, 2)
-    hard = (pf["ipa_et_match"] & pf["ipa_et_anti"]).view(nchunks, c, -1)
-    et = hard.shape[2]
-    own = pf["ipa_own_terms"].to(torch.int64)
-    own = own.view(nchunks, c, own.shape[1])
-    for a in range(own.shape[2]):
-        ids = own[:, :, a]
-        idx = ids.clamp(0, et - 1)[:, None, :].expand(-1, c, -1)
-        hit = hard.gather(2, idx).transpose(1, 2) & ((ids >= 0) & (ids < et))[:, :, None]
-        pairs = pairs | hit
+    if "ipa_et_match" in pf:
+        hard = (pf["ipa_et_match"] & pf["ipa_et_anti"]).view(nchunks, c, -1)
+        et = hard.shape[2]
+        own = pf["ipa_own_terms"].to(torch.int64)
+        own = own.view(nchunks, c, own.shape[1])
+        for a in range(own.shape[2]):
+            ids = own[:, :, a]
+            idx = ids.clamp(0, et - 1)[:, None, :].expand(-1, c, -1)
+            hit = hard.gather(2, idx).transpose(1, 2) & ((ids >= 0) & (ids < et))[:, :, None]
+            pairs = pairs | hit
     eye = torch.eye(c, dtype=torch.bool, device=dev)
     return (pairs & ~eye).contiguous()
+
+
+def node_filters(state, pf: dict, ctx):
+    """(K, N) u8 per-batch node filters: bit 0 NodeAffinity's filter
+    (nodeaffinity.py:285, with the profile's added affinity), bit 1
+    TaintToleration's (tainttoleration.py:52); a bit whose features the
+    batch does not carry is 1.  They read only node state no commit
+    changes, so one evaluation serves every chunk of the batch."""
+    k, n = pf["valid"].shape[0], state.valid.shape[0]
+    out = torch.empty((k, n), dtype=torch.uint8, device=state.valid.device)
+    for lo in range(0, k, _NODE_FILTER_BLOCK):
+        sub = {key: v[lo : lo + _NODE_FILTER_BLOCK] for key, v in pf.items()}
+        m = sub["valid"].shape[0]
+        na = na_op.filter_fn(state, sub, ctx) if "na_sel_pairs" in sub else torch.ones(
+            (m, n), dtype=torch.bool, device=out.device)
+        tt = taint_op.filter_fn(state, sub, ctx) if "taint_intol_hard" in sub else torch.ones(
+            (m, n), dtype=torch.bool, device=out.device)
+        out[lo : lo + m] = na.to(torch.uint8) | (tt.to(torch.uint8) << 1)
+    return out
+
+
+def _node_oks(node_bits):
+    return (node_bits & 1) != 0, (node_bits & 2) != 0
+
+
+def spread_filter(state, pf: dict, node_bits, ctx):
+    """(C, N) bool: PodTopologySpread's filter (podtopologyspread.py:219)
+    for one chunk, its inclusion policies read from the chunk's
+    node_filters bits."""
+    return spread_op.filter_fn(state, pf, ctx, *_node_oks(node_bits))
+
+
+def late_scores(state, pf: dict, feasible, total, node_bits, late):
+    """The scores that normalize over the final feasible set, added IN
+    PLACE into ``total`` with their weights: NodeAffinity's
+    (nodeaffinity.py:307), TaintToleration's reversed (tainttoleration.py:56)
+    and PodTopologySpread's (podtopologyspread.py:261, inclusion policies
+    from the node_filters bits); ``total`` stays 0 on infeasible nodes.
+    Returns ``total``."""
+    ctx = late.ctx
+    if late.na_weight:
+        total += na_op.score_fn(state, pf, ctx, feasible) * late.na_weight
+    if late.taint_weight:
+        total += taint_op.score_fn(state, pf, ctx, feasible) * late.taint_weight
+    if late.spread_weight:
+        total += spread_op.score_fn(state, pf, ctx, feasible, *_node_oks(node_bits)) * late.spread_weight
+    total.masked_fill_(~feasible, 0)
+    return total
 
 
 def hash_u32(x: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,7 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 from ..framework.config import Profile
+from ..framework.features import DEFAULT_GATES, FeatureGates
 from ..snapshot import Schema, SnapshotBuilder
 
 
@@ -44,6 +45,11 @@ class FeaturizeContext:
     @property
     def schema(self) -> Schema:
         return self.builder.schema
+
+    @property
+    def gates(self) -> FeatureGates:
+        """Feature gates set on the SnapshotBuilder, or the defaults."""
+        return self.builder.feature_gates or DEFAULT_GATES
 
 
 @dataclass(frozen=True)

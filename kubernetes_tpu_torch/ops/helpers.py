@@ -1,9 +1,32 @@
-"""Shared tensor helpers of the ops (counterpart of ``kubernetes_tpu/ops/helpers.py``;
-the domain-table and normalization helpers come with the affinity slices)."""
+"""Shared tensor helpers of the ops (counterpart of ``kubernetes_tpu/ops/helpers.py``).
+
+The JAX helpers work on one pod (vmapped over the batch); these take the
+chunk axis C first.  ``domain_tables`` sums into the domain axis with a
+scatter-add instead of the JAX version's one-hot product: the values are
+integer counts, exact in f32 below 2^24 in any order.
+"""
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+from ..framework.config import MAX_NODE_SCORE
+
+
+def default_normalize_score(raw: torch.Tensor, feasible: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """DefaultNormalizeScore (plugins/helper/normalize_score.go, helpers.py:10)
+    per pod: rescale (C, N) raw scores by each pod's max over its feasible
+    nodes to [0, MaxNodeScore] with int64 floor division; with ``reverse``
+    higher raw scores map to lower results.  A max of 0 gives MaxNodeScore
+    everywhere when reversed, 0 otherwise."""
+    raw = raw.to(torch.int64)
+    max_count = torch.where(feasible, raw, 0).max(dim=1, keepdim=True).values
+    scaled = torch.div(raw * MAX_NODE_SCORE, max_count.clamp(min=1), rounding_mode="floor")
+    if reverse:
+        return torch.where(max_count == 0, MAX_NODE_SCORE, MAX_NODE_SCORE - scaled)
+    return torch.where(max_count == 0, 0, scaled)
 
 
 def make_topo_onehot(topo_vals: torch.Tensor, dv: int) -> torch.Tensor:
@@ -14,3 +37,44 @@ def make_topo_onehot(topo_vals: torch.Tensor, dv: int) -> torch.Tensor:
     return (
         (topo_vals[:, :, None] == vals[None, None, :]) & (topo_vals >= 0)[:, :, None]
     ).to(torch.float32)
+
+
+def domain_tables(state, slots: torch.Tensor, counts: torch.Tensor, dv: int):
+    """Per-term domain sums (helpers.py:40) for a chunk.
+
+    ``slots`` (C, T) topology-key slot per term; ``counts`` (C, T, N) f32.
+    Returns (vals (C, T, N), key_present, masked, tbl (C, T, DV)) with
+    ``tbl[c, t, d] = Σ_n masked[c, t, n]·[vals[c, t, n] == d]``; values
+    outside [0, DV) (missing keys, hostname values) add nowhere."""
+    vals = state.topo_vals.T[slots.to(torch.int64)]  # (C, T, N)
+    key_present = vals >= 0
+    masked = torch.where(key_present, counts, 0.0)
+    inside = key_present & (vals < dv)
+    idx = torch.where(inside, vals, dv).to(torch.int64)
+    tbl = torch.zeros(vals.shape[:2] + (dv + 1,), dtype=counts.dtype, device=counts.device)
+    tbl.scatter_add_(2, idx, torch.where(inside, masked, 0.0))
+    return vals, key_present, masked, tbl[:, :, :dv]
+
+
+def gather_mask(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """table[c, ids] with -1-padded ids contributing False/0 (helpers.py:63).
+
+    ``table`` (C, V) per-pod vocabulary masks; ``ids`` (N, S) node slot ids.
+    Returns (C, N, S)."""
+    safe = ids.clamp(min=0).to(torch.int64)
+    got = table[:, safe]  # (C, N, S)
+    return torch.where(ids[None] >= 0, got, torch.zeros((), dtype=table.dtype, device=table.device))
+
+
+_LOG_TABLES: dict = {}
+
+
+def log_table(n: int, device) -> torch.Tensor:
+    """(n + 1,) f64: log(k + 2) for k = 0..n, from Python's math.log."""
+    key = (n, torch.device(device))
+    tab = _LOG_TABLES.get(key)
+    if tab is None:
+        tab = torch.tensor([math.log(k + 2.0) for k in range(n + 1)], dtype=torch.float64,
+                           device=device)
+        _LOG_TABLES[key] = tab
+    return tab

@@ -275,6 +275,9 @@ class SnapshotBuilder:
         self.res_col: dict[str, int] = {r: i for i, r in enumerate(FIXED_RESOURCES)}
         # Featurization cache (engine/features.py): version token → entries.
         self.feat_cache: tuple[tuple, dict] | None = None
+        # Feature gates the featurizers read (framework/features.py); None
+        # means the defaults.
+        self.feature_gates = None
 
     @property
     def _dirty_all(self) -> bool:

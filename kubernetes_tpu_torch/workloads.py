@@ -11,6 +11,20 @@ Even pods carry one of 1000 colours and a required zone anti-affinity to
 their own colour; odd pods carry one of 50 affinity colours and a required
 zone affinity to their own colour (the lonely-pod rule seats the first).
 Batch 4096, chunk 64, default profile.
+
+``spread_nodeaffinity_1kn_5kpods`` (harness.py:408-430, BASELINE config
+#2): 1000 such nodes over 3 zones; 1024 warm-up and 5000 measured pods of
+100m CPU and 256 MiB, labelled with one of 10 apps, each with a
+DoNotSchedule zone spread constraint of maxSkew 2 over its own app and a
+required node affinity to zones 0-2.  Batch 4096, chunk 64, default
+profile.
+
+``node_inclusion_policy_5kn`` (harness.py:1185-1219): 5000 nodes of 16
+CPU, 64 GiB and 110 pods over 10 zones, the odd ones tainted
+dedicated=gpu:NoSchedule; 1024 warm-up and 5000 measured pods of 100m CPU
+and 256 MiB, labelled with one of 10 apps, each with a DoNotSchedule zone
+spread constraint of maxSkew 1 over its own app that honours node taints.
+Batch 4096, chunk 64, default profile.
 """
 
 from __future__ import annotations
@@ -30,6 +44,20 @@ IPA_WARM_PODS = 1024
 IPA_MEASURED_PODS = 10000
 IPA_BATCH = 4096
 IPA_CHUNK = 64
+SPREAD_NODES = 1000
+SPREAD_ZONES = 3
+SPREAD_WARM_PODS = 1024
+SPREAD_MEASURED_PODS = 5000
+SPREAD_MAX_SKEW = 2
+
+INCLUSION_NODES = 5000
+INCLUSION_ZONES = 10
+INCLUSION_WARM_PODS = 1024
+INCLUSION_MEASURED_PODS = 5000
+INCLUSION_MAX_SKEW = 1
+# Both spread workloads run at the harness's batch and chunk.
+SPREAD_BATCH = 4096
+SPREAD_CHUNK = 64
 ZONE = "topology.kubernetes.io/zone"
 
 
@@ -84,3 +112,42 @@ def warm_pods(count: int = DENSITY_WARM_PODS, template=pod_basic) -> list[t.Pod]
         p.metadata.name = f"warm-{i}"
         out.append(p)
     return out
+
+
+def pod_spread_na(i: int, zones: int = SPREAD_ZONES) -> t.Pod:
+    """harness.py:_pod_spread_na (the zone list follows ``zones``)."""
+    return (
+        make_pod(f"pod-{i}")
+        .req({"cpu": "100m", "memory": "256Mi"})
+        .label("app", f"app-{i % 10}")
+        .spread_constraint(SPREAD_MAX_SKEW, ZONE, t.DO_NOT_SCHEDULE, "app", [f"app-{i % 10}"])
+        .node_affinity_in(ZONE, [f"zone-{z}" for z in range(zones)])
+        .obj()
+    )
+
+
+def inclusion_nodes(n: int = INCLUSION_NODES, zones: int = INCLUSION_ZONES) -> list[t.Node]:
+    """harness.py:_inclusion_nodes: the odd nodes carry an intolerable
+    dedicated=gpu:NoSchedule taint."""
+    out = []
+    for i in range(n):
+        w = make_node(f"node-{i}").capacity({"cpu": "16", "memory": "64Gi", "pods": 110}).zone(
+            f"zone-{i % zones}")
+        if i % 2:
+            w = w.taint("dedicated", "gpu", t.EFFECT_NO_SCHEDULE)
+        out.append(w.obj())
+    return out
+
+
+def pod_inclusion(i: int) -> t.Pod:
+    """harness.py:_pod_inclusion."""
+    return (
+        make_pod(f"pod-{i}")
+        .req({"cpu": "100m", "memory": "256Mi"})
+        .label("app", f"app-{i % 10}")
+        .spread_constraint(
+            INCLUSION_MAX_SKEW, ZONE, t.DO_NOT_SCHEDULE, "app", [f"app-{i % 10}"],
+            node_taints_policy=t.POLICY_HONOR,
+        )
+        .obj()
+    )

@@ -187,7 +187,7 @@ def test_crowded_node_defers_into_fused_tail():
 def test_unported_op_in_pass_raises():
     jb = JaxBuilder()
     with pytest.raises(NotImplementedError):
-        build_pass(TDEF, jb.schema, jb.res_col, frozenset({"NodeResourcesFit", "PodTopologySpread"}), 8)
+        build_pass(TDEF, jb.schema, jb.res_col, frozenset({"NodeResourcesFit", "NodePorts"}), 8)
     with pytest.raises(NotImplementedError):
         build_pass(dataclasses.replace(TDEF, percentage_of_nodes_to_score=50), jb.schema, jb.res_col)
 

@@ -31,6 +31,22 @@ Phases; any failure fails the run (nothing is caught):
        workload's pods: node_filters and conflict_pairs (a 4096-pod batch),
        spread_filter, eval_chunk with the precomputed planes, late_scores,
        select_host and resolve_commit;
+     - at the two preemption shapes (preemption_500n: N=512, 2000 bound
+       background pods under two PDBs, one with no disruption left, batch
+       512; preemption_async_5kn: N=8192, 5000 bound pods, batch 1024): the
+       victim pack through unpack_victims, then preempt_eval, preempt_pick
+       and preempt_commit on a chunk-1 dry-run, the uniform batch's rank
+       split, a mixed 64-pod chunk whose other-signature mates defer, and
+       the speculative mode; scatter_rows into fields of both node axes and
+       into the victim buffer, expand_rows of every feature (their library
+       yardsticks index_copy_ and repeat timed beside them); and the main
+       pass's eval_chunk, select_host and resolve_commit at the path's own
+       chunk (64 and 128), with a nominated-pod overlay and duplicate picks
+       on full and emptied rows;
+     - at the daemonset shapes (K=4096 pinned pods, N=16384): node_filters,
+       eval_chunk and late_scores in pinned mode (each pod on its own node,
+       pins that name no node, nominated pins, a preferred zone term),
+       pinned_fit with same-row overflow, and the strict resolve_commit;
   4. drive each main path through TorchScheduler, with the launch counts
      set to 0 just before and read just after; every pod must bind, the
      host mirror must equal the device state, no node may exceed its
@@ -45,9 +61,23 @@ Phases; any failure fails the run (nothing is caught):
      - node inclusion policy (5000 nodes in 10 zones, the odd ones tainted,
        1024 + 5000 pods): no pod on a tainted node, and per app the counts
        over the untainted zones differ by at most maxSkew 1;
-     pods/s, the idle share, deferrals, the pack width, the host-to-device
-     feature bytes and the data moves outside the hand kernels (dirty-row
-     index_copy_ flushes, uniform-batch expand copies) are printed;
+     - preemption_500n (500 nodes of 4 CPU, 2000 priority-1 pods, a
+       warm-up preemptor, then 500 preemptors of 2 CPU at priority 1000)
+       and preemption_async_5kn (5000 nodes, 20000 background pods of which
+       15000 stay unschedulable, then 1000 preemptors), fit-only profile,
+       the reference's 1 s backoff waited on the wall clock, each run
+       three times through the kernels: every preemptor binds, every
+       victim is a priority-1 background pod, and the plain run evicts the
+       same victims;
+     - daemonset_15kn (15000 nodes, 512 + 15000 pods each pinned to its
+       node by matchFields): every batch takes the pinned pass and every
+       pod lands on its node;
+     every run of a path must give the same outcome count and send the
+     same number of pods to backoff; pods/s, the idle share, deferrals,
+     preemptions, the backoff waited and the garbage collector's pauses in
+     each window, the pack width, the host-to-device feature bytes and the
+     data moves (scatter_rows and expand_rows launches; torch index_copy_
+     and expand calls, which must be 0) are printed;
   5. print the per-kernel JSON line (launches per path, and the numbers of
      every shape a kernel was measured at), the card line, and last the
      device line.
@@ -60,6 +90,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -184,7 +215,8 @@ def exact(errs: dict, name: str, what: str, a, b) -> None:
     if a.dtype != b.dtype or a.shape != b.shape:
         raise AssertionError(f"{name} {what}: {a.dtype}{tuple(a.shape)} vs {b.dtype}{tuple(b.shape)}")
     wide = torch.float64 if a.is_floating_point() else torch.int64
-    diff = (a.to(wide) - b.to(wide)).abs()
+    # Equal entries (infinite start times included) differ by 0.
+    diff = torch.where(a == b, 0, (a.to(wide) - b.to(wide)).abs())
     err = float(diff.max()) if diff.numel() else 0.0
     errs[name] = max(errs.get(name, 0.0), err)
     if err != 0:
@@ -1045,6 +1077,479 @@ def check_spread_kernels(dev, shape: str, reps: int) -> dict:
     return result
 
 
+# The preemption shapes: (nodes, background pods per node, background cpu,
+# memory, batch, PDBs, the main pass's chunk), from preemption_500n and
+# preemption_async_5kn.
+PREEMPT_SHAPES = {
+    "preemption_500n": (500, 4, "1", "2Gi", 512, True, 64),
+    "preemption_async_5kn": (5000, 1, "3900m", "15Gi", 1024, False, 128),
+}
+
+
+def preempt_inputs(shape: str, dev):
+    """A saturated cluster of the shape's nodes with bound priority-1
+    background pods (start times 0, 1, …; at the 500-node shape an eighth
+    labelled app=db under a PDB with no disruptions left and an eighth
+    app=web under one with three), its victim pack, and a batch of
+    preemptors: uniform 2 CPU / 4 GiB at priority 1000, then the same with
+    every third pod asking 3 CPU at priority 500 (two signatures)."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import workloads as w
+    from kubernetes_tpu_torch.api import types as t
+    from kubernetes_tpu_torch.api.wrappers import make_pod
+    from kubernetes_tpu_torch.engine.features import build_pod_batch
+    from kubernetes_tpu_torch.framework.config import fit_only_profile
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+
+    n_nodes, per, cpu, mem, k, pdbs, _chunk = PREEMPT_SHAPES[shape]
+    s = TorchScheduler(fit_only_profile(), batch_size=k, chunk_size=64, device=dev)
+    for node in w.preemption_nodes(n_nodes):
+        s.add_node(node)
+    for i in range(n_nodes * per):
+        p = make_pod(f"bg-{i}").req({"cpu": cpu, "memory": mem}).priority(1).start_time(float(i))
+        if pdbs and i % 8 in (0, 1):
+            p = p.label("app", "db" if i % 8 == 0 else "web")
+        s.add_pod(p.node(f"node-{i // per}").obj())
+    if pdbs:
+        for name, allowed in (("db", 0), ("web", 3)):
+            s.add_pdb(t.PodDisruptionBudget(
+                name=name, selector=t.LabelSelector(match_labels=(("app", name),)), disruptions_allowed=allowed))
+    uniform = [w.preemptor(f"u{i}") for i in range(k)]
+    mixed = [
+        make_pod(f"m{i}").req({"cpu": "3", "memory": "4Gi"}).priority(500).obj() if i % 3 == 1
+        else w.preemptor(f"m{i}")
+        for i in range(k)
+    ]
+    batches = {}
+    for label, pods in (("uniform", uniform), ("mixed", mixed)):
+        batch, _deltas, active = build_pod_batch(pods, s.builder, s.profile, k)
+        sigs, _ = s.preemption._sig_ids(pods, k)
+        tb = {key: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for key, v in batch.items()}
+        tb["sig"] = torch.from_numpy(sigs).to(dev)
+        batches[label] = (tb, active)
+    pack = s.preemption.pack_victims(s.profile, batches["uniform"][1])
+    return s, pack, batches
+
+
+def commit_bytes(schema, picks, c: int, pairs: bool = True) -> int:
+    """resolve_commit: the picked rows' alloc, req, nonzero_req, num_pods,
+    allowed_pods and topo_vals read and their req, nonzero_req and
+    num_pods written, one group_counts cell and TK group_dom cells per
+    distinct row read and written; the pods' picks, valid flags, requests
+    and groups (and the C x C pairs unless strict) read, the picks written."""
+    import torch
+
+    rows = int(torch.unique(picks[picks >= 0]).numel())
+    row_bytes = rows * (schema.R * 8 * 3 + 2 * 8 * 2 + 4 * 3 + schema.TK * 4)
+    cell_bytes = rows * (4 + schema.TK * 4) * 2
+    return row_bytes + cell_bytes + c * (4 + 1 + schema.R * 8 + 2 * 8 + 4) + (c * c if pairs else 0) + c * 4
+
+
+def check_main_at(dev, label: str, builder, state, pf_full: dict, active, profile, c: int,
+                  errs: dict, reps: int) -> dict:
+    """eval_chunk, select_host and resolve_commit against their plain
+    versions at a path's own chunk C and node count: the first C pods of
+    ``pf_full`` on ``state`` with every seventh node emptied (feasible
+    nodes with tied scores beside full ones), with and without a
+    nominated-pod overlay on a third of the emptied nodes (priority 700:
+    it binds the priority-500 pods and not the others) and nominated rows
+    on every fifth pod; resolve_commit strict and not, with duplicate picks
+    on full and emptied rows, pods picking nothing, invalid lanes and a
+    random conflict table.  Returns the three timings with their bounds."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.engine.pass_ import build_dom, eval_spec
+    from kubernetes_tpu_torch.kernels import plain
+
+    rng = np.random.default_rng(4321)
+    schema = builder.schema
+    n = state.valid.shape[0]
+    st = state.clone()
+    emptied = torch.arange(0, n, 7, device=dev)
+    st.req[emptied] = 0
+    st.nonzero_req[emptied] = 0
+    st.num_pods[emptied] = 0
+    pf = {key: v[:c].contiguous() for key, v in pf_full.items() if key != "sig"}
+    nomrow = torch.full((c,), -1, dtype=torch.int32, device=dev)
+    nomrow[::5] = emptied[: len(nomrow[::5])].to(torch.int32)
+    pf["nominated_row"] = nomrow
+    pf["valid"] = pf["valid"].clone()
+    pf["valid"][-3:] = False
+    claimed = emptied[::3]
+    nom_req = torch.zeros_like(st.req)
+    nom_req[claimed, 0] = 2000
+    nom_cnt = torch.zeros_like(st.num_pods)
+    nom_cnt[claimed] = 1
+    nom_prio = torch.full_like(st.num_pods, -(2**31))
+    nom_prio[claimed] = 700
+    nom = (nom_req, nom_cnt, nom_prio)
+    spec = eval_spec(profile, schema, builder.res_col, active)
+    seed_mul = ((profile.tie_break_seed & 0xFFFFFFFF) * 2654435761) & 0xFFFFFFFF
+    steps = torch.arange(c, dtype=torch.int64, device=dev) + 12345
+    for nom_in in (nom, None):
+        ke = kernels.eval_chunk(st, pf, spec, nom_in)
+        pe = plain.eval_chunk(st, pf, spec, nom_in)
+        torch.cuda.synchronize()
+        for what, a, b in zip(("feasible", "total", "fail_mask"), ke, pe):
+            exact(errs, "eval_chunk", f"[{label} C={c}] {what}", a, b)
+        nomr = nomrow if nom_in is not None else None
+        ks = kernels.select_host(ke[0], ke[1], steps, seed_mul, nomr)
+        ps = plain.select_host(pe[0], pe[1], steps, seed_mul, nomr)
+        torch.cuda.synchronize()
+        for what, a, b in zip(("pick", "best", "feasible_count"), ks, ps):
+            exact(errs, "select_host", f"[{label} C={c}] {what}", a, b)
+        print(f"eval_chunk/select_host [{label} C={c}, nominated overlay {nom_in is not None}]: exact; "
+              f"{int(pe[0].sum())} feasible (pod, node) pairs, {int((ps[2] == 0).sum())} pods feasible "
+              f"nowhere, {int((ps[0] == nomr).sum()) if nomr is not None else 0} on their nominated rows")
+    out = {
+        "eval_chunk": timed(lambda _: kernels.eval_chunk(st, pf, spec, nom),
+                            lambda _: plain.eval_chunk(st, pf, spec, nom), reps),
+        "select_host": timed(lambda _: kernels.select_host(ke[0], ke[1], steps, seed_mul, None),
+                             lambda _: plain.select_host(pe[0], pe[1], steps, seed_mul, None), reps),
+    }
+    set_bound(out["eval_chunk"], eval_bytes(st, pf, nom))
+    set_bound(out["select_host"], select_bytes(c, n))
+    full = torch.nonzero((st.alloc[:, 0] - st.req[:, 0] < 2000) & st.valid)[:4, 0]
+    rows = torch.cat([full, emptied[:4]]).cpu().numpy()
+    picks = torch.from_numpy(rng.choice(rows, c).astype(np.int32)).to(dev)
+    picks[::11] = -1
+    pairs = torch.from_numpy(rng.random((c, c)) < 0.02).to(dev)
+    et_slot0 = torch.zeros(schema.ET, dtype=torch.int32, device=dev)
+    dom0 = build_dom(st, et_slot0, torch.zeros(schema.ET, dtype=torch.bool, device=dev), schema.DV)
+    for strict in (False, True):
+        sk, dk = st.clone(), clone_dom(dom0)
+        sp, dp = st.clone(), clone_dom(dom0)
+        ok_ = kernels.resolve_commit(sk, dk, pf, picks, pairs, strict)
+        op_ = plain.resolve_commit(sp, dp, pf, picks, pairs, strict)
+        torch.cuda.synchronize()
+        exact(errs, "resolve_commit", f"[{label} C={c}] (strict={strict}) picks", ok_, op_)
+        exact(errs, "resolve_commit", f"[{label} C={c}] (strict={strict}) group_dom", dk.group_dom, dp.group_dom)
+        for f in ("req", "nonzero_req", "num_pods", "group_counts"):
+            exact(errs, "resolve_commit", f"[{label} C={c}] (strict={strict}) state.{f}",
+                  getattr(sk, f), getattr(sp, f))
+        print(f"resolve_commit [{label} C={c}] (strict={strict}): exact; {int((op_ == -2).sum())} deferred, "
+              f"{int((op_ >= 0).sum())} committed")
+    out["resolve_commit"] = timed(
+        lambda a: kernels.resolve_commit(a[0], a[1], pf, picks, pairs, False),
+        lambda a: plain.resolve_commit(a[0], a[1], pf, picks, pairs, False), reps,
+        lambda: (st.clone(), clone_dom(dom0)))
+    set_bound(out["resolve_commit"], commit_bytes(schema, picks, c))
+    return out
+
+
+def preempt_eval_bytes(state, vic, pf: dict, possible_mask) -> int:
+    """preempt_eval for one representative: each node's state row and its
+    victims' priorities read once; the requests, start times and PDB bits
+    of the slots below the preemptor's priority; the outputs written."""
+    import torch
+
+    n, v = vic.prio.shape
+    r, p = vic.req.shape[2], vic.pdb.shape[2]
+    i0 = int(torch.argmax(pf["valid"].to(torch.int32)))
+    lower = int((vic.prio < pf["priority"][i0]).sum())
+    node = n * (1 + 4 + 1 + 4 + 4 + 2 * r * 8) + n * v * 4
+    slots = lower * (r * 8 + 2 * 8 + 8 + p)
+    out = n * (1 + 5 * 8 + v + 4 + r * 8 + 2 * 8)
+    return node + slots + out + vic.allowed.numel() * 8
+
+
+def check_preempt_kernels(dev, shape: str, reps: int) -> dict:
+    """preempt_eval, preempt_pick, preempt_commit, unpack_victims,
+    scatter_rows and expand_rows against their plain versions at one
+    preemption shape: the chunk-1 dry-run of one preemptor, the rank split
+    of the uniform batch (the workloads' mode), a mixed chunk of 64 that
+    defers its other-signature mates, and the speculative mode (valid =
+    eligible and the main pass's pick < 0)."""
+    import math
+
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import PreemptSpec, plain
+
+    s, pack, batches = preempt_inputs(shape, dev)
+    state = s.builder.state()
+    vic = pack["vic"]
+    spec = PreemptSpec(check_unsched=True, check_nodename=True, bits_mask=0)
+    errs: dict[str, float] = {}
+    result = {}
+    k = s.batch_size
+    tb, _active = batches["uniform"]
+    valid = torch.ones(k, dtype=torch.bool, device=dev)
+    spec_picks = torch.where(torch.arange(k, device=dev) % 5 == 0, 7, -1).to(torch.int32)
+    modes = {
+        "chunk1": ({**{key: v[:1] for key, v in tb.items()}, "valid": valid[:1]}, False),
+        "rank split": ({**tb, "valid": valid}, True),
+        "mixed chunk": ({**{key: v[:64] for key, v in batches["mixed"][0].items()},
+                         "valid": valid[:64]}, True),
+        "speculative": ({**tb, "elig": valid, "spec_picks": spec_picks}, True),
+    }
+    timed_in = None
+    for label, (pf, chunk_mode) in modes.items():
+        ek = kernels.preempt_eval(state, vic, pf, spec)
+        ep = plain.preempt_eval(state, vic, pf, spec)
+        torch.cuda.synchronize()
+        for what, a, b in zip(("possible", "crit", "vic_mask", "n_vic", "rel", "relnz"), ek, ep):
+            exact(errs, "preempt_eval", f"[{shape} {label}] {what}", a, b)
+        pk = kernels.preempt_pick(ek[0], ek[1], pf, chunk_mode)
+        pp = plain.preempt_pick(ep[0], ep[1], pf, chunk_mode)
+        torch.cuda.synchronize()
+        exact(errs, "preempt_pick", f"[{shape} {label}] picks", pk, pp)
+        carry_k = (state.req.clone(), state.nonzero_req.clone(), state.num_pods.clone())
+        carry_p = tuple(x.clone() for x in carry_k)
+        prio_k, prio_p = vic.prio.clone(), vic.prio.clone()
+        mk = kernels.preempt_commit(carry_k, prio_k, ek, pk)
+        mp = plain.preempt_commit(carry_p, prio_p, ep, pp)
+        torch.cuda.synchronize()
+        for what, a, b in (("vic_mask", mk[0], mp[0]), ("n_victims", mk[1], mp[1]), ("req", carry_k[0], carry_p[0]),
+                           ("nonzero_req", carry_k[1], carry_p[1]), ("num_pods", carry_k[2], carry_p[2]),
+                           ("vic_prio", prio_k, prio_p)):
+            exact(errs, "preempt_commit", f"[{shape} {label}] {what}", a, b)
+        print(f"preempt [{shape} {label}]: exact; {int(ep[0].sum())} possible nodes, "
+              f"{int((pp >= 0).sum())} picks, {int((pp == -2).sum())} deferred, "
+              f"{int(mp[1].sum())} victims")
+        if label == "rank split":
+            timed_in = (pf, ek, ep, pk, pp)
+    # The main pass's kernels at the path's own chunk and node count.
+    _nodes, _per, _cpu, _mem, _k, _pdbs, chunk = PREEMPT_SHAPES[shape]
+    result.update(check_main_at(dev, shape, s.builder, state, batches["mixed"][0], batches["mixed"][1],
+                                s.profile, chunk, errs, reps))
+    pf, ek, ep, pk, pp = timed_in
+    result["preempt_eval"] = timed(lambda _: kernels.preempt_eval(state, vic, pf, spec),
+                                   lambda _: plain.preempt_eval(state, vic, pf, spec), reps)
+    set_bound(result["preempt_eval"], preempt_eval_bytes(state, vic, pf, ep[0]))
+    result["preempt_pick"] = timed(lambda _: kernels.preempt_pick(ek[0], ek[1], pf, True),
+                                   lambda _: plain.preempt_pick(ep[0], ep[1], pf, True), reps)
+    n = state.valid.shape[0]
+    n_pos = int(ep[0].sum())
+    # The least work of a rank: one comparison sort of the possible nodes'
+    # five keys, n log2 n key comparisons.
+    set_bound(result["preempt_pick"], n * (1 + 5 * 8) + k * (1 + 4 + 4),
+              5 * n_pos * max(1, math.ceil(math.log2(max(n_pos, 2)))))
+    carries = lambda: ((state.req.clone(), state.nonzero_req.clone(), state.num_pods.clone()),  # noqa: E731
+                       vic.prio.clone())
+    result["preempt_commit"] = timed(lambda a: kernels.preempt_commit(a[0], a[1], ek, pk),
+                                     lambda a: plain.preempt_commit(a[0], a[1], ep, pp), reps, carries)
+    rows = int((pp >= 0).sum())
+    r, v = state.req.shape[1], vic.prio.shape[1]
+    set_bound(result["preempt_commit"], k * (4 + v + 4) + rows * (2 * (r + 2) * 8 + r * 8 + 2 * 8 + 4 + 2 * 4 + v * (1 + 4)))
+    # unpack_victims on the staged buffer of the pack.
+    layout = pack["layout"]
+    d_buf = torch.from_numpy(pack["buf"]).to(dev)
+    inline = "allowed" not in layout
+    args = (layout["r"], layout["n_pdbs"], layout["pdb_words"], layout["v"], inline)
+    uk = kernels.unpack_victims(d_buf, *args)
+    up = plain.unpack_victims(d_buf, *args)
+    torch.cuda.synchronize()
+    for what, a, b in zip(("prio", "req", "nonzero", "start", "pdb", "allowed"), uk, up):
+        if a is not None:
+            exact(errs, "unpack_victims", f"[{shape}] {what}", a, b)
+    result["unpack_victims"] = timed(lambda _: kernels.unpack_victims(d_buf, *args),
+                                     lambda _: plain.unpack_victims(d_buf, *args), reps)
+    set_bound(result["unpack_victims"], nbytes(d_buf) + nbytes(*(x for x in up if x is not None)))
+    # scatter_rows: a handful of dirty node rows into state fields of both
+    # node axes and into the device victim buffer.
+    g = torch.Generator(device="cpu").manual_seed(7)
+    idx = torch.randperm(n, generator=g)[:24].to(dev)
+    cases = {
+        "req": (state.req, 0), "num_pods": (state.num_pods, 0),
+        "group_counts": (state.group_counts, 1), "victim buffer": (d_buf, 0),
+    }
+    for what, (dst, axis) in cases.items():
+        src = dst[idx].clone() + 1 if axis == 0 else dst[:, idx].clone() + 1
+        a, b = dst.clone(), dst.clone()
+        kernels.scatter_rows(a, axis, idx, src)
+        plain.scatter_rows(b, axis, idx, src)
+        torch.cuda.synchronize()
+        exact(errs, "scatter_rows", f"[{shape}] {what}", a, b)
+    sub = d_buf[idx].clone()
+    result["scatter_rows"] = timed(lambda _: kernels.scatter_rows(d_buf, 0, idx, sub),
+                                   lambda _: plain.scatter_rows(d_buf, 0, idx, sub), reps)
+    result["scatter_rows"]["library_ms"] = median_ms(lambda _: d_buf.index_copy_(0, idx, sub), reps)[0]
+    set_bound(result["scatter_rows"], 2 * nbytes(sub) + nbytes(idx))
+    # expand_rows: the uniform batch's feature rows.
+    for key, feat in tb.items():
+        if key in ("valid", "sig"):
+            continue
+        row = feat[:1].contiguous()
+        exact(errs, "expand_rows", f"[{shape}] {key}", kernels.expand_rows(row, k), plain.expand_rows(row, k))
+    row = tb["req"][:1].contiguous()
+    result["expand_rows"] = timed(lambda _: kernels.expand_rows(row, k), lambda _: plain.expand_rows(row, k), reps)
+    result["expand_rows"]["library_ms"] = median_ms(lambda _: row.repeat(k, 1), reps)[0]
+    set_bound(result["expand_rows"], nbytes(row) * (k + 1))
+    torch.cuda.synchronize()
+    for name in result:
+        result[name]["max_abs_err"] = errs[name]
+        result[name].setdefault("library_ms", None)
+    return result
+
+
+def pinned_inputs(dev):
+    """The daemonset_15kn shapes: 15000 nodes (16384 rows) with the 512
+    warm-up daemon pods bound, and a 4096-pod batch pinned by matchFields
+    node affinity — mostly one pod per node, every 64th pod asking 9 CPU on
+    node-3 (the second and later of them overflow it), every 97th pinned to
+    a node that does not exist, every 50th with a preferred zone term —
+    with its pins, nominations (every 9th pod nominated to its pin, under
+    a nominated-pod overlay on those rows) and features on the card."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import workloads as w
+    from kubernetes_tpu_torch.api.wrappers import make_pod
+    from kubernetes_tpu_torch.engine.features import build_pod_batch
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+
+    k = w.DAEMONSET_BATCH
+    s = TorchScheduler(DEFAULT_PROFILE, batch_size=k, chunk_size=w.DAEMONSET_CHUNK, device=dev)
+    for node in w.basic_nodes(w.DAEMONSET_NODES):
+        s.add_node(node)
+    for i in range(w.DAEMONSET_WARM_PODS):
+        s.add_pod(make_pod(f"warm-{i}").req({"cpu": "100m", "memory": "128Mi"}).node(f"node-{i}").obj())
+    pods, names = [], []
+    for i in range(k):
+        node = (i * 7) % w.DAEMONSET_NODES
+        if i % 97 == 5:
+            node = 10**6
+        if i % 64 == 3:
+            pod = make_pod(f"heavy-{i}").req({"cpu": "9", "memory": "1Gi"}).node_name_affinity("node-3").obj()
+            node = 3
+        elif i % 50 == 7:
+            pod = (make_pod(f"pref-{i}").req({"cpu": "100m", "memory": "128Mi"}).node_name_affinity(f"node-{node}")
+                   .preferred_node_affinity_in(ZONE, ["zone-1"], 40).obj())
+        else:
+            pod = w.daemon_pod(f"ds-{i}", node)
+        pods.append(pod)
+        names.append(f"node-{node}")
+    batch, _deltas, active = build_pod_batch(pods, s.builder, s.profile, k)
+    rows = np.array([s.cache.nodes[nm].row if nm in s.cache.nodes else -1 for nm in names], np.int32)
+    nomrow = np.where(np.arange(k) % 9 == 4, rows, -1).astype(np.int32)
+    tb = {key: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for key, v in batch.items()}
+    tb["nominated_row"] = torch.from_numpy(np.where(nomrow == rows, np.maximum(rows, 0), -1).astype(np.int32)).to(dev)
+    state = s.builder.state()
+    schema = s.builder.schema
+    nom_req = torch.zeros((schema.N, schema.R), dtype=torch.int64, device=dev)
+    nom_cnt = torch.zeros(schema.N, dtype=torch.int32, device=dev)
+    nom_prio = torch.full((schema.N,), -(2**31), dtype=torch.int32, device=dev)
+    claimed = torch.from_numpy(np.maximum(rows[nomrow >= 0], 0).astype(np.int64)).to(dev)
+    nom_req[claimed, 0] = 100
+    nom_cnt[claimed] = 1
+    nom_prio[claimed] = 0
+    pin = torch.from_numpy(np.maximum(rows, 0)).to(dev)
+    return s, state, tb, active, (nom_req, nom_cnt, nom_prio), pin, torch.from_numpy(rows).to(dev)
+
+
+def check_pinned_kernels(dev, reps: int) -> dict:
+    """The pinned-batch pass's kernels against their plain versions at the
+    daemonset_15kn shapes (K=4096, N=16384): node_filters over the batch,
+    eval_chunk and late_scores in pinned mode (also on a feasible set with
+    holes), pinned_fit, and the strict resolve_commit of the pinned picks
+    over each 1024-lane slice; returns their timings and bounds."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.engine.pass_ import DomTables, eval_spec, late_spec
+    from kubernetes_tpu_torch.kernels import plain
+
+    s, state, tb, active, nom, pin, rows = pinned_inputs(dev)
+    schema = s.builder.schema
+    spec = eval_spec(s.profile, schema, s.builder.res_col, active)
+    late = late_spec(s.profile, schema, s.builder.res_col, active)
+    errs: dict[str, float] = {}
+    k, n = pin.shape[0], state.valid.shape[0]
+    kb = kernels.node_filters(state, tb, spec.ctx)
+    pb = plain.node_filters(state, tb, spec.ctx)
+    torch.cuda.synchronize()
+    exact(errs, "node_filters", "[daemonset]", kb, pb)
+    ke = kernels.eval_chunk(state, tb, spec, nom, (pb, None), pin)
+    pe = plain.eval_chunk(state, tb, spec, nom, (pb, None), pin)
+    torch.cuda.synchronize()
+    for what, a, b in zip(("feasible", "total", "fail_mask"), ke, pe):
+        exact(errs, "eval_chunk", f"[daemonset pinned] {what}", a, b)
+    rng = np.random.default_rng(5)
+    holes = pe[0] & torch.from_numpy(rng.random((k, 1)) < 0.7).to(dev)
+    for what, feas in (("pinned", pe[0]), ("pinned with holes", holes)):
+        base = torch.where(feas, pe[1], 0)
+        kt = kernels.late_scores(state, tb, feas, base.clone(), pb, late, pin)
+        pt = plain.late_scores(state, tb, feas, base.clone(), pb, late, pin)
+        torch.cuda.synchronize()
+        exact(errs, "late_scores", f"[daemonset {what}]", kt, pt)
+    own = pe[0][:, 0].contiguous()
+    kf = kernels.pinned_fit(own, rows, tb["valid"], tb["req"], state)
+    pf_ = plain.pinned_fit(own, rows, tb["valid"], tb["req"], state)
+    torch.cuda.synchronize()
+    for what, a, b in zip(("picks", "feasible"), kf, pf_):
+        exact(errs, "pinned_fit", f"[daemonset] {what}", a, b)
+    picks = pf_[0]
+    tk = state.topo_vals.shape[1]
+    dom0 = DomTables(torch.zeros((schema.G, tk, schema.DV), dtype=torch.float32, device=dev),
+                     torch.zeros((schema.ET, schema.DV), dtype=torch.float32, device=dev),
+                     torch.zeros(schema.ET, dtype=torch.int32, device=dev),
+                     torch.zeros(schema.ET, dtype=torch.bool, device=dev))
+    c = kernels.MAX_CHUNK
+    sk, dk, sp, dp = state.clone(), clone_dom(dom0), state.clone(), clone_dom(dom0)
+    for lo in range(0, k, c):
+        sub = {key: v[lo:lo + c] for key, v in tb.items()}
+        ok_ = kernels.resolve_commit(sk, dk, sub, picks[lo:lo + c], None, True)
+        op_ = plain.resolve_commit(sp, dp, sub, picks[lo:lo + c], None, True)
+        torch.cuda.synchronize()
+        exact(errs, "resolve_commit", f"[daemonset lanes {lo}+] (strict) picks", ok_, op_)
+    for f in ("req", "nonzero_req", "num_pods", "group_counts"):
+        exact(errs, "resolve_commit", f"[daemonset] (strict) state.{f}", getattr(sk, f), getattr(sp, f))
+    print(f"pinned [daemonset K={k} N={n}]: exact; {int(own.sum())} pods feasible on their pins, "
+          f"{int((picks >= 0).sum())} placed, {int((picks == -2).sum())} deferred, "
+          f"{int((rows < 0).sum())} pinned to no node, fail masks {sorted(set(pe[2].tolist()))}, "
+          f"NodeAffinity weight {late.na_weight if late else 0}, taint weight {late.taint_weight if late else 0}")
+    sub0 = {key: v[:c] for key, v in tb.items()}
+    result = {
+        "node_filters": timed(lambda _: kernels.node_filters(state, tb, spec.ctx),
+                              lambda _: plain.node_filters(state, tb, spec.ctx), reps),
+        "eval_chunk": timed(lambda _: kernels.eval_chunk(state, tb, spec, nom, (pb, None), pin),
+                            lambda _: plain.eval_chunk(state, tb, spec, nom, (pb, None), pin), reps),
+        "late_scores": timed(lambda a: kernels.late_scores(state, tb, pe[0], a, pb, late, pin),
+                             lambda a: plain.late_scores(state, tb, pe[0], a, pb, late, pin), reps,
+                             lambda: pe[1].clone()),
+        "pinned_fit": timed(lambda _: kernels.pinned_fit(own, rows, tb["valid"], tb["req"], state),
+                            lambda _: plain.pinned_fit(own, rows, tb["valid"], tb["req"], state), reps),
+        "resolve_commit": timed(lambda a: kernels.resolve_commit(a[0], a[1], sub0, picks[:c], None, True),
+                                lambda a: plain.resolve_commit(a[0], a[1], sub0, picks[:c], None, True), reps,
+                                lambda: (state.clone(), clone_dom(dom0))),
+    }
+    # Bounds: each pod's own node row, not the whole node axis.
+    r = schema.R
+    node_row = 1 + 4 + 1 + 4 + 4 + 3 * r * 8 + 2 * 8 + (r * 8 + 4 + 4) + 1  # state, overlay, bits
+    pod_feats = nbytes(*(tb[key] for key in ("nodename_id", "tolerates_unschedulable", "req", "nonzero",
+                                             "priority", "nominated_row"))) + k * 4
+    set_bound(result["node_filters"], nf_bytes(state, tb, spec.ctx))
+    set_bound(result["eval_chunk"], k * node_row + pod_feats + k * (1 + 8 + 4))
+    # late_scores: the feasible flag and total of each pod; NodeAffinity's
+    # weights, and the label slots of its own node and its program only
+    # for a pod with a preferred term of non-zero weight; taint slots of
+    # its own node only for a pod with an intolerable PreferNoSchedule taint.
+    late_b = k * (1 + 2 * 8)
+    if late.na_weight:
+        prefd = (tb["na_pref_weight"] != 0).any(dim=1)
+        late_b += nbytes(tb["na_pref_weight"]) + int(prefd.sum()) * (state.label_key_ids.shape[1] * 16 + 4)
+        if bool(prefd.any()):
+            late_b += program_bytes(tb, "na_pref", prefd, ("op", "key", "vals", "int"))
+    if late.taint_weight:
+        intol = tb["taint_intol_pref"]
+        late_b += nbytes(intol) + int(intol.any(dim=1).sum()) * state.taint_ids.shape[1] * 4
+    set_bound(result["late_scores"], late_b)
+    placed_rows = int(torch.unique(rows[rows >= 0]).numel())
+    set_bound(result["pinned_fit"], k * (1 + 4 + 1 + r * 8) + placed_rows * (2 * r * 8 + 2 * 4) + k * 8, k * r)
+    set_bound(result["resolve_commit"], commit_bytes(schema, picks[:c], c, pairs=False))
+    for name in result:
+        result[name]["max_abs_err"] = errs[name]
+    return result
+
+
 def spread_bytes(state, pf: dict, prefix: str) -> int:
     """spread_filter's (and the spread part of late_scores') reads for this
     chunk's data: the constraints' valid flags; and only where a constraint
@@ -1171,79 +1676,134 @@ def spread_gates(outcomes, n_nodes: int, zones: int, max_skew: int, tainted) -> 
             raise AssertionError(f"{app}: zone counts {per_zone} differ by more than {max_skew}")
 
 
-def run_workload(impl: str, nodes, warm, measured, batch: int, chunk: int, trace: bool = False):
+def run_workload(impl: str, nodes, warm, measured, batch: int, chunk: int, trace: bool = False,
+                 profile=None, stages=(), preempt: bool = False):
     """One burst through TorchScheduler: the nodes, the warm-up pods
-    (scheduled first), then the measured pods, timed.  With ``trace``, the
-    measured window also records host spans (featurize, the host-to-device
-    copies of the batch features, the rest of dispatch, the result fetch
-    that waits for the device, the rest of completion) and a
-    torch.profiler trace of the card's kernels."""
+    (scheduled first, then each of ``stages`` in turn), then the measured
+    pods, timed.  ``preempt`` runs the fit-only profile with the
+    reference's 1 s doubling backoff on the wall clock and waits through
+    it (``wait_backoff``).  With ``trace``, the measured window also
+    records host spans (featurize, the host-to-device copies of the batch
+    features, the result fetch that waits for the device, and the rest of
+    each schedule_batch call) and a torch.profiler trace of the card's
+    kernels.  Data moves are counted over the whole run: torch's
+    index_copy_ and expand calls (there should be none) beside the
+    scatter_rows and expand_rows launches that replace them."""
     import torch
 
+    from kubernetes_tpu_torch import kernels
     from kubernetes_tpu_torch import scheduler as sched_mod
-    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch import workloads as w
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE, fit_only_profile
+    from kubernetes_tpu_torch.queue import SchedulingQueue
 
-    from kubernetes_tpu_torch.snapshot import _NODE_AXIS
-
-    s = sched_mod.TorchScheduler(DEFAULT_PROFILE, batch_size=batch, chunk_size=chunk, _impl=impl)
-    # Data movement outside the hand kernels, counted over the whole run:
-    # the dirty-row flush (one index_copy_ per node-axis field) and the
-    # uniform batch's broadcast (one expand copy per feature).
+    kw = {}
+    if preempt:
+        profile = fit_only_profile()
+        kw["queue"] = SchedulingQueue(backoff=True)
+    s = sched_mod.TorchScheduler(profile or DEFAULT_PROFILE, batch_size=batch, chunk_size=chunk,
+                                 _impl=impl, **kw)
     moves = {"index_copy_": 0, "expand": 0}
-    orig_state, orig_expand = s.builder.state, sched_mod._expand_uniform
+    orig_ic, orig_ex = torch.Tensor.index_copy_, torch.Tensor.expand
 
-    def state():
-        b = s.builder
-        if not (b._dirty_all or b._device is None) and b._dirty_rows:
-            moves["index_copy_"] += len(_NODE_AXIS)
-        return orig_state()
+    def index_copy_(self, *a, **k):
+        moves["index_copy_"] += 1
+        return orig_ic(self, *a, **k)
 
-    def expand(small, k):
-        moves["expand"] += len(small)
-        return orig_expand(small, k)
+    def expand(self, *a, **k):
+        moves["expand"] += 1
+        return orig_ex(self, *a, **k)
 
-    s.builder.state, sched_mod._expand_uniform = state, expand
-    for node in nodes:
-        s.add_node(node)
-    for pod in warm:
-        s.add_pod(pod)
-    out = s.schedule_all_pending()
-    torch.cuda.synchronize()
-    for pod in measured:
-        s.add_pod(pod)
-    spans = {"featurize": 0.0, "h2d": 0.0, "dispatch": 0.0, "fetch": 0.0, "complete": 0.0}
-    h2d_bytes = [0]
-    prof = None
-    orig_featurize = sched_mod.build_pod_batch
-    if trace:
-        def span(name, fn):
-            def wrapped(*a, **k):
-                t = time.perf_counter()
-                try:
-                    return fn(*a, **k)
-                finally:
-                    spans[name] += time.perf_counter() - t
-            return wrapped
+    launches0 = kernels.launch_counts()
+    torch.Tensor.index_copy_, torch.Tensor.expand = index_copy_, expand
+    try:
+        for node in nodes:
+            s.add_node(node)
+        for pod in warm:
+            s.add_pod(pod)
+        out = s.schedule_all_pending(wait_backoff=preempt)
+        for stage in stages:
+            for pod in stage:
+                s.add_pod(pod)
+            out += s.schedule_all_pending(wait_backoff=preempt)
+        torch.cuda.synchronize()
+        for pod in measured:
+            s.add_pod(pod)
+        spans = {"featurize": 0.0, "h2d": 0.0, "batch": 0.0, "fetch": 0.0}
+        h2d_bytes = [0]
+        # The window's wall-clock waits: backoff slept through, pods sent
+        # to the backoff queue, and the garbage collector's pauses.
+        window = {"backoff_s": 0.0, "sleeps": 0, "to_backoff": 0, "gc_s": 0.0, "gc_runs": 0, "gc_full": 0,
+                  "gc_before_s": 0.0}
+        orig_sleep, orig_add_backoff = s.queue.sleep_until_backoff, s.queue.add_backoff
 
-        def to_device(batch_np):
-            h2d_bytes[0] += sum(getattr(v, "nbytes", 0) for v in batch_np.values())
-            return orig_to_device(batch_np)
+        def sleep_until_backoff():
+            t = time.perf_counter()
+            try:
+                slept = orig_sleep()
+                window["sleeps"] += int(slept)
+                return slept
+            finally:
+                window["backoff_s"] += time.perf_counter() - t
 
-        orig_to_device = s._to_device
-        sched_mod.build_pod_batch = span("featurize", orig_featurize)
-        s._to_device = span("h2d", to_device)
-        s._dispatch_batch = span("dispatch", s._dispatch_batch)
-        s._fetch = span("fetch", s._fetch)
-        s._complete_batch = span("complete", s._complete_batch)
-        prof = torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
-        prof.__enter__()
-    t0 = time.perf_counter()
-    measured_out = s.schedule_all_pending()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    s.builder.state, sched_mod._expand_uniform = orig_state, orig_expand
+        def add_backoff(qp):
+            window["to_backoff"] += 1
+            return orig_add_backoff(qp)
+
+        gc_t0 = [0.0]
+
+        def gc_pause(phase, info):
+            if phase == "start":
+                gc_t0[0] = time.perf_counter()
+            else:
+                window["gc_s"] += time.perf_counter() - gc_t0[0]
+                window["gc_runs"] += 1
+                window["gc_full"] += int(info["generation"] == 2)
+
+        s.queue.sleep_until_backoff = sleep_until_backoff
+        s.queue.add_backoff = add_backoff
+        prof = None
+        orig_featurize = sched_mod.build_pod_batch
+        if trace:
+            def span(name, fn):
+                def wrapped(*a, **k):
+                    t = time.perf_counter()
+                    try:
+                        return fn(*a, **k)
+                    finally:
+                        spans[name] += time.perf_counter() - t
+                return wrapped
+
+            def to_device(batch_np):
+                h2d_bytes[0] += sum(getattr(v, "nbytes", 0) for v in batch_np.values())
+                return orig_to_device(batch_np)
+
+            orig_to_device = s._to_device
+            sched_mod.build_pod_batch = span("featurize", orig_featurize)
+            s._to_device = span("h2d", to_device)
+            s.schedule_batch = span("batch", s.schedule_batch)
+            s._fetch = span("fetch", s._fetch)
+            prof = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+        # A full collection now, timed: what one inside the window would cost.
+        t_gc = time.perf_counter()
+        gc.collect()
+        window["gc_before_s"] = time.perf_counter() - t_gc
+        gc.callbacks.append(gc_pause)
+        t0 = time.perf_counter()
+        measured_out = s.schedule_all_pending(wait_backoff=preempt)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        if gc_pause in gc.callbacks:
+            gc.callbacks.remove(gc_pause)
+        torch.Tensor.index_copy_, torch.Tensor.expand = orig_ic, orig_ex
+    launches1 = kernels.launch_counts()
+    for name in ("scatter_rows", "expand_rows"):
+        moves[name] = launches1[name] - launches0[name]
     s.data_moves = moves
+    s.window = window
     if trace:
         prof.__exit__(None, None, None)
         sched_mod.build_pod_batch = orig_featurize
@@ -1251,14 +1811,13 @@ def run_workload(impl: str, nodes, warm, measured, batch: int, chunk: int, trace
         for ev in prof.key_averages():
             if ev.device_type == torch.autograd.DeviceType.CUDA:
                 device[ev.key] = getattr(ev, "device_time_total", 0.0) / 1e3
-        # featurize and the copies run inside dispatch (and the host tail
-        # inside complete); fetch (the wait for the device's results)
-        # inside complete.
-        other = (spans["dispatch"] + spans["complete"] - spans["featurize"] - spans["h2d"]
-                 - spans["fetch"])
+        # Featurization (of the batch, its prefetched successor and the
+        # host tail), the copies and the fetch (the wait for the device's
+        # results) all run inside schedule_batch.
+        other = spans["batch"] - spans["featurize"] - spans["h2d"] - spans["fetch"]
         spans = {"featurize_s": spans["featurize"], "h2d_s": spans["h2d"],
                  "h2d_bytes": h2d_bytes[0], "fetch_wait_s": spans["fetch"],
-                 "other_host_s": other, "device_ms_by_kernel": device}
+                 "other_host_s": other, "backoff_s": window["backoff_s"], "device_ms_by_kernel": device}
     return s, out + measured_out, len(measured_out), dt, spans
 
 
@@ -1312,6 +1871,74 @@ def run_inclusion(impl: str, trace: bool = False):
                         SPREAD_BATCH, SPREAD_CHUNK, trace)
 
 
+def run_preemption(impl: str, trace: bool = False):
+    """preemption_500n (harness.py:578-618): the background fill drained,
+    the warm-up preemptor, then 500 preemptors of two victims each."""
+    from kubernetes_tpu_torch import workloads as w
+
+    return run_workload(impl, w.preemption_nodes(w.PREEMPT_NODES),
+                        w.preemption_background(w.PREEMPT_BG_PODS),
+                        [w.preemptor(f"vip-{i}") for i in range(w.PREEMPT_MEASURED_PODS)],
+                        w.PREEMPT_BATCH, w.PREEMPT_CHUNK, trace,
+                        stages=([w.preemptor("warm-vip")],), preempt=True)
+
+
+def run_preempt_async(impl: str, trace: bool = False):
+    """preemption_async_5kn (harness.py:942-977): 5000 saturated nodes,
+    15000 background pods left unschedulable, then 1000 preemptors."""
+    from kubernetes_tpu_torch import workloads as w
+
+    return run_workload(impl, w.preemption_nodes(w.ASYNC_NODES),
+                        w.preemption_background(w.ASYNC_BG_PODS, cpu="3900m", mem="15Gi"),
+                        [w.preemptor(f"vip-{i}") for i in range(w.ASYNC_MEASURED_PODS)],
+                        w.ASYNC_BATCH, w.ASYNC_CHUNK, trace,
+                        stages=([w.preemptor("warm-vip")],), preempt=True)
+
+
+def run_daemonset(impl: str, trace: bool = False):
+    """daemonset_15kn (harness.py:816-850): 15000 nodes, 512 warm-up and
+    15000 measured daemon pods, each pinned to one node."""
+    from kubernetes_tpu_torch import workloads as w
+
+    return run_workload(impl, w.basic_nodes(w.DAEMONSET_NODES),
+                        [w.daemon_pod(f"warm-{i}", i) for i in range(w.DAEMONSET_WARM_PODS)],
+                        [w.daemon_pod(f"ds-{i}", i) for i in range(w.DAEMONSET_NODES)],
+                        w.DAEMONSET_BATCH, w.DAEMONSET_CHUNK, trace)
+
+
+def daemon_gate(outcomes) -> None:
+    """Every daemon pod on the node its name pins (warm-i and ds-i on
+    node-i)."""
+    off = [o.pod.name for o in outcomes if o.node_name != f"node-{o.pod.name.split('-')[1]}"]
+    if off:
+        raise AssertionError(f"daemonset: {len(off)} pods off their pinned node, e.g. {off[:5]}")
+
+
+def check_preemption(s, outcomes, expected: int, label: str) -> dict:
+    """The preemption paths' gates: every preemptor binds, every victim is
+    a priority-1 background pod, no node exceeds its allocatable, the host
+    mirror equals the device state.  Returns the bindings (the last
+    outcome of each pod) with the victim set of every preemption."""
+    bind = {}
+    for o in outcomes:
+        bind[o.pod.name] = (o.node_name, tuple(sorted(o.victim_uids)))
+    vips = [k for k in bind if k.startswith("vip-") or k == "warm-vip"]
+    unbound = [k for k in vips if bind[k][0] is None]
+    if len(vips) != expected or unbound:
+        raise AssertionError(f"{label}: {len(vips)} preemptors, {len(unbound)} unbound, want {expected} bound")
+    bad = [v for v, _p, _n in s.preempted if not v.startswith("default/bg-")]
+    if bad or len(s.preempted) == 0:
+        raise AssertionError(f"{label}: victims {bad[:5]} are not priority-1 background pods "
+                             f"({len(s.preempted)} victims)")
+    if not s.builder.host_mirror_equal():
+        raise AssertionError(f"{label}: host mirror differs from the device state")
+    h = s.builder.host
+    v = h["valid"]
+    if (h["req"][v] > h["alloc"][v]).any() or (h["num_pods"][v] > h["allowed_pods"][v]).any():
+        raise AssertionError(f"{label}: a node exceeds its allocatable")
+    return bind
+
+
 def check_density(s, outcomes, expected: int, label: str) -> dict:
     import numpy as np
 
@@ -1330,56 +1957,93 @@ def check_density(s, outcomes, expected: int, label: str) -> dict:
     return bind
 
 
-# The main paths: (runner, pods bound, kernels that must launch, gate).
+# The main paths: (runner, pods bound, kernels that must launch, gate,
+# check, runs through the kernels).  The preemption paths' windows are a
+# few tens of milliseconds, so they run three times through the kernels.
 def _paths():
     from kubernetes_tpu_torch import workloads as w
 
     base = ("build_dom", "eval_chunk", "select_host", "resolve_commit")
     spread = base + ("conflict_pairs", "node_filters", "spread_filter", "late_scores")
+    preempt = base + ("preempt_eval", "preempt_pick", "preempt_commit", "unpack_victims",
+                      "scatter_rows", "expand_rows")
+    pinned = ("node_filters", "eval_chunk", "late_scores", "pinned_fit", "resolve_commit")
     return {
-        "density": (run_density, w.DENSITY_WARM_PODS + w.DENSITY_MEASURED_PODS, base, None),
+        "density": (run_density, w.DENSITY_WARM_PODS + w.DENSITY_MEASURED_PODS, base, None,
+                    check_density, 1),
         "ipa": (run_ipa, w.IPA_WARM_PODS + w.IPA_MEASURED_PODS, base + ("ipa_eval", "conflict_pairs"),
-                ipa_anti_ok),
+                ipa_anti_ok, check_density, 1),
         "spread_na": (run_spread_na, w.SPREAD_WARM_PODS + w.SPREAD_MEASURED_PODS, spread,
                       lambda out: spread_gates(out, w.SPREAD_NODES, w.SPREAD_ZONES, w.SPREAD_MAX_SKEW,
-                                               lambda i: False)),
+                                               lambda i: False), check_density, 1),
         "inclusion": (run_inclusion, w.INCLUSION_WARM_PODS + w.INCLUSION_MEASURED_PODS, spread,
                       lambda out: spread_gates(out, w.INCLUSION_NODES, w.INCLUSION_ZONES,
-                                               w.INCLUSION_MAX_SKEW, lambda i: i % 2 == 1)),
+                                               w.INCLUSION_MAX_SKEW, lambda i: i % 2 == 1), check_density, 1),
+        "preemption_500n": (run_preemption, w.PREEMPT_MEASURED_PODS + 1, preempt, None, check_preemption, 3),
+        "preemption_async_5kn": (run_preempt_async, w.ASYNC_MEASURED_PODS + 1, preempt, None,
+                                 check_preemption, 3),
+        "daemonset_15kn": (run_daemonset, w.DAEMONSET_WARM_PODS + w.DAEMONSET_NODES, pinned, daemon_gate,
+                           check_density, 1),
     }
 
 
+def window_line(s, measured: int, dt: float) -> str:
+    """The measured window: pods/s and what the wall clock waited on."""
+    win = s.window
+    return (f"measured {measured} pods in {dt:.4f}s = {measured / dt:.1f} pods/s; backoff waited "
+            f"{win['backoff_s']:.4f}s over {win['sleeps']} sleeps, {win['to_backoff']} pods sent to backoff, "
+            f"garbage collector {win['gc_s']:.4f}s over {win['gc_runs']} runs ({win['gc_full']} full; a full "
+            f"collection just before the window took {win['gc_before_s']:.4f}s)")
+
+
 def drive(path: str, card: str) -> tuple[dict, dict]:
-    """Phases 4-7: one main path through the kernels (launch counts set to
-    0 just before and read just after), traced, and through the plain
-    versions; gates, launch counts and identical bindings required.
-    Returns (launch counts, data moves)."""
+    """Phase 4: one main path through the kernels (launch counts set to 0
+    just before and read just after), again through the kernels where the
+    path asks for more runs, traced, and through the plain versions;
+    gates, launch counts, and identical bindings (and victims), outcome
+    counts and backoff requeues in every run required.  Returns (launch
+    counts, data moves)."""
     from kubernetes_tpu_torch import kernels
 
-    runner, expected, must, gate = _paths()[path]
+    runner, expected, must, gate, check, runs = _paths()[path]
     kernels.reset_launches()
     s, out, measured, dt, _ = runner("kernel")
     launches = kernels.launch_counts()
-    bind_k = check_density(s, out, expected, f"{path} kernel path")
+    bind_k = check(s, out, expected, f"{path} kernel path")
     if gate is not None:
         gate(out)
-    print(f"{path} (kernels): {len(out)} pods bound; measured {measured} pods in {dt:.3f}s = "
-          f"{measured / dt:.1f} pods/s; deferred {s.deferred}; packed batches {s.packed_batches}, "
-          f"planned collisions {s.pack_collisions}, last pack width {s.pack_width}; domain tables "
-          f"rebuilt {s.dom_carry_rebuilds}, carried {s.dom_carry_hits}; schema N={s.builder.schema.N} "
-          f"G={s.builder.schema.G} ET={s.builder.schema.ET} DV={s.builder.schema.DV}; launches {launches}; "
-          f"data moves {s.data_moves}  [{card}]")
+    history = (len(out), s.window["to_backoff"])
+    print(f"{path} (kernels): {len(out)} outcomes; {window_line(s, measured, dt)}; deferred {s.deferred}; "
+          f"packed batches {s.packed_batches}, planned collisions {s.pack_collisions}, last pack width "
+          f"{s.pack_width}; domain tables rebuilt {s.dom_carry_rebuilds}, carried {s.dom_carry_hits}; "
+          f"preemptions {s.preemptions} ({len(s.preempted)} victims, {s.speculative_batches} speculative "
+          f"dry-runs), {s.pinned_batches} pinned batches; schema N={s.builder.schema.N} G={s.builder.schema.G} "
+          f"ET={s.builder.schema.ET} DV={s.builder.schema.DV}; launches {launches}; data moves "
+          f"{s.data_moves}  [{card}]")
     for name, count in launches.items():
         if (count == 0) == (name in must):
             raise AssertionError(f"{path} path: {name} launched {count} times")
-    s3, out3, _m3, dt3, spans = runner("kernel", trace=True)
-    if check_density(s3, out3, expected, f"traced {path} kernel path") != bind_k:
-        raise AssertionError(f"the traced {path} run bound differently")
+    if s.data_moves["index_copy_"] or s.data_moves["expand"]:
+        raise AssertionError(f"{path} path: data moved outside the hand kernels: {s.data_moves}")
+
+    def same(label, s_, out_):
+        compare_bindings(bind_k, check(s_, out_, expected, f"{path} {label}"))
+        if (len(out_), s_.window["to_backoff"]) != history:
+            raise AssertionError(f"{path} {label}: {len(out_)} outcomes and {s_.window['to_backoff']} "
+                                 f"backoff requeues, the first kernel run {history}")
+
+    for rep in range(2, runs + 1):
+        s4, out4, m4, dt4, _ = runner("kernel")
+        same(f"kernel run {rep}", s4, out4)
+        print(f"{path} (kernels, run {rep}): {window_line(s4, m4, dt4)}  [{card}]")
+    s3, out3, m3, dt3, spans = runner("kernel", trace=True)
+    same("traced kernel run", s3, out3)
     print_trace(path, dt3, spans, card)
+    print(f"{path} traced run: {window_line(s3, m3, dt3)}  [{card}]")
     s2, out2, measured2, dt2, _ = runner("plain")
-    compare_bindings(bind_k, check_density(s2, out2, expected, f"{path} plain path"))
-    print(f"{path} (plain versions on the card): identical bindings; measured {measured2} pods in "
-          f"{dt2:.3f}s = {measured2 / dt2:.1f} pods/s  [{card}]")
+    same("plain run", s2, out2)
+    print(f"{path} (plain versions on the card): identical bindings, victims and requeues; "
+          f"{window_line(s2, measured2, dt2)}  [{card}]")
     return launches, s.data_moves
 
 
@@ -1412,10 +2076,13 @@ def main() -> int:
 
     shapes = {"density": check_kernels(dev, REPS), "ipa": check_ipa_kernels(dev, REPS),
               "spread_na": check_spread_kernels(dev, "spread_na", REPS),
-              "inclusion": check_spread_kernels(dev, "inclusion", REPS)}
+              "inclusion": check_spread_kernels(dev, "inclusion", REPS),
+              **{shape: check_preempt_kernels(dev, shape, REPS) for shape in PREEMPT_SHAPES},
+              "daemonset": check_pinned_kernels(dev, REPS)}
     for shape, table in shapes.items():
         for name, tm in table.items():
-            print(f"{name} [{shape} shapes]: device ms: kernel {tm['ms']:.4f}, plain {tm['plain_ms']:.4f}, "
+            lib = "" if tm.get("library_ms") is None else f", library {tm['library_ms']:.4f}"
+            print(f"{name} [{shape} shapes]: device ms: kernel {tm['ms']:.4f}, plain {tm['plain_ms']:.4f}{lib}, "
                   f"bound {tm['bound_ms']:.5f} ({tm['bound_by']}: {tm['bytes']} bytes, {tm['ops']} "
                   f"operations); call ms with the host's launch overhead: kernel {tm['call_ms']:.4f}, "
                   f"plain {tm['plain_call_ms']:.4f}  [{card}]")
@@ -1438,17 +2105,28 @@ def main() -> int:
         "node_filters": "kubernetes_tpu/ops/nodeaffinity.py:285",
         "spread_filter": "kubernetes_tpu/ops/podtopologyspread.py:219",
         "late_scores": "kubernetes_tpu/ops/podtopologyspread.py:261",
+        "preempt_eval": "kubernetes_tpu/preemption.py:257",
+        "preempt_pick": "kubernetes_tpu/preemption.py:538",
+        "preempt_commit": "kubernetes_tpu/preemption.py:601",
+        "unpack_victims": "kubernetes_tpu/preemption.py:94",
+        "scatter_rows": "kubernetes_tpu/snapshot.py:796",
+        "expand_rows": "kubernetes_tpu/scheduler.py:44",
+        "pinned_fit": "kubernetes_tpu/engine/pass_.py:941",
     }
     # The top-level numbers of a kernel come from the shapes of the path it
     # was first ported for (density: eval_chunk, select_host,
     # resolve_commit; IPA: build_dom, ipa_eval, conflict_pairs; spread_na:
-    # node_filters, spread_filter, late_scores); "by_shape" holds every
-    # shape it was measured at.  "launches" sums the main paths' runs,
-    # "launches_by_path" splits them.
+    # node_filters, spread_filter, late_scores; preemption_async_5kn: the
+    # preemption kernels and data moves; daemonset: pinned_fit); "by_shape"
+    # holds every shape it was measured at.  "launches" sums the main
+    # paths' first kernel runs, "launches_by_path" splits them.
     first = {name: "ipa" for name in kernels.WRAPPERS}
     first.update(eval_chunk="density", select_host="density", resolve_commit="density",
-                 node_filters="spread_na", spread_filter="spread_na", late_scores="spread_na")
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+                 node_filters="spread_na", spread_filter="spread_na", late_scores="spread_na",
+                 **dict.fromkeys(("preempt_eval", "preempt_pick", "preempt_commit", "unpack_victims",
+                                  "scatter_rows", "expand_rows"), "preemption_async_5kn"),
+                 pinned_fit="daemonset")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [], "data_moves_by_path": moves}
     for name in kernels.WRAPPERS:
         top = shapes[first[name]][name]
@@ -1458,8 +2136,8 @@ def main() -> int:
             "replaces": replaces[name],
             "launches": sum(counts.values()) if counts else None, "launches_by_path": counts,
             "max_abs_err": max(t[name]["max_abs_err"] for t in shapes.values() if name in t),
-            **{k: top[k] for k in keys}, "library_ms": None,
-            "by_shape": {shape: {k: t[name][k] for k in keys} for shape, t in shapes.items() if name in t},
+            **{k: top.get(k) for k in keys},
+            "by_shape": {shape: {k: t[name].get(k) for k in keys} for shape, t in shapes.items() if name in t},
         })
     print(json.dumps(line))
     print(card)
@@ -1471,7 +2149,8 @@ def main() -> int:
 def print_trace(label: str, dt: float, spans: dict, card: str) -> None:
     busy = sum(spans["device_ms_by_kernel"].values()) / 1e3
     top = sorted(spans["device_ms_by_kernel"].items(), key=lambda kv: -kv[1])[:8]
-    print(f"{label} traced window {dt:.3f}s: featurize {spans['featurize_s']:.3f}s, host-to-device "
+    print(f"{label} traced window {dt:.3f}s (backoff waited {spans['backoff_s']:.3f}s): featurize "
+          f"{spans['featurize_s']:.3f}s, host-to-device "
           f"features {spans['h2d_s']:.3f}s ({spans['h2d_bytes']} bytes), waiting on device results "
           f"{spans['fetch_wait_s']:.3f}s, other host {spans['other_host_s']:.3f}s; device busy "
           f"{busy:.3f}s ({'not measured' if busy == 0 else f'{1 - busy / dt:.3f} idle share'})  [{card}]")

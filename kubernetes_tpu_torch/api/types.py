@@ -3,9 +3,10 @@
 The port's own copy of ``kubernetes_tpu/api/types.py``, trimmed to what the
 first port slice reads: quantities, pods, nodes, the affinity/spread/taint
 specs (read by the not-yet-ported ops' ``is_active`` predicates so such
-pods fail loudly), the volume reference and the label-selector evaluator
-that inter-pod affinity matches terms with.  PV/PVC/CSI/DRA objects, PDBs,
-Leases and the node-selector evaluators come with their slices.
+pods fail loudly), the volume reference, the label-selector evaluator
+that inter-pod affinity matches terms with, and the PodDisruptionBudget
+that preemption counts victims against.  PV/PVC/CSI/DRA objects and
+Leases come with their slices.
 
 These are plain Python dataclasses, not a port of the generated Go types
 (reference: staging/src/k8s.io/api/core/v1/types.go).  Quantities are
@@ -520,6 +521,22 @@ class Volume:
     pvc: str = ""  # PVC name (pod's namespace)
     device_id: str = ""  # in-tree volume unique device id
     read_only: bool = False
+
+
+@dataclass
+class PodDisruptionBudget:
+    """policy/v1 PodDisruptionBudget, reduced to what preemption reads: the
+    selector and the live status.disruptionsAllowed count
+    (preemption.go filterPodsWithPDBViolation).  The spec fields are kept
+    so a budget that carries them is recognised; recomputing the status
+    from them (the disruption controller) is not ported."""
+
+    name: str
+    selector: Optional[LabelSelector] = None
+    disruptions_allowed: int = 0
+    namespace: str = "default"
+    min_available: Optional[int | str] = None
+    max_unavailable: Optional[int | str] = None
 
 
 # ---------------------------------------------------------------------------

@@ -68,6 +68,10 @@ class PodWrapper:
         self._pod.spec.preemption_policy = policy
         return self
 
+    def start_time(self, ts: float) -> "PodWrapper":
+        self._pod.status.start_time = ts
+        return self
+
     def node_selector(self, d: dict[str, str]) -> "PodWrapper":
         self._pod.spec.node_selector.update(d)
         return self

@@ -2,10 +2,12 @@
 
 The port's own copy of ``kubernetes_tpu/cache.py`` (the reference's
 scheduler cache, pkg/scheduler/backend/cache/cache.go), trimmed to what the
-first slice drives: node adds and updates, informer pod adds, and the
-assume (cache.go:361) / finish-binding (:376) protocol of the batch loop.
-Forget (:404), removals and the zone-interleaved node order of truncated
-mode come with the slices that need them.
+slices drive: node adds and updates, informer pod adds, the assume
+(cache.go:361) / finish-binding (:376) / forget (:404) protocol of the
+batch loop, and pod removal (preemption's victims).  Each node record
+carries ``pods_gen``, bumped on every change to its pod set, which the
+incremental victim repack reads.  Node removal and the zone-interleaved
+node order of truncated mode come with the slices that need them.
 """
 
 from __future__ import annotations
@@ -23,6 +25,9 @@ class NodeRecord:
     row: int
     pods: dict[str, t.Pod] = field(default_factory=dict)  # uid → pod
     generation: int = 0
+    # Bumped on any pod-membership change (cache.go:186's generation diff,
+    # read by the incremental victim repack).
+    pods_gen: int = 0
 
 
 @dataclass
@@ -43,6 +48,11 @@ class Cache:
         self._next_row = 0
         self._generation = 0
         self._row_to_name: dict[int, str] = {}
+        self._pods_gen = 0
+
+    def _bump_pods_gen(self, rec: NodeRecord) -> None:
+        self._pods_gen += 1
+        rec.pods_gen = self._pods_gen
 
     # -- nodes ---------------------------------------------------------------
 
@@ -62,7 +72,9 @@ class Cache:
         row = self._next_row
         self._next_row += 1
         self._generation += 1
-        self.nodes[node.name] = NodeRecord(node=node, row=row, generation=self._generation)
+        rec = NodeRecord(node=node, row=row, generation=self._generation)
+        self._bump_pods_gen(rec)
+        self.nodes[node.name] = rec
         self.builder.set_node_row(row, node)
         self._row_to_name[row] = node.name
 
@@ -84,6 +96,7 @@ class Cache:
         delta = self.builder.pod_delta_vectors(pod)
         self.pods[pod.uid] = PodRecord(pod=pod, node_name=node_name, delta=delta, bound=True)
         rec.pods[pod.uid] = pod
+        self._bump_pods_gen(rec)
         self.builder.apply_pod_delta(rec.row, delta, +1, device_already=False)
 
     def assume_pod(self, pod: t.Pod, node_name: str, device_already: bool = True, delta: dict | None = None) -> None:
@@ -96,8 +109,30 @@ class Cache:
             pod=pod, node_name=node_name, delta=delta, assumed=True, assumed_at=time.monotonic()
         )
         rec.pods[pod.uid] = pod
+        self._bump_pods_gen(rec)
         self.builder.apply_pod_delta(rec.row, delta, +1, device_already=device_already)
 
     def finish_binding(self, uid: str) -> None:
         pr = self.pods[uid]
         pr.assumed, pr.bound = False, True
+
+    def forget_pod(self, uid: str) -> None:
+        """Undo an assume (cache.go:404)."""
+        pr = self.pods.pop(uid)
+        rec = self.nodes[pr.node_name]
+        rec.pods.pop(uid, None)
+        self._bump_pods_gen(rec)
+        self.builder.apply_pod_delta(rec.row, pr.delta, -1, device_already=False)
+
+    def remove_pod(self, uid: str) -> None:
+        """A bound or assumed pod leaves its node (a deletion or an
+        eviction): its delta comes off the node's row, which flushes to the
+        device at the next state()."""
+        pr = self.pods.pop(uid, None)
+        if pr is None:
+            return
+        rec = self.nodes.get(pr.node_name)
+        if rec is not None:
+            rec.pods.pop(uid, None)
+            self._bump_pods_gen(rec)
+            self.builder.apply_pod_delta(rec.row, pr.delta, -1, device_already=False)

@@ -382,6 +382,90 @@ def build_pass(
     return run
 
 
+def build_pinned_pass(
+    profile: Profile,
+    schema: Schema,
+    builder_res_col: dict[str, int],
+    active: frozenset[str] | None = None,
+    _impl: str = "kernel",
+):
+    """The pinned-batch pass (pass_.py:901-1047): every pod arrives resolved
+    to ONE candidate row (``batch["pin_row"]``, -1 when the pin names no
+    live node) — its NodeName/metadata.name pin or its live nomination.
+    The whole batch runs in one launch of each kernel: eval_chunk (and
+    late_scores when NodeAffinity or TaintToleration scores) in pinned
+    mode evaluates every pod on its own row alone — filter verdicts, fail
+    bits and scores normalized over that single node, as the JAX pass's
+    vmapped own-row evaluation computes them (a pod whose pin names no
+    node is evaluated on row 0 and then held infeasible, as there);
+    pinned_fit applies the same-row rule in closed form (a feasible pod
+    places when the inclusive prefix of its feasible mates' requests fits
+    the row's free capacity before the batch, and defers otherwise); a
+    strict resolve_commit commits the placed pods.  Eligibility (every
+    pod pinned, active ⊆ PINNED_SAFE_OPS) is the scheduler's job.
+
+    Returns run(state, batch, inv) → (state, PassResult); ``batch`` values
+    are numpy arrays or device tensors, ``pin_row`` and ``nominated_row``
+    numpy (the host reads them).  The state is committed in place."""
+    if _impl not in ("kernel", "plain"):
+        raise ValueError(f"_impl must be 'kernel' or 'plain', not {_impl!r}")
+    spec = eval_spec(profile, schema, builder_res_col, active)
+    late = late_spec(profile, schema, builder_res_col, active)
+    _ctx, filters, scorers = _pass_ops(profile, schema, builder_res_col, active)
+    effective = frozenset(filters) | frozenset(n for n, _ in scorers)
+    if not effective <= PINNED_SAFE_OPS:
+        raise ValueError(f"pinned pass: {sorted(effective - PINNED_SAFE_OPS)} read more than the own row")
+    (_dom_fn, eval_fn, _ipa_fn, _select_fn, commit_fn, _pairs_fn, nodes_fn, _spread_fn,
+     late_fn) = _PLAIN_FNS if _impl == "plain" else _KERNEL_FNS
+    fit_fn = plain.pinned_fit if _impl == "plain" else kernels.pinned_fit
+    need_nodes = bool({NA, TT} & set(spec.filters)) or late is not None
+
+    def run(state: ClusterState, batch: dict, inv: dict):
+        dev = state.valid.device
+        rows = np.asarray(batch["pin_row"], np.int32)
+        safe = np.maximum(rows, 0).astype(np.int32)
+        tb = {
+            key: _to_device(v, dev)
+            for key, v in batch.items()
+            if key not in ("uniform_all", "step_offset", "pin_row", "nominated_row")
+        }
+        # The fit filter's nominated self-exclusion applies on the pinned
+        # row when the nomination is the pin (pass_.py:972-976).
+        nomrow = np.asarray(batch["nominated_row"], np.int32)
+        tb["nominated_row"] = _to_device(np.where(nomrow == rows, safe, -1).astype(np.int32), dev)
+        pin, pin_row = _to_device(safe, dev), _to_device(rows, dev)
+        nom = None
+        if "nom_req" in inv:
+            nom = tuple(_to_device(inv[key], dev) for key in ("nom_req", "nom_cnt", "nom_prio"))
+        node_bits = nodes_fn(state, tb, spec.ctx) if need_nodes else None
+        own_ok, total, fails = eval_fn(state, tb, spec, nom, (node_bits, None), pin)
+        if late is not None:
+            late_fn(state, tb, own_ok, total, node_bits, late, pin)
+        picks, feasible = fit_fn(own_ok[:, 0], pin_row, tb["valid"], tb["req"], state)
+        # One strict commit of the placed pods per 1024 lanes; the domain
+        # tables it also updates are scratch (the scheduler drops its
+        # carried tables after a pinned batch).
+        tk, dv = state.topo_vals.shape[1], schema.DV
+        scratch = DomTables(
+            torch.zeros((state.group_counts.shape[0], tk, dv), dtype=torch.float32, device=dev),
+            torch.zeros((state.et_counts.shape[0], dv), dtype=torch.float32, device=dev),
+            _to_device(inv["et_slot"], dev), _to_device(inv["et_host"], dev),
+        )
+        k = rows.shape[0]
+        for lo in range(0, k, kernels.MAX_CHUNK):
+            sl = slice(lo, min(lo + kernels.MAX_CHUNK, k))
+            commit_fn(state, scratch, {key: v[sl] for key, v in tb.items()}, picks[sl], None, True)
+        return state, PassResult(
+            picks=picks,
+            scores=total[:, 0],
+            feasible_counts=feasible,
+            processed=torch.zeros(k, dtype=torch.int32, device=dev),
+            fail_masks=fails,
+        )
+
+    return run
+
+
 class PassCache:
     """Built-pass cache keyed by (profile, schema, resource columns,
     batch-active op set, chunk, carry_dom, implementation)."""
@@ -406,5 +490,19 @@ class PassCache:
         fn = self._cache.get(key)
         if fn is None:
             fn = build_pass(profile, schema, res_col, active, chunk, carry_dom, _impl=self._impl)
+            self._cache[key] = fn
+        return fn
+
+    def get_pinned(
+        self,
+        profile: Profile,
+        schema: Schema,
+        res_col: dict[str, int],
+        active: frozenset[str] | None = None,
+    ):
+        key = (profile, schema, tuple(sorted(res_col.items())), active, "pinned")
+        fn = self._cache.get(key)
+        if fn is None:
+            fn = build_pinned_pass(profile, schema, res_col, active, _impl=self._impl)
             self._cache[key] = fn
         return fn

@@ -10,6 +10,12 @@
   spread_filter   csrc/spread_eval.cu     PodTopologySpread's filter, per chunk, before eval_chunk
   late_scores     csrc/spread_eval.cu     NodeAffinity, TaintToleration and spread scores over the
                                           final feasible set, per chunk, after ipa_eval
+  preempt_eval    csrc/preempt.cu         preemption dry-run of a chunk's representative, per node
+  preempt_pick    csrc/preempt.cu         lexicographic node rank and each mate's pick
+  preempt_commit  csrc/preempt.cu         release at the picked rows, victims consumed
+  unpack_victims  csrc/victims.cu         staged victim buffer → per-field arrays
+  scatter_rows    csrc/rows.cu            dirty node rows of a device tensor ← host rows
+  expand_rows     csrc/rows.cu            row 0 broadcast to K rows (uniform batches)
 
 Each wrapper checks its inputs and launches its kernel on the current CUDA
 stream for tensors on a CUDA device, or runs the plain version
@@ -23,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import torch
 
@@ -38,7 +45,7 @@ _EXT_SEL = {name: i for i, name in enumerate(plain.EXT_FILTERS)}
 _FILTER_CODES = {"NodeUnschedulable": 0, "NodeName": 1, "NodeResourcesFit": 2, **dict.fromkeys(_EXT_SEL, 3)}
 _SCORERS = ("NodeResourcesFit", "NodeResourcesBalancedAllocation")
 _MAX_BALANCED = 8
-_MAX_CHUNK = 64
+MAX_CHUNK = 1024  # resolve_commit: one block, one thread per pod
 # Shared memory an ipa_eval block may use for its per-pod tables (of the
 # H100's 227 KB a block can have).
 IPA_SMEM_CAP = 200 * 1024
@@ -221,15 +228,17 @@ def build_dom(state, et_slot, dv: int):
     return group_dom, et_dom
 
 
-def eval_chunk(state, pf: dict, spec: EvalSpec, nom, ext=None):
+def eval_chunk(state, pf: dict, spec: EvalSpec, nom, ext=None, pin=None):
     """Filters + weighted score of one chunk: (feasible (C, N) bool,
     total (C, N) i64, fail_mask (C,) i32).  ``nom`` is the nominated-pod
     overlay (nom_req, nom_cnt, nom_prio) or None; ``ext`` is (node_bits
     (C, N) u8, spread_ok (C, N) bool), the precomputed planes of
     NodeAffinity, TaintToleration and PodTopologySpread (either None when
-    no active filter reads it)."""
+    no active filter reads it).  With ``pin`` ((C,) i32 rows in [0, N)),
+    pod c is evaluated on node pin[c] alone: feasible and total are
+    (C, 1) and the fail bits are those of that node."""
     if _on_cpu(state.valid):
-        return plain.eval_chunk(state, pf, spec, nom, ext)
+        return plain.eval_chunk(state, pf, spec, nom, ext, pin)
     dev = state.valid.device
     cfg = spec.device_config(dev)
     n = state.valid.shape[0]
@@ -284,8 +293,14 @@ def eval_chunk(state, pf: dict, spec: EvalSpec, nom, ext=None):
         if want and t is None:
             raise ValueError(f"eval_chunk: plane {name!r} missing")
         planes.append(_check(name, t, dtype, (c, n), dev) if want else None)
-    feasible = torch.empty((c, n), dtype=b, device=dev)
-    total = torch.empty((c, n), dtype=i64, device=dev)
+    width = n
+    if pin is not None:
+        planes.append(_check("pin", pin, i32, (c,), dev))
+        width = 1
+    else:
+        planes.append(None)
+    feasible = torch.empty((c, width), dtype=b, device=dev)
+    total = torch.empty((c, width), dtype=i64, device=dev)
     fail = torch.zeros(c, dtype=i32, device=dev)
     build.launch(
         "eval_chunk",
@@ -417,14 +432,15 @@ def select_host(feasible, total, steps, seed_mul: int, nominated_row):
 def resolve_commit(state, dom, pf: dict, picks, pairs, strict: bool):
     """Chunk deferral, cumulative fit and commit, in place on ``state`` and
     the domain tables ``dom`` (group_dom, et_dom); returns the output picks
-    (C,) i32."""
+    (C,) i32.  A strict commit (no deferral, no cumulative fit) takes
+    ``pairs`` None."""
     if _on_cpu(picks):
         return plain.resolve_commit(state, dom, pf, picks, pairs, strict)
     group_dom = dom.group_dom
     dev = picks.device
     c = picks.shape[0]
-    if not 1 <= c <= _MAX_CHUNK:
-        raise ValueError(f"resolve_commit: chunk {c} outside [1, {_MAX_CHUNK}]")
+    if not 1 <= c <= MAX_CHUNK:
+        raise ValueError(f"resolve_commit: chunk {c} outside [1, {MAX_CHUNK}]")
     n, r = state.alloc.shape
     g = state.group_counts.shape[0]
     tk = state.topo_vals.shape[1]
@@ -432,7 +448,8 @@ def resolve_commit(state, dom, pf: dict, picks, pairs, strict: bool):
     i32, i64 = torch.int32, torch.int64
     _check("picks", picks, i32, (c,), dev)
     _check("valid", pf["valid"], torch.bool, (c,), dev)
-    _check("pairs", pairs, torch.bool, (c, c), dev)
+    if not strict:  # a strict commit reads no pairs
+        _check("pairs", pairs, torch.bool, (c, c), dev)
     _check("req", pf["req"], i64, (c, r), dev)
     _check("nonzero", pf["nonzero"], i64, (c, 2), dev)
     _check("group", pf["group"], i32, (c,), dev)
@@ -576,21 +593,30 @@ def spread_filter(state, pf: dict, node_bits, ctx):
     return out
 
 
-def late_scores(state, pf: dict, feasible, total, node_bits, late: LateSpec):
+def late_scores(state, pf: dict, feasible, total, node_bits, late: LateSpec, pin=None):
     """Adds NodeAffinity's, TaintToleration's and PodTopologySpread's
     weighted scores, normalized over the final ``feasible`` (C, N), into
     ``total`` (C, N) i64 IN PLACE (0 stays on infeasible nodes); spread's
-    inclusion policies read the node_filters bits.  Returns ``total``."""
+    inclusion policies read the node_filters bits.  With ``pin`` ((C,)
+    i32), ``feasible`` and ``total`` are (C, 1) on each pod's pinned node
+    and spread must not score.  Returns ``total``."""
     if _on_cpu(feasible):
-        return plain.late_scores(state, pf, feasible, total, node_bits, late)
+        return plain.late_scores(state, pf, feasible, total, node_bits, late, pin)
     dev = feasible.device
-    c, n = feasible.shape
+    c = feasible.shape[0]
+    n = state.valid.shape[0]
+    width = n
+    if pin is not None:
+        if late.spread_weight:
+            raise ValueError("late_scores: PodTopologySpread does not score on pinned nodes")
+        _check("pin", pin, torch.int32, (c,), dev)
+        width = 1
     tk = state.topo_vals.shape[1]
     g = state.group_counts.shape[0]
     ls, ts = state.label_key_ids.shape[1], state.taint_ids.shape[1]
     dv = late.ctx.schema.DV
-    _check("feasible", feasible, torch.bool, (c, n), dev)
-    _check("total", total, torch.int64, (c, n), dev)
+    _check("feasible", feasible, torch.bool, (c, width), dev)
+    _check("total", total, torch.int64, (c, width), dev)
     node = _label_args(state, dev) + [
         _check("topo_vals", state.topo_vals, torch.int32, (n, tk), dev),
         _check("valid", state.valid, torch.bool, (n,), dev),
@@ -612,10 +638,10 @@ def late_scores(state, pf: dict, feasible, total, node_bits, late: LateSpec):
         nb = _check("node_bits", node_bits, torch.uint8, (c, n), dev)
     smem = spread_smem_bytes(cs, dv)
     glist = torch.empty((c, max(cs, 1), g), dtype=torch.int32, device=dev)
-    raw = torch.empty((3, c, n), dtype=torch.int64, device=dev)
+    raw = torch.empty((3, c, width), dtype=torch.int64, device=dev)
     build.launch(
         "late_scores",
-        *[_ptr(a) for a in node], _ptr(nb), _ptr(feasible), _ptr(total),
+        *[_ptr(a) for a in node], _ptr(nb), _ptr(feasible), _ptr(total), _ptr(pin),
         *[_ptr(a) for a in pref], _ptr(intol), *[_ptr(a) for a in soft], _ptr(table),
         _ptr(glist), _ptr(raw),
         c, n, ls, ts, tk, dv, g, *dims, tv, cs, max(n, dv) + 1,
@@ -623,6 +649,243 @@ def late_scores(state, pf: dict, feasible, total, node_bits, late: LateSpec):
     )
     late_scores.launches += 1
     return total
+
+
+# -- preemption and data moves ---------------------------------------------------
+
+
+class Victims(NamedTuple):
+    """The dry-run's per-node victim slots (preemption.py:716 pack_victims):
+    least important first, PDB-violating last; empty slots hold the
+    sentinels (priority INT32_MAX, zero requests, start +inf, no PDB)."""
+
+    prio: torch.Tensor  # (N, V) i32
+    req: torch.Tensor  # (N, V, R) i64
+    nonzero: torch.Tensor  # (N, V, 2) i64
+    start: torch.Tensor  # (N, V) f64
+    pdb: torch.Tensor  # (N, V, P) bool — victim matches budget p
+    allowed: torch.Tensor  # (P,) i64 — disruptions allowed (INT32_MAX padding)
+
+
+@dataclass(frozen=True)
+class PreemptSpec:
+    """The release-independent filters preempt_eval applies for one pass:
+    NodeUnschedulable, NodeName, and the node_filters bits (1 NodeAffinity,
+    2 TaintToleration) that must be set."""
+
+    check_unsched: bool
+    check_nodename: bool
+    bits_mask: int
+
+
+def _mate_ptrs(pf: dict, c: int, dev) -> list:
+    """valid, elig, spec_picks pointers of a chunk (valid, or the
+    speculative pair)."""
+    if "valid" in pf:
+        return [_check("valid", pf["valid"], torch.bool, (c,), dev), None, None]
+    return [None, _check("elig", pf["elig"], torch.bool, (c,), dev),
+            _check("spec_picks", pf["spec_picks"], torch.int32, (c,), dev)]
+
+
+def preempt_eval(state, vic: Victims, pf: dict, spec: PreemptSpec):
+    """The closed-form dry-run of the chunk's representative preemptor
+    against every node: (possible (N,) bool, crit (5, N) i64, vic_mask (N, V)
+    bool, n_vic (N,) i32, rel (N, R) i64, relnz (N, 2) i64)."""
+    if _on_cpu(state.valid):
+        return plain.preempt_eval(state, vic, pf, spec)
+    dev = state.valid.device
+    n, v = vic.prio.shape
+    r = state.alloc.shape[1]
+    p = vic.allowed.shape[0]
+    c = pf["priority"].shape[0]
+    if r > 16 or v > 64:
+        raise NotImplementedError(f"preempt_eval: R={r} > 16 or V={v} > 64 victim slots")
+    b, i32, i64 = torch.bool, torch.int32, torch.int64
+    args = [
+        _check("valid", state.valid, b, (n,), dev),
+        _check("name_id", state.name_id, i32, (n,), dev),
+        _check("unschedulable", state.unschedulable, b, (n,), dev),
+        _check("num_pods", state.num_pods, i32, (n,), dev),
+        _check("allowed_pods", state.allowed_pods, i32, (n,), dev),
+        _check("alloc", state.alloc, i64, (n, r), dev),
+        _check("req", state.req, i64, (n, r), dev),
+        _check("vic_prio", vic.prio, i32, (n, v), dev),
+        _check("vic_req", vic.req, i64, (n, v, r), dev),
+        _check("vic_nonzero", vic.nonzero, i64, (n, v, 2), dev),
+        _check("vic_start", vic.start, torch.float64, (n, v), dev),
+        _check("vic_pdb", vic.pdb, b, (n, v, p), dev),
+        _check("pdb_allowed", vic.allowed, i64, (p,), dev),
+        _check("priority", pf["priority"], i32, (c,), dev),
+        _check("req", pf["req"], i64, (c, r), dev),
+        _check("nodename_id", pf["nodename_id"], i32, (c,), dev) if spec.check_nodename else None,
+        _check("tolerates_unschedulable", pf["tolerates_unschedulable"], b, (c,), dev)
+        if spec.check_unsched else None,
+        *_mate_ptrs(pf, c, dev),
+        _check("node_bits", pf["node_bits"], torch.uint8, (c, n), dev) if spec.bits_mask else None,
+    ]
+    possible = torch.empty(n, dtype=b, device=dev)
+    crit = torch.empty((plain.N_CRIT, n), dtype=i64, device=dev)
+    vic_mask = torch.empty((n, v), dtype=b, device=dev)
+    n_vic = torch.empty(n, dtype=i32, device=dev)
+    rel = torch.empty((n, r), dtype=i64, device=dev)
+    relnz = torch.empty((n, 2), dtype=i64, device=dev)
+    build.launch(
+        "preempt_eval", *[_ptr(a) for a in args], spec.bits_mask, c, n, v, r, p,
+        _ptr(possible), _ptr(crit), _ptr(vic_mask), _ptr(n_vic), _ptr(rel), _ptr(relnz),
+        _stream(dev),
+    )
+    preempt_eval.launches += 1
+    return possible, crit, vic_mask, n_vic, rel, relnz
+
+
+def preempt_pick(possible, crit, pf: dict, chunk_mode: bool):
+    """(C,) i32 picks of a chunk's mates from preempt_eval's criteria (-2
+    deferred at chunk > 1)."""
+    if _on_cpu(possible):
+        return plain.preempt_pick(possible, crit, pf, chunk_mode)
+    dev = possible.device
+    n = possible.shape[0]
+    c = pf["sig"].shape[0]
+    _check("possible", possible, torch.bool, (n,), dev)
+    _check("crit", crit, torch.int64, (plain.N_CRIT, n), dev)
+    sig = _check("sig", pf["sig"], torch.int32, (c,), dev)
+    order_at = torch.empty(c, dtype=torch.int32, device=dev)
+    picks = torch.empty(c, dtype=torch.int32, device=dev)
+    build.launch(
+        "preempt_pick", _ptr(possible), _ptr(crit), *[_ptr(a) for a in _mate_ptrs(pf, c, dev)],
+        _ptr(sig), int(chunk_mode), c, n, _ptr(order_at), _ptr(picks), _stream(dev),
+    )
+    preempt_pick.launches += 1
+    return picks
+
+
+def preempt_commit(carry, vic_prio, ev, picks):
+    """The step's commit, in place on the carried (req, nonzero_req,
+    num_pods) and ``vic_prio``; returns the mates' (vic_mask (C, V) bool,
+    n_victims (C,) i32)."""
+    if _on_cpu(picks):
+        return plain.preempt_commit(carry, vic_prio, ev, picks)
+    dev = picks.device
+    req, nonzero_req, num_pods = carry
+    _possible, _crit, vic_mask, n_vic, rel, relnz = ev
+    n, v = vic_prio.shape
+    r = req.shape[1]
+    c = picks.shape[0]
+    b, i32, i64 = torch.bool, torch.int32, torch.int64
+    args = [
+        _check("vic_mask", vic_mask, b, (n, v), dev),
+        _check("n_vic", n_vic, i32, (n,), dev),
+        _check("rel", rel, i64, (n, r), dev),
+        _check("relnz", relnz, i64, (n, 2), dev),
+        _check("req", req, i64, (n, r), dev),
+        _check("nonzero_req", nonzero_req, i64, (n, 2), dev),
+        _check("num_pods", num_pods, i32, (n,), dev),
+        _check("vic_prio", vic_prio, i32, (n, v), dev),
+    ]
+    _check("picks", picks, i32, (c,), dev)
+    mask_out = torch.empty((c, v), dtype=b, device=dev)
+    nvic_out = torch.empty(c, dtype=i32, device=dev)
+    build.launch(
+        "preempt_commit", _ptr(picks), c, v, r, *[_ptr(a) for a in args], _ptr(mask_out),
+        _ptr(nvic_out), _stream(dev),
+    )
+    preempt_commit.launches += 1
+    return mask_out, nvic_out
+
+
+def unpack_victims(buf, r: int, n_pdbs: int, pdb_words: int, v: int, inline_allowed: bool):
+    """The staged (N, vu, cols) int64 victim buffer → (prio, req, nonzero,
+    start, pdb, allowed or None), padded to ``v`` victim slots."""
+    if _on_cpu(buf):
+        return plain.unpack_victims(buf, r, n_pdbs, pdb_words, v, inline_allowed)
+    dev = buf.device
+    n, vu, cols = buf.shape
+    if not buf.is_contiguous() or buf.dtype != torch.int64:
+        raise ValueError("unpack_victims: the buffer must be contiguous int64")
+    if cols < 5 + r + pdb_words or vu > v:
+        raise ValueError(f"unpack_victims: buffer {tuple(buf.shape)} does not hold R={r}, v={v}")
+    prio = torch.empty((n, v), dtype=torch.int32, device=dev)
+    req = torch.empty((n, v, r), dtype=torch.int64, device=dev)
+    nonzero = torch.empty((n, v, 2), dtype=torch.int64, device=dev)
+    start = torch.empty((n, v), dtype=torch.float64, device=dev)
+    pdb = torch.empty((n, v, n_pdbs), dtype=torch.bool, device=dev)
+    allowed = torch.empty(n_pdbs, dtype=torch.int64, device=dev) if inline_allowed else None
+    build.launch(
+        "unpack_victims", _ptr(buf), n, vu, cols, r, n_pdbs, pdb_words, v, int(inline_allowed),
+        _ptr(prio), _ptr(req), _ptr(nonzero), _ptr(start), _ptr(pdb), _ptr(allowed),
+        _stream(dev),
+    )
+    unpack_victims.launches += 1
+    return prio, req, nonzero, start, pdb, allowed
+
+
+def scatter_rows(dst, axis: int, rows, src) -> None:
+    """In place: dst's node rows (axis 0) or node columns (axis 1, a 2-D
+    (X, N) field) ``rows`` (i64) ← ``src`` (the same layout with len(rows)
+    in place of N)."""
+    if _on_cpu(dst):
+        plain.scatter_rows(dst, axis, rows, src)
+        return
+    dev = dst.device
+    nrows = rows.shape[0]
+    if axis == 0:
+        outer, n = 1, dst.shape[0]
+        inner = dst[0].numel() * dst.element_size() if dst.dim() > 0 and n > 0 else 0
+        want = (nrows,) + tuple(dst.shape[1:])
+    elif axis == 1 and dst.dim() == 2:
+        outer, n = dst.shape
+        inner = dst.element_size()
+        want = (outer, nrows)
+    else:
+        raise ValueError(f"scatter_rows: axis {axis} of a {dst.dim()}-d tensor")
+    if not dst.is_contiguous():
+        raise ValueError("scatter_rows: destination not contiguous")
+    _check("rows", rows, torch.int64, (nrows,), dev)
+    _check("src", src, dst.dtype, want, dev)
+    build.launch("scatter_rows", _ptr(dst), _ptr(src), _ptr(rows), nrows, outer, n, inner, _stream(dev))
+    scatter_rows.launches += 1
+
+
+def expand_rows(src, k: int):
+    """(k, ...) copies of row 0 of ``src`` as a new contiguous tensor."""
+    if _on_cpu(src):
+        return plain.expand_rows(src, k)
+    dev = src.device
+    if not src.is_contiguous() or src.shape[0] < 1:
+        raise ValueError("expand_rows: source must be contiguous with a row")
+    out = torch.empty((k,) + tuple(src.shape[1:]), dtype=src.dtype, device=dev)
+    inner = src[0].numel() * src.element_size()
+    build.launch("expand_rows", _ptr(out), _ptr(src), k, inner, _stream(dev))
+    expand_rows.launches += 1
+    return out
+
+
+def pinned_fit(own_ok, pin_row, valid, req, state):
+    """The pinned-batch pass's same-row capacity rule (pass_.py:1003-1032):
+    (picks (K,) i32: the pinned row, -2 deferred or -1; feasible (K,) i32)
+    from eval_chunk's pinned feasibility ``own_ok`` (K,) bool, the pins
+    ``pin_row`` (K,) i32 (-1: no live node), ``valid`` (K,) bool and the
+    requests ``req`` (K, R) i64, against the state before the batch."""
+    if _on_cpu(own_ok):
+        return plain.pinned_fit(own_ok, pin_row, valid, req, state)
+    dev = own_ok.device
+    k = pin_row.shape[0]
+    n, r = state.alloc.shape
+    args = [
+        _check("own_ok", own_ok, torch.bool, (k,), dev),
+        _check("pin_row", pin_row, torch.int32, (k,), dev),
+        _check("valid", valid, torch.bool, (k,), dev),
+        _check("req", req, torch.int64, (k, r), dev),
+        _check("alloc", state.alloc, torch.int64, (n, r), dev),
+        _check("state.req", state.req, torch.int64, (n, r), dev),
+        _check("num_pods", state.num_pods, torch.int32, (n,), dev),
+        _check("allowed_pods", state.allowed_pods, torch.int32, (n,), dev),
+    ]
+    picks = torch.empty(k, dtype=torch.int32, device=dev)
+    feasible = torch.empty(k, dtype=torch.int32, device=dev)
+    build.launch("pinned_fit", *[_ptr(a) for a in args], k, n, r, _ptr(picks), _ptr(feasible), _stream(dev))
+    pinned_fit.launches += 1
+    return picks, feasible
 
 
 WRAPPERS = {
@@ -635,6 +898,13 @@ WRAPPERS = {
     "node_filters": node_filters,
     "spread_filter": spread_filter,
     "late_scores": late_scores,
+    "preempt_eval": preempt_eval,
+    "preempt_pick": preempt_pick,
+    "preempt_commit": preempt_commit,
+    "unpack_victims": unpack_victims,
+    "scatter_rows": scatter_rows,
+    "expand_rows": expand_rows,
+    "pinned_fit": pinned_fit,
 }
 for _fn in WRAPPERS.values():
     _fn.launches = 0

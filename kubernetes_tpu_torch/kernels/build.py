@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, keyed by a hash of the sources and
 flags, under ``kernels/_build/`` (listed in .gitignore), then loaded with
 ctypes.  Builds of several sources run as parallel ``nvcc`` processes.
-A library exports one ``<entry>_launch`` per entry point (``spread_eval``
-has two) and one ``<name>_error_string``.  There is no fallback: a missing
+A library exports one ``<entry>_launch`` per entry point (``spread_eval``,
+``preempt`` and ``rows`` have several) and one ``<name>_error_string``.  There is no fallback: a missing
 compiler, a failed build or a failed load raises.
 """
 
@@ -21,11 +21,18 @@ from pathlib import Path
 
 KERNELS = (
     "build_dom", "eval_chunk", "ipa_eval", "select_host", "resolve_commit", "conflict_pairs",
-    "node_filters", "spread_eval",
+    "node_filters", "spread_eval", "preempt", "victims", "rows", "pinned",
 )
 # Entry point → the library (source) that holds it.
-ENTRIES = {name: name for name in KERNELS if name != "spread_eval"}
-ENTRIES.update(spread_filter="spread_eval", late_scores="spread_eval")
+_MULTI = {
+    "spread_eval": ("spread_filter", "late_scores"),
+    "preempt": ("preempt_eval", "preempt_pick", "preempt_commit"),
+    "victims": ("unpack_victims",),
+    "rows": ("scatter_rows", "expand_rows"),
+    "pinned": ("pinned_fit",),
+}
+ENTRIES = {name: name for name in KERNELS if name not in _MULTI}
+ENTRIES.update({entry: src for src, entries in _MULTI.items() for entry in entries})
 
 _SRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
@@ -41,14 +48,21 @@ _P, _I, _L, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
 # never truncates them to 32 bits).
 _SIGNATURES: dict[str, list] = {
     "build_dom": [_P] * 4 + [_I] * 5 + [_P, _P, _P],
-    "eval_chunk": [_P] * 20 + [_P, _I, _I, _P, _I, _I, _L, _I, _L, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "eval_chunk": [_P] * 21 + [_P, _I, _I, _P, _I, _I, _L, _I, _L, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
     "ipa_eval": [_I] * 10 + [_L] + [_P] * 30 + [_I, _P],
     "select_host": [_P, _P, _P, _U, _P, _I, _I, _P, _P, _P, _P],
     "resolve_commit": [_P, _P, _P, _I] + [_P] * 15 + [_I] * 6 + [_P, _P],
     "conflict_pairs": [_P] * 7 + [_I] * 7 + [_P, _P],
     "node_filters": [_P] * 20 + [_I] * 15 + [_P],
     "spread_filter": [_P] * 15 + [_I] * 7 + [_P],
-    "late_scores": [_P] * 29 + [_I] * 13 + [_L] * 3 + [_I, _P],
+    "late_scores": [_P] * 30 + [_I] * 13 + [_L] * 3 + [_I, _P],
+    "preempt_eval": [_P] * 21 + [_I] * 6 + [_P] * 7,
+    "preempt_pick": [_P] * 6 + [_I] * 3 + [_P] * 3,
+    "preempt_commit": [_P, _I, _I, _I] + [_P] * 11,
+    "unpack_victims": [_P] + [_I] * 8 + [_P] * 7,
+    "scatter_rows": [_P] * 3 + [_L] * 4 + [_P],
+    "expand_rows": [_P] * 2 + [_L] * 2 + [_P],
+    "pinned_fit": [_P] * 8 + [_I] * 3 + [_P] * 3,
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

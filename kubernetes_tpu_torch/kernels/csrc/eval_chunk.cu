@@ -12,6 +12,11 @@
 // spread_filter's mask per chunk) that this kernel reads at the op's place
 // in the filter order, so fail bits stay in profile order.
 //
+// Pinned mode (pin_row non-null; the pinned-batch pass, kubernetes_tpu/
+// engine/pass_.py:941-985): pod c is evaluated on node pin_row[c] alone and
+// the outputs are (C, 1), so its fail bits are those of its own node, as
+// the JAX pass's vmapped own-row evaluation gives them.
+//
 // One thread per (pod, node).  Filters run in profile order from
 // state.valid; a filter's fail bit is set only for nodes that passed every
 // earlier filter (the reference's first-failing plugin per node), OR-reduced
@@ -63,6 +68,7 @@ struct EvalArgs {
   // Precomputed filter planes (null when no filter reads them).
   const unsigned char* node_bits;        // (C, N): bit 0 NodeAffinity, bit 1 TaintToleration
   const unsigned char* spread_ok;        // (C, N): PodTopologySpread
+  const int* pin_row;                    // (C,) pinned mode, else null
   // Static profile config.
   const unsigned char* fit_ignored;  // (R,)
   const long long* strat_cols;       // (S, 3): kind, col, weight
@@ -184,9 +190,11 @@ __device__ long long balanced_score(const EvalArgs& a, int c, int n) {
 
 __global__ void eval_chunk_kernel(EvalArgs a) {
   const int c = blockIdx.y;
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool pinned = a.pin_row != nullptr;
+  const int n = pinned ? (j == 0 ? a.pin_row[c] : -1) : j;
   unsigned int bits = 0;
-  if (n < a.N) {
+  if (n >= 0 && n < a.N) {
     bool feas = a.valid[n] != 0;
     for (int b = 0; b < a.n_filters; ++b) {
       const int code = (a.filter_codes >> (2 * b)) & 3;
@@ -211,7 +219,7 @@ __global__ void eval_chunk_kernel(EvalArgs a) {
       if (a.score_fit) tot += fit_score(a, c, n) * a.fit_weight;
       if (a.score_bal) tot += balanced_score(a, c, n) * a.bal_weight;
     }
-    const size_t o = (size_t)c * a.N + n;
+    const size_t o = pinned ? (size_t)c : (size_t)c * a.N + n;
     a.feasible[o] = feas ? 1 : 0;
     a.total[o] = tot;
   }
@@ -228,7 +236,7 @@ extern "C" int eval_chunk_launch(
     const void* nom_cnt, const void* nom_prio, const void* nodename_id,
     const void* tol_unsched, const void* pod_req, const void* pod_nonzero,
     const void* priority, const void* nominated_row, const void* node_bits,
-    const void* spread_ok, const void* fit_ignored,
+    const void* spread_ok, const void* pin_row, const void* fit_ignored,
     const void* strat_cols, int n_strat, int most_allocated,
     const void* bal_cols, int n_bal, int score_fit, long long fit_weight,
     int score_bal, long long bal_weight, int filter_codes, int n_filters,
@@ -255,6 +263,7 @@ extern "C" int eval_chunk_launch(
   a.nominated_row = static_cast<const int*>(nominated_row);
   a.node_bits = static_cast<const unsigned char*>(node_bits);
   a.spread_ok = static_cast<const unsigned char*>(spread_ok);
+  a.pin_row = static_cast<const int*>(pin_row);
   a.fit_ignored = static_cast<const unsigned char*>(fit_ignored);
   a.strat_cols = static_cast<const long long*>(strat_cols);
   a.n_strat = n_strat;
@@ -274,8 +283,8 @@ extern "C" int eval_chunk_launch(
   a.feasible = static_cast<unsigned char*>(feasible);
   a.total = static_cast<long long*>(total);
   a.fail_mask = static_cast<unsigned int*>(fail_mask);
-  const int threads = 256;
-  dim3 grid((N + threads - 1) / threads, C);
+  const int threads = pin_row != nullptr ? 32 : 256;
+  dim3 grid(pin_row != nullptr ? 1 : (N + threads - 1) / threads, C);
   eval_chunk_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,7 @@
 // own topology slot (values outside [0, DV), such as hostname values, are
 // dropped, as the JAX scatter drops them).
 //
-// One block per chunk, one thread per pod (C <= 64).  With chunk > 1:
+// One block per chunk, one thread per pod (C <= 1024).  With chunk > 1:
 //   (a) a valid pod behind an attempting chunk-mate that conflicts with it
 //       (pairs[i, j], i < j) defers;
 //   (b) the remaining attempting pods check exact cumulative fit at their
@@ -30,7 +30,7 @@
 
 namespace {
 
-constexpr int kMaxChunk = 64;
+constexpr int kMaxChunk = 1024;
 
 struct CommitArgs {
   const int* picks;            // (C,)
@@ -174,7 +174,8 @@ extern "C" int resolve_commit_launch(
   a.TK = TK;
   a.DV = DV;
   a.out_picks = static_cast<int*>(out_picks);
-  resolve_commit_kernel<<<1, kMaxChunk, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  const int threads = (C + 31) / 32 * 32;
+  resolve_commit_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

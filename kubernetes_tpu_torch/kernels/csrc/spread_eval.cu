@@ -37,6 +37,10 @@
 // log comes from a table the wrapper builds with Python's math.log, so
 // the kernel, the plain version and XLA agree bit for bit.
 //
+// Pinned mode of late_scores (pin_row non-null; the pinned-batch pass):
+// pod c is scored on node pin_row[c] alone, over (C, 1) planes, so its
+// feasible set is that node or nothing.  Spread does not score there.
+//
 // Numerics: counts are integers (the JAX op's f32 products are exact
 // below 2^24); scores are int64 with floor division; the build passes
 // -fmad=false, so the f64 multiply and add round separately as in XLA.
@@ -254,8 +258,9 @@ struct LsArgs {
   const int* name_id;          // (N,)
   const int* taint_ids;        // (N, TS)
   int LS, TS;
-  const unsigned char* feasible;  // (C, N)
-  long long* total;               // (C, N)
+  const unsigned char* feasible;  // (C, N), or (C, 1) when pinned
+  long long* total;               // (C, N), or (C, 1) when pinned
+  const int* pin_row;             // (C,) pinned mode (sp_w == 0), else null
   // NodeAffinity's preferred program (null unless na_w).
   const int* pref_op;             // (C, T, Q)
   const int* pref_key;
@@ -269,7 +274,7 @@ struct LsArgs {
   const double* log_table;  // (L,) log(k + 2)
   int L;
   int* glist;               // (C, K, G) scratch
-  long long* raw;           // (3, C, N) scratch: NodeAffinity, taint, spread raw scores
+  long long* raw;           // (3, C, N) scratch (N = 1 when pinned): NodeAffinity, taint, spread raw scores
   long long na_w, tt_w, sp_w;
   int C;
 };
@@ -295,18 +300,21 @@ __global__ void late_scores_kernel(LsArgs a) {
   if (a.sp_w) group_lists(sc, cl, c, a.glist, s.glen);
   __syncthreads();
   const int* glist = a.glist + (size_t)c * K * cl.G;
-  const unsigned char* feasible = a.feasible + (size_t)c * N;
-  long long* raw_na = a.raw + (size_t)c * N;
-  long long* raw_tt = a.raw + ((size_t)a.C + c) * N;
-  long long* raw_sp = a.raw + ((size_t)2 * a.C + c) * N;
+  // Plane width: every node, or the pod's pinned node alone.
+  const int W = a.pin_row != nullptr ? 1 : N;
+  const unsigned char* feasible = a.feasible + (size_t)c * W;
+  long long* raw_na = a.raw + (size_t)c * W;
+  long long* raw_tt = a.raw + ((size_t)a.C + c) * W;
+  long long* raw_sp = a.raw + ((size_t)2 * a.C + c) * W;
   using namespace node_program;
   const size_t tq = (size_t)c * a.T * a.Q;
   const Program pref{a.pref_op + tq, a.pref_key + tq, a.pref_vals + tq * a.V, a.pref_int + tq,
                      a.T, a.Q, a.V};
   // Raw NodeAffinity and taint scores with their feasible maxima; spread's
   // domain tables over eligible nodes and presence over scored nodes.
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    const bool feas = feasible[n] != 0;
+  for (int j = threadIdx.x; j < W; j += blockDim.x) {
+    const int n = a.pin_row != nullptr ? a.pin_row[c] : j;
+    const bool feas = feasible[j] != 0;
     if (a.na_w) {
       const Node nd{a.label_key + (size_t)n * a.LS, a.label_pair + (size_t)n * a.LS,
                     a.label_int + (size_t)n * a.LS, a.name_id[n], a.LS};
@@ -315,7 +323,7 @@ __global__ void late_scores_kernel(LsArgs a) {
         const long long wt = a.pref_weight[(size_t)c * a.T + t];
         if (wt != 0 && term(pref, t, nd)) r += wt;
       }
-      raw_na[n] = r;
+      raw_na[j] = r;
       if (feas) atomicMax(red, r);
     }
     if (a.tt_w) {
@@ -325,7 +333,7 @@ __global__ void late_scores_kernel(LsArgs a) {
         const int id = a.taint_ids[(size_t)n * a.TS + j];
         if (id >= 0 && id < a.TV && intol[id]) ++r;
       }
-      raw_tt[n] = r;
+      raw_tt[j] = r;
       if (feas) atomicMax(red + 1, r);
     }
     if (a.sp_w) {
@@ -385,26 +393,27 @@ __global__ void late_scores_kernel(LsArgs a) {
   for (int q = 0; q < K; ++q) any_soft = any_soft || sc.valid[(size_t)c * K + q];
   const long long max_na = red[0], max_tt = red[1];
   const long long sp_min = *n_scored > 0 ? red[2] : 0, sp_max = red[3];
-  for (int n = threadIdx.x; n < N; n += blockDim.x) {
-    long long* tot = a.total + (size_t)c * N + n;
-    if (!feasible[n]) {
+  for (int j = threadIdx.x; j < W; j += blockDim.x) {
+    const int n = a.pin_row != nullptr ? a.pin_row[c] : j;
+    long long* tot = a.total + (size_t)c * W + j;
+    if (!feasible[j]) {
       *tot = 0;
       continue;
     }
     long long add = 0;
     if (a.na_w) {
       const long long sc_na = max_na == 0 ? 0
-          : floordiv_i64(raw_na[n] * kMaxScore, max_na > 1 ? max_na : 1);
+          : floordiv_i64(raw_na[j] * kMaxScore, max_na > 1 ? max_na : 1);
       add += sc_na * a.na_w;
     }
     if (a.tt_w) {
       const long long sc_tt = max_tt == 0 ? kMaxScore
-          : kMaxScore - floordiv_i64(raw_tt[n] * kMaxScore, max_tt > 1 ? max_tt : 1);
+          : kMaxScore - floordiv_i64(raw_tt[j] * kMaxScore, max_tt > 1 ? max_tt : 1);
       add += sc_tt * a.tt_w;
     }
     if (a.sp_w && any_soft && all_keys(sc, cl, c, n)) {
       const long long sc_sp = sp_max == 0 ? kMaxScore
-          : floordiv_i64(kMaxScore * (sp_max + sp_min - raw_sp[n]), sp_max > 1 ? sp_max : 1);
+          : floordiv_i64(kMaxScore * (sp_max + sp_min - raw_sp[j]), sp_max > 1 ? sp_max : 1);
       add += sc_sp * a.sp_w;
     }
     *tot += add;
@@ -469,7 +478,8 @@ extern "C" int spread_filter_launch(
 extern "C" int late_scores_launch(
     const void* label_key, const void* label_pair, const void* label_int, const void* name_id,
     const void* taint_ids, const void* topo_vals, const void* valid, const void* group_counts,
-    const void* node_bits, const void* feasible, void* total, const void* pref_op,
+    const void* node_bits, const void* feasible, void* total, const void* pin_row,
+    const void* pref_op,
     const void* pref_key, const void* pref_vals, const void* pref_int, const void* pref_weight,
     const void* intol_pref, const void* s_valid, const void* s_slot, const void* s_skew,
     const void* s_mindom, const void* s_self, const void* s_host, const void* s_aff,
@@ -495,6 +505,8 @@ extern "C" int late_scores_launch(
   a.TS = TS;
   a.feasible = static_cast<const unsigned char*>(feasible);
   a.total = static_cast<long long*>(total);
+  a.pin_row = static_cast<const int*>(pin_row);
+  if (a.pin_row != nullptr && sp_w != 0) return (int)cudaErrorInvalidValue;
   a.pref_op = static_cast<const int*>(pref_op);
   a.pref_key = static_cast<const int*>(pref_key);
   a.pref_vals = static_cast<const int*>(pref_vals);

@@ -60,15 +60,46 @@ def ext_filter(name: str, ext) -> torch.Tensor:
     return (plane & (1 if name == NA else 2)) != 0
 
 
-def eval_chunk(state, pf: dict, spec, nom, ext=None):
+def pin_view(state, pf: dict, pin, nom=None, planes=()):
+    """The own-node view of a pinned chunk: the state's node axis gathered
+    at ``pin`` (node j of the view is pod j's pin), the nominated overlay
+    and the (C, N) ``planes`` likewise, ``nominated_row`` mapped onto the
+    view (pod c's own node is node c), and the (C, C) diagonal that holds
+    each pod to its own node.  A view's (C, C) results read on the
+    diagonal are the pinned pass's own-row evaluation (pass_.py:951-985)."""
+    from ..snapshot import ClusterState, _NODE_AXIS
+
+    idx = pin.to(torch.int64)
+    view = ClusterState(**{
+        f.name: getattr(state, f.name).index_select(_NODE_AXIS[f.name], idx)
+        for f in dataclasses.fields(state)
+    })
+    c = idx.shape[0]
+    local = torch.arange(c, dtype=torch.int32, device=idx.device)
+    pf = dict(pf)
+    if "nominated_row" in pf:
+        pf["nominated_row"] = torch.where(pf["nominated_row"] == pin, local, -1).to(torch.int32)
+    nom = None if nom is None else tuple(x.index_select(0, idx) for x in nom)
+    planes = tuple(None if p is None else p.index_select(1, idx) for p in planes)
+    return view, pf, nom, planes, torch.eye(c, dtype=torch.bool, device=idx.device)
+
+
+def eval_chunk(state, pf: dict, spec, nom, ext=None, pin=None):
     """(feasible (C, N) bool, total (C, N) i64, fail_mask (C,) i32) of one
     chunk — eval_pod's filter chain and weighted score sum (pass_.py:494-539).
     The EXT_FILTERS ops' results come from ``ext`` (see ext_filter).
-    ``total`` is 0 on infeasible nodes (select_host never reads it there)."""
+    ``total`` is 0 on infeasible nodes (select_host never reads it there).
+    With ``pin`` each pod is evaluated on its pinned node alone (see
+    pin_view): (C, 1) outputs and that node's fail bits."""
+    own = None
+    if pin is not None:
+        state, pf, nom, ext, own = pin_view(state, pf, pin, nom, ext if ext is not None else (None, None))
     ctx = dataclasses.replace(spec.ctx, nom=nom)
     c = pf["req"].shape[0]
     n = state.valid.shape[0]
     feasible = state.valid[None, :].expand(c, n).clone()
+    if own is not None:
+        feasible &= own
     fail = torch.zeros(c, dtype=torch.int32, device=feasible.device)
     for bit, name in enumerate(spec.filters):
         if name in EXT_FILTERS:
@@ -81,7 +112,10 @@ def eval_chunk(state, pf: dict, spec, nom, ext=None):
     total = torch.zeros((c, n), dtype=torch.int64, device=feasible.device)
     for name, weight in spec.scorers:
         total = total + opcommon.get(name).score(state, pf, ctx, feasible) * weight
-    return feasible, torch.where(feasible, total, 0), fail
+    total = torch.where(feasible, total, 0)
+    if own is not None:
+        return feasible.diagonal()[:, None].clone(), total.diagonal()[:, None].clone(), fail
+    return feasible, total, fail
 
 
 def ipa_bit(ipa) -> int:
@@ -182,13 +216,24 @@ def spread_filter(state, pf: dict, node_bits, ctx):
     return spread_op.filter_fn(state, pf, ctx, *_node_oks(node_bits))
 
 
-def late_scores(state, pf: dict, feasible, total, node_bits, late):
+def late_scores(state, pf: dict, feasible, total, node_bits, late, pin=None):
     """The scores that normalize over the final feasible set, added IN
     PLACE into ``total`` with their weights: NodeAffinity's
     (nodeaffinity.py:307), TaintToleration's reversed (tainttoleration.py:56)
     and PodTopologySpread's (podtopologyspread.py:261, inclusion policies
     from the node_filters bits); ``total`` stays 0 on infeasible nodes.
-    Returns ``total``."""
+    With ``pin``, ``feasible`` and ``total`` are (C, 1) on each pod's
+    pinned node (see pin_view), and spread must not score.  Returns
+    ``total``."""
+    if pin is not None:
+        if late.spread_weight:
+            raise ValueError("late_scores: PodTopologySpread does not score on pinned nodes")
+        view, pf, _nom, (bits,), own = pin_view(state, pf, pin, None, (node_bits,))
+        feas = own & feasible[:, 0][:, None]
+        tot = torch.where(own, total[:, 0][:, None], 0)
+        late_scores(view, pf, feas, tot, bits, late)
+        total[:, 0] = tot.diagonal()
+        return total
     ctx = late.ctx
     if late.na_weight:
         total += na_op.score_fn(state, pf, ctx, feasible) * late.na_weight
@@ -292,3 +337,186 @@ def resolve_commit(state, dom, pf: dict, picks, pairs, strict: bool):
             0, (safe * dv + d_a.clamp(0, dv - 1)).reshape(-1), inc_a.reshape(-1)
         )
     return torch.where(defer, -2, torch.where(valid, picks, -1)).to(torch.int32)
+
+
+def pinned_fit(own_ok, pin_row, valid, req, state):
+    """(picks (K,) i32, feasible (K,) i32): the pinned-batch pass's
+    same-row rule (pass_.py:1003-1032).  A feasible pod (valid, pinned to a
+    live node, own-node filters passed) places when the inclusive prefix,
+    in batch order, of its feasible same-row mates' requests fits the
+    row's free capacity before the batch and their count its free pod
+    slots; otherwise it defers (-2)."""
+    k = pin_row.shape[0]
+    feas = valid & (pin_row >= 0) & own_ok
+    upto = torch.tril(torch.ones((k, k), dtype=torch.bool, device=pin_row.device))
+    mates = (pin_row[:, None] == pin_row[None, :]) & feas[None, :] & upto  # [i, j]: j counts for i
+    within = torch.where(mates[:, :, None], req[None, :, :], 0).sum(dim=1)  # (K, R)
+    count = mates.sum(dim=1)
+    row = pin_row.clamp(min=0).to(torch.int64)
+    free = (state.alloc - state.req)[row]
+    fit = ((req == 0) | (within <= free)).all(dim=1) & (state.num_pods[row] + count <= state.allowed_pods[row])
+    picks = torch.where(feas, torch.where(fit, pin_row, -2), -1).to(torch.int32)
+    return picks, feas.to(torch.int32)
+
+
+# -- data moves (rows.cu) -------------------------------------------------------
+
+
+def scatter_rows(dst, axis: int, rows, src) -> None:
+    """dst's node rows ``rows`` (axis 0) or columns (axis 1) ← ``src``, in
+    place (snapshot.py:796 _scatter_rows, preemption.py:137
+    _scatter_buf_rows)."""
+    if axis == 0:
+        dst[rows] = src
+    else:
+        dst[:, rows] = src
+
+
+def expand_rows(src, k: int):
+    """(k, ...) copies of row 0 of ``src`` (scheduler.py:44 _expand_uniform)."""
+    return src[0].expand((k,) + tuple(src.shape[1:])).clone()
+
+
+# -- preemption (victims.cu, preempt.cu) ---------------------------------------
+
+I32_MAX = 2**31 - 1
+# Criteria rows of preempt_eval's (5, N) output, in pickOneNodeForPreemption
+# order: PDB violations, max victim priority, priority sum, victim count,
+# start key.
+N_CRIT = 5
+
+
+def unpack_victims(buf, r: int, n_pdbs: int, pdb_words: int, v: int, inline_allowed: bool):
+    """The staged (N, vu, cols) int64 victim buffer → (prio (N, v) i32, req
+    (N, v, R) i64, nonzero (N, v, 2) i64, start (N, v) f64, pdb (N, v, P)
+    bool, allowed (P,) i64 or None), the occupied slots padded to ``v``
+    with the empty-slot sentinels (preemption.py:94 _unpack_victims)."""
+    n, vu, _cols = buf.shape
+    pad = v - vu
+
+    def padded(x, fill):
+        if pad == 0:
+            return x
+        shape = (n, pad) + tuple(x.shape[2:])
+        return torch.cat([x, torch.full(shape, fill, dtype=x.dtype, device=x.device)], dim=1)
+
+    prio = padded(buf[..., 0].to(torch.int32), I32_MAX)
+    req = padded(buf[..., 1 : 1 + r], 0)
+    nonzero = padded(buf[..., 1 + r : 3 + r], 0)
+    start = padded(buf[..., 3 + r].contiguous().view(torch.float64), float("inf"))
+    idx = torch.arange(n_pdbs, device=buf.device)
+    words = buf[..., 4 + r : 4 + r + pdb_words]
+    bits = (words[..., idx // 64] >> (idx % 64)) & 1
+    pdb = padded(bits.to(torch.bool), False)
+    allowed = buf[:n_pdbs, 0, -1].clone() if inline_allowed else None
+    return (prio.contiguous(), req.contiguous(), nonzero.contiguous(), start.contiguous(),
+            pdb.contiguous(), allowed)
+
+
+def mate_valid(pf: dict):
+    """(C,) bool: the dry-run's valid mates — ``valid``, or under the
+    speculative chain ``elig & (spec_picks < 0)`` (preemption.py:155)."""
+    if "valid" in pf:
+        return pf["valid"]
+    return pf["elig"] & (pf["spec_picks"] < 0)
+
+
+def preempt_eval(state, vic, pf: dict, spec):
+    """One dry-run of the chunk's representative preemptor (the first
+    valid mate) against every node: (possible (N,) bool, crit (5, N) i64,
+    vic_mask (N, V) bool, n_vic (N,) i32, rel (N, R) i64, relnz (N, 2) i64)
+    — eval_one (preemption.py:257) in its closed form."""
+    valid = mate_valid(pf)
+    i0 = int(torch.argmax(valid.to(torch.int32))) if bool(valid.any()) else 0
+    n, v = vic.prio.shape
+    base = state.valid.clone()
+    if spec.check_unsched:
+        base &= ~state.unschedulable | pf["tolerates_unschedulable"][i0]
+    if spec.check_nodename:
+        want = pf["nodename_id"][i0]
+        base &= (want == -1) | (state.name_id == want)
+    if spec.bits_mask:
+        base &= (pf["node_bits"][i0].to(torch.int32) & spec.bits_mask) == spec.bits_mask
+    prio = pf["priority"][i0].to(torch.int32)
+    demand = pf["req"][i0]
+    lower = vic.prio < prio
+
+    def ok_closed(rel_m, cnt):
+        free = state.alloc - (state.req - rel_m)
+        ok = ((demand[None, :] == 0) | (demand[None, :] <= free)).all(-1)
+        return ok & (state.num_pods - cnt + 1 <= state.allowed_pods)
+
+    rel = torch.where(lower[:, :, None], vic.req, 0).sum(dim=1)
+    cnt = lower.sum(dim=1).to(torch.int32)
+    feas_all = ok_closed(rel, cnt)
+    mask = lower.clone()
+    for s in range(v - 1, -1, -1):
+        has = mask[:, s]
+        t_rel = rel - torch.where(has[:, None], vic.req[:, s], 0)
+        t_cnt = cnt - has.to(torch.int32)
+        take = feas_all & ok_closed(t_rel, t_cnt) & has
+        mask[:, s] &= ~take
+        rel = torch.where(take[:, None], t_rel, rel)
+        cnt = torch.where(take, t_cnt, cnt)
+    n_vic = mask.sum(dim=1).to(torch.int32)
+    possible = base & feas_all & (n_vic >= 1) & valid[i0]
+    cnt_p = (mask[:, :, None] & vic.pdb).sum(dim=1).to(torch.int64)  # (N, P)
+    violations = (cnt_p - vic.allowed[None, :]).clamp(min=0).sum(dim=1)
+    max_prio = torch.where(mask, vic.prio, -1).max(dim=1).values
+    prio_sum = torch.where(mask, vic.prio.to(torch.int64), 0).sum(dim=1)
+    top = mask & (vic.prio == max_prio[:, None])
+    min_start = torch.where(top, vic.start, float("inf")).min(dim=1).values
+    start_key = torch.where(
+        torch.isfinite(min_start), -min_start * 1e6, torch.full_like(min_start, -(2.0**61))
+    ).to(torch.int64)
+    relnz = torch.where(mask[:, :, None], vic.nonzero, 0).sum(dim=1)
+    crit = torch.stack([violations, max_prio.to(torch.int64), prio_sum, n_vic.to(torch.int64), start_key])
+    return possible, crit, mask, n_vic, rel, relnz
+
+
+def preempt_pick(possible, crit, pf: dict, chunk_mode: bool):
+    """(C,) i32 picks of the chunk's mates: eligible mates (valid, same
+    signature as the representative) take the node at their cumsum rank in
+    the exact lexicographic order of the five criteria with row as the last
+    key; at chunk > 1 a valid mate left without a node defers (-2)
+    (preemption.py:499-520 and :542-600)."""
+    valid = mate_valid(pf)
+    c = valid.shape[0]
+    n = possible.shape[0]
+    i0 = int(torch.argmax(valid.to(torch.int32))) if bool(valid.any()) else 0
+    eligible = valid & (pf["sig"] == pf["sig"][i0])
+    big = 2**62
+    vio_m = torch.where(possible, crit[0], big)
+    keys = [crit[4], crit[3], crit[2], crit[1], vio_m]
+    order = torch.arange(n, device=possible.device)
+    for key in keys:  # stable sorts, least significant key first (lexsort)
+        order = order[torch.sort(key[order], stable=True).indices]
+    srt = vio_m[order]
+    rank = torch.cumsum(eligible.to(torch.int64), 0) - 1
+    safe = rank.clamp(0, n - 1)
+    has = eligible & (srt[safe] < big)
+    picks = torch.where(has, order[safe], -1).to(torch.int32)
+    if chunk_mode:
+        picks = torch.where(valid & ~has, -2, picks).to(torch.int32)
+    return picks
+
+
+def preempt_commit(carry, vic_prio, ev, picks):
+    """The step's commit (preemption.py:601-617), in place on the carried
+    (req, nonzero_req, num_pods) and ``vic_prio``: the picked rows' release
+    comes off and the chosen victims are raised to INT32_MAX.  Returns the
+    mates' (vic_mask (C, V) bool, n_victims (C,) i32)."""
+    req, nonzero_req, num_pods = carry
+    _possible, _crit, vic_mask, n_vic, rel, relnz = ev
+    do = picks >= 0
+    rows = torch.where(do, picks, 0).to(torch.int64)
+    chosen = vic_mask[rows] & do[:, None]
+    nvics = torch.where(do, n_vic[rows], 0).to(torch.int32)
+    req.index_add_(0, rows, -torch.where(do[:, None], rel[rows], 0))
+    nonzero_req.index_add_(0, rows, -torch.where(do[:, None], relnz[rows], 0))
+    num_pods.index_add_(0, rows, -nvics)
+    # Consumption only raises priorities to the sentinel, so mates sharing
+    # a row (only the clipped rank makes them) write the same values.
+    r = rows[do]
+    vic_prio[r] = torch.where(chosen[do], I32_MAX, vic_prio[r])
+    return chosen, nvics

@@ -4,10 +4,10 @@ The counterpart of ``kubernetes_tpu/snapshot.py``: the cluster is a
 struct-of-arrays (one row per node, padded to a bucketed capacity) mirrored
 between host numpy staging arrays and device tensors.
 
-  * Host-driven changes (node add/update/remove, informer pod adds) dirty
-    individual rows; ``state()`` ships only the dirty rows with
-    ``index_copy_`` — the analog of the generation-diff copy in the
-    reference's UpdateSnapshot (cache.go:186).
+  * Host-driven changes (node add/update/remove, informer pod adds and
+    removals) dirty individual rows; ``state()`` ships only the dirty rows
+    and writes them with the ``scatter_rows`` kernel — the analog of the
+    generation-diff copy in the reference's UpdateSnapshot (cache.go:186).
   * Device-driven changes (the batch pass commits pods on the card) already
     live on the device; the host applies the same deltas to its staging
     arrays after each batch so the mirrors stay equal without re-upload.
@@ -278,6 +278,9 @@ class SnapshotBuilder:
         # Feature gates the featurizers read (framework/features.py); None
         # means the defaults.
         self.feature_gates = None
+        # "plain" flushes dirty rows with the plain version of scatter_rows
+        # (set by a scheduler built with _impl="plain", for comparisons).
+        self._impl = "kernel"
 
     @property
     def _dirty_all(self) -> bool:
@@ -514,12 +517,18 @@ class SnapshotBuilder:
             self._dirty_rows.clear()
             return self._device
         if self._dirty_rows:
+            from .kernels import plain, scatter_rows  # kernels → ops → snapshot: import at use
+
+            if self._impl == "plain":
+                scatter_rows = plain.scatter_rows
+
             rows = np.fromiter(sorted(self._dirty_rows), np.int64)
             idx = torch.from_numpy(rows).to(self.device)
             for k, ax in _NODE_AXIS.items():
                 src = self.host[k][rows] if ax == 0 else self.host[k][:, rows]
-                getattr(self._device, k).index_copy_(
-                    ax, idx, torch.from_numpy(np.ascontiguousarray(src)).to(self.device)
+                scatter_rows(
+                    getattr(self._device, k), ax, idx,
+                    torch.from_numpy(np.ascontiguousarray(src)).to(self.device),
                 )
             self._dirty_rows.clear()
         return self._device

@@ -25,6 +25,26 @@ dedicated=gpu:NoSchedule; 1024 warm-up and 5000 measured pods of 100m CPU
 and 256 MiB, labelled with one of 10 apps, each with a DoNotSchedule zone
 spread constraint of maxSkew 1 over its own app that honours node taints.
 Batch 4096, chunk 64, default profile.
+
+``preemption_500n`` (harness.py:578-618, upstream PreemptionBasic): 500
+nodes of 4 CPU, 16 GiB and 110 pods over 3 zones; 2000 background pods of
+1 CPU and 2 GiB at priority 1 with start times 0..1999 fill them, drained
+before a warm-up preemptor of 2 CPU and 4 GiB at priority 1000 arrives;
+then 500 such preemptors, each needing two victims.  Batch 512, chunk 64,
+fit-only profile, the queue's 1 s doubling backoff on the wall clock.
+
+``preemption_async_5kn`` (harness.py:942-977, upstream PreemptionAsync):
+5000 such nodes; 20000 background pods of 3900m CPU and 15 GiB at priority
+1 (one fits a node, the rest wait unschedulable), drained before the
+warm-up preemptor; then 1000 preemptors of 2 CPU and 4 GiB at priority
+1000, each needing one victim.  Batch 1024, chunk 128, fit-only profile.
+
+``daemonset_15kn`` (harness.py:816-850, upstream SchedulingDaemonset):
+15000 nodes of 16 CPU, 64 GiB and 110 pods over 3 zones; 512 warm-up and
+15000 measured pods of 100m CPU and 128 MiB, each pinned to one node by a
+metadata.name matchFields node affinity (what the DaemonSet controller
+emits), so every batch takes the pinned pass.  Batch 4096, chunk 64,
+default profile.
 """
 
 from __future__ import annotations
@@ -59,6 +79,22 @@ INCLUSION_MAX_SKEW = 1
 SPREAD_BATCH = 4096
 SPREAD_CHUNK = 64
 ZONE = "topology.kubernetes.io/zone"
+
+PREEMPT_NODES = 500
+PREEMPT_BG_PODS = 2000
+PREEMPT_MEASURED_PODS = 500
+PREEMPT_BATCH = 512
+PREEMPT_CHUNK = 64
+ASYNC_NODES = 5000
+ASYNC_BG_PODS = 20000
+ASYNC_MEASURED_PODS = 1000
+ASYNC_BATCH = 1024
+ASYNC_CHUNK = 128
+
+DAEMONSET_NODES = 15000
+DAEMONSET_WARM_PODS = 512
+DAEMONSET_BATCH = 4096
+DAEMONSET_CHUNK = 64
 
 
 def basic_nodes(n: int, zones: int = 3, cpu: str = "16", mem: str = "64Gi") -> list[t.Node]:
@@ -151,3 +187,27 @@ def pod_inclusion(i: int) -> t.Pod:
         )
         .obj()
     )
+
+
+def preemption_nodes(n: int = PREEMPT_NODES) -> list[t.Node]:
+    """Nodes of 4 CPU and 16 GiB (harness.py:578 _preemption_nodes)."""
+    return basic_nodes(n, cpu="4", mem="16Gi")
+
+
+def preemption_background(count: int, cpu: str = "1", mem: str = "2Gi") -> list[t.Pod]:
+    """Low-priority fill pods with distinct start times (harness.py:583,
+    :943)."""
+    return [
+        make_pod(f"bg-{i}").req({"cpu": cpu, "memory": mem}).priority(1).start_time(float(i)).obj()
+        for i in range(count)
+    ]
+
+
+def preemptor(name: str) -> t.Pod:
+    """A preemptor of 2 CPU and 4 GiB at priority 1000 (harness.py:596)."""
+    return make_pod(name).req({"cpu": "2", "memory": "4Gi"}).priority(1000).obj()
+
+
+def daemon_pod(name: str, node: int) -> t.Pod:
+    """A daemon pod pinned to node-<node> (harness.py:818-838)."""
+    return make_pod(name).req({"cpu": "100m", "memory": "128Mi"}).node_name_affinity(f"node-{node}").obj()

@@ -162,3 +162,93 @@ def test_scheduler_spread_kernel_path_matches_plain_path(cuda_device, workload):
             assert counts["ipa_eval"] == 0
     assert binds["kernel"] == binds["plain"]
     assert all(v is not None for v in binds["kernel"].values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["preemption_500n", "preemption_async_5kn"])
+def test_preempt_kernels_match_plain_versions_exactly(cuda_device, shape):
+    """preempt_eval, preempt_pick, preempt_commit, unpack_victims,
+    scatter_rows and expand_rows against their plain versions: chunk 1,
+    the rank split, a deferring mixed chunk and the speculative mode, with
+    PDBs at the 500-node shape; and eval_chunk, select_host and
+    resolve_commit at the path's own chunk and node count."""
+    import chip_smoke
+
+    timing = chip_smoke.check_preempt_kernels(cuda_device, shape, reps=1)
+    assert set(timing) == {"preempt_eval", "preempt_pick", "preempt_commit", "unpack_victims",
+                           "scatter_rows", "expand_rows", "eval_chunk", "select_host", "resolve_commit"}
+    assert all(t["max_abs_err"] == 0 for t in timing.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 8])
+def test_scheduler_preemption_kernel_path_matches_plain_path(cuda_device, chunk):
+    """A cut of preemption_500n through TorchScheduler on the card: the
+    kernel path binds, evicts and nominates as the plain path does, and
+    launches the preemption kernels and data moves."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch import workloads as w
+    from kubernetes_tpu_torch.framework.config import fit_only_profile
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+
+    seen = {}
+    for impl in ("kernel", "plain"):
+        s = TorchScheduler(fit_only_profile(), batch_size=32, chunk_size=chunk, _impl=impl)
+        for n in w.preemption_nodes(24):
+            s.add_node(n)
+        for p in w.preemption_background(96):
+            s.add_pod(p)
+        s.schedule_all_pending()
+        for i in range(24):
+            s.add_pod(w.preemptor(f"vip-{i}"))
+        kernels.reset_launches()
+        out = s.schedule_all_pending()
+        seen[impl] = ([(o.pod.name, o.node_name, o.nominated_node, o.victim_uids) for o in out],
+                      sorted(s.cache.pods), sorted(s.nominator))
+        assert s.builder.host_mirror_equal()
+        if impl == "kernel":
+            counts = kernels.launch_counts()
+            assert min(counts[k] for k in ("preempt_eval", "preempt_pick", "preempt_commit",
+                                           "unpack_victims", "scatter_rows")) > 0
+    assert seen["kernel"] == seen["plain"]
+    assert s.preemptions > 0
+
+
+@pytest.mark.cuda
+def test_pinned_kernels_match_plain_versions_exactly(cuda_device):
+    """node_filters, eval_chunk and late_scores in pinned mode, pinned_fit
+    and the strict resolve_commit against their plain versions at the
+    daemonset_15kn shapes."""
+    import chip_smoke
+
+    timing = chip_smoke.check_pinned_kernels(cuda_device, reps=1)
+    assert set(timing) == {"node_filters", "eval_chunk", "late_scores", "pinned_fit", "resolve_commit"}
+    assert all(t["max_abs_err"] == 0 for t in timing.values())
+
+
+@pytest.mark.cuda
+def test_scheduler_daemonset_kernel_path_matches_plain_path(cuda_device):
+    """A cut of daemonset_15kn through TorchScheduler on the card: every
+    batch takes the pinned pass, through pinned_fit on the kernel path,
+    and binds as the plain path does."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch import workloads as w
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+
+    binds = {}
+    for impl in ("kernel", "plain"):
+        s = TorchScheduler(DEFAULT_PROFILE, batch_size=128, chunk_size=64, _impl=impl)
+        for n in w.basic_nodes(300):
+            s.add_node(n)
+        kernels.reset_launches()
+        for i in range(300):
+            s.add_pod(w.daemon_pod(f"ds-{i}", i))
+        s.add_pod(w.daemon_pod("ds-ghost", 999))
+        binds[impl] = {o.pod.name: o.node_name for o in s.schedule_all_pending()}
+        assert s.pinned_batches == 3 and s.builder.host_mirror_equal()
+        if impl == "kernel":
+            counts = kernels.launch_counts()
+            assert counts["pinned_fit"] == 3 and counts["select_host"] == 0
+    assert binds["kernel"] == binds["plain"]
+    assert binds["kernel"]["ds-7"] == "node-7" and binds["kernel"]["ds-ghost"] is None

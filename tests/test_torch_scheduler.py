@@ -147,10 +147,13 @@ def test_unported_constraints_raise(pod):
 
 
 def test_possible_preemption_raises():
+    # Closed-form preemption is ported; its what-if search of
+    # InterPodAffinity (active through the preemptor's anti-affinity) is not.
     ts = TorchScheduler(TDEF, batch_size=4, device="cpu")
     ts.add_node(tnode("n0").capacity({"cpu": "2", "memory": "8Gi"}).obj())
     ts.add_pod(tpod("victim").req({"cpu": "2"}).node("n0").obj())
-    ts.add_pod(tpod("vip").req({"cpu": "2"}).priority(100).obj())
+    ts.add_pod(tpod("vip").req({"cpu": "2"}).priority(100)
+               .pod_anti_affinity_in("app", ["z"], "topology.kubernetes.io/zone").obj())
     with pytest.raises(NotImplementedError, match="preemption"):
         ts.schedule_batch()
     assert ts.builder.host_mirror_equal()  # the batch completed before raising

@@ -3,6 +3,10 @@
 
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
+    python3 chip_smoke.py --compare DIR --paths density,daemonset_15kn
+        # only: these paths' windows in another tree of the port (DIR, e.g.
+        # the parent commit unpacked) and in this one, back to back on one
+        # card, three times in the order DIR, this, this, DIR
 
 Phases; any failure fails the run (nothing is caught):
   1. the card's name and power limit, the torch and CUDA versions;
@@ -72,6 +76,14 @@ Phases; any failure fails the run (nothing is caught):
      - daemonset_15kn (15000 nodes, 512 + 15000 pods each pinned to its
        node by matchFields): every batch takes the pinned pass and every
        pod lands on its node;
+     - intree_pvs_5kn_2kpods, migrated_intree_pvs_5kn_5kpods and
+       csi_pvs_5kn_5kpods (5000 nodes in 10 zones; 512 warm-up pods, then
+       2000, 5000 and 5000 pods with claims on zonal PVs, on CSI-fronted
+       PVs under attach limits, and on WaitForFirstConsumer claims
+       provisioned at PreBind): every pod with a zonal PV sits in its
+       zone, csi_used equals the distinct attached volumes and stays
+       within csi_limit, every CSI claim is bound to a provisioned PV that
+       names it, and no whole-state upload happens in the window;
      every run of a path must give the same outcome count and send the
      same number of pods to backoff; pods/s, the idle share, deferrals,
      preemptions, the backoff waited and the garbage collector's pauses in
@@ -288,9 +300,11 @@ def check_dom(errs: dict, label: str, state, et_slot, dv: int, reps: int) -> dic
     return out
 
 
-def timed(kernel_fn, plain_fn, reps: int, setup=None) -> dict:
+def timed(kernel_fn, plain_fn, reps: int, setup=None, plain_reps: int | None = None) -> dict:
+    """Medians of ``reps`` calls of the kernel and of ``plain_reps``
+    (default ``reps``) of its plain version."""
     ms, call_ms = median_ms(kernel_fn, reps, setup)
-    plain_ms, plain_call_ms = median_ms(plain_fn, reps, setup)
+    plain_ms, plain_call_ms = median_ms(plain_fn, plain_reps or reps, setup)
     return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, plain_call_ms=plain_call_ms)
 
 
@@ -1550,6 +1564,320 @@ def check_pinned_kernels(dev, reps: int) -> dict:
     return result
 
 
+PV_ZONE_KEY = "topology.kubernetes.io/zone"
+
+
+def pv_inputs(dev):
+    """The "pv" shape: a 5000-node cluster (8192 rows) in 10 zones and two
+    regions whose every third node's CSINode allows 2 attachments of the
+    ebs driver and 3 of pd (no limit for nfs); four WaitForFirstConsumer
+    classes (static local PVs, some with ORed zone terms and some with no
+    affinity; provisioners ebs with allowedTopologies zones 0-4, pd and nfs
+    without) and an Immediate one; 3000 bound PVs (zone labels, ``a__b``
+    zone sets with a region, ORed node affinity, none, CSI volumes of each
+    driver shared across pods) and a ReadWriteOncePod PV; 6000 bound pods
+    using device volumes (read-only and read-write), the RWOP claim and CSI
+    claims, filling some limited nodes' ebs budget exactly; then a
+    4096-pod batch mixing bound, delayed, provisioned, device, RWOP,
+    Immediate, lost and missing claims, featurized under the default
+    profile (twice: the second pass sees the final vocabularies)."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.api import types as t
+    from kubernetes_tpu_torch.api.wrappers import make_node, make_pod, make_pv, make_pvc
+    from kubernetes_tpu_torch.cache import Cache
+    from kubernetes_tpu_torch.engine.features import build_pod_batch
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.snapshot import SnapshotBuilder
+
+    rng = np.random.default_rng(97)
+    builder = SnapshotBuilder(device=dev)
+    cache = Cache(builder)
+    cat = builder.volumes
+    nodes, zones = 5000, 10
+
+    def zone_terms(*sets):
+        return t.NodeSelector(terms=tuple(t.NodeSelectorTerm(match_expressions=(
+            t.NodeSelectorRequirement(PV_ZONE_KEY, t.OP_IN, tuple(f"zone-{z}" for z in zs)),)) for zs in sets))
+
+    for i in range(nodes):
+        cache.add_node(make_node(f"n{i}").capacity({"cpu": "16", "memory": "64Gi", "pods": 110})
+                       .zone(f"zone-{i % zones}").region(f"region-{i % 2}").obj())
+        if i % 3 == 0:
+            builder.set_csinode_limits(i, t.CSINode(f"n{i}", {"ebs": 2, "pd": 3}))
+    wffc = t.BINDING_WAIT_FOR_FIRST_CONSUMER
+    cat.add_class(t.StorageClass("local", binding_mode=wffc))
+    cat.add_class(t.StorageClass("dyn", provisioner="ebs", binding_mode=wffc,
+                                 allowed_topologies=zone_terms(range(5))))
+    cat.add_class(t.StorageClass("dyn2", provisioner="pd", binding_mode=wffc))
+    cat.add_class(t.StorageClass("dyn3", provisioner="nfs", binding_mode=wffc))
+    cat.add_class(t.StorageClass("slow"))
+    for j in range(8):
+        pv = make_pv(f"lpv{j}", storage_class="local", capacity=f"{4 + j}Gi")
+        if j % 4:
+            pv.node_affinity = zone_terms([j], [j + 1]) if j % 2 else zone_terms([j])
+        cat.add_pv(pv)
+    drivers = ("ebs", "pd", "nfs")
+    for j in range(3000):
+        kind = j % 6
+        pv = make_pv(f"bpv{j}", access_modes=(t.RWX,))
+        if kind == 0:
+            pv.labels[PV_ZONE_KEY] = f"zone-{j % zones}"
+        elif kind == 1:
+            pv.labels[PV_ZONE_KEY] = f"zone-{j % zones}__zone-{(j + 3) % zones}"
+            pv.labels["topology.kubernetes.io/region"] = f"region-{j % 2}"
+        elif kind == 2:
+            pv.node_affinity = zone_terms([j % zones], [(j + 5) % zones])
+        elif kind == 4:
+            pv.csi_driver = drivers[(j // 6) % 3]
+        pv.claim_ref = f"default/b{j}"
+        cat.add_pv(pv)
+        cat.add_pvc(make_pvc(f"b{j}", volume_name=pv.name, access_modes=(t.RWX,)))
+    cat.add_pv(make_pv("rwop", access_modes=(t.RWOP,)))
+    cat.add_pvc(make_pvc("rwop", volume_name="rwop", access_modes=(t.RWOP,)))
+    for j in range(300):
+        for kind in ("local", "dyn", "dyn2", "dyn3"):
+            cat.add_pvc(make_pvc(f"{kind}-{j}", storage_class=kind, request="2Gi"))
+    cat.add_pvc(make_pvc("imm", storage_class="slow"))
+    cat.add_pvc(make_pvc("lost", volume_name="gone"))
+    csi_claims = [f"b{j}" for j in range(4, 3000, 6)]  # kind 4: one CSI driver each, by (j // 6) % 3
+    ebs_claims = csi_claims[::3]
+    # Bound pods.  Limited nodes 0, 3, ..., 897 get exactly 2 distinct ebs
+    # volumes (their budget); others carry devices and shared CSI claims.
+    for q in range(300):
+        w = make_pod(f"full-{q}").req({"cpu": "100m"}).pvc_volume(ebs_claims[(2 * q) % len(ebs_claims)])
+        w = w.pvc_volume(ebs_claims[(2 * q + 1) % len(ebs_claims)])
+        cache.add_pod(w.node(f"n{3 * q}").obj())
+    for q in range(6000):
+        w = make_pod(f"bound-{q}").req({"cpu": "100m"})
+        if q % 2:
+            w = w.device_volume(f"disk-{q % 200}", read_only=bool(q % 3 == 0))
+        if q % 5 == 1:
+            w = w.pvc_volume(csi_claims[q % len(csi_claims)])
+        cache.add_pod(w.node(f"n{int(rng.integers(900, nodes))}").obj())
+    cache.add_pod(make_pod("rwop-holder").req({"cpu": "100m"}).pvc_volume("rwop").node("n1").obj())
+    other = ["imm", "lost", "missing", "rwop"]
+    pods = []
+    for k in range(4096):
+        w = make_pod(f"p{k}").req({"cpu": "100m", "memory": "256Mi"})
+        r = k % 16
+        if r < 5:
+            w = w.pvc_volume(f"b{int(rng.integers(3000))}")
+        elif r < 9:
+            w = w.pvc_volume(f"{('local', 'dyn', 'dyn2', 'dyn3')[r - 5]}-{int(rng.integers(300))}")
+        elif r < 11:
+            w = w.pvc_volume(csi_claims[int(rng.integers(len(csi_claims)))])
+        elif r < 13:
+            w = w.device_volume(f"disk-{int(rng.integers(220))}", read_only=bool(rng.integers(2)))
+        elif r == 13:
+            w = w.pvc_volume(f"b{int(rng.integers(3000))}").pvc_volume(f"dyn-{int(rng.integers(300))}")
+        elif r == 14:
+            w = w.pvc_volume(other[k % 4])
+        else:
+            w = w.pvc_volume(f"local-{k % 300}").device_volume(f"disk-{k % 7}")
+        pods.append(w.obj())
+    for _ in range(2):
+        batch, _, active = build_pod_batch(pods, builder, DEFAULT_PROFILE, 4096)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    pf = {key: to(v) for key, v in batch.items()}
+    pf["nominated_row"] = to(np.full(4096, -1, np.int32))
+    return builder, builder.state(), pf, active, rng
+
+
+def vol_filter_bytes(state, pf: dict, do_vr: bool, do_nvl: bool) -> int:
+    """vol_filter for this chunk's data: the flags and ids read; one node
+    row of counts per distinct device use (dev_counts for a writer,
+    dev_rw_counts for a read-only use) and per distinct CSI volume
+    (csivol_counts); the csi_used and csi_limit cells of each (driver, node)
+    where some pod of the chunk attaches a new volume of that driver; the
+    bits written."""
+    import torch
+
+    c, n = pf["valid"].shape[0], state.valid.shape[0]
+    b = c * n
+    if do_vr:
+        b += nbytes(pf["vr_rwop_ok"])
+        if "vol_dev_ids" in pf:
+            ids, rw = pf["vol_dev_ids"], pf["vol_dev_rw"]
+            use = ids >= 0
+            rows = int(torch.unique(ids[use].long() * 2 + rw[use].long()).numel())
+            b += nbytes(ids, rw) + rows * n * 4
+    if do_nvl and "vol_csi_ids" in pf:
+        ids, drv = pf["vol_csi_ids"], pf["vol_csi_drv"]
+        use = ids >= 0
+        b += nbytes(ids, drv) + int(torch.unique(ids[use]).numel()) * n * 4
+        fresh = (state.csivol_counts[ids.clamp(min=0).long()] == 0) & use[..., None]  # (C, S, N)
+        for d in torch.unique(drv[use]).tolist():
+            b += int((fresh & (drv == d)[..., None]).any(dim=1).any(dim=0).sum()) * 4 * 2
+    return b
+
+
+def vol_commit_bytes(state, pf: dict, placed) -> int:
+    """The volume part of resolve_commit for this chunk: the ids and flags
+    read, and for each distinct cell that a placed pod (``placed``, the
+    commit's output picks) touches, one read and one write: dev_counts per
+    device use, dev_rw_counts per writer, csivol_counts per CSI volume, and
+    csi_used per (driver, node) that a volume absent there before the chunk
+    newly attaches to."""
+    import torch
+
+    n = state.valid.shape[0]
+    att = (placed >= 0)[:, None]
+    rows = placed.clamp(min=0).long()[:, None]
+    b = 0
+    if "vol_dev_ids" in pf:
+        ids, rw = pf["vol_dev_ids"], pf["vol_dev_rw"]
+        use = (ids >= 0) & att
+        cell = ids.long() * n + rows
+        b += nbytes(ids, rw) + int(torch.unique(cell[use]).numel()) * 8
+        b += int(torch.unique(cell[use & rw]).numel()) * 8
+    if "vol_csi_ids" in pf:
+        ids, drv = pf["vol_csi_ids"], pf["vol_csi_drv"]
+        use = (ids >= 0) & att
+        cell = ids.clamp(min=0).long() * n + rows
+        fresh = use & (state.csivol_counts.view(-1)[cell] == 0)
+        b += nbytes(ids, drv) + int(torch.unique(cell[use]).numel()) * 8
+        b += int(torch.unique((drv.long() * n + rows)[fresh]).numel()) * 8
+    if "vol_csi_lim" in pf:
+        b += nbytes(pf["vol_csi_lim"])
+    return b
+
+
+def vol_pair_bytes(pf: dict, c: int) -> int:
+    """conflict_pairs on a volume batch: the device and CSI ids and the
+    PreBind-race flags read once, the table written once."""
+    k = pf["valid"].shape[0]
+    keys = [key for key in ("vol_dev_ids", "vol_csi_ids", "vol_unbound") if key in pf]
+    return nbytes(*(pf[key] for key in keys)) + k * c
+
+
+def check_pv_kernels(dev, reps: int) -> dict:
+    """Phase 3, the "pv" shape (C=64, N=8192, a 4096-pod batch; pv_inputs):
+    node_filters with VolumeBinding's and VolumeZone's bits over the batch,
+    conflict_pairs over its 64 chunks, and per chunk (every eighth) vol_filter,
+    eval_chunk reading the node_filters and vol_filter planes, and
+    select_host; resolve_commit strict and not on chunks whose picks put
+    limited pods, unlimited pods with distinct volumes of one driver, device
+    users and chunk-mates sharing a volume on a few rows (one at its ebs
+    budget, one with the volume attached); all against their plain versions,
+    exactly.  Returns the timings (the batch kernels on the batch, the rest
+    on chunk 0) with their bounds."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.engine.pass_ import build_dom, eval_spec
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.kernels import plain
+
+    builder, state, big, active, rng = pv_inputs(dev)
+    schema = builder.schema
+    errs: dict[str, float] = {}
+    c, n, k = 64, state.valid.shape[0], big["valid"].shape[0]
+    spec = eval_spec(DEFAULT_PROFILE, schema, builder.res_col, active)
+    ctx = spec.ctx
+    need = {"VolumeBinding", "VolumeZone", "VolumeRestrictions", "NodeVolumeLimits"}
+    if not need <= set(spec.filters):
+        raise AssertionError(f"pv shape: active filters {spec.filters} lack {need - set(spec.filters)}")
+    kb = kernels.node_filters(state, big, ctx)
+    pb = plain.node_filters(state, big, ctx)
+    kp = kernels.conflict_pairs(big, k // c, c)
+    pp = plain.conflict_pairs(big, k // c, c)
+    torch.cuda.synchronize()
+    exact(errs, "node_filters", "[pv batch]", kb, pb)
+    exact(errs, "conflict_pairs", "[pv batch]", kp, pp)
+    valid = state.valid[None, :]
+    stats = {"vb_rejects": int((valid & ((pb & 4) == 0)).sum()), "vz_rejects": int((valid & ((pb & 8) == 0)).sum()),
+             "pairs": int(pp.sum()), "vr_rejects": 0, "nvl_rejects": 0, "deferred": 0, "committed": 0}
+    seed_mul = ((DEFAULT_PROFILE.tie_break_seed & 0xFFFFFFFF) * 2654435761) & 0xFFFFFFFF
+    first = None
+    for i in range(0, k // c, 8):
+        pf = _chunk(big, i, c)
+        bits = pb[i * c:(i + 1) * c].contiguous()
+        kv = kernels.vol_filter(state, pf, ctx, True, True)
+        pv = plain.vol_filter(state, pf, ctx, True, True)
+        torch.cuda.synchronize()
+        exact(errs, "vol_filter", f"[pv chunk {i}]", kv, pv)
+        stats["vr_rejects"] += int((valid & ((pv & 1) == 0)).sum())
+        stats["nvl_rejects"] += int((valid & ((pv & 2) == 0)).sum())
+        ke = kernels.eval_chunk(state, pf, spec, None, (bits, None, pv))
+        pe = plain.eval_chunk(state, pf, spec, None, (bits, None, pv))
+        torch.cuda.synchronize()
+        for what, a, b in zip(("feasible", "total", "fail_mask"), ke, pe):
+            exact(errs, "eval_chunk", f"[pv chunk {i}] {what}", a, b)
+        steps = torch.from_numpy(rng.integers(0, 2**32, size=c, dtype=np.int64)).to(dev)
+        ks = kernels.select_host(pe[0], pe[1], steps, seed_mul, pf["nominated_row"])
+        ps = plain.select_host(pe[0], pe[1], steps, seed_mul, pf["nominated_row"])
+        torch.cuda.synchronize()
+        for what, a, b in zip(("pick", "best", "feasible_count"), ks, ps):
+            exact(errs, "select_host", f"[pv chunk {i}] {what}", a, b)
+        if first is None:
+            first = (pf, bits, pv, ps[0])
+    # resolve_commit: the chunk's picks, then a few rows for everyone.
+    et_slot = torch.zeros(schema.ET, dtype=torch.int32, device=dev)
+    dom = build_dom(state, et_slot, torch.zeros(schema.ET, dtype=torch.bool, device=dev), schema.DV)
+    fields = ("req", "nonzero_req", "num_pods", "group_counts", "dev_counts", "dev_rw_counts",
+              "csivol_counts", "csi_used")
+    at_budget = 0  # node n0 carries exactly its two ebs volumes
+    # A node past the limited ones that already carries a CSI volume.
+    attached = 900 + int(torch.nonzero(state.csivol_counts[:, 900:].sum(dim=0) > 0)[0, 0])
+    crowd = torch.tensor([at_budget, attached, 7, 11], dtype=torch.int32, device=dev)
+    commit_cases = []
+    for i in range(0, k // c, 8):
+        pf = _chunk(big, i, c)
+        crowded = crowd[torch.from_numpy(rng.integers(0, 4, size=c)).to(dev)]
+        picks = crowded.clone()
+        picks[::13] = -1
+        commit_cases.append((f"chunk {i}", pf, picks, kp[i]))
+    pf0, _bits0, pv0, picks0 = first
+    commit_cases.append(("chunk 0 picks", pf0, picks0, kp[0]))
+    placed = None  # the first case's committed picks (not strict): its bound reads them
+    for label, pf, picks, pairs in commit_cases:
+        for strict in (False, True):
+            sk, dk = state.clone(), clone_dom(dom)
+            sp, dp = state.clone(), clone_dom(dom)
+            ok_ = kernels.resolve_commit(sk, dk, pf, picks, pairs, strict)
+            op_ = plain.resolve_commit(sp, dp, pf, picks, pairs, strict)
+            torch.cuda.synchronize()
+            exact(errs, "resolve_commit", f"[pv {label}] (strict={strict}) picks", ok_, op_)
+            for f in fields:
+                exact(errs, "resolve_commit", f"[pv {label}] (strict={strict}) state.{f}",
+                      getattr(sk, f), getattr(sp, f))
+            if not strict:
+                stats["deferred"] += int((op_ == -2).sum())
+                if placed is None:
+                    placed = op_
+            stats["committed"] += int((op_ >= 0).sum())
+    _l, pfc, pickc, pairc = commit_cases[0]
+    result = {
+        # The plain version takes about a second a call here: 5 calls.
+        "node_filters": timed(lambda _: kernels.node_filters(state, big, ctx),
+                              lambda _: plain.node_filters(state, big, ctx), reps, plain_reps=5),
+        "conflict_pairs": timed(lambda _: kernels.conflict_pairs(big, k // c, c),
+                                lambda _: plain.conflict_pairs(big, k // c, c), reps),
+        "vol_filter": timed(lambda _: kernels.vol_filter(state, pf0, ctx, True, True),
+                            lambda _: plain.vol_filter(state, pf0, ctx, True, True), reps),
+        "eval_chunk": timed(lambda _: kernels.eval_chunk(state, pf0, spec, None, (_bits0, None, pv0)),
+                            lambda _: plain.eval_chunk(state, pf0, spec, None, (_bits0, None, pv0)), reps),
+        "resolve_commit": timed(
+            lambda a: kernels.resolve_commit(a[0], a[1], pfc, pickc, pairc, False),
+            lambda a: plain.resolve_commit(a[0], a[1], pfc, pickc, pairc, False), reps,
+            lambda: (state.clone(), clone_dom(dom))),
+    }
+    set_bound(result["node_filters"], nf_bytes(state, big, ctx))
+    set_bound(result["conflict_pairs"], vol_pair_bytes(big, c))
+    set_bound(result["vol_filter"], vol_filter_bytes(state, pf0, True, True))
+    set_bound(result["eval_chunk"], eval_bytes(state, pf0, None) + 2 * c * n)
+    set_bound(result["resolve_commit"], commit_bytes(schema, pickc, c) + vol_commit_bytes(state, pfc, placed))
+    for name in result:
+        result[name]["max_abs_err"] = errs[name]
+    keys = {key: tuple(big[key].shape) for key in big if key.startswith(("vb_", "vz_", "vol_"))}
+    print(f"pv shapes: C={c}, N={n}, K={k}, CV={schema.CV}, DR={schema.DR}, VD={schema.VD}; features {keys}; "
+          f"{stats}")
+    return result
+
+
 def spread_bytes(state, pf: dict, prefix: str) -> int:
     """spread_filter's (and the spread part of late_scores') reads for this
     chunk's data: the constraints' valid flags; and only where a constraint
@@ -1616,6 +1944,19 @@ def nf_bytes(state, pf: dict, ctx) -> int:
         b += nbytes(intol)
         if bool(intol.any()):
             b += nbytes(state.taint_ids)
+    labels = False
+    for prefix in ("vb", "vz"):
+        if f"{prefix}_op" in pf:
+            # The flags and group counts of every pod; the programs (and so
+            # the label slots) only of feasible pods with a group.
+            feas, ngroups = pf[f"{prefix}_feasible"], pf[f"{prefix}_ngroups"]
+            b += nbytes(feas, ngroups)
+            rows = feas & (ngroups > 0)
+            if bool(rows.any()):
+                b += program_bytes(pf, prefix, rows, ("op", "key", "vals", "int", "term_valid", "group"))
+                labels = True
+    if labels and not ("na_sel_pairs" in pf and bool(pf["na_has_required"].any())):
+        b += label_bytes(state)
     return b
 
 
@@ -1677,10 +2018,11 @@ def spread_gates(outcomes, n_nodes: int, zones: int, max_skew: int, tainted) -> 
 
 
 def run_workload(impl: str, nodes, warm, measured, batch: int, chunk: int, trace: bool = False,
-                 profile=None, stages=(), preempt: bool = False):
-    """One burst through TorchScheduler: the nodes, the warm-up pods
+                 profile=None, stages=(), preempt: bool = False, setup=None, feed=None):
+    """One burst through TorchScheduler: the nodes, ``setup(s)`` (objects
+    and pods of a warm-up that needs more than pods), the warm-up pods
     (scheduled first, then each of ``stages`` in turn), then the measured
-    pods, timed.  ``preempt`` runs the fit-only profile with the
+    pods (or what ``feed(s)`` adds), timed.  ``preempt`` runs the fit-only profile with the
     reference's 1 s doubling backoff on the wall clock and waits through
     it (``wait_backoff``).  With ``trace``, the measured window also
     records host spans (featurize, the host-to-device copies of the batch
@@ -1688,7 +2030,8 @@ def run_workload(impl: str, nodes, warm, measured, batch: int, chunk: int, trace
     each schedule_batch call) and a torch.profiler trace of the card's
     kernels.  Data moves are counted over the whole run: torch's
     index_copy_ and expand calls (there should be none) beside the
-    scatter_rows and expand_rows launches that replace them."""
+    scatter_rows and expand_rows launches that replace them; whole-state
+    uploads are counted inside the measured window."""
     import torch
 
     from kubernetes_tpu_torch import kernels
@@ -1719,6 +2062,8 @@ def run_workload(impl: str, nodes, warm, measured, batch: int, chunk: int, trace
     try:
         for node in nodes:
             s.add_node(node)
+        if setup is not None:
+            setup(s)
         for pod in warm:
             s.add_pod(pod)
         out = s.schedule_all_pending(wait_backoff=preempt)
@@ -1727,6 +2072,8 @@ def run_workload(impl: str, nodes, warm, measured, batch: int, chunk: int, trace
                 s.add_pod(pod)
             out += s.schedule_all_pending(wait_backoff=preempt)
         torch.cuda.synchronize()
+        if feed is not None:
+            feed(s)
         for pod in measured:
             s.add_pod(pod)
         spans = {"featurize": 0.0, "h2d": 0.0, "batch": 0.0, "fetch": 0.0}
@@ -1791,10 +2138,12 @@ def run_workload(impl: str, nodes, warm, measured, batch: int, chunk: int, trace
         gc.collect()
         window["gc_before_s"] = time.perf_counter() - t_gc
         gc.callbacks.append(gc_pause)
+        uploads0 = s.builder.full_uploads
         t0 = time.perf_counter()
         measured_out = s.schedule_all_pending(wait_backoff=preempt)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        window["full_uploads"] = s.builder.full_uploads - uploads0
     finally:
         if gc_pause in gc.callbacks:
             gc.callbacks.remove(gc_pause)
@@ -1906,6 +2255,91 @@ def run_daemonset(impl: str, trace: bool = False):
                         w.DAEMONSET_BATCH, w.DAEMONSET_CHUNK, trace)
 
 
+def _pv_run(impl: str, trace: bool, setup, feed):
+    from kubernetes_tpu_torch import workloads as w
+
+    return run_workload(impl, w.basic_nodes(w.PV_NODES, zones=w.PV_ZONES), [], [], w.PV_BATCH, w.PV_CHUNK,
+                        trace, setup=setup, feed=feed)
+
+
+def run_intree(impl: str, trace: bool = False):
+    """intree_pvs_5kn_2kpods (harness.py:664-716): 5000 nodes in 10 zones,
+    512 warm-up and 2000 measured pods, each claim pre-bound to its own
+    zonal PV."""
+    from kubernetes_tpu_torch import workloads as w
+
+    return _pv_run(impl, trace, lambda s: w.pv_warm(s, w.INTREE_MEASURED_PODS),
+                   lambda s: w.pv_measured(s, w.INTREE_MEASURED_PODS))
+
+
+def run_migrated(impl: str, trace: bool = False):
+    """migrated_intree_pvs_5kn_5kpods (harness.py:718-737): the same with
+    CSI-fronted PVs and 39 attachments per node; 5000 measured pods."""
+    from kubernetes_tpu_torch import workloads as w
+
+    def setup(s):
+        for cs in w.migrated_csinodes():
+            s.add_csinode(cs)
+        w.pv_warm(s, w.MIGRATED_MEASURED_PODS, driver=w.MIGRATED_DRIVER)
+
+    return _pv_run(impl, trace, setup,
+                   lambda s: w.pv_measured(s, w.MIGRATED_MEASURED_PODS, driver=w.MIGRATED_DRIVER))
+
+
+def run_csi(impl: str, trace: bool = False):
+    """csi_pvs_5kn_5kpods (harness.py:740-792): WaitForFirstConsumer claims
+    provisioned at PreBind; 512 warm-up and 5000 measured pods."""
+    from kubernetes_tpu_torch import workloads as w
+
+    return _pv_run(impl, trace, w.csi_warm, lambda s: w.csi_measured(s, w.CSI_MEASURED_PODS))
+
+
+def check_pv(s, outcomes, expected: int, label: str) -> dict:
+    """The PV paths' gates on top of check_density's: each pod with a
+    zonal PV sits in its PV's zone; csi_used equals the distinct CSI
+    volumes per (driver, node) of the host mirror's pods and stays within
+    csi_limit; every CSI claim is bound to a provisioned PV that names it;
+    no whole-state upload inside the measured window."""
+    import numpy as np
+
+    bind = check_density(s, outcomes, expected, label)
+    cat = s.builder.volumes
+    used: dict = {}
+    zonal = provisioned = 0
+    for pr in s.cache.pods.values():
+        node = s.cache.nodes[pr.node_name].node
+        for pvc in cat.pod_pvcs(pr.pod):
+            pv = cat.pvs.get(pvc.volume_name) if pvc is not None else None
+            if pv is None:
+                raise AssertionError(f"{label}: pod {pr.pod.name} has an unbound or lost claim")
+            zone = pv.labels.get(PV_ZONE_KEY)
+            if zone is not None:
+                zonal += 1
+                if node.metadata.labels.get(PV_ZONE_KEY) not in zone.split("__"):
+                    raise AssertionError(f"{label}: pod {pr.pod.name} outside its PV's zone {zone}")
+            driver = cat.pvc_driver(pvc)
+            if driver:
+                used.setdefault((driver, pr.node_name), set()).add(pvc.uid)
+    for pvc in cat.pvcs.values():
+        if pvc.storage_class:
+            pv = cat.pvs.get(pvc.volume_name)
+            if pv is None or pv.claim_ref != pvc.uid or not pv.name.startswith("provisioned-"):
+                raise AssertionError(f"{label}: claim {pvc.uid} is not bound to a provisioned PV naming it")
+            provisioned += 1
+    h = s.builder.host
+    want = np.zeros_like(h["csi_used"])
+    for (driver, node), claims in used.items():
+        want[s.interns.drivers.id(driver), s.cache.row_of(node)] = len(claims)
+    if not np.array_equal(h["csi_used"], want) or (h["csi_used"] > h["csi_limit"]).any():
+        raise AssertionError(f"{label}: csi_used differs from the distinct attached volumes or exceeds csi_limit")
+    if s.window["full_uploads"]:
+        raise AssertionError(f"{label}: {s.window['full_uploads']} whole-state uploads in the measured window")
+    print(f"{label}: {zonal} zonal claims in their zones, {provisioned} claims provisioned and bound, "
+          f"{int(h['csi_used'].sum())} CSI attachments (max {int(h['csi_used'].max(initial=0))} per driver "
+          f"and node), {s.reserve_failures} lost reservations, CV={s.builder.schema.CV}")
+    return bind
+
+
 def daemon_gate(outcomes) -> None:
     """Every daemon pod on the node its name pins (warm-i and ds-i on
     node-i)."""
@@ -1968,6 +2402,8 @@ def _paths():
     preempt = base + ("preempt_eval", "preempt_pick", "preempt_commit", "unpack_victims",
                       "scatter_rows", "expand_rows")
     pinned = ("node_filters", "eval_chunk", "late_scores", "pinned_fit", "resolve_commit")
+    # intree: no device, CSI or racing ids, so no conflict table.
+    pv = base + ("node_filters", "vol_filter")
     return {
         "density": (run_density, w.DENSITY_WARM_PODS + w.DENSITY_MEASURED_PODS, base, None,
                     check_density, 1),
@@ -1984,6 +2420,11 @@ def _paths():
                                  check_preemption, 3),
         "daemonset_15kn": (run_daemonset, w.DAEMONSET_WARM_PODS + w.DAEMONSET_NODES, pinned, daemon_gate,
                            check_density, 1),
+        "intree_pvs_5kn_2kpods": (run_intree, w.PV_WARM_PODS + w.INTREE_MEASURED_PODS, pv, None, check_pv, 1),
+        "migrated_intree_pvs_5kn_5kpods": (run_migrated, w.PV_WARM_PODS + w.MIGRATED_MEASURED_PODS,
+                                           pv + ("conflict_pairs",), None, check_pv, 1),
+        "csi_pvs_5kn_5kpods": (run_csi, w.PV_WARM_PODS + w.CSI_MEASURED_PODS, pv + ("conflict_pairs",), None,
+                               check_pv, 1),
     }
 
 
@@ -1993,7 +2434,8 @@ def window_line(s, measured: int, dt: float) -> str:
     return (f"measured {measured} pods in {dt:.4f}s = {measured / dt:.1f} pods/s; backoff waited "
             f"{win['backoff_s']:.4f}s over {win['sleeps']} sleeps, {win['to_backoff']} pods sent to backoff, "
             f"garbage collector {win['gc_s']:.4f}s over {win['gc_runs']} runs ({win['gc_full']} full; a full "
-            f"collection just before the window took {win['gc_before_s']:.4f}s)")
+            f"collection just before the window took {win['gc_before_s']:.4f}s), {win['full_uploads']} "
+            f"whole-state uploads")
 
 
 def drive(path: str, card: str) -> tuple[dict, dict]:
@@ -2047,9 +2489,48 @@ def drive(path: str, card: str) -> tuple[dict, dict]:
     return launches, s.data_moves
 
 
+# One window of a path in the tree given as argv[1] (its own chip_smoke.py
+# and package): untraced, then traced for the featurize span.
+_COMPARE_CHILD = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as c
+from kubernetes_tpu_torch.kernels import build
+build.build()
+runner = c._paths()[sys.argv[2]][0]
+_s, _o, n, dt, _ = runner("kernel")
+_s, _o, n2, dt2, spans = runner("kernel", trace=True)
+print(json.dumps({"pods_s": n / dt, "traced_pods_s": n2 / dt2, "featurize_s": spans["featurize_s"]}))
+"""
+
+
+def compare(other: str, paths: list[str], card: str) -> None:
+    """Each path's measured window through the kernels, in ``other`` and
+    in this tree, each run a fresh process, three times in the order
+    other, this, this, other; pods/s untraced and traced, and the traced
+    featurize span."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    trees = {"other": os.path.abspath(other), "this": here}
+    for tree in trees.values():  # build each tree's kernels before any window
+        subprocess.run([sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+                        "from kubernetes_tpu_torch.kernels import build; build.build()", tree],
+                       cwd=tree, check=True)
+    for path in paths:
+        for which in ("other", "this", "this", "other") * 3:
+            res = subprocess.run([sys.executable, "-c", _COMPARE_CHILD, trees[which], path], cwd=trees[which],
+                                 capture_output=True, text=True)
+            if res.returncode:
+                raise RuntimeError(f"compare {path} in {trees[which]}: exit {res.returncode}\n{res.stderr[-4000:]}")
+            print(f"compare {path} [{which}: {trees[which]}]: {res.stdout.strip().splitlines()[-1]}  [{card}]")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true", help="stop after the kernel checks")
+    ap.add_argument("--compare", metavar="DIR", help="only compare --paths with the port's tree in DIR")
+    ap.add_argument("--paths", default="density,daemonset_15kn", help="the paths --compare runs")
     args = ap.parse_args()
 
     import torch
@@ -2065,6 +2546,9 @@ def main() -> int:
     dev = torch.device("cuda")
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    if args.compare:
+        compare(args.compare, args.paths.split(","), card)
+        return 0
 
     t0 = time.perf_counter()
     logs = build.build()
@@ -2078,7 +2562,7 @@ def main() -> int:
               "spread_na": check_spread_kernels(dev, "spread_na", REPS),
               "inclusion": check_spread_kernels(dev, "inclusion", REPS),
               **{shape: check_preempt_kernels(dev, shape, REPS) for shape in PREEMPT_SHAPES},
-              "daemonset": check_pinned_kernels(dev, REPS)}
+              "daemonset": check_pinned_kernels(dev, REPS), "pv": check_pv_kernels(dev, REPS)}
     for shape, table in shapes.items():
         for name, tm in table.items():
             lib = "" if tm.get("library_ms") is None else f", library {tm['library_ms']:.4f}"
@@ -2087,11 +2571,13 @@ def main() -> int:
                   f"operations); call ms with the host's launch overhead: kernel {tm['call_ms']:.4f}, "
                   f"plain {tm['plain_call_ms']:.4f}  [{card}]")
 
+    print(f"kernel phase done at {time.perf_counter() - t0:.1f}s")
     by_path: dict[str, dict] = {}  # empty: the main paths did not run
     moves: dict[str, dict] = {}
     if not args.kernels_only:
         for path in _paths():
             by_path[path], moves[path] = drive(path, card)
+            print(f"{path} done at {time.perf_counter() - t0:.1f}s")
         print(f"data moves outside the hand kernels, launches per path: {moves}  [{card}]")
 
     csrc = "kubernetes_tpu_torch/kernels/csrc/"
@@ -2112,12 +2598,14 @@ def main() -> int:
         "scatter_rows": "kubernetes_tpu/snapshot.py:796",
         "expand_rows": "kubernetes_tpu/scheduler.py:44",
         "pinned_fit": "kubernetes_tpu/engine/pass_.py:941",
+        "vol_filter": "kubernetes_tpu/ops/volumes.py:217",
     }
     # The top-level numbers of a kernel come from the shapes of the path it
     # was first ported for (density: eval_chunk, select_host,
     # resolve_commit; IPA: build_dom, ipa_eval, conflict_pairs; spread_na:
     # node_filters, spread_filter, late_scores; preemption_async_5kn: the
-    # preemption kernels and data moves; daemonset: pinned_fit); "by_shape"
+    # preemption kernels and data moves; daemonset: pinned_fit; pv:
+    # vol_filter); "by_shape"
     # holds every shape it was measured at.  "launches" sums the main
     # paths' first kernel runs, "launches_by_path" splits them.
     first = {name: "ipa" for name in kernels.WRAPPERS}
@@ -2125,7 +2613,7 @@ def main() -> int:
                  node_filters="spread_na", spread_filter="spread_na", late_scores="spread_na",
                  **dict.fromkeys(("preempt_eval", "preempt_pick", "preempt_commit", "unpack_victims",
                                   "scatter_rows", "expand_rows"), "preemption_async_5kn"),
-                 pinned_fit="daemonset")
+                 pinned_fit="daemonset", vol_filter="pv")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [], "data_moves_by_path": moves}
     for name in kernels.WRAPPERS:

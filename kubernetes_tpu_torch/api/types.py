@@ -3,10 +3,12 @@
 The port's own copy of ``kubernetes_tpu/api/types.py``, trimmed to what the
 first port slice reads: quantities, pods, nodes, the affinity/spread/taint
 specs (read by the not-yet-ported ops' ``is_active`` predicates so such
-pods fail loudly), the volume reference, the label-selector evaluator
-that inter-pod affinity matches terms with, and the PodDisruptionBudget
-that preemption counts victims against.  PV/PVC/CSI/DRA objects and
-Leases come with their slices.
+pods fail loudly), the volume objects the volume plugins read (pod
+volume references, PersistentVolume, PersistentVolumeClaim, StorageClass,
+CSINode) with the node-selector evaluator their PreBind step matches PV
+affinities with, the label-selector evaluator that inter-pod affinity
+matches terms with, and the PodDisruptionBudget that preemption counts
+victims against.  DRA objects and Leases come with their slices.
 
 These are plain Python dataclasses, not a port of the generated Go types
 (reference: staging/src/k8s.io/api/core/v1/types.go).  Quantities are
@@ -523,6 +525,67 @@ class Volume:
     read_only: bool = False
 
 
+# ---------------------------------------------------------------------------
+# Volumes (PV / PVC / StorageClass / CSINode): the subset the scheduler's
+# volume plugins consume (kubernetes_tpu/api/types.py:632-696; reference:
+# pkg/scheduler/framework/plugins/volumebinding, volumezone,
+# volumerestrictions, nodevolumelimits).
+# ---------------------------------------------------------------------------
+
+BINDING_IMMEDIATE = "Immediate"
+BINDING_WAIT_FOR_FIRST_CONSUMER = "WaitForFirstConsumer"
+
+RWO = "ReadWriteOnce"
+ROX = "ReadOnlyMany"
+RWX = "ReadWriteMany"
+RWOP = "ReadWriteOncePod"
+
+
+@dataclass
+class StorageClass:
+    name: str
+    provisioner: str = "kubernetes.io/no-provisioner"
+    binding_mode: str = BINDING_IMMEDIATE
+    # Topology restriction for dynamically provisioned volumes
+    # (StorageClass.allowedTopologies): OR of terms like a NodeSelector.
+    allowed_topologies: Optional[NodeSelector] = None
+
+
+@dataclass
+class PersistentVolume:
+    name: str
+    capacity: int = 0  # bytes
+    access_modes: tuple[str, ...] = (RWO,)
+    storage_class: str = ""
+    # PV.spec.nodeAffinity.required — where this volume is reachable.
+    node_affinity: Optional[NodeSelector] = None
+    labels: dict[str, str] = field(default_factory=dict)  # incl. zone/region
+    claim_ref: Optional[str] = None  # "ns/name" of the bound PVC
+    csi_driver: str = ""  # CSI driver name (for attach limits)
+
+
+@dataclass
+class PersistentVolumeClaim:
+    name: str
+    namespace: str = "default"
+    storage_class: str = ""
+    access_modes: tuple[str, ...] = (RWO,)
+    request: int = 0  # bytes
+    volume_name: str = ""  # bound PV, "" = unbound
+
+    @property
+    def uid(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+
+@dataclass
+class CSINode:
+    """CSINode.spec.drivers[*].allocatable.count per driver."""
+
+    name: str  # node name
+    driver_limits: dict[str, int] = field(default_factory=dict)
+
+
 @dataclass
 class PodDisruptionBudget:
     """policy/v1 PodDisruptionBudget, reduced to what preemption reads: the
@@ -572,3 +635,67 @@ def label_selector_matches(sel: Optional[LabelSelector], labels: dict[str, str])
         else:
             raise ValueError(f"bad label selector operator {req.operator}")
     return True
+
+
+def _as_int(s: Optional[str]) -> Optional[int]:
+    try:
+        return int(s)  # type: ignore[arg-type]
+    except (TypeError, ValueError):
+        return None
+
+
+def node_selector_requirement_matches(
+    req: NodeSelectorRequirement, labels: dict[str, str]
+) -> bool:
+    """Mirror of nodeaffinity.nodeSelectorRequirementsAsSelector semantics
+    (staging/src/k8s.io/component-helpers/scheduling/corev1/nodeaffinity/nodeaffinity.go)."""
+    has = req.key in labels
+    val = labels.get(req.key)
+    if req.operator == OP_IN:
+        return has and val in req.values
+    if req.operator == OP_NOT_IN:
+        return not has or val not in req.values
+    if req.operator == OP_EXISTS:
+        return has
+    if req.operator == OP_DOES_NOT_EXIST:
+        return not has
+    if req.operator in (OP_GT, OP_LT):
+        if not has or len(req.values) != 1:
+            return False
+        lhs, rhs = _as_int(val), _as_int(req.values[0])
+        if lhs is None or rhs is None:
+            return False
+        return lhs > rhs if req.operator == OP_GT else lhs < rhs
+    raise ValueError(f"bad node selector operator {req.operator}")
+
+
+def node_selector_term_matches(
+    term: NodeSelectorTerm, labels: dict[str, str], node_name: str = ""
+) -> bool:
+    if not term.match_expressions and not term.match_fields:
+        return False  # empty term matches nothing (nodeaffinity.go:nodeSelectorTermsMatch)
+    for req in term.match_expressions:
+        if not node_selector_requirement_matches(req, labels):
+            return False
+    for req in term.match_fields:
+        # Only supported field is metadata.name.
+        if req.key != "metadata.name":
+            return False
+        if not node_selector_requirement_matches(
+            NodeSelectorRequirement("metadata.name", req.operator, req.values),
+            {"metadata.name": node_name},
+        ):
+            return False
+    return True
+
+
+def node_selector_matches(
+    sel: Optional[NodeSelector], labels: dict[str, str], node_name: str = ""
+) -> bool:
+    """A required node selector (OR of terms) against one node; None
+    matches every node, a selector without terms none."""
+    if sel is None:
+        return True
+    if not sel.terms:
+        return False
+    return any(node_selector_term_matches(t, labels, node_name) for t in sel.terms)

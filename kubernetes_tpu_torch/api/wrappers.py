@@ -1,8 +1,8 @@
 """Fluent test/workload builders, in the spirit of the reference's
 pkg/scheduler/testing/wrappers.go (MakeNode / MakePod chains).
 
-The port's own copy of ``kubernetes_tpu/api/wrappers.py`` (PV/PVC builders
-left out with the volume slice)."""
+The port's own copy of ``kubernetes_tpu/api/wrappers.py``, with the PV and
+PVC builders of the volume slice (wrappers.py:339-390)."""
 
 from __future__ import annotations
 
@@ -333,3 +333,57 @@ def make_pod(name: str = "pod", namespace: str = "default") -> PodWrapper:
 
 def make_node(name: str = "node") -> NodeWrapper:
     return NodeWrapper(name)
+
+
+def make_pv(
+    name: str,
+    capacity: str | int = "10Gi",
+    storage_class: str = "",
+    zone: str | None = None,
+    node_affinity_zone: list[str] | None = None,
+    access_modes: tuple[str, ...] = (t.RWO,),
+    csi_driver: str = "",
+) -> t.PersistentVolume:
+    labels = {}
+    if zone is not None:
+        labels["topology.kubernetes.io/zone"] = zone
+    na = None
+    if node_affinity_zone is not None:
+        na = t.NodeSelector(
+            terms=(
+                t.NodeSelectorTerm(
+                    match_expressions=(
+                        t.NodeSelectorRequirement(
+                            "topology.kubernetes.io/zone", t.OP_IN, tuple(node_affinity_zone)
+                        ),
+                    )
+                ),
+            )
+        )
+    return t.PersistentVolume(
+        name=name,
+        capacity=t.parse_quantity(capacity),
+        storage_class=storage_class,
+        labels=labels,
+        node_affinity=na,
+        access_modes=access_modes,
+        csi_driver=csi_driver,
+    )
+
+
+def make_pvc(
+    name: str,
+    namespace: str = "default",
+    storage_class: str = "",
+    request: str | int = "1Gi",
+    volume_name: str = "",
+    access_modes: tuple[str, ...] = (t.RWO,),
+) -> t.PersistentVolumeClaim:
+    return t.PersistentVolumeClaim(
+        name=name,
+        namespace=namespace,
+        storage_class=storage_class,
+        request=t.parse_quantity(request),
+        volume_name=volume_name,
+        access_modes=access_modes,
+    )

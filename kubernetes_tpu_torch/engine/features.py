@@ -10,6 +10,15 @@ active for any pod of the batch raises NotImplementedError, and so does a
 pod whose commit would touch state the port's commit does not write yet
 (host ports): such a pod must fail loudly, never be scheduled as if its
 constraints were absent.
+
+The volume base features (engine/features.py:23-28, 347-377 of the JAX
+package: device uses, CSI attachments, the PreBind-race and attach-limit
+flags) are what the commit, the chunk-mate conflict table and the
+VolumeRestrictions/NodeVolumeLimits filters read.  They are built from the
+pods' deltas after the loop, and a batch carries a group of them only when
+some pod fills it (``_vol_features``): a batch without volumes pays nothing,
+and an absent key is all padding, which every reader treats as contributing
+nothing, exactly as the JAX pass does with padding.
 """
 
 from __future__ import annotations
@@ -25,6 +34,47 @@ from ..snapshot import SnapshotBuilder, _bucket
 opcommon.feature_fill("ipa_own_terms", -1)
 # Injected by the scheduler after featurization (nomination is pod status).
 opcommon.feature_fill("nominated_row", -1)
+opcommon.feature_fill("vol_dev_ids", -1)
+opcommon.feature_fill("vol_dev_rw", 0)
+opcommon.feature_fill("vol_csi_ids", -1)
+opcommon.feature_fill("vol_csi_drv", -1)
+opcommon.feature_fill("vol_unbound", 0)
+opcommon.feature_fill("vol_csi_lim", 0)
+
+
+
+def _vol_features(deltas: list[dict], k: int) -> dict:
+    """The volume base features of a batch of ``k`` lanes from its pods'
+    deltas: (ids, second) rows of the device uses and of the CSI
+    attachments, -1 pads, ``_bucket`` wide, and the PreBind-race and
+    attach-limit flags.  A group no pod fills is left out; padding lanes
+    are zeros, gated by ``valid``."""
+    out = {}
+    for name, ids_key, second_key, dtype, fill in (
+        ("devices", "vol_dev_ids", "vol_dev_rw", np.bool_, 0),
+        ("csivols", "vol_csi_ids", "vol_csi_drv", np.int32, -1),
+    ):
+        width = max((len(d[name]) for d in deltas), default=0)
+        if not width:
+            continue
+        ids = np.zeros((k, _bucket(width, 1)), np.int32)
+        second = np.zeros(ids.shape, dtype)
+        ids[: len(deltas)] = -1
+        second[: len(deltas)] = fill
+        for i, d in enumerate(deltas):
+            for j, (a, b) in enumerate(d[name]):
+                ids[i, j] = a
+                second[i, j] = b
+        out[ids_key], out[second_key] = ids, second
+    # Chunk conflict classes (pass_.py _conflict_pairs): only PreBind-racing
+    # claims conflict any-vs-any; bound claims conflict only on shared
+    # volume or device ids.
+    for key in ("vol_unbound", "vol_csi_lim"):
+        if any(d[key] for d in deltas):
+            flags = np.zeros(k, np.bool_)
+            flags[: len(deltas)] = [d[key] for d in deltas]
+            out[key] = flags
+    return out
 
 
 def pin_name(pod: t.Pod):
@@ -162,6 +212,7 @@ def build_pod_batch(
         stacked = np.stack(rows)
         pad_width = [(0, k - len(pods))] + [(0, 0)] * (stacked.ndim - 1)
         batch[key] = np.pad(stacked, pad_width)
+    batch.update(_vol_features(deltas, k))
     batch["valid"] = np.zeros(k, np.bool_)
     batch["valid"][: len(pods)] = True
     return batch, deltas, active

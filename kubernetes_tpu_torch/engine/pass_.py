@@ -7,6 +7,8 @@ and does no host sync inside the loop:
 
   spread_filter   PodTopologySpread's filter (when it filters this pass),
                   a mask that eval_chunk reads
+  vol_filter      VolumeRestrictions' and NodeVolumeLimits' filters (when
+                  either filters this pass), bits that eval_chunk reads
   eval_chunk      filters + weighted score of the chunk against all N nodes
   ipa_eval        InterPodAffinity's filter and normalized score on top of
                   eval_chunk's result (only when the op is active)
@@ -16,11 +18,13 @@ and does no host sync inside the loop:
   resolve_commit  chunk deferral + exact cumulative fit, then the commit
 
 and, once per batch before the loop, ``build_dom`` (the per-domain tables,
-unless carried from the previous batch), ``node_filters`` (NodeAffinity's
-and TaintToleration's filters of every pod of the batch, when either
-filters or spread's inclusion policies read them) and, when the batch
-carries affinity or spread features, ``conflict_pairs`` (the chunk-mate
-conflict table).
+unless carried from the previous batch), ``node_filters`` (NodeAffinity's,
+TaintToleration's, VolumeBinding's and VolumeZone's filters of every pod of
+the batch, when one of them filters or spread's inclusion policies read
+them) and, when the batch carries affinity, spread or volume-id features,
+``conflict_pairs`` (the chunk-mate conflict table).  ``resolve_commit``
+also commits device uses and CSI attachments and defers attach-limited
+pods that share a node with an earlier limited mate.
 
 With chunk=1 each step is one reference scheduling cycle.  With chunk>1
 pods that could observe an earlier chunk-mate's commit defer (pick = -2);
@@ -49,7 +53,7 @@ import torch
 from .. import kernels
 from ..framework.config import Profile
 from ..kernels import plain
-from ..kernels.plain import IPA, NA, PTS, TT
+from ..kernels.plain import IPA, NA, NODE_FILTER_OPS, NVL, PTS, TT, VR
 from ..ops import common as opcommon
 from ..snapshot import ClusterState, Schema
 
@@ -98,25 +102,26 @@ def _conflict_pairs(pf: dict, nchunks: int, c: int, pairs_fn) -> torch.Tensor:
     decision (pass_.py:266)?  Pairs come from the hard reads of inter-pod
     affinity (required (anti-)affinity group masks, matched existing
     anti-affinity terms against own-term writes) and of topology spread
-    (DoNotSchedule group masks), against each pod's label-group write
-    (``pairs_fn``, the conflict_pairs kernel or its plain version).  A batch
-    with neither (density) keeps the all-false table and launches nothing.
-    The other sources — host-port keys, volume and DRA ids — belong to
-    unported ops: a batch that carries such a feature raises, so the slice
-    that ports the op must port its pairs too."""
+    (DoNotSchedule group masks), against each pod's label-group write, and
+    from the volumes: a shared device or CSI volume id, or two claims that
+    race at PreBind (``pairs_fn``, the conflict_pairs kernel or its plain
+    version).  A batch with none of these features (density) keeps the
+    all-false table and launches nothing.  Host-port keys and DRA ids
+    belong to unported ops: a batch that carries such a feature raises, so
+    the slice that ports the op must port its pairs too."""
     found = sorted(_PAIR_FEATURES.intersection(pf))
     if found:
         raise NotImplementedError(f"conflict pairs from {found} are not yet ported")
-    if c > 1 and ("ipa_ra_allmask" in pf or "tps_h_groups" in pf):
+    if c > 1 and any(key in pf for key in _PAIR_SOURCES):
         return pairs_fn(pf, nchunks, c)
     return torch.zeros((nchunks, c, c), dtype=torch.bool, device=pf["valid"].device)
 
 
 # Batch features of unported ops from which the JAX pass derives conflict
 # pairs.
-_PAIR_FEATURES = frozenset({
-    "port_keys", "vol_dev_ids", "vol_csi_ids", "vol_unbound", "dra_claim_ids", "dra_claim_unalloc",
-})
+_PAIR_FEATURES = frozenset({"port_keys", "dra_claim_ids", "dra_claim_unalloc"})
+# Features any of which makes the conflict table non-trivial.
+_PAIR_SOURCES = ("ipa_ra_allmask", "tps_h_groups", "vol_dev_ids", "vol_csi_ids", "vol_unbound")
 
 
 # Ops whose filter/score read only node-axis state (no domain tables, no
@@ -131,12 +136,12 @@ PINNED_SAFE_OPS = frozenset({
 _KERNEL_FNS = (
     kernels.build_dom, kernels.eval_chunk, kernels.ipa_eval, kernels.select_host,
     kernels.resolve_commit, kernels.conflict_pairs, kernels.node_filters,
-    kernels.spread_filter, kernels.late_scores,
+    kernels.spread_filter, kernels.late_scores, kernels.vol_filter,
 )
 _PLAIN_FNS = (
     plain.build_dom, plain.eval_chunk, plain.ipa_eval, plain.select_host,
     plain.resolve_commit, plain.conflict_pairs, plain.node_filters,
-    plain.spread_filter, plain.late_scores,
+    plain.spread_filter, plain.late_scores, plain.vol_filter,
 )
 # Scorers that normalize over the final feasible set, added by late_scores.
 _LATE = (NA, TT, PTS)
@@ -183,7 +188,8 @@ def eval_spec(
     and the ops' static config — all but InterPodAffinity, which ipa_eval
     applies on top (ipa_spec), and the scores late_scores adds
     (late_spec).  NodeAffinity's, TaintToleration's and
-    PodTopologySpread's filters are read from precomputed planes."""
+    PodTopologySpread's filters, and the four volume ops', are read from
+    precomputed planes (plain.PLANE_BITS)."""
     ctx, filters, scorers = _pass_ops(profile, schema, builder_res_col, active)
     return kernels.EvalSpec(
         ctx=ctx,
@@ -263,25 +269,30 @@ def build_pass(
     _ctx, filters, scorers = _pass_ops(profile, schema, builder_res_col, active)
     effective = frozenset(filters) | frozenset(n for n, _ in scorers)
     (dom_fn, eval_fn, ipa_fn, select_fn, commit_fn, pairs_fn, nodes_fn, spread_fn,
-     late_fn) = _PLAIN_FNS if _impl == "plain" else _KERNEL_FNS
-    # node_filters runs when eval_chunk reads its bits (NodeAffinity or
-    # TaintToleration filters) or spread's inclusion policies do.
+     late_fn, vol_fn) = _PLAIN_FNS if _impl == "plain" else _KERNEL_FNS
+    # node_filters runs when eval_chunk reads its bits (NodeAffinity,
+    # TaintToleration, VolumeBinding or VolumeZone filters) or spread's
+    # inclusion policies do; vol_filter when VolumeRestrictions or
+    # NodeVolumeLimits filters.
     spread_filters = PTS in spec.filters
-    need_nodes = bool({NA, TT} & set(spec.filters)) or PTS in effective
+    need_nodes = bool(set(NODE_FILTER_OPS) & set(spec.filters)) or PTS in effective
+    do_vr, do_nvl = VR in spec.filters, NVL in spec.filters
     c = chunk
     fuse_tail = chunk > 1 and effective <= PINNED_SAFE_OPS
     seed_mul = ((profile.tie_break_seed & 0xFFFFFFFF) * 2654435761) & 0xFFFFFFFF
 
     def step(state, dom, ipa, pf, steps, pairs, nom, node_bits) -> PassResult:
         spread_ok = spread_fn(state, pf, node_bits, spec.ctx) if spread_filters else None
-        feasible, total, fails = eval_fn(state, pf, spec, nom, (node_bits, spread_ok))
+        vol_bits = vol_fn(state, pf, spec.ctx, do_vr, do_nvl) if do_vr or do_nvl else None
+        feasible, total, fails = eval_fn(state, pf, spec, nom, (node_bits, spread_ok, vol_bits))
         if ipa is not None:
             ipa_fn(state, pf, feasible, total, fails, ipa)
         if late is not None:
             late_fn(state, pf, feasible, total, node_bits, late)
         picks, bests, feas = select_fn(feasible, total, steps, seed_mul, pf.get("nominated_row"))
         # No spread branch in the commit: spread reads group_counts, which
-        # the base commit maintains (pass_.py:166-192).
+        # the base commit maintains (pass_.py:166-192).  The device and CSI
+        # branches commit when the chunk carries their features.
         out = commit_fn(state, dom, pf, picks, pairs, c == 1)
         return PassResult(out, bests, feas, torch.zeros_like(feas), fails)
 
@@ -416,9 +427,9 @@ def build_pinned_pass(
     if not effective <= PINNED_SAFE_OPS:
         raise ValueError(f"pinned pass: {sorted(effective - PINNED_SAFE_OPS)} read more than the own row")
     (_dom_fn, eval_fn, _ipa_fn, _select_fn, commit_fn, _pairs_fn, nodes_fn, _spread_fn,
-     late_fn) = _PLAIN_FNS if _impl == "plain" else _KERNEL_FNS
+     late_fn, _vol_fn) = _PLAIN_FNS if _impl == "plain" else _KERNEL_FNS
     fit_fn = plain.pinned_fit if _impl == "plain" else kernels.pinned_fit
-    need_nodes = bool({NA, TT} & set(spec.filters)) or late is not None
+    need_nodes = bool(set(NODE_FILTER_OPS) & set(spec.filters)) or late is not None
 
     def run(state: ClusterState, batch: dict, inv: dict):
         dev = state.valid.device

@@ -6,10 +6,13 @@
   select_host     csrc/select_host.cu     argmax with hashed tie-break
   resolve_commit  csrc/resolve_commit.cu  chunk deferral, cumulative fit, commit
   conflict_pairs  csrc/conflict_pairs.cu  chunk-mate conflict table, per batch
-  node_filters    csrc/node_filters.cu    NodeAffinity + TaintToleration filter bits, per batch
+  node_filters    csrc/node_filters.cu    NodeAffinity, TaintToleration, VolumeBinding and VolumeZone
+                                          filter bits, per batch
   spread_filter   csrc/spread_eval.cu     PodTopologySpread's filter, per chunk, before eval_chunk
   late_scores     csrc/spread_eval.cu     NodeAffinity, TaintToleration and spread scores over the
                                           final feasible set, per chunk, after ipa_eval
+  vol_filter      csrc/volume_filters.cu  VolumeRestrictions + NodeVolumeLimits filter bits, per
+                                          chunk, before eval_chunk
   preempt_eval    csrc/preempt.cu         preemption dry-run of a chunk's representative, per node
   preempt_pick    csrc/preempt.cu         lexicographic node rank and each mate's pick
   preempt_commit  csrc/preempt.cu         release at the picked rows, victims consumed
@@ -38,10 +41,12 @@ from ..ops.helpers import log_table
 from . import build, plain
 
 # Filter codes of eval_chunk (2 bits each, packed in fail-bit order).  Code
-# 3 reads a precomputed plane, chosen by a second 2-bit field (_EXT_SEL):
-# node_filters' bit 0 (NodeAffinity) or 1 (TaintToleration), or
-# spread_filter's mask (PodTopologySpread).
-_EXT_SEL = {name: i for i, name in enumerate(plain.EXT_FILTERS)}
+# 3 reads a precomputed plane, chosen by a second 3-bit field (_EXT_SEL):
+# node_filters' bits 0-3 (NodeAffinity, TaintToleration, VolumeBinding,
+# VolumeZone), vol_filter's bits 0-1 (VolumeRestrictions, NodeVolumeLimits)
+# or spread_filter's mask (PodTopologySpread).
+_PLANE_BASE = {"node_bits": 0, "vol_bits": 4, "spread_ok": 6}
+_EXT_SEL = {name: _PLANE_BASE[plane] + bit for name, (plane, bit) in plain.PLANE_BITS.items()}
 _FILTER_CODES = {"NodeUnschedulable": 0, "NodeName": 1, "NodeResourcesFit": 2, **dict.fromkeys(_EXT_SEL, 3)}
 _SCORERS = ("NodeResourcesFit", "NodeResourcesBalancedAllocation")
 _MAX_BALANCED = 8
@@ -151,7 +156,7 @@ def _eval_config(spec: EvalSpec, device: torch.device) -> dict:
     codes = ext_sel = 0
     for b, name in enumerate(spec.filters):
         codes |= _FILTER_CODES[name] << (2 * b)
-        ext_sel |= _EXT_SEL.get(name, 0) << (2 * b)
+        ext_sel |= _EXT_SEL.get(name, 0) << (3 * b)
     return {
         "R": r,
         "fit_ignored": ignored.to(device),
@@ -169,8 +174,9 @@ def _eval_config(spec: EvalSpec, device: torch.device) -> dict:
         "filter_codes": codes,
         "ext_sel": ext_sel,
         "n_filters": len(spec.filters),
-        "node_bits": any(n in (plain.NA, plain.TT) for n in spec.filters),
+        "node_bits": any(plain.PLANE_BITS.get(n, ("",))[0] == "node_bits" for n in spec.filters),
         "spread": plain.PTS in spec.filters,
+        "vol_bits": any(plain.PLANE_BITS.get(n, ("",))[0] == "vol_bits" for n in spec.filters),
     }
 
 
@@ -232,9 +238,9 @@ def eval_chunk(state, pf: dict, spec: EvalSpec, nom, ext=None, pin=None):
     """Filters + weighted score of one chunk: (feasible (C, N) bool,
     total (C, N) i64, fail_mask (C,) i32).  ``nom`` is the nominated-pod
     overlay (nom_req, nom_cnt, nom_prio) or None; ``ext`` is (node_bits
-    (C, N) u8, spread_ok (C, N) bool), the precomputed planes of
-    NodeAffinity, TaintToleration and PodTopologySpread (either None when
-    no active filter reads it).  With ``pin`` ((C,) i32 rows in [0, N)),
+    (C, N) u8, spread_ok (C, N) bool[, vol_bits (C, N) u8]), the
+    precomputed planes of the ops in plain.PLANE_BITS (any None when no
+    active filter reads it).  With ``pin`` ((C,) i32 rows in [0, N)),
     pod c is evaluated on node pin[c] alone: feasible and total are
     (C, 1) and the fail bits are those of that node."""
     if _on_cpu(state.valid):
@@ -286,10 +292,12 @@ def eval_chunk(state, pf: dict, spec: EvalSpec, nom, ext=None, pin=None):
         if t is None and needed[key]:
             raise ValueError(f"eval_chunk: pod feature {key!r} missing")
         feats.append(None if t is None else _check(key, t, dtype, shape, dev))
-    node_bits, spread_ok = ext if ext is not None else (None, None)
+    given = plain.ext_planes(ext)
     planes = []
-    for name, t, dtype, want in (("node_bits", node_bits, torch.uint8, cfg["node_bits"]),
-                                 ("spread_ok", spread_ok, b, cfg["spread"])):
+    for name, dtype, want in (("node_bits", torch.uint8, cfg["node_bits"]),
+                              ("spread_ok", b, cfg["spread"]),
+                              ("vol_bits", torch.uint8, cfg["vol_bits"])):
+        t = given[name]
         if want and t is None:
             raise ValueError(f"eval_chunk: plane {name!r} missing")
         planes.append(_check(name, t, dtype, (c, n), dev) if want else None)
@@ -374,19 +382,22 @@ def ipa_eval(state, pf: dict, feasible, total, fail, ipa: IpaSpec):
 
 def conflict_pairs(pf: dict, nchunks: int, c: int):
     """(nchunks, C, C) bool chunk-mate conflict table of a batch whose pods
-    carry inter-pod-affinity or topology-spread features (or both)."""
+    carry inter-pod-affinity, topology-spread or volume-id features."""
     if _on_cpu(pf["valid"]):
         return plain.conflict_pairs(pf, nchunks, c)
     dev = pf["valid"].device
     k = nchunks * c
     ipa, spread = "ipa_ra_allmask" in pf, "tps_h_groups" in pf
-    if not (ipa or spread):
-        raise ValueError("conflict_pairs: the batch carries no affinity or spread features")
-    g = pf["ipa_ra_allmask"].shape[1] if ipa else pf["tps_h_groups"].shape[2]
+    vdev, vcsi, vunb = "vol_dev_ids" in pf, "vol_csi_ids" in pf, "vol_unbound" in pf
+    if not (ipa or spread or vdev or vcsi or vunb):
+        raise ValueError("conflict_pairs: the batch carries no affinity, spread or volume features")
+    g = pf["ipa_ra_allmask"].shape[1] if ipa else (pf["tps_h_groups"].shape[2] if spread else 0)
     rs = pf["ipa_rs_groups"].shape[1] if ipa else 0
     et = pf["ipa_et_match"].shape[1] if ipa else 0
     a = pf["ipa_own_terms"].shape[1] if ipa else 0
     ch = pf["tps_h_groups"].shape[1] if spread else 0
+    sd = pf["vol_dev_ids"].shape[1] if vdev else 0
+    sc = pf["vol_csi_ids"].shape[1] if vcsi else 0
     args = [_check("group", pf["group"], torch.int32, (k,), dev)]
     for key, dtype, shape, on in (
         ("ipa_ra_allmask", torch.bool, (k, g), ipa),
@@ -395,12 +406,15 @@ def conflict_pairs(pf: dict, nchunks: int, c: int):
         ("ipa_et_anti", torch.bool, (k, et), ipa),
         ("ipa_own_terms", torch.int32, (k, a), ipa),
         ("tps_h_groups", torch.bool, (k, ch, g), spread),
+        ("vol_dev_ids", torch.int32, (k, sd), vdev),
+        ("vol_csi_ids", torch.int32, (k, sc), vcsi),
+        ("vol_unbound", torch.bool, (k,), vunb),
     ):
         args.append(_check(key, pf[key], dtype, shape, dev) if on else None)
     pairs = torch.empty((nchunks, c, c), dtype=torch.bool, device=dev)
     build.launch(
-        "conflict_pairs", *[_ptr(x) for x in args], nchunks, c, g, rs, et, a, ch, _ptr(pairs),
-        _stream(dev),
+        "conflict_pairs", *[_ptr(x) for x in args], nchunks, c, g, rs, et, a, ch, sd, sc,
+        _ptr(pairs), _stream(dev),
     )
     conflict_pairs.launches += 1
     return pairs
@@ -468,6 +482,27 @@ def resolve_commit(state, dom, pf: dict, picks, pairs, strict: bool):
     na = 0 if own is None else own.shape[1]
     if own is not None:
         _check("ipa_own_terms", own, i32, (c, na), dev)
+    # Volume features: each pair absent when no pod of the batch fills it.
+    dev_ids, dev_rw = pf.get("vol_dev_ids"), pf.get("vol_dev_rw")
+    csi_ids, csi_drv = pf.get("vol_csi_ids"), pf.get("vol_csi_drv")
+    csi_lim = None if strict else pf.get("vol_csi_lim")
+    sd = 0 if dev_ids is None else dev_ids.shape[1]
+    sc = 0 if csi_ids is None else csi_ids.shape[1]
+    if sc > 64:
+        raise NotImplementedError(f"resolve_commit: {sc} CSI volume slots per pod exceed 64")
+    vd, cv, dr = state.dev_counts.shape[0], state.csivol_counts.shape[0], state.csi_used.shape[0]
+    if dev_ids is not None:
+        _check("vol_dev_ids", dev_ids, i32, (c, sd), dev)
+        _check("vol_dev_rw", dev_rw, torch.bool, (c, sd), dev)
+        _check("state.dev_counts", state.dev_counts, i32, (vd, n), dev)
+        _check("state.dev_rw_counts", state.dev_rw_counts, i32, (vd, n), dev)
+    if csi_ids is not None:
+        _check("vol_csi_ids", csi_ids, i32, (c, sc), dev)
+        _check("vol_csi_drv", csi_drv, i32, (c, sc), dev)
+        _check("state.csivol_counts", state.csivol_counts, i32, (cv, n), dev)
+        _check("state.csi_used", state.csi_used, i32, (dr, n), dev)
+    if csi_lim is not None:
+        _check("vol_csi_lim", csi_lim, torch.bool, (c,), dev)
     out = torch.empty(c, dtype=i32, device=dev)
     build.launch(
         "resolve_commit",
@@ -476,8 +511,10 @@ def resolve_commit(state, dom, pf: dict, picks, pairs, strict: bool):
         _ptr(state.alloc), _ptr(state.req), _ptr(state.nonzero_req),
         _ptr(state.num_pods), _ptr(state.allowed_pods), _ptr(state.group_counts),
         _ptr(group_dom), _ptr(state.topo_vals), _ptr(own), _ptr(state.et_counts),
-        _ptr(dom.et_dom), _ptr(dom.et_slot), c, n, r, tk, dv, na,
-        _ptr(out), _stream(dev),
+        _ptr(dom.et_dom), _ptr(dom.et_slot),
+        _ptr(dev_ids), _ptr(dev_rw), _ptr(state.dev_counts), _ptr(state.dev_rw_counts),
+        _ptr(csi_ids), _ptr(csi_drv), _ptr(state.csivol_counts), _ptr(state.csi_used), _ptr(csi_lim),
+        c, n, r, tk, dv, na, sd, sc, dr, _ptr(out), _stream(dev),
     )
     resolve_commit.launches += 1
     return out
@@ -509,10 +546,24 @@ def _label_args(state, dev) -> list:
     ]
 
 
+def _grouped(pf: dict, prefix: str, k: int, dev) -> tuple[list, tuple]:
+    """A volume op's grouped program, checked: (op, key, vals, int,
+    term_valid, group, ngroups, feasible) and its (T, Q, V)."""
+    prog, dims = _program(pf, prefix, k, dev)
+    t_ = dims[0]
+    prog += [
+        _check(f"{prefix}_group", pf[f"{prefix}_group"], torch.int32, (k, t_), dev),
+        _check(f"{prefix}_ngroups", pf[f"{prefix}_ngroups"], torch.int32, (k,), dev),
+        _check(f"{prefix}_feasible", pf[f"{prefix}_feasible"], torch.bool, (k,), dev),
+    ]
+    return prog, dims
+
+
 def node_filters(state, pf: dict, ctx):
     """(K, N) u8 per-batch node filter bits of a batch's K pods: bit 0
     NodeAffinity's filter (with ``ctx.profile``'s added affinity), bit 1
-    TaintToleration's; a bit whose features the batch lacks is 1."""
+    TaintToleration's, bit 2 VolumeBinding's, bit 3 VolumeZone's; a bit
+    whose features the batch lacks is 1."""
     if _on_cpu(state.valid):
         return plain.node_filters(state, pf, ctx)
     dev = state.valid.device
@@ -535,14 +586,21 @@ def node_filters(state, pf: dict, ctx):
         add, add_dims = _program(pf, "na_add", k, dev)
     tv = pf["taint_intol_hard"].shape[1] if do_taint else 1
     intol = _check("taint_intol_hard", pf["taint_intol_hard"], torch.bool, (k, tv), dev) if do_taint else None
+    vols = []
+    for prefix in ("vb", "vz"):
+        if f"{prefix}_op" in pf:
+            vols.append((True, *_grouped(pf, prefix, k, dev)))
+        else:
+            vols.append((False, [None] * 8, (1, 1, 1)))
     out = torch.empty((k, n), dtype=torch.uint8, device=dev)
     build.launch(
         "node_filters",
         *[_ptr(a) for a in _label_args(state, dev)],
         _ptr(sel), _ptr(has_req), *[_ptr(a) for a in req],
         _ptr(has_add), *[_ptr(a) for a in add],
-        _ptr(intol), _ptr(out),
-        n, ls, ts, k, s, *req_dims, *add_dims, tv, int(do_na), int(do_add), int(do_taint),
+        _ptr(intol), *[_ptr(a) for _on, prog, _d in vols for a in prog], _ptr(out),
+        n, ls, ts, k, s, *req_dims, *add_dims, tv, *[d for _on, _p, dims in vols for d in dims],
+        int(do_na), int(do_add), int(do_taint), *[int(on) for on, _p, _d in vols],
         _stream(dev),
     )
     node_filters.launches += 1
@@ -649,6 +707,45 @@ def late_scores(state, pf: dict, feasible, total, node_bits, late: LateSpec, pin
     )
     late_scores.launches += 1
     return total
+
+
+def vol_filter(state, pf: dict, ctx, do_vr: bool, do_nvl: bool):
+    """(C, N) u8 per-chunk volume filter bits: bit 0 VolumeRestrictions',
+    bit 1 NodeVolumeLimits' (each 1 when not asked for), from the chunk's
+    device and CSI volume ids against the current counts."""
+    if _on_cpu(state.valid):
+        return plain.vol_filter(state, pf, ctx, do_vr, do_nvl)
+    dev = state.valid.device
+    c, n = pf["valid"].shape[0], state.valid.shape[0]
+    vd, cv, dr = state.dev_counts.shape[0], state.csivol_counts.shape[0], state.csi_used.shape[0]
+    i32 = torch.int32
+    node = [
+        _check("dev_counts", state.dev_counts, i32, (vd, n), dev),
+        _check("dev_rw_counts", state.dev_rw_counts, i32, (vd, n), dev),
+        _check("csivol_counts", state.csivol_counts, i32, (cv, n), dev),
+        _check("csi_used", state.csi_used, i32, (dr, n), dev),
+        _check("csi_limit", state.csi_limit, i32, (dr, n), dev),
+    ]
+    dev_ids, dev_rw, rwop, csi_ids, csi_drv = None, None, None, None, None
+    sd = sc = 0
+    if do_vr:
+        rwop = _check("vr_rwop_ok", pf["vr_rwop_ok"], torch.bool, (c,), dev)
+        if "vol_dev_ids" in pf:
+            sd = pf["vol_dev_ids"].shape[1]
+            dev_ids = _check("vol_dev_ids", pf["vol_dev_ids"], i32, (c, sd), dev)
+            dev_rw = _check("vol_dev_rw", pf["vol_dev_rw"], torch.bool, (c, sd), dev)
+    if do_nvl and "vol_csi_ids" in pf:
+        sc = pf["vol_csi_ids"].shape[1]
+        csi_ids = _check("vol_csi_ids", pf["vol_csi_ids"], i32, (c, sc), dev)
+        csi_drv = _check("vol_csi_drv", pf["vol_csi_drv"], i32, (c, sc), dev)
+    out = torch.empty((c, n), dtype=torch.uint8, device=dev)
+    build.launch(
+        "vol_filter", *[_ptr(a) for a in node], _ptr(dev_ids), _ptr(dev_rw), _ptr(rwop),
+        _ptr(csi_ids), _ptr(csi_drv), _ptr(out), c, n, sd, sc, dr, int(do_vr), int(do_nvl),
+        _stream(dev),
+    )
+    vol_filter.launches += 1
+    return out
 
 
 # -- preemption and data moves ---------------------------------------------------
@@ -898,6 +995,7 @@ WRAPPERS = {
     "node_filters": node_filters,
     "spread_filter": spread_filter,
     "late_scores": late_scores,
+    "vol_filter": vol_filter,
     "preempt_eval": preempt_eval,
     "preempt_pick": preempt_pick,
     "preempt_commit": preempt_commit,

@@ -5,7 +5,8 @@ shared library with a plain C interface, keyed by a hash of the sources and
 flags, under ``kernels/_build/`` (listed in .gitignore), then loaded with
 ctypes.  Builds of several sources run as parallel ``nvcc`` processes.
 A library exports one ``<entry>_launch`` per entry point (``spread_eval``,
-``preempt`` and ``rows`` have several) and one ``<name>_error_string``.  There is no fallback: a missing
+``preempt`` and ``rows`` have several; ``volume_filters`` holds
+``vol_filter``) and one ``<name>_error_string``.  There is no fallback: a missing
 compiler, a failed build or a failed load raises.
 """
 
@@ -21,7 +22,7 @@ from pathlib import Path
 
 KERNELS = (
     "build_dom", "eval_chunk", "ipa_eval", "select_host", "resolve_commit", "conflict_pairs",
-    "node_filters", "spread_eval", "preempt", "victims", "rows", "pinned",
+    "node_filters", "spread_eval", "preempt", "victims", "rows", "pinned", "volume_filters",
 )
 # Entry point → the library (source) that holds it.
 _MULTI = {
@@ -30,6 +31,7 @@ _MULTI = {
     "victims": ("unpack_victims",),
     "rows": ("scatter_rows", "expand_rows"),
     "pinned": ("pinned_fit",),
+    "volume_filters": ("vol_filter",),
 }
 ENTRIES = {name: name for name in KERNELS if name not in _MULTI}
 ENTRIES.update({entry: src for src, entries in _MULTI.items() for entry in entries})
@@ -48,12 +50,13 @@ _P, _I, _L, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
 # never truncates them to 32 bits).
 _SIGNATURES: dict[str, list] = {
     "build_dom": [_P] * 4 + [_I] * 5 + [_P, _P, _P],
-    "eval_chunk": [_P] * 21 + [_P, _I, _I, _P, _I, _I, _L, _I, _L, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "eval_chunk": [_P] * 22 + [_P, _I, _I, _P, _I, _I, _L, _I, _L, _I, _I, _L, _I, _I, _I, _P, _P, _P, _P],
     "ipa_eval": [_I] * 10 + [_L] + [_P] * 30 + [_I, _P],
     "select_host": [_P, _P, _P, _U, _P, _I, _I, _P, _P, _P, _P],
-    "resolve_commit": [_P, _P, _P, _I] + [_P] * 15 + [_I] * 6 + [_P, _P],
-    "conflict_pairs": [_P] * 7 + [_I] * 7 + [_P, _P],
-    "node_filters": [_P] * 20 + [_I] * 15 + [_P],
+    "resolve_commit": [_P, _P, _P, _I] + [_P] * 24 + [_I] * 9 + [_P, _P],
+    "conflict_pairs": [_P] * 10 + [_I] * 9 + [_P, _P],
+    "node_filters": [_P] * 36 + [_I] * 23 + [_P],
+    "vol_filter": [_P] * 11 + [_I] * 7 + [_P],
     "spread_filter": [_P] * 15 + [_I] * 7 + [_P],
     "late_scores": [_P] * 30 + [_I] * 13 + [_L] * 3 + [_I, _P],
     "preempt_eval": [_P] * 21 + [_I] * 6 + [_P] * 7,

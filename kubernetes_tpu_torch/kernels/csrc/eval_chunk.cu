@@ -7,10 +7,12 @@
 // the LeastAllocated / MostAllocated scorers :110-125) and
 // NodeResourcesBalancedAllocation (:163).  RequestedToCapacityRatio is
 // refused by the Python wrapper before launch.  NodeAffinity,
-// TaintToleration and PodTopologySpread take filter code 3: their results
-// are precomputed planes (node_filters' bits 0 and 1 per batch,
-// spread_filter's mask per chunk) that this kernel reads at the op's place
-// in the filter order, so fail bits stay in profile order.
+// TaintToleration, VolumeBinding, VolumeZone, VolumeRestrictions,
+// NodeVolumeLimits and PodTopologySpread take filter code 3: their results
+// are precomputed planes (node_filters' bits 0-3 per batch, vol_filter's
+// bits 0-1 and spread_filter's mask per chunk) that this kernel reads at
+// the op's place in the filter order, so fail bits stay in profile order.
+// A 3-bit selector per filter (ext_sel) names the plane and bit.
 //
 // Pinned mode (pin_row non-null; the pinned-batch pass, kubernetes_tpu/
 // engine/pass_.py:941-985): pod c is evaluated on node pin_row[c] alone and
@@ -42,6 +44,9 @@ constexpr int kUnschedulable = 0;
 constexpr int kNodeName = 1;
 constexpr int kFit = 2;
 constexpr int kExt = 3;  // precomputed plane, chosen by ext_sel
+// ext_sel values: 0-3 a node_bits bit, 4-5 a vol_bits bit, 6 spread_ok.
+constexpr int kSelVol = 4;
+constexpr int kSelSpread = 6;
 constexpr int kMaxBalanced = 8;
 
 struct EvalArgs {
@@ -68,6 +73,7 @@ struct EvalArgs {
   // Precomputed filter planes (null when no filter reads them).
   const unsigned char* node_bits;        // (C, N): bit 0 NodeAffinity, bit 1 TaintToleration
   const unsigned char* spread_ok;        // (C, N): PodTopologySpread
+  const unsigned char* vol_bits;         // (C, N): bit 0 VolumeRestrictions, bit 1 NodeVolumeLimits
   const int* pin_row;                    // (C,) pinned mode, else null
   // Static profile config.
   const unsigned char* fit_ignored;  // (R,)
@@ -82,7 +88,7 @@ struct EvalArgs {
   long long bal_weight;
   int filter_codes;  // 2 bits per filter, in fail-bit order
   int n_filters;
-  int ext_sel;       // 2 bits per kExt filter: 0, 1 node_bits' bit; 2 spread_ok
+  long long ext_sel;  // 3 bits per kExt filter (see kSelVol, kSelSpread)
   int C, N, R;
   // Outputs.
   unsigned char* feasible;  // (C, N)
@@ -207,9 +213,15 @@ __global__ void eval_chunk_kernel(EvalArgs a) {
       } else if (code == kFit) {
         ok = fit_filter(a, c, n);
       } else {
-        const int sel = (a.ext_sel >> (2 * b)) & 3;
+        const int sel = (int)((a.ext_sel >> (3 * b)) & 7);
         const size_t o = (size_t)c * a.N + n;
-        ok = sel == 2 ? a.spread_ok[o] != 0 : ((a.node_bits[o] >> sel) & 1) != 0;
+        if (sel == kSelSpread) {
+          ok = a.spread_ok[o] != 0;
+        } else if (sel >= kSelVol) {
+          ok = ((a.vol_bits[o] >> (sel - kSelVol)) & 1) != 0;
+        } else {
+          ok = ((a.node_bits[o] >> sel) & 1) != 0;
+        }
       }
       if (feas && !ok) bits |= 1u << b;
       feas = feas && ok;
@@ -236,11 +248,11 @@ extern "C" int eval_chunk_launch(
     const void* nom_cnt, const void* nom_prio, const void* nodename_id,
     const void* tol_unsched, const void* pod_req, const void* pod_nonzero,
     const void* priority, const void* nominated_row, const void* node_bits,
-    const void* spread_ok, const void* pin_row, const void* fit_ignored,
+    const void* spread_ok, const void* vol_bits, const void* pin_row, const void* fit_ignored,
     const void* strat_cols, int n_strat, int most_allocated,
     const void* bal_cols, int n_bal, int score_fit, long long fit_weight,
     int score_bal, long long bal_weight, int filter_codes, int n_filters,
-    int ext_sel, int C, int N, int R, void* feasible, void* total, void* fail_mask,
+    long long ext_sel, int C, int N, int R, void* feasible, void* total, void* fail_mask,
     void* stream) {
   if (n_bal > kMaxBalanced) return (int)cudaErrorInvalidValue;
   EvalArgs a;
@@ -263,6 +275,7 @@ extern "C" int eval_chunk_launch(
   a.nominated_row = static_cast<const int*>(nominated_row);
   a.node_bits = static_cast<const unsigned char*>(node_bits);
   a.spread_ok = static_cast<const unsigned char*>(spread_ok);
+  a.vol_bits = static_cast<const unsigned char*>(vol_bits);
   a.pin_row = static_cast<const int*>(pin_row);
   a.fit_ignored = static_cast<const unsigned char*>(fit_ignored);
   a.strat_cols = static_cast<const long long*>(strat_cols);

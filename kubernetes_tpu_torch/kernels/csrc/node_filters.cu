@@ -1,26 +1,35 @@
-// node_filters: NodeAffinity's and TaintToleration's filters for every pod
-// of a batch against every node, once per batch.
+// node_filters: the NodeAffinity, TaintToleration, VolumeBinding and
+// VolumeZone filters for every pod of a batch against every node, once per
+// batch.
 //
 // Replaces kubernetes_tpu/ops/nodeaffinity.py filter_fn (:285, with
-// _eval_terms :162 and the profile's added affinity) and
+// _eval_terms :162 and the profile's added affinity),
 // kubernetes_tpu/ops/tainttoleration.py filter_fn (:52, with
-// ops/helpers.py gather_mask :63), which the JAX pass evaluates inside every
-// scan step.  Both read only node state that no commit changes (labels,
-// names, taints), so one launch per batch serves all of its chunks: the
-// result is a (K, N) byte per (pod, node), bit 0 the NodeAffinity filter,
-// bit 1 the TaintToleration filter (1 where the batch carries no features
-// of that op).  eval_chunk reads the bits as those ops' filter results, and
-// spread_eval's node-inclusion policies read them too.
+// ops/helpers.py gather_mask :63) and kubernetes_tpu/ops/volumes.py
+// _vb_filter (:146) and _vz_filter (:191) with _eval_grouped (:78), which
+// the JAX pass evaluates inside every scan step.  All four read only node
+// state that no commit changes (labels, names, taints), so one launch per
+// batch serves all of its chunks: the result is a (K, N) byte per (pod,
+// node), bit 0 the NodeAffinity filter, bit 1 TaintToleration's, bit 2
+// VolumeBinding's, bit 3 VolumeZone's (1 where the batch carries no
+// features of that op).  eval_chunk reads the bits as those ops' filter
+// results, and spread_eval's node-inclusion policies read bits 0 and 1.
+//
+// The volume programs are grouped: a pod's terms belong to AND-ed
+// OR-groups (one per claim or bound PV), each group needs a valid matching
+// term, a group without terms fails (the term axis is padded to at least
+// the group count, group ids pad with -1), and the scalar vb_/vz_feasible
+// false fails every node.
 //
 // One thread per (pod, node), grid (ceil(N/128), K).  A pod's programs are
 // read by every thread of its blocks (broadcast loads); the node's label
 // and taint slots by one thread each.
 //
 // Bound: bytes.  It must read the nodes' label slots (N x LS x 16 bytes)
-// where a pod has a selector or required terms, their taint slots (N x TS
-// x 4) where a pod has an intolerable taint, and each such pod's programs
-// once, and write K x N bytes; the output dominates (33.5 MB at K=4096,
-// N=8192).
+// where a pod has a selector, required terms or volume terms, their taint
+// slots (N x TS x 4) where a pod has an intolerable taint, and each such
+// pod's programs once, and write K x N bytes; the output dominates (33.5
+// MB at K=4096, N=8192).
 #include <stdint.h>
 
 #include "common.cuh"
@@ -53,20 +62,53 @@ struct NfArgs {
   const unsigned char* add_valid;      // (K, T2)
   // TaintToleration features (null unless do_taint).
   const unsigned char* intol_hard;     // (K, TV)
+  // VolumeBinding and VolumeZone grouped programs (null unless do_vb /
+  // do_vz): op/key/int (K, T, Q), vals (K, T, Q, V), term_valid and group
+  // (K, T), ngroups and feasible (K,).
+  const int* vb_op;
+  const int* vb_key;
+  const int* vb_vals;
+  const long long* vb_int;
+  const unsigned char* vb_valid;
+  const int* vb_group;
+  const int* vb_ngroups;
+  const unsigned char* vb_feasible;
+  const int* vz_op;
+  const int* vz_key;
+  const int* vz_vals;
+  const long long* vz_int;
+  const unsigned char* vz_valid;
+  const int* vz_group;
+  const int* vz_ngroups;
+  const unsigned char* vz_feasible;
   unsigned char* out;                  // (K, N)
-  int N, LS, TS, K, S, T, Q, V, T2, Q2, V2, TV;
-  int do_na, do_add, do_taint;
+  int N, LS, TS, K, S, T, Q, V, T2, Q2, V2, TV, Tb, Qb, Vb, Tz, Qz, Vz;
+  int do_na, do_add, do_taint, do_vb, do_vz;
 };
+
+// A grouped program on one node: every group g < ngroups has a valid
+// matching term (terms are visited once per group; each belongs to one).
+__device__ bool grouped(const node_program::Program& p, const unsigned char* valid,
+                        const int* group, int ngroups, const node_program::Node& nd) {
+  for (int g = 0; g < ngroups && g < p.T; ++g) {
+    bool hit = false;
+    for (int t = 0; !hit && t < p.T; ++t) {
+      hit = group[t] == g && valid[t] && node_program::term(p, t, nd);
+    }
+    if (!hit) return false;
+  }
+  return true;
+}
 
 __global__ void node_filters_kernel(NfArgs a) {
   const int k = blockIdx.y;
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= a.N) return;
   using namespace node_program;
+  const Node nd{a.label_key + (size_t)n * a.LS, a.label_pair + (size_t)n * a.LS,
+                a.label_int + (size_t)n * a.LS, a.name_id[n], a.LS};
   bool na = true;
   if (a.do_na) {
-    const Node nd{a.label_key + (size_t)n * a.LS, a.label_pair + (size_t)n * a.LS,
-                  a.label_int + (size_t)n * a.LS, a.name_id[n], a.LS};
     // nodeSelector: every (key, value) pair must be on the node.
     const int* sel = a.sel + (size_t)k * a.S;
     for (int s = 0; na && s < a.S; ++s) {
@@ -98,7 +140,23 @@ __global__ void node_filters_kernel(NfArgs a) {
       if (id >= 0 && id < a.TV && intol[id]) tolerated = false;
     }
   }
-  a.out[(size_t)k * a.N + n] = (na ? 1 : 0) | (tolerated ? 2 : 0);
+  bool vb = true;
+  if (a.do_vb) {
+    const size_t tq = (size_t)k * a.Tb * a.Qb;
+    const Program p{a.vb_op + tq, a.vb_key + tq, a.vb_vals + tq * a.Vb, a.vb_int + tq,
+                    a.Tb, a.Qb, a.Vb};
+    vb = a.vb_feasible[k] && grouped(p, a.vb_valid + (size_t)k * a.Tb, a.vb_group + (size_t)k * a.Tb,
+                                     a.vb_ngroups[k], nd);
+  }
+  bool vz = true;
+  if (a.do_vz) {
+    const size_t tq = (size_t)k * a.Tz * a.Qz;
+    const Program p{a.vz_op + tq, a.vz_key + tq, a.vz_vals + tq * a.Vz, a.vz_int + tq,
+                    a.Tz, a.Qz, a.Vz};
+    vz = a.vz_feasible[k] && grouped(p, a.vz_valid + (size_t)k * a.Tz, a.vz_group + (size_t)k * a.Tz,
+                                     a.vz_ngroups[k], nd);
+  }
+  a.out[(size_t)k * a.N + n] = (na ? 1 : 0) | (tolerated ? 2 : 0) | (vb ? 4 : 0) | (vz ? 8 : 0);
 }
 
 }  // namespace
@@ -108,9 +166,14 @@ extern "C" int node_filters_launch(
     const void* taint_ids, const void* sel, const void* has_req, const void* req_op,
     const void* req_key, const void* req_vals, const void* req_int, const void* req_valid,
     const void* has_add, const void* add_op, const void* add_key, const void* add_vals,
-    const void* add_int, const void* add_valid, const void* intol_hard, void* out, int N,
-    int LS, int TS, int K, int S, int T, int Q, int V, int T2, int Q2, int V2, int TV,
-    int do_na, int do_add, int do_taint, void* stream) {
+    const void* add_int, const void* add_valid, const void* intol_hard, const void* vb_op,
+    const void* vb_key, const void* vb_vals, const void* vb_int, const void* vb_valid,
+    const void* vb_group, const void* vb_ngroups, const void* vb_feasible, const void* vz_op,
+    const void* vz_key, const void* vz_vals, const void* vz_int, const void* vz_valid,
+    const void* vz_group, const void* vz_ngroups, const void* vz_feasible, void* out, int N,
+    int LS, int TS, int K, int S, int T, int Q, int V, int T2, int Q2, int V2, int TV, int Tb,
+    int Qb, int Vb, int Tz, int Qz, int Vz, int do_na, int do_add, int do_taint, int do_vb,
+    int do_vz, void* stream) {
   if (K > 65535) return (int)cudaErrorInvalidValue;
   if (K == 0 || N == 0) return 0;
   NfArgs a;
@@ -133,6 +196,22 @@ extern "C" int node_filters_launch(
   a.add_int = static_cast<const long long*>(add_int);
   a.add_valid = static_cast<const unsigned char*>(add_valid);
   a.intol_hard = static_cast<const unsigned char*>(intol_hard);
+  a.vb_op = static_cast<const int*>(vb_op);
+  a.vb_key = static_cast<const int*>(vb_key);
+  a.vb_vals = static_cast<const int*>(vb_vals);
+  a.vb_int = static_cast<const long long*>(vb_int);
+  a.vb_valid = static_cast<const unsigned char*>(vb_valid);
+  a.vb_group = static_cast<const int*>(vb_group);
+  a.vb_ngroups = static_cast<const int*>(vb_ngroups);
+  a.vb_feasible = static_cast<const unsigned char*>(vb_feasible);
+  a.vz_op = static_cast<const int*>(vz_op);
+  a.vz_key = static_cast<const int*>(vz_key);
+  a.vz_vals = static_cast<const int*>(vz_vals);
+  a.vz_int = static_cast<const long long*>(vz_int);
+  a.vz_valid = static_cast<const unsigned char*>(vz_valid);
+  a.vz_group = static_cast<const int*>(vz_group);
+  a.vz_ngroups = static_cast<const int*>(vz_ngroups);
+  a.vz_feasible = static_cast<const unsigned char*>(vz_feasible);
   a.out = static_cast<unsigned char*>(out);
   a.N = N;
   a.LS = LS;
@@ -146,9 +225,17 @@ extern "C" int node_filters_launch(
   a.Q2 = Q2;
   a.V2 = V2;
   a.TV = TV;
+  a.Tb = Tb;
+  a.Qb = Qb;
+  a.Vb = Vb;
+  a.Tz = Tz;
+  a.Qz = Qz;
+  a.Vz = Vz;
   a.do_na = do_na;
   a.do_add = do_add;
   a.do_taint = do_taint;
+  a.do_vb = do_vb;
+  a.do_vz = do_vz;
   dim3 grid((N + kThreads - 1) / kThreads, K);
   node_filters_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();

@@ -6,7 +6,10 @@
 // group_dom table, and the pod's own (anti-)affinity terms: et_counts[e,
 // row] += 1 and et_dom[e, d] += 1 where d is the node's value at term e's
 // own topology slot (values outside [0, DV), such as hostname values, are
-// dropped, as the JAX scatter drops them).
+// dropped, as the JAX scatter drops them), and the device and CSI branches
+// (:211-236): dev_counts and dev_rw_counts at the pod's device ids, and
+// csivol_counts at its CSI volume ids with csi_used[driver] += 1 where the
+// volume's count before the chunk was 0.
 //
 // One block per chunk, one thread per pod (C <= 1024).  With chunk > 1:
 //   (a) a valid pod behind an attempting chunk-mate that conflicts with it
@@ -14,16 +17,21 @@
 //   (b) the remaining attempting pods check exact cumulative fit at their
 //       picked node: the chunk-prefix demand of same-node mates (i <= j)
 //       against the chunk-start free capacity, per requested resource, and
-//       the pod count against allowed pods; a pod that overflows defers.
-// Every state read of (a)/(b) happens before the barrier that precedes the
-// commit, so it sees the chunk-start state.  Committed pods then
+//       the pod count against allowed pods; a pod that overflows defers;
+//   (c) so does an attach-limited pod (vol_csi_lim) whose node an earlier
+//       attempting limited mate also picked (:605-613): distinct volumes
+//       still share one per-driver budget there.
+// Every state read of (a)-(c) happens before the barrier that precedes the
+// commit, so it sees the chunk-start state; so does each committing pod's
+// read of its CSI volumes' counts (one bit per slot), so two mates
+// attaching different volumes of one driver on one node each add 1.  Committed pods then
 // scatter-add their deltas with atomics: duplicate rows accumulate, and the
 // f32 group_dom adds are exact because the counts stay below 2^24.  Picks
 // come out as -2 (deferred), -1 (invalid or unschedulable) or the row.
 //
 // Bound: operations on a handful of bytes (C*C*R int64 prefix sums plus
-// C*(R+2+2+TK+2A) atomics); one block does the whole chunk, so its time is
-// launch latency.
+// C*(R+2+2+TK+2A+2SD+2SC) atomics); one block does the whole chunk, so its
+// time is launch latency.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -52,7 +60,17 @@ struct CommitArgs {
   int* et_counts;                // (ET, N)
   float* et_dom;                 // (ET, DV)
   const int* et_slot;            // (ET,)
-  int C, N, R, TK, DV, A;
+  // Volume features and state (the features null when the chunk carries none).
+  const int* dev_ids;            // (C, SD), -1 pad
+  const unsigned char* dev_rw;   // (C, SD)
+  int* dev_counts;               // (VD, N)
+  int* dev_rw_counts;            // (VD, N)
+  const int* csi_ids;            // (C, SC), -1 pad
+  const int* csi_drv;            // (C, SC)
+  int* csivol_counts;            // (CV, N)
+  int* csi_used;                 // (DR, N)
+  const unsigned char* csi_lim;  // (C,)
+  int C, N, R, TK, DV, A, SD, SC, DR;
   int* out_picks;  // (C,)
 };
 
@@ -101,10 +119,21 @@ __global__ void resolve_commit_kernel(CommitArgs a) {
       if (s_att[i] && s_pick[i] == row) ++cnt;
     }
     ok = ok && (a.num_pods[row] + cnt <= a.allowed_pods[row]);
+    if (a.csi_lim != nullptr && a.csi_lim[j]) {
+      for (int i = 0; i < j; ++i) {
+        if (s_att[i] && s_pick[i] == row && a.csi_lim[i]) ok = false;
+      }
+    }
     overflow = !ok;
   }
   defer = defer || overflow;
   const bool att2 = att1 && !overflow;
+  // Which CSI volumes this pod newly attaches: counts before the chunk.
+  unsigned long long fresh = 0;
+  for (int s = 0; att2 && a.csi_ids != nullptr && s < a.SC; ++s) {
+    const int id = a.csi_ids[(size_t)j * a.SC + s];
+    if (id >= 0 && a.csivol_counts[(size_t)id * a.N + p] == 0) fresh |= 1ull << s;
+  }
   __syncthreads();  // every read of the chunk-start state is done
   if (att2) {
     const int row = p;
@@ -132,6 +161,19 @@ __global__ void resolve_commit_kernel(CommitArgs a) {
       const int d = a.topo_vals[(size_t)row * a.TK + a.et_slot[e]];
       if (d >= 0 && d < a.DV) atomicAdd(a.et_dom + (size_t)e * a.DV + d, 1.0f);
     }
+    for (int s = 0; a.dev_ids != nullptr && s < a.SD; ++s) {
+      const int id = a.dev_ids[(size_t)j * a.SD + s];
+      if (id < 0) continue;
+      atomicAdd(a.dev_counts + (size_t)id * a.N + row, 1);
+      if (a.dev_rw[(size_t)j * a.SD + s]) atomicAdd(a.dev_rw_counts + (size_t)id * a.N + row, 1);
+    }
+    for (int s = 0; a.csi_ids != nullptr && s < a.SC; ++s) {
+      const int id = a.csi_ids[(size_t)j * a.SC + s];
+      if (id < 0) continue;
+      atomicAdd(a.csivol_counts + (size_t)id * a.N + row, 1);
+      const int d = a.csi_drv[(size_t)j * a.SC + s];
+      if (((fresh >> s) & 1) && d >= 0 && d < a.DR) atomicAdd(a.csi_used + (size_t)d * a.N + row, 1);
+    }
   }
   if (in) a.out_picks[j] = defer ? -2 : (v ? p : -1);
 }
@@ -144,9 +186,11 @@ extern "C" int resolve_commit_launch(
     const void* alloc, void* req, void* nonzero_req, void* num_pods,
     const void* allowed_pods, void* group_counts, void* group_dom,
     const void* topo_vals, const void* own, void* et_counts, void* et_dom,
-    const void* et_slot, int C, int N, int R, int TK, int DV, int A,
-    void* out_picks, void* stream) {
-  if (C > kMaxChunk || C < 1) return (int)cudaErrorInvalidValue;
+    const void* et_slot, const void* dev_ids, const void* dev_rw, void* dev_counts,
+    void* dev_rw_counts, const void* csi_ids, const void* csi_drv, void* csivol_counts,
+    void* csi_used, const void* csi_lim, int C, int N, int R, int TK, int DV, int A, int SD,
+    int SC, int DR, void* out_picks, void* stream) {
+  if (C > kMaxChunk || C < 1 || SC > 64) return (int)cudaErrorInvalidValue;
   CommitArgs a;
   a.picks = static_cast<const int*>(picks);
   a.valid = static_cast<const unsigned char*>(valid);
@@ -167,6 +211,18 @@ extern "C" int resolve_commit_launch(
   a.et_counts = static_cast<int*>(et_counts);
   a.et_dom = static_cast<float*>(et_dom);
   a.et_slot = static_cast<const int*>(et_slot);
+  a.dev_ids = static_cast<const int*>(dev_ids);
+  a.dev_rw = static_cast<const unsigned char*>(dev_rw);
+  a.dev_counts = static_cast<int*>(dev_counts);
+  a.dev_rw_counts = static_cast<int*>(dev_rw_counts);
+  a.csi_ids = static_cast<const int*>(csi_ids);
+  a.csi_drv = static_cast<const int*>(csi_drv);
+  a.csivol_counts = static_cast<int*>(csivol_counts);
+  a.csi_used = static_cast<int*>(csi_used);
+  a.csi_lim = static_cast<const unsigned char*>(csi_lim);
+  a.SD = SD;
+  a.SC = SC;
+  a.DR = DR;
   a.A = A;
   a.C = C;
   a.N = N;

@@ -17,16 +17,26 @@ from ..ops import interpodaffinity as ipa_op
 from ..ops import nodeaffinity as na_op
 from ..ops import podtopologyspread as spread_op
 from ..ops import tainttoleration as taint_op
+from ..ops import volumes as vol_op
 from ..ops.helpers import make_topo_onehot
+from ..ops.volumes import NVL, VB, VR, VZ
 
 IPA = "InterPodAffinity"
 NA, TT, PTS = "NodeAffinity", "TaintToleration", "PodTopologySpread"
-# Filters eval_chunk reads from a precomputed plane instead of evaluating:
-# NodeAffinity and TaintToleration from node_filters' bits 0 and 1,
-# PodTopologySpread from spread_filter's mask.
-EXT_FILTERS = (NA, TT, PTS)
-# Pods per block of the plain node_filters (bounds its temporaries).
+# Filters eval_chunk reads from a precomputed plane instead of evaluating,
+# and where: NodeAffinity, TaintToleration, VolumeBinding and VolumeZone
+# from node_filters' bits 0-3 (per batch), VolumeRestrictions and
+# NodeVolumeLimits from vol_filter's bits 0-1 (per chunk),
+# PodTopologySpread from spread_filter's mask (per chunk).
+PLANE_BITS = {NA: ("node_bits", 0), TT: ("node_bits", 1), VB: ("node_bits", 2),
+              VZ: ("node_bits", 3), VR: ("vol_bits", 0), NVL: ("vol_bits", 1),
+              PTS: ("spread_ok", 0)}
+EXT_FILTERS = tuple(PLANE_BITS)
+NODE_FILTER_OPS = (NA, TT, VB, VZ)
+# Pods per block of the plain node_filters (bounds its temporaries), and
+# the elements a block's (pods, T, Q, N, LS) label match may hold.
 _NODE_FILTER_BLOCK = 256
+_NODE_FILTER_ELEMS = 2**28
 
 _MASK32 = 0xFFFFFFFF
 NEG_SCORE = -(2**62)
@@ -47,17 +57,24 @@ def build_dom(state, et_slot, dv: int):
     return group_dom.contiguous(), et_dom
 
 
+def ext_planes(ext) -> dict:
+    """The planes of an ``ext`` tuple (node_bits (C, N) u8, spread_ok (C, N)
+    bool[, vol_bits (C, N) u8]) by name; any may be None when no filter
+    reads it."""
+    names = ("node_bits", "spread_ok", "vol_bits")
+    ext = tuple(ext) if ext is not None else ()
+    return {name: ext[i] if i < len(ext) else None for i, name in enumerate(names)}
+
+
 def ext_filter(name: str, ext) -> torch.Tensor:
-    """(C, N) bool result of an EXT_FILTERS op from its plane: ``ext`` is
-    (node_bits (C, N) u8, spread_ok (C, N) bool), either may be None when
-    no filter reads it."""
-    node_bits, spread_ok = ext if ext is not None else (None, None)
-    plane = spread_ok if name == PTS else node_bits
+    """(C, N) bool result of an EXT_FILTERS op from its plane (PLANE_BITS)."""
+    plane_name, bit = PLANE_BITS[name]
+    plane = ext_planes(ext)[plane_name]
     if plane is None:
         raise ValueError(f"eval_chunk: {name} needs its precomputed plane")
-    if name == PTS:
+    if plane_name == "spread_ok":
         return plane.to(torch.bool)
-    return (plane & (1 if name == NA else 2)) != 0
+    return (plane & (1 << bit)) != 0
 
 
 def pin_view(state, pf: dict, pin, nom=None, planes=()):
@@ -93,7 +110,7 @@ def eval_chunk(state, pf: dict, spec, nom, ext=None, pin=None):
     pin_view): (C, 1) outputs and that node's fail bits."""
     own = None
     if pin is not None:
-        state, pf, nom, ext, own = pin_view(state, pf, pin, nom, ext if ext is not None else (None, None))
+        state, pf, nom, ext, own = pin_view(state, pf, pin, nom, tuple(ext_planes(ext).values()))
     ctx = dataclasses.replace(spec.ctx, nom=nom)
     c = pf["req"].shape[0]
     n = state.valid.shape[0]
@@ -153,13 +170,14 @@ def ipa_eval(state, pf: dict, feasible, total, fail, ipa):
 
 
 def conflict_pairs(pf: dict, nchunks: int, c: int):
-    """(nchunks, C, C) bool — _conflict_pairs' hard reads (pass_.py:266-306)
-    with gathers in place of the one-hot einsums: pairs[i, j] =
-    reads_g[j, group[i]] ∨ ∃a hard_t[j, own[i, a]], where reads_g is
+    """(nchunks, C, C) bool — _conflict_pairs (pass_.py:266-342) with
+    gathers in place of the one-hot einsums: pairs[i, j] =
+    reads_g[j, group[i]] ∨ ∃a hard_t[j, own[i, a]] ∨ (i and j share a
+    device or CSI volume id) ∨ (both vol_unbound), where reads_g is
     InterPodAffinity's ipa_ra_allmask ∨ any(ipa_rs_groups) and spread's
-    any(tps_h_groups) (whichever the batch carries) and hard_t =
-    ipa_et_match ∧ ipa_et_anti, over the pods of one chunk, diagonal
-    cleared."""
+    any(tps_h_groups) and hard_t = ipa_et_match ∧ ipa_et_anti (each part
+    only when the batch carries its features), over the pods of one chunk,
+    diagonal cleared."""
     dev = pf["valid"].device
     reads = None
     if "ipa_ra_allmask" in pf:
@@ -167,11 +185,23 @@ def conflict_pairs(pf: dict, nchunks: int, c: int):
     if "tps_h_groups" in pf:
         spread = pf["tps_h_groups"].any(dim=1)
         reads = spread if reads is None else reads | spread
-    g = reads.shape[1]
-    reads = reads.view(nchunks, c, g)
-    group = pf["group"].to(torch.int64).clamp(0, g - 1).view(nchunks, 1, c).expand(-1, c, -1)
-    # reads.gather(...)[b, j, i] = reads[b, j, group[b, i]]
-    pairs = reads.gather(2, group).transpose(1, 2)
+    pairs = torch.zeros((nchunks, c, c), dtype=torch.bool, device=dev)
+    if reads is not None:
+        g = reads.shape[1]
+        reads = reads.view(nchunks, c, g)
+        group = pf["group"].to(torch.int64).clamp(0, g - 1).view(nchunks, 1, c).expand(-1, c, -1)
+        # reads.gather(...)[b, j, i] = reads[b, j, group[b, i]]
+        pairs = reads.gather(2, group).transpose(1, 2)
+    for key in ("vol_dev_ids", "vol_csi_ids"):
+        if key in pf:
+            ids = pf[key].view(nchunks, c, -1)
+            ok = ids >= 0
+            eq = (ids[:, :, None, :, None] == ids[:, None, :, None, :]) & (
+                ok[:, :, None, :, None] & ok[:, None, :, None, :])
+            pairs = pairs | eq.flatten(3).any(dim=3)
+    if "vol_unbound" in pf:
+        u = pf["vol_unbound"].view(nchunks, c)
+        pairs = pairs | (u[:, :, None] & u[:, None, :])
     if "ipa_et_match" in pf:
         hard = (pf["ipa_et_match"] & pf["ipa_et_anti"]).view(nchunks, c, -1)
         et = hard.shape[2]
@@ -189,20 +219,39 @@ def conflict_pairs(pf: dict, nchunks: int, c: int):
 def node_filters(state, pf: dict, ctx):
     """(K, N) u8 per-batch node filters: bit 0 NodeAffinity's filter
     (nodeaffinity.py:285, with the profile's added affinity), bit 1
-    TaintToleration's (tainttoleration.py:52); a bit whose features the
-    batch does not carry is 1.  They read only node state no commit
-    changes, so one evaluation serves every chunk of the batch."""
+    TaintToleration's (tainttoleration.py:52), bit 2 VolumeBinding's
+    (volumes.py:146), bit 3 VolumeZone's (volumes.py:191); a bit whose
+    features the batch does not carry is 1.  They read only node state no
+    commit changes, so one evaluation serves every chunk of the batch."""
     k, n = pf["valid"].shape[0], state.valid.shape[0]
     out = torch.empty((k, n), dtype=torch.uint8, device=state.valid.device)
-    for lo in range(0, k, _NODE_FILTER_BLOCK):
-        sub = {key: v[lo : lo + _NODE_FILTER_BLOCK] for key, v in pf.items()}
+    ops = ((na_op.filter_fn, "na_sel_pairs"), (taint_op.filter_fn, "taint_intol_hard"),
+           (vol_op.vb_filter, "vb_op"), (vol_op.vz_filter, "vz_op"))
+    widest = max((pf[key].shape[1] * pf[key].shape[2] for key in ("na_req_op", "na_add_op", "vb_op", "vz_op")
+                  if key in pf), default=1)
+    per_pod = widest * n * state.label_key_ids.shape[1]
+    block = max(1, min(_NODE_FILTER_BLOCK, _NODE_FILTER_ELEMS // max(per_pod, 1)))
+    for lo in range(0, k, block):
+        sub = {key: v[lo : lo + block] for key, v in pf.items()}
         m = sub["valid"].shape[0]
-        na = na_op.filter_fn(state, sub, ctx) if "na_sel_pairs" in sub else torch.ones(
-            (m, n), dtype=torch.bool, device=out.device)
-        tt = taint_op.filter_fn(state, sub, ctx) if "taint_intol_hard" in sub else torch.ones(
-            (m, n), dtype=torch.bool, device=out.device)
-        out[lo : lo + m] = na.to(torch.uint8) | (tt.to(torch.uint8) << 1)
+        bits = torch.zeros((m, n), dtype=torch.uint8, device=out.device)
+        for b, (fn, key) in enumerate(ops):
+            ok = fn(state, sub, ctx) if key in sub else torch.ones((m, n), dtype=torch.bool, device=out.device)
+            bits |= ok.to(torch.uint8) << b
+        out[lo : lo + m] = bits
     return out
+
+
+def vol_filter(state, pf: dict, ctx, do_vr: bool, do_nvl: bool):
+    """(C, N) u8 per-chunk volume filters: bit 0 VolumeRestrictions'
+    (volumes.py:217), bit 1 NodeVolumeLimits' (volumes.py:238), each 1 when
+    not asked for.  They read dev_counts, dev_rw_counts, csivol_counts and
+    csi_used, which the chunk commits change."""
+    c, n = pf["valid"].shape[0], state.valid.shape[0]
+    ones = torch.ones((c, n), dtype=torch.bool, device=state.valid.device)
+    vr = vol_op.vr_filter(state, pf, ctx) if do_vr else ones
+    nvl = vol_op.nvl_filter(state, pf, ctx) if do_nvl else ones
+    return vr.to(torch.uint8) | (nvl.to(torch.uint8) << 1)
 
 
 def _node_oks(node_bits):
@@ -308,6 +357,13 @@ def resolve_commit(state, dom, pf: dict, picks, pairs, strict: bool):
             state.num_pods[rows] + cum_cnt <= state.allowed_pods[rows]
         )
         overflow = att & ~ok
+        lim = pf.get("vol_csi_lim")
+        if lim is not None:
+            # A limited pod whose pick an earlier attempting limited mate
+            # also took defers: distinct volumes still share one per-driver
+            # budget on a node (pass_.py:605-613).
+            prev_same = samei & ~torch.eye(c, dtype=torch.bool, device=valid.device)
+            overflow = overflow | (att & (prev_same & lim[:, None] & lim[None, :]).any(dim=0))
         defer = defer | overflow
         att = att & ~overflow
     rows = torch.where(att, picks, 0).to(torch.int64)
@@ -336,7 +392,34 @@ def resolve_commit(state, dom, pf: dict, picks, pairs, strict: bool):
         et_dom.view(-1).index_add_(
             0, (safe * dv + d_a.clamp(0, dv - 1)).reshape(-1), inc_a.reshape(-1)
         )
+    _commit_volumes(state, pf, att, rows)
     return torch.where(defer, -2, torch.where(valid, picks, -1)).to(torch.int32)
+
+
+def _commit_volumes(state, pf: dict, att, rows) -> None:
+    """The device and CSI branches of _commit_chunk (pass_.py:211-236), in
+    place: dev_counts and dev_rw_counts scatter-add; csivol_counts += 1 and
+    csi_used += 1 where the volume's count before the chunk was 0 (every
+    count is read before any is written)."""
+    n = state.valid.shape[0]
+    dev = pf.get("vol_dev_ids")
+    if dev is not None:
+        act = att[:, None] & (dev >= 0)
+        flat = (dev.clamp(min=0).to(torch.int64) * n + rows[:, None]).reshape(-1)
+        state.dev_counts.view(-1).index_add_(0, flat, act.to(torch.int32).reshape(-1))
+        rw = act & pf["vol_dev_rw"]
+        state.dev_rw_counts.view(-1).index_add_(0, flat, rw.to(torch.int32).reshape(-1))
+    csi = pf.get("vol_csi_ids")
+    if csi is not None:
+        act = att[:, None] & (csi >= 0)
+        flat = (csi.clamp(min=0).to(torch.int64) * n + rows[:, None]).reshape(-1)
+        prev = state.csivol_counts.view(-1)[flat].view(act.shape)
+        state.csivol_counts.view(-1).index_add_(0, flat, act.to(torch.int32).reshape(-1))
+        drv = pf["vol_csi_drv"].to(torch.int64)
+        dr = state.csi_used.shape[0]
+        newly = act & (prev == 0) & (drv >= 0) & (drv < dr)
+        flat_d = (drv.clamp(0, dr - 1) * n + rows[:, None]).reshape(-1)
+        state.csi_used.view(-1).index_add_(0, flat_d, newly.to(torch.int32).reshape(-1))
 
 
 def pinned_fit(own_ok, pin_row, valid, req, state):

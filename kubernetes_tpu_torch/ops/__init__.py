@@ -3,5 +3,5 @@
 from . import common  # noqa: F401
 from . import (  # noqa: F401
     interpodaffinity, nodeaffinity, noderesources, podtopologyspread, tainttoleration, trivial,
-    unported,
+    unported, volumes,
 )

@@ -75,6 +75,11 @@ class OpDef:
     filter: Optional[Callable] = None  # (state, pf, PassContext) -> (C, N) bool
     # (state, pf, PassContext, feasible (C, N) bool) -> (C, N) i64
     score: Optional[Callable] = None
+    # (state, pf, PassContext) -> (C, N) bool: nodes the op rejects as
+    # UnschedulableAndUnresolvable, which preemption's candidacy check
+    # skips (preemption.py:365).  Registered by the volume ops; the port's
+    # preemption does not read it yet (it refuses those ops by name).
+    hard_filter: Optional[Callable] = None
     # (profile, schema, builder_res_col) -> dict merged into PassContext.static
     static: Optional[Callable] = None
     # (pod, FeaturizeContext) -> bool: does this op do anything for this

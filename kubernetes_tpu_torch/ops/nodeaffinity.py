@@ -116,9 +116,13 @@ class _Program:
         if reqs:
             self.terms.append(reqs)
 
-    def tensors(self, prefix: str) -> dict:
-        """Pack into dense tensors, each dimension bucketed to a power of two."""
-        if not self.terms:
+    def tensors(self, prefix: str, min_terms: int = 1) -> dict:
+        """Pack into dense tensors, each dimension bucketed to a power of
+        two, with at least ``min_terms`` term rows.  A term with zero
+        requirements is all-OP_PAD and matches every node: add_term never
+        makes one, the grouped volume programs use them as always-true
+        entries (ops/volumes._GroupedProgram)."""
+        if not self.terms and min_terms <= 1:
             # No affinity of this kind: shared all-pad tensors.
             cached = _EMPTY_PROG.get(prefix)
             if cached is None:
@@ -131,8 +135,8 @@ class _Program:
                 }
                 _EMPTY_PROG[prefix] = cached
             return dict(cached)
-        tdim = _bucket(len(self.terms), 1)
-        qdim = _bucket(max(len(te) for te in self.terms), 1)
+        tdim = _bucket(max(len(self.terms), min_terms, 1), 1)
+        qdim = _bucket(max((len(te) for te in self.terms), default=1) or 1, 1)
         vdim = _bucket(max((len(v) for te in self.terms for _, _, v, _ in te), default=1) or 1, 1)
         ops = np.full((tdim, qdim), OP_PAD, np.int32)
         keys = np.full((tdim, qdim), -1, np.int32)

@@ -18,8 +18,13 @@ tie-break seeds, conflict-aware chunk packing of affinity batches
 (engine/packing.py), the uniform-batch expansion, the strict tail in two
 rounds, the prefetch of the next batch before the current one completes,
 and the speculative dry-run chained on the main pass's device picks when
-recent batches failed.  Gangs, extenders, volumes, journaling and the
-pipelined predispatch are later slices; a pod that would need one raises
+recent batches failed.  Placed pods are assumed first, then VolumeBinding's
+Reserve/PreBind runs in batch order and binds delayed claims
+(framework/hostplugins.py); a pod whose reservation lost a same-batch race
+is forgotten and sent to backoff (scheduler.py:3960-4150).  The
+PV, PVC, StorageClass and CSINode informers feed the volume catalog.
+Gangs, extenders, DRA, journaling, the PreBind wait room and the pipelined
+predispatch are later slices; a pod that would need one raises
 NotImplementedError.
 """
 
@@ -37,6 +42,7 @@ from .engine.features import build_pod_batch, pin_name, pod_sig
 from .engine.packing import pack_batch
 from .engine.pass_ import PINNED_SAFE_OPS, PassCache, filter_op_names
 from .framework.config import DEFAULT_PROFILE, Profile
+from .framework.hostplugins import VolumeReserve
 from .intern import InternTable
 from .kernels import plain
 from .ops import common as opcommon
@@ -139,11 +145,19 @@ class TorchScheduler:
         self.speculative_batches = 0
         self.pinned_batches = 0
         self.preempted: list[tuple[str, str, str]] = []
+        # VolumeBinding's Reserve/PreBind, run on every placed pod with a claim.
+        self.volume_reserve = VolumeReserve()
+        # Pods whose reservation lost a same-batch race (forgotten, to backoff).
+        self.reserve_failures = 0
 
     # -- cluster events --------------------------------------------------------
 
     def add_node(self, node: t.Node) -> None:
         self.cache.add_node(node)
+        # Replay a CSINode that arrived before its Node (informer races).
+        csinode = self.builder.volumes.csinodes.get(node.name)
+        if csinode is not None:
+            self.builder.set_csinode_limits(self.cache.row_of(node.name), csinode)
         self.queue.on_event(Event.NODE_ADD, self._free_ctx({self.cache.row_of(node.name)}))
 
     def add_pod(self, pod: t.Pod) -> None:
@@ -199,6 +213,66 @@ class TorchScheduler:
                 "PodDisruptionBudget spec (minAvailable/maxUnavailable) reconciliation is not yet ported"
             )
         self.pdbs[pdb.name] = pdb
+
+    # -- volume objects (the PV/PVC/StorageClass/CSINode informers,
+    # scheduler.py:1721-1860) ------------------------------------------------
+
+    def add_pv(self, pv: t.PersistentVolume) -> None:
+        self.builder.volumes.add_pv(pv)
+        self.queue.on_event(Event.PV_ADD)
+
+    def add_pvc(self, pvc: t.PersistentVolumeClaim) -> None:
+        self.builder.volumes.add_pvc(pvc)
+        self.queue.on_event(Event.PVC_ADD)
+
+    def add_storage_class(self, sc: t.StorageClass) -> None:
+        self.builder.volumes.add_class(sc)
+        self.queue.on_event(Event.PVC_ADD)
+
+    def add_csinode(self, csinode: t.CSINode) -> None:
+        self.builder.volumes.add_csinode(csinode)
+        rec = self.cache.nodes.get(csinode.name)
+        if rec is not None:
+            self.builder.set_csinode_limits(rec.row, csinode)
+        self.queue.on_event(Event.NODE_UPDATE)
+
+    def remove_pv(self, name: str) -> None:
+        vols = self.builder.volumes
+        pv = vols.pvs.pop(name, None)
+        if pv is None:
+            return
+        vols.unbound.get(pv.storage_class, {}).pop(name, None)
+        vols.epoch += 1
+
+    def remove_pvc(self, uid: str) -> None:
+        vols = self.builder.volumes
+        if vols.pvcs.pop(uid, None) is None:
+            return
+        vols.pvc_users.pop(uid, None)
+        vols.epoch += 1
+
+    def remove_storage_class(self, name: str) -> None:
+        if self.builder.volumes.classes.pop(name, None) is not None:
+            self.builder.volumes.epoch += 1
+
+    def remove_csinode(self, name: str) -> None:
+        vols = self.builder.volumes
+        old = vols.csinodes.pop(name, None)
+        if old is None:
+            return
+        vols.epoch += 1
+        rec = self.cache.nodes.get(name)
+        if rec is not None:
+            # The removed drivers go back to the no-CSINode default
+            # (unlimited, the snapshot's 2^31-1 fill).
+            self.builder.set_csinode_limits(rec.row, t.CSINode(name, {d: 2**31 - 1 for d in old.driver_limits}))
+        self.queue.on_event(Event.NODE_UPDATE)
+
+    def _has_reserve_work(self, pod: t.Pod) -> bool:
+        """The profile enables VolumeBinding's Reserve (profile.reserve) and
+        the pod has a claim for it to bind."""
+        rp = self.volume_reserve
+        return rp.name in self.profile.reserve and rp.relevant(pod, self)
 
     def _free_ctx(self, rows) -> EventCtx:
         """EventCtx of the free capacity on ``rows`` after the current host
@@ -530,6 +604,7 @@ class TorchScheduler:
         # committed the deltas).
         nom_pinned = ctx.get("nom_pinned")
         failed: list[int] = []
+        placed: list[tuple[int, str]] = []
         outcomes: list[ScheduleOutcome] = []
         for i, qp in enumerate(infos):
             row = int(picks[i])
@@ -550,6 +625,20 @@ class TorchScheduler:
             self.cache.assume_pod(qp.pod, node_name, device_already=True, delta=deltas[i])
             self.nominator.pop(qp.pod.uid, None)  # a placed pod's nomination is spent
             qp.pod.status.nominated_node_name = ""
+            placed.append((i, node_name))
+        # Phase 2: Reserve + PreBind + bind, in batch order.  A pod that lost
+        # a same-batch race (a static PV or a ReadWriteOncePod claim) bound
+        # nothing; it is forgotten — its delta comes off the host rows,
+        # which flush to the device at the next state() — and retries
+        # behind backoff (scheduler.py:4091-4150).
+        for i, node_name in placed:
+            qp = infos[i]
+            if self._has_reserve_work(qp.pod) and self.volume_reserve.reserve(qp.pod, node_name, self) is None:
+                self.cache.forget_pod(qp.pod.uid)
+                self.reserve_failures += 1
+                outcomes.append(ScheduleOutcome(qp.pod, None, 0, int(feas[i])))
+                self.queue.add_backoff(qp)
+                continue
             self.cache.finish_binding(qp.pod.uid)
             qp.pod.spec.node_name = node_name
             self.queue.done(qp.pod.uid)
@@ -604,7 +693,9 @@ class TorchScheduler:
         for i, res in zip(failed, results):
             qp = infos[i]
             if res is not None:
-                if self.inline_preempt_commit and (
+                # A pod with Reserve work (a claim to bind) takes the
+                # nominate-and-retry path (scheduler.py:2046).
+                if self.inline_preempt_commit and not self._has_reserve_work(qp.pod) and (
                     not spec_applied or (spec_inline_ok and self._fits_now(res.node_name, deltas[i]))
                 ):
                     self._commit_preempted(qp, failed_out[i], res, deltas[i])

@@ -29,6 +29,7 @@ import torch
 
 from .api import types as t
 from .intern import GroupIndex, InternTable, TermIndex
+from .volumes import VolumeCatalog
 
 # Sentinel for "label value is not an integer" (Gt/Lt operators).
 INT_SENTINEL = np.int64(-(2**62))
@@ -265,6 +266,8 @@ class SnapshotBuilder:
         self.namespace_labels: dict[str, dict[str, str]] = {}
         self.ns_epoch = 0
         self.term_index = TermIndex(self.interns, self.group_index, self.namespace_labels)
+        # PV/PVC/StorageClass/CSINode catalog (the volume plugins' host half).
+        self.volumes = VolumeCatalog()
         self.host = _host_arrays(self.schema)
         self._device: ClusterState | None = None
         # Monotonic host-mutation counter: the validity token of derived
@@ -281,6 +284,9 @@ class SnapshotBuilder:
         # "plain" flushes dirty rows with the plain version of scatter_rows
         # (set by a scheduler built with _impl="plain", for comparisons).
         self._impl = "kernel"
+        # Whole-state uploads state() made (schema growth, invalidation):
+        # each copies every field, csivol_counts (CV x N) included.
+        self.full_uploads = 0
 
     @property
     def _dirty_all(self) -> bool:
@@ -411,10 +417,20 @@ class SnapshotBuilder:
         self.namespace_labels[namespace] = dict(labels)
         self.ns_epoch += 1
 
+    def set_csinode_limits(self, row: int, csinode) -> None:
+        """Apply CSINode.spec.drivers allocatable counts to a node row
+        (nodevolumelimits/csi.go reads CSINode for the attach limit)."""
+        for driver, limit in csinode.driver_limits.items():
+            did = self.interns.drivers.id(driver)
+            self._ensure(DR=did + 1)
+            self.host["csi_limit"][did, row] = limit
+        self._dirty_rows.add(row)
+
     def feature_version(self) -> tuple:
         """Token identifying everything pod featurization can read besides
-        the pod itself (the JAX builder's, minus the catalogs of the
-        volume and DRA slices)."""
+        the pod itself (the JAX builder's, snapshot.py:520-535, minus the
+        DRA catalog's): a catalog mutation (a PV added or provisioned, a
+        claim's user count moved) bumps ``volumes.epoch``."""
         it = self.interns
         return (
             self.schema,
@@ -422,6 +438,9 @@ class SnapshotBuilder:
             len(it.groups),
             len(it.namespaces),
             len(it.taints),
+            len(it.devices),
+            len(it.drivers),
+            self.volumes.epoch,
             self.ns_epoch,
         )
 
@@ -440,10 +459,8 @@ class SnapshotBuilder:
         """Precompute the row-delta a pod applies when (un)assigned to a node.
         Mirrors NodeInfo.AddPodInfo / RemovePod (types.go:990,1022).
 
-        Volumes and resource claims belong to later slices: a pod that
-        carries either raises rather than being accounted without them."""
-        if pod.spec.volumes:
-            raise NotImplementedError("pod volumes are not yet ported")
+        Resource claims belong to a later slice: a pod that carries one
+        raises rather than being accounted without it."""
         if pod.spec.resource_claims:
             raise NotImplementedError("DynamicResources claims are not yet ported")
         request = pod.resource_request()
@@ -466,6 +483,46 @@ class SnapshotBuilder:
                 for wt in wterms:
                     own_terms.append(self.interns.term_id(cat, wt.weight, wt.term, pod.namespace))
         self._ensure(ET=len(self.interns.terms))
+        # Volumes (snapshot.py:576-625): in-tree device uses, CSI volume
+        # attachments, PVC refs.  CSI attachments are keyed by claim and
+        # deduped within the pod (nodevolumelimits/csi.go:219 — a claim
+        # referenced twice, or shared with pods already on the node,
+        # attaches once; the presence check against csivol_counts happens
+        # at filter and commit time).
+        devices: list[tuple[int, bool]] = []
+        pvc_uids: list[str] = []
+        csivols: dict[int, int] = {}  # volume id → driver id
+        # Any claim whose driver has a finite attach limit somewhere: such
+        # pods defer behind same-node chunk-mates (shared per-driver budget).
+        vol_csi_lim = False
+        # Any claim bound at PreBind over a finite static-PV pool: only
+        # those race against other pods' PreBinds (engine _conflict_pairs).
+        vol_unbound = False
+        if pod.spec.volumes:
+            for vol in pod.spec.volumes:
+                if vol.device_id:
+                    devices.append((self.interns.devices.id(vol.device_id), not vol.read_only))
+                if vol.pvc:
+                    uid = f"{pod.namespace}/{vol.pvc}"
+                    pvc_uids.append(uid)
+                    pvc = self.volumes.pvcs.get(uid)
+                    if pvc is None:
+                        continue
+                    if not pvc.volume_name and self.volumes.class_has_static_candidates(pvc.storage_class):
+                        vol_unbound = True
+                    driver = self.volumes.pvc_driver(pvc)
+                    if driver:
+                        did = self.interns.drivers.id(driver)
+                        # Keyed by claim uid: stable across the unbound→bound
+                        # transition (the PV name is not).
+                        csivols[self.interns.csivols.id(f"{driver}^{uid}")] = did
+                        if did < self.schema.DR and (self.host["csi_limit"][did] < 2**31 - 1).any():
+                            vol_csi_lim = True
+            self._ensure(
+                VD=len(self.interns.devices),
+                DR=len(self.interns.drivers),
+                CV=len(self.interns.csivols),
+            )
         host_ports = pod.host_ports()
         if len(host_ports) > POD_PORT_SLOTS:
             raise ValueError(
@@ -484,6 +541,11 @@ class SnapshotBuilder:
             "group": gid,
             "ports": ports,
             "own_terms": own_terms,
+            "devices": devices,
+            "csivols": sorted(csivols.items()),
+            "pvcs": pvc_uids,
+            "vol_unbound": vol_unbound,
+            "vol_csi_lim": vol_csi_lim,
         }
 
     def apply_pod_delta(self, row: int, delta: dict, sign: int, device_already: bool) -> None:
@@ -502,6 +564,19 @@ class SnapshotBuilder:
             h["portkey_counts"][pk, row] += sign
         for tid in delta["own_terms"]:
             h["et_counts"][tid, row] += sign
+        for vid, rw in delta["devices"]:
+            h["dev_counts"][vid, row] += sign
+            if rw:
+                h["dev_rw_counts"][vid, row] += sign
+        for vid, did in delta["csivols"]:
+            # Distinct-volume accounting: csi_used counts volumes whose
+            # per-node pod count crosses 0↔1, not pod references.
+            prev = h["csivol_counts"][vid, row]
+            h["csivol_counts"][vid, row] = prev + sign
+            if (sign > 0 and prev == 0) or (sign < 0 and prev == 1):
+                h["csi_used"][did, row] += sign
+        if delta["pvcs"]:
+            self.volumes.adjust_pvc_users(delta["pvcs"], sign)
         if not device_already:
             self._dirty_rows.add(row)
 
@@ -513,6 +588,7 @@ class SnapshotBuilder:
             self._device = ClusterState(
                 **{k: torch.tensor(v, device=self.device) for k, v in self.host.items()}
             )
+            self.full_uploads += 1
             self._dirty_all = False
             self._dirty_rows.clear()
             return self._device

@@ -45,12 +45,34 @@ warm-up preemptor; then 1000 preemptors of 2 CPU and 4 GiB at priority
 metadata.name matchFields node affinity (what the DaemonSet controller
 emits), so every batch takes the pinned pass.  Batch 4096, chunk 64,
 default profile.
+
+``intree_pvs_5kn_2kpods`` (harness.py:664-716, upstream
+SchedulingInTreePVs): 5000 such nodes over 10 zones; 512 warm-up and 2000
+measured pods of 100m CPU and 256 MiB, each with its own claim pre-bound to
+its own zonal PV (zone-(i mod 10)), so VolumeBinding, VolumeZone and
+VolumeRestrictions filter on the bound path.  The warm-up grows the CSI
+volume table to _bucket(2512) rows first, so no table grows in the
+measured window.  Batch 4096, chunk 64, default profile.
+
+``migrated_intree_pvs_5kn_5kpods`` (harness.py:718-737, upstream
+SchedulingMigratedInTreePVs): the same with every PV fronted by the CSI
+driver pd.csi.storage.gke.io and every node's CSINode allowing 39
+attachments of it, so NodeVolumeLimits counts them; 512 warm-up and 5000
+measured pods, the table grown to _bucket(5512) rows.
+
+``csi_pvs_5kn_5kpods`` (harness.py:740-792, upstream SchedulingCSIPVs):
+5000 nodes over 10 zones; one WaitForFirstConsumer StorageClass
+provisioned by ebs.csi.aws.com; 512 warm-up and 5000 measured pods, each
+with its own unbound claim of that class, which PreBind provisions on the
+chosen node (one new PV each, bumping the volume catalog's epoch); the
+table grown to _bucket(6000) rows.
 """
 
 from __future__ import annotations
 
 from .api import types as t
-from .api.wrappers import make_node, make_pod
+from .api.wrappers import make_node, make_pod, make_pv, make_pvc
+from .snapshot import _bucket
 
 DENSITY_NODES = 5000
 DENSITY_WARM_PODS = 2048
@@ -95,6 +117,22 @@ DAEMONSET_NODES = 15000
 DAEMONSET_WARM_PODS = 512
 DAEMONSET_BATCH = 4096
 DAEMONSET_CHUNK = 64
+
+PV_NODES = 5000
+PV_ZONES = 10
+PV_WARM_PODS = 512
+PV_BATCH = 4096
+PV_CHUNK = 64
+INTREE_MEASURED_PODS = 2000
+MIGRATED_MEASURED_PODS = 5000
+MIGRATED_DRIVER = "pd.csi.storage.gke.io"
+MIGRATED_LIMIT = 39
+CSI_MEASURED_PODS = 5000
+CSI_DRIVER = "ebs.csi.aws.com"
+CSI_CLASS = "csi-sc"
+# The CSI workload's warm-up grows the CSI volume table to this many claims
+# (harness.py:743).
+CSI_TABLE_CLAIMS = 6000
 
 
 def basic_nodes(n: int, zones: int = 3, cpu: str = "16", mem: str = "64Gi") -> list[t.Node]:
@@ -211,3 +249,63 @@ def preemptor(name: str) -> t.Pod:
 def daemon_pod(name: str, node: int) -> t.Pod:
     """A daemon pod pinned to node-<node> (harness.py:818-838)."""
     return make_pod(name).req({"cpu": "100m", "memory": "128Mi"}).node_name_affinity(f"node-{node}").obj()
+
+
+# -- the persistent-volume workloads (harness.py:664-792) ---------------------------
+
+
+def _pv_claim_pod(name: str, claim: str) -> t.Pod:
+    return make_pod(name).req({"cpu": "100m", "memory": "256Mi"}).pvc_volume(claim).obj()
+
+
+def migrated_csinodes(n: int = PV_NODES) -> list[t.CSINode]:
+    """Every node's CSINode: 39 attachments of the migrated driver
+    (harness.py:723-727)."""
+    return [t.CSINode(name=f"node-{i}", driver_limits={MIGRATED_DRIVER: MIGRATED_LIMIT}) for i in range(n)]
+
+
+def pv_warm(s, total_claims: int, zones: int = PV_ZONES, driver: str = "",
+            count: int = PV_WARM_PODS) -> None:
+    """harness.py:_pv_warm: grow the CSI volume table to the measured scale,
+    then a volume-active wave of ``count`` pods, each with its own claim
+    pre-bound to its own zonal PV."""
+    s.builder._ensure(CV=_bucket(total_claims + count))
+    for i in range(count):
+        s.add_pv(make_pv(f"warmpv-{i}", zone=f"zone-{i % zones}", csi_driver=driver))
+        s.add_pvc(make_pvc(f"warmclaim-{i}", volume_name=f"warmpv-{i}"))
+        s.add_pod(_pv_claim_pod(f"warm-{i}", f"warmclaim-{i}"))
+
+
+def pv_measured(s, count: int, zones: int = PV_ZONES, driver: str = "") -> int:
+    """harness.py:_pv_measured: ``count`` pods, each with its own claim
+    pre-bound to its own zonal PV (zone-(i mod zones))."""
+    for i in range(count):
+        s.add_pv(make_pv(f"pv-{i}", zone=f"zone-{i % zones}", csi_driver=driver))
+        s.add_pvc(make_pvc(f"claim-{i}", volume_name=f"pv-{i}"))
+        s.add_pod(_pv_claim_pod(f"pvpod-{i}", f"claim-{i}"))
+    return count
+
+
+def _csi_class() -> t.StorageClass:
+    return t.StorageClass(name=CSI_CLASS, provisioner=CSI_DRIVER, binding_mode=t.BINDING_WAIT_FOR_FIRST_CONSUMER)
+
+
+def csi_warm(s, count: int = PV_WARM_PODS, table_claims: int = CSI_TABLE_CLAIMS) -> None:
+    """harness.py:_csi_warm: grow the CSI volume table, add the
+    WaitForFirstConsumer class, then ``count`` pods with their own unbound
+    claims of it."""
+    s.builder._ensure(CV=_bucket(table_claims))
+    s.add_storage_class(_csi_class())
+    for i in range(count):
+        s.add_pvc(make_pvc(f"warmcsi-{i}", storage_class=CSI_CLASS))
+        s.add_pod(_pv_claim_pod(f"warm-{i}", f"warmcsi-{i}"))
+
+
+def csi_measured(s, count: int) -> int:
+    """harness.py:_csi_measured: ``count`` pods with their own unbound
+    claims of the class (re-added, as the harness does)."""
+    s.add_storage_class(_csi_class())
+    for i in range(count):
+        s.add_pvc(make_pvc(f"csiclaim-{i}", storage_class=CSI_CLASS))
+        s.add_pod(_pv_claim_pod(f"csipod-{i}", f"csiclaim-{i}"))
+    return count

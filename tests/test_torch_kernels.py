@@ -2,8 +2,8 @@
 
 A CUDA kernel has no CPU mode, so these tests need a card and skip
 without one; ``python3 chip_smoke.py`` runs the same checks (and the
-density, inter-pod-affinity and spread workloads at full size) on the
-H100.  Run them there with ``python -m pytest --noconftest
+density, inter-pod-affinity, spread, preemption, daemonset and
+persistent-volume workloads at full size) on the H100.  Run them there with ``python -m pytest --noconftest
 tests/test_torch_kernels.py -m cuda`` (tests/conftest.py imports JAX,
 which that machine lacks)."""
 
@@ -252,3 +252,53 @@ def test_scheduler_daemonset_kernel_path_matches_plain_path(cuda_device):
             assert counts["pinned_fit"] == 3 and counts["select_host"] == 0
     assert binds["kernel"] == binds["plain"]
     assert binds["kernel"]["ds-7"] == "node-7" and binds["kernel"]["ds-ghost"] is None
+
+
+@pytest.mark.cuda
+def test_pv_kernels_match_plain_versions_exactly(cuda_device):
+    """node_filters with VolumeBinding's and VolumeZone's bits, vol_filter,
+    eval_chunk reading the volume planes, resolve_commit with the device and
+    CSI commit and the attach-limit clash, and conflict_pairs with volume
+    ids, at the "pv" shape (chip_smoke.check_pv_kernels)."""
+    import chip_smoke
+
+    timing = chip_smoke.check_pv_kernels(cuda_device, reps=1)
+    assert set(timing) == {"node_filters", "conflict_pairs", "vol_filter", "eval_chunk", "resolve_commit"}
+    assert all(t["max_abs_err"] == 0 for t in timing.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("workload", ["intree", "migrated", "csi"])
+def test_scheduler_pv_kernel_path_matches_plain_path(cuda_device, workload):
+    """Cuts of the three PV workloads through TorchScheduler on the card:
+    the kernel path binds as the plain path does, through vol_filter and
+    the VolumeBinding/VolumeZone bits of node_filters."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch import workloads as w
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+
+    binds = {}
+    for impl in ("kernel", "plain"):
+        s = TorchScheduler(DEFAULT_PROFILE, batch_size=128, chunk_size=64, _impl=impl)
+        for n in w.basic_nodes(60, zones=10):
+            s.add_node(n)
+        if workload == "migrated":
+            for cs in w.migrated_csinodes(60):
+                s.add_csinode(cs)
+        kernels.reset_launches()
+        if workload == "csi":
+            w.csi_warm(s, 64, table_claims=400)
+            w.csi_measured(s, 300)
+        else:
+            driver = w.MIGRATED_DRIVER if workload == "migrated" else ""
+            w.pv_warm(s, 300, driver=driver, count=64)
+            w.pv_measured(s, 300, driver=driver)
+        binds[impl] = {o.pod.name: o.node_name for o in s.schedule_all_pending()}
+        assert s.builder.host_mirror_equal()
+        if impl == "kernel":
+            counts = kernels.launch_counts()
+            assert min(counts[k] for k in ("node_filters", "vol_filter", "eval_chunk", "resolve_commit")) > 0
+            assert (counts["conflict_pairs"] > 0) == (workload != "intree")
+    assert binds["kernel"] == binds["plain"]
+    assert all(v is not None for v in binds["kernel"].values())

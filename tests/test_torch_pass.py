@@ -192,7 +192,7 @@ def test_unported_op_in_pass_raises():
         build_pass(dataclasses.replace(TDEF, percentage_of_nodes_to_score=50), jb.schema, jb.res_col)
 
 
-@pytest.mark.parametrize("key", ["vol_dev_ids", "port_keys"])
+@pytest.mark.parametrize("key", ["dra_claim_ids", "port_keys"])
 def test_conflict_pair_feature_raises(key):
     """A batch feature from which the JAX pass derives conflict pairs is
     refused, not read as 'no pairs'."""

@@ -348,12 +348,16 @@ def test_port_conflict_preemption_refused():  # :250
 
 
 def test_device_conflict_preemption_refused():  # :481
+    # The volume ops are ported; VolumeRestrictions' what-if release is not:
+    # the dry-run refuses by name before the holder is touched.
     t = TorchScheduler(TProfile(name="vol", filters=("NodeResourcesFit", "VolumeRestrictions"),
                                 scorers=(("NodeResourcesFit", 1),)), batch_size=8, device="cpu")
     t.add_node(tnode("n1").capacity({"cpu": "64", "pods": 110}).obj())
-    with pytest.raises(NotImplementedError, match="volumes"):
-        t.add_pod(tpod("holder").req({"cpu": "1"}).priority(1).device_volume("disk-1").node("n1").obj())
-    assert not t.cache.pods
+    t.add_pod(tpod("holder").req({"cpu": "1"}).priority(1).device_volume("disk-1").node("n1").obj())
+    t.add_pod(tpod("vip").req({"cpu": "1"}).priority(100).device_volume("disk-1").obj())
+    with pytest.raises(NotImplementedError, match="VolumeRestrictions"):
+        t.schedule_all_pending()
+    assert "default/holder" in t.cache.pods
 
 
 def test_closed_form_preemption_no_longer_raises():

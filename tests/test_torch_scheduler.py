@@ -129,9 +129,9 @@ def test_priority_order_and_gated_pods():
 @pytest.mark.parametrize(
     "pod",
     [
-        # Pod affinity and topology spread are ported; the PVC beside them is not.
+        # Pod affinity and topology spread are ported; the host port beside them is not.
         tpod("aff").req({"cpu": "1"}).label("app", "a").pod_affinity_in("app", ["a"], "zone")
-        .spread_constraint(1, "zone", "DoNotSchedule", "app", ["a"]).pvc_volume("data").obj(),
+        .spread_constraint(1, "zone", "DoNotSchedule", "app", ["a"]).host_port(9090).obj(),
         # A node selector is ported; the resource claim beside it is not.
         tpod("sel").req({"cpu": "1"}).node_selector({"disk": "ssd"}).resource_claim("gpu").obj(),
         tpod("port").req({"cpu": "1"}).host_port(8080).obj(),
@@ -177,7 +177,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "kubernetes_tpu_torch.engine.packing, kubernetes_tpu_torch.ops.interpodaffinity, "
         "kubernetes_tpu_torch.ops.podtopologyspread, kubernetes_tpu_torch.ops.nodeaffinity, "
         "kubernetes_tpu_torch.ops.tainttoleration, kubernetes_tpu_torch.framework.features, "
-        "kubernetes_tpu_torch.intern, chip_smoke\n"
+        "kubernetes_tpu_torch.intern, kubernetes_tpu_torch.volumes, kubernetes_tpu_torch.ops.volumes, "
+        "kubernetes_tpu_torch.framework.hostplugins, chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'kubernetes_tpu' or m.startswith('kubernetes_tpu.'))\n"
         "print(bad)\n"

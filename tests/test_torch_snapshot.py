@@ -148,8 +148,10 @@ def test_state_from_numpy_rejects_bad_fields():
 
 
 def test_volume_and_claim_pods_raise():
+    # Volumes are ported: a claim reference (dangling here) is accounted as
+    # a PVC user with no device or CSI attachment.  Resource claims raise.
     tb = SnapshotBuilder(device="cpu")
-    with pytest.raises(NotImplementedError):
-        tb.pod_delta_vectors(tpod("v").pvc_volume("data").obj())
+    delta = tb.pod_delta_vectors(tpod("v").pvc_volume("data").obj())
+    assert delta["pvcs"] == ["default/data"] and not delta["devices"] and not delta["csivols"]
     with pytest.raises(NotImplementedError):
         tb.pod_delta_vectors(tpod("c").resource_claim("gpu").obj())

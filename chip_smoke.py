@@ -47,10 +47,25 @@ Phases; any failure fails the run (nothing is caught):
        pass's eval_chunk, select_host and resolve_commit at the path's own
        chunk (64 and 128), with a nominated-pod overlay and duplicate picks
        on full and emptied rows;
-     - at the daemonset shapes (K=4096 pinned pods, N=16384): node_filters,
-       eval_chunk and late_scores in pinned mode (each pod on its own node,
-       pins that name no node, nominated pins, a preferred zone term),
-       pinned_fit with same-row overflow, and the strict resolve_commit;
+     - at the daemonset shapes (K=4096 pinned pods, N=16384, the nodes
+       reporting images): node_filters, image_scores, eval_chunk and
+       late_scores in pinned mode (each pod on its own node, pins that name
+       no node, nominated pins, a preferred zone term, pods naming
+       images), pinned_fit with same-row overflow, and the strict
+       resolve_commit;
+     - at the "pv" shape (C=64, N=8192, a 4096-pod batch of mixed claims):
+       node_filters with the volume bits, vol_filter, eval_chunk with the
+       volume planes, resolve_commit with the device and CSI commit and
+       the attach-limit clash, conflict_pairs with volume ids;
+     - at the "ports/images" shape (C=64, N=8192 with IM=128 image slots
+       from a 400-image pool, a 4096-pod batch one pod in 8 of which asks
+       for 1-3 host ports over P=16 triples, prefilled counts):
+       image_counts, image_scores, eval_chunk with NodePorts and the image
+       plane, select_host, resolve_commit with the port commit,
+       conflict_pairs with port keys; and ImageLocality's rounding cases
+       (a size x spread product on the 1000 MiB threshold and an ulp below
+       it, sums at 23 MiB - 1, 23 MiB, 1000 MiB x n and + 1, an image
+       named twice);
   4. drive each main path through TorchScheduler, with the launch counts
      set to 0 just before and read just after; every pod must bind, the
      host mirror must equal the device state, no node may exceed its
@@ -84,6 +99,10 @@ Phases; any failure fails the run (nothing is caught):
        zone, csi_used equals the distinct attached volumes and stays
        within csi_limit, every CSI claim is bound to a provisioned PV that
        names it, and no whole-state upload happens in the window;
+     - default_images_ports_5kn_10kpods (5000 nodes each reporting 50
+       images, 2048 + 10000 pods naming images, one in 32 with a host
+       port; no harness counterpart): no node holds two pods whose host
+       ports conflict, and no whole-state upload happens in the window;
      every run of a path must give the same outcome count and send the
      same number of pods to backoff; pods/s, the idle share, deferrals,
      preemptions, the backoff waited and the garbage collector's pauses in
@@ -1403,13 +1422,15 @@ def check_preempt_kernels(dev, shape: str, reps: int) -> dict:
 
 
 def pinned_inputs(dev):
-    """The daemonset_15kn shapes: 15000 nodes (16384 rows) with the 512
-    warm-up daemon pods bound, and a 4096-pod batch pinned by matchFields
-    node affinity — mostly one pod per node, every 64th pod asking 9 CPU on
-    node-3 (the second and later of them overflow it), every 97th pinned to
-    a node that does not exist, every 50th with a preferred zone term —
-    with its pins, nominations (every 9th pod nominated to its pin, under
-    a nominated-pod overlay on those rows) and features on the card."""
+    """The daemonset_15kn shapes: 15000 nodes (16384 rows), each reporting
+    50 images of the default_images_ports pool (IM = 128 slots), with the
+    512 warm-up daemon pods bound, and a 4096-pod batch pinned by
+    matchFields node affinity — mostly one pod per node, every 64th pod
+    asking 9 CPU on node-3 (the second and later of them overflow it),
+    every 97th pinned to a node that does not exist, every 50th with a
+    preferred zone term, every third naming one or two pool images — with
+    its pins, nominations (every 9th pod nominated to its pin, under a
+    nominated-pod overlay on those rows) and features on the card."""
     import numpy as np
     import torch
 
@@ -1421,8 +1442,9 @@ def pinned_inputs(dev):
 
     k = w.DAEMONSET_BATCH
     s = TorchScheduler(DEFAULT_PROFILE, batch_size=k, chunk_size=w.DAEMONSET_CHUNK, device=dev)
-    for node in w.basic_nodes(w.DAEMONSET_NODES):
+    for node in w.images_nodes(w.DAEMONSET_NODES):
         s.add_node(node)
+    pool, _weights = w.image_pool()
     for i in range(w.DAEMONSET_WARM_PODS):
         s.add_pod(make_pod(f"warm-{i}").req({"cpu": "100m", "memory": "128Mi"}).node(f"node-{i}").obj())
     pods, names = [], []
@@ -1438,6 +1460,8 @@ def pinned_inputs(dev):
                    .preferred_node_affinity_in(ZONE, ["zone-1"], 40).obj())
         else:
             pod = w.daemon_pod(f"ds-{i}", node)
+        if i % 3 == 1:
+            pod.spec.containers[0].images = tuple(pool[(i * q) % 120][0] for q in range(1, 2 + i % 2))
         pods.append(pod)
         names.append(f"node-{node}")
     batch, _deltas, active = build_pod_batch(pods, s.builder, s.profile, k)
@@ -1461,9 +1485,11 @@ def pinned_inputs(dev):
 def check_pinned_kernels(dev, reps: int) -> dict:
     """The pinned-batch pass's kernels against their plain versions at the
     daemonset_15kn shapes (K=4096, N=16384): node_filters over the batch,
-    eval_chunk and late_scores in pinned mode (also on a feasible set with
-    holes), pinned_fit, and the strict resolve_commit of the pinned picks
-    over each 1024-lane slice; returns their timings and bounds."""
+    image_scores in pinned mode (each pod on its pinned row), eval_chunk
+    (reading that plane) and late_scores in pinned mode (also on a
+    feasible set with holes), pinned_fit, and the strict resolve_commit of
+    the pinned picks over each 1024-lane slice; returns their timings and
+    bounds."""
     import numpy as np
     import torch
 
@@ -1477,12 +1503,18 @@ def check_pinned_kernels(dev, reps: int) -> dict:
     late = late_spec(s.profile, schema, s.builder.res_col, active)
     errs: dict[str, float] = {}
     k, n = pin.shape[0], state.valid.shape[0]
+    if plain.IL not in dict(spec.scorers):
+        raise AssertionError(f"daemonset shape: ImageLocality does not score ({spec.scorers})")
     kb = kernels.node_filters(state, tb, spec.ctx)
     pb = plain.node_filters(state, tb, spec.ctx)
+    kil = kernels.image_scores(state, tb, None, pin)
+    pil = plain.image_scores(state, tb, None, pin)
     torch.cuda.synchronize()
     exact(errs, "node_filters", "[daemonset]", kb, pb)
-    ke = kernels.eval_chunk(state, tb, spec, nom, (pb, None), pin)
-    pe = plain.eval_chunk(state, tb, spec, nom, (pb, None), pin)
+    exact(errs, "image_scores", "[daemonset pinned]", kil, pil)
+    ext = (pb, None, None, pil)
+    ke = kernels.eval_chunk(state, tb, spec, nom, ext, pin)
+    pe = plain.eval_chunk(state, tb, spec, nom, ext, pin)
     torch.cuda.synchronize()
     for what, a, b in zip(("feasible", "total", "fail_mask"), ke, pe):
         exact(errs, "eval_chunk", f"[daemonset pinned] {what}", a, b)
@@ -1519,13 +1551,16 @@ def check_pinned_kernels(dev, reps: int) -> dict:
     print(f"pinned [daemonset K={k} N={n}]: exact; {int(own.sum())} pods feasible on their pins, "
           f"{int((picks >= 0).sum())} placed, {int((picks == -2).sum())} deferred, "
           f"{int((rows < 0).sum())} pinned to no node, fail masks {sorted(set(pe[2].tolist()))}, "
+          f"image scores {sorted(set(pil[:, 0].tolist()))[:12]}, "
           f"NodeAffinity weight {late.na_weight if late else 0}, taint weight {late.taint_weight if late else 0}")
     sub0 = {key: v[:c] for key, v in tb.items()}
     result = {
         "node_filters": timed(lambda _: kernels.node_filters(state, tb, spec.ctx),
                               lambda _: plain.node_filters(state, tb, spec.ctx), reps),
-        "eval_chunk": timed(lambda _: kernels.eval_chunk(state, tb, spec, nom, (pb, None), pin),
-                            lambda _: plain.eval_chunk(state, tb, spec, nom, (pb, None), pin), reps),
+        "image_scores": timed(lambda _: kernels.image_scores(state, tb, None, pin),
+                              lambda _: plain.image_scores(state, tb, None, pin), reps),
+        "eval_chunk": timed(lambda _: kernels.eval_chunk(state, tb, spec, nom, ext, pin),
+                            lambda _: plain.eval_chunk(state, tb, spec, nom, ext, pin), reps),
         "late_scores": timed(lambda a: kernels.late_scores(state, tb, pe[0], a, pb, late, pin),
                              lambda a: plain.late_scores(state, tb, pe[0], a, pb, late, pin), reps,
                              lambda: pe[1].clone()),
@@ -1541,7 +1576,8 @@ def check_pinned_kernels(dev, reps: int) -> dict:
     pod_feats = nbytes(*(tb[key] for key in ("nodename_id", "tolerates_unschedulable", "req", "nonzero",
                                              "priority", "nominated_row"))) + k * 4
     set_bound(result["node_filters"], nf_bytes(state, tb, spec.ctx))
-    set_bound(result["eval_chunk"], k * node_row + pod_feats + k * (1 + 8 + 4))
+    set_bound(result["image_scores"], image_scores_bytes(state, tb, None, pin))
+    set_bound(result["eval_chunk"], k * node_row + pod_feats + k * (1 + 8 + 4) + k)
     # late_scores: the feasible flag and total of each pod; NodeAffinity's
     # weights, and the label slots of its own node and its program only
     # for a pod with a preferred term of non-zero weight; taint slots of
@@ -2391,6 +2427,382 @@ def check_density(s, outcomes, expected: int, label: str) -> dict:
     return bind
 
 
+# -- the "ports/images" shape (default_images_ports_5kn_10kpods) ----------------
+
+
+def ports_images_inputs(dev, nodes: int = 5000, k: int = 4096, bound: int = 6000):
+    """The "ports/images" shape: the workload's 5000 nodes (8192 rows), each
+    reporting 50 of the 400 pool images under two names (IM = 128 slots);
+    6000 bound pods, one in three holding one host port out of the ten
+    (protocol, hostIP, port) triples (P = PK = 16), so some nodes hold a
+    port twice; then a 4096-pod batch, one pod in 8 with 1-3 host ports,
+    each pod with 1-3 containers naming pool images by tag (every tenth
+    untagged, every 29th an image no node reports, every seventh the same
+    image twice) and every eighth an init container, featurized under the
+    default profile (twice: the second pass sees the final vocabularies)."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import workloads as w
+    from kubernetes_tpu_torch.api import types as t
+    from kubernetes_tpu_torch.api.wrappers import make_pod
+    from kubernetes_tpu_torch.cache import Cache
+    from kubernetes_tpu_torch.engine.features import build_pod_batch
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.snapshot import SnapshotBuilder
+
+    rng = np.random.default_rng(61)
+    builder = SnapshotBuilder(device=dev)
+    cache = Cache(builder)
+    for node in w.images_nodes(nodes):
+        cache.add_node(node)
+    pool, weights = w.image_pool()
+    triples = [(proto, ip, port) for proto, port in w.HOST_PORTS for ip in ("", w.SPECIFIC_IP)]
+
+    def with_ports(pw, count):
+        for q in rng.choice(len(triples), count, replace=False):
+            proto, ip, port = triples[q]
+            pw = pw.host_port(port, protocol=proto, host_ip=ip)
+        return pw
+
+    for j in range(bound):
+        pw = make_pod(f"bound-{j}").req({"cpu": "100m", "memory": "256Mi"})
+        pw = with_ports(pw, 1 if j % 3 == 0 else 0)
+        cache.add_pod(pw.node(f"node-{int(rng.integers(nodes))}").obj())
+    latest = [pool[i][0].rsplit(":", 1)[0] for i in range(len(pool)) if pool[i][0].endswith(":latest")]
+    pods, refs_made = [], 0
+    for i in range(k):
+        pw = make_pod(f"p{i}").req({"cpu": f"{int(rng.choice([100, 900, 2000]))}m", "memory": "1Gi"})
+        if i % 8 == 3:
+            pw = with_ports(pw, 1 + int(rng.integers(3)))
+        pod = pw.label("app", f"a{i % 11}").obj()
+        refs = []
+        for _ in range(1 + int(rng.integers(3))):
+            refs_made += 1
+            if refs_made % 10 == 0:
+                refs.append(latest[int(rng.integers(len(latest)))])
+            elif refs_made % 29 == 0:
+                refs.append(f"registry.example.com/scratch/tool-{i}:v0")
+            else:
+                refs.append(pool[int(rng.choice(len(pool), p=weights))][0])
+        if i % 7 == 2:
+            refs.append(refs[0])
+        pod.spec.containers[0].images = tuple(refs[:1])
+        pod.spec.containers += [t.Container(name=f"c{q}", images=(r,)) for q, r in enumerate(refs[1:], 1)]
+        if i % 8 == 5:
+            pod.spec.init_containers.append(t.Container(name="init", images=(pool[int(rng.integers(40))][0],)))
+        pods.append(pod)
+    for _ in range(2):
+        batch, _, active = build_pod_batch(pods, builder, DEFAULT_PROFILE, k)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    pf = {key: to(v) for key, v in batch.items()}
+    pf["nominated_row"] = to(np.full(k, -1, np.int32))
+    return builder, builder.state(), pf, active, rng
+
+
+def image_counts_bytes(state, vocab: int) -> int:
+    """image_counts: the id table and validity read once, the counts written."""
+    return nbytes(state.image_ids, state.valid) + (vocab + 1) * 4
+
+
+def image_scores_bytes(state, pf: dict, counts, pin=None) -> int:
+    """image_scores: the pods' ids, container counts and validity read, the
+    counts of their ids (unpinned), the id rows of the nodes scored (all,
+    or each pod's pinned row), and the size of each slot that holds a
+    wanted id of a valid pod read; the plane written (one byte a pair)."""
+    import torch
+
+    ids, valid = pf["il_image_ids"], pf["valid"]
+    k = ids.shape[0]
+    n, im = state.image_ids.shape
+    b = nbytes(ids, pf["il_ncontainers"], valid)
+    if pin is None:
+        want = torch.unique(ids[(ids >= 0) & valid[:, None]])
+        hits = int(torch.isin(state.image_ids, want).sum())  # slots whose size some pod reads
+        return b + int(want.numel()) * 4 + 4 + nbytes(state.image_ids) + hits * 8 + k * n
+    rows = pin.long()
+    own = state.image_ids[rows]  # (K, IM)
+    hits = int(((own[:, :, None] == ids[:, None, :]) & (ids >= 0)[:, None, :] & valid[:, None, None]).any(2).sum())
+    return b + pin.numel() * 4 + int(torch.unique(rows).numel()) * (im * 4 + 1) + hits * 8 + k
+
+
+def port_eval_bytes(state, pf: dict) -> int:
+    """NodePorts inside eval_chunk: the chunk's wants read once, and one
+    node row of counts per distinct count row a want reads (port_counts at
+    each specific want's triple and wildcard triple, portkey_counts at each
+    wildcard want's key)."""
+    import torch
+
+    if "port_triples" not in pf:
+        return 0
+    tr, keys, wild, is_w = (pf[k] for k in ("port_triples", "port_keys", "port_wild_triples", "port_is_wild"))
+    act = tr >= 0
+    n = state.valid.shape[0]
+    exact_rows = torch.unique(torch.cat([tr[act & ~is_w], wild[act & ~is_w]]))
+    key_rows = torch.unique(keys[act & is_w])
+    return nbytes(tr, keys, wild, is_w) + (int(exact_rows.numel()) + int(key_rows.numel())) * n * 4
+
+
+def port_commit_bytes(pf: dict, placed) -> int:
+    """The port part of resolve_commit: the triples and keys read, and one
+    read and one write of each distinct port_counts and portkey_counts cell
+    a placed pod's wants touch."""
+    import torch
+
+    if "port_triples" not in pf:
+        return 0
+    tr, keys = pf["port_triples"], pf["port_keys"]
+    use = (tr >= 0) & (placed >= 0)[:, None]
+    rows = placed.clamp(min=0).long()[:, None]
+    cells = int(torch.unique((tr.long() * 2**20 + rows)[use]).numel())
+    cells += int(torch.unique((keys.long() * 2**20 + rows)[use]).numel())
+    return nbytes(tr, keys) + cells * 8
+
+
+def port_pair_bytes(pf: dict, c: int) -> int:
+    """conflict_pairs on a port batch: the groups and keys read once, the
+    table written once."""
+    k = pf["valid"].shape[0]
+    return nbytes(pf["group"], pf["port_keys"]) + k * c
+
+
+def threshold_cases():
+    """(valid nodes T, nodes holding the image c, size S) with S * c / T
+    exactly 1000 MiB as rationals: one whose f64 product lands on it and
+    one whose product falls an ulp below it (int64 truncation then loses 1
+    and the score drops from 100 to 99)."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.ops.imagelocality import MAX_CONTAINER_THRESHOLD as x
+
+    on = below = None
+    for total in range(3, 40):
+        for cnt in range(1, total):
+            if (x * total) % cnt:
+                continue
+            size = x * total // cnt
+            got = np.float64(size) * (np.float64(cnt) / np.float64(total))
+            if got == x and on is None:
+                on = (total, cnt, size)
+            elif got < x and below is None:
+                below = (total, cnt, size)
+    return on, below
+
+
+def image_rounding(dev, errs: dict) -> None:
+    """ImageLocality's rounding cases through image_counts and image_scores
+    on the card, against their plain versions and the expected scores: a
+    size x spread product exactly on the 1000 MiB threshold and one an ulp
+    below it, sums at 23 MiB - 1, 23 MiB, 1000 MiB x n and + 1, and a pod
+    naming the same image twice."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.api import types as t
+    from kubernetes_tpu_torch.api.wrappers import make_node, make_pod
+    from kubernetes_tpu_torch.cache import Cache
+    from kubernetes_tpu_torch.engine.features import build_pod_batch
+    from kubernetes_tpu_torch.framework.config import Profile
+    from kubernetes_tpu_torch.kernels import plain
+    from kubernetes_tpu_torch.ops.imagelocality import MAX_CONTAINER_THRESHOLD as mx
+    from kubernetes_tpu_torch.ops.imagelocality import MB, MIN_THRESHOLD as mn
+    from kubernetes_tpu_torch.snapshot import SnapshotBuilder
+
+    on, below = threshold_cases()
+    if on is None or below is None:
+        raise AssertionError(f"rounding: no threshold case found ({on}, {below})")
+    twice = 100 * (2 * 400 * MB - mn) // (2 * mx - mn)
+    cases = [("product on 1000 MiB", *on, 1, False, 100), ("product an ulp below", *below, 1, False, 99),
+             ("23 MiB - 1", 4, 4, mn - 1, 1, False, 0), ("23 MiB", 4, 4, mn, 1, False, 0),
+             ("1000 MiB x 2", 4, 4, 2 * mx, 2, False, 100), ("1000 MiB x 2 + 1", 4, 4, 2 * mx + 1, 2, False, 100),
+             ("1000 MiB x 2 - 1", 4, 4, 2 * mx - 1, 2, False, 99), ("same image twice", 4, 4, 400 * MB, 2, True, twice)]
+    profile = Profile(name="il", filters=("NodeResourcesFit",), scorers=(("ImageLocality", 1),))
+    for label, total, cnt, size, ncont, dup, want in cases:
+        builder = SnapshotBuilder(device=dev)
+        cache = Cache(builder)
+        for i in range(total):
+            nw = make_node(f"n{i}").capacity({"cpu": "4", "pods": 110})
+            cache.add_node((nw.image("img:v1", size) if i < cnt else nw).obj())
+        pod = make_pod("p").req({"cpu": "1"}).container_image("img:v1").obj()
+        pod.spec.containers += [t.Container(name=f"c{q}", images=("img:v1",) if dup else ()) for q in range(1, ncont)]
+        batch, _, _ = build_pod_batch([pod], builder, profile, 8)
+        pf = {key: torch.from_numpy(v).to(dev) for key, v in batch.items()}
+        state = builder.state()
+        vocab = len(builder.interns.images)
+        kc, pc = kernels.image_counts(state, vocab), plain.image_counts(state, vocab)
+        ks, ps = kernels.image_scores(state, pf, pc), plain.image_scores(state, pf, pc)
+        torch.cuda.synchronize()
+        exact(errs, "image_counts", f"[rounding: {label}]", kc, pc)
+        exact(errs, "image_scores", f"[rounding: {label}]", ks, ps)
+        if int(ps[0, 0]) != want:
+            raise AssertionError(f"rounding {label}: score {int(ps[0, 0])}, want {want}")
+    print(f"image_counts/image_scores [rounding]: exact; {len(cases)} cases (threshold products {on} on, "
+          f"{below} an ulp below)")
+
+
+def check_ports_images_kernels(dev, reps: int, **sizes) -> dict:
+    """Phase 3, the "ports/images" shape (C=64, N=8192, a 4096-pod batch;
+    ports_images_inputs): image_counts and image_scores over the batch,
+    conflict_pairs with the port keys over its 64 chunks, and per chunk
+    (every eighth) eval_chunk with NodePorts and the image plane and
+    select_host; resolve_commit strict and not with the port commit on
+    chunks whose picks crowd a few rows (port pods on one row among them);
+    then the rounding cases; all against their plain versions, exactly.
+    Returns the timings (the batch kernels on the batch, the rest on chunk
+    0) with their bounds."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.engine.pass_ import build_dom, eval_spec, filter_op_names
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.kernels import plain
+
+    builder, state, big, active, rng = ports_images_inputs(dev, **sizes)
+    schema = builder.schema
+    errs: dict[str, float] = {}
+    c, n, k = 64, state.valid.shape[0], big["valid"].shape[0]
+    spec = eval_spec(DEFAULT_PROFILE, schema, builder.res_col, active)
+    if "NodePorts" not in spec.filters or plain.IL not in dict(spec.scorers):
+        raise AssertionError(f"ports/images shape: filters {spec.filters}, scorers {spec.scorers}")
+    vocab = len(builder.interns.images)
+    kc, pc = kernels.image_counts(state, vocab), plain.image_counts(state, vocab)
+    ks, ps = kernels.image_scores(state, big, pc), plain.image_scores(state, big, pc)
+    kp, pp = kernels.conflict_pairs(big, k // c, c), plain.conflict_pairs(big, k // c, c)
+    torch.cuda.synchronize()
+    exact(errs, "image_counts", "[ports/images]", kc, pc)
+    exact(errs, "image_scores", "[ports/images batch]", ks, ps)
+    exact(errs, "conflict_pairs", "[ports/images batch]", kp, pp)
+    bit = 1 << filter_op_names(DEFAULT_PROFILE, active).index("NodePorts")
+    stats = {"pairs": int(pp.sum()), "plane_nonzero": int((ps > 0).sum()), "ports_rejects": 0,
+             "deferred": 0, "committed": 0}
+    seed_mul = ((DEFAULT_PROFILE.tie_break_seed & 0xFFFFFFFF) * 2654435761) & 0xFFFFFFFF
+    first = None
+    for i in range(0, k // c, 8):
+        pf = _chunk(big, i, c)
+        il = ps[i * c:(i + 1) * c].contiguous()
+        ke = kernels.eval_chunk(state, pf, spec, None, (None, None, None, il))
+        pe = plain.eval_chunk(state, pf, spec, None, (None, None, None, il))
+        torch.cuda.synchronize()
+        for what, a, b in zip(("feasible", "total", "fail_mask"), ke, pe):
+            exact(errs, "eval_chunk", f"[ports/images chunk {i}] {what}", a, b)
+        stats["ports_rejects"] += int(((pe[2] & bit) != 0).sum())
+        steps = torch.from_numpy(rng.integers(0, 2**32, size=c, dtype=np.int64)).to(dev)
+        ksel = kernels.select_host(pe[0], pe[1], steps, seed_mul, pf["nominated_row"])
+        psel = plain.select_host(pe[0], pe[1], steps, seed_mul, pf["nominated_row"])
+        torch.cuda.synchronize()
+        for what, a, b in zip(("pick", "best", "feasible_count"), ksel, psel):
+            exact(errs, "select_host", f"[ports/images chunk {i}] {what}", a, b)
+        if first is None:
+            first = (pf, il, psel[0])
+    et_slot = torch.zeros(schema.ET, dtype=torch.int32, device=dev)
+    dom = build_dom(state, et_slot, torch.zeros(schema.ET, dtype=torch.bool, device=dev), schema.DV)
+    fields = ("req", "nonzero_req", "num_pods", "group_counts", "port_counts", "portkey_counts")
+    crowd = torch.tensor([0, 1, 2, 3], dtype=torch.int32, device=dev)
+    commit_cases = []
+    for i in range(0, k // c, 8):
+        pf = _chunk(big, i, c)
+        picks = crowd[torch.from_numpy(rng.integers(0, 4, size=c)).to(dev)]
+        picks[::13] = -1
+        commit_cases.append((f"chunk {i}", pf, picks, kp[i]))
+    pf0, il0, picks0 = first
+    commit_cases.append(("chunk 0 picks", pf0, picks0, kp[0]))
+    placed = None
+    for label, pf, picks, pairs in commit_cases:
+        for strict in (False, True):
+            sk, dk = state.clone(), clone_dom(dom)
+            sp, dp = state.clone(), clone_dom(dom)
+            ok_ = kernels.resolve_commit(sk, dk, pf, picks, pairs, strict)
+            op_ = plain.resolve_commit(sp, dp, pf, picks, pairs, strict)
+            torch.cuda.synchronize()
+            exact(errs, "resolve_commit", f"[ports/images {label}] (strict={strict}) picks", ok_, op_)
+            for f in fields:
+                exact(errs, "resolve_commit", f"[ports/images {label}] (strict={strict}) state.{f}",
+                      getattr(sk, f), getattr(sp, f))
+            if not strict:
+                stats["deferred"] += int((op_ == -2).sum())
+                if placed is None:
+                    placed = op_
+            stats["committed"] += int((op_ >= 0).sum())
+    image_rounding(dev, errs)
+    _l, pfc, pickc, pairc = commit_cases[0]
+    result = {
+        "image_counts": timed(lambda _: kernels.image_counts(state, vocab),
+                              lambda _: plain.image_counts(state, vocab), reps),
+        # The plain plane takes most of a second a call here: 5 calls.
+        "image_scores": timed(lambda _: kernels.image_scores(state, big, pc),
+                              lambda _: plain.image_scores(state, big, pc), reps, plain_reps=5),
+        "conflict_pairs": timed(lambda _: kernels.conflict_pairs(big, k // c, c),
+                                lambda _: plain.conflict_pairs(big, k // c, c), reps),
+        "eval_chunk": timed(lambda _: kernels.eval_chunk(state, pf0, spec, None, (None, None, None, il0)),
+                            lambda _: plain.eval_chunk(state, pf0, spec, None, (None, None, None, il0)), reps),
+        "resolve_commit": timed(
+            lambda a: kernels.resolve_commit(a[0], a[1], pfc, pickc, pairc, False),
+            lambda a: plain.resolve_commit(a[0], a[1], pfc, pickc, pairc, False), reps,
+            lambda: (state.clone(), clone_dom(dom))),
+    }
+    set_bound(result["image_counts"], image_counts_bytes(state, vocab))
+    set_bound(result["image_scores"], image_scores_bytes(state, big, pc))
+    set_bound(result["conflict_pairs"], port_pair_bytes(big, c))
+    set_bound(result["eval_chunk"], eval_bytes(state, pf0, None) + port_eval_bytes(state, pf0) + c * n)
+    set_bound(result["resolve_commit"], commit_bytes(schema, pickc, c) + port_commit_bytes(pfc, placed))
+    for name in result:
+        result[name]["max_abs_err"] = errs[name]
+    keys = {key: tuple(big[key].shape) for key in big if key.startswith(("port_", "il_"))}
+    print(f"ports/images shapes: C={c}, N={n}, K={k}, P={schema.P}, PK={schema.PK}, IM={schema.IM}, "
+          f"image vocabulary {vocab}; features {keys}; {stats}")
+    return result
+
+
+def run_images_ports(impl: str, trace: bool = False):
+    """default_images_ports_5kn_10kpods (no harness counterpart): 5000
+    nodes reporting 50 images each, 2048 warm-up and 10000 measured pods
+    naming images, one in 32 with a host port."""
+    from kubernetes_tpu_torch import workloads as w
+
+    return run_workload(impl, w.images_nodes(w.IMAGES_NODES), w.warm_pods(w.IMAGES_WARM_PODS, w.pod_images_ports),
+                        [w.pod_images_ports(i) for i in range(w.IMAGES_MEASURED_PODS)],
+                        w.IMAGES_BATCH, w.IMAGES_CHUNK, trace)
+
+
+def port_conflicts(s) -> list:
+    """(node, pod, pod) for every two pods on one node whose host ports
+    conflict under HostPortInfo.CheckConflict: one protocol and port, and
+    the same hostIP or either the wildcard."""
+    uses: dict = {}
+    for pr in s.cache.pods.values():
+        for proto, ip, port in pr.pod.host_ports():
+            uses.setdefault((pr.node_name, proto, port), []).append((pr.pod.name, ip))
+    bad = []
+    for (node, _proto, _port), held in uses.items():
+        for a in range(len(held)):
+            for b in range(a + 1, len(held)):
+                if held[a][1] == held[b][1] or "0.0.0.0" in (held[a][1], held[b][1]):
+                    bad.append((node, held[a][0], held[b][0]))
+    return bad
+
+
+def check_images_ports(s, outcomes, expected: int, label: str) -> dict:
+    """The path's gates on top of check_density's: no node holds two pods
+    whose host ports conflict (checked on the host from the bindings), the
+    port and image tables did not grow in the measured window (no
+    whole-state upload)."""
+    bind = check_density(s, outcomes, expected, label)
+    bad = port_conflicts(s)
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} host-port conflicts on one node, e.g. {bad[:3]}")
+    if s.window["full_uploads"]:
+        raise AssertionError(f"{label}: {s.window['full_uploads']} whole-state uploads in the measured window")
+    h = s.builder.host
+    ported = sum(bool(pr.pod.host_ports()) for pr in s.cache.pods.values())
+    scores = {o.score for o in outcomes}
+    print(f"{label}: {ported} pods with host ports bound, 0 conflicts, {int(h['port_counts'].sum())} port "
+          f"uses on {int((h['port_counts'].sum(axis=0) > 0).sum())} nodes; {len(scores)} distinct scores; "
+          f"P={s.builder.schema.P} PK={s.builder.schema.PK} IM={s.builder.schema.IM}, image vocabulary "
+          f"{len(s.interns.images)}")
+    return bind
+
+
 # The main paths: (runner, pods bound, kernels that must launch, gate,
 # check, runs through the kernels).  The preemption paths' windows are a
 # few tens of milliseconds, so they run three times through the kernels.
@@ -2404,6 +2816,7 @@ def _paths():
     pinned = ("node_filters", "eval_chunk", "late_scores", "pinned_fit", "resolve_commit")
     # intree: no device, CSI or racing ids, so no conflict table.
     pv = base + ("node_filters", "vol_filter")
+    images = base + ("conflict_pairs", "image_counts", "image_scores")
     return {
         "density": (run_density, w.DENSITY_WARM_PODS + w.DENSITY_MEASURED_PODS, base, None,
                     check_density, 1),
@@ -2425,6 +2838,8 @@ def _paths():
                                            pv + ("conflict_pairs",), None, check_pv, 1),
         "csi_pvs_5kn_5kpods": (run_csi, w.PV_WARM_PODS + w.CSI_MEASURED_PODS, pv + ("conflict_pairs",), None,
                                check_pv, 1),
+        "default_images_ports_5kn_10kpods": (run_images_ports, w.IMAGES_WARM_PODS + w.IMAGES_MEASURED_PODS,
+                                             images, None, check_images_ports, 1),
     }
 
 
@@ -2562,7 +2977,8 @@ def main() -> int:
               "spread_na": check_spread_kernels(dev, "spread_na", REPS),
               "inclusion": check_spread_kernels(dev, "inclusion", REPS),
               **{shape: check_preempt_kernels(dev, shape, REPS) for shape in PREEMPT_SHAPES},
-              "daemonset": check_pinned_kernels(dev, REPS), "pv": check_pv_kernels(dev, REPS)}
+              "daemonset": check_pinned_kernels(dev, REPS), "pv": check_pv_kernels(dev, REPS),
+              "ports_images": check_ports_images_kernels(dev, REPS)}
     for shape, table in shapes.items():
         for name, tm in table.items():
             lib = "" if tm.get("library_ms") is None else f", library {tm['library_ms']:.4f}"
@@ -2599,13 +3015,15 @@ def main() -> int:
         "expand_rows": "kubernetes_tpu/scheduler.py:44",
         "pinned_fit": "kubernetes_tpu/engine/pass_.py:941",
         "vol_filter": "kubernetes_tpu/ops/volumes.py:217",
+        "image_counts": "kubernetes_tpu/ops/imagelocality.py:63",
+        "image_scores": "kubernetes_tpu/ops/imagelocality.py:53",
     }
     # The top-level numbers of a kernel come from the shapes of the path it
     # was first ported for (density: eval_chunk, select_host,
     # resolve_commit; IPA: build_dom, ipa_eval, conflict_pairs; spread_na:
     # node_filters, spread_filter, late_scores; preemption_async_5kn: the
     # preemption kernels and data moves; daemonset: pinned_fit; pv:
-    # vol_filter); "by_shape"
+    # vol_filter; ports_images: image_counts, image_scores); "by_shape"
     # holds every shape it was measured at.  "launches" sums the main
     # paths' first kernel runs, "launches_by_path" splits them.
     first = {name: "ipa" for name in kernels.WRAPPERS}
@@ -2613,7 +3031,8 @@ def main() -> int:
                  node_filters="spread_na", spread_filter="spread_na", late_scores="spread_na",
                  **dict.fromkeys(("preempt_eval", "preempt_pick", "preempt_commit", "unpack_victims",
                                   "scatter_rows", "expand_rows"), "preemption_async_5kn"),
-                 pinned_fit="daemonset", vol_filter="pv")
+                 pinned_fit="daemonset", vol_filter="pv", image_counts="ports_images",
+                 image_scores="ports_images")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [], "data_moves_by_path": moves}
     for name in kernels.WRAPPERS:

@@ -6,10 +6,14 @@ interned ids) and shipped as one (K, …) batch.  Padding rows carry
 valid=False and are ignored by the commit.
 
 The port featurizes only the ported ops.  An unported op that is
-active for any pod of the batch raises NotImplementedError, and so does a
-pod whose commit would touch state the port's commit does not write yet
-(host ports): such a pod must fail loudly, never be scheduled as if its
-constraints were absent.
+active for any pod of the batch raises NotImplementedError: such a pod must
+fail loudly, never be scheduled as if its constraints were absent.
+
+The host-port base features (engine/features.py:298-310, 366-367 of the
+JAX package: each pod's (proto, ip, port) triples and (proto, port) keys,
+-1 padded to POD_PORT_SLOTS) are what the commit, the conflict table and
+NodePorts' filter read.  A batch carries them only when some pod asks for
+a host port or NodePorts is active (``_port_features``).
 
 The volume base features (engine/features.py:23-28, 347-377 of the JAX
 package: device uses, CSI attachments, the PreBind-race and attach-limit
@@ -28,7 +32,7 @@ import numpy as np
 from ..api import types as t
 from ..framework.config import Profile
 from ..ops import common as opcommon
-from ..snapshot import SnapshotBuilder, _bucket
+from ..snapshot import POD_PORT_SLOTS, SnapshotBuilder, _bucket
 
 # The pod's own (anti-)affinity term ids, committed into et_counts; -1 pads.
 opcommon.feature_fill("ipa_own_terms", -1)
@@ -77,6 +81,24 @@ def _vol_features(deltas: list[dict], k: int) -> dict:
     return out
 
 
+def _port_features(deltas: list[dict], k: int, active: frozenset[str]) -> dict:
+    """``port_triples`` and ``port_keys`` of a batch of ``k`` lanes, (k,
+    POD_PORT_SLOTS) int32, -1 pads on the pods' lanes and zeros on the
+    padding lanes (as the JAX batch pads them), or nothing when no pod asks
+    for a host port and NodePorts is inactive."""
+    if "NodePorts" not in active and not any(d["ports"] for d in deltas):
+        return {}
+    triples = np.zeros((k, POD_PORT_SLOTS), np.int32)
+    keys = np.zeros((k, POD_PORT_SLOTS), np.int32)
+    triples[: len(deltas)] = -1
+    keys[: len(deltas)] = -1
+    for i, d in enumerate(deltas):
+        for j, (triple, pk) in enumerate(d["ports"][:POD_PORT_SLOTS]):
+            triples[i, j] = triple
+            keys[i, j] = pk
+    return {"port_triples": triples, "port_keys": keys}
+
+
 def pin_name(pod: t.Pod):
     """The single node a pod's own constraints reduce its candidate set to,
     or None: a required node affinity of exactly one term with one
@@ -105,13 +127,10 @@ def pod_sig(pod: t.Pod):
     return repr((pod.namespace, sorted(pod.metadata.labels.items()), pod.spec))
 
 
-def _check_ported(ops, reps, fctx, deltas) -> None:
+def _check_ported(ops, reps, fctx) -> None:
     for op in ops:
         if op.unported and any(op.is_active(p, fctx) for p in reps):
             raise NotImplementedError(f"{op.name} is not yet ported")
-    for d in deltas:
-        if d["ports"]:
-            raise NotImplementedError("host-port commits (NodePorts) are not yet ported")
 
 
 def build_pod_batch(
@@ -150,7 +169,7 @@ def build_pod_batch(
             for op in all_ops
             if op.is_active is None or any(op.is_active(p, fctx) for p in reps)
         ]
-    _check_ported(ops, reps, fctx, ())
+    _check_ported(ops, reps, fctx)
     active = frozenset(op.name for op in ops)
     fctx.active = active
     # Featurization cache: identical (namespace, labels, spec) pods produce
@@ -170,7 +189,6 @@ def build_pod_batch(
             deltas.append(dict(hit[1]))
             continue
         delta = builder.pod_delta_vectors(pod)
-        _check_ported((), (), fctx, (delta,))
         own = delta["own_terms"]
         own_terms = np.full(_bucket(max(len(own), 1), 1), -1, np.int32)
         own_terms[: len(own)] = own
@@ -213,6 +231,7 @@ def build_pod_batch(
         pad_width = [(0, k - len(pods))] + [(0, 0)] * (stacked.ndim - 1)
         batch[key] = np.pad(stacked, pad_width)
     batch.update(_vol_features(deltas, k))
+    batch.update(_port_features(deltas, k, active))
     batch["valid"] = np.zeros(k, np.bool_)
     batch["valid"][: len(pods)] = True
     return batch, deltas, active

@@ -21,10 +21,15 @@ and, once per batch before the loop, ``build_dom`` (the per-domain tables,
 unless carried from the previous batch), ``node_filters`` (NodeAffinity's,
 TaintToleration's, VolumeBinding's and VolumeZone's filters of every pod of
 the batch, when one of them filters or spread's inclusion policies read
-them) and, when the batch carries affinity, spread or volume-id features,
-``conflict_pairs`` (the chunk-mate conflict table).  ``resolve_commit``
-also commits device uses and CSI attachments and defers attach-limited
-pods that share a node with an earlier limited mate.
+them), ``image_counts`` and ``image_scores`` (ImageLocality's spread counts
+and its raw score of every pod on every node, when the op scores; images
+and node validity do not change within a pass, so one plane serves every
+chunk, the fused strict tail and, read at the pin, the pinned pass) and,
+when the batch carries affinity, spread, volume-id or host-port features,
+``conflict_pairs`` (the chunk-mate conflict table).  ``eval_chunk`` also
+runs NodePorts' filter against the live port counts.  ``resolve_commit``
+also commits device uses, CSI attachments and host ports, and defers
+attach-limited pods that share a node with an earlier limited mate.
 
 With chunk=1 each step is one reference scheduling cycle.  With chunk>1
 pods that could observe an earlier chunk-mate's commit defer (pick = -2);
@@ -53,7 +58,7 @@ import torch
 from .. import kernels
 from ..framework.config import Profile
 from ..kernels import plain
-from ..kernels.plain import IPA, NA, NODE_FILTER_OPS, NVL, PTS, TT, VR
+from ..kernels.plain import IL, IPA, NA, NODE_FILTER_OPS, NVL, PTS, TT, VR
 from ..ops import common as opcommon
 from ..snapshot import ClusterState, Schema
 
@@ -102,13 +107,13 @@ def _conflict_pairs(pf: dict, nchunks: int, c: int, pairs_fn) -> torch.Tensor:
     decision (pass_.py:266)?  Pairs come from the hard reads of inter-pod
     affinity (required (anti-)affinity group masks, matched existing
     anti-affinity terms against own-term writes) and of topology spread
-    (DoNotSchedule group masks), against each pod's label-group write, and
-    from the volumes: a shared device or CSI volume id, or two claims that
-    race at PreBind (``pairs_fn``, the conflict_pairs kernel or its plain
-    version).  A batch with none of these features (density) keeps the
-    all-false table and launches nothing.  Host-port keys and DRA ids
-    belong to unported ops: a batch that carries such a feature raises, so
-    the slice that ports the op must port its pairs too."""
+    (DoNotSchedule group masks), against each pod's label-group write,
+    from the volumes (a shared device or CSI volume id, or two claims that
+    race at PreBind) and from a shared host-port key (``pairs_fn``, the
+    conflict_pairs kernel or its plain version).  A batch with none of these
+    features (density) keeps the all-false table and launches nothing.  DRA
+    ids belong to an unported op: a batch that carries them raises, so the
+    slice that ports the op must port its pairs too."""
     found = sorted(_PAIR_FEATURES.intersection(pf))
     if found:
         raise NotImplementedError(f"conflict pairs from {found} are not yet ported")
@@ -119,9 +124,9 @@ def _conflict_pairs(pf: dict, nchunks: int, c: int, pairs_fn) -> torch.Tensor:
 
 # Batch features of unported ops from which the JAX pass derives conflict
 # pairs.
-_PAIR_FEATURES = frozenset({"port_keys", "dra_claim_ids", "dra_claim_unalloc"})
+_PAIR_FEATURES = frozenset({"dra_claim_ids", "dra_claim_unalloc"})
 # Features any of which makes the conflict table non-trivial.
-_PAIR_SOURCES = ("ipa_ra_allmask", "tps_h_groups", "vol_dev_ids", "vol_csi_ids", "vol_unbound")
+_PAIR_SOURCES = ("ipa_ra_allmask", "tps_h_groups", "vol_dev_ids", "vol_csi_ids", "vol_unbound", "port_keys")
 
 
 # Ops whose filter/score read only node-axis state (no domain tables, no
@@ -136,12 +141,14 @@ PINNED_SAFE_OPS = frozenset({
 _KERNEL_FNS = (
     kernels.build_dom, kernels.eval_chunk, kernels.ipa_eval, kernels.select_host,
     kernels.resolve_commit, kernels.conflict_pairs, kernels.node_filters,
-    kernels.spread_filter, kernels.late_scores, kernels.vol_filter,
+    kernels.spread_filter, kernels.late_scores, kernels.vol_filter, kernels.image_counts,
+    kernels.image_scores,
 )
 _PLAIN_FNS = (
     plain.build_dom, plain.eval_chunk, plain.ipa_eval, plain.select_host,
     plain.resolve_commit, plain.conflict_pairs, plain.node_filters,
-    plain.spread_filter, plain.late_scores, plain.vol_filter,
+    plain.spread_filter, plain.late_scores, plain.vol_filter, plain.image_counts,
+    plain.image_scores,
 )
 # Scorers that normalize over the final feasible set, added by late_scores.
 _LATE = (NA, TT, PTS)
@@ -242,9 +249,11 @@ def build_pass(
     """Build the batch pass for one (profile, schema, active-op-set, chunk).
 
     Returns run(state, batch, inv, seed_base) → (state, PassResult), where
-    ``inv`` holds the batch invariants (et_slot, et_host) and optionally the
-    nominated-pod overlay (nom_req, nom_cnt, nom_prio).  ``batch`` values
-    may be numpy arrays or tensors.
+    ``inv`` holds the batch invariants (et_slot, et_host), optionally the
+    nominated-pod overlay (nom_req, nom_cnt, nom_prio) and, when
+    ImageLocality scores, ``image_vocab`` (an int: the size of the image
+    name vocabulary, which bounds the ids that image_counts counts).
+    ``batch`` values may be numpy arrays or tensors.
 
     ``batch["step_offset"]`` (optional, (K,) i32): per-pod tie-break step
     offsets; absent, positions default to arange.  ``batch["uniform_all"]``
@@ -269,7 +278,8 @@ def build_pass(
     _ctx, filters, scorers = _pass_ops(profile, schema, builder_res_col, active)
     effective = frozenset(filters) | frozenset(n for n, _ in scorers)
     (dom_fn, eval_fn, ipa_fn, select_fn, commit_fn, pairs_fn, nodes_fn, spread_fn,
-     late_fn, vol_fn) = _PLAIN_FNS if _impl == "plain" else _KERNEL_FNS
+     late_fn, vol_fn, counts_fn, il_fn) = _PLAIN_FNS if _impl == "plain" else _KERNEL_FNS
+    do_il = IL in dict(spec.scorers)
     # node_filters runs when eval_chunk reads its bits (NodeAffinity,
     # TaintToleration, VolumeBinding or VolumeZone filters) or spread's
     # inclusion policies do; vol_filter when VolumeRestrictions or
@@ -281,18 +291,18 @@ def build_pass(
     fuse_tail = chunk > 1 and effective <= PINNED_SAFE_OPS
     seed_mul = ((profile.tie_break_seed & 0xFFFFFFFF) * 2654435761) & 0xFFFFFFFF
 
-    def step(state, dom, ipa, pf, steps, pairs, nom, node_bits) -> PassResult:
+    def step(state, dom, ipa, pf, steps, pairs, nom, node_bits, il) -> PassResult:
         spread_ok = spread_fn(state, pf, node_bits, spec.ctx) if spread_filters else None
         vol_bits = vol_fn(state, pf, spec.ctx, do_vr, do_nvl) if do_vr or do_nvl else None
-        feasible, total, fails = eval_fn(state, pf, spec, nom, (node_bits, spread_ok, vol_bits))
+        feasible, total, fails = eval_fn(state, pf, spec, nom, (node_bits, spread_ok, vol_bits, il))
         if ipa is not None:
             ipa_fn(state, pf, feasible, total, fails, ipa)
         if late is not None:
             late_fn(state, pf, feasible, total, node_bits, late)
         picks, bests, feas = select_fn(feasible, total, steps, seed_mul, pf.get("nominated_row"))
         # No spread branch in the commit: spread reads group_counts, which
-        # the base commit maintains (pass_.py:166-192).  The device and CSI
-        # branches commit when the chunk carries their features.
+        # the base commit maintains (pass_.py:166-192).  The device, CSI and
+        # host-port branches commit when the chunk carries their features.
         out = commit_fn(state, dom, pf, picks, pairs, c == 1)
         return PassResult(out, bests, feas, torch.zeros_like(feas), fails)
 
@@ -331,14 +341,20 @@ def build_pass(
         # NodeAffinity's and TaintToleration's filters read only node state
         # that no commit changes: one evaluation serves every chunk.
         node_bits = nodes_fn(state, tb, spec.ctx) if need_nodes else None
+        # ImageLocality reads only images and node validity: one plane of
+        # the whole batch serves every chunk.
+        il = il_fn(state, tb, counts_fn(state, int(inv["image_vocab"]))) if do_il else None
 
         def chunk_of(i: int, src: dict) -> dict:
             return {key: v[i * c : (i + 1) * c] for key, v in src.items()}
 
+        def rows_of(plane, i: int):
+            return None if plane is None else plane[i * c : (i + 1) * c]
+
         def run_chunks(src: dict, idx) -> list[PassResult]:
             return [
                 step(state, dom, ipa, chunk_of(i, src), steps[i * c : (i + 1) * c], pairs[i], nom,
-                     None if node_bits is None else node_bits[i * c : (i + 1) * c])
+                     rows_of(node_bits, i), rows_of(il, i))
                 for i in idx
             ]
 
@@ -351,7 +367,8 @@ def build_pass(
             # is featurization-identical, so if the first one is feasible
             # nowhere, every pod fails identically and nothing commits.
             pf0 = {key: v[:1] for key, v in tb.items()}
-            ext0 = (None if node_bits is None else node_bits[:1], None)
+            ext0 = (None if node_bits is None else node_bits[:1], None, None,
+                    None if il is None else il[:1])
             feas0_mask, total0, fail0 = eval_fn(state, pf0, spec, nom, ext0)
             _p0, _b0, feas0 = select_fn(feas0_mask, total0, steps[:1], seed_mul, pf0.get("nominated_row"))
             if int(feas0[0]) == 0 and bool(tb["valid"][0]):
@@ -408,7 +425,10 @@ def build_pinned_pass(
     mode evaluates every pod on its own row alone — filter verdicts, fail
     bits and scores normalized over that single node, as the JAX pass's
     vmapped own-row evaluation computes them (a pod whose pin names no
-    node is evaluated on row 0 and then held infeasible, as there);
+    node is evaluated on row 0 and then held infeasible, as there;
+    ImageLocality's score comes from image_scores at the pins, its spread
+    over the pinned row alone, as the JAX pass's one-row state slice
+    computes it);
     pinned_fit applies the same-row rule in closed form (a feasible pod
     places when the inclusive prefix of its feasible mates' requests fits
     the row's free capacity before the batch, and defers otherwise); a
@@ -427,8 +447,9 @@ def build_pinned_pass(
     if not effective <= PINNED_SAFE_OPS:
         raise ValueError(f"pinned pass: {sorted(effective - PINNED_SAFE_OPS)} read more than the own row")
     (_dom_fn, eval_fn, _ipa_fn, _select_fn, commit_fn, _pairs_fn, nodes_fn, _spread_fn,
-     late_fn, _vol_fn) = _PLAIN_FNS if _impl == "plain" else _KERNEL_FNS
+     late_fn, _vol_fn, _counts_fn, il_fn) = _PLAIN_FNS if _impl == "plain" else _KERNEL_FNS
     fit_fn = plain.pinned_fit if _impl == "plain" else kernels.pinned_fit
+    do_il = IL in dict(spec.scorers)
     need_nodes = bool(set(NODE_FILTER_OPS) & set(spec.filters)) or late is not None
 
     def run(state: ClusterState, batch: dict, inv: dict):
@@ -449,7 +470,8 @@ def build_pinned_pass(
         if "nom_req" in inv:
             nom = tuple(_to_device(inv[key], dev) for key in ("nom_req", "nom_cnt", "nom_prio"))
         node_bits = nodes_fn(state, tb, spec.ctx) if need_nodes else None
-        own_ok, total, fails = eval_fn(state, tb, spec, nom, (node_bits, None), pin)
+        il = il_fn(state, tb, None, pin) if do_il else None
+        own_ok, total, fails = eval_fn(state, tb, spec, nom, (node_bits, None, None, il), pin)
         if late is not None:
             late_fn(state, tb, own_ok, total, node_bits, late, pin)
         picks, feasible = fit_fn(own_ok[:, 0], pin_row, tb["valid"], tb["req"], state)

@@ -13,6 +13,8 @@
                                           final feasible set, per chunk, after ipa_eval
   vol_filter      csrc/volume_filters.cu  VolumeRestrictions + NodeVolumeLimits filter bits, per
                                           chunk, before eval_chunk
+  image_counts    csrc/image_locality.cu  valid nodes holding each image id, per batch
+  image_scores    csrc/image_locality.cu  ImageLocality's raw score plane of the batch, per batch
   preempt_eval    csrc/preempt.cu         preemption dry-run of a chunk's representative, per node
   preempt_pick    csrc/preempt.cu         lexicographic node rank and each mate's pick
   preempt_commit  csrc/preempt.cu         release at the picked rows, victims consumed
@@ -40,15 +42,20 @@ from ..framework.config import LEAST_ALLOCATED, MOST_ALLOCATED
 from ..ops.helpers import log_table
 from . import build, plain
 
-# Filter codes of eval_chunk (2 bits each, packed in fail-bit order).  Code
-# 3 reads a precomputed plane, chosen by a second 3-bit field (_EXT_SEL):
-# node_filters' bits 0-3 (NodeAffinity, TaintToleration, VolumeBinding,
-# VolumeZone), vol_filter's bits 0-1 (VolumeRestrictions, NodeVolumeLimits)
-# or spread_filter's mask (PodTopologySpread).
+# Filter codes of eval_chunk (3 bits each, packed in fail-bit order into a
+# 64-bit word).  Code 3 reads a precomputed plane, chosen by a second 3-bit
+# field (_EXT_SEL): node_filters' bits 0-3 (NodeAffinity, TaintToleration,
+# VolumeBinding, VolumeZone), vol_filter's bits 0-1 (VolumeRestrictions,
+# NodeVolumeLimits) or spread_filter's mask (PodTopologySpread).  Code 4 is
+# NodePorts, against the live port counts.
 _PLANE_BASE = {"node_bits": 0, "vol_bits": 4, "spread_ok": 6}
 _EXT_SEL = {name: _PLANE_BASE[plane] + bit for name, (plane, bit) in plain.PLANE_BITS.items()}
-_FILTER_CODES = {"NodeUnschedulable": 0, "NodeName": 1, "NodeResourcesFit": 2, **dict.fromkeys(_EXT_SEL, 3)}
-_SCORERS = ("NodeResourcesFit", "NodeResourcesBalancedAllocation")
+_FILTER_CODES = {"NodeUnschedulable": 0, "NodeName": 1, "NodeResourcesFit": 2, **dict.fromkeys(_EXT_SEL, 3),
+                 "NodePorts": 4}
+# ImageLocality's score is read from the image_scores plane.
+_SCORERS = ("NodeResourcesFit", "NodeResourcesBalancedAllocation", plain.IL)
+# Image ids per pod image_scores holds in registers.
+MAX_POD_IMAGES = 16
 _MAX_BALANCED = 8
 MAX_CHUNK = 1024  # resolve_commit: one block, one thread per pod
 # Shared memory an ipa_eval block may use for its per-pod tables (of the
@@ -155,7 +162,7 @@ def _eval_config(spec: EvalSpec, device: torch.device) -> dict:
         raise NotImplementedError(f"eval_chunk kernel: more than {_MAX_BALANCED} balanced resources")
     codes = ext_sel = 0
     for b, name in enumerate(spec.filters):
-        codes |= _FILTER_CODES[name] << (2 * b)
+        codes |= _FILTER_CODES[name] << (3 * b)
         ext_sel |= _EXT_SEL.get(name, 0) << (3 * b)
     return {
         "R": r,
@@ -171,6 +178,9 @@ def _eval_config(spec: EvalSpec, device: torch.device) -> dict:
         "fit_weight": int(weights.get("NodeResourcesFit", 0)),
         "score_bal": int("NodeResourcesBalancedAllocation" in weights),
         "bal_weight": int(weights.get("NodeResourcesBalancedAllocation", 0)),
+        "il": plain.IL in weights,
+        "il_weight": int(weights.get(plain.IL, 0)),
+        "ports": "NodePorts" in spec.filters,
         "filter_codes": codes,
         "ext_sel": ext_sel,
         "n_filters": len(spec.filters),
@@ -238,11 +248,12 @@ def eval_chunk(state, pf: dict, spec: EvalSpec, nom, ext=None, pin=None):
     """Filters + weighted score of one chunk: (feasible (C, N) bool,
     total (C, N) i64, fail_mask (C,) i32).  ``nom`` is the nominated-pod
     overlay (nom_req, nom_cnt, nom_prio) or None; ``ext`` is (node_bits
-    (C, N) u8, spread_ok (C, N) bool[, vol_bits (C, N) u8]), the
-    precomputed planes of the ops in plain.PLANE_BITS (any None when no
-    active filter reads it).  With ``pin`` ((C,) i32 rows in [0, N)),
-    pod c is evaluated on node pin[c] alone: feasible and total are
-    (C, 1) and the fail bits are those of that node."""
+    (C, N) u8, spread_ok (C, N) bool[, vol_bits (C, N) u8[, il_scores
+    (C, N) u8]]), the precomputed planes of the ops in plain.PLANE_BITS and
+    ImageLocality's score plane (any None when no active op reads it).
+    With ``pin`` ((C,) i32 rows in [0, N)), pod c is evaluated on node
+    pin[c] alone: feasible and total are (C, 1), the fail bits are those of
+    that node and il_scores is (C, 1)."""
     if _on_cpu(state.valid):
         return plain.eval_chunk(state, pf, spec, nom, ext, pin)
     dev = state.valid.device
@@ -307,6 +318,25 @@ def eval_chunk(state, pf: dict, spec: EvalSpec, nom, ext=None, pin=None):
         width = 1
     else:
         planes.append(None)
+    # NodePorts reads the node counts and the chunk's wants; a batch with
+    # no port feature conflicts nowhere (null pointers).
+    ports = [None] * 6
+    s_ports = 0
+    if cfg["ports"] and "port_triples" in pf:
+        s_ports = pf["port_triples"].shape[1]
+        p_, pk = state.port_counts.shape[0], state.portkey_counts.shape[0]
+        ports = [
+            _check("port_counts", state.port_counts, i32, (p_, n), dev),
+            _check("portkey_counts", state.portkey_counts, i32, (pk, n), dev),
+            _check("port_triples", pf["port_triples"], i32, (c, s_ports), dev),
+            _check("port_keys", pf["port_keys"], i32, (c, s_ports), dev),
+            _check("port_wild_triples", pf["port_wild_triples"], i32, (c, s_ports), dev),
+            _check("port_is_wild", pf["port_is_wild"], b, (c, s_ports), dev),
+        ]
+    il = given["il_scores"]
+    if cfg["il"] and il is None:
+        raise ValueError("eval_chunk: plane 'il_scores' missing")
+    il = _check("il_scores", il, torch.uint8, (c, width), dev) if cfg["il"] else None
     feasible = torch.empty((c, width), dtype=b, device=dev)
     total = torch.empty((c, width), dtype=i64, device=dev)
     fail = torch.zeros(c, dtype=i32, device=dev)
@@ -315,11 +345,11 @@ def eval_chunk(state, pf: dict, spec: EvalSpec, nom, ext=None, pin=None):
         *[_ptr(a) for a in args],
         *[_ptr(a) for a in feats],
         *[_ptr(a) for a in planes],
-        _ptr(cfg["fit_ignored"]),
+        _ptr(cfg["fit_ignored"]), *[_ptr(a) for a in ports], _ptr(il),
         _ptr(cfg["strat_cols"]), cfg["n_strat"], cfg["most_allocated"],
         _ptr(cfg["bal_cols"]), cfg["n_bal"],
-        cfg["score_fit"], cfg["fit_weight"], cfg["score_bal"], cfg["bal_weight"],
-        cfg["filter_codes"], cfg["n_filters"], cfg["ext_sel"], c, n, r,
+        cfg["score_fit"], cfg["fit_weight"], cfg["score_bal"], cfg["bal_weight"], cfg["il_weight"],
+        cfg["filter_codes"], cfg["n_filters"], cfg["ext_sel"], c, n, r, s_ports,
         _ptr(feasible), _ptr(total), _ptr(fail), _stream(dev),
     )
     eval_chunk.launches += 1
@@ -382,15 +412,17 @@ def ipa_eval(state, pf: dict, feasible, total, fail, ipa: IpaSpec):
 
 def conflict_pairs(pf: dict, nchunks: int, c: int):
     """(nchunks, C, C) bool chunk-mate conflict table of a batch whose pods
-    carry inter-pod-affinity, topology-spread or volume-id features."""
+    carry inter-pod-affinity, topology-spread, volume-id or host-port
+    features."""
     if _on_cpu(pf["valid"]):
         return plain.conflict_pairs(pf, nchunks, c)
     dev = pf["valid"].device
     k = nchunks * c
     ipa, spread = "ipa_ra_allmask" in pf, "tps_h_groups" in pf
     vdev, vcsi, vunb = "vol_dev_ids" in pf, "vol_csi_ids" in pf, "vol_unbound" in pf
-    if not (ipa or spread or vdev or vcsi or vunb):
-        raise ValueError("conflict_pairs: the batch carries no affinity, spread or volume features")
+    vport = "port_keys" in pf
+    if not (ipa or spread or vdev or vcsi or vunb or vport):
+        raise ValueError("conflict_pairs: the batch carries no affinity, spread, volume or port features")
     g = pf["ipa_ra_allmask"].shape[1] if ipa else (pf["tps_h_groups"].shape[2] if spread else 0)
     rs = pf["ipa_rs_groups"].shape[1] if ipa else 0
     et = pf["ipa_et_match"].shape[1] if ipa else 0
@@ -398,6 +430,7 @@ def conflict_pairs(pf: dict, nchunks: int, c: int):
     ch = pf["tps_h_groups"].shape[1] if spread else 0
     sd = pf["vol_dev_ids"].shape[1] if vdev else 0
     sc = pf["vol_csi_ids"].shape[1] if vcsi else 0
+    sp = pf["port_keys"].shape[1] if vport else 0
     args = [_check("group", pf["group"], torch.int32, (k,), dev)]
     for key, dtype, shape, on in (
         ("ipa_ra_allmask", torch.bool, (k, g), ipa),
@@ -409,11 +442,12 @@ def conflict_pairs(pf: dict, nchunks: int, c: int):
         ("vol_dev_ids", torch.int32, (k, sd), vdev),
         ("vol_csi_ids", torch.int32, (k, sc), vcsi),
         ("vol_unbound", torch.bool, (k,), vunb),
+        ("port_keys", torch.int32, (k, sp), vport),
     ):
         args.append(_check(key, pf[key], dtype, shape, dev) if on else None)
     pairs = torch.empty((nchunks, c, c), dtype=torch.bool, device=dev)
     build.launch(
-        "conflict_pairs", *[_ptr(x) for x in args], nchunks, c, g, rs, et, a, ch, sd, sc,
+        "conflict_pairs", *[_ptr(x) for x in args], nchunks, c, g, rs, et, a, ch, sd, sc, sp,
         _ptr(pairs), _stream(dev),
     )
     conflict_pairs.launches += 1
@@ -503,6 +537,14 @@ def resolve_commit(state, dom, pf: dict, picks, pairs, strict: bool):
         _check("state.csi_used", state.csi_used, i32, (dr, n), dev)
     if csi_lim is not None:
         _check("vol_csi_lim", csi_lim, torch.bool, (c,), dev)
+    # Host ports: absent when no pod of the batch asks for one.
+    triples, keys = pf.get("port_triples"), pf.get("port_keys")
+    sp = 0 if triples is None else triples.shape[1]
+    if triples is not None:
+        _check("port_triples", triples, i32, (c, sp), dev)
+        _check("port_keys", keys, i32, (c, sp), dev)
+        _check("state.port_counts", state.port_counts, i32, (state.port_counts.shape[0], n), dev)
+        _check("state.portkey_counts", state.portkey_counts, i32, (state.portkey_counts.shape[0], n), dev)
     out = torch.empty(c, dtype=i32, device=dev)
     build.launch(
         "resolve_commit",
@@ -514,7 +556,8 @@ def resolve_commit(state, dom, pf: dict, picks, pairs, strict: bool):
         _ptr(dom.et_dom), _ptr(dom.et_slot),
         _ptr(dev_ids), _ptr(dev_rw), _ptr(state.dev_counts), _ptr(state.dev_rw_counts),
         _ptr(csi_ids), _ptr(csi_drv), _ptr(state.csivol_counts), _ptr(state.csi_used), _ptr(csi_lim),
-        c, n, r, tk, dv, na, sd, sc, dr, _ptr(out), _stream(dev),
+        _ptr(triples), _ptr(keys), _ptr(state.port_counts), _ptr(state.portkey_counts),
+        c, n, r, tk, dv, na, sd, sc, dr, sp, _ptr(out), _stream(dev),
     )
     resolve_commit.launches += 1
     return out
@@ -745,6 +788,59 @@ def vol_filter(state, pf: dict, ctx, do_vr: bool, do_nvl: bool):
         _stream(dev),
     )
     vol_filter.launches += 1
+    return out
+
+
+def image_counts(state, vocab: int):
+    """(vocab + 1,) i32: the number of valid nodes holding each image id
+    below ``vocab`` (once per node), and last the number of valid nodes."""
+    if _on_cpu(state.valid):
+        return plain.image_counts(state, vocab)
+    dev = state.valid.device
+    n, im = state.image_ids.shape
+    _check("image_ids", state.image_ids, torch.int32, (n, im), dev)
+    _check("valid", state.valid, torch.bool, (n,), dev)
+    counts = torch.zeros(vocab + 1, dtype=torch.int32, device=dev)
+    build.launch("image_counts", _ptr(state.image_ids), _ptr(state.valid), n, im, vocab, _ptr(counts),
+                 _stream(dev))
+    image_counts.launches += 1
+    return counts
+
+
+def image_scores(state, pf: dict, counts, pin=None):
+    """(K, N) u8 ImageLocality raw score of every pod of a batch on every
+    node from image_counts' ``counts`` (0 on padding lanes); with ``pin``
+    ((K,) i32 rows), (K, 1) on each pod's pinned row alone, its spread over
+    that row (``counts`` may be None)."""
+    if _on_cpu(pf["valid"]):
+        return plain.image_scores(state, pf, counts, pin)
+    dev = pf["valid"].device
+    n, im = state.image_ids.shape
+    k, ci = pf["il_image_ids"].shape
+    if ci > MAX_POD_IMAGES:
+        raise NotImplementedError(f"image_scores: {ci} image slots per pod exceed {MAX_POD_IMAGES}")
+    if pin is None and k > 65535:
+        raise ValueError(f"image_scores: {k} pods exceed the grid's 65535")
+    args = [
+        _check("image_ids", state.image_ids, torch.int32, (n, im), dev),
+        _check("image_sizes", state.image_sizes, torch.int64, (n, im), dev),
+        _check("valid", state.valid, torch.bool, (n,), dev),
+    ]
+    vocab = 0
+    if pin is None:
+        vocab = counts.shape[0] - 1
+        args.append(_check("counts", counts, torch.int32, (vocab + 1,), dev))
+    else:
+        args.append(None)
+    args += [
+        _check("il_image_ids", pf["il_image_ids"], torch.int32, (k, ci), dev),
+        _check("il_ncontainers", pf["il_ncontainers"], torch.int64, (k,), dev),
+        _check("pod valid", pf["valid"], torch.bool, (k,), dev),
+        None if pin is None else _check("pin", pin, torch.int32, (k,), dev),
+    ]
+    out = torch.empty((k, n if pin is None else 1), dtype=torch.uint8, device=dev)
+    build.launch("image_scores", *[_ptr(a) for a in args], n, im, vocab, k, ci, _ptr(out), _stream(dev))
+    image_scores.launches += 1
     return out
 
 
@@ -996,6 +1092,8 @@ WRAPPERS = {
     "spread_filter": spread_filter,
     "late_scores": late_scores,
     "vol_filter": vol_filter,
+    "image_counts": image_counts,
+    "image_scores": image_scores,
     "preempt_eval": preempt_eval,
     "preempt_pick": preempt_pick,
     "preempt_commit": preempt_commit,

@@ -5,8 +5,8 @@ shared library with a plain C interface, keyed by a hash of the sources and
 flags, under ``kernels/_build/`` (listed in .gitignore), then loaded with
 ctypes.  Builds of several sources run as parallel ``nvcc`` processes.
 A library exports one ``<entry>_launch`` per entry point (``spread_eval``,
-``preempt`` and ``rows`` have several; ``volume_filters`` holds
-``vol_filter``) and one ``<name>_error_string``.  There is no fallback: a missing
+``preempt``, ``rows`` and ``image_locality`` have several;
+``volume_filters`` holds ``vol_filter``) and one ``<name>_error_string``.  There is no fallback: a missing
 compiler, a failed build or a failed load raises.
 """
 
@@ -23,6 +23,7 @@ from pathlib import Path
 KERNELS = (
     "build_dom", "eval_chunk", "ipa_eval", "select_host", "resolve_commit", "conflict_pairs",
     "node_filters", "spread_eval", "preempt", "victims", "rows", "pinned", "volume_filters",
+    "image_locality",
 )
 # Entry point → the library (source) that holds it.
 _MULTI = {
@@ -32,6 +33,7 @@ _MULTI = {
     "rows": ("scatter_rows", "expand_rows"),
     "pinned": ("pinned_fit",),
     "volume_filters": ("vol_filter",),
+    "image_locality": ("image_counts", "image_scores"),
 }
 ENTRIES = {name: name for name in KERNELS if name not in _MULTI}
 ENTRIES.update({entry: src for src, entries in _MULTI.items() for entry in entries})
@@ -50,11 +52,11 @@ _P, _I, _L, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
 # never truncates them to 32 bits).
 _SIGNATURES: dict[str, list] = {
     "build_dom": [_P] * 4 + [_I] * 5 + [_P, _P, _P],
-    "eval_chunk": [_P] * 22 + [_P, _I, _I, _P, _I, _I, _L, _I, _L, _I, _I, _L, _I, _I, _I, _P, _P, _P, _P],
+    "eval_chunk": [_P] * 29 + [_P, _I, _I, _P, _I, _I, _L, _I, _L, _L, _L, _I, _L, _I, _I, _I, _I, _P, _P, _P, _P],
     "ipa_eval": [_I] * 10 + [_L] + [_P] * 30 + [_I, _P],
     "select_host": [_P, _P, _P, _U, _P, _I, _I, _P, _P, _P, _P],
-    "resolve_commit": [_P, _P, _P, _I] + [_P] * 24 + [_I] * 9 + [_P, _P],
-    "conflict_pairs": [_P] * 10 + [_I] * 9 + [_P, _P],
+    "resolve_commit": [_P, _P, _P, _I] + [_P] * 28 + [_I] * 10 + [_P, _P],
+    "conflict_pairs": [_P] * 11 + [_I] * 10 + [_P, _P],
     "node_filters": [_P] * 36 + [_I] * 23 + [_P],
     "vol_filter": [_P] * 11 + [_I] * 7 + [_P],
     "spread_filter": [_P] * 15 + [_I] * 7 + [_P],
@@ -66,6 +68,8 @@ _SIGNATURES: dict[str, list] = {
     "scatter_rows": [_P] * 3 + [_L] * 4 + [_P],
     "expand_rows": [_P] * 2 + [_L] * 2 + [_P],
     "pinned_fit": [_P] * 8 + [_I] * 3 + [_P] * 3,
+    "image_counts": [_P, _P, _I, _I, _I, _P, _P],
+    "image_scores": [_P] * 8 + [_I] * 5 + [_P, _P],
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

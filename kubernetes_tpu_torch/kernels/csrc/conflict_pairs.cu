@@ -1,11 +1,12 @@
 // conflict_pairs: the chunk-mate conflict table of a whole batch.
 //
-// Replaces the inter-pod-affinity, topology-spread and volume branches of
-// kubernetes_tpu/engine/pass_.py _conflict_pairs (:266-334), evaluated per
-// scan step by the JAX pass:
+// Replaces the inter-pod-affinity, topology-spread, host-port and volume
+// branches of kubernetes_tpu/engine/pass_.py _conflict_pairs (:266-334),
+// evaluated per scan step by the JAX pass:
 //   pairs[b, i, j] = reads_g[j, group[i]] or (exists a: hard_t[j, own[i, a]])
-//                    or (i and j share a device volume id, or a CSI volume
-//                    id) or (vol_unbound[i] and vol_unbound[j])
+//                    or (i and j share a device volume id, a CSI volume id
+//                    or a host-port (proto, port) key) or (vol_unbound[i]
+//                    and vol_unbound[j])
 // for pods i != j of chunk b, where reads_g = ipa_ra_allmask or
 // any(ipa_rs_groups) (the groups pod j's required (anti-)affinity reads)
 // or any(tps_h_groups) (the groups pod j's DoNotSchedule spread
@@ -14,7 +15,7 @@
 // batch carries none of its features (G is 0 when no group is read).  The
 // JAX pass builds these with einsums of one-hot matrices and the volume
 // part with an all-pairs id comparison; here each entry is a handful of
-// gathers and an SD^2 + SC^2 id comparison.
+// gathers and an SD^2 + SC^2 + SP^2 id comparison.
 //
 // One thread per (chunk, i, j): nchunks * C * C threads, one launch per
 // batch (features do not change between chunks).
@@ -38,8 +39,9 @@ __global__ void conflict_pairs_kernel(const int* __restrict__ group,            
                                       const int* __restrict__ dev_ids,               // (K, SD)
                                       const int* __restrict__ csi_ids,               // (K, SC)
                                       const unsigned char* __restrict__ unbound,     // (K,)
+                                      const int* __restrict__ port_keys,             // (K, SP)
                                       int nchunks, int C, int G, int RS, int ET, int A, int CH,
-                                      int SD, int SC,
+                                      int SD, int SC, int SP,
                                       unsigned char* __restrict__ pairs) {  // (nchunks, C, C)
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long total = (long long)nchunks * C * C;
@@ -70,6 +72,10 @@ __global__ void conflict_pairs_kernel(const int* __restrict__ group,            
       const int v = csi_ids[pi * SC + s];
       for (int s2 = 0; v >= 0 && !p && s2 < SC; ++s2) p = csi_ids[pj * SC + s2] == v;
     }
+    for (int s = 0; !p && port_keys != nullptr && s < SP; ++s) {
+      const int v = port_keys[pi * SP + s];
+      for (int s2 = 0; v >= 0 && !p && s2 < SP; ++s2) p = port_keys[pj * SP + s2] == v;
+    }
     if (!p && unbound != nullptr) p = unbound[pi] && unbound[pj];
   }
   pairs[idx] = p ? 1 : 0;
@@ -81,9 +87,10 @@ extern "C" int conflict_pairs_launch(const void* group, const void* ra_allmask,
                                      const void* rs_groups, const void* et_match,
                                      const void* et_anti, const void* own,
                                      const void* tps_groups, const void* dev_ids,
-                                     const void* csi_ids, const void* unbound, int nchunks, int C,
-                                     int G, int RS, int ET, int A, int CH, int SD, int SC,
-                                     void* pairs, void* stream) {
+                                     const void* csi_ids, const void* unbound,
+                                     const void* port_keys, int nchunks, int C, int G, int RS,
+                                     int ET, int A, int CH, int SD, int SC, int SP, void* pairs,
+                                     void* stream) {
   const long long total = (long long)nchunks * C * C;
   const int threads = 256;
   const long long blocks = (total + threads - 1) / threads;
@@ -94,8 +101,9 @@ extern "C" int conflict_pairs_launch(const void* group, const void* ra_allmask,
       static_cast<const unsigned char*>(rs_groups), static_cast<const unsigned char*>(et_match),
       static_cast<const unsigned char*>(et_anti), static_cast<const int*>(own),
       static_cast<const unsigned char*>(tps_groups), static_cast<const int*>(dev_ids),
-      static_cast<const int*>(csi_ids), static_cast<const unsigned char*>(unbound), nchunks, C, G,
-      RS, ET, A, CH, SD, SC, static_cast<unsigned char*>(pairs));
+      static_cast<const int*>(csi_ids), static_cast<const unsigned char*>(unbound),
+      static_cast<const int*>(port_keys), nchunks, C, G, RS, ET, A, CH, SD, SC, SP,
+      static_cast<unsigned char*>(pairs));
   return (int)cudaGetLastError();
 }
 

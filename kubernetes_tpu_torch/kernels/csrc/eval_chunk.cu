@@ -5,19 +5,27 @@
 // first port slice: NodeUnschedulable and NodeName (ops/trivial.py:30,40),
 // NodeResourcesFit's filter and score (ops/noderesources.py:58,142, with
 // the LeastAllocated / MostAllocated scorers :110-125) and
-// NodeResourcesBalancedAllocation (:163).  RequestedToCapacityRatio is
-// refused by the Python wrapper before launch.  NodeAffinity,
-// TaintToleration, VolumeBinding, VolumeZone, VolumeRestrictions,
-// NodeVolumeLimits and PodTopologySpread take filter code 3: their results
-// are precomputed planes (node_filters' bits 0-3 per batch, vol_filter's
-// bits 0-1 and spread_filter's mask per chunk) that this kernel reads at
-// the op's place in the filter order, so fail bits stay in profile order.
-// A 3-bit selector per filter (ext_sel) names the plane and bit.
+// NodeResourcesBalancedAllocation (:163), NodePorts' filter
+// (ops/nodeports.py:45) against the live port counts, and ImageLocality's
+// score (ops/imagelocality.py:53) read from the per-batch plane that
+// image_scores (image_locality.cu) computes: images and node validity do
+// not change within a pass, and the plane's raw 0-100 score is added with
+// the op's weight.  RequestedToCapacityRatio is refused by the Python
+// wrapper before launch.  Filter codes are 3 bits a filter in a 64-bit
+// word (0-2 the trivial filters and fit, 3 a plane, 4 NodePorts).
+// NodeAffinity, TaintToleration, VolumeBinding, VolumeZone,
+// VolumeRestrictions, NodeVolumeLimits and PodTopologySpread take code 3:
+// their results are precomputed planes (node_filters' bits 0-3 per batch,
+// vol_filter's bits 0-1 and spread_filter's mask per chunk) that this
+// kernel reads at the op's place in the filter order, so fail bits stay
+// in profile order.  A 3-bit selector per filter (ext_sel) names the plane
+// and bit.
 //
 // Pinned mode (pin_row non-null; the pinned-batch pass, kubernetes_tpu/
 // engine/pass_.py:941-985): pod c is evaluated on node pin_row[c] alone and
 // the outputs are (C, 1), so its fail bits are those of its own node, as
-// the JAX pass's vmapped own-row evaluation gives them.
+// the JAX pass's vmapped own-row evaluation gives them; the ImageLocality
+// plane is then (C, 1) too.
 //
 // One thread per (pod, node).  Filters run in profile order from
 // state.valid; a filter's fail bit is set only for nodes that passed every
@@ -27,7 +35,9 @@
 //
 // Bound: bytes.  Per chunk it reads the node state once (~0.7 MB at
 // N=8192, R=4) and writes C*N*(1+8) bytes of feasible/total (~4.7 MB at
-// C=64), a few operations per byte.  The design keeps every node's state
+// C=64), a few operations per byte; NodePorts adds at most two count reads
+// per want of a port pod, coalesced along the node axis, and ImageLocality
+// C*N bytes of its plane.  The design keeps every node's state
 // row in registers for the whole filter/score chain and writes each output
 // once, coalesced along the node axis.
 //
@@ -44,6 +54,7 @@ constexpr int kUnschedulable = 0;
 constexpr int kNodeName = 1;
 constexpr int kFit = 2;
 constexpr int kExt = 3;  // precomputed plane, chosen by ext_sel
+constexpr int kPorts = 4;
 // ext_sel values: 0-3 a node_bits bit, 4-5 a vol_bits bit, 6 spread_ok.
 constexpr int kSelVol = 4;
 constexpr int kSelSpread = 6;
@@ -75,6 +86,16 @@ struct EvalArgs {
   const unsigned char* spread_ok;        // (C, N): PodTopologySpread
   const unsigned char* vol_bits;         // (C, N): bit 0 VolumeRestrictions, bit 1 NodeVolumeLimits
   const int* pin_row;                    // (C,) pinned mode, else null
+  // Host ports: the node counts and the chunk's wants (null when the batch
+  // carries no port feature: nothing conflicts).
+  const int* port_counts;                // (P, N)
+  const int* portkey_counts;             // (PK, N)
+  const int* port_triples;               // (C, S), -1 pad
+  const int* port_keys;                  // (C, S)
+  const int* port_wild;                  // (C, S): the want's wildcard-IP triple
+  const unsigned char* port_is_wild;     // (C, S)
+  // ImageLocality's raw score, (C, N), or (C, 1) pinned; null: not scored.
+  const unsigned char* il_scores;
   // Static profile config.
   const unsigned char* fit_ignored;  // (R,)
   const long long* strat_cols;       // (S, 3): kind, col, weight
@@ -86,10 +107,11 @@ struct EvalArgs {
   long long fit_weight;
   int score_bal;
   long long bal_weight;
-  int filter_codes;  // 2 bits per filter, in fail-bit order
+  long long il_weight;
+  long long filter_codes;  // 3 bits per filter, in fail-bit order
   int n_filters;
   long long ext_sel;  // 3 bits per kExt filter (see kSelVol, kSelSpread)
-  int C, N, R;
+  int C, N, R, S;
   // Outputs.
   unsigned char* feasible;  // (C, N)
   long long* total;         // (C, N)
@@ -126,6 +148,27 @@ __device__ bool fit_filter(const EvalArgs& a, int c, int n) {
     fits = fits && (fits_nom || !applies);
   }
   return fits;
+}
+
+// HostPortInfo.CheckConflict for each active want of pod c on node n: a
+// wildcard-IP want conflicts with any use of its (proto, port) key, a
+// specific one with its own triple or the wildcard triple in use.
+__device__ bool ports_filter(const EvalArgs& a, int c, int n) {
+  if (a.port_triples == nullptr) return true;
+  for (int s = 0; s < a.S; ++s) {
+    const size_t o = (size_t)c * a.S + s;
+    const int triple = a.port_triples[o];
+    if (triple < 0) continue;
+    bool conflict;
+    if (a.port_is_wild[o]) {
+      conflict = a.portkey_counts[(size_t)max(a.port_keys[o], 0) * a.N + n] > 0;
+    } else {
+      conflict = a.port_counts[(size_t)triple * a.N + n] > 0 ||
+                 a.port_counts[(size_t)max(a.port_wild[o], 0) * a.N + n] > 0;
+    }
+    if (conflict) return false;
+  }
+  return true;
 }
 
 __device__ long long fit_score(const EvalArgs& a, int c, int n) {
@@ -203,7 +246,7 @@ __global__ void eval_chunk_kernel(EvalArgs a) {
   if (n >= 0 && n < a.N) {
     bool feas = a.valid[n] != 0;
     for (int b = 0; b < a.n_filters; ++b) {
-      const int code = (a.filter_codes >> (2 * b)) & 3;
+      const int code = (int)((a.filter_codes >> (3 * b)) & 7);
       bool ok;
       if (code == kUnschedulable) {
         ok = !a.unschedulable[n] || a.tol_unsched[c];
@@ -212,6 +255,8 @@ __global__ void eval_chunk_kernel(EvalArgs a) {
         ok = want == -1 || a.name_id[n] == want;
       } else if (code == kFit) {
         ok = fit_filter(a, c, n);
+      } else if (code == kPorts) {
+        ok = ports_filter(a, c, n);
       } else {
         const int sel = (int)((a.ext_sel >> (3 * b)) & 7);
         const size_t o = (size_t)c * a.N + n;
@@ -232,6 +277,7 @@ __global__ void eval_chunk_kernel(EvalArgs a) {
       if (a.score_bal) tot += balanced_score(a, c, n) * a.bal_weight;
     }
     const size_t o = pinned ? (size_t)c : (size_t)c * a.N + n;
+    if (feas && a.il_scores != nullptr) tot += (long long)a.il_scores[o] * a.il_weight;
     a.feasible[o] = feas ? 1 : 0;
     a.total[o] = tot;
   }
@@ -249,11 +295,13 @@ extern "C" int eval_chunk_launch(
     const void* tol_unsched, const void* pod_req, const void* pod_nonzero,
     const void* priority, const void* nominated_row, const void* node_bits,
     const void* spread_ok, const void* vol_bits, const void* pin_row, const void* fit_ignored,
+    const void* port_counts, const void* portkey_counts, const void* port_triples,
+    const void* port_keys, const void* port_wild, const void* port_is_wild, const void* il_scores,
     const void* strat_cols, int n_strat, int most_allocated,
     const void* bal_cols, int n_bal, int score_fit, long long fit_weight,
-    int score_bal, long long bal_weight, int filter_codes, int n_filters,
-    long long ext_sel, int C, int N, int R, void* feasible, void* total, void* fail_mask,
-    void* stream) {
+    int score_bal, long long bal_weight, long long il_weight, long long filter_codes,
+    int n_filters, long long ext_sel, int C, int N, int R, int S, void* feasible, void* total,
+    void* fail_mask, void* stream) {
   if (n_bal > kMaxBalanced) return (int)cudaErrorInvalidValue;
   EvalArgs a;
   a.valid = static_cast<const unsigned char*>(valid);
@@ -278,6 +326,13 @@ extern "C" int eval_chunk_launch(
   a.vol_bits = static_cast<const unsigned char*>(vol_bits);
   a.pin_row = static_cast<const int*>(pin_row);
   a.fit_ignored = static_cast<const unsigned char*>(fit_ignored);
+  a.port_counts = static_cast<const int*>(port_counts);
+  a.portkey_counts = static_cast<const int*>(portkey_counts);
+  a.port_triples = static_cast<const int*>(port_triples);
+  a.port_keys = static_cast<const int*>(port_keys);
+  a.port_wild = static_cast<const int*>(port_wild);
+  a.port_is_wild = static_cast<const unsigned char*>(port_is_wild);
+  a.il_scores = static_cast<const unsigned char*>(il_scores);
   a.strat_cols = static_cast<const long long*>(strat_cols);
   a.n_strat = n_strat;
   a.most_allocated = most_allocated;
@@ -287,12 +342,14 @@ extern "C" int eval_chunk_launch(
   a.fit_weight = fit_weight;
   a.score_bal = score_bal;
   a.bal_weight = bal_weight;
+  a.il_weight = il_weight;
   a.filter_codes = filter_codes;
   a.n_filters = n_filters;
   a.ext_sel = ext_sel;
   a.C = C;
   a.N = N;
   a.R = R;
+  a.S = S;
   a.feasible = static_cast<unsigned char*>(feasible);
   a.total = static_cast<long long*>(total);
   a.fail_mask = static_cast<unsigned int*>(fail_mask);

@@ -6,10 +6,13 @@
 // group_dom table, and the pod's own (anti-)affinity terms: et_counts[e,
 // row] += 1 and et_dom[e, d] += 1 where d is the node's value at term e's
 // own topology slot (values outside [0, DV), such as hostname values, are
-// dropped, as the JAX scatter drops them), and the device and CSI branches
-// (:211-236): dev_counts and dev_rw_counts at the pod's device ids, and
-// csivol_counts at its CSI volume ids with csi_used[driver] += 1 where the
-// volume's count before the chunk was 0.
+// dropped, as the JAX scatter drops them), the host-port branch
+// (:195-201): port_counts at each of the pod's (proto, ip, port) triples
+// and portkey_counts at its (proto, port) keys, and the device and CSI
+// branches (:211-236): dev_counts and dev_rw_counts at the pod's device
+// ids, and csivol_counts at its CSI volume ids with csi_used[driver] += 1
+// where the volume's count before the chunk was 0.  The port branch applies
+// to strict commits too (the pinned pass's, pass_.py:1040).
 //
 // One block per chunk, one thread per pod (C <= 1024).  With chunk > 1:
 //   (a) a valid pod behind an attempting chunk-mate that conflicts with it
@@ -30,8 +33,8 @@
 // come out as -2 (deferred), -1 (invalid or unschedulable) or the row.
 //
 // Bound: operations on a handful of bytes (C*C*R int64 prefix sums plus
-// C*(R+2+2+TK+2A+2SD+2SC) atomics); one block does the whole chunk, so its
-// time is launch latency.
+// C*(R+2+2+TK+2A+2SD+2SC+2SP) atomics); one block does the whole chunk, so
+// its time is launch latency.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -70,7 +73,12 @@ struct CommitArgs {
   int* csivol_counts;            // (CV, N)
   int* csi_used;                 // (DR, N)
   const unsigned char* csi_lim;  // (C,)
-  int C, N, R, TK, DV, A, SD, SC, DR;
+  // Host ports (null when the chunk carries none).
+  const int* port_triples;       // (C, SP), -1 pad
+  const int* port_keys;          // (C, SP)
+  int* port_counts;              // (P, N)
+  int* portkey_counts;           // (PK, N)
+  int C, N, R, TK, DV, A, SD, SC, DR, SP;
   int* out_picks;  // (C,)
 };
 
@@ -174,6 +182,13 @@ __global__ void resolve_commit_kernel(CommitArgs a) {
       const int d = a.csi_drv[(size_t)j * a.SC + s];
       if (((fresh >> s) & 1) && d >= 0 && d < a.DR) atomicAdd(a.csi_used + (size_t)d * a.N + row, 1);
     }
+    for (int s = 0; a.port_triples != nullptr && s < a.SP; ++s) {
+      const int triple = a.port_triples[(size_t)j * a.SP + s];
+      if (triple < 0) continue;
+      atomicAdd(a.port_counts + (size_t)triple * a.N + row, 1);
+      const int key = a.port_keys[(size_t)j * a.SP + s];
+      atomicAdd(a.portkey_counts + (size_t)(key < 0 ? 0 : key) * a.N + row, 1);
+    }
   }
   if (in) a.out_picks[j] = defer ? -2 : (v ? p : -1);
 }
@@ -188,8 +203,9 @@ extern "C" int resolve_commit_launch(
     const void* topo_vals, const void* own, void* et_counts, void* et_dom,
     const void* et_slot, const void* dev_ids, const void* dev_rw, void* dev_counts,
     void* dev_rw_counts, const void* csi_ids, const void* csi_drv, void* csivol_counts,
-    void* csi_used, const void* csi_lim, int C, int N, int R, int TK, int DV, int A, int SD,
-    int SC, int DR, void* out_picks, void* stream) {
+    void* csi_used, const void* csi_lim, const void* port_triples, const void* port_keys,
+    void* port_counts, void* portkey_counts, int C, int N, int R, int TK, int DV, int A, int SD,
+    int SC, int DR, int SP, void* out_picks, void* stream) {
   if (C > kMaxChunk || C < 1 || SC > 64) return (int)cudaErrorInvalidValue;
   CommitArgs a;
   a.picks = static_cast<const int*>(picks);
@@ -220,6 +236,11 @@ extern "C" int resolve_commit_launch(
   a.csivol_counts = static_cast<int*>(csivol_counts);
   a.csi_used = static_cast<int*>(csi_used);
   a.csi_lim = static_cast<const unsigned char*>(csi_lim);
+  a.port_triples = static_cast<const int*>(port_triples);
+  a.port_keys = static_cast<const int*>(port_keys);
+  a.port_counts = static_cast<int*>(port_counts);
+  a.portkey_counts = static_cast<int*>(portkey_counts);
+  a.SP = SP;
   a.SD = SD;
   a.SC = SC;
   a.DR = DR;

@@ -19,10 +19,12 @@ from ..ops import podtopologyspread as spread_op
 from ..ops import tainttoleration as taint_op
 from ..ops import volumes as vol_op
 from ..ops.helpers import make_topo_onehot
+from ..ops.imagelocality import image_counts, image_scores  # noqa: F401  (the image_locality.cu pair)
 from ..ops.volumes import NVL, VB, VR, VZ
 
 IPA = "InterPodAffinity"
 NA, TT, PTS = "NodeAffinity", "TaintToleration", "PodTopologySpread"
+IL = "ImageLocality"
 # Filters eval_chunk reads from a precomputed plane instead of evaluating,
 # and where: NodeAffinity, TaintToleration, VolumeBinding and VolumeZone
 # from node_filters' bits 0-3 (per batch), VolumeRestrictions and
@@ -59,9 +61,10 @@ def build_dom(state, et_slot, dv: int):
 
 def ext_planes(ext) -> dict:
     """The planes of an ``ext`` tuple (node_bits (C, N) u8, spread_ok (C, N)
-    bool[, vol_bits (C, N) u8]) by name; any may be None when no filter
-    reads it."""
-    names = ("node_bits", "spread_ok", "vol_bits")
+    bool[, vol_bits (C, N) u8[, il_scores (C, N) u8]]) by name; any may be
+    None when no filter or score reads it.  In pinned mode il_scores is
+    (C, 1), each pod's score on its own node (image_scores with ``pin``)."""
+    names = ("node_bits", "spread_ok", "vol_bits", "il_scores")
     ext = tuple(ext) if ext is not None else ()
     return {name: ext[i] if i < len(ext) else None for i, name in enumerate(names)}
 
@@ -104,15 +107,20 @@ def pin_view(state, pf: dict, pin, nom=None, planes=()):
 def eval_chunk(state, pf: dict, spec, nom, ext=None, pin=None):
     """(feasible (C, N) bool, total (C, N) i64, fail_mask (C,) i32) of one
     chunk — eval_pod's filter chain and weighted score sum (pass_.py:494-539).
-    The EXT_FILTERS ops' results come from ``ext`` (see ext_filter).
+    The EXT_FILTERS ops' results come from ``ext`` (see ext_filter), and
+    ImageLocality's raw score from its il_scores plane (image_scores).
     ``total`` is 0 on infeasible nodes (select_host never reads it there).
     With ``pin`` each pod is evaluated on its pinned node alone (see
     pin_view): (C, 1) outputs and that node's fail bits."""
+    planes = ext_planes(ext)
+    il = planes.pop("il_scores")
+    c = pf["req"].shape[0]
     own = None
     if pin is not None:
-        state, pf, nom, ext, own = pin_view(state, pf, pin, nom, tuple(ext_planes(ext).values()))
+        state, pf, nom, ext, own = pin_view(state, pf, pin, nom, tuple(planes.values()))
+        if il is not None:  # node j of the view is pod j's own: read on the diagonal
+            il = il.expand(-1, c)
     ctx = dataclasses.replace(spec.ctx, nom=nom)
-    c = pf["req"].shape[0]
     n = state.valid.shape[0]
     feasible = state.valid[None, :].expand(c, n).clone()
     if own is not None:
@@ -128,7 +136,12 @@ def eval_chunk(state, pf: dict, spec, nom, ext=None, pin=None):
         feasible = feasible & ok
     total = torch.zeros((c, n), dtype=torch.int64, device=feasible.device)
     for name, weight in spec.scorers:
-        total = total + opcommon.get(name).score(state, pf, ctx, feasible) * weight
+        if name == IL:
+            if il is None:
+                raise ValueError(f"eval_chunk: {IL} needs its il_scores plane")
+            total = total + il.to(torch.int64) * weight
+        else:
+            total = total + opcommon.get(name).score(state, pf, ctx, feasible) * weight
     total = torch.where(feasible, total, 0)
     if own is not None:
         return feasible.diagonal()[:, None].clone(), total.diagonal()[:, None].clone(), fail
@@ -176,8 +189,8 @@ def conflict_pairs(pf: dict, nchunks: int, c: int):
     device or CSI volume id) ∨ (both vol_unbound), where reads_g is
     InterPodAffinity's ipa_ra_allmask ∨ any(ipa_rs_groups) and spread's
     any(tps_h_groups) and hard_t = ipa_et_match ∧ ipa_et_anti (each part
-    only when the batch carries its features), over the pods of one chunk,
-    diagonal cleared."""
+    only when the batch carries its features) ∨ (i and j share a host-port
+    key), over the pods of one chunk, diagonal cleared."""
     dev = pf["valid"].device
     reads = None
     if "ipa_ra_allmask" in pf:
@@ -192,7 +205,7 @@ def conflict_pairs(pf: dict, nchunks: int, c: int):
         group = pf["group"].to(torch.int64).clamp(0, g - 1).view(nchunks, 1, c).expand(-1, c, -1)
         # reads.gather(...)[b, j, i] = reads[b, j, group[b, i]]
         pairs = reads.gather(2, group).transpose(1, 2)
-    for key in ("vol_dev_ids", "vol_csi_ids"):
+    for key in ("vol_dev_ids", "vol_csi_ids", "port_keys"):
         if key in pf:
             ids = pf[key].view(nchunks, c, -1)
             ok = ids >= 0
@@ -393,7 +406,22 @@ def resolve_commit(state, dom, pf: dict, picks, pairs, strict: bool):
             0, (safe * dv + d_a.clamp(0, dv - 1)).reshape(-1), inc_a.reshape(-1)
         )
     _commit_volumes(state, pf, att, rows)
+    _commit_ports(state, pf, att, rows)
     return torch.where(defer, -2, torch.where(valid, picks, -1)).to(torch.int32)
+
+
+def _commit_ports(state, pf: dict, att, rows) -> None:
+    """The host-port branch of _commit_chunk (pass_.py:195-201), in place:
+    port_counts at each placed pod's triples and portkey_counts at its
+    keys, one per active slot."""
+    triples = pf.get("port_triples")
+    if triples is None:
+        return
+    n = state.valid.shape[0]
+    act = (att[:, None] & (triples >= 0)).to(torch.int32).reshape(-1)
+    for ids, counts in ((triples, state.port_counts), (pf["port_keys"], state.portkey_counts)):
+        flat = (ids.clamp(min=0).to(torch.int64) * n + rows[:, None]).reshape(-1)
+        counts.view(-1).index_add_(0, flat, act)
 
 
 def _commit_volumes(state, pf: dict, att, rows) -> None:

@@ -2,6 +2,6 @@
 
 from . import common  # noqa: F401
 from . import (  # noqa: F401
-    interpodaffinity, nodeaffinity, noderesources, podtopologyspread, tainttoleration, trivial,
-    unported, volumes,
+    imagelocality, interpodaffinity, nodeaffinity, nodeports, noderesources, podtopologyspread,
+    tainttoleration, trivial, unported, volumes,
 )

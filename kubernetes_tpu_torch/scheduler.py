@@ -353,7 +353,7 @@ class TorchScheduler:
 
     def _full_inv(self) -> dict:
         """Batch invariants plus the nominated-pod overlay (scheduler.py:
-        3081-3104), as device tensors."""
+        3081-3104), as device tensors, and the image vocabulary's size."""
         inv = self.builder.batch_invariants()
         s = self.builder.schema
         nom_req = np.zeros((s.N, s.R), np.int64)
@@ -368,7 +368,10 @@ class TorchScheduler:
             nom_cnt[rec.row] += 1
             nom_prio[rec.row] = max(nom_prio[rec.row], prio)
         inv["nom_req"], inv["nom_cnt"], inv["nom_prio"] = nom_req, nom_cnt, nom_prio
-        return {k: torch.from_numpy(v).to(self.device) for k, v in inv.items()}
+        out = {k: torch.from_numpy(v).to(self.device) for k, v in inv.items()}
+        # The bound of the image ids ImageLocality's counts cover (a host int).
+        out["image_vocab"] = len(self.interns.images)
+        return out
 
     def _to_device(self, batch: dict) -> dict:
         return {

@@ -34,8 +34,9 @@ from .volumes import VolumeCatalog
 # Sentinel for "label value is not an integer" (Gt/Lt operators).
 INT_SENTINEL = np.int64(-(2**62))
 
-# Host-port slots per pod (the JAX package's static device shape; kept so
-# the port rejects the same pods at delta time).
+# Host-port slots per pod: the width of the port features (the JAX
+# package's static device shape), so the port rejects the same pods at
+# delta time.
 POD_PORT_SLOTS = 8
 
 # Fixed resource columns; scalar/extended resources are interned after these.

@@ -66,9 +66,32 @@ provisioned by ebs.csi.aws.com; 512 warm-up and 5000 measured pods, each
 with its own unbound claim of that class, which PreBind provisions on the
 chosen node (one new PV each, bumping the volume catalog's epoch); the
 table grown to _bucket(6000) rows.
+
+``default_images_ports_5kn_10kpods`` has no harness counterpart (the
+harness registers no workload whose nodes report images or whose pods ask
+for host ports); it runs the default profile at density's shape on a
+cluster as kubelets report it.  5000 nodes of 16 CPU, 64 GiB and 110 pods
+over 3 zones, each reporting 50 images (the kubelet's default
+nodeStatusMaxImages) drawn without replacement from a pool of 400 with
+Zipf weights (s = 1.1), so base images sit on most nodes and the tail on
+few; each image has two names (``repo:tag`` and ``repo@sha256:...``), a
+few are tagged ``:latest``, sizes are uniform in 5 MiB-1.5 GiB.  2048
+warm-up and 10000 measured pods of 900m CPU and 2 GiB from 40 templates of
+1-2 containers, each naming a pool image by tag (one reference in 10
+untagged, which normalizes to ``:latest``; a few naming an image no node
+reports); one pod in 8 has an init container with an image; one pod in 32
+asks for one hostPort (TCP 80, 443, 8080 or 9100, or UDP 53), a quarter of
+those on the specific hostIP 10.0.0.1 and the rest on the wildcard.  The
+warm-up names every port and hostIP of the measured pods, so no port or
+image table grows in the measured window.  Batch 4096, chunk 64, default
+profile.  Everything is drawn from ``seed`` with numpy.
 """
 
 from __future__ import annotations
+
+import functools
+
+import numpy as np
 
 from .api import types as t
 from .api.wrappers import make_node, make_pod, make_pv, make_pvc
@@ -309,3 +332,109 @@ def csi_measured(s, count: int) -> int:
         s.add_pvc(make_pvc(f"csiclaim-{i}", storage_class=CSI_CLASS))
         s.add_pod(_pv_claim_pod(f"csipod-{i}", f"csiclaim-{i}"))
     return count
+
+
+# -- default_images_ports_5kn_10kpods (no harness counterpart) ----------------
+
+IMAGES_NODES = 5000
+IMAGES_ZONES = 3
+IMAGES_WARM_PODS = 2048
+IMAGES_MEASURED_PODS = 10000
+IMAGES_BATCH = 4096
+IMAGES_CHUNK = 64
+IMAGE_POOL = 400
+NODE_IMAGES = 50  # the kubelet's nodeStatusMaxImages default
+IMAGE_ZIPF_S = 1.1
+IMAGE_TEMPLATES = 40
+PORT_EVERY = 32  # one pod in 32 asks for a host port
+HOST_PORTS = (("TCP", 80), ("TCP", 443), ("TCP", 8080), ("TCP", 9100), ("UDP", 53))
+SPECIFIC_IP = "10.0.0.1"
+MIB = 1024 * 1024
+
+
+@functools.lru_cache(maxsize=4)
+def image_pool(seed: int = 0) -> tuple[tuple, np.ndarray]:
+    """The 400 pool images as (tagged name, digest name, size in bytes),
+    and their Zipf weights (rank order)."""
+    rng = np.random.default_rng(seed)
+    pool = []
+    for i in range(IMAGE_POOL):
+        repo = f"registry.example.com/team-{i % 16}/svc-{i}"
+        tag = "latest" if i % 50 == 7 else f"v1.{i % 9}"
+        size = int(rng.integers(5 * MIB, 1536 * MIB + 1))
+        pool.append((f"{repo}:{tag}", f"{repo}@sha256:{rng.bytes(32).hex()}", size))
+    weights = np.arange(1, IMAGE_POOL + 1, dtype=np.float64) ** -IMAGE_ZIPF_S
+    return tuple(pool), weights / weights.sum()
+
+
+@functools.lru_cache(maxsize=4)
+def image_templates(seed: int = 0) -> tuple:
+    """The 40 pod templates: (container image references, init container's
+    image reference)."""
+    pool, weights = image_pool(seed)
+    rng = np.random.default_rng(seed + 1)
+    latest = [i for i, (ref, _d, _s) in enumerate(pool) if ref.endswith(":latest")]
+    out, refs_made = [], 0
+    for j in range(IMAGE_TEMPLATES):
+        refs = []
+        for _ in range(1 + int(rng.integers(2))):
+            refs_made += 1
+            if refs_made % 10 == 0:  # untagged: normalizes to a :latest pool image
+                refs.append(pool[latest[int(rng.integers(len(latest)))]][0].rsplit(":", 1)[0])
+            elif refs_made % 29 == 0:  # an image no node reports
+                refs.append(f"registry.example.com/scratch/tool-{j}:v0")
+            else:
+                refs.append(pool[int(rng.choice(IMAGE_POOL, p=weights))][0])
+        out.append((tuple(refs), pool[int(rng.choice(IMAGE_POOL, p=weights))][0]))
+    return tuple(out)
+
+
+def node_image_picks(n: int, seed: int = 0) -> np.ndarray:
+    """(n, 50) pool indices of each node's images, drawn without
+    replacement with the Zipf weights (Efraimidis-Spirakis keys: the 50
+    largest u ** (1 / weight) of uniform u)."""
+    _pool, weights = image_pool(seed)
+    keys = np.log(np.random.default_rng(seed + 2).random((n, IMAGE_POOL))) / weights
+    return np.argsort(-keys, axis=1, kind="stable")[:, :NODE_IMAGES]
+
+
+def images_nodes(n: int = IMAGES_NODES, zones: int = IMAGES_ZONES, seed: int = 0) -> list[t.Node]:
+    """Density's nodes, each reporting its 50 images under both names."""
+    pool, _w = image_pool(seed)
+    images = [t.ContainerImage(names=(tag, digest), size_bytes=size) for tag, digest, size in pool]
+    out = basic_nodes(n, zones)
+    for node, picks in zip(out, node_image_picks(n, seed).tolist()):
+        node.status.images = tuple(images[k] for k in picks)
+    return out
+
+
+def images_ports_pod_spec(i: int, seed: int = 0) -> dict:
+    """Pod i of the workload as plain data: template index, container image
+    references, the init container's reference (or None) and the host port
+    (protocol, hostIP, port) it asks for (or None)."""
+    j = i % IMAGE_TEMPLATES
+    refs, init = image_templates(seed)[j]
+    port = None
+    if i % PORT_EVERY == 7:
+        q = i // PORT_EVERY
+        proto, number = HOST_PORTS[q % len(HOST_PORTS)]
+        port = (proto, SPECIFIC_IP if q % 4 == 0 else "", number)
+    return {"template": j, "refs": refs, "init": init if i % 8 == 3 else None, "port": port}
+
+
+def pod_images_ports(i: int, seed: int = 0) -> t.Pod:
+    spec = images_ports_pod_spec(i, seed)
+    pod = (
+        make_pod(f"pod-{i}")
+        .req({"cpu": "900m", "memory": "2Gi"})
+        .label("app", f"tmpl-{spec['template']}")
+        .obj()
+    )
+    pod.spec.containers[0].images = spec["refs"][:1]
+    pod.spec.containers += [t.Container(name=f"c{k}", images=(ref,)) for k, ref in enumerate(spec["refs"][1:], 1)]
+    if spec["init"] is not None:
+        pod.spec.init_containers.append(t.Container(name="init", images=(spec["init"],)))
+    if spec["port"] is not None:
+        proto, ip, number = spec["port"]
+        pod.spec.containers[0].ports += (t.ContainerPort(host_port=number, protocol=proto, host_ip=ip),)
+    return pod

@@ -2,8 +2,8 @@
 
 A CUDA kernel has no CPU mode, so these tests need a card and skip
 without one; ``python3 chip_smoke.py`` runs the same checks (and the
-density, inter-pod-affinity, spread, preemption, daemonset and
-persistent-volume workloads at full size) on the H100.  Run them there with ``python -m pytest --noconftest
+density, inter-pod-affinity, spread, preemption, daemonset,
+persistent-volume and images/ports workloads at full size) on the H100.  Run them there with ``python -m pytest --noconftest
 tests/test_torch_kernels.py -m cuda`` (tests/conftest.py imports JAX,
 which that machine lacks)."""
 
@@ -216,13 +216,14 @@ def test_scheduler_preemption_kernel_path_matches_plain_path(cuda_device, chunk)
 
 @pytest.mark.cuda
 def test_pinned_kernels_match_plain_versions_exactly(cuda_device):
-    """node_filters, eval_chunk and late_scores in pinned mode, pinned_fit
-    and the strict resolve_commit against their plain versions at the
-    daemonset_15kn shapes."""
+    """node_filters, image_scores, eval_chunk and late_scores in pinned
+    mode, pinned_fit and the strict resolve_commit against their plain
+    versions at the daemonset_15kn shapes."""
     import chip_smoke
 
     timing = chip_smoke.check_pinned_kernels(cuda_device, reps=1)
-    assert set(timing) == {"node_filters", "eval_chunk", "late_scores", "pinned_fit", "resolve_commit"}
+    assert set(timing) == {"node_filters", "image_scores", "eval_chunk", "late_scores", "pinned_fit",
+                           "resolve_commit"}
     assert all(t["max_abs_err"] == 0 for t in timing.values())
 
 
@@ -300,5 +301,48 @@ def test_scheduler_pv_kernel_path_matches_plain_path(cuda_device, workload):
             counts = kernels.launch_counts()
             assert min(counts[k] for k in ("node_filters", "vol_filter", "eval_chunk", "resolve_commit")) > 0
             assert (counts["conflict_pairs"] > 0) == (workload != "intree")
+    assert binds["kernel"] == binds["plain"]
+    assert all(v is not None for v in binds["kernel"].values())
+
+
+@pytest.mark.cuda
+def test_ports_images_kernels_match_plain_versions_exactly(cuda_device):
+    """image_counts, image_scores, eval_chunk with NodePorts and the image
+    plane, select_host, resolve_commit with the port commit and
+    conflict_pairs with port keys at the "ports/images" shape, and the
+    ImageLocality rounding cases (chip_smoke.check_ports_images_kernels)."""
+    import chip_smoke
+
+    timing = chip_smoke.check_ports_images_kernels(cuda_device, reps=1)
+    assert set(timing) == {"image_counts", "image_scores", "conflict_pairs", "eval_chunk", "resolve_commit"}
+    assert all(t["max_abs_err"] == 0 for t in timing.values())
+
+
+@pytest.mark.cuda
+def test_scheduler_images_ports_kernel_path_matches_plain_path(cuda_device):
+    """A cut of default_images_ports_5kn_10kpods through TorchScheduler on
+    the card: the kernel path binds as the plain path does, through
+    image_counts, image_scores and the port branches, with no host-port
+    conflict on any node."""
+    import chip_smoke
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch import workloads as w
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+
+    binds = {}
+    for impl in ("kernel", "plain"):
+        s = TorchScheduler(DEFAULT_PROFILE, batch_size=128, chunk_size=64, _impl=impl)
+        for n in w.images_nodes(60):
+            s.add_node(n)
+        kernels.reset_launches()
+        for pod in w.warm_pods(64, w.pod_images_ports) + [w.pod_images_ports(i) for i in range(600)]:
+            s.add_pod(pod)
+        binds[impl] = {o.pod.name: o.node_name for o in s.schedule_all_pending()}
+        assert s.builder.host_mirror_equal() and chip_smoke.port_conflicts(s) == []
+        if impl == "kernel":
+            counts = kernels.launch_counts()
+            assert min(counts[k] for k in ("image_counts", "image_scores", "conflict_pairs", "eval_chunk",
+                                           "resolve_commit")) > 0
     assert binds["kernel"] == binds["plain"]
     assert all(v is not None for v in binds["kernel"].values())

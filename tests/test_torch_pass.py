@@ -28,6 +28,7 @@ from kubernetes_tpu_torch.cache import Cache as TorchCache
 from kubernetes_tpu_torch.engine.features import build_pod_batch as torch_batch
 from kubernetes_tpu_torch.engine.pass_ import build_pass, filter_op_names
 from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE as TDEF
+from kubernetes_tpu_torch.kernels import plain
 from kubernetes_tpu_torch.snapshot import SnapshotBuilder, state_from_numpy, state_to_numpy
 
 ZONE = "topology.kubernetes.io/zone"
@@ -115,14 +116,15 @@ def _assert_same(jout, tout, jstate, tstate, jdom=None, tdom=None):
         np.testing.assert_array_equal(tdom[1].numpy(), np.asarray(jdom[1]))
 
 
-def _run_both(jb, active, jbatch, chunk, seed_base, inv, carry=None):
+def _run_both(jb, active, jbatch, chunk, seed_base, inv, carry=None, extra=()):
     """One pass on each side from the same state.  ``carry``: None for the
-    plain signature, else (jax_dom, torch_dom, valid) for carry_dom."""
+    plain signature, else (jax_dom, torch_dom, valid) for carry_dom;
+    ``extra``: batch keys the port side also gets."""
     jstate0 = jb.state()
     tstate = state_from_numpy({f.name: np.asarray(getattr(jstate0, f.name))
                                for f in dataclasses.fields(jstate0)}, "cpu")
-    tbatch = {k: np.asarray(jbatch[k]) for k in (*PORT_KEYS, "nominated_row", "step_offset", "uniform_all")
-              if k in jbatch}
+    tbatch = {k: np.asarray(jbatch[k])
+              for k in (*PORT_KEYS, "nominated_row", "step_offset", "uniform_all", *extra) if k in jbatch}
     s = jb.schema
     if carry is None:
         jst, jout = jax_build_pass(JPROF, s, jb.res_col, active, chunk)(jstate0, jbatch, inv, np.uint32(seed_base))
@@ -186,17 +188,28 @@ def test_crowded_node_defers_into_fused_tail():
 
 def test_unported_op_in_pass_raises():
     jb = JaxBuilder()
-    with pytest.raises(NotImplementedError):
-        build_pass(TDEF, jb.schema, jb.res_col, frozenset({"NodeResourcesFit", "NodePorts"}), 8)
+    with pytest.raises(NotImplementedError, match="DynamicResources"):
+        build_pass(TDEF, jb.schema, jb.res_col, frozenset({"NodeResourcesFit", "DynamicResources"}), 8)
     with pytest.raises(NotImplementedError):
         build_pass(dataclasses.replace(TDEF, percentage_of_nodes_to_score=50), jb.schema, jb.res_col)
 
 
 @pytest.mark.parametrize("key", ["dra_claim_ids", "port_keys"])
 def test_conflict_pair_feature_raises(key):
-    """A batch feature from which the JAX pass derives conflict pairs is
-    refused, not read as 'no pairs'."""
+    """A batch feature from which the JAX pass derives conflict pairs: DRA
+    claim ids (an unported op) are refused, not read as 'no pairs'; shared
+    host-port keys defer chunk-mates into the fused strict tail exactly as
+    in the JAX pass."""
     jb, active, jbatch = _setup(3, 16)
+    if key == "port_keys":
+        keys = np.full((16, 8), -1, np.int32)
+        keys[:, 0] = np.arange(16) % 3  # every chunk-mate shares a key with another
+        jbatch["port_keys"] = keys
+        _run_both(jb, active, jbatch, 8, 2, _inv(jb), extra=("port_keys",))
+        pairs = plain.conflict_pairs({"port_keys": torch.from_numpy(keys), "valid": torch.ones(16, dtype=torch.bool),
+                                      "group": torch.zeros(16, dtype=torch.int32)}, 2, 8)
+        assert int(pairs.sum()) == 2 * sum(n * (n - 1) // 2 for n in (3, 3, 2, 3, 3, 2))
+        return
     jstate = jb.state()
     tstate = state_from_numpy({f.name: np.asarray(getattr(jstate, f.name))
                                for f in dataclasses.fields(jstate)}, "cpu")

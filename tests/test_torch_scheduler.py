@@ -1,8 +1,9 @@
 """TorchScheduler(device="cpu") against TPUScheduler: identical bindings on
 scaled-down shapes of the fit-only and density workloads, failures with
 the same diagnosis, carried domain tables across batches and host
-mutations, and the slice's loud failures (unported ops, preemption, no
-CUDA).  Plus the import-isolation contract: the port imports neither
+mutations, pods with host ports and affinity scheduled as the JAX
+scheduler does, and the slice's loud failures (unported ops, preemption,
+no CUDA).  Plus the import-isolation contract: the port imports neither
 ``jax`` nor ``kubernetes_tpu``."""
 
 import subprocess
@@ -126,24 +127,41 @@ def test_priority_order_and_gated_pods():
     assert _bindings(ts.schedule_all_pending()) == {"low": "n1"}
 
 
-@pytest.mark.parametrize(
-    "pod",
-    [
-        # Pod affinity and topology spread are ported; the host port beside them is not.
-        tpod("aff").req({"cpu": "1"}).label("app", "a").pod_affinity_in("app", ["a"], "zone")
-        .spread_constraint(1, "zone", "DoNotSchedule", "app", ["a"]).host_port(9090).obj(),
-        # A node selector is ported; the resource claim beside it is not.
-        tpod("sel").req({"cpu": "1"}).node_selector({"disk": "ssd"}).resource_claim("gpu").obj(),
-        tpod("port").req({"cpu": "1"}).host_port(8080).obj(),
-    ],
-    ids=["pod-affinity", "node-selector", "host-port"],
-)
-def test_unported_constraints_raise(pod):
+def _aff_port(mkpod):
+    # Pod affinity, topology spread and a host port: all ported.
+    return (mkpod("aff").req({"cpu": "1"}).label("app", "a").pod_affinity_in("app", ["a"], "zone")
+            .spread_constraint(1, "zone", "DoNotSchedule", "app", ["a"]).host_port(9090).obj())
+
+
+def _sel_claim(mkpod):
+    # A node selector is ported; the resource claim beside it is not.
+    return mkpod("sel").req({"cpu": "1"}).node_selector({"disk": "ssd"}).resource_claim("gpu").obj()
+
+
+def _port(mkpod):
+    return mkpod("port").req({"cpu": "1"}).host_port(8080).obj()
+
+
+@pytest.mark.parametrize("build,ported", [(_aff_port, True), (_sel_claim, False), (_port, True)],
+                         ids=["pod-affinity", "node-selector", "host-port"])
+def test_unported_constraints_raise(build, ported):
+    """A constraint the port does not have raises by name; the cases that
+    are now ported schedule as the JAX scheduler does."""
     ts = TorchScheduler(TDEF, batch_size=4, device="cpu")
-    ts.add_node(tnode("n0").capacity({"cpu": "4", "memory": "8Gi"}).obj())
-    ts.add_pod(pod)
-    with pytest.raises(NotImplementedError):
-        ts.schedule_batch()
+    ts.add_node(tnode("n0").capacity({"cpu": "4", "memory": "8Gi"}).label("zone", "z0").obj())
+    ts.add_pod(build(tpod))
+    if not ported:
+        with pytest.raises(NotImplementedError, match="DynamicResources"):
+            ts.schedule_batch()
+        return
+    js = TPUScheduler(profile=registered_subset(JDEF), batch_size=4)
+    js.add_node(jnode("n0").capacity({"cpu": "4", "memory": "8Gi"}).label("zone", "z0").obj())
+    js.add_pod(build(jpod))
+    key = lambda outs: [(o.pod.name, o.node_name, o.score, o.feasible_nodes) for o in outs]  # noqa: E731
+    got = ts.schedule_all_pending()
+    assert key(got) == key(js.schedule_all_pending())
+    assert got[0].node_name == "n0" and int(ts.builder.host["port_counts"].sum()) == 1
+    assert ts.builder.host_mirror_equal()
 
 
 def test_possible_preemption_raises():

@@ -538,13 +538,25 @@ def test_preemption_with_volume_op_refused_by_name():
 
 @pytest.mark.parametrize("kind", ["claim", "host-port"])
 def test_dra_and_host_ports_still_refused(kind):
+    """A claim of DRA still raises by name; a host port beside a missing
+    PVC is ported and fails VolumeBinding as in the JAX scheduler."""
+    def build(s, w):
+        s.add_node(w.make_node("n1").capacity({"cpu": "4"}).obj())
+        pw = w.make_pod("p").req({"cpu": "1"}).pvc_volume("data")
+        s.add_pod((pw.resource_claim("gpu") if kind == "claim" else pw.host_port(8080)).obj())
+
     t = TorchScheduler(TProfile(), batch_size=4, device="cpu")
-    t.add_node(tw.make_node("n1").capacity({"cpu": "4"}).obj())
-    pw = tw.make_pod("p").req({"cpu": "1"}).pvc_volume("data")
-    pw = pw.resource_claim("gpu") if kind == "claim" else pw.host_port(8080)
-    t.add_pod(pw.obj())
-    with pytest.raises(NotImplementedError, match="DynamicResources" if kind == "claim" else "NodePorts"):
-        t.schedule_batch()
+    build(t, tw)
+    if kind == "claim":
+        with pytest.raises(NotImplementedError, match="DynamicResources"):
+            t.schedule_batch()
+        return
+    j = TPUScheduler(profile=jcommon.registered_subset(JProfile()), batch_size=4)
+    build(j, jw)
+    got, want = t.schedule_batch(), j.schedule_batch()
+    assert [(o.pod.name, o.node_name, o.feasible_nodes, sorted(o.unschedulable_plugins)) for o in got] == [
+        (o.pod.name, o.node_name, o.feasible_nodes, sorted(o.diagnosis.unschedulable_plugins)) for o in want]
+    assert got[0].node_name is None and "VolumeBinding" in got[0].unschedulable_plugins
 
 
 def test_catalog_epoch_keys_the_feature_cache():

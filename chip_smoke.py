@@ -66,6 +66,19 @@ Phases; any failure fails the run (nothing is caught):
        (a size x spread product on the 1000 MiB threshold and an ulp below
        it, sums at 23 MiB - 1, 23 MiB, 1000 MiB x n and + 1, an image
        named twice);
+     - at the two search shapes (preempt_search; "search": the
+       preemption_default_search_5kn cluster, N=8192, its 20000 background
+       pods bound four to a node, 300 app=svc pods skewed over the zones,
+       the 1024-pod batch of the path's preemptor and a mixed 64-pod chunk;
+       "search_pv": N=8192, two bound pods per node with device volumes and
+       a node-shared CSI claim, the CSI volume table at 8192 rows): the
+       victim pack through unpack_victims with its feature columns, then
+       preempt_eval's prologue, search_step on the live state (the hard
+       filters), dom_release and search_step for phase 1 and every occupied
+       slot, and preempt_eval's tail, the carry and the released domain
+       tables compared after every step, for chunk 1 (a zone affinity, a
+       hostname spread), the rank split, a mixed chunk and the speculative
+       mode; and preempt_eval in one launch with the node-local ops alone;
   4. drive each main path through TorchScheduler, with the launch counts
      set to 0 just before and read just after; every pod must bind, the
      host mirror must equal the device state, no node may exceed its
@@ -103,6 +116,14 @@ Phases; any failure fails the run (nothing is caught):
        images, 2048 + 10000 pods naming images, one in 32 with a host
        port; no harness counterpart): no node holds two pods whose host
        ports conflict, and no whole-state upload happens in the window;
+     - preemption_default_search_5kn (5000 nodes in 10 zones, 20000 batch
+       pods, a warm-up preemptor, then 1000 service preemptors with a zone
+       spread, an anti-affinity to tier=noisy and host port 8080; default
+       profile, backoff waited, nominate-and-retry; no harness
+       counterpart): every preemptor binds, every victim is a priority-1
+       batch pod, no node holds two port-8080 pods, no service pod shares a
+       node with a tier=noisy pod or with a pod keeping app=svc off, the
+       service's zone counts differ by at most 1, no whole-state upload;
      every run of a path must give the same outcome count and send the
      same number of pods to backoff; pods/s, the idle share, deferrals,
      preemptions, the backoff waited and the garbage collector's pauses in
@@ -1383,7 +1404,7 @@ def check_preempt_kernels(dev, shape: str, reps: int) -> dict:
             exact(errs, "unpack_victims", f"[{shape}] {what}", a, b)
     result["unpack_victims"] = timed(lambda _: kernels.unpack_victims(d_buf, *args),
                                      lambda _: plain.unpack_victims(d_buf, *args), reps)
-    set_bound(result["unpack_victims"], nbytes(d_buf) + nbytes(*(x for x in up if x is not None)))
+    set_bound(result["unpack_victims"], nbytes(d_buf) + nbytes(*(x for x in up[:6] if x is not None)))
     # scatter_rows: a handful of dirty node rows into state fields of both
     # node axes and into the device victim buffer.
     g = torch.Generator(device="cpu").manual_seed(7)
@@ -1415,6 +1436,282 @@ def check_preempt_kernels(dev, shape: str, reps: int) -> dict:
     result["expand_rows"]["library_ms"] = median_ms(lambda _: row.repeat(k, 1), reps)[0]
     set_bound(result["expand_rows"], nbytes(row) * (k + 1))
     torch.cuda.synchronize()
+    for name in result:
+        result[name]["max_abs_err"] = errs[name]
+        result[name].setdefault("library_ms", None)
+    return result
+
+
+# -- preemption's what-if search (preempt_eval's modes, dom_release, search_step) --------
+
+
+def search_inputs(shape: str, dev, nodes: int = 5000):
+    """A search shape's scheduler, victim pack and preemptor batches.
+
+    "search" is preemption_default_search_5kn's cluster: 5000 nodes in 10
+    zones (8192 rows), its 20000 background pods bound four to a node in
+    start order (host-port holders, tier=noisy pods, pods keeping app=svc
+    off their node), and 300 app=svc pods at priority 1000 bound unevenly
+    over the zones; the batches are 1024 of the path's preemptor and a
+    mixed 64 (the template, without the port, with a zone affinity to
+    app=batch, with a zone anti-affinity to tier=noisy, with a hostname
+    spread).  "search_pv" is a volume cluster: 5000 nodes whose CSINodes
+    allow two attachments of the ebs driver, two bound pods per node, each
+    with a device volume (read-write and read-only) and CSI claims, the
+    node's shared claim held by both and every third node's first pod
+    holding a claim of its own (6667 claims: the CSI volume table grows to
+    8192 rows, 256 MiB); the batches want a device and a new claim, and one
+    in three also keeps tier=noisy off its node."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import workloads as w
+    from kubernetes_tpu_torch.api import types as t
+    from kubernetes_tpu_torch.api.wrappers import make_pod, make_pvc
+    from kubernetes_tpu_torch.engine.features import build_pod_batch
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+
+    k = 1024
+    s = TorchScheduler(DEFAULT_PROFILE, batch_size=k, chunk_size=64, device=dev)
+    for node in w.search_nodes(nodes):
+        s.add_node(node)
+    if shape == "search":
+        for p in w.search_background(4 * nodes):
+            p.spec.node_name = f"node-{int(p.metadata.name[3:]) // 4}"
+            s.add_pod(p)
+        for i in range(nodes * 3 // 50):
+            zone = i % 10 if i < nodes * 3 // 50 - 10 else 0
+            s.add_pod(make_pod(f"svc-bound-{i}").req({"memory": "1Gi"}).priority(1000).label("app", "svc")
+                      .node(f"node-{(i * 17 + zone) % nodes // 10 * 10 + zone}").obj())
+        uniform = [w.search_preemptor(f"u{i}") for i in range(k)]
+
+        def mixed_pod(i):
+            if i % 4 == 0:
+                return w.search_preemptor(f"m{i}")
+            p = (make_pod(f"m{i}").req({"cpu": "2", "memory": "4Gi"}).priority(1000 - i % 3).label("app", "svc")
+                 .spread_constraint(1, w.ZONE, t.DO_NOT_SCHEDULE, "app", ["svc"]))
+            if i % 4 == 1:
+                p = p.pod_affinity_in("app", ["batch"], w.ZONE)
+            elif i % 4 == 2:
+                p = p.pod_anti_affinity_in("tier", ["noisy"], w.HOSTNAME).host_port(9090, host_ip="10.0.0.1")
+            else:
+                p = p.spread_constraint(2, w.HOSTNAME, t.DO_NOT_SCHEDULE, "app", ["svc"])
+            return p.obj()
+    else:
+        driver = "ebs.csi.aws.com"
+        s.add_storage_class(t.StorageClass(name="ebs", provisioner=driver,
+                                           binding_mode=t.BINDING_WAIT_FOR_FIRST_CONSUMER))
+        for i in range(nodes):
+            s.add_csinode(t.CSINode(name=f"node-{i}", driver_limits={driver: 2}))
+        for c in ("want-a", "want-b"):
+            s.add_pvc(make_pvc(c, storage_class="ebs"))
+        for i in range(nodes):
+            s.add_pvc(make_pvc(f"shared-{i}", storage_class="ebs"))
+            for j in range(2):
+                p = (make_pod(f"v-{i}-{j}").req({"cpu": "1", "memory": "3Gi"}).priority(1 + (i + j) % 3)
+                     .start_time(float(2 * i + j)).device_volume(f"disk-{(i + j) % 64}", read_only=bool(j))
+                     .pvc_volume(f"shared-{i}"))
+                if (i + j) % 5 == 0:
+                    p = p.label("tier", "noisy")
+                if j == 0 and i % 3 == 0:
+                    s.add_pvc(make_pvc(f"own-{i}", storage_class="ebs"))
+                    p = p.pvc_volume(f"own-{i}")
+                s.add_pod(p.node(f"node-{i}").obj())
+
+        def vol_pod(i, name):
+            p = make_pod(name).req({"cpu": "3", "memory": "4Gi"}).priority(100).label("app", "svc")
+            p = p.device_volume(f"disk-{i % 64}", read_only=bool(i % 2)).pvc_volume("want-a")
+            if i % 3 == 0:
+                p = p.pod_anti_affinity_in("tier", ["noisy"], w.HOSTNAME)
+            if i % 5 == 0:
+                p = p.pvc_volume("want-b")
+            return p.obj()
+
+        uniform = [vol_pod(1, f"u{i}") for i in range(k)]
+
+        def mixed_pod(i):
+            return vol_pod(i, f"m{i}")
+
+    mixed = [mixed_pod(i) for i in range(64)]
+    batches = {}
+    for _ in range(2):  # the second pass sees the final vocabularies
+        for label, pods in (("uniform", uniform), ("mixed", mixed)):
+            batch, _deltas, active = build_pod_batch(pods, s.builder, s.profile, len(pods))
+            sigs, _ = s.preemption._sig_ids(pods, len(pods))
+            tb = {key: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for key, v in batch.items()}
+            tb["sig"] = torch.from_numpy(sigs).to(dev)
+            batches[label] = (tb, active)
+    active = batches["uniform"][1] | batches["mixed"][1]
+    pack = s.preemption.pack_victims(s.profile, active)
+    return s, pack, batches, active
+
+
+def search_step_bytes(state, vic, pf: dict, spec, carry) -> int:
+    """search_step at one step: each node's state row (valid, counts,
+    allocatable, requests, topology values), carry and node_bits read once
+    and the carry written once; its masked victims' requests, groups and
+    terms; the rows of the representative's groups and matching host terms
+    in group_counts and et_counts; the port, device and CSI count rows of
+    its ids; the domain tables read once."""
+    import torch
+
+    n, v = vic.prio.shape
+    r = state.alloc.shape[1]
+    masked = int(torch.stack([((carry.mask >> j) & 1) for j in range(v)]).sum())
+    node = n * (1 + 4 + 4 + 2 * r * 8 + state.topo_vals.shape[1] * 4 + 1) + 2 * nbytes(*carry)
+    vf = vic.vfeat or {}
+    slot = masked * (r * 8 + sum(x[0, 0].numel() * 4 for x in vf.values()))
+    i0 = int(torch.argmax(pf["valid"].to(torch.int32)))
+    rows = 0
+    if spec.domain:
+        groups = pf["tps_h_groups"][i0].any(0) if spec.pts else torch.zeros_like(pf["ipa_ra_allmask"][i0])
+        if spec.ipa:
+            groups = groups | pf["ipa_ra_allmask"][i0] | pf["ipa_rs_groups"][i0].any(0)
+            rows += int((pf["ipa_et_match"][i0] & pf["ipa_et_anti"][i0]).sum())
+        rows += int(groups.sum())
+    for key in ("port_triples", "vol_dev_ids", "vol_csi_ids"):
+        if key in pf:
+            rows += 2 * int((pf[key][i0] >= 0).sum())
+    return node + slot + rows * n * 4
+
+
+def dom_release_bytes(dom, state, vic, carry) -> int:
+    """dom_release: both live tables read and both results written once,
+    the carry's masks, and the masked victims' groups and terms with their
+    nodes' topology values."""
+    import torch
+
+    v = vic.prio.shape[1]
+    masked = int(torch.stack([((carry.mask >> j) & 1) for j in range(v)]).sum())
+    ts = vic.vfeat["terms"].shape[2] if "terms" in (vic.vfeat or {}) else 0
+    return (2 * nbytes(dom.group_dom, dom.et_dom) + nbytes(carry.mask)
+            + masked * (4 + ts * 4 + state.topo_vals.shape[1] * 4))
+
+
+def check_search_kernels(dev, shape: str, reps: int, nodes: int = 5000) -> dict:
+    """unpack_victims (with the victim features), preempt_eval in its three
+    modes, dom_release and search_step against their plain versions at one
+    search shape, step by step (the carry and the released domain tables
+    after every step equal), for the chunk-1 dry-run, the uniform batch's
+    rank split, the mixed chunk and the speculative mode, with the default
+    profile's filters (the domain ops) and with the node-local ops alone
+    (FULL); then each timed with CUDA events beside its bound."""
+    import dataclasses
+
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch import preemption as tpre
+    from kubernetes_tpu_torch.engine.pass_ import DomTables, build_dom
+    from kubernetes_tpu_torch.kernels import plain
+
+    s, pack, batches, active = search_inputs(shape, dev, nodes)
+    state = s.builder.state()
+    vic = pack["vic"]
+    errs: dict[str, float] = {}
+    result = {}
+    spec = tpre.preempt_spec(s.profile, s.builder.schema, s.builder.res_col, active)
+    local = dataclasses.replace(spec, ipa=False, pts=False)
+    inv = s.builder.batch_invariants()
+    to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    dom = build_dom(state, to(inv["et_slot"]), to(inv["et_host"]), s.builder.schema.DV)
+    # unpack_victims of the staged buffer with its feature columns.
+    lay = pack["layout"]
+    d_buf = torch.from_numpy(pack["buf"]).to(dev)
+    args = (lay["r"], lay["n_pdbs"], lay["pdb_words"], lay["v"], "allowed" not in lay, lay["vf_cols"])
+    uk = kernels.unpack_victims(d_buf, *args)
+    up = plain.unpack_victims(d_buf, *args)
+    torch.cuda.synchronize()
+    for what, a, b in zip(("prio", "req", "nonzero", "start", "pdb", "allowed"), uk, up):
+        if a is not None:
+            exact(errs, "unpack_victims", f"[{shape}] {what}", a, b)
+    for key in up[6]:
+        exact(errs, "unpack_victims", f"[{shape}] vfeat {key}", uk[6][key], up[6][key])
+    result["unpack_victims"] = timed(lambda _: kernels.unpack_victims(d_buf, *args),
+                                     lambda _: plain.unpack_victims(d_buf, *args), reps)
+    set_bound(result["unpack_victims"], nbytes(d_buf) + nbytes(*(x for x in up[:6] if x is not None))
+              + nbytes(*up[6].values()))
+    k = s.batch_size
+    tb, _ = batches["uniform"]
+    valid = torch.ones(k, dtype=torch.bool, device=dev)
+    spec_picks = torch.where(torch.arange(k, device=dev) % 5 == 0, 7, -1).to(torch.int32)
+    mixed, _ = batches["mixed"]
+    late = valid[:64].clone()
+    late[:2] = False  # the representative is the third pod
+    modes = {
+        "chunk1": {**{key: v[1:2] for key, v in mixed.items()}, "valid": valid[:1]},
+        "chunk1 (hostname spread)": {**{key: v[3:4] for key, v in mixed.items()}, "valid": valid[:1]},
+        "rank split": {**tb, "valid": valid},
+        "mixed chunk": {**mixed, "valid": late},
+        "speculative": {**{key: v[:64] for key, v in tb.items()}, "elig": valid[:64], "spec_picks": spec_picks[:64]},
+    }
+    timed_in = None
+    steps = 0
+    for label, pf in modes.items():
+        pf = dict(pf)
+        pf["node_bits"] = kernels.node_filters(state, {"valid": pf.get("valid", pf.get("elig")), **pf}, spec.ctx)
+        where = f"[{shape} {label}]"
+        kc = kernels.preempt_eval(state, vic, pf, spec, plain.PROLOGUE)
+        pc = plain.preempt_eval(state, vic, pf, spec, plain.PROLOGUE)
+
+        def same_carry(what):
+            torch.cuda.synchronize()
+            for name, a, b in zip(("mask", "rel", "cnt", "flags"), kc, pc):
+                exact(errs, what, f"{where} carry.{name}", a, b)
+
+        same_carry("preempt_eval")
+        first = (kc.mask.clone(), kc.rel.clone(), kc.cnt.clone(), kc.flags.clone())
+        kernels.search_step(state, vic, pf, spec, kc, plain.HARD_STEP, dom)
+        plain.search_step(state, vic, pf, spec, pc, plain.HARD_STEP, dom)
+        same_carry("search_step")
+        for step in [plain.PHASE1, *range(vic.occupied - 1, -1, -1)]:
+            kd = kernels.dom_release(dom, state, vic, kc, step)
+            pd = plain.dom_release(dom, state, vic, pc, step)
+            torch.cuda.synchronize()
+            exact(errs, "dom_release", f"{where} step {step} group_dom", kd[0], pd[0])
+            exact(errs, "dom_release", f"{where} step {step} et_dom", kd[1], pd[1])
+            if timed_in is None and label == "rank split" and step == 0:
+                timed_in = (pf, kernels.SearchCarry(*(x.clone() for x in kc)), kd)
+            kernels.search_step(state, vic, pf, spec, kc, step, dom, DomTables(*kd, dom.et_slot, dom.et_host))
+            plain.search_step(state, vic, pf, spec, pc, step, dom, DomTables(*pd, dom.et_slot, dom.et_host))
+            same_carry("search_step")
+            steps += 1
+        kt = kernels.preempt_eval(state, vic, pf, spec, plain.TAIL, kc)
+        pt = plain.preempt_eval(state, vic, pf, spec, plain.TAIL, pc)
+        torch.cuda.synchronize()
+        for what, a, b in zip(("possible", "crit", "vic_mask", "n_vic", "rel", "relnz"), kt, pt):
+            exact(errs, "preempt_eval", f"{where} tail {what}", a, b)
+        kf = kernels.preempt_eval(state, vic, pf, local)
+        pfull = plain.preempt_eval(state, vic, pf, local)
+        torch.cuda.synchronize()
+        for what, a, b in zip(("possible", "crit", "vic_mask", "n_vic", "rel", "relnz"), kf, pfull):
+            exact(errs, "preempt_eval", f"{where} node-local full {what}", a, b)
+        hard = int(((pc.flags & plain.F_HARD) == 0).sum())
+        moved = int((first[0] != pc.mask).sum())
+        print(f"search [{shape} {label}]: exact; {hard} nodes fail the hard filters, {int(pt[0].sum())} possible "
+              f"(node-local ops alone: {int(pfull[0].sum())}), {moved} nodes reprieved a victim, "
+              f"{int(pt[3][pt[0]].sum())} victims on the possible nodes")
+        if label == "rank split":
+            full_in = pf
+    pf, c0, kd = timed_in
+    fresh = lambda: kernels.SearchCarry(*(x.clone() for x in c0))  # noqa: E731
+    rel_dom = DomTables(*kd, dom.et_slot, dom.et_host)
+    result["search_step"] = timed(lambda c: kernels.search_step(state, vic, pf, spec, c, 0, dom, rel_dom),
+                                  lambda c: plain.search_step(state, vic, pf, spec, c, 0, dom, rel_dom), reps,
+                                  fresh, plain_reps=max(3, reps // 10))
+    set_bound(result["search_step"], search_step_bytes(state, vic, pf, spec, c0))
+    result["dom_release"] = timed(lambda _: kernels.dom_release(dom, state, vic, c0, 0),
+                                  lambda _: plain.dom_release(dom, state, vic, c0, 0), reps)
+    set_bound(result["dom_release"], dom_release_bytes(dom, state, vic, c0))
+    result["preempt_eval"] = timed(lambda _: kernels.preempt_eval(state, vic, full_in, local),
+                                   lambda _: plain.preempt_eval(state, vic, full_in, local), reps,
+                                   plain_reps=max(3, reps // 10))
+    set_bound(result["preempt_eval"], preempt_eval_bytes(state, vic, full_in, None)
+              + search_step_bytes(state, vic, full_in, local, c0) - nbytes(*c0) * 2)
+    print(f"search [{shape}]: {steps} search steps checked; N={state.valid.shape[0]} V={vic.prio.shape[1]} "
+          f"(occupied {vic.occupied}) G={s.builder.schema.G} ET={s.builder.schema.ET} DV={s.builder.schema.DV} "
+          f"CV={s.builder.schema.CV} features {sorted(vic.vfeat)}")
     for name in result:
         result[name]["max_abs_err"] = errs[name]
         result[name].setdefault("library_ms", None)
@@ -2053,14 +2350,30 @@ def spread_gates(outcomes, n_nodes: int, zones: int, max_skew: int, tainted) -> 
             raise AssertionError(f"{app}: zone counts {per_zone} differ by more than {max_skew}")
 
 
+class VirtualClock:
+    """A queue clock that moves only when the drive steps it to the next
+    backoff expiry: a pod's retry then follows the pods ahead of it, not
+    the wall time a run happens to take."""
+
+    def __init__(self) -> None:
+        self.now = 0.0
+
+    def __call__(self) -> float:
+        return self.now
+
+
 def run_workload(impl: str, nodes, warm, measured, batch: int, chunk: int, trace: bool = False,
-                 profile=None, stages=(), preempt: bool = False, setup=None, feed=None):
+                 profile=None, stages=(), preempt: bool = False, setup=None, feed=None, wait: bool = False,
+                 sched_kw=None, virtual: bool = False):
     """One burst through TorchScheduler: the nodes, ``setup(s)`` (objects
     and pods of a warm-up that needs more than pods), the warm-up pods
     (scheduled first, then each of ``stages`` in turn), then the measured
     pods (or what ``feed(s)`` adds), timed.  ``preempt`` runs the fit-only profile with the
     reference's 1 s doubling backoff on the wall clock and waits through
-    it (``wait_backoff``).  With ``trace``, the measured window also
+    it (``wait_backoff``); ``wait`` does the latter for any profile, and
+    ``virtual`` waits on a VirtualClock instead (each backoff expiry
+    stepped to once nothing else is pending, so two runs pop the same
+    batches); ``sched_kw`` holds more TorchScheduler options.  With ``trace``, the measured window also
     records host spans (featurize, the host-to-device copies of the batch
     features, the result fetch that waits for the device, and the rest of
     each schedule_batch call) and a torch.profiler trace of the card's
@@ -2076,10 +2389,13 @@ def run_workload(impl: str, nodes, warm, measured, batch: int, chunk: int, trace
     from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE, fit_only_profile
     from kubernetes_tpu_torch.queue import SchedulingQueue
 
-    kw = {}
+    kw = dict(sched_kw or {})
     if preempt:
         profile = fit_only_profile()
-        kw["queue"] = SchedulingQueue(backoff=True)
+    wait = wait or preempt
+    clock = VirtualClock() if virtual else None
+    if wait or virtual:
+        kw["queue"] = SchedulingQueue(backoff=True, **({"clock": clock} if virtual else {}))
     s = sched_mod.TorchScheduler(profile or DEFAULT_PROFILE, batch_size=batch, chunk_size=chunk,
                                  _impl=impl, **kw)
     moves = {"index_copy_": 0, "expand": 0}
@@ -2093,6 +2409,20 @@ def run_workload(impl: str, nodes, warm, measured, batch: int, chunk: int, trace
         moves["expand"] += 1
         return orig_ex(self, *a, **k)
 
+    def drain():
+        if clock is None:
+            return s.schedule_all_pending(wait_backoff=wait)
+        got = []
+        while True:
+            got += s.schedule_all_pending()
+            expiry = s.queue.next_backoff_expiry()
+            if expiry is None:
+                return got
+            window["virtual_s"] += max(0.0, expiry - clock.now)
+            window["virtual_steps"] += 1
+            clock.now = max(clock.now, expiry)
+
+    window = {"virtual_s": 0.0, "virtual_steps": 0}
     launches0 = kernels.launch_counts()
     torch.Tensor.index_copy_, torch.Tensor.expand = index_copy_, expand
     try:
@@ -2102,11 +2432,11 @@ def run_workload(impl: str, nodes, warm, measured, batch: int, chunk: int, trace
             setup(s)
         for pod in warm:
             s.add_pod(pod)
-        out = s.schedule_all_pending(wait_backoff=preempt)
+        out = drain()
         for stage in stages:
             for pod in stage:
                 s.add_pod(pod)
-            out += s.schedule_all_pending(wait_backoff=preempt)
+            out += drain()
         torch.cuda.synchronize()
         if feed is not None:
             feed(s)
@@ -2117,7 +2447,7 @@ def run_workload(impl: str, nodes, warm, measured, batch: int, chunk: int, trace
         # The window's wall-clock waits: backoff slept through, pods sent
         # to the backoff queue, and the garbage collector's pauses.
         window = {"backoff_s": 0.0, "sleeps": 0, "to_backoff": 0, "gc_s": 0.0, "gc_runs": 0, "gc_full": 0,
-                  "gc_before_s": 0.0}
+                  "gc_before_s": 0.0, "virtual_s": 0.0, "virtual_steps": 0}
         orig_sleep, orig_add_backoff = s.queue.sleep_until_backoff, s.queue.add_backoff
 
         def sleep_until_backoff():
@@ -2176,7 +2506,7 @@ def run_workload(impl: str, nodes, warm, measured, batch: int, chunk: int, trace
         gc.callbacks.append(gc_pause)
         uploads0 = s.builder.full_uploads
         t0 = time.perf_counter()
-        measured_out = s.schedule_all_pending(wait_backoff=preempt)
+        measured_out = drain()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         window["full_uploads"] = s.builder.full_uploads - uploads0
@@ -2203,7 +2533,9 @@ def run_workload(impl: str, nodes, warm, measured, batch: int, chunk: int, trace
         spans = {"featurize_s": spans["featurize"], "h2d_s": spans["h2d"],
                  "h2d_bytes": h2d_bytes[0], "fetch_wait_s": spans["fetch"],
                  "other_host_s": other, "backoff_s": window["backoff_s"], "device_ms_by_kernel": device}
-    return s, out + measured_out, len(measured_out), dt, spans
+    # Pods bound in the window (a nominated preemptor's retry is one pod).
+    bound = len({o.pod.uid for o in measured_out if o.node_name})
+    return s, out + measured_out, bound, dt, spans
 
 
 def run_density(impl: str, trace: bool = False):
@@ -2278,6 +2610,62 @@ def run_preempt_async(impl: str, trace: bool = False):
                         [w.preemptor(f"vip-{i}") for i in range(w.ASYNC_MEASURED_PODS)],
                         w.ASYNC_BATCH, w.ASYNC_CHUNK, trace,
                         stages=([w.preemptor("warm-vip")],), preempt=True)
+
+
+def run_search(impl: str, trace: bool = False):
+    """preemption_default_search_5kn (no harness counterpart): 5000 nodes
+    in 10 zones filled by 20000 batch pods, the warm-up preemptor, then 1000
+    service preemptors; default profile, nominate-and-retry, the backoff
+    waited on a virtual clock: preemptors a dry-run left without a node are
+    parked, woken by a later eviction and retried behind backoff, and on
+    the wall clock their retries would land in whichever batch a run's
+    speed put them."""
+    from kubernetes_tpu_torch import workloads as w
+
+    return run_workload(impl, w.search_nodes(), w.search_background(),
+                        [w.search_preemptor(f"vip-{i}") for i in range(w.SEARCH_MEASURED_PODS)],
+                        w.SEARCH_BATCH, w.SEARCH_CHUNK, trace, stages=([w.search_preemptor("warm-vip")],),
+                        virtual=True, sched_kw={"inline_preempt_commit": False})
+
+
+def check_search(s, outcomes, expected: int, label: str) -> dict:
+    """preemption_default_search_5kn's gates on top of check_preemption's
+    (every preemptor binds, every victim a priority-1 background pod, no
+    node over its allocatable, the host mirror equal to the device state):
+    no two pods on a node hold port 8080, no app=svc pod shares a node with
+    a tier=noisy pod or with a pod whose anti-affinity names app=svc, the
+    app=svc zone counts differ by at most 1, and no whole-state upload in
+    the window."""
+    from kubernetes_tpu_torch import workloads as w
+
+    bind = check_preemption(s, outcomes, expected, label)
+    bad = port_conflicts(s)
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} host-port conflicts on one node, e.g. {bad[:3]}")
+    by_node: dict = {}
+    for pr in s.cache.pods.values():
+        by_node.setdefault(pr.node_name, []).append(pr.pod)
+    zones: dict = {}
+    for node, pods in by_node.items():
+        if not any(p.metadata.labels.get("app") == "svc" for p in pods):
+            continue
+        zone = s.cache.nodes[node].node.metadata.labels[w.ZONE]
+        zones[zone] = zones.get(zone, 0) + sum(p.metadata.labels.get("app") == "svc" for p in pods)
+        for p in pods:
+            aff = p.spec.affinity
+            keeps_off = aff is not None and aff.pod_anti_affinity is not None and any(
+                r.values == ("svc",) for term in aff.pod_anti_affinity.required
+                for r in term.label_selector.match_expressions)
+            if p.metadata.labels.get("tier") == "noisy" or keeps_off:
+                raise AssertionError(f"{label}: app=svc shares {node} with {p.name}")
+    skew = max(zones.values()) - min(zones.values()) if len(zones) == w.SEARCH_ZONES else None
+    if skew is None or skew > 1:
+        raise AssertionError(f"{label}: app=svc zone counts {sorted(zones.items())}")
+    if s.window["full_uploads"]:
+        raise AssertionError(f"{label}: {s.window['full_uploads']} whole-state uploads in the measured window")
+    print(f"{label}: app=svc zone counts {sorted(zones.values())} (skew {skew}), no port or anti-affinity "
+          f"clash; {s.preemptions} preemptions")
+    return bind
 
 
 def run_daemonset(impl: str, trace: bool = False):
@@ -2817,6 +3205,8 @@ def _paths():
     # intree: no device, CSI or racing ids, so no conflict table.
     pv = base + ("node_filters", "vol_filter")
     images = base + ("conflict_pairs", "image_counts", "image_scores")
+    search = spread + ("ipa_eval", "preempt_eval", "preempt_pick", "preempt_commit", "unpack_victims",
+                       "dom_release", "search_step", "scatter_rows", "expand_rows")
     return {
         "density": (run_density, w.DENSITY_WARM_PODS + w.DENSITY_MEASURED_PODS, base, None,
                     check_density, 1),
@@ -2840,13 +3230,16 @@ def _paths():
                                check_pv, 1),
         "default_images_ports_5kn_10kpods": (run_images_ports, w.IMAGES_WARM_PODS + w.IMAGES_MEASURED_PODS,
                                              images, None, check_images_ports, 1),
+        "preemption_default_search_5kn": (run_search, w.SEARCH_MEASURED_PODS + 1, search, None, check_search, 1),
     }
 
 
 def window_line(s, measured: int, dt: float) -> str:
     """The measured window: pods/s and what the wall clock waited on."""
     win = s.window
-    return (f"measured {measured} pods in {dt:.4f}s = {measured / dt:.1f} pods/s; backoff waited "
+    virtual = (f" (on the virtual clock: {win['virtual_s']:.1f}s stepped over {win['virtual_steps']} steps)"
+               if win["virtual_steps"] else "")
+    return (f"measured {measured} pods in {dt:.4f}s = {measured / dt:.1f} pods/s; backoff waited{virtual} "
             f"{win['backoff_s']:.4f}s over {win['sleeps']} sleeps, {win['to_backoff']} pods sent to backoff, "
             f"garbage collector {win['gc_s']:.4f}s over {win['gc_runs']} runs ({win['gc_full']} full; a full "
             f"collection just before the window took {win['gc_before_s']:.4f}s), {win['full_uploads']} "
@@ -2880,6 +3273,13 @@ def drive(path: str, card: str) -> tuple[dict, dict]:
     for name, count in launches.items():
         if (count == 0) == (name in must):
             raise AssertionError(f"{path} path: {name} launched {count} times")
+    if launches["search_step"]:
+        # A searched dry-run launches preempt_eval twice (prologue, tail) and
+        # search_step on the live state, for phase 1 and per reprieve step.
+        searched = launches["preempt_eval"] // 2
+        print(f"{path}: {launches['preempt_pick']} dry-runs, {searched} searched, "
+              f"{launches['search_step'] - 2 * searched} reprieve steps, {launches['dom_release']} released "
+              f"domain tables  [{card}]")
     if s.data_moves["index_copy_"] or s.data_moves["expand"]:
         raise AssertionError(f"{path} path: data moved outside the hand kernels: {s.data_moves}")
 
@@ -2978,7 +3378,8 @@ def main() -> int:
               "inclusion": check_spread_kernels(dev, "inclusion", REPS),
               **{shape: check_preempt_kernels(dev, shape, REPS) for shape in PREEMPT_SHAPES},
               "daemonset": check_pinned_kernels(dev, REPS), "pv": check_pv_kernels(dev, REPS),
-              "ports_images": check_ports_images_kernels(dev, REPS)}
+              "ports_images": check_ports_images_kernels(dev, REPS),
+              **{shape: check_search_kernels(dev, shape, REPS) for shape in ("search", "search_pv")}}
     for shape, table in shapes.items():
         for name, tm in table.items():
             lib = "" if tm.get("library_ms") is None else f", library {tm['library_ms']:.4f}"
@@ -3010,6 +3411,8 @@ def main() -> int:
         "preempt_eval": "kubernetes_tpu/preemption.py:257",
         "preempt_pick": "kubernetes_tpu/preemption.py:538",
         "preempt_commit": "kubernetes_tpu/preemption.py:601",
+        "dom_release": "kubernetes_tpu/preemption.py:274",
+        "search_step": "kubernetes_tpu/preemption.py:391",
         "unpack_victims": "kubernetes_tpu/preemption.py:94",
         "scatter_rows": "kubernetes_tpu/snapshot.py:796",
         "expand_rows": "kubernetes_tpu/scheduler.py:44",
@@ -3032,7 +3435,7 @@ def main() -> int:
                  **dict.fromkeys(("preempt_eval", "preempt_pick", "preempt_commit", "unpack_victims",
                                   "scatter_rows", "expand_rows"), "preemption_async_5kn"),
                  pinned_fit="daemonset", vol_filter="pv", image_counts="ports_images",
-                 image_scores="ports_images")
+                 image_scores="ports_images", dom_release="search", search_step="search")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [], "data_moves_by_path": moves}
     for name in kernels.WRAPPERS:

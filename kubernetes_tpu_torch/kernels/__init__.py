@@ -15,9 +15,12 @@
                                           chunk, before eval_chunk
   image_counts    csrc/image_locality.cu  valid nodes holding each image id, per batch
   image_scores    csrc/image_locality.cu  ImageLocality's raw score plane of the batch, per batch
-  preempt_eval    csrc/preempt.cu         preemption dry-run of a chunk's representative, per node
+  preempt_eval    csrc/preempt.cu         preemption dry-run of a chunk's representative, per node:
+                                          whole, or its prologue and criteria tail around the search
   preempt_pick    csrc/preempt.cu         lexicographic node rank and each mate's pick
   preempt_commit  csrc/preempt.cu         release at the picked rows, victims consumed
+  dom_release     csrc/preempt_search.cu  domain tables of a dry-run's released state, per search step
+  search_step     csrc/preempt_search.cu  one step of the dry-run's what-if search, per search step
   unpack_victims  csrc/victims.cu         staged victim buffer → per-field arrays
   scatter_rows    csrc/rows.cu            dirty node rows of a device tensor ← host rows
   expand_rows     csrc/rows.cu            row 0 broadcast to K rows (uniform batches)
@@ -850,7 +853,11 @@ def image_scores(state, pf: dict, counts, pin=None):
 class Victims(NamedTuple):
     """The dry-run's per-node victim slots (preemption.py:716 pack_victims):
     least important first, PDB-violating last; empty slots hold the
-    sentinels (priority INT32_MAX, zero requests, start +inf, no PDB)."""
+    sentinels (priority INT32_MAX, zero requests, start +inf, no PDB, -1
+    ids).  ``vfeat`` holds the what-if release features the active search
+    ops read (group (N, V), terms (N, V, TS), port_triples/port_keys,
+    vol_dev_ids/vol_dev_rw, csi_ids/csi_drv (N, V, S) i32); ``occupied``
+    bounds the slots that can hold a victim (None: all V)."""
 
     prio: torch.Tensor  # (N, V) i32
     req: torch.Tensor  # (N, V, R) i64
@@ -858,17 +865,46 @@ class Victims(NamedTuple):
     start: torch.Tensor  # (N, V) f64
     pdb: torch.Tensor  # (N, V, P) bool — victim matches budget p
     allowed: torch.Tensor  # (P,) i64 — disruptions allowed (INT32_MAX padding)
+    vfeat: dict | None = None
+    occupied: int | None = None
 
 
 @dataclass(frozen=True)
 class PreemptSpec:
-    """The release-independent filters preempt_eval applies for one pass:
-    NodeUnschedulable, NodeName, and the node_filters bits (1 NodeAffinity,
-    2 TaintToleration) that must be set."""
+    """What one dry-run evaluates: the release-independent filters
+    (NodeUnschedulable, NodeName, and the node_filters bits that must be
+    set: 1 NodeAffinity, 2 TaintToleration, 4 VolumeBinding, 8
+    VolumeZone) and the active ops of the what-if search (node-local:
+    NodePorts, VolumeRestrictions, NodeVolumeLimits; domain:
+    InterPodAffinity, PodTopologySpread), with the pass context they read."""
 
     check_unsched: bool
     check_nodename: bool
     bits_mask: int
+    ports: bool = False
+    vr: bool = False
+    nvl: bool = False
+    ipa: bool = False
+    pts: bool = False
+    ctx: object = None  # ops.common.PassContext
+
+    @property
+    def domain(self) -> bool:
+        """A search op reads the domain tables: the dry-run is a host loop
+        of dom_release and search_step between preempt_eval's PROLOGUE and
+        TAIL."""
+        return self.ipa or self.pts
+
+
+class SearchCarry(NamedTuple):
+    """The per-node state of a dry-run between its launches: the masked
+    victim slots (bit j = slot j), their released requests and count, and
+    the plain.F_* flags."""
+
+    mask: torch.Tensor  # (N,) i64
+    rel: torch.Tensor  # (N, R) i64
+    cnt: torch.Tensor  # (N,) i32
+    flags: torch.Tensor  # (N,) u8
 
 
 def _mate_ptrs(pf: dict, c: int, dev) -> list:
@@ -880,55 +916,235 @@ def _mate_ptrs(pf: dict, c: int, dev) -> list:
             _check("spec_picks", pf["spec_picks"], torch.int32, (c,), dev)]
 
 
-def preempt_eval(state, vic: Victims, pf: dict, spec: PreemptSpec):
-    """The closed-form dry-run of the chunk's representative preemptor
-    against every node: (possible (N,) bool, crit (5, N) i64, vic_mask (N, V)
-    bool, n_vic (N,) i32, rel (N, R) i64, relnz (N, 2) i64)."""
-    if _on_cpu(state.valid):
-        return plain.preempt_eval(state, vic, pf, spec)
+def _opt(name: str, t, dtype, shape, dev):
+    return None if t is None else _check(name, t, dtype, shape, dev)
+
+
+# The order of search_args' pointer table and its dimensions, shared with
+# kernels/csrc/preempt_search.cuh (enum Ptr, enum Dim).
+_SEARCH_DIMS = ("C", "N", "V", "R", "P", "TK", "DV", "G", "ET", "TS", "PS", "SD", "SC", "QP", "QD", "QC",
+                "DR", "RA", "RS", "K", "bits_mask", "flags", "step", "smem")
+N_SEARCH_PTRS = 84
+# Per-victim and per-pod id slots, and the representative's terms and
+# constraints, the search kernels hold in registers and static shared memory.
+MAX_SEARCH_SLOTS = 16
+SEARCH_SMEM_CAP = 200 * 1024
+SEARCH_THREADS = 1024  # search_step: one block
+
+
+def search_smem_bytes(dv: int, tk: int, ra: int, rs: int, k: int) -> int:
+    """Dynamic shared memory of search_step: the own-term tallies (RA + RS
+    terms), the forbidden table (TK x DV) and the spread count and presence
+    tables (K x DV), int32 each.  Raises NotImplementedError above
+    SEARCH_SMEM_CAP."""
+    nbytes = 4 * dv * (ra + rs + tk + 2 * k)
+    if nbytes > SEARCH_SMEM_CAP:
+        raise NotImplementedError(f"search_step: {nbytes} bytes of domain tables exceed {SEARCH_SMEM_CAP}")
+    return nbytes
+
+
+def _search_args(state, vic: Victims, pf: dict, spec: PreemptSpec, carry, dom=None, outs=None,
+                 scratch=None, step: int = 0, smem: int = 0):
+    """(pointer table, dimensions) of preempt_eval and search_step: every
+    tensor checked for device, type, shape and contiguity; None where the
+    dry-run does not read it."""
     dev = state.valid.device
     n, v = vic.prio.shape
     r = state.alloc.shape[1]
     p = vic.allowed.shape[0]
     c = pf["priority"].shape[0]
+    tk = state.topo_vals.shape[1]
+    g, et = state.group_counts.shape[0], state.et_counts.shape[0]
+    b, u8, i32, i64 = torch.bool, torch.uint8, torch.int32, torch.int64
+    vf = vic.vfeat or {}
+    dims = dict.fromkeys(_SEARCH_DIMS, 0)
+    dims.update(C=c, N=n, V=v, R=r, P=p, TK=tk, G=g, ET=et, bits_mask=spec.bits_mask, step=step, smem=smem)
+    # Bit i: NodeUnschedulable, NodeName, NodePorts, VolumeRestrictions,
+    # NodeVolumeLimits, InterPodAffinity, PodTopologySpread (enum SpecFlag).
+    dims["flags"] = sum(1 << i for i, on in enumerate(
+        (spec.check_unsched, spec.check_nodename, spec.ports, spec.vr, spec.nvl, spec.ipa, spec.pts)) if on)
     if r > 16 or v > 64:
         raise NotImplementedError(f"preempt_eval: R={r} > 16 or V={v} > 64 victim slots")
-    b, i32, i64 = torch.bool, torch.int32, torch.int64
-    args = [
-        _check("valid", state.valid, b, (n,), dev),
-        _check("name_id", state.name_id, i32, (n,), dev),
+
+    def width(key, dim):
+        t = vf.get(key) if dim in ("TS", "PS", "SD", "SC") else pf.get(key)
+        dims[dim] = 0 if t is None else t.shape[-1]
+        if dims[dim] > MAX_SEARCH_SLOTS:
+            raise NotImplementedError(f"preempt search: {dims[dim]} {key} slots exceed {MAX_SEARCH_SLOTS}")
+        return dims[dim]
+
+    ts = width("terms", "TS") if spec.domain else 0
+    ps = width("port_triples", "PS") if spec.ports else 0
+    sd = width("vol_dev_ids", "SD") if spec.vr else 0
+    sc = width("csi_ids", "SC") if spec.nvl else 0
+    qp = width("port_triples", "QP") if spec.ports else 0
+    qd = width("vol_dev_ids", "QD") if spec.vr else 0
+    qc = width("vol_csi_ids", "QC") if spec.nvl else 0
+    dims["DR"] = state.csi_used.shape[0] if spec.nvl else 0
+    vd, cv, dr = state.dev_counts.shape[0], state.csivol_counts.shape[0], state.csi_used.shape[0]
+    npc, npk = state.port_counts.shape[0], state.portkey_counts.shape[0]
+    ra = pf["ipa_ra_valid"].shape[1] if spec.ipa else 0
+    rs = pf["ipa_rs_valid"].shape[1] if spec.ipa else 0
+    k = pf["tps_h_valid"].shape[1] if spec.pts else 0
+    if max(ra, rs, k) > MAX_SEARCH_SLOTS:
+        raise NotImplementedError(f"preempt search: RA={ra}, RS={rs} or K={k} exceeds {MAX_SEARCH_SLOTS}")
+    dims.update(RA=ra, RS=rs, K=k, DV=spec.ctx.schema.DV if spec.domain else 0)
+    dom_ptrs = [None] * 4
+    if dom is not None:
+        dv = dom.group_dom.shape[2]
+        dom_ptrs = [_check("group_dom", dom.group_dom, torch.float32, (g, tk, dv), dev),
+                    _check("et_dom", dom.et_dom, torch.float32, (et, dv), dev),
+                    _check("et_slot", dom.et_slot, i32, (et,), dev), _check("et_host", dom.et_host, b, (et,), dev)]
+    pod = lambda key, dtype, shape, on=True: _check(key, pf[key], dtype, shape, dev) if on else None  # noqa: E731
+    vfp = lambda key, w, on: _check(key, vf[key], i32, (n, v) if w is None else (n, v, w), dev) if on and key in vf else None  # noqa: E731,E501
+    ptrs = [
+        _check("valid", state.valid, b, (n,), dev), _check("name_id", state.name_id, i32, (n,), dev),
         _check("unschedulable", state.unschedulable, b, (n,), dev),
-        _check("num_pods", state.num_pods, i32, (n,), dev),
-        _check("allowed_pods", state.allowed_pods, i32, (n,), dev),
-        _check("alloc", state.alloc, i64, (n, r), dev),
-        _check("req", state.req, i64, (n, r), dev),
-        _check("vic_prio", vic.prio, i32, (n, v), dev),
-        _check("vic_req", vic.req, i64, (n, v, r), dev),
+        _check("num_pods", state.num_pods, i32, (n,), dev), _check("allowed_pods", state.allowed_pods, i32, (n,), dev),
+        _check("alloc", state.alloc, i64, (n, r), dev), _check("req", state.req, i64, (n, r), dev),
+        _check("topo_vals", state.topo_vals, i32, (n, tk), dev),
+        _check("group_counts", state.group_counts, i32, (g, n), dev) if spec.domain else None,
+        _check("et_counts", state.et_counts, i32, (et, n), dev) if spec.ipa else None,
+        _check("port_counts", state.port_counts, i32, (npc, n), dev) if spec.ports else None,
+        _check("portkey_counts", state.portkey_counts, i32, (npk, n), dev) if spec.ports else None,
+        _check("dev_counts", state.dev_counts, i32, (vd, n), dev) if spec.vr else None,
+        _check("dev_rw_counts", state.dev_rw_counts, i32, (vd, n), dev) if spec.vr else None,
+        _check("csivol_counts", state.csivol_counts, i32, (cv, n), dev) if spec.nvl else None,
+        _check("csi_used", state.csi_used, i32, (dr, n), dev) if spec.nvl else None,
+        _check("csi_limit", state.csi_limit, i32, (dr, n), dev) if spec.nvl else None,
+        _check("vic_prio", vic.prio, i32, (n, v), dev), _check("vic_req", vic.req, i64, (n, v, r), dev),
         _check("vic_nonzero", vic.nonzero, i64, (n, v, 2), dev),
-        _check("vic_start", vic.start, torch.float64, (n, v), dev),
-        _check("vic_pdb", vic.pdb, b, (n, v, p), dev),
+        _check("vic_start", vic.start, torch.float64, (n, v), dev), _check("vic_pdb", vic.pdb, b, (n, v, p), dev),
         _check("pdb_allowed", vic.allowed, i64, (p,), dev),
-        _check("priority", pf["priority"], i32, (c,), dev),
-        _check("req", pf["req"], i64, (c, r), dev),
-        _check("nodename_id", pf["nodename_id"], i32, (c,), dev) if spec.check_nodename else None,
-        _check("tolerates_unschedulable", pf["tolerates_unschedulable"], b, (c,), dev)
-        if spec.check_unsched else None,
+        vfp("group", None, spec.domain), vfp("terms", ts, spec.ipa),
+        vfp("port_triples", ps, spec.ports), vfp("port_keys", ps, spec.ports),
+        vfp("vol_dev_ids", sd, spec.vr), vfp("vol_dev_rw", sd, spec.vr),
+        vfp("csi_ids", sc, spec.nvl), vfp("csi_drv", sc, spec.nvl),
+        pod("priority", i32, (c,)), pod("req", i64, (c, r)),
+        pod("nodename_id", i32, (c,), spec.check_nodename),
+        pod("tolerates_unschedulable", b, (c,), spec.check_unsched),
         *_mate_ptrs(pf, c, dev),
-        _check("node_bits", pf["node_bits"], torch.uint8, (c, n), dev) if spec.bits_mask else None,
+        pod("node_bits", u8, (c, n), bool(spec.bits_mask) or spec.pts),
+        pod("vr_rwop_ok", b, (c,), spec.vr),
+        pod("port_triples", i32, (c, qp), spec.ports and qp > 0), pod("port_keys", i32, (c, qp), spec.ports and qp > 0),
+        pod("port_wild_triples", i32, (c, qp), spec.ports and qp > 0),
+        pod("port_is_wild", b, (c, qp), spec.ports and qp > 0),
+        pod("vol_dev_ids", i32, (c, qd), qd > 0), pod("vol_dev_rw", b, (c, qd), qd > 0),
+        pod("vol_csi_ids", i32, (c, qc), qc > 0), pod("vol_csi_drv", i32, (c, qc), qc > 0),
+        pod("ipa_ra_valid", b, (c, ra), spec.ipa), pod("ipa_ra_slot", i32, (c, ra), spec.ipa),
+        pod("ipa_ra_host", b, (c, ra), spec.ipa), pod("ipa_ra_allmask", b, (c, g), spec.ipa),
+        pod("ipa_ra_self", b, (c,), spec.ipa),
+        pod("ipa_rs_valid", b, (c, rs), spec.ipa), pod("ipa_rs_slot", i32, (c, rs), spec.ipa),
+        pod("ipa_rs_host", b, (c, rs), spec.ipa), pod("ipa_rs_groups", b, (c, rs, g), spec.ipa),
+        pod("ipa_et_match", b, (c, et), spec.ipa), pod("ipa_et_anti", b, (c, et), spec.ipa),
+        *[pod(f"tps_h_{f}", dtype, (c, k), spec.pts) for f, dtype in _SPREAD_FEATURES],
+        pod("tps_h_groups", b, (c, k, g), spec.pts),
+        *dom_ptrs,
+        *([None] * 4 if carry is None else [
+            _check("carry.mask", carry.mask, i64, (n,), dev), _check("carry.rel", carry.rel, i64, (n, r), dev),
+            _check("carry.cnt", carry.cnt, i32, (n,), dev), _check("carry.flags", carry.flags, u8, (n,), dev)]),
+        *([None] * 6 if outs is None else outs),
+        *([None] * 2 if scratch is None else scratch),
     ]
-    possible = torch.empty(n, dtype=b, device=dev)
-    crit = torch.empty((plain.N_CRIT, n), dtype=i64, device=dev)
-    vic_mask = torch.empty((n, v), dtype=b, device=dev)
-    n_vic = torch.empty(n, dtype=i32, device=dev)
-    rel = torch.empty((n, r), dtype=i64, device=dev)
-    relnz = torch.empty((n, 2), dtype=i64, device=dev)
-    build.launch(
-        "preempt_eval", *[_ptr(a) for a in args], spec.bits_mask, c, n, v, r, p,
-        _ptr(possible), _ptr(crit), _ptr(vic_mask), _ptr(n_vic), _ptr(rel), _ptr(relnz),
-        _stream(dev),
-    )
+    if len(ptrs) != N_SEARCH_PTRS:
+        raise AssertionError(f"search pointer table holds {len(ptrs)} entries, want {N_SEARCH_PTRS}")
+    return ptrs, [dims[d] for d in _SEARCH_DIMS]
+
+
+def _launch_search(entry: str, ptrs: list, dims: list, dev) -> None:
+    table = (ctypes.c_void_p * len(ptrs))(*[None if t is None else t.data_ptr() for t in ptrs])
+    ints = (ctypes.c_int * len(dims))(*dims)
+    build.launch(entry, ctypes.cast(table, ctypes.c_void_p), len(ptrs), ctypes.cast(ints, ctypes.c_void_p),
+                 len(dims), _stream(dev))
+
+
+def preempt_eval(state, vic: Victims, pf: dict, spec: PreemptSpec, mode: int = plain.FULL, carry=None):
+    """One dry-run of the chunk's representative preemptor against every
+    node.  FULL (no domain op in the search): (possible (N,) bool, crit
+    (5, N) i64, vic_mask (N, V) bool, n_vic (N,) i32, rel (N, R) i64,
+    relnz (N, 2) i64), the node-local search ops inside the reprieve loop;
+    PROLOGUE: the SearchCarry that search_step advances; TAIL: FULL's
+    outputs from that carry (``rel`` is the carry's)."""
+    if _on_cpu(state.valid):
+        return plain.preempt_eval(state, vic, pf, spec, mode, carry)
+    dev = state.valid.device
+    if mode == plain.FULL and spec.domain:
+        raise ValueError("preempt_eval: a domain op of the search needs PROLOGUE, search_step and TAIL")
+    n, v = vic.prio.shape
+    r = state.alloc.shape[1]
+    b, i32, i64 = torch.bool, torch.int32, torch.int64
+    outs = None
+    if mode == plain.PROLOGUE:
+        carry = SearchCarry(torch.empty(n, dtype=i64, device=dev), torch.empty((n, r), dtype=i64, device=dev),
+                            torch.empty(n, dtype=i32, device=dev), torch.empty(n, dtype=torch.uint8, device=dev))
+    else:
+        outs = [torch.empty(n, dtype=b, device=dev), torch.empty((plain.N_CRIT, n), dtype=i64, device=dev),
+                torch.empty((n, v), dtype=b, device=dev), torch.empty(n, dtype=i32, device=dev),
+                carry.rel if mode == plain.TAIL else torch.empty((n, r), dtype=i64, device=dev),
+                torch.empty((n, 2), dtype=i64, device=dev)]
+    ptrs, dims = _search_args(state, vic, pf, spec, carry if mode == plain.TAIL or mode == plain.PROLOGUE else None,
+                              outs=outs, step=mode)
+    _launch_search("preempt_eval", ptrs, dims, dev)
     preempt_eval.launches += 1
-    return possible, crit, vic_mask, n_vic, rel, relnz
+    return carry if mode == plain.PROLOGUE else tuple(outs)
+
+
+def dom_release(dom, state, vic: Victims, carry: SearchCarry, s: int):
+    """(group_dom (G, TK, DV) f32, et_dom (ET, DV) f32) of the state with
+    the carry's masked victims removed (slot ``s`` restored on every node
+    when s >= 0): the live tables ``dom`` less each such victim's group and
+    own terms at its node's domains."""
+    if _on_cpu(carry.mask):
+        return plain.dom_release(dom, state, vic, carry, s)
+    dev = carry.mask.device
+    n, v = vic.prio.shape
+    g, tk, dv = dom.group_dom.shape
+    et = dom.et_dom.shape[0]
+    vf = vic.vfeat or {}
+    group = _opt("group", vf.get("group"), torch.int32, (n, v), dev)
+    terms = vf.get("terms")
+    ts = 0 if terms is None else terms.shape[2]
+    _opt("terms", terms, torch.int32, (n, v, ts), dev)
+    args = [
+        _check("group_dom", dom.group_dom, torch.float32, (g, tk, dv), dev),
+        _check("et_dom", dom.et_dom, torch.float32, (et, dv), dev),
+        _check("topo_vals", state.topo_vals, torch.int32, (n, tk), dev),
+        _check("et_slot", dom.et_slot, torch.int32, (et,), dev),
+        group, terms, _check("carry.mask", carry.mask, torch.int64, (n,), dev),
+    ]
+    group_dom = torch.empty_like(dom.group_dom)
+    et_dom = torch.empty_like(dom.et_dom)
+    build.launch("dom_release", *[_ptr(a) for a in args], g, et, tk, dv, n, v, ts, s,
+                 _ptr(group_dom), _ptr(et_dom), _stream(dev))
+    dom_release.launches += 1
+    return group_dom, et_dom
+
+
+def search_step(state, vic: Victims, pf: dict, spec: PreemptSpec, carry: SearchCarry, s: int,
+                dom=None, dom_rel=None) -> None:
+    """One step of the dry-run's search, IN PLACE on ``carry``
+    (plain.search_step): HARD_STEP reads the live domain tables ``dom``,
+    PHASE1 and the reprieve slots s >= 0 the released ones ``dom_rel``
+    (dom_release of the same step)."""
+    if _on_cpu(carry.mask):
+        plain.search_step(state, vic, pf, spec, carry, s, dom, dom_rel)
+        return
+    dev = carry.mask.device
+    tables = dom if s == plain.HARD_STEP else dom_rel
+    if spec.ipa and tables is None:
+        raise ValueError("search_step: InterPodAffinity reads the domain tables")
+    k = pf["tps_h_valid"].shape[1] if spec.pts else 0
+    ra = pf["ipa_ra_valid"].shape[1] if spec.ipa else 0
+    rs = pf["ipa_rs_valid"].shape[1] if spec.ipa else 0
+    dv = spec.ctx.schema.DV if spec.domain else 0
+    smem = search_smem_bytes(dv, state.topo_vals.shape[1], ra, rs, k)
+    g, et = state.group_counts.shape[0], state.et_counts.shape[0]
+    scratch = [torch.empty((1 + rs + k, max(g, 1)), dtype=torch.int32, device=dev),
+               torch.empty(max(et, 1), dtype=torch.int32, device=dev)]
+    ptrs, dims = _search_args(state, vic, pf, spec, carry, dom=tables if spec.ipa else None,
+                              scratch=scratch, step=s, smem=smem)
+    _launch_search("search_step", ptrs, dims, dev)
+    search_step.launches += 1
 
 
 def preempt_pick(possible, crit, pf: dict, chunk_mode: bool):
@@ -986,30 +1202,44 @@ def preempt_commit(carry, vic_prio, ev, picks):
     return mask_out, nvic_out
 
 
-def unpack_victims(buf, r: int, n_pdbs: int, pdb_words: int, v: int, inline_allowed: bool):
+def unpack_victims(buf, r: int, n_pdbs: int, pdb_words: int, v: int, inline_allowed: bool, vf_cols=()):
     """The staged (N, vu, cols) int64 victim buffer → (prio, req, nonzero,
-    start, pdb, allowed or None), padded to ``v`` victim slots."""
+    start, pdb, allowed or None, vfeat), padded to ``v`` victim slots;
+    ``vf_cols`` lists the victim feature columns (plain.unpack_victims)."""
     if _on_cpu(buf):
-        return plain.unpack_victims(buf, r, n_pdbs, pdb_words, v, inline_allowed)
+        return plain.unpack_victims(buf, r, n_pdbs, pdb_words, v, inline_allowed, vf_cols)
     dev = buf.device
     n, vu, cols = buf.shape
     if not buf.is_contiguous() or buf.dtype != torch.int64:
         raise ValueError("unpack_victims: the buffer must be contiguous int64")
-    if cols < 5 + r + pdb_words or vu > v:
+    width = sum(w for _name, w, _nd in vf_cols)
+    if cols < 5 + r + pdb_words + width or vu > v:
         raise ValueError(f"unpack_victims: buffer {tuple(buf.shape)} does not hold R={r}, v={v}")
+    if len(vf_cols) > _MAX_VF_COLS:
+        raise NotImplementedError(f"unpack_victims: {len(vf_cols)} victim feature fields exceed {_MAX_VF_COLS}")
     prio = torch.empty((n, v), dtype=torch.int32, device=dev)
     req = torch.empty((n, v, r), dtype=torch.int64, device=dev)
     nonzero = torch.empty((n, v, 2), dtype=torch.int64, device=dev)
     start = torch.empty((n, v), dtype=torch.float64, device=dev)
     pdb = torch.empty((n, v, n_pdbs), dtype=torch.bool, device=dev)
     allowed = torch.empty(n_pdbs, dtype=torch.int64, device=dev) if inline_allowed else None
+    vfeat, meta, off = {}, [], 4 + r + pdb_words
+    for name, w, ndim in vf_cols:
+        vfeat[name] = torch.empty((n, v) if ndim == 2 else (n, v, w), dtype=torch.int32, device=dev)
+        meta += [off, w, plain.VFEAT_PAD.get(name, 0)]
+        off += w
+    outs = (ctypes.c_void_p * max(len(vfeat), 1))(*[t.data_ptr() for t in vfeat.values()])
+    ints = (ctypes.c_int * max(len(meta), 1))(*meta)
     build.launch(
         "unpack_victims", _ptr(buf), n, vu, cols, r, n_pdbs, pdb_words, v, int(inline_allowed),
         _ptr(prio), _ptr(req), _ptr(nonzero), _ptr(start), _ptr(pdb), _ptr(allowed),
-        _stream(dev),
+        len(vfeat), ctypes.cast(outs, ctypes.c_void_p), ctypes.cast(ints, ctypes.c_void_p), _stream(dev),
     )
     unpack_victims.launches += 1
-    return prio, req, nonzero, start, pdb, allowed
+    return prio, req, nonzero, start, pdb, allowed, vfeat
+
+
+_MAX_VF_COLS = 8
 
 
 def scatter_rows(dst, axis: int, rows, src) -> None:
@@ -1097,6 +1327,8 @@ WRAPPERS = {
     "preempt_eval": preempt_eval,
     "preempt_pick": preempt_pick,
     "preempt_commit": preempt_commit,
+    "dom_release": dom_release,
+    "search_step": search_step,
     "unpack_victims": unpack_victims,
     "scatter_rows": scatter_rows,
     "expand_rows": expand_rows,

@@ -5,7 +5,7 @@ shared library with a plain C interface, keyed by a hash of the sources and
 flags, under ``kernels/_build/`` (listed in .gitignore), then loaded with
 ctypes.  Builds of several sources run as parallel ``nvcc`` processes.
 A library exports one ``<entry>_launch`` per entry point (``spread_eval``,
-``preempt``, ``rows`` and ``image_locality`` have several;
+``preempt``, ``preempt_search``, ``rows`` and ``image_locality`` have several;
 ``volume_filters`` holds ``vol_filter``) and one ``<name>_error_string``.  There is no fallback: a missing
 compiler, a failed build or a failed load raises.
 """
@@ -22,13 +22,14 @@ from pathlib import Path
 
 KERNELS = (
     "build_dom", "eval_chunk", "ipa_eval", "select_host", "resolve_commit", "conflict_pairs",
-    "node_filters", "spread_eval", "preempt", "victims", "rows", "pinned", "volume_filters",
-    "image_locality",
+    "node_filters", "spread_eval", "preempt", "preempt_search", "victims", "rows", "pinned",
+    "volume_filters", "image_locality",
 )
 # Entry point → the library (source) that holds it.
 _MULTI = {
     "spread_eval": ("spread_filter", "late_scores"),
     "preempt": ("preempt_eval", "preempt_pick", "preempt_commit"),
+    "preempt_search": ("dom_release", "search_step"),
     "victims": ("unpack_victims",),
     "rows": ("scatter_rows", "expand_rows"),
     "pinned": ("pinned_fit",),
@@ -61,10 +62,14 @@ _SIGNATURES: dict[str, list] = {
     "vol_filter": [_P] * 11 + [_I] * 7 + [_P],
     "spread_filter": [_P] * 15 + [_I] * 7 + [_P],
     "late_scores": [_P] * 30 + [_I] * 13 + [_L] * 3 + [_I, _P],
-    "preempt_eval": [_P] * 21 + [_I] * 6 + [_P] * 7,
+    # preempt_eval and search_step: a pointer table and its length, the
+    # dimensions and their count, the stream (preempt_search.cuh).
+    "preempt_eval": [_P, _I, _P, _I, _P],
+    "dom_release": [_P] * 7 + [_I] * 8 + [_P] * 3,
+    "search_step": [_P, _I, _P, _I, _P],
     "preempt_pick": [_P] * 6 + [_I] * 3 + [_P] * 3,
     "preempt_commit": [_P, _I, _I, _I] + [_P] * 11,
-    "unpack_victims": [_P] + [_I] * 8 + [_P] * 7,
+    "unpack_victims": [_P] + [_I] * 8 + [_P] * 6 + [_I, _P, _P, _P],
     "scatter_rows": [_P] * 3 + [_L] * 4 + [_P],
     "expand_rows": [_P] * 2 + [_L] * 2 + [_P],
     "pinned_fit": [_P] * 8 + [_I] * 3 + [_P] * 3,

@@ -1,22 +1,35 @@
-// preempt: the PostFilter dry-run of closed-form batched preemption.
+// preempt: the PostFilter dry-run of batched preemption.
 //
-// Replaces kubernetes_tpu/preemption.py:172-658 (build_preempt_pass) for
-// active filter sets whose release-dependent filters reduce to
-// NodeResourcesFit: eval_one (:257-536) in its closed form, the step's pick
-// (:499-520 at chunk 1, the rank split :542-600 at chunk > 1) and the
-// commit (:601-617).  The JAX scan over chunks of preemptors becomes a host
-// loop of three launches per step:
+// Replaces kubernetes_tpu/preemption.py:172-658 (build_preempt_pass):
+// eval_one (:257-536), the step's pick (:499-520 at chunk 1, the rank split
+// :542-600 at chunk > 1) and the commit (:601-617).  The JAX scan over
+// chunks of preemptors becomes a host loop of launches per step:
 //
-//   preempt_eval   one thread per node: the representative preemptor's
-//                  release-independent filters (NodeUnschedulable, NodeName,
-//                  NodeAffinity/TaintToleration bits), the victims below its
-//                  priority, the closed-form fit with all of them released,
-//                  the greedy reprieve in reverse slot order with the
-//                  release carried incrementally (:435-455), and the five
-//                  pickOneNodeForPreemption criteria over the final victim
-//                  set.  The representative is the first valid mate (:564);
-//                  under the speculative chain valid = eligible && pick < 0,
-//                  read from the main pass's picks (:146 _chain_speculative).
+//   preempt_eval   one thread per node, in one of three modes (D_STEP):
+//                  FULL      the whole dry-run of the representative
+//                            preemptor: the release-independent filters
+//                            (NodeUnschedulable, NodeName, node_filters bits
+//                            of NodeAffinity, TaintToleration, VolumeBinding
+//                            and VolumeZone), the victims below its priority,
+//                            phase 1 (the closed-form fit and the node-local
+//                            search ops — NodePorts, VolumeRestrictions,
+//                            NodeVolumeLimits — with all of them released),
+//                            the greedy reprieve in reverse slot order with
+//                            the release carried incrementally (:435-455),
+//                            unless the preemptor is ReadWriteOncePod-blocked
+//                            (evict all, :371-381), and the five
+//                            pickOneNodeForPreemption criteria over the final
+//                            victim set.  Used when no domain op
+//                            (InterPodAffinity, PodTopologySpread) searches:
+//                            the node-local ops read only their node's
+//                            column, so the reprieve stays in this launch.
+//                  PROLOGUE  the carry of a search (preempt_search.cu): the
+//                            masked victims (all below the priority), their
+//                            release and count, the base flag.
+//                  TAIL      the criteria over the carry the search left.
+//                  The representative is the first valid mate (:564); under
+//                  the speculative chain valid = eligible && pick < 0, read
+//                  from the main pass's picks (:146 _chain_speculative).
 //   preempt_pick   the lexicographic rank of every possible node (fewest
 //                  PDB violations, lowest max victim priority, smallest
 //                  priority sum, fewest victims, latest start key, lowest
@@ -37,7 +50,8 @@
 // victims at the maximal priority, -2^61 when none has a finite start.
 //
 // Bound: preempt_eval reads each node's V victim slots once (N*V*(R+2)*8
-// bytes of requests plus priorities, starts and PDB bits) and writes the
+// bytes of requests plus priorities, starts and PDB bits, and the slots'
+// port, device and CSI ids where those ops search) and writes the
 // criteria; bytes-bound.  preempt_pick compares N^2 key tuples of the
 // possible nodes; operations-bound at large N, tiled through shared memory.
 // preempt_commit touches C rows; launch latency.
@@ -45,107 +59,104 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "preempt_search.cuh"
 
 namespace {
 
+using namespace search;
+
 constexpr int kThreads = 256;
-constexpr int kMaxR = 16;
-constexpr int kMaxV = 64;
-constexpr int kI32Max = 2147483647;
-constexpr long long kNoStart = -(1LL << 61);
 
-struct PodView {
-  const int* priority;                  // (C,)
-  const long long* req;                 // (C, R)
-  const int* nodename_id;               // (C,) or null: NodeName inactive
-  const unsigned char* tol_unsched;     // (C,) or null: NodeUnschedulable inactive
-  const unsigned char* valid;           // (C,) or null: elig + spec_picks
-  const unsigned char* elig;            // (C,) speculative eligibility
-  const int* spec_picks;                // (C,) the main pass's picks
-  const unsigned char* node_bits;       // (C, N) or null
-  int bits_mask;                        // node_bits bits that must be set
-  int C;
-};
-
-__device__ __forceinline__ bool mate_valid(const PodView& p, int i) {
-  if (p.valid != nullptr) return p.valid[i] != 0;
-  return p.elig[i] != 0 && p.spec_picks[i] < 0;
-}
-
-// First valid mate, 0 when none (jnp.argmax of an all-false mask).
-__device__ int representative(const PodView& p) {
-  for (int i = 0; i < p.C; ++i) {
-    if (mate_valid(p, i)) return i;
+// The criteria and outputs of node n over its final victim set.
+__device__ void write_tail(const Args& a, int n, int i0, unsigned long long mask, const long long* rel,
+                           unsigned char flags) {
+  const int V = a.d[D_V], R = a.d[D_R], N = a.d[D_N], P = a.d[D_P];
+  const int* vp = at<int>(a, P_VIC_PRIO) + (long long)n * V;
+  const long long* nonzero = at<long long>(a, P_VIC_NONZERO);
+  const unsigned char* pdb = at<unsigned char>(a, P_VIC_PDB);
+  const long long* allowed = at<long long>(a, P_PDB_ALLOWED);
+  const int nv = __popcll(mask);
+  const int need = F_BASE | F_HARD | F_FEAS;
+  const bool poss = (flags & need) == need && nv >= 1 && mate_valid(a, i0);
+  long long violations = 0;
+  for (int q = 0; q < P; ++q) {
+    long long c = 0;
+    for (int v = 0; v < V; ++v) {
+      if ((mask >> v) & 1ULL) c += pdb[((long long)n * V + v) * P + q];
+    }
+    const long long over = c - allowed[q];
+    violations += over > 0 ? over : 0;
   }
-  return 0;
-}
-
-struct EvalArgs {
-  // Cluster state.
-  const unsigned char* node_valid;  // (N,)
-  const int* name_id;               // (N,)
-  const unsigned char* unsched;     // (N,)
-  const int* num_pods;              // (N,)
-  const int* allowed_pods;          // (N,)
-  const long long* alloc;           // (N, R)
-  const long long* req;             // (N, R)
-  // Victims.
-  const int* vic_prio;              // (N, V)
-  const long long* vic_req;         // (N, V, R)
-  const long long* vic_nonzero;     // (N, V, 2)
-  const double* vic_start;          // (N, V)
-  const unsigned char* vic_pdb;     // (N, V, P)
-  const long long* pdb_allowed;     // (P,)
-  PodView pod;
-  int N, V, R, P;
-  // Outputs.
-  unsigned char* possible;  // (N,)
-  long long* crit;          // (5, N)
-  unsigned char* vic_mask;  // (N, V)
-  int* n_vic;               // (N,)
-  long long* rel;           // (N, R)
-  long long* relnz;         // (N, 2)
-};
-
-__device__ __forceinline__ bool fits(const EvalArgs& a, int n, const long long* demand,
-                                     const long long* rel, int cnt) {
-  for (int r = 0; r < a.R; ++r) {
-    const long long d = demand[r];
-    const long long free_r = a.alloc[(long long)n * a.R + r] - (a.req[(long long)n * a.R + r] - rel[r]);
-    if (d != 0 && d > free_r) return false;
+  int max_prio = -1;
+  long long prio_sum = 0, nz0 = 0, nz1 = 0;
+  for (int v = 0; v < V; ++v) {
+    if ((mask >> v) & 1ULL) {
+      max_prio = vp[v] > max_prio ? vp[v] : max_prio;
+      prio_sum += vp[v];
+      nz0 += nonzero[((long long)n * V + v) * 2 + 0];
+      nz1 += nonzero[((long long)n * V + v) * 2 + 1];
+    }
   }
-  return a.num_pods[n] - cnt + 1 <= a.allowed_pods[n];
+  double min_start = INFINITY;
+  for (int v = 0; v < V; ++v) {
+    if (((mask >> v) & 1ULL) && vp[v] == max_prio) {
+      const double st = at<double>(a, P_VIC_START)[(long long)n * V + v];
+      min_start = st < min_start ? st : min_start;
+    }
+  }
+  const long long start_key = isfinite(min_start) ? (long long)(-min_start * 1e6) : kNoStart;
+  long long* crit = at<long long>(a, P_CRIT);
+  at<unsigned char>(a, P_POSSIBLE)[n] = poss;
+  crit[0 * (long long)N + n] = violations;
+  crit[1 * (long long)N + n] = max_prio;
+  crit[2 * (long long)N + n] = prio_sum;
+  crit[3 * (long long)N + n] = nv;
+  crit[4 * (long long)N + n] = start_key;
+  unsigned char* vm = at<unsigned char>(a, P_VIC_MASK);
+  for (int v = 0; v < V; ++v) vm[(long long)n * V + v] = (mask >> v) & 1ULL;
+  at<int>(a, P_N_VIC)[n] = nv;
+  long long* out_rel = at<long long>(a, P_REL);
+  for (int r = 0; r < R; ++r) out_rel[(long long)n * R + r] = rel[r];
+  at<long long>(a, P_RELNZ)[(long long)n * 2 + 0] = nz0;
+  at<long long>(a, P_RELNZ)[(long long)n * 2 + 1] = nz1;
 }
 
-__global__ void preempt_eval_kernel(EvalArgs a) {
+__global__ void preempt_eval_kernel(Args a) {
   __shared__ int s_idx0;
-  if (threadIdx.x == 0) s_idx0 = representative(a.pod);
+  if (threadIdx.x == 0) s_idx0 = representative(a);
   __syncthreads();
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= a.N) return;
+  const int N = a.d[D_N];
+  if (n >= N) return;
   const int i0 = s_idx0;
-  const PodView& p = a.pod;
-  const int R = a.R, V = a.V;
-
-  bool base = a.node_valid[n] != 0;
-  if (p.tol_unsched != nullptr) base = base && (!a.unsched[n] || p.tol_unsched[i0]);
-  if (p.nodename_id != nullptr) {
-    const int want = p.nodename_id[i0];
-    base = base && (want == -1 || a.name_id[n] == want);
-  }
-  if (p.node_bits != nullptr) {
-    base = base && ((p.node_bits[(long long)i0 * a.N + n] & p.bits_mask) == p.bits_mask);
+  const int R = a.d[D_R], V = a.d[D_V], mode = a.d[D_STEP];
+  long long rel[kMaxR];
+  if (mode == TAIL) {
+    const long long* crel = at<long long>(a, P_CARRY_REL) + (long long)n * R;
+    for (int r = 0; r < R; ++r) rel[r] = crel[r];
+    write_tail(a, n, i0, (unsigned long long)at<long long>(a, P_CARRY_MASK)[n], rel,
+               at<unsigned char>(a, P_CARRY_FLAGS)[n]);
+    return;
   }
 
-  long long demand[kMaxR];
-  for (int r = 0; r < R; ++r) demand[r] = p.req[(long long)i0 * R + r];
-  const int prio = p.priority[i0];
-  const int* vp = a.vic_prio + (long long)n * V;
-  const long long* vr = a.vic_req + (long long)n * V * R;
+  bool base = at<unsigned char>(a, P_VALID)[n] != 0;
+  if (has_flag(a, S_UNSCHED)) {
+    base = base && (!at<unsigned char>(a, P_UNSCHED)[n] || at<unsigned char>(a, P_TOL_UNSCHED)[i0]);
+  }
+  if (has_flag(a, S_NODENAME)) {
+    const int want = at<int>(a, P_NODENAME_ID)[i0];
+    base = base && (want == -1 || at<int>(a, P_NAME_ID)[n] == want);
+  }
+  const int bits = a.d[D_BITS_MASK];
+  if (bits != 0) {
+    base = base && ((at<unsigned char>(a, P_NODE_BITS)[(long long)i0 * N + n] & bits) == bits);
+  }
+  const int prio = at<int>(a, P_PRIORITY)[i0];
+  const int* vp = at<int>(a, P_VIC_PRIO) + (long long)n * V;
+  const long long* vr = at<long long>(a, P_VIC_REQ) + (long long)n * V * R;
 
   // Phase 1: every lower-priority victim released.
   unsigned long long mask = 0;
-  long long rel[kMaxR];
   for (int r = 0; r < R; ++r) rel[r] = 0;
   int cnt = 0;
   for (int v = 0; v < V; ++v) {
@@ -155,65 +166,54 @@ __global__ void preempt_eval_kernel(EvalArgs a) {
       for (int r = 0; r < R; ++r) rel[r] += vr[(long long)v * R + r];
     }
   }
-  const bool feas_all = fits(a, n, demand, rel, cnt);
+  unsigned char flags = (base ? F_BASE : 0) | F_HARD;
+  if (mode == PROLOGUE) {
+    at<long long>(a, P_CARRY_MASK)[n] = (long long)mask;
+    long long* crel = at<long long>(a, P_CARRY_REL) + (long long)n * R;
+    for (int r = 0; r < R; ++r) crel[r] = rel[r];
+    at<int>(a, P_CARRY_CNT)[n] = cnt;
+    at<unsigned char>(a, P_CARRY_FLAGS)[n] = flags;
+    return;
+  }
+  const bool feas_all = fits(a, n, i0, rel, cnt) && local_ok(a, n, i0, mask);
+  if (feas_all) flags |= F_FEAS;
 
   // Phase 2: greedy reprieve, most important first = reverse slot order.
-  if (feas_all) {
+  if (feas_all && !rwop_blocked(a, i0)) {
     long long t_rel[kMaxR];
     for (int s = V - 1; s >= 0; --s) {
       if (!((mask >> s) & 1ULL)) continue;
       for (int r = 0; r < R; ++r) t_rel[r] = rel[r] - vr[(long long)s * R + r];
-      if (fits(a, n, demand, t_rel, cnt - 1)) {
-        mask &= ~(1ULL << s);
+      const unsigned long long tent = mask & ~(1ULL << s);
+      if (fits(a, n, i0, t_rel, cnt - 1) && local_ok(a, n, i0, tent)) {
+        mask = tent;
         for (int r = 0; r < R; ++r) rel[r] = t_rel[r];
         --cnt;
       }
     }
   }
-  const int nv = __popcll(mask);
-  const bool poss = base && feas_all && nv >= 1 && mate_valid(p, i0);
+  write_tail(a, n, i0, mask, rel, flags);
+}
 
-  // Criteria over the final victim set.
-  long long violations = 0;
-  for (int q = 0; q < a.P; ++q) {
-    long long c = 0;
-    for (int v = 0; v < V; ++v) {
-      if ((mask >> v) & 1ULL) c += a.vic_pdb[((long long)n * V + v) * a.P + q];
-    }
-    const long long over = c - a.pdb_allowed[q];
-    violations += over > 0 ? over : 0;
-  }
-  int max_prio = -1;
-  long long prio_sum = 0;
-  long long nz0 = 0, nz1 = 0;
-  for (int v = 0; v < V; ++v) {
-    if ((mask >> v) & 1ULL) {
-      max_prio = vp[v] > max_prio ? vp[v] : max_prio;
-      prio_sum += vp[v];
-      nz0 += a.vic_nonzero[((long long)n * V + v) * 2 + 0];
-      nz1 += a.vic_nonzero[((long long)n * V + v) * 2 + 1];
-    }
-  }
-  double min_start = INFINITY;
-  for (int v = 0; v < V; ++v) {
-    if (((mask >> v) & 1ULL) && vp[v] == max_prio) {
-      const double st = a.vic_start[(long long)n * V + v];
-      min_start = st < min_start ? st : min_start;
-    }
-  }
-  const long long start_key = isfinite(min_start) ? (long long)(-min_start * 1e6) : kNoStart;
+// The mates of a chunk as preempt_pick reads them: valid, or the
+// speculative pair (eligible, the main pass's pick).
+struct PodView {
+  const unsigned char* valid;  // (C,) or null: elig + spec_picks
+  const unsigned char* elig;   // (C,)
+  const int* spec_picks;       // (C,)
+  int C;
+};
 
-  a.possible[n] = poss;
-  a.crit[0 * (long long)a.N + n] = violations;
-  a.crit[1 * (long long)a.N + n] = max_prio;
-  a.crit[2 * (long long)a.N + n] = prio_sum;
-  a.crit[3 * (long long)a.N + n] = nv;
-  a.crit[4 * (long long)a.N + n] = start_key;
-  for (int v = 0; v < V; ++v) a.vic_mask[(long long)n * V + v] = (mask >> v) & 1ULL;
-  a.n_vic[n] = nv;
-  for (int r = 0; r < R; ++r) a.rel[(long long)n * R + r] = rel[r];
-  a.relnz[(long long)n * 2 + 0] = nz0;
-  a.relnz[(long long)n * 2 + 1] = nz1;
+__device__ __forceinline__ bool mate_valid(const PodView& p, int i) {
+  if (p.valid != nullptr) return p.valid[i] != 0;
+  return p.elig[i] != 0 && p.spec_picks[i] < 0;
+}
+
+__device__ int representative(const PodView& p) {
+  for (int i = 0; i < p.C; ++i) {
+    if (mate_valid(p, i)) return i;
+  }
+  return 0;
 }
 
 // Node a sorts before node b (both possible): the five criteria, then row.
@@ -314,7 +314,7 @@ __global__ void preempt_commit_kernel(const int* __restrict__ picks, int C, int 
   for (int v = 0; v < V; ++v) {
     const unsigned char chosen = act ? vic_mask[(long long)row * V + v] : 0;
     mask_out[(long long)i * V + v] = chosen;
-    if (chosen) vic_prio[(long long)row * V + v] = kI32Max;
+    if (chosen) vic_prio[(long long)row * V + v] = search::kI32Max;
   }
   nvic_out[i] = act ? n_vic[row] : 0;
   if (!act) return;
@@ -327,62 +327,19 @@ __global__ void preempt_commit_kernel(const int* __restrict__ picks, int C, int 
   atomicSub(&num_pods[row], n_vic[row]);
 }
 
-PodView make_pod_view(const void* priority, const void* pod_req, const void* nodename_id,
-                      const void* tol_unsched, const void* valid, const void* elig,
-                      const void* spec_picks, const void* node_bits, int bits_mask, int C) {
-  PodView p;
-  p.priority = static_cast<const int*>(priority);
-  p.req = static_cast<const long long*>(pod_req);
-  p.nodename_id = static_cast<const int*>(nodename_id);
-  p.tol_unsched = static_cast<const unsigned char*>(tol_unsched);
-  p.valid = static_cast<const unsigned char*>(valid);
-  p.elig = static_cast<const unsigned char*>(elig);
-  p.spec_picks = static_cast<const int*>(spec_picks);
-  p.node_bits = static_cast<const unsigned char*>(node_bits);
-  p.bits_mask = bits_mask;
-  p.C = C;
-  return p;
-}
-
 }  // namespace
 
-extern "C" int preempt_eval_launch(
-    const void* node_valid, const void* name_id, const void* unsched, const void* num_pods,
-    const void* allowed_pods, const void* alloc, const void* req, const void* vic_prio,
-    const void* vic_req, const void* vic_nonzero, const void* vic_start, const void* vic_pdb,
-    const void* pdb_allowed, const void* priority, const void* pod_req,
-    const void* nodename_id, const void* tol_unsched, const void* valid, const void* elig,
-    const void* spec_picks, const void* node_bits, int bits_mask, int C, int N, int V, int R,
-    int P, void* possible, void* crit, void* vic_mask, void* n_vic, void* rel, void* relnz,
-    void* stream) {
-  if (R > kMaxR || V > kMaxV) return (int)cudaErrorInvalidValue;
+// ptrs: the search::Ptr table (nptrs entries), dims: the search::Dim
+// values (ndims), both host arrays.
+extern "C" int preempt_eval_launch(const void* ptrs, int nptrs, const void* dims, int ndims,
+                                   void* stream) {
+  if (nptrs != P_COUNT || ndims != D_COUNT) return (int)cudaErrorInvalidValue;
+  Args a;
+  for (int i = 0; i < P_COUNT; ++i) a.p[i] = static_cast<void* const*>(ptrs)[i];
+  for (int i = 0; i < D_COUNT; ++i) a.d[i] = static_cast<const int*>(dims)[i];
+  if (a.d[D_R] > kMaxR || a.d[D_V] > kMaxV || a.d[D_QC] > kMaxSlots) return (int)cudaErrorInvalidValue;
+  const int N = a.d[D_N];
   if (N == 0) return 0;
-  EvalArgs a;
-  a.node_valid = static_cast<const unsigned char*>(node_valid);
-  a.name_id = static_cast<const int*>(name_id);
-  a.unsched = static_cast<const unsigned char*>(unsched);
-  a.num_pods = static_cast<const int*>(num_pods);
-  a.allowed_pods = static_cast<const int*>(allowed_pods);
-  a.alloc = static_cast<const long long*>(alloc);
-  a.req = static_cast<const long long*>(req);
-  a.vic_prio = static_cast<const int*>(vic_prio);
-  a.vic_req = static_cast<const long long*>(vic_req);
-  a.vic_nonzero = static_cast<const long long*>(vic_nonzero);
-  a.vic_start = static_cast<const double*>(vic_start);
-  a.vic_pdb = static_cast<const unsigned char*>(vic_pdb);
-  a.pdb_allowed = static_cast<const long long*>(pdb_allowed);
-  a.pod = make_pod_view(priority, pod_req, nodename_id, tol_unsched, valid, elig, spec_picks,
-                        node_bits, bits_mask, C);
-  a.N = N;
-  a.V = V;
-  a.R = R;
-  a.P = P;
-  a.possible = static_cast<unsigned char*>(possible);
-  a.crit = static_cast<long long*>(crit);
-  a.vic_mask = static_cast<unsigned char*>(vic_mask);
-  a.n_vic = static_cast<int*>(n_vic);
-  a.rel = static_cast<long long*>(rel);
-  a.relnz = static_cast<long long*>(relnz);
   preempt_eval_kernel<<<(N + kThreads - 1) / kThreads, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
@@ -404,8 +361,8 @@ extern "C" int preempt_pick_launch(const void* possible, const void* crit, const
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  PodView p = make_pod_view(nullptr, nullptr, nullptr, nullptr, valid, elig, spec_picks,
-                            nullptr, 0, C);
+  PodView p{static_cast<const unsigned char*>(valid), static_cast<const unsigned char*>(elig),
+            static_cast<const int*>(spec_picks), C};
   preempt_assign_kernel<<<1, kThreads, 0, s>>>(p, static_cast<const int*>(sig),
                                                static_cast<const int*>(order_at), chunk_mode, N,
                                                static_cast<int*>(picks));

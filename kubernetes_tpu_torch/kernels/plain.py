@@ -14,6 +14,7 @@ import torch
 
 from ..ops import common as opcommon
 from ..ops import interpodaffinity as ipa_op
+from ..ops import nodeports as ports_op
 from ..ops import nodeaffinity as na_op
 from ..ops import podtopologyspread as spread_op
 from ..ops import tainttoleration as taint_op
@@ -488,20 +489,36 @@ def expand_rows(src, k: int):
     return src[0].expand((k,) + tuple(src.shape[1:])).clone()
 
 
-# -- preemption (victims.cu, preempt.cu) ---------------------------------------
+# -- preemption (victims.cu, preempt.cu, preempt_search.cu) ----------------------
 
 I32_MAX = 2**31 - 1
 # Criteria rows of preempt_eval's (5, N) output, in pickOneNodeForPreemption
 # order: PDB violations, max victim priority, priority sum, victim count,
 # start key.
 N_CRIT = 5
+# Empty-slot fills of the victim features (preemption.py:89 _VFEAT_PAD):
+# id columns -1, counts and flags 0.
+VFEAT_PAD = {"group": -1, "terms": -1, "port_triples": -1, "port_keys": -1, "vol_dev_ids": -1, "csi_ids": -1}
+# preempt_eval's modes: the whole dry-run in one call (no domain op in the
+# search), or its prologue (the carry) and its criteria tail around a host
+# loop of dom_release and search_step.
+FULL, PROLOGUE, TAIL = 0, 1, 2
+# search_step's steps besides the reprieve slots s >= 0: the hard filters on
+# the live state, and phase 1 (every lower-priority victim released).
+HARD_STEP, PHASE1 = -2, -1
+# SearchCarry.flags bits: the release-independent filters pass, the hard
+# filters pass, phase 1 is feasible, the node may reprieve.
+F_BASE, F_HARD, F_FEAS, F_REPRIEVE = 1, 2, 4, 8
 
 
-def unpack_victims(buf, r: int, n_pdbs: int, pdb_words: int, v: int, inline_allowed: bool):
+def unpack_victims(buf, r: int, n_pdbs: int, pdb_words: int, v: int, inline_allowed: bool, vf_cols=()):
     """The staged (N, vu, cols) int64 victim buffer → (prio (N, v) i32, req
     (N, v, R) i64, nonzero (N, v, 2) i64, start (N, v) f64, pdb (N, v, P)
-    bool, allowed (P,) i64 or None), the occupied slots padded to ``v``
-    with the empty-slot sentinels (preemption.py:94 _unpack_victims)."""
+    bool, allowed (P,) i64 or None, vfeat {name: (N, v[, W]) i32}), the
+    occupied slots padded to ``v`` with the empty-slot sentinels
+    (preemption.py:94 _unpack_victims).  ``vf_cols`` lists the victim
+    feature columns after the PDB words as (name, width, ndim), ndim 2 for
+    one column per slot."""
     n, vu, _cols = buf.shape
     pad = v - vu
 
@@ -520,8 +537,14 @@ def unpack_victims(buf, r: int, n_pdbs: int, pdb_words: int, v: int, inline_allo
     bits = (words[..., idx // 64] >> (idx % 64)) & 1
     pdb = padded(bits.to(torch.bool), False)
     allowed = buf[:n_pdbs, 0, -1].clone() if inline_allowed else None
+    vfeat = {}
+    off = 4 + r + pdb_words
+    for name, width, ndim in vf_cols:
+        col = buf[..., off] if ndim == 2 else buf[..., off : off + width]
+        vfeat[name] = padded(col.to(torch.int32), VFEAT_PAD.get(name, 0)).contiguous()
+        off += width
     return (prio.contiguous(), req.contiguous(), nonzero.contiguous(), start.contiguous(),
-            pdb.contiguous(), allowed)
+            pdb.contiguous(), allowed, vfeat)
 
 
 def mate_valid(pf: dict):
@@ -532,14 +555,31 @@ def mate_valid(pf: dict):
     return pf["elig"] & (pf["spec_picks"] < 0)
 
 
-def preempt_eval(state, vic, pf: dict, spec):
-    """One dry-run of the chunk's representative preemptor (the first
-    valid mate) against every node: (possible (N,) bool, crit (5, N) i64,
-    vic_mask (N, V) bool, n_vic (N,) i32, rel (N, R) i64, relnz (N, 2) i64)
-    — eval_one (preemption.py:257) in its closed form."""
+def _rep(pf: dict) -> int:
+    """The chunk's representative: its first valid mate, 0 when none."""
     valid = mate_valid(pf)
-    i0 = int(torch.argmax(valid.to(torch.int32))) if bool(valid.any()) else 0
-    n, v = vic.prio.shape
+    return int(torch.argmax(valid.to(torch.int32))) if bool(valid.any()) else 0
+
+
+def slot_mask(bits, v: int):
+    """(N,) i64 victim-slot bitmasks → (N, v) bool."""
+    return ((bits[:, None] >> torch.arange(v, device=bits.device)) & 1).to(torch.bool)
+
+
+def slot_bits(mask):
+    """(N, V) bool → (N,) i64 bitmasks (slot j is bit j)."""
+    shifts = torch.arange(mask.shape[1], device=mask.device)
+    return (mask.to(torch.int64) << shifts).sum(dim=1)
+
+
+def _prologue(state, vic, pf: dict, spec):
+    """The carry of one dry-run: every victim below the representative's
+    priority masked, their released requests and count, and the flags of
+    the release-independent filters (the hard filters pass until
+    search_step's HARD_STEP says otherwise)."""
+    from . import SearchCarry
+
+    i0 = _rep(pf)
     base = state.valid.clone()
     if spec.check_unsched:
         base &= ~state.unschedulable | pf["tolerates_unschedulable"][i0]
@@ -548,29 +588,21 @@ def preempt_eval(state, vic, pf: dict, spec):
         base &= (want == -1) | (state.name_id == want)
     if spec.bits_mask:
         base &= (pf["node_bits"][i0].to(torch.int32) & spec.bits_mask) == spec.bits_mask
-    prio = pf["priority"][i0].to(torch.int32)
-    demand = pf["req"][i0]
-    lower = vic.prio < prio
-
-    def ok_closed(rel_m, cnt):
-        free = state.alloc - (state.req - rel_m)
-        ok = ((demand[None, :] == 0) | (demand[None, :] <= free)).all(-1)
-        return ok & (state.num_pods - cnt + 1 <= state.allowed_pods)
-
+    lower = vic.prio < pf["priority"][i0].to(torch.int32)
     rel = torch.where(lower[:, :, None], vic.req, 0).sum(dim=1)
     cnt = lower.sum(dim=1).to(torch.int32)
-    feas_all = ok_closed(rel, cnt)
-    mask = lower.clone()
-    for s in range(v - 1, -1, -1):
-        has = mask[:, s]
-        t_rel = rel - torch.where(has[:, None], vic.req[:, s], 0)
-        t_cnt = cnt - has.to(torch.int32)
-        take = feas_all & ok_closed(t_rel, t_cnt) & has
-        mask[:, s] &= ~take
-        rel = torch.where(take[:, None], t_rel, rel)
-        cnt = torch.where(take, t_cnt, cnt)
+    flags = (torch.where(base, F_BASE, 0) | F_HARD).to(torch.uint8)
+    return SearchCarry(slot_bits(lower), rel, cnt, flags)
+
+
+def _tail(state, vic, pf: dict, carry):
+    """The five criteria over each node's final victim set (preemption.py:
+    457-536): (possible, crit, vic_mask, n_vic, rel, relnz)."""
+    i0 = _rep(pf)
+    mask = slot_mask(carry.mask, vic.prio.shape[1])
     n_vic = mask.sum(dim=1).to(torch.int32)
-    possible = base & feas_all & (n_vic >= 1) & valid[i0]
+    need = F_BASE | F_HARD | F_FEAS
+    possible = ((carry.flags.to(torch.int32) & need) == need) & (n_vic >= 1) & mate_valid(pf)[i0]
     cnt_p = (mask[:, :, None] & vic.pdb).sum(dim=1).to(torch.int64)  # (N, P)
     violations = (cnt_p - vic.allowed[None, :]).clamp(min=0).sum(dim=1)
     max_prio = torch.where(mask, vic.prio, -1).max(dim=1).values
@@ -582,7 +614,217 @@ def preempt_eval(state, vic, pf: dict, spec):
     ).to(torch.int64)
     relnz = torch.where(mask[:, :, None], vic.nonzero, 0).sum(dim=1)
     crit = torch.stack([violations, max_prio.to(torch.int64), prio_sum, n_vic.to(torch.int64), start_key])
-    return possible, crit, mask, n_vic, rel, relnz
+    return possible, crit, mask, n_vic, carry.rel, relnz
+
+
+def preempt_eval(state, vic, pf: dict, spec, mode: int = FULL, carry=None):
+    """One dry-run of the chunk's representative preemptor (the first valid
+    mate) against every node — eval_one (preemption.py:257).  FULL runs it
+    whole (the node-local ops of the search, NodePorts, VolumeRestrictions
+    and NodeVolumeLimits, in the reprieve loop) and returns (possible (N,)
+    bool, crit (5, N) i64, vic_mask (N, V) bool, n_vic (N,) i32, rel (N, R)
+    i64, relnz (N, 2) i64); PROLOGUE returns the SearchCarry that
+    search_step advances; TAIL returns FULL's outputs from that carry."""
+    if mode == PROLOGUE:
+        return _prologue(state, vic, pf, spec)
+    if mode == TAIL:
+        return _tail(state, vic, pf, carry)
+    if spec.domain:
+        raise ValueError("preempt_eval: a domain op of the search needs PROLOGUE, search_step and TAIL")
+    carry = _prologue(state, vic, pf, spec)
+    search_step(state, vic, pf, spec, carry, PHASE1)
+    for s in range(vic.prio.shape[1] - 1, -1, -1):
+        search_step(state, vic, pf, spec, carry, s)
+    return _tail(state, vic, pf, carry)
+
+
+def _minus_at(table, rows, cols):
+    """A copy of ``table`` with 1 taken off at each (rows[i], cols[i])."""
+    out = table.clone()
+    if rows.numel():
+        out.index_put_((rows.to(torch.int64), cols.to(torch.int64)),
+                       torch.full((rows.numel(),), -1, dtype=out.dtype, device=out.device), accumulate=True)
+    return out
+
+
+def released_counts(state, vic, tent):
+    """The group and own-term counts with each node's masked victims
+    removed (preemption.py:274-297): (group_counts, et_counts)."""
+    n, v = tent.shape
+    node = torch.arange(n, device=tent.device)[:, None].expand(n, v)
+    vf = vic.vfeat or {}
+    gc, ec = state.group_counts, state.et_counts
+    if "group" in vf:
+        g = vf["group"]
+        m = tent & (g >= 0)
+        gc = _minus_at(gc, g[m], node[m])
+    if "terms" in vf:
+        tm = vf["terms"]
+        m = tent[:, :, None] & (tm >= 0)
+        ec = _minus_at(ec, tm[m], node[:, :, None].expand(tm.shape)[m])
+    return gc, ec
+
+
+def dom_release(dom, state, vic, carry, s: int):
+    """(group_dom, et_dom) of the state with the carry's masked victims
+    removed, slot ``s`` restored on every node when s >= 0 — build_dom of
+    preemption.py:274 released(mask), :411-415."""
+    tent = slot_mask(carry.mask, vic.prio.shape[1])
+    if s >= 0:
+        tent[:, s] = False
+    gc, ec = released_counts(state, vic, tent)
+    st2 = dataclasses.replace(state, group_counts=gc, et_counts=ec)
+    return build_dom(st2, dom.et_slot, dom.group_dom.shape[2])
+
+
+def _released_ports(state, vic, tent):
+    """port_counts and portkey_counts with the masked victims' host ports
+    released, both by the triple slots' decrement (preemption.py:298-307)."""
+    vf = vic.vfeat or {}
+    if "port_triples" not in vf:
+        return state.port_counts, state.portkey_counts
+    pt, pk = vf["port_triples"], vf["port_keys"]
+    dec = tent[:, :, None] & (pt >= 0)
+    node = torch.arange(tent.shape[0], device=tent.device)[:, None, None].expand(pt.shape)[dec]
+    return _minus_at(state.port_counts, pt[dec], node), _minus_at(state.portkey_counts, pk.clamp(min=0)[dec], node)
+
+
+def _held(ids, vf_ids, live):
+    """(S, N): per wanted id, the node's live victim slots holding it."""
+    same = (vf_ids[None] == ids[:, None, None, None]) & live[None]
+    return same.sum(dim=(2, 3))
+
+
+def _vr_released(state, vic, tent, pf1) -> torch.Tensor:
+    """VolumeRestrictions (volumes.py:217) on the state released by
+    ``tent``, the ReadWriteOncePod check forced true; only the wanted
+    devices' rows are read (preemption.py:309-318)."""
+    n = tent.shape[0]
+    ids = pf1.get("vol_dev_ids")
+    vf = vic.vfeat or {}
+    if ids is None:
+        return torch.ones(n, dtype=torch.bool, device=tent.device)
+    ids = ids[0].to(torch.int64)
+    safe = ids.clamp(min=0)
+    uses = state.dev_counts[safe].to(torch.int64)
+    rw_uses = state.dev_rw_counts[safe].to(torch.int64)
+    if "vol_dev_ids" in vf:
+        di, dw = vf["vol_dev_ids"], vf["vol_dev_rw"]
+        live = tent[:, :, None] & (di >= 0)
+        uses = uses - _held(ids, di, live)
+        rw_uses = rw_uses - _held(ids, di, live & (dw > 0))
+    ro = ~pf1["vol_dev_rw"][0]
+    conflict = torch.where(ro[:, None], rw_uses > 0, uses > 0) & (ids >= 0)[:, None]
+    return ~conflict.any(dim=0)
+
+
+def _nvl_released(state, vic, tent, pf1) -> torch.Tensor:
+    """NodeVolumeLimits (volumes.py:238) on the state released by ``tent``:
+    each wanted volume's count less the node's masked victim slots holding
+    it, and csi_used less one per masked slot whose volume's count crosses
+    to 0 (preemption.py:320-334; two victims sharing a volume free it only
+    together, and then both slots count).  csivol_counts is read at the
+    wanted and the victims' ids only, never copied."""
+    n = tent.shape[0]
+    ids = pf1.get("vol_csi_ids")
+    vf = vic.vfeat or {}
+    if ids is None:
+        return torch.ones(n, dtype=torch.bool, device=tent.device)
+    ids = ids[0].to(torch.int64)
+    count = state.csivol_counts[ids.clamp(min=0)].to(torch.int64)  # (S, N)
+    used = state.csi_used.to(torch.int64)
+    if "csi_ids" in vf:
+        ci, cd = vf["csi_ids"], vf["csi_drv"]
+        live = tent[:, :, None] & (ci >= 0)
+        count = count - _held(ids, ci, live)
+        node = torch.arange(n, device=tent.device)[:, None, None].expand(ci.shape)
+        same = ((ci[:, :, :, None, None] == ci[:, None, None, :, :]) & live[:, None, None, :, :]).sum(dim=(3, 4))
+        crossed = live & (state.csivol_counts[ci.clamp(min=0).to(torch.int64), node].to(torch.int64) - same == 0)
+        used = _minus_at(used, cd.clamp(min=0)[crossed], node[crossed])
+    newv = (ids >= 0)[:, None] & ~(count > 0)
+    drv = pf1["vol_csi_drv"][0]
+    ok = torch.ones(n, dtype=torch.bool, device=tent.device)
+    for d in range(used.shape[0]):
+        new_cnt = (newv & (drv == d)[:, None]).sum(dim=0)
+        ok &= (used[d] + new_cnt <= state.csi_limit[d].to(torch.int64)) | (new_cnt == 0)
+    return ok
+
+
+def _search_ok(state, vic, pf1: dict, spec, tent, dom_rel) -> torch.Tensor:
+    """(N,) bool: the search ops' filters (preemption.py:391-431 ok_search)
+    for the representative ``pf1`` (a one-pod chunk) on the state released
+    by ``tent``; the domain tables ``dom_rel`` are those of that state."""
+    n = tent.shape[0]
+    ok = torch.ones(n, dtype=torch.bool, device=tent.device)
+    ctx = spec.ctx
+    if spec.ipa or spec.pts:
+        gc, ec = released_counts(state, vic, tent)
+        st2 = dataclasses.replace(state, group_counts=gc, et_counts=ec)
+        if spec.ipa:
+            ok &= ipa_op.filter_fn(st2, pf1, dataclasses.replace(ctx, dom=dom_rel))[0]
+        if spec.pts:
+            ok &= spread_op.filter_fn(st2, pf1, ctx, *_node_oks(pf1["node_bits"]))[0]
+    if spec.ports:
+        pc, pkc = _released_ports(state, vic, tent)
+        ok &= ports_op.filter_fn(dataclasses.replace(state, port_counts=pc, portkey_counts=pkc), pf1, ctx)[0]
+    if spec.vr:
+        ok &= _vr_released(state, vic, tent, pf1)
+    if spec.nvl:
+        ok &= _nvl_released(state, vic, tent, pf1)
+    return ok
+
+
+def search_step(state, vic, pf: dict, spec, carry, s: int, dom=None, dom_rel=None) -> None:
+    """One step of the dry-run's search, IN PLACE on ``carry``
+    (preemption.py:391-455) for the chunk's representative:
+      HARD_STEP  the hard filters of InterPodAffinity and PodTopologySpread
+                 on the live state (``dom``) clear F_HARD where they reject;
+      PHASE1     the closed-form fit and the search ops with every masked
+                 victim released set F_FEAS, and F_REPRIEVE unless the
+                 preemptor is ReadWriteOncePod-blocked (evict all, no
+                 reprieve);
+      s >= 0     the reprieve of slot s: the state releases the masked
+                 victims but slot s on EVERY node (``dom_rel`` is that
+                 state's domain tables), and a node that may reprieve and
+                 still fits takes it back.
+    The closed form reads the carried release, the search ops the released
+    counts."""
+    i0 = _rep(pf)
+    pf1 = {key: val[i0 : i0 + 1] for key, val in pf.items()}
+    n, v = vic.prio.shape
+    if s == HARD_STEP:
+        ok = torch.ones(n, dtype=torch.bool, device=carry.flags.device)
+        if spec.ipa:
+            ok &= ~ipa_op.hard_filter_fn(state, pf1, dataclasses.replace(spec.ctx, dom=dom))[0]
+        if spec.pts:
+            ok &= ~spread_op.hard_filter_fn(state, pf1, spec.ctx)[0]
+        carry.flags.copy_(torch.where(ok, carry.flags, carry.flags & ~F_HARD))
+        return
+    mask = slot_mask(carry.mask, v)
+    tent = mask.clone()
+    demand = pf["req"][i0]
+    if s >= 0:
+        has = mask[:, s]
+        tent[:, s] = False
+        t_rel = carry.rel - torch.where(has[:, None], vic.req[:, s], 0)
+        t_cnt = carry.cnt - has.to(torch.int32)
+    else:
+        t_rel, t_cnt = carry.rel, carry.cnt
+    free = state.alloc - (state.req - t_rel)
+    ok = ((demand[None, :] == 0) | (demand[None, :] <= free)).all(dim=-1)
+    ok &= state.num_pods - t_cnt + 1 <= state.allowed_pods
+    ok &= _search_ok(state, vic, pf1, spec, tent, dom_rel)
+    if s == PHASE1:
+        add = torch.where(ok, F_FEAS, 0)
+        if not (spec.vr and not bool(pf["vr_rwop_ok"][i0])):
+            add = add | torch.where(ok, F_REPRIEVE, 0)
+        carry.flags.copy_(carry.flags | add.to(torch.uint8))
+        return
+    take = ((carry.flags & F_REPRIEVE) != 0) & ok & has
+    mask[:, s] &= ~take
+    carry.mask.copy_(slot_bits(mask))
+    carry.rel.copy_(torch.where(take[:, None], t_rel, carry.rel))
+    carry.cnt.copy_(torch.where(take, t_cnt, carry.cnt))
 
 
 def preempt_pick(possible, crit, pf: dict, chunk_mode: bool):

@@ -266,6 +266,13 @@ def filter_fn(state, pf, ctx: PassContext):
     return ~fail_existing & aff_ok & ~fail_anti
 
 
+def hard_filter_fn(state, pf, ctx: PassContext):
+    """(C, N) bool: nodes the incoming required affinity rejects, which
+    deleting pods never fixes (interpodaffinity.py:300); preemption's
+    candidacy check excludes them."""
+    return ~_affinity_ok(state, pf, ctx)
+
+
 def raw_score(state, pf, ctx: PassContext) -> torch.Tensor:
     """(C, N) i64 raw score before normalization."""
     dom = ctx.dom
@@ -336,6 +343,7 @@ register(
         featurize=featurize,
         filter=filter_fn,
         score=score_fn,
+        hard_filter=hard_filter_fn,
         is_active=is_active,
     )
 )

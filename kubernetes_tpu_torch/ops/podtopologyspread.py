@@ -201,6 +201,14 @@ def filter_fn(state, pf, ctx: PassContext, na_ok=None, taint_ok=None):
     return (ok | ~valid[:, :, None]).all(dim=1)
 
 
+def hard_filter_fn(state, pf, ctx: PassContext):
+    """(C, N) bool: nodes missing a DoNotSchedule constraint's topology key,
+    UnschedulableAndUnresolvable (podtopologyspread.py:338); skew
+    violations are not."""
+    vals = state.topo_vals.T[pf["tps_h_slot"].to(torch.int64)]  # (C, K, N)
+    return ((vals < 0) & pf["tps_h_valid"][:, :, None]).any(dim=1)
+
+
 def raw_score(state, pf, ctx: PassContext, feasible, na_ok=None, taint_ok=None):
     """(scored (C, N) bool, raw (C, N) i64): the rounded f64 sum of the
     ScheduleAnyway terms (podtopologyspread.py:261-311), before the
@@ -280,6 +288,7 @@ register(
         featurize=featurize,
         filter=filter_fn,
         score=score_fn,
+        hard_filter=hard_filter_fn,
         is_active=is_active,
     )
 )

@@ -144,12 +144,6 @@ def vb_filter(state, pf, ctx: PassContext) -> torch.Tensor:
     return pf["vb_feasible"][:, None] & eval_grouped(state, pf, "vb")
 
 
-def _vb_hard(state, pf, ctx: PassContext) -> torch.Tensor:
-    # Lost/unbound-immediate claims are UnschedulableAndUnresolvable; PV
-    # affinity mismatches are too (deleting pods moves no volume).
-    return ~vb_filter(state, pf, ctx)
-
-
 def _pvc_active(pod: t.Pod, fctx: FeaturizeContext) -> bool:
     return any(v.pvc for v in pod.spec.volumes)
 
@@ -265,11 +259,10 @@ for _k, _fill in [
 ]:
     feature_fill(_k, _fill)
 
-register(OpDef(name=VB, featurize=_vb_featurize, filter=vb_filter, hard_filter=_vb_hard,
-               is_active=_pvc_active))
-# Zone label mismatches are UnschedulableAndUnresolvable (volume_zone.go
-# ErrReasonConflict).
-register(OpDef(name=VZ, featurize=_vz_featurize, filter=vz_filter,
-               hard_filter=lambda state, pf, ctx: ~vz_filter(state, pf, ctx), is_active=_pvc_active))
+# VolumeBinding and VolumeZone are release-independent: preemption applies
+# their filters on the live state (node_filters bits 2 and 3), so neither
+# needs a hard filter (preemption.py:244-249).
+register(OpDef(name=VB, featurize=_vb_featurize, filter=vb_filter, is_active=_pvc_active))
+register(OpDef(name=VZ, featurize=_vz_featurize, filter=vz_filter, is_active=_pvc_active))
 register(OpDef(name=VR, featurize=_vr_featurize, filter=vr_filter, is_active=_vr_active))
 register(OpDef(name=NVL, filter=nvl_filter, is_active=_nvl_active))

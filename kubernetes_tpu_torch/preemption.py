@@ -1,34 +1,49 @@
-"""Batched preemption: the PostFilter dry-run as one device pass, closed form.
+"""Batched preemption: the PostFilter dry-run on the device.
 
 Counterpart of ``kubernetes_tpu/preemption.py`` (build_preempt_pass and
-PreemptionEvaluator), for active filter sets whose release-dependent
-filters reduce to NodeResourcesFit — the case where the JAX pass's
-``search_ops`` is empty (preemption.py:211-247).  The reference's semantics
+PreemptionEvaluator).  The reference's semantics
 (framework/preemption/preemption.go + plugins/defaultpreemption/): every
 node's pods below the preemptor's priority are released, the preemptor's
-fit is checked in closed form against the released requests, victims are
-reprieved most-important-first (SelectVictimsOnNode), and the node is
-picked by five lexicographic criteria (pickOneNodeForPreemption: fewest
-PDB violations, lowest max victim priority, smallest priority sum, fewest
-victims, latest earliest start among the highest-priority victims).
+fit is checked in closed form against the released requests and its
+release-dependent filters (NodePorts, InterPodAffinity,
+PodTopologySpread, VolumeRestrictions, NodeVolumeLimits) are evaluated on
+the released state (the what-if search), victims are reprieved
+most-important-first (SelectVictimsOnNode), and the node is picked by five
+lexicographic criteria (pickOneNodeForPreemption: fewest PDB violations,
+lowest max victim priority, smallest priority sum, fewest victims, latest
+earliest start among the highest-priority victims).  The
+release-independent filters (NodeUnschedulable, NodeName, NodeAffinity,
+TaintToleration, VolumeBinding, VolumeZone) run once on the live state,
+InterPodAffinity's required affinity and PodTopologySpread's missing keys
+exclude nodes outright (their hard filters), and a ReadWriteOncePod-blocked
+preemptor evicts every lower-priority pod with no reprieve.
 
 The host packs every node's pods into (N, V) victim slots once per batch
 (non-violating first, least important first within each class, with PDB
-budgets consumed most-important-first to classify violating victims),
-ships them as one int64 buffer and unpacks it on the device
-(``unpack_victims``); an unchanged node's rows stay staged, and dirty rows
-are written into the device buffer with ``scatter_rows``.  The JAX
-``lax.scan`` over chunks of preemptors is a host loop of three kernel
-launches per chunk (``preempt_eval``, ``preempt_pick``, ``preempt_commit``,
-kernels/csrc/preempt.cu); chosen victims are consumed in the carried
-priorities so later preemptors cannot claim them twice.  At chunk > 1 one
-dry-run per chunk (its first valid pod's) is shared by the mates with the
-same featurization signature, which take the 1st, 2nd, … best nodes; the
-others defer (-2) and retry next batch.
+budgets consumed most-important-first to classify violating victims), with
+the features the search releases (label group, own affinity terms, host
+ports, device and CSI volumes), ships them as one int64 buffer and unpacks
+it on the device (``unpack_victims``); an unchanged node's rows stay
+staged, and dirty rows are written into the device buffer with
+``scatter_rows``.  The JAX ``lax.scan`` over chunks of preemptors is a host
+loop per chunk: with no domain op in the search, ``preempt_eval`` runs the
+whole dry-run in one launch (the node-local ops read each node's own
+counts less its masked victims' slots); with InterPodAffinity or
+PodTopologySpread it is ``preempt_eval``'s prologue, ``search_step`` on
+the live state (the hard filters), then per step (phase 1 and each
+occupied slot in reverse) ``dom_release`` (the domain tables of the
+released state) and ``search_step``, and ``preempt_eval``'s criteria tail
+(kernels/csrc/preempt.cu, preempt_search.cu).  Then ``preempt_pick`` and
+``preempt_commit``; chosen victims are consumed in the carried priorities
+so later preemptors cannot claim them twice.  At chunk > 1 one dry-run per
+chunk (its first valid pod's) is shared by the mates with the same
+featurization signature, which take the 1st, 2nd, … best nodes; the others
+defer (-2) and retry next batch.
 
-The what-if search of the other release-dependent filters (NodePorts,
-InterPodAffinity, PodTopologySpread, volumes, DRA; preemption.py:273-346,
-:391) is a later slice: a dry-run whose active filters include one raises
+A reprieve step restores its slot on every node at once before the domain
+tables are rebuilt (preemption.py:441), as the reference does; upstream
+releases per candidate node (ROADMAP §3).  DynamicResources' release is a
+later slice: a dry-run whose active filters include it raises
 NotImplementedError naming it, before any victim is touched.  So does a
 filter this pass cannot evaluate, and a PodDisruptionBudget whose status
 would have to be recomputed from its spec.
@@ -46,22 +61,22 @@ import torch
 from . import kernels
 from .api import types as t
 from .engine.features import pod_sig
-from .engine.pass_ import _pass_ops
+from .engine.pass_ import DomTables, _pass_ops, _to_device, build_dom
 from .kernels import PreemptSpec, Victims, plain
-from .kernels.plain import NA, TT
-from .snapshot import _bucket
+from .kernels.plain import IPA, NA, NVL, PTS, TT, VB, VR, VZ
+from .snapshot import POD_PORT_SLOTS, _bucket
 
 I32_MAX = np.int32(2**31 - 1)
 
-# Filters whose verdict can change when pods leave a node, and the subset
-# the reference answers by a what-if search (preemption.py:223-231).
+# Filters whose verdict can change when pods leave a node: the closed form
+# (NodeResourcesFit) and the ops of the what-if search (preemption.py:223-231).
 _RELEASE_DEPENDENT = frozenset({
-    "NodeResourcesFit", "NodePorts", "InterPodAffinity", "PodTopologySpread",
-    "VolumeRestrictions", "NodeVolumeLimits", "DynamicResources",
+    "NodeResourcesFit", "NodePorts", IPA, PTS, VR, NVL, "DynamicResources",
 })
-_SEARCHABLE = _RELEASE_DEPENDENT - {"NodeResourcesFit"}
-# Release-independent filters preempt_eval applies on the live state.
-_INVARIANT = frozenset({"NodeUnschedulable", "NodeName", NA, TT})
+# Release-independent filters preempt_eval applies on the live state, and
+# the node_filters bit each must have set.
+_INVARIANT = frozenset({"NodeUnschedulable", "NodeName", NA, TT, VB, VZ})
+_NODE_BITS = {NA: 1, TT: 2, VB: 4, VZ: 8}
 
 
 @dataclass
@@ -77,23 +92,33 @@ class PreemptStep(NamedTuple):
 
 
 def refusal(profile, active: frozenset[str] | None) -> str | None:
-    """Why the closed-form dry-run cannot serve this active filter set, or
-    None when it can."""
+    """Why the dry-run cannot serve this active filter set, or None when it
+    can."""
     names = [n for n in profile.filters if active is None or n in active]
-    search = [n for n in names if n in _SEARCHABLE]
-    if search:
-        return (
-            f"preemption's what-if search for {search} is not yet ported "
-            "(closed-form NodeResourcesFit preemption only)"
-        )
+    if "DynamicResources" in names:
+        return "preemption's release of DynamicResources claims is not yet ported"
     other = [n for n in names if n not in _INVARIANT and n not in _RELEASE_DEPENDENT]
     if other:
         return f"preemption with the filters {other} active is not yet ported"
     return None
 
 
-_KERNEL_FNS = (kernels.preempt_eval, kernels.preempt_pick, kernels.preempt_commit, kernels.node_filters)
-_PLAIN_FNS = (plain.preempt_eval, plain.preempt_pick, plain.preempt_commit, plain.node_filters)
+_KERNEL_FNS = (kernels.preempt_eval, kernels.preempt_pick, kernels.preempt_commit, kernels.node_filters,
+               kernels.build_dom, kernels.dom_release, kernels.search_step)
+_PLAIN_FNS = (plain.preempt_eval, plain.preempt_pick, plain.preempt_commit, plain.node_filters,
+              plain.build_dom, plain.dom_release, plain.search_step)
+
+
+def preempt_spec(profile, schema, builder_res_col, active: frozenset[str] | None) -> PreemptSpec:
+    """The filters one dry-run evaluates (preemption.py:204-255)."""
+    ctx, filters, _scorers = _pass_ops(profile, schema, builder_res_col, active)
+    f = frozenset(filters)
+    return PreemptSpec(
+        check_unsched="NodeUnschedulable" in f,
+        check_nodename="NodeName" in f,
+        bits_mask=sum(bit for name, bit in _NODE_BITS.items() if name in f),
+        ports="NodePorts" in f, vr=VR in f, nvl=NVL in f, ipa=IPA in f, pts=PTS in f, ctx=ctx,
+    )
 
 
 def build_preempt_pass(
@@ -106,28 +131,37 @@ def build_preempt_pass(
 ):
     """The dry-run for one (profile, schema, active-op-set, chunk).
 
-    Returns run(state, batch, vic, steps=None) → (PreemptStep, final
-    (req, nonzero_req, num_pods), final victim priorities).  ``batch`` holds
-    (K,)-leading device tensors: the pods' features, ``sig`` (i32
-    signature ids) and either ``valid`` or the speculative pair ``elig`` +
-    ``spec_picks``.  ``steps`` (optional) lists the chunk indices to run;
-    every other chunk must hold no valid pod, whose outputs are -1, no
-    victims.  The input state and victims are not modified: the carry is
-    a copy."""
+    Returns run(state, batch, vic, steps=None, inv=None) → (PreemptStep,
+    final (req, nonzero_req, num_pods), final victim priorities).
+    ``batch`` holds (K,)-leading device tensors: the pods' features, ``sig``
+    (i32 signature ids) and either ``valid`` or the speculative pair
+    ``elig`` + ``spec_picks``.  ``steps`` (optional) lists the chunk indices
+    to run; every other chunk must hold no valid pod, whose outputs are -1,
+    no victims.  ``inv`` holds the batch invariants ``et_slot`` and
+    ``et_host``, which InterPodAffinity's domain tables need.  The input
+    state and victims are not modified: the carry is a copy."""
     why = refusal(profile, active)
     if why is not None:
         raise NotImplementedError(why)
     if _impl not in ("kernel", "plain"):
         raise ValueError(f"_impl must be 'kernel' or 'plain', not {_impl!r}")
-    ctx, filters, _scorers = _pass_ops(profile, schema, builder_res_col, active)
-    spec = PreemptSpec(
-        check_unsched="NodeUnschedulable" in filters,
-        check_nodename="NodeName" in filters,
-        bits_mask=(1 if NA in filters else 0) | (2 if TT in filters else 0),
-    )
-    eval_fn, pick_fn, commit_fn, nodes_fn = _PLAIN_FNS if _impl == "plain" else _KERNEL_FNS
+    spec = preempt_spec(profile, schema, builder_res_col, active)
+    eval_fn, pick_fn, commit_fn, nodes_fn, dom_fn, release_fn, search_fn = (
+        _PLAIN_FNS if _impl == "plain" else _KERNEL_FNS)
 
-    def run(state, batch: dict, vic: Victims, steps=None):
+    def dry_run(st, vic: Victims, pf: dict, dom):
+        """One chunk's dry-run (preemption.py:257 eval_one)."""
+        if not spec.domain:
+            return eval_fn(st, vic, pf, spec)
+        carry = eval_fn(st, vic, pf, spec, plain.PROLOGUE)
+        search_fn(st, vic, pf, spec, carry, plain.HARD_STEP, dom)
+        occupied = vic.prio.shape[1] if vic.occupied is None else vic.occupied
+        for s in [plain.PHASE1, *range(occupied - 1, -1, -1)]:
+            rel_dom = DomTables(*release_fn(dom, st, vic, carry, s), dom.et_slot, dom.et_host) if spec.ipa else None
+            search_fn(st, vic, pf, spec, carry, s, dom, rel_dom)
+        return eval_fn(st, vic, pf, spec, plain.TAIL, carry)
+
+    def run(state, batch: dict, vic: Victims, steps=None, inv=None):
         k = batch["sig"].shape[0]
         if k % chunk:
             raise ValueError(f"preempt batch {k} not a multiple of {chunk}")
@@ -135,9 +169,17 @@ def build_preempt_pass(
         vic_prio = vic.prio.clone()
         st = dataclasses.replace(state, req=carry[0], nonzero_req=carry[1], num_pods=carry[2])
         tb = dict(batch)
-        if spec.bits_mask:
-            tb["node_bits"] = nodes_fn(state, tb, ctx)
+        if spec.bits_mask or spec.pts:
+            # node_filters sizes its output by "valid"; the speculative
+            # chain carries "elig" in its place.
+            tb["node_bits"] = nodes_fn(state, {"valid": tb.get("valid", tb.get("elig")), **tb}, spec.ctx)
         dev = state.valid.device
+        dom = None
+        if spec.ipa:
+            if inv is None:
+                raise ValueError("InterPodAffinity's dry-run needs the batch invariants et_slot and et_host")
+            dom = build_dom(state, _to_device(inv["et_slot"], dev), _to_device(inv["et_host"], dev),
+                            schema.DV, dom_fn)
         nchunks = k // chunk
         picks = torch.full((k,), -1, dtype=torch.int32, device=dev)
         masks = torch.zeros((k, vic.prio.shape[1]), dtype=torch.bool, device=dev)
@@ -145,7 +187,7 @@ def build_preempt_pass(
         for i in range(nchunks) if steps is None else steps:
             sl = slice(i * chunk, (i + 1) * chunk)
             pf = {key: v[sl] for key, v in tb.items()}
-            ev = eval_fn(st, vic._replace(prio=vic_prio), pf, spec)
+            ev = dry_run(st, vic._replace(prio=vic_prio), pf, dom)
             p = pick_fn(ev[0], ev[1], pf, chunk > 1)
             m, nv = commit_fn(carry, vic_prio, ev, p)
             picks[sl], masks[sl], nvics[sl] = p, m, nv
@@ -156,8 +198,9 @@ def build_preempt_pass(
 
 def victims_from_numpy(buf: np.ndarray, layout: dict, device, _impl: str = "kernel") -> Victims:
     """A Victims on ``device`` from a staged victim buffer and its layout
-    (``r``, ``n_pdbs``, ``pdb_words``, ``v``; ``allowed`` when the PDB
-    counts do not ride the buffer's final column) — the JAX evaluator's
+    (``r``, ``n_pdbs``, ``pdb_words``, ``v``; ``vf_cols``, the victim
+    feature columns as (name, width, ndim or shape); ``allowed`` when the
+    PDB counts do not ride the buffer's final column) — the JAX evaluator's
     staged buffer or this module's own, so tests feed both passes the same
     victims.  The buffer is copied to the device in one transfer and
     unpacked there."""
@@ -167,13 +210,14 @@ def victims_from_numpy(buf: np.ndarray, layout: dict, device, _impl: str = "kern
 
 def _unpack(d_buf: torch.Tensor, layout: dict, _impl: str) -> Victims:
     inline = "allowed" not in layout
+    vf_cols = tuple((name, w, nd if isinstance(nd, int) else len(nd)) for name, w, nd in layout.get("vf_cols", ()))
     unpack = plain.unpack_victims if _impl == "plain" else kernels.unpack_victims
-    prio, req, nonzero, start, pdb, allowed = unpack(
-        d_buf, layout["r"], layout["n_pdbs"], layout["pdb_words"], layout["v"], inline
+    prio, req, nonzero, start, pdb, allowed, vfeat = unpack(
+        d_buf, layout["r"], layout["n_pdbs"], layout["pdb_words"], layout["v"], inline, vf_cols
     )
     if not inline:
         allowed = torch.as_tensor(np.asarray(layout["allowed"], np.int64), device=d_buf.device)
-    return Victims(prio, req, nonzero, start, pdb, allowed)
+    return Victims(prio, req, nonzero, start, pdb, allowed, vfeat, d_buf.shape[1])
 
 
 class PreemptionEvaluator:
@@ -278,6 +322,7 @@ class PreemptionEvaluator:
             vic_nonzero=np.zeros((n, vu, 2), np.int64),
             vic_start=np.full((n, vu), np.inf, np.float64),
             vic_pdb=np.zeros((n, vu, n_pdbs), np.bool_),
+            vfeat=self._victim_features(names, per_node, n, vu),
             pdbs=pdbs,
             matched_pdbs=matched_pdbs,
         )
@@ -297,6 +342,34 @@ class PreemptionEvaluator:
             st_new["buf_v"] = v
             self._stage = st_new
         return result
+
+    def _victim_features(self, names: set, per_node: dict, n: int, vu: int) -> dict:
+        """The staging arrays of the what-if release features the active
+        filters read (preemption.py:832-875): ids -1 and flags 0 in empty
+        slots; per-victim slot widths bucketed, terms with floor 8."""
+        cache = self.sched.cache
+
+        def slots(key: str, floor: int) -> int:
+            most = max((len(cache.pods[p.uid].delta.get(key, ())) for vics in per_node.values() for p in vics),
+                       default=1)
+            return _bucket(most, floor)
+
+        vfeat: dict[str, np.ndarray] = {}
+        if names & {IPA, PTS}:
+            vfeat["group"] = np.full((n, vu), -1, np.int32)
+            vfeat["terms"] = np.full((n, vu, slots("own_terms", 8)), -1, np.int32)
+        if "NodePorts" in names:
+            vfeat["port_triples"] = np.full((n, vu, POD_PORT_SLOTS), -1, np.int32)
+            vfeat["port_keys"] = np.full((n, vu, POD_PORT_SLOTS), -1, np.int32)
+        if VR in names:
+            sd = slots("devices", 1)
+            vfeat["vol_dev_ids"] = np.full((n, vu, sd), -1, np.int32)
+            vfeat["vol_dev_rw"] = np.zeros((n, vu, sd), np.int32)
+        if NVL in names:
+            sc = slots("csivols", 1)
+            vfeat["csi_ids"] = np.full((n, vu, sc), -1, np.int32)
+            vfeat["csi_drv"] = np.zeros((n, vu, sc), np.int32)
+        return vfeat
 
     def _pack_incremental(self, st: dict) -> dict:
         """Repack only the nodes whose pods_gen moved since the staged pack
@@ -321,6 +394,7 @@ class PreemptionEvaluator:
         if vmax > st["vmax"]:
             st["vmax"] = vmax
             self._grow_victim_axis(st, vmax)
+        widths_grew = self._grow_widths(st, items)
         self._clear_rows(A, [row for row, _ in items] + gone)
         for row in gone:
             per_node.pop(row, None)
@@ -333,6 +407,7 @@ class PreemptionEvaluator:
         buf = st.get("buf")
         layout_stable = (
             buf is not None
+            and not widths_grew  # the feature slot widths define the column layout
             and buf.shape[1] == A["vic_req"].shape[1]
             and st.get("buf_v") == st["v"]
         )
@@ -362,7 +437,7 @@ class PreemptionEvaluator:
             st["d_buf"], 0, torch.from_numpy(idx).to(dev),
             torch.from_numpy(np.ascontiguousarray(buf[idx])).to(dev),
         )
-        layout = {"r": r, "n_pdbs": 1, "pdb_words": 1, "v": st["v"]}
+        layout = {"r": r, "n_pdbs": 1, "pdb_words": 1, "v": st["v"], "vf_cols": st["vf_cols"]}
         return dict(st["result"], per_node=st["per_node"],
                     vic=_unpack(st["d_buf"], layout, self.sched._impl))
 
@@ -382,8 +457,39 @@ class PreemptionEvaluator:
             A["vic_nonzero"] = pad1(A["vic_nonzero"], 0)
             A["vic_start"] = pad1(A["vic_start"], np.inf)
             A["vic_pdb"] = pad1(A["vic_pdb"], False)
+            for key, arr in A["vfeat"].items():
+                A["vfeat"][key] = pad1(arr, plain.VFEAT_PAD.get(key, 0))
             st["vu"] = vu_new
         st["v"] = max(st["v"], _bucket(vmax))
+
+    # Feature fields that share one slot width, the cache delta that sizes
+    # them and the width's bucket floor (preemption.py:1051).
+    _WIDTH_GROUPS = (
+        (("terms",), "own_terms", 8),
+        (("vol_dev_ids", "vol_dev_rw"), "devices", 1),
+        (("csi_ids", "csi_drv"), "csivols", 1),
+    )
+
+    def _grow_widths(self, st: dict, items: list) -> bool:
+        """Widen the per-victim slot widths (high-water) before dirty rows
+        are refilled, so a new victim with more terms or volumes than any
+        staged one fits (preemption.py:1058).  True when a width grew: the
+        buffer's column layout changed and must be rebuilt whole."""
+        grew = False
+        vf = st["A"]["vfeat"]
+        cache = self.sched.cache
+        for keys, delta_key, floor in self._WIDTH_GROUPS:
+            if keys[0] not in vf:
+                continue
+            need = max((len(cache.pods[p.uid].delta.get(delta_key, ())) for _row, vics in items for p in vics),
+                       default=0)
+            cur = vf[keys[0]].shape[2]
+            if need > cur:
+                grew = True
+                for key in keys:
+                    vf[key] = np.pad(vf[key], [(0, 0), (0, 0), (0, _bucket(need, floor) - cur)],
+                                     constant_values=plain.VFEAT_PAD.get(key, 0))
+        return grew
 
     @staticmethod
     def _clear_rows(A: dict, rows: list) -> None:
@@ -393,6 +499,8 @@ class PreemptionEvaluator:
             A["vic_nonzero"][row] = 0
             A["vic_start"][row] = np.inf
             A["vic_pdb"][row] = False
+            for key, arr in A["vfeat"].items():
+                arr[row] = plain.VFEAT_PAD.get(key, 0)
 
     def _fill_rows(self, A: dict, items) -> None:
         """Write victim slots for the given (row, victims) pairs into the
@@ -400,6 +508,7 @@ class PreemptionEvaluator:
         repack."""
         cache = self.sched.cache
         pdbs, matched_pdbs = A["pdbs"], A["matched_pdbs"]
+        vf = A["vfeat"]
         for row, vics in items:
             for j, p in enumerate(vics):
                 pr = cache.pods[p.uid]
@@ -411,6 +520,22 @@ class PreemptionEvaluator:
                 if pdbs:
                     for i in matched_pdbs(p):
                         A["vic_pdb"][row, j, i] = True
+                if "group" in vf:
+                    vf["group"][row, j] = pr.delta["group"]
+                    terms = pr.delta["own_terms"]
+                    vf["terms"][row, j, : len(terms)] = terms
+                if "port_triples" in vf:
+                    for a, (triple, pk) in enumerate(pr.delta["ports"]):
+                        vf["port_triples"][row, j, a] = triple
+                        vf["port_keys"][row, j, a] = pk
+                if "vol_dev_ids" in vf:
+                    for a, (vid, rw) in enumerate(pr.delta.get("devices", ())):
+                        vf["vol_dev_ids"][row, j, a] = vid
+                        vf["vol_dev_rw"][row, j, a] = int(bool(rw))
+                if "csi_ids" in vf:
+                    for a, (vid, did) in enumerate(pr.delta.get("csivols", ())):
+                        vf["csi_ids"][row, j, a] = vid
+                        vf["csi_drv"][row, j, a] = did
 
     @staticmethod
     def _pack_buf_rows(A: dict, buf, idx, r: int, n_pdbs: int) -> None:
@@ -428,31 +553,40 @@ class PreemptionEvaluator:
             for i in range(w_i * 64, min((w_i + 1) * 64, n_pdbs)):
                 word |= vic_pdb[idx, :, i].astype(np.int64) << (i % 64)
             buf[idx, :, 4 + r + w_i] = word
+        off = 4 + r + pdb_words
+        for key in sorted(A["vfeat"]):
+            arr = A["vfeat"][key]
+            w = 1 if arr.ndim == 2 else arr.shape[2]
+            buf[idx, :, off : off + w] = arr[idx].reshape(arr[idx].shape[:2] + (w,))
+            off += w
 
     def _assemble(
         self, A: dict, n: int, v: int, n_pdbs: int, pdbs, matched_pdbs, per_node: dict,
         profile, active, st: dict | None = None,
     ) -> dict:
         """Pack the staging arrays into one int64 buffer (prio, req[R],
-        nonzero[2], start bits, PDB words, and pdb_allowed in a final
-        column), ship it in one copy and unpack it on the device
-        (preemption.py:1181)."""
+        nonzero[2], start bits, PDB words, the victim feature columns in
+        name order, and pdb_allowed in a final column), ship it in one copy
+        and unpack it on the device (preemption.py:1181)."""
         vic_req = A["vic_req"]
         vu, r = vic_req.shape[1], vic_req.shape[2]
         pdb_allowed = np.full(n_pdbs, I32_MAX, np.int64)
         for i, pdb in enumerate(pdbs):
             pdb_allowed[i] = max(pdb.disruptions_allowed, 0)
         pdb_words = max(1, (n_pdbs + 63) // 64)
-        buf = np.zeros((n, vu, 4 + r + pdb_words + 1), np.int64)
+        vf_cols = tuple(
+            (key, 1 if arr.ndim == 2 else arr.shape[2], arr.ndim) for key, arr in sorted(A["vfeat"].items())
+        )
+        buf = np.zeros((n, vu, 4 + r + pdb_words + sum(w for _k, w, _nd in vf_cols) + 1), np.int64)
         self._pack_buf_rows(A, buf, slice(None), r, n_pdbs)
-        layout = {"r": r, "n_pdbs": n_pdbs, "pdb_words": pdb_words, "v": v}
+        layout = {"r": r, "n_pdbs": n_pdbs, "pdb_words": pdb_words, "v": v, "vf_cols": vf_cols}
         if n_pdbs <= n:
             buf[:n_pdbs, 0, -1] = pdb_allowed
         else:  # more budgets than node rows: the counts take their own copy
             layout["allowed"] = pdb_allowed
         d_buf = torch.from_numpy(buf).to(self.sched.device)
         if st is not None:
-            st["buf"], st["d_buf"] = buf, d_buf
+            st["buf"], st["d_buf"], st["vf_cols"] = buf, d_buf, vf_cols
         return dict(
             profile=profile, active=active, pdbs=pdbs, n_pdbs=n_pdbs,
             matched_pdbs=matched_pdbs, per_node=per_node, buf=buf, layout=layout,
@@ -538,7 +672,7 @@ class PreemptionEvaluator:
         # Chunks without a valid preemptor pick nothing: skip their launches.
         steps = sorted({i // chunk for i in np.nonzero(valid)[0]})
         out, _carry, _prio = self._pass(profile, active, chunk)(
-            sched.builder.state(), batch, pack["vic"], steps
+            sched.builder.state(), batch, pack["vic"], steps, sched.builder.batch_invariants()
         )
         picks, vmasks = (x.cpu().numpy() for x in (out.picks, out.vic_mask))
         return self._interpret_dryrun(pods, picks, vmasks, pack)
@@ -566,7 +700,7 @@ class PreemptionEvaluator:
         b["elig"] = torch.from_numpy(elig).to(dev)
         b["spec_picks"] = ctx["result"].picks
         b["sig"] = torch.from_numpy(sigs).to(dev)
-        out, _carry, _prio = fn(ctx["new_state"], b, pack["vic"])
+        out, _carry, _prio = fn(ctx["new_state"], b, pack["vic"], inv=ctx["inv"])
         return dict(out=out, pack=pack)
 
     def collect_speculative(self, spec: dict, fetched, failed_pods_by_index: dict) -> dict:

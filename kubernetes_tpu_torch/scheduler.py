@@ -84,6 +84,7 @@ class TorchScheduler:
         device: str | torch.device | None = None,
         *,
         queue: SchedulingQueue | None = None,
+        inline_preempt_commit: bool | None = None,
         _impl: str = "kernel",
     ):
         self.device = resolve_device(device)
@@ -120,16 +121,21 @@ class TorchScheduler:
         # The next batch, popped and featurized before the current one
         # completes (scheduler.py:3327).
         self._prefetched: tuple | None = None
+        # The hot topology keys take the first slots, so node rows carry
+        # them and slots number as the reference's do (scheduler.py:501).
+        for key in (InternTable.HOSTNAME_KEY, "topology.kubernetes.io/zone", "topology.kubernetes.io/region"):
+            self.builder.ensure_topo_key(key)
         # Nominated pods: uid → (node name, delta, priority), the claims the
         # fit overlay protects (nominator.go).
         self.nominator: dict[str, tuple[str, dict, int]] = {}
         self.pdbs: dict[str, t.PodDisruptionBudget] = {}
         self.preemption = PreemptionEvaluator(self)
-        # Inline preemptor commit (scheduler.py:269-279): at chunk > 1 a
-        # successful preemptor commits on its freed node in the same batch
-        # (the victims' deletion is synchronous); at chunk 1 it is
-        # nominated and retried.
-        self.inline_preempt_commit = chunk_size > 1
+        # Inline preemptor commit (scheduler.py:269-279): by default, at
+        # chunk > 1 a successful preemptor commits on its freed node in the
+        # same batch (the victims' deletion is synchronous); otherwise it is
+        # nominated and retried, which re-runs its filters against the
+        # pods committed meanwhile.
+        self.inline_preempt_commit = chunk_size > 1 if inline_preempt_commit is None else inline_preempt_commit
         self.deferred = 0  # chunk deferrals resolved by the strict tail
         # Batches that carried the domain tables / rebuilt them (build_dom).
         self.dom_carry_hits = 0

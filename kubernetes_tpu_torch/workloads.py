@@ -67,6 +67,26 @@ with its own unbound claim of that class, which PreBind provisions on the
 chosen node (one new PV each, bumping the volume catalog's epoch); the
 table grown to _bucket(6000) rows.
 
+``preemption_default_search_5kn`` has no harness counterpart either: a
+high-priority service rolled out onto a cluster full of low-priority batch
+pods, so preemption's what-if search decides.  5000 nodes of 4 CPU, 16 GiB
+and 110 pods over 10 zones; 20000 background pods of 1 CPU and 3 GiB at
+priority 1 with start times 0..19999, labelled app=batch: one in 8 holds
+hostPort 8080 (created first, so the fill binds every pod), one in 8 of the
+others is labelled tier=noisy, and one in 16 carries a required
+anti-affinity to app=svc at the hostname.  Drained
+before a warm-up preemptor of the measured template; then 1000 preemptors
+of 2 CPU and 4 GiB at priority 1000, labelled app=svc, each with a
+DoNotSchedule zone spread of maxSkew 1 over app=svc, a required
+anti-affinity to tier=noisy at the hostname and hostPort 8080.  Batch 1024,
+chunk 128, default profile, the queue's 1 s doubling backoff on the wall
+clock, and nominate-and-retry in place of the inline preemptor commit
+(``inline_preempt_commit=False``): the reference's inline commit places
+same-signature chunk mates on the 1st, 2nd, ... best nodes of one dry-run
+without re-running their spread filter, which breaks maxSkew, and mates of
+another signature are deferred and parked with no event to wake them, so
+every preemptor asks for the port (one signature).
+
 ``default_images_ports_5kn_10kpods`` has no harness counterpart (the
 harness registers no workload whose nodes report images or whose pods ask
 for host ports); it runs the default profile at density's shape on a
@@ -267,6 +287,53 @@ def preemption_background(count: int, cpu: str = "1", mem: str = "2Gi") -> list[
 def preemptor(name: str) -> t.Pod:
     """A preemptor of 2 CPU and 4 GiB at priority 1000 (harness.py:596)."""
     return make_pod(name).req({"cpu": "2", "memory": "4Gi"}).priority(1000).obj()
+
+
+SEARCH_NODES = 5000
+SEARCH_ZONES = 10
+SEARCH_BG_PODS = 20000
+SEARCH_MEASURED_PODS = 1000
+SEARCH_BATCH = 1024
+SEARCH_CHUNK = 128
+SEARCH_PORT = 8080
+HOSTNAME = "kubernetes.io/hostname"
+
+
+def search_nodes(n: int = SEARCH_NODES, zones: int = SEARCH_ZONES) -> list[t.Node]:
+    """preemption_default_search_5kn's nodes: 4 CPU, 16 GiB, 110 pods."""
+    return basic_nodes(n, zones=zones, cpu="4", mem="16Gi")
+
+
+def search_background(count: int = SEARCH_BG_PODS) -> list[t.Pod]:
+    """The batch fill: app=batch at priority 1; one in 8 holds the service's
+    host port, one in 8 of the others is tier=noisy, one in 16 keeps app=svc
+    off its node.  The port holders come first, so each finds a node of
+    its own and the fill leaves no pod pending (a pending one would be
+    woken by every eviction and retried on the wall clock's backoff)."""
+    out = []
+    for i in range(count):
+        w = make_pod(f"bg-{i}").req({"cpu": "1", "memory": "3Gi"}).priority(1).start_time(float(i))
+        w = w.label("app", "batch")
+        if i % 8 == 0:
+            w = w.host_port(SEARCH_PORT)
+        elif (i // 8) % 8 == 0:
+            w = w.label("tier", "noisy")
+        if i % 16 == 2:
+            w = w.pod_anti_affinity_in("app", ["svc"], HOSTNAME)
+        out.append(w.obj())
+    return [p for p in out if p.host_ports()] + [p for p in out if not p.host_ports()]
+
+
+def search_preemptor(name: str) -> t.Pod:
+    """A service pod: 2 CPU and 4 GiB at priority 1000, spread over the
+    zones with maxSkew 1, kept off tier=noisy nodes, on hostPort 8080."""
+    return (
+        make_pod(name).req({"cpu": "2", "memory": "4Gi"}).priority(1000).label("app", "svc")
+        .spread_constraint(1, ZONE, t.DO_NOT_SCHEDULE, "app", ["svc"])
+        .pod_anti_affinity_in("tier", ["noisy"], HOSTNAME)
+        .host_port(SEARCH_PORT)
+        .obj()
+    )
 
 
 def daemon_pod(name: str, node: int) -> t.Pod:

@@ -346,3 +346,51 @@ def test_scheduler_images_ports_kernel_path_matches_plain_path(cuda_device):
                                            "resolve_commit")) > 0
     assert binds["kernel"] == binds["plain"]
     assert all(v is not None for v in binds["kernel"].values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["search", "search_pv"])
+def test_search_kernels_match_plain_versions_exactly(cuda_device, shape):
+    """unpack_victims with the victim features, preempt_eval's three modes,
+    dom_release and search_step against their plain versions, step by
+    step, at a 500-node cut of each search shape (the path's cluster; a
+    volume cluster with shared CSI claims and device volumes)."""
+    import chip_smoke
+
+    timing = chip_smoke.check_search_kernels(cuda_device, shape, reps=1, nodes=500)
+    assert set(timing) == {"unpack_victims", "preempt_eval", "dom_release", "search_step"}
+    assert all(t["max_abs_err"] == 0 for t in timing.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inline", [False, True])
+def test_scheduler_search_kernel_path_matches_plain_path(cuda_device, inline):
+    """A cut of preemption_default_search_5kn through TorchScheduler on the
+    card (40 nodes in 4 zones, 160 background pods, 24 preemptors): the
+    kernel path binds, evicts and nominates as the plain path does, and
+    launches dom_release and search_step."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch import workloads as w
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+
+    seen = {}
+    for impl in ("kernel", "plain"):
+        s = TorchScheduler(DEFAULT_PROFILE, batch_size=32, chunk_size=8, inline_preempt_commit=inline, _impl=impl)
+        for n in w.search_nodes(40, 4):
+            s.add_node(n)
+        for p in w.search_background(160):
+            s.add_pod(p)
+        s.schedule_all_pending()
+        for i in range(24):
+            s.add_pod(w.search_preemptor(f"vip-{i}"))
+        kernels.reset_launches()
+        out = s.schedule_all_pending()
+        seen[impl] = ([(o.pod.name, o.node_name, o.nominated_node, o.victim_uids) for o in out],
+                      sorted(s.cache.pods), sorted(s.nominator))
+        assert s.builder.host_mirror_equal()
+        if impl == "kernel":
+            counts = kernels.launch_counts()
+            assert min(counts[k] for k in ("preempt_eval", "dom_release", "search_step", "unpack_victims")) > 0
+    assert seen["kernel"] == seen["plain"]
+    assert s.preemptions > 0

@@ -7,7 +7,9 @@ chunk that defers; the victim pack, ``unpack_victims``, ``scatter_rows`` and
 ``expand_rows`` against their JAX counterparts; the closed-form scenarios of
 tests/test_preemption.py on ``TorchScheduler(device="cpu")`` and
 ``TPUScheduler`` side by side (same outcomes, victims, nominations and
-surviving pods); and the refusals of the what-if search by name.  Both
+surviving pods), and its what-if search scenarios (a host-port holder, a
+device holder beside a bystander, a CSI attach slot, an anti-affinity
+victim) the same way.  Both
 queues run on an injected clock that the drive steps to the next backoff
 expiry, so no test sleeps.  Tolerance: exact."""
 
@@ -332,32 +334,62 @@ def test_speculative_chained_preemption_mixed_batch():  # :430
     assert_same(j, t, *outs)
 
 
-# -- refusals of the what-if search, by name -----------------------------------
+# -- the what-if search, side by side (formerly refused by name) ---------------
 
 
-def test_port_conflict_preemption_refused():  # :250
-    prof = TProfile(name="fit-ports", filters=("NodeUnschedulable", "NodeName", "NodePorts", "NodeResourcesFit"),
-                    scorers=(("NodeResourcesFit", 1),))
-    t = TorchScheduler(prof, batch_size=8, device="cpu")
-    t.add_node(tnode("n1").capacity({"cpu": "8", "pods": 110}).obj())
-    t.add_pod(tpod("holder").req({"cpu": "1"}).priority(1).host_port(8080).node("n1").obj())
-    t.add_pod(tpod("vip").req({"cpu": "1"}).priority(100).host_port(8080).obj())
-    with pytest.raises(NotImplementedError, match="NodePorts"):
-        t.schedule_all_pending()
-    assert "default/holder" in t.cache.pods
+def _search_pair(filters, batch_size=8):
+    kw = dict(filters=filters, scorers=(("NodeResourcesFit", 1),))
+    return make_pair(batch_size=batch_size, profile=(JProfile(name="search", **kw), TProfile(name="search", **kw)))
 
 
-def test_device_conflict_preemption_refused():  # :481
-    # The volume ops are ported; VolumeRestrictions' what-if release is not:
-    # the dry-run refuses by name before the holder is touched.
-    t = TorchScheduler(TProfile(name="vol", filters=("NodeResourcesFit", "VolumeRestrictions"),
-                                scorers=(("NodeResourcesFit", 1),)), batch_size=8, device="cpu")
-    t.add_node(tnode("n1").capacity({"cpu": "64", "pods": 110}).obj())
-    t.add_pod(tpod("holder").req({"cpu": "1"}).priority(1).device_volume("disk-1").node("n1").obj())
-    t.add_pod(tpod("vip").req({"cpu": "1"}).priority(100).device_volume("disk-1").obj())
-    with pytest.raises(NotImplementedError, match="VolumeRestrictions"):
-        t.schedule_all_pending()
-    assert "default/holder" in t.cache.pods
+def test_port_conflict_preemption_refused():  # :250, now ported: the port holder is evicted
+    (j, jc), (t, tc) = _search_pair(("NodeUnschedulable", "NodeName", "NodePorts", "NodeResourcesFit"))
+    for s, mn, mp in ((j, jnode, jpod), (t, tnode, tpod)):
+        s.add_node(mn("n1").capacity({"cpu": "8", "pods": 110}).obj())
+        s.add_pod(mp("holder").req({"cpu": "1"}).priority(1).host_port(8080).node("n1").obj())
+        s.add_pod(mp("vip").req({"cpu": "1"}).priority(100).host_port(8080).obj())
+    jout, tout = drive(j, jc), drive(t, tc)
+    assert_same(j, t, jout, tout)
+    assert [o.node_name for o in tout if o.pod.name == "vip"][-1] == "n1"
+    assert "default/holder" not in t.cache.pods
+
+
+def test_device_conflict_preemption_refused():  # :481, now ported: only the device holder goes
+    (j, jc), (t, tc) = _search_pair(("NodeResourcesFit", "VolumeRestrictions"))
+    for s, mn, mp in ((j, jnode, jpod), (t, tnode, tpod)):
+        s.add_node(mn("n1").capacity({"cpu": "64", "pods": 110}).obj())
+        s.add_pod(mp("holder").req({"cpu": "1"}).priority(1).device_volume("disk-1").node("n1").obj())
+        s.add_pod(mp("bystander").req({"cpu": "1"}).priority(1).node("n1").obj())
+        s.add_pod(mp("vip").req({"cpu": "1"}).priority(100).device_volume("disk-1").obj())
+    jout, tout = drive(j, jc), drive(t, tc)
+    assert_same(j, t, jout, tout)
+    vip = [o for o in tout if o.pod.name == "vip" and (o.victims or o.node_name)]
+    assert vip[0].victim_uids == ("default/holder",)
+    assert "default/bystander" in t.cache.pods and "default/holder" not in t.cache.pods
+
+
+def test_csi_attach_victim_minimal_set():  # :520: the single attach slot's holder goes, the bystander stays
+    from kubernetes_tpu.api.wrappers import make_pvc as jpvc
+    from kubernetes_tpu_torch.api.wrappers import make_pvc as tpvc
+
+    (j, jc), (t, tc) = _search_pair(("NodeResourcesFit", "VolumeBinding", "NodeVolumeLimits"))
+    outs = []
+    for s, c, mn, mp, mpvc, T in ((j, jc, jnode, jpod, jpvc, jt), (t, tc, tnode, tpod, tpvc, tt)):
+        s.add_node(mn("n1").capacity({"cpu": "64", "pods": 110}).obj())
+        s.add_csinode(T.CSINode(name="n1", driver_limits={"ebs.csi.aws.com": 1}))
+        s.add_storage_class(T.StorageClass(name="ebs", provisioner="ebs.csi.aws.com",
+                                           binding_mode=T.BINDING_WAIT_FOR_FIRST_CONSUMER))
+        for name in ("c-held", "c-new"):
+            s.add_pvc(mpvc(name, storage_class="ebs"))
+        s.add_pod(mp("holder").req({"cpu": "1"}).priority(1).pvc_volume("c-held").obj())
+        got = drive(s, c)
+        s.add_pod(mp("bystander").req({"cpu": "1"}).priority(1).node("n1").obj())
+        s.add_pod(mp("vip").req({"cpu": "1"}).priority(100).pvc_volume("c-new").obj())
+        outs.append(got + drive(s, c))
+    assert_same(j, t, *outs)
+    vip = [o for o in outs[1] if o.pod.name == "vip" and (o.victims or o.node_name)]
+    assert vip[0].victim_uids == ("default/holder",)
+    assert "default/bystander" in t.cache.pods
 
 
 def test_closed_form_preemption_no_longer_raises():
@@ -381,19 +413,25 @@ def test_closed_form_preemption_no_longer_raises():
 
 
 def test_search_preemption_refused_before_any_victim():
-    """InterPodAffinity is ported in the batch pass but its what-if search
-    is not: a preemptor whose active filters include it raises by name,
-    the victims stay, the failure waits as unschedulable."""
-    t = TorchScheduler(TDEF, batch_size=4, device="cpu")
-    t.add_node(tnode("n0").capacity({"cpu": "2", "memory": "8Gi"}).zone("z0").obj())
-    t.add_pod(tpod("victim").req({"cpu": "2"}).label("app", "x").node("n0").obj())
-    vip = tpod("vip").req({"cpu": "2"}).priority(100).label("app", "y")
-    t.add_pod(vip.pod_anti_affinity_in("app", ["z"], "topology.kubernetes.io/zone").obj())
-    with pytest.raises(NotImplementedError, match="InterPodAffinity"):
-        t.schedule_batch()
-    assert "default/victim" in t.cache.pods
-    assert t.queue.unschedulable_uids() == ["default/vip"]
-    assert t.builder.host_mirror_equal()
+    """Formerly refused by name; now the default profile's what-if search
+    evicts the pod the preemptor's zone anti-affinity rejects, as
+    TPUScheduler does, and leaves the other node, whose guard's
+    anti-affinity names the preemptor and whose filler cannot go, alone;
+    the nominated preemptor binds on the retry."""
+    (j, jc), (t, tc) = make_pair(batch_size=4, profile="default")
+    for s, mn, mp in ((j, jnode, jpod), (t, tnode, tpod)):
+        s.add_node(mn("n0").capacity({"cpu": "4", "memory": "8Gi"}).zone("z0").obj())
+        s.add_node(mn("n1").capacity({"cpu": "4", "memory": "8Gi"}).zone("z1").obj())
+        s.add_pod(mp("victim").req({"cpu": "1"}).label("app", "x").node("n0").obj())
+        s.add_pod(mp("guard").req({"cpu": "1"}).label("app", "w").pod_anti_affinity_in(
+            "app", ["y"], "kubernetes.io/hostname").node("n1").obj())
+        s.add_pod(mp("filler").req({"cpu": "3"}).priority(200).node("n1").obj())
+        vip = mp("vip").req({"cpu": "2"}).priority(100).label("app", "y")
+        s.add_pod(vip.pod_anti_affinity_in("app", ["x"], "topology.kubernetes.io/zone").obj())
+    jout, tout = drive(j, jc), drive(t, tc)
+    assert_same(j, t, jout, tout)
+    assert [o.node_name for o in tout if o.pod.name == "vip"][-1] == "n0"
+    assert "default/victim" not in t.cache.pods and "default/guard" in t.cache.pods
 
 
 # -- the dry-run pass, kernel by kernel ----------------------------------------

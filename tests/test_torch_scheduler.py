@@ -165,16 +165,22 @@ def test_unported_constraints_raise(build, ported):
 
 
 def test_possible_preemption_raises():
-    # Closed-form preemption is ported; its what-if search of
-    # InterPodAffinity (active through the preemptor's anti-affinity) is not.
-    ts = TorchScheduler(TDEF, batch_size=4, device="cpu")
-    ts.add_node(tnode("n0").capacity({"cpu": "2", "memory": "8Gi"}).obj())
-    ts.add_pod(tpod("victim").req({"cpu": "2"}).node("n0").obj())
-    ts.add_pod(tpod("vip").req({"cpu": "2"}).priority(100)
-               .pod_anti_affinity_in("app", ["z"], "topology.kubernetes.io/zone").obj())
-    with pytest.raises(NotImplementedError, match="preemption"):
-        ts.schedule_batch()
-    assert ts.builder.host_mirror_equal()  # the batch completed before raising
+    """Formerly a refusal: the what-if search of InterPodAffinity (active
+    through the preemptor's anti-affinity) is ported, so the default
+    profile's preemption evicts the victim and nominates the node, as
+    TPUScheduler does."""
+    outs = []
+    for s, mn, mp in ((TPUScheduler(profile=registered_subset(JDEF), batch_size=4), jnode, jpod),
+                      (TorchScheduler(TDEF, batch_size=4, device="cpu"), tnode, tpod)):
+        s.add_node(mn("n0").capacity({"cpu": "2", "memory": "8Gi"}).obj())
+        s.add_pod(mp("victim").req({"cpu": "2"}).node("n0").obj())
+        s.add_pod(mp("vip").req({"cpu": "2"}).priority(100)
+                  .pod_anti_affinity_in("app", ["z"], "topology.kubernetes.io/zone").obj())
+        out = s.schedule_batch()
+        outs.append([(o.pod.name, o.node_name, o.nominated_node, o.victim_uids) for o in out])
+        assert "default/victim" not in s.cache.pods
+    assert outs[1] == outs[0] == [("vip", None, "n0", ("default/victim",))]
+    assert s.builder.host_mirror_equal()
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked_for():

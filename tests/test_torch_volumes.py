@@ -525,15 +525,24 @@ def test_wait_provisioning_refused():
 
 
 def test_preemption_with_volume_op_refused_by_name():
-    t = TorchScheduler(vol_profile(TProfile), batch_size=8, device="cpu")
-    t.add_node(tw.make_node("n1").capacity({"cpu": "2", "pods": 110}).obj())
-    t.add_pv(tw.make_pv("pv1"))
-    t.add_pvc(tw.make_pvc("claim", volume_name="pv1"))
-    t.add_pod(tw.make_pod("low").req({"cpu": "2"}).priority(1).node("n1").obj())
-    t.add_pod(tw.make_pod("vip").req({"cpu": "2"}).priority(100).pvc_volume("claim").obj())
-    with pytest.raises(NotImplementedError, match="VolumeRestrictions"):
-        t.schedule_all_pending()
-    assert "default/low" in t.cache.pods
+    """Formerly refused by name: preemption with the volume ops active now
+    runs their what-if search and evicts the pod in the preemptor's way,
+    as TPUScheduler does (the claim's PV binds the preemptor to n1)."""
+    (j, jc), (t, tc) = make_pair()
+    outs = []
+    for s, c, w in ((j, jc, jw), (t, tc, tw)):
+        s.add_node(w.make_node("n1").capacity({"cpu": "2", "pods": 110}).obj())
+        s.add_pv(w.make_pv("pv1"))
+        s.add_pvc(w.make_pvc("claim", volume_name="pv1"))
+        s.add_pod(w.make_pod("low").req({"cpu": "2"}).priority(1).node("n1").obj())
+        s.add_pod(w.make_pod("vip").req({"cpu": "2"}).priority(100).pvc_volume("claim").obj())
+        outs.append(drive(s, c))
+    jout, tout = outs
+    summary = [(o.pod.name, o.node_name, o.nominated_node, o.victim_uids) for o in tout]
+    assert summary == [(o.pod.name, o.node_name, o.nominated_node, o.victim_uids) for o in jout]
+    assert sorted(t.cache.pods) == sorted(j.cache.pods)
+    assert "default/low" not in t.cache.pods and tout[-1].node_name == "n1"
+    assert t.builder.host_mirror_equal()
 
 
 @pytest.mark.parametrize("kind", ["claim", "host-port"])

@@ -79,6 +79,22 @@ Phases; any failure fails the run (nothing is caught):
        tables compared after every step, for chunk 1 (a zone affinity, a
        hostname spread), the rank split, a mixed chunk and the speculative
        mode; and preempt_eval in one launch with the node-local ops alone;
+       the third search shape, "search_dra" (N=8192, V=8, four claim
+       holders a node on half the nodes, one claim shared by two of them,
+       externally allocated claims a victim alone reserves, external
+       phantom charges, the claim table at 8192 rows), runs the same steps
+       with DynamicResources' release and hard filter, and so does
+       "search_dra_path", dra_claims_5kn_5kpods's own cluster half full
+       of claim pods with its 256 whole-node preemptors at the path's
+       dry-run chunk of 8;
+     - at the "dra" shape (C=64, N=8192, a 4096-pod batch with 1-2 claim
+       slots a pod over three pools, CLM=8192; shared claims inside a
+       chunk, a claim named twice, claims already reserved, pins, missing
+       claims): conflict_pairs with claim ids and racing claims, eval_chunk
+       with DynamicResources (filter code 5), select_host, and
+       resolve_commit strict and not with the claim commit; the same at
+       "dra_path", the path's own C=8 over the DRA_BATCH pods it has
+       pending on that cluster;
   4. drive each main path through TorchScheduler, with the launch counts
      set to 0 just before and read just after; every pod must bind, the
      host mirror must equal the device state, no node may exceed its
@@ -124,6 +140,16 @@ Phases; any failure fails the run (nothing is caught):
        batch pod, no node holds two port-8080 pods, no service pod shares a
        node with a tier=noisy pod or with a pod keeping app=svc off, the
        service's zone counts differ by at most 1, no whole-state upload;
+     - dra_claims_5kn_5kpods (5000 nodes in 10 zones, one in four
+       publishing 8 GPUs; 1024 fill pods, 5000 pods with their own claims,
+       one in four h100 only, one in 32 sharing a claim; then 256
+       preemptors each wanting a whole GPU node; default profile, backoff
+       on a virtual clock; no harness counterpart): every claim pod binds
+       or was evicted, every preemptor binds, claims sit on their pods'
+       nodes on published devices (h100 ones for h100 claims), shared pairs
+       share a node, dra_alloc stays within dra_cap and equals the claim
+       catalog's owned devices per pool, victims are priority-1 claim pods
+       whose claims were released, no whole-state upload;
      every run of a path must give the same outcome count and send the
      same number of pods to backoff; pods/s, the idle share, deferrals,
      preemptions, the backoff waited and the garbage collector's pauses in
@@ -1461,17 +1487,32 @@ def search_inputs(shape: str, dev, nodes: int = 5000):
     node's shared claim held by both and every third node's first pod
     holding a claim of its own (6667 claims: the CSI volume table grows to
     8192 rows, 256 MiB); the batches want a device and a new claim, and one
-    in three also keeps tier=noisy off its node."""
-    import numpy as np
-    import torch
-
+    in three also keeps tier=noisy off its node.  "search_dra" is a DRA
+    cluster: 5000 nodes each publishing 8 GPUs (h100 and a100 alternating)
+    and holding four bound pods; on half the nodes these hold claims (one a
+    claim of its own, two one shared claim, one a claim that on h100 nodes
+    is h100-only and charges two pools), the first holder's claim allocated
+    externally with that holder alone reserving it on every fifth node (the
+    victim's count-only slot), and an external phantom charge nobody local
+    reserves on every seventh (the claim table grows to 8192 rows, 256 MiB);
+    the batches want all 8 devices of a node, two h100 devices, a missing
+    claim or a claim allocated on node 5, and one in three also keeps
+    tier=noisy off its node.  "search_dra_path" is dra_claims_5kn_5kpods's
+    own cluster (dra_path_scheduler) with its 256 whole-node preemptors as
+    the uniform batch and the first DRA_CHUNK of them as the mixed chunk:
+    the path's dry-run chunk."""
     from kubernetes_tpu_torch import workloads as w
     from kubernetes_tpu_torch.api import types as t
     from kubernetes_tpu_torch.api.wrappers import make_pod, make_pvc
-    from kubernetes_tpu_torch.engine.features import build_pod_batch
     from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
     from kubernetes_tpu_torch.scheduler import TorchScheduler
 
+    if shape == "search_dra_path":
+        s, _pending = dra_path_scheduler(dev)
+        for claim in w.dra_preemptor_claims():
+            s.add_resource_claim(claim)
+        preemptors = [w.dra_preemptor(i) for i in range(w.DRA_PREEMPTORS)]
+        return _search_batches(s, preemptors, preemptors[:w.DRA_CHUNK], dev)
     k = 1024
     s = TorchScheduler(DEFAULT_PROFILE, batch_size=k, chunk_size=64, device=dev)
     for node in w.search_nodes(nodes):
@@ -1498,7 +1539,7 @@ def search_inputs(shape: str, dev, nodes: int = 5000):
             else:
                 p = p.spread_constraint(2, w.HOSTNAME, t.DO_NOT_SCHEDULE, "app", ["svc"])
             return p.obj()
-    else:
+    elif shape == "search_pv":
         driver = "ebs.csi.aws.com"
         s.add_storage_class(t.StorageClass(name="ebs", provisioner=driver,
                                            binding_mode=t.BINDING_WAIT_FOR_FIRST_CONSUMER))
@@ -1532,8 +1573,60 @@ def search_inputs(shape: str, dev, nodes: int = 5000):
 
         def mixed_pod(i):
             return vol_pod(i, f"m{i}")
+    else:
+        gpu, h100 = w.DRA_CLASS, (w.DRA_H100,)
+        s.builder._ensure(CLM=8192)
+        for i in range(nodes):
+            model = "h100" if i % 2 == 0 else "a100"
+            s.add_resource_slice(t.ResourceSlice(node_name=f"node-{i}", device_class=gpu, devices=tuple(
+                t.Device(name=f"gpu-{d}", attributes={"model": model}) for d in range(8))))
+        for i in range(nodes):
+            names = [None] * 4
+            if i % 4 < 2:  # half the nodes hold claims (the claim table stays at 8192 rows)
+                names = [f"own-{i}", f"pair-{i}", f"pair-{i}", f"sel-{i}"]
+                own = dict(allocated_node=f"node-{i}", allocated_devices=(("r0", "gpu-7"),),
+                           reserved_for=(f"default/v-{i}-0",)) if i % 5 == 0 else {}
+                s.add_resource_claim(t.ResourceClaim(name=f"own-{i}", device_class=gpu, **own))
+                s.add_resource_claim(t.ResourceClaim(name=f"pair-{i}", device_class=gpu))
+                s.add_resource_claim(t.ResourceClaim(name=f"sel-{i}", requests=(
+                    t.DeviceRequest("r0", gpu, 1, h100 if i % 2 == 0 else ()),)))
+                if i % 7 == 3:
+                    s.add_resource_claim(t.ResourceClaim(name=f"ext-{i}", device_class=gpu, count=2,
+                                                         allocated_node=f"node-{i}", reserved_for=("elsewhere/pod",)))
+            for j, claim in enumerate(names):
+                p = (make_pod(f"v-{i}-{j}").req({"cpu": "1", "memory": "3Gi"}).priority(1 + (i + j) % 3)
+                     .start_time(float(4 * i + j)))
+                if claim is not None:
+                    p = p.resource_claim(claim)
+                if (i + j) % 5 == 0:
+                    p = p.label("tier", "noisy")
+                s.add_pod(p.node(f"node-{i}").obj())
+        for name, count, sel in (("whole", 8, ()), ("two-h100", 2, h100)):
+            s.add_resource_claim(t.ResourceClaim(name=name, requests=(t.DeviceRequest("r0", gpu, count, sel),)))
 
-    mixed = [mixed_pod(i) for i in range(64)]
+        def dra_pod(i, name):
+            p = make_pod(name).req({"cpu": "1", "memory": "4Gi"}).priority(100).label("app", "svc")
+            p = p.resource_claim(("whole", "two-h100", "ghost", "own-5")[i % 4])  # own-5: pinned to node-5
+            if i % 3 == 1:
+                p = p.pod_anti_affinity_in("tier", ["noisy"], w.HOSTNAME)
+            return p.obj()
+
+        uniform = [dra_pod(0, f"u{i}") for i in range(k)]
+
+        def mixed_pod(i):
+            return dra_pod(i, f"m{i}")
+
+    return _search_batches(s, uniform, [mixed_pod(i) for i in range(64)], dev)
+
+
+def _search_batches(s, uniform, mixed, dev):
+    """The featurized uniform and mixed batches, their active ops and the
+    victim pack."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.engine.features import build_pod_batch
+
     batches = {}
     for _ in range(2):  # the second pass sees the final vocabularies
         for label, pods in (("uniform", uniform), ("mixed", mixed)):
@@ -1573,6 +1666,8 @@ def search_step_bytes(state, vic, pf: dict, spec, carry) -> int:
     for key in ("port_triples", "vol_dev_ids", "vol_csi_ids"):
         if key in pf:
             rows += 2 * int((pf[key][i0] >= 0).sum())
+    if spec.dra:  # the claims' count rows and the pools' cap and alloc rows
+        rows += 2 * state.dra_cap.shape[0] + (int((pf["dra_claim_ids"][i0] >= 0).sum()) if "dra_claim_ids" in pf else 0)
     return node + slot + rows * n * 4
 
 
@@ -1632,19 +1727,19 @@ def check_search_kernels(dev, shape: str, reps: int, nodes: int = 5000) -> dict:
                                      lambda _: plain.unpack_victims(d_buf, *args), reps)
     set_bound(result["unpack_victims"], nbytes(d_buf) + nbytes(*(x for x in up[:6] if x is not None))
               + nbytes(*up[6].values()))
-    k = s.batch_size
     tb, _ = batches["uniform"]
+    mixed, _ = batches["mixed"]
+    k, c = tb["valid"].shape[0], mixed["valid"].shape[0]
     valid = torch.ones(k, dtype=torch.bool, device=dev)
     spec_picks = torch.where(torch.arange(k, device=dev) % 5 == 0, 7, -1).to(torch.int32)
-    mixed, _ = batches["mixed"]
-    late = valid[:64].clone()
+    late = valid[:c].clone()
     late[:2] = False  # the representative is the third pod
     modes = {
         "chunk1": {**{key: v[1:2] for key, v in mixed.items()}, "valid": valid[:1]},
         "chunk1 (hostname spread)": {**{key: v[3:4] for key, v in mixed.items()}, "valid": valid[:1]},
         "rank split": {**tb, "valid": valid},
         "mixed chunk": {**mixed, "valid": late},
-        "speculative": {**{key: v[:64] for key, v in tb.items()}, "elig": valid[:64], "spec_picks": spec_picks[:64]},
+        "speculative": {**{key: v[:c] for key, v in tb.items()}, "elig": valid[:c], "spec_picks": spec_picks[:c]},
     }
     timed_in = None
     steps = 0
@@ -1709,7 +1804,7 @@ def check_search_kernels(dev, shape: str, reps: int, nodes: int = 5000) -> dict:
                                    plain_reps=max(3, reps // 10))
     set_bound(result["preempt_eval"], preempt_eval_bytes(state, vic, full_in, None)
               + search_step_bytes(state, vic, full_in, local, c0) - nbytes(*c0) * 2)
-    print(f"search [{shape}]: {steps} search steps checked; N={state.valid.shape[0]} V={vic.prio.shape[1]} "
+    print(f"search [{shape}]: {steps} search steps checked; K={k} C={c} N={state.valid.shape[0]} V={vic.prio.shape[1]} "
           f"(occupied {vic.occupied}) G={s.builder.schema.G} ET={s.builder.schema.ET} DV={s.builder.schema.DV} "
           f"CV={s.builder.schema.CV} features {sorted(vic.vfeat)}")
     for name in result:
@@ -2211,6 +2306,298 @@ def check_pv_kernels(dev, reps: int) -> dict:
     return result
 
 
+def dra_inputs(dev, nodes: int = 5000):
+    """The "dra" shape: a 5000-node cluster (8192 rows) whose even nodes
+    publish 8 GPUs (h100 with 80 of memory and a100 with 40, alternating);
+    2000 pods bound on GPU nodes with a claim each (the claim's count on
+    that node is 1), the first ten GPU nodes full (one 8-device claim
+    each), 50 claims allocated externally on GPU nodes; then a 4096-pod
+    batch with 1-2 claim slots a pod: its own claim for a device (bare, h100
+    only, or two devices of at least 80 of memory: three pools), a claim
+    shared with the next pod (inside one chunk), its own claim named twice,
+    two claims, a claim a bound pod reserves, an externally allocated claim
+    (pinned), a missing claim, or none; featurized under the default
+    profile (twice: the second pass sees the final vocabularies).  The
+    claim table is 8192 rows (256 MiB)."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import workloads as w
+    from kubernetes_tpu_torch.api import types as t
+    from kubernetes_tpu_torch.api.wrappers import make_pod
+    from kubernetes_tpu_torch.engine.features import build_pod_batch
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+
+    rng = np.random.default_rng(131)
+    s = TorchScheduler(DEFAULT_PROFILE, batch_size=4096, chunk_size=64, device=dev)
+    gpu = w.DRA_CLASS
+    for node in w.basic_nodes(nodes, zones=10):
+        s.add_node(node)
+    s.builder._ensure(CLM=8192)
+    for i in range(0, nodes, 2):
+        model, mem = ("h100", 80) if (i // 2) % 2 == 0 else ("a100", 40)
+        s.add_resource_slice(t.ResourceSlice(node_name=f"node-{i}", device_class=gpu, devices=tuple(
+            t.Device(name=f"gpu-{d}", attributes={"model": model, "memory": mem}) for d in range(8))))
+    pools = {"bare": (), "h100": (w.DRA_H100,), "big": ('device.attributes["memory"].int >= 80',)}
+
+    def claim(name, pool="bare", count=1, **kw):
+        s.add_resource_claim(t.ResourceClaim(name=name, requests=(t.DeviceRequest("r0", gpu, count, pools[pool]),),
+                                             **kw))
+
+    for j in range(10):
+        claim(f"full-{j}", count=8)
+        s.add_pod(make_pod(f"full-{j}").req({"cpu": "1"}).resource_claim(f"full-{j}").node(f"node-{2 * j}").obj())
+    for j in range(2000):
+        claim(f"bound-{j}", ("bare", "h100")[j % 2])
+        s.add_pod(make_pod(f"bound-{j}").req({"cpu": "100m"}).resource_claim(f"bound-{j}")
+                  .node(f"node-{2 * int(rng.integers(50, nodes // 2))}").obj())
+    for j in range(50):
+        claim(f"pin-{j}", allocated_node=f"node-{40 + 2 * j}", allocated_devices=(("r0", "gpu-7"),),
+              reserved_for=("elsewhere/pod",))
+    pods = []
+    for k in range(4096):
+        p = make_pod(f"p{k}").req({"cpu": f"{int(rng.choice([100, 900]))}m", "memory": "1Gi"})
+        r = k % 16
+        if r < 6:
+            claim(f"c{k}")
+            p = p.resource_claim(f"c{k}")
+        elif r < 8:
+            claim(f"c{k}", "h100")
+            p = p.resource_claim(f"c{k}")
+        elif r == 8:
+            claim(f"c{k}", "big", count=2)
+            p = p.resource_claim(f"c{k}")
+        elif r == 9:
+            p = p.resource_claim(f"c{k - 1}")  # shared with the previous pod
+        elif r == 10:
+            claim(f"c{k}")
+            p = p.resource_claim(f"c{k}").resource_claim(f"c{k}")
+        elif r == 11:
+            claim(f"c{k}")
+            claim(f"d{k}", "h100")
+            p = p.resource_claim(f"c{k}").resource_claim(f"d{k}")
+        elif r == 12:
+            p = p.resource_claim(f"bound-{int(rng.integers(2000))}")
+        elif r == 13:
+            p = p.resource_claim(f"pin-{int(rng.integers(50))}")
+        elif r == 14:
+            p = p.resource_claim("ghost")
+        pods.append(p.obj())
+    for _ in range(2):
+        batch, _, active = build_pod_batch(pods, s.builder, s.profile, 4096)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    pf = {key: to(v) for key, v in batch.items()}
+    pf["nominated_row"] = to(np.full(4096, -1, np.int32))
+    return s.builder, s.builder.state(), pf, active, rng
+
+
+def dra_path_scheduler(dev):
+    """dra_claims_5kn_5kpods's own cluster in the middle of its burst, at
+    its batch and chunk: its 5000 nodes and slices, the 1024 fill pods
+    bound over all nodes, the measured pods' claims, and the first
+    ``DRA_MEASURED_PODS - DRA_BATCH`` measured pods reserved and bound as
+    Reserve leaves them (claims allocated to named devices, the selector
+    pool's corrections applied), two or four a GPU node (h100-only claims
+    on h100 nodes, a shared claim's pods together), so no node has a whole
+    GPU node free.  Returns the scheduler and the pending measured pods."""
+    from kubernetes_tpu_torch import workloads as w
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+
+    s = TorchScheduler(DEFAULT_PROFILE, batch_size=w.DRA_BATCH, chunk_size=w.DRA_CHUNK, device=dev)
+    for node in w.basic_nodes(w.DRA_NODES, zones=w.DRA_ZONES):
+        s.add_node(node)
+    w.dra_setup(s)
+    for j, p in enumerate(w.warm_pods(w.DRA_FILL_PODS)):
+        p.spec.node_name = f"node-{j * 5 % w.DRA_NODES}"
+        s.add_pod(p)
+    for claim in w.dra_claims():
+        s.add_resource_claim(claim)
+    gpu_nodes = w.DRA_NODES // w.DRA_GPU_EVERY
+    bound = w.DRA_MEASURED_PODS - w.DRA_BATCH
+    for i in range(bound):
+        # i // 2 + 1 is even for the h100 pods (i % 4 == 2), and the GPU
+        # nodes of even index publish h100s; a shared pair (i, i + 1 with
+        # i % 32 == 0) lands together.
+        node = f"node-{(i // 2 + 1) % gpu_nodes * w.DRA_GPU_EVERY}"
+        pod = w.dra_pod(i)
+        if s.builder.dra.allocate_pod_claims(pod, node) is None:
+            raise AssertionError(f"dra path cluster: {pod.name}'s claim does not fit on {node}")
+        s._drain_dra_corrections()
+        pod.spec.node_name = node
+        s.add_pod(pod)
+    return s, [w.dra_pod(i) for i in range(bound, w.DRA_MEASURED_PODS)]
+
+
+def dra_path_inputs(dev):
+    """The "dra_path" shape: dra_path_scheduler's cluster (N=8192,
+    CLM=8192) and its pending DRA_BATCH measured pods as one featurized
+    batch, as the path's kernels see them."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.engine.features import build_pod_batch
+
+    s, pods = dra_path_scheduler(dev)
+    k = len(pods)
+    for _ in range(2):  # the second pass sees the final vocabularies
+        batch, _, active = build_pod_batch(pods, s.builder, s.profile, k)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    pf = {key: to(v) for key, v in batch.items()}
+    pf["nominated_row"] = to(np.full(k, -1, np.int32))
+    return s.builder, s.builder.state(), pf, active, np.random.default_rng(137)
+
+
+def dra_eval_bytes(state, pf: dict) -> int:
+    """DynamicResources' part of eval_chunk for this chunk: its claim slots,
+    pins and missing flags read, the count row of each distinct claim id
+    and the cap and alloc rows of each pool the chunk demands."""
+    import torch
+
+    n = state.valid.shape[0]
+    b = nbytes(pf["dra_pin_ids"], pf["dra_missing"])
+    if "dra_claim_ids" in pf:
+        ids, cls = pf["dra_claim_ids"], pf["dra_claim_cls"]
+        b += nbytes(ids, cls, pf["dra_claim_cnt"])
+        b += int(torch.unique(ids[ids >= 0]).numel()) * n * 4 + int(torch.unique(cls[ids >= 0]).numel()) * n * 8
+    return b
+
+
+def dra_commit_bytes(state, pf: dict, placed) -> int:
+    """The DRA part of resolve_commit: the slots read, and one read and one
+    write of each distinct claim-count cell a placed pod touches and of
+    each pool cell a newly reserved claim charges."""
+    import torch
+
+    if "dra_claim_ids" not in pf:
+        return 0
+    n = state.valid.shape[0]
+    ids, cls = pf["dra_claim_ids"], pf["dra_claim_cls"]
+    rows = placed.clamp(min=0).long()[:, None]
+    use = (ids >= 0) & (placed >= 0)[:, None]
+    cell = ids.clamp(min=0).long() * n + rows
+    fresh = use & (state.dra_claim_counts.view(-1)[cell] == 0)
+    b = nbytes(ids, cls, pf["dra_claim_cnt"], pf["dra_claim_first"])
+    return b + int(torch.unique(cell[use]).numel()) * 8 + int(torch.unique((cls.long() * n + rows)[fresh]).numel()) * 8
+
+
+def check_dra_kernels(dev, reps: int, shape: str = "dra", nodes: int = 5000) -> dict:
+    """Phase 3 at one DRA shape: "dra" (C=64, N=8192, a 4096-pod batch,
+    CLM=8192; dra_inputs) or "dra_path" (the path's own C=DRA_CHUNK over
+    its DRA_BATCH pending pods; dra_path_inputs).  conflict_pairs over the
+    batch's chunks, eval_chunk with DynamicResources (filter code 5) and
+    select_host per sampled chunk, resolve_commit strict and not with the
+    claim commit on chunks whose picks put pods on a few GPU rows (claims
+    shared inside the chunk, claims already reserved there, a pod naming
+    its claim twice); all against their plain versions, exactly.  Returns
+    the timings (the pairs on the batch, the rest on chunk 0) with their
+    bounds."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch import workloads as w
+    from kubernetes_tpu_torch.engine.pass_ import build_dom, eval_spec
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.kernels import plain
+
+    if shape == "dra":
+        builder, state, big, active, rng = dra_inputs(dev, nodes)
+        # Every eighth of the 64 chunks.
+        c, sample = 64, 8
+    else:
+        builder, state, big, active, rng = dra_path_inputs(dev)
+        nodes = w.DRA_NODES
+        # Every fifth of the 128 chunks: the path's shared pairs (batch
+        # lanes 32m + 24, 32m + 25) fall in chunks 3 mod 4, so 15, 35, ...
+        c, sample = w.DRA_CHUNK, 5
+    schema = builder.schema
+    errs: dict[str, float] = {}
+    n, k = state.valid.shape[0], big["valid"].shape[0]
+    spec = eval_spec(DEFAULT_PROFILE, schema, builder.res_col, active)
+    if "DynamicResources" not in spec.filters or schema.DC > 4:
+        raise AssertionError(f"dra shape: filters {spec.filters}, CLM={schema.CLM}, DC={schema.DC}")
+    kp = kernels.conflict_pairs(big, k // c, c)
+    pp = plain.conflict_pairs(big, k // c, c)
+    torch.cuda.synchronize()
+    exact(errs, "conflict_pairs", f"[{shape} batch]", kp, pp)
+    stats = {"pairs": int(pp.sum()), "dra_rejects": 0, "deferred": 0, "committed": 0}
+    seed_mul = ((DEFAULT_PROFILE.tie_break_seed & 0xFFFFFFFF) * 2654435761) & 0xFFFFFFFF
+    bit = 1 << spec.filters.index("DynamicResources")
+    first = None
+    for i in range(0, k // c, sample):
+        pf = _chunk(big, i, c)
+        ke = kernels.eval_chunk(state, pf, spec, None, None)
+        pe = plain.eval_chunk(state, pf, spec, None, None)
+        torch.cuda.synchronize()
+        for what, a, b in zip(("feasible", "total", "fail_mask"), ke, pe):
+            exact(errs, "eval_chunk", f"[{shape} chunk {i}] {what}", a, b)
+        stats["dra_rejects"] += int(((pe[2] & bit) != 0).sum())
+        steps = torch.from_numpy(rng.integers(0, 2**32, size=c, dtype=np.int64)).to(dev)
+        ks = kernels.select_host(pe[0], pe[1], steps, seed_mul, pf["nominated_row"])
+        ps = plain.select_host(pe[0], pe[1], steps, seed_mul, pf["nominated_row"])
+        torch.cuda.synchronize()
+        for what, a, b in zip(("pick", "best", "feasible_count"), ks, ps):
+            exact(errs, "select_host", f"[{shape} chunk {i}] {what}", a, b)
+        if first is None:
+            first = (pf, ps[0])
+    et_slot = torch.zeros(schema.ET, dtype=torch.int32, device=dev)
+    dom = build_dom(state, et_slot, torch.zeros(schema.ET, dtype=torch.bool, device=dev), schema.DV)
+    fields = ("req", "nonzero_req", "num_pods", "group_counts", "dra_claim_counts", "dra_alloc")
+    # GPU rows where bound pods already reserve claims, and an empty one.
+    held = torch.nonzero(state.dra_claim_counts.sum(dim=0) > 0).flatten()
+    crowd = torch.cat([held[20:23], torch.tensor([nodes - 2], device=dev)]).to(torch.int32)
+    commit_cases = []
+    for i in range(0, k // c, sample):
+        pf = _chunk(big, i, c)
+        picks = crowd[torch.from_numpy(rng.integers(0, 4, size=c)).to(dev)]
+        ids0 = pf["dra_claim_ids"][:, 0]
+        pair = torch.nonzero((ids0[1:] == ids0[:-1]) & (ids0[1:] >= 0)).flatten()
+        picks[pair + 1] = picks[pair]  # a claim-sharing pair on one row
+        picks[::13] = -1
+        commit_cases.append((f"chunk {i}", pf, picks, kp[i]))
+    pf0, picks0 = first
+    commit_cases.append(("chunk 0 picks", pf0, picks0, kp[0]))
+    placed = None
+    for label, pf, picks, pairs in commit_cases:
+        for strict in (False, True):
+            sk, dk = state.clone(), clone_dom(dom)
+            sp, dp = state.clone(), clone_dom(dom)
+            ok_ = kernels.resolve_commit(sk, dk, pf, picks, pairs, strict)
+            op_ = plain.resolve_commit(sp, dp, pf, picks, pairs, strict)
+            torch.cuda.synchronize()
+            exact(errs, "resolve_commit", f"[{shape} {label}] (strict={strict}) picks", ok_, op_)
+            for f in fields:
+                exact(errs, "resolve_commit", f"[{shape} {label}] (strict={strict}) state.{f}",
+                      getattr(sk, f), getattr(sp, f))
+            if not strict:
+                stats["deferred"] += int((op_ == -2).sum())
+                if placed is None:
+                    placed = op_
+            stats["committed"] += int((op_ >= 0).sum())
+    _l, pfc, pickc, pairc = commit_cases[0]
+    result = {
+        "conflict_pairs": timed(lambda _: kernels.conflict_pairs(big, k // c, c),
+                                lambda _: plain.conflict_pairs(big, k // c, c), reps),
+        "eval_chunk": timed(lambda _: kernels.eval_chunk(state, pf0, spec, None, None),
+                            lambda _: plain.eval_chunk(state, pf0, spec, None, None), reps),
+        "resolve_commit": timed(
+            lambda a: kernels.resolve_commit(a[0], a[1], pfc, pickc, pairc, False),
+            lambda a: plain.resolve_commit(a[0], a[1], pfc, pickc, pairc, False), reps,
+            lambda: (state.clone(), clone_dom(dom))),
+    }
+    set_bound(result["conflict_pairs"], nbytes(big["dra_claim_ids"], big["dra_claim_unalloc"]) + k * c)
+    set_bound(result["eval_chunk"], eval_bytes(state, pf0, None) + dra_eval_bytes(state, pf0))
+    set_bound(result["resolve_commit"], commit_bytes(schema, pickc, c) + dra_commit_bytes(state, pfc, placed))
+    for name in result:
+        result[name]["max_abs_err"] = errs[name]
+        result[name].setdefault("library_ms", None)
+    keys = {key: tuple(big[key].shape) for key in big if key.startswith("dra_")}
+    print(f"{shape} shapes: C={c}, N={n}, K={k}, CLM={schema.CLM}, DC={schema.DC}; features {keys}; {stats}")
+    return result
+
+
 def spread_bytes(state, pf: dict, prefix: str) -> int:
     """spread_filter's (and the spread part of late_scores') reads for this
     chunk's data: the constraints' valid flags; and only where a constraint
@@ -2364,20 +2751,21 @@ class VirtualClock:
 
 def run_workload(impl: str, nodes, warm, measured, batch: int, chunk: int, trace: bool = False,
                  profile=None, stages=(), preempt: bool = False, setup=None, feed=None, wait: bool = False,
-                 sched_kw=None, virtual: bool = False):
+                 sched_kw=None, virtual: bool = False, then=None):
     """One burst through TorchScheduler: the nodes, ``setup(s)`` (objects
     and pods of a warm-up that needs more than pods), the warm-up pods
     (scheduled first, then each of ``stages`` in turn), then the measured
-    pods (or what ``feed(s)`` adds), timed.  ``preempt`` runs the fit-only profile with the
+    pods (or what ``feed(s)`` adds), timed, and inside the same window what
+    ``then(s)`` adds once they are drained.  ``preempt`` runs the fit-only profile with the
     reference's 1 s doubling backoff on the wall clock and waits through
     it (``wait_backoff``); ``wait`` does the latter for any profile, and
     ``virtual`` waits on a VirtualClock instead (each backoff expiry
     stepped to once nothing else is pending, so two runs pop the same
     batches); ``sched_kw`` holds more TorchScheduler options.  With ``trace``, the measured window also
     records host spans (featurize, the host-to-device copies of the batch
-    features, the result fetch that waits for the device, and the rest of
-    each schedule_batch call) and a torch.profiler trace of the card's
-    kernels.  Data moves are counted over the whole run: torch's
+    features, the result fetch that waits for the device, the victim packs
+    of preemption, and the rest of each schedule_batch call) and a
+    torch.profiler trace of the card's kernels.  Data moves are counted over the whole run: torch's
     index_copy_ and expand calls (there should be none) beside the
     scatter_rows and expand_rows launches that replace them; whole-state
     uploads are counted inside the measured window."""
@@ -2442,7 +2830,7 @@ def run_workload(impl: str, nodes, warm, measured, batch: int, chunk: int, trace
             feed(s)
         for pod in measured:
             s.add_pod(pod)
-        spans = {"featurize": 0.0, "h2d": 0.0, "batch": 0.0, "fetch": 0.0}
+        spans = {"featurize": 0.0, "h2d": 0.0, "batch": 0.0, "fetch": 0.0, "pack": 0.0}
         h2d_bytes = [0]
         # The window's wall-clock waits: backoff slept through, pods sent
         # to the backoff queue, and the garbage collector's pauses.
@@ -2496,6 +2884,7 @@ def run_workload(impl: str, nodes, warm, measured, batch: int, chunk: int, trace
             s._to_device = span("h2d", to_device)
             s.schedule_batch = span("batch", s.schedule_batch)
             s._fetch = span("fetch", s._fetch)
+            s.preemption.pack_victims = span("pack", s.preemption.pack_victims)
             prof = torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
             prof.__enter__()
@@ -2507,6 +2896,9 @@ def run_workload(impl: str, nodes, warm, measured, batch: int, chunk: int, trace
         uploads0 = s.builder.full_uploads
         t0 = time.perf_counter()
         measured_out = drain()
+        if then is not None:
+            then(s)
+            measured_out += drain()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         window["full_uploads"] = s.builder.full_uploads - uploads0
@@ -2532,7 +2924,8 @@ def run_workload(impl: str, nodes, warm, measured, batch: int, chunk: int, trace
         other = spans["batch"] - spans["featurize"] - spans["h2d"] - spans["fetch"]
         spans = {"featurize_s": spans["featurize"], "h2d_s": spans["h2d"],
                  "h2d_bytes": h2d_bytes[0], "fetch_wait_s": spans["fetch"],
-                 "other_host_s": other, "backoff_s": window["backoff_s"], "device_ms_by_kernel": device}
+                 "other_host_s": other, "pack_s": spans["pack"], "backoff_s": window["backoff_s"],
+                 "device_ms_by_kernel": device}
     # Pods bound in the window (a nominated preemptor's retry is one pod).
     bound = len({o.pod.uid for o in measured_out if o.node_name})
     return s, out + measured_out, bound, dt, spans
@@ -2716,6 +3109,107 @@ def run_csi(impl: str, trace: bool = False):
     from kubernetes_tpu_torch import workloads as w
 
     return _pv_run(impl, trace, w.csi_warm, lambda s: w.csi_measured(s, w.CSI_MEASURED_PODS))
+
+
+def run_dra(impl: str, trace: bool = False):
+    """dra_claims_5kn_5kpods (no harness counterpart): 5000 nodes in 10
+    zones, one in four publishing 8 GPUs; 1024 claim-less fill pods, then
+    5000 pods with their own claims, then 256 preemptors each wanting a
+    whole GPU node; default profile, the backoff waited on a virtual clock
+    (a pod whose same-batch reservation lost, such as the second pod of a
+    claim-sharing pair placed away from the claim, retries behind it)."""
+    from kubernetes_tpu_torch import workloads as w
+
+    def feed(s):
+        for claim in w.dra_claims():
+            s.add_resource_claim(claim)
+
+    def then(s):
+        for claim in w.dra_preemptor_claims():
+            s.add_resource_claim(claim)
+        for i in range(w.DRA_PREEMPTORS):
+            s.add_pod(w.dra_preemptor(i))
+
+    return run_workload(impl, w.basic_nodes(w.DRA_NODES, zones=w.DRA_ZONES), w.warm_pods(w.DRA_FILL_PODS),
+                        [w.dra_pod(i) for i in range(w.DRA_MEASURED_PODS)], w.DRA_BATCH, w.DRA_CHUNK, trace,
+                        setup=w.dra_setup, feed=feed, then=then, virtual=True)
+
+
+def check_dra(s, outcomes, expected: int, label: str) -> dict:
+    """dra_claims_5kn_5kpods's gates: every claim pod binds or was evicted
+    by a preemptor, every preemptor binds, every evicted pod is a priority-1
+    claim pod whose claim no longer names it; every claim of a bound pod is
+    allocated on the pod's node to devices that node publishes and owns
+    them (h100 ones for an h100 claim); the pods of a shared claim share a
+    node; per node and pool dra_alloc stays within dra_cap and equals the
+    catalog's count of owned devices matching the pool; no node exceeds
+    its allocatable; the host mirror equals the device state; no
+    whole-state upload in the window.  Returns the bindings with the victims
+    of every preemption."""
+    from kubernetes_tpu_torch import dra_cel
+    from kubernetes_tpu_torch import workloads as w
+
+    bind = {}
+    for o in outcomes:
+        bind[o.pod.name] = (o.node_name, tuple(sorted(o.victim_uids)))
+    bound = {pr.pod.name: pr.node_name for pr in s.cache.pods.values()}
+    evicted = {v for v, _p, _n in s.preempted}
+    lost = [f"gpu-{i}" for i in range(w.DRA_MEASURED_PODS)
+            if f"gpu-{i}" not in bound and f"default/gpu-{i}" not in evicted]
+    vips = [f"vip-{i}" for i in range(w.DRA_PREEMPTORS) if f"vip-{i}" not in bound]
+    if lost or vips or w.DRA_MEASURED_PODS + w.DRA_PREEMPTORS != expected:
+        raise AssertionError(f"{label}: unbound claim pods {lost[:5]}, unbound preemptors {vips[:5]}")
+    cat = s.builder.dra
+    h100 = 0
+    for pr in s.cache.pods.values():
+        for claim in cat.pod_claims(pr.pod):
+            owners = cat.device_owner.get((pr.node_name, w.DRA_CLASS), {})
+            devs = cat.devices.get((pr.node_name, w.DRA_CLASS), {})
+            req = claim.device_requests()[0]
+            ok = claim.allocated_node == pr.node_name and len(claim.allocated_devices) == req.count and all(
+                d in devs and owners.get(d) == claim.uid for _r, d in claim.allocated_devices)
+            if req.selectors:
+                ok = ok and all(devs[d]["model"] == "h100" for _r, d in claim.allocated_devices)
+                h100 += 1
+            if not ok:
+                raise AssertionError(f"{label}: claim {claim.uid} of {pr.pod.name} on {pr.node_name}: "
+                                     f"{claim.allocated_node} {claim.allocated_devices}")
+    pairs = 0
+    for i in range(1, w.DRA_MEASURED_PODS, w.DRA_SHARE_EVERY):
+        a, b = f"gpu-{i - 1}", f"gpu-{i}"
+        if a in bound and b in bound:
+            pairs += 1
+            if bound[a] != bound[b]:
+                raise AssertionError(f"{label}: {a} on {bound[a]} and {b} on {bound[b]} share a claim")
+    for vic in evicted:
+        name = vic.split("/", 1)[1]
+        claim = cat.claims.get(f"default/{w.dra_claim_of(int(name.split('-')[1]))}") if name.startswith("gpu-") else None
+        if claim is None or vic in claim.reserved_for:
+            raise AssertionError(f"{label}: victim {vic} is not a released priority-1 claim pod")
+    h = s.builder.host
+    if (h["dra_alloc"] > h["dra_cap"]).any():
+        raise AssertionError(f"{label}: a pool's dra_alloc exceeds its dra_cap")
+    it = s.interns.device_classes
+    for sig, (cls, reqs) in cat.pools.items():
+        want = {}
+        for (node, c), owners in cat.device_owner.items():
+            if c == cls:
+                want[s.cache.row_of(node)] = sum(dra_cel.matches(reqs, cat.devices[(node, c)][d]) for d in owners)
+        got = h["dra_alloc"][it.id(sig)]
+        if any(int(got[row]) != cnt for row, cnt in want.items()) or int(got.sum()) != sum(want.values()):
+            raise AssertionError(f"{label}: dra_alloc of pool {sig} differs from the catalog's owned devices")
+    if not s.builder.host_mirror_equal():
+        raise AssertionError(f"{label}: host mirror differs from the device state")
+    v = h["valid"]
+    if (h["req"][v] > h["alloc"][v]).any() or (h["num_pods"][v] > h["allowed_pods"][v]).any():
+        raise AssertionError(f"{label}: a node exceeds its allocatable")
+    if s.window["full_uploads"]:
+        raise AssertionError(f"{label}: {s.window['full_uploads']} whole-state uploads in the measured window")
+    print(f"{label}: {len(bound)} pods bound, {h100} h100 claims on h100 devices, {pairs} shared pairs "
+          f"co-located, {len(evicted)} victims released, {s.preemptions} preemptions, {s.reserve_failures} lost "
+          f"reservations, {int(h['dra_alloc'][it.id(w.DRA_CLASS)].sum())} devices allocated, CLM={s.builder.schema.CLM} "
+          f"DC={s.builder.schema.DC}")
+    return bind
 
 
 def check_pv(s, outcomes, expected: int, label: str) -> dict:
@@ -3207,6 +3701,10 @@ def _paths():
     images = base + ("conflict_pairs", "image_counts", "image_scores")
     search = spread + ("ipa_eval", "preempt_eval", "preempt_pick", "preempt_commit", "unpack_victims",
                        "dom_release", "search_step", "scatter_rows", "expand_rows")
+    # dra: node-local search ops only (no domain op, no node_filters bit);
+    # a retried batch of one pod is uniform (expand_rows).
+    dra = base + ("conflict_pairs", "preempt_eval", "preempt_pick", "preempt_commit", "unpack_victims",
+                  "scatter_rows", "expand_rows")
     return {
         "density": (run_density, w.DENSITY_WARM_PODS + w.DENSITY_MEASURED_PODS, base, None,
                     check_density, 1),
@@ -3231,6 +3729,7 @@ def _paths():
         "default_images_ports_5kn_10kpods": (run_images_ports, w.IMAGES_WARM_PODS + w.IMAGES_MEASURED_PODS,
                                              images, None, check_images_ports, 1),
         "preemption_default_search_5kn": (run_search, w.SEARCH_MEASURED_PODS + 1, search, None, check_search, 1),
+        "dra_claims_5kn_5kpods": (run_dra, w.DRA_MEASURED_PODS + w.DRA_PREEMPTORS, dra, None, check_dra, 1),
     }
 
 
@@ -3379,7 +3878,9 @@ def main() -> int:
               **{shape: check_preempt_kernels(dev, shape, REPS) for shape in PREEMPT_SHAPES},
               "daemonset": check_pinned_kernels(dev, REPS), "pv": check_pv_kernels(dev, REPS),
               "ports_images": check_ports_images_kernels(dev, REPS),
-              **{shape: check_search_kernels(dev, shape, REPS) for shape in ("search", "search_pv")}}
+              **{shape: check_search_kernels(dev, shape, REPS)
+                 for shape in ("search", "search_pv", "search_dra", "search_dra_path")},
+              **{shape: check_dra_kernels(dev, REPS, shape) for shape in ("dra", "dra_path")}}
     for shape, table in shapes.items():
         for name, tm in table.items():
             lib = "" if tm.get("library_ms") is None else f", library {tm['library_ms']:.4f}"
@@ -3462,7 +3963,8 @@ def print_trace(label: str, dt: float, spans: dict, card: str) -> None:
     print(f"{label} traced window {dt:.3f}s (backoff waited {spans['backoff_s']:.3f}s): featurize "
           f"{spans['featurize_s']:.3f}s, host-to-device "
           f"features {spans['h2d_s']:.3f}s ({spans['h2d_bytes']} bytes), waiting on device results "
-          f"{spans['fetch_wait_s']:.3f}s, other host {spans['other_host_s']:.3f}s; device busy "
+          f"{spans['fetch_wait_s']:.3f}s, other host {spans['other_host_s']:.3f}s (victim packs "
+          f"{spans['pack_s']:.3f}s); device busy "
           f"{busy:.3f}s ({'not measured' if busy == 0 else f'{1 - busy / dt:.3f} idle share'})  [{card}]")
     for key, ms in top:
         print(f"  device {ms:9.3f} ms  {key[:90]}")

@@ -7,8 +7,9 @@ pods fail loudly), the volume objects the volume plugins read (pod
 volume references, PersistentVolume, PersistentVolumeClaim, StorageClass,
 CSINode) with the node-selector evaluator their PreBind step matches PV
 affinities with, the label-selector evaluator that inter-pod affinity
-matches terms with, and the PodDisruptionBudget that preemption counts
-victims against.  DRA objects and Leases come with their slices.
+matches terms with, the PodDisruptionBudget that preemption counts
+victims against, and the DRA objects (Device, DeviceRequest,
+ResourceClaim, ResourceSlice).  Leases come with their slice.
 
 These are plain Python dataclasses, not a port of the generated Go types
 (reference: staging/src/k8s.io/api/core/v1/types.go).  Quantities are
@@ -584,6 +585,70 @@ class CSINode:
 
     name: str  # node name
     driver_limits: dict[str, int] = field(default_factory=dict)
+
+
+@dataclass
+class Device:
+    """resource.k8s.io BasicDevice: one named device instance with typed
+    attributes (bool/int/string) and capacity quantities (canonical integer
+    units; CEL ``device.capacity`` terms compare against these, dra_cel.py)."""
+
+    name: str
+    attributes: dict = field(default_factory=dict)
+    capacity: dict = field(default_factory=dict)
+
+
+@dataclass
+class DeviceRequest:
+    """ResourceClaim.spec.devices.requests[i]: ``count`` devices of a
+    class, narrowed by CEL selectors (ANDed; dra_cel.py compiles the
+    vectorizable subset)."""
+
+    name: str
+    device_class: str
+    count: int = 1
+    selectors: tuple[str, ...] = ()
+
+
+@dataclass
+class ResourceClaim:
+    """resource.k8s.io ResourceClaim with structured parameters: device
+    requests with CEL selectors; allocation pins the claim to one node and
+    names the chosen devices.  The single-request counted shorthand
+    (device_class + count) is the default when ``requests`` is empty."""
+
+    name: str
+    device_class: str = ""
+    count: int = 1
+    namespace: str = "default"
+    allocated_node: str = ""  # "" = unallocated (delayed allocation)
+    reserved_for: tuple[str, ...] = ()  # pod uids (status.reservedFor)
+    requests: tuple[DeviceRequest, ...] = ()
+    # Allocation result: the chosen (request name, device name) pairs.
+    allocated_devices: tuple[tuple[str, str], ...] = ()
+
+    def device_requests(self) -> tuple[DeviceRequest, ...]:
+        """The claim's requests; the counted shorthand synthesizes one
+        selector-less request."""
+        if self.requests:
+            return self.requests
+        return (DeviceRequest("r0", self.device_class, self.count),)
+
+    @property
+    def uid(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+
+@dataclass
+class ResourceSlice:
+    """resource.k8s.io ResourceSlice: the devices a node publishes for one
+    device class, as named instances with attributes, or (``count`` with
+    no devices) anonymous attribute-less ones."""
+
+    node_name: str
+    device_class: str
+    count: int = 1
+    devices: tuple[Device, ...] = ()
 
 
 @dataclass

@@ -5,10 +5,6 @@ that the device pass needs is computed once per pod here (resource vectors,
 interned ids) and shipped as one (K, …) batch.  Padding rows carry
 valid=False and are ignored by the commit.
 
-The port featurizes only the ported ops.  An unported op that is
-active for any pod of the batch raises NotImplementedError: such a pod must
-fail loudly, never be scheduled as if its constraints were absent.
-
 The host-port base features (engine/features.py:298-310, 366-367 of the
 JAX package: each pod's (proto, ip, port) triples and (proto, port) keys,
 -1 padded to POD_PORT_SLOTS) are what the commit, the conflict table and
@@ -23,6 +19,15 @@ pods' deltas after the loop, and a batch carries a group of them only when
 some pod fills it (``_vol_features``): a batch without volumes pays nothing,
 and an absent key is all padding, which every reader treats as contributing
 nothing, exactly as the JAX pass does with padding.
+
+The DRA base features (engine/features.py:29-33, 327-351 of the JAX
+package: one slot per charged pool of each device request of the pod's
+resolved claims, ``dra_claim_ids`` the claim id, ``dra_claim_cls`` the
+pool, ``dra_claim_cnt`` the devices, ``dra_claim_first`` the slot that
+moves the claim count, ``dra_claim_unalloc`` whether the claim races for
+free devices) are what DynamicResources' filter, the commit and the
+conflict table read.  They too are built from the deltas
+(``_dra_features``) and carried only when some pod has a resolved claim.
 """
 
 from __future__ import annotations
@@ -44,8 +49,20 @@ opcommon.feature_fill("vol_csi_ids", -1)
 opcommon.feature_fill("vol_csi_drv", -1)
 opcommon.feature_fill("vol_unbound", 0)
 opcommon.feature_fill("vol_csi_lim", 0)
+opcommon.feature_fill("dra_claim_ids", -1)
+opcommon.feature_fill("dra_claim_cls", -1)
+opcommon.feature_fill("dra_claim_cnt", 0)
+opcommon.feature_fill("dra_claim_first", False)
+opcommon.feature_fill("dra_claim_unalloc", 0)
 
-
+# The DRA base features: name, dtype and the fill of a pod's unused slots.
+_DRA_FEATURES = (
+    ("dra_claim_ids", np.int32, -1),
+    ("dra_claim_cls", np.int32, -1),
+    ("dra_claim_cnt", np.int32, 0),
+    ("dra_claim_unalloc", np.bool_, False),
+    ("dra_claim_first", np.bool_, False),
+)
 
 def _vol_features(deltas: list[dict], k: int) -> dict:
     """The volume base features of a batch of ``k`` lanes from its pods'
@@ -78,6 +95,25 @@ def _vol_features(deltas: list[dict], k: int) -> dict:
             flags = np.zeros(k, np.bool_)
             flags[: len(deltas)] = [d[key] for d in deltas]
             out[key] = flags
+    return out
+
+
+def _dra_features(deltas: list[dict], k: int) -> dict:
+    """The DRA base features of a batch of ``k`` lanes from its pods'
+    claim slots, ``_bucket`` wide, or nothing when no pod has a resolved
+    claim.  Padding lanes are zeros, as the JAX batch pads them."""
+    width = max((len(d["dra_claims"]) for d in deltas), default=0)
+    if not width:
+        return {}
+    out = {}
+    for key, dtype, fill in _DRA_FEATURES:
+        arr = np.zeros((k, _bucket(width, 1)), dtype)
+        arr[: len(deltas)] = fill
+        out[key] = arr
+    for i, d in enumerate(deltas):
+        for j, slot in enumerate(d["dra_claims"]):
+            for (key, _dtype, _fill), value in zip(_DRA_FEATURES, slot):
+                out[key][i, j] = value
     return out
 
 
@@ -127,12 +163,6 @@ def pod_sig(pod: t.Pod):
     return repr((pod.namespace, sorted(pod.metadata.labels.items()), pod.spec))
 
 
-def _check_ported(ops, reps, fctx) -> None:
-    for op in ops:
-        if op.unported and any(op.is_active(p, fctx) for p in reps):
-            raise NotImplementedError(f"{op.name} is not yet ported")
-
-
 def build_pod_batch(
     pods: list[t.Pod],
     builder: SnapshotBuilder,
@@ -169,7 +199,6 @@ def build_pod_batch(
             for op in all_ops
             if op.is_active is None or any(op.is_active(p, fctx) for p in reps)
         ]
-    _check_ported(ops, reps, fctx)
     active = frozenset(op.name for op in ops)
     fctx.active = active
     # Featurization cache: identical (namespace, labels, spec) pods produce
@@ -231,6 +260,7 @@ def build_pod_batch(
         pad_width = [(0, k - len(pods))] + [(0, 0)] * (stacked.ndim - 1)
         batch[key] = np.pad(stacked, pad_width)
     batch.update(_vol_features(deltas, k))
+    batch.update(_dra_features(deltas, k))
     batch.update(_port_features(deltas, k, active))
     batch["valid"] = np.zeros(k, np.bool_)
     batch["valid"][: len(pods)] = True

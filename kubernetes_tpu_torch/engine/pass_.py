@@ -104,29 +104,24 @@ def build_dom(
 
 def _conflict_pairs(pf: dict, nchunks: int, c: int, pairs_fn) -> torch.Tensor:
     """(nchunks, C, C) bool: does pod i's commit possibly affect pod j's
-    decision (pass_.py:266)?  Pairs come from the hard reads of inter-pod
-    affinity (required (anti-)affinity group masks, matched existing
-    anti-affinity terms against own-term writes) and of topology spread
-    (DoNotSchedule group masks), against each pod's label-group write,
-    from the volumes (a shared device or CSI volume id, or two claims that
-    race at PreBind) and from a shared host-port key (``pairs_fn``, the
-    conflict_pairs kernel or its plain version).  A batch with none of these
-    features (density) keeps the all-false table and launches nothing.  DRA
-    ids belong to an unported op: a batch that carries them raises, so the
-    slice that ports the op must port its pairs too."""
-    found = sorted(_PAIR_FEATURES.intersection(pf))
-    if found:
-        raise NotImplementedError(f"conflict pairs from {found} are not yet ported")
+    decision (pass_.py:266-342)?  Pairs come from the hard reads of
+    inter-pod affinity (required (anti-)affinity group masks, matched
+    existing anti-affinity terms against own-term writes) and of topology
+    spread (DoNotSchedule group masks), against each pod's label-group
+    write, from the volumes (a shared device or CSI volume id, or two claims
+    that race at PreBind), from a shared host-port key and from DRA (a
+    shared claim, or two pods whose unallocated claims race for free
+    devices) (``pairs_fn``, the conflict_pairs kernel or its plain
+    version).  A batch with none of these features (density) keeps the
+    all-false table and launches nothing."""
     if c > 1 and any(key in pf for key in _PAIR_SOURCES):
         return pairs_fn(pf, nchunks, c)
     return torch.zeros((nchunks, c, c), dtype=torch.bool, device=pf["valid"].device)
 
 
-# Batch features of unported ops from which the JAX pass derives conflict
-# pairs.
-_PAIR_FEATURES = frozenset({"dra_claim_ids", "dra_claim_unalloc"})
 # Features any of which makes the conflict table non-trivial.
-_PAIR_SOURCES = ("ipa_ra_allmask", "tps_h_groups", "vol_dev_ids", "vol_csi_ids", "vol_unbound", "port_keys")
+_PAIR_SOURCES = ("ipa_ra_allmask", "tps_h_groups", "vol_dev_ids", "vol_csi_ids", "vol_unbound", "port_keys",
+                 "dra_claim_ids")
 
 
 # Ops whose filter/score read only node-axis state (no domain tables, no
@@ -167,13 +162,9 @@ def _pass_ops(
     active: frozenset[str] | None,
 ):
     """(PassContext, active filters in fail-bit order, active (scorer,
-    weight) pairs) of one pass.  An active op that is not yet ported
-    raises."""
+    weight) pairs) of one pass."""
     ops = [opcommon.get(n) for n in profile.filters if active is None or n in active]
     scored = [(opcommon.get(n), w) for n, w in profile.scorers if active is None or n in active]
-    for op in ops + [o for o, _ in scored]:
-        if op.unported:
-            raise NotImplementedError(f"{op.name} is not yet ported")
     static: dict = {}
     for op in {o.name: o for o in ops + [o for o, _ in scored]}.values():
         if op.static is not None:

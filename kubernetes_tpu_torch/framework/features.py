@@ -1,7 +1,9 @@
 """Feature gates: the port's trimmed copy of ``kubernetes_tpu/framework/features.py``.
 
-Only the gates the ported ops read are registered, both on by default as
-in the reference: NodeInclusionPolicyInPodTopologySpread (off: spread
+Only the gates the ported ops read are registered, all on by default as
+in the reference: DynamicResourceAllocation (off: the DynamicResources
+plugin exists at no extension point, TorchScheduler drops it from its
+profile and never allocates a claim), NodeInclusionPolicyInPodTopologySpread (off: spread
 ignores a constraint's nodeAffinityPolicy/nodeTaintsPolicy and uses the
 legacy fixed policy, honor affinity and ignore taints) and
 MatchLabelKeysInPodTopologySpread (off: a constraint's matchLabelKeys are
@@ -15,6 +17,7 @@ from dataclasses import dataclass
 
 # name → default.
 KNOWN_GATES: dict[str, bool] = {
+    "DynamicResourceAllocation": True,
     "NodeInclusionPolicyInPodTopologySpread": True,
     "MatchLabelKeysInPodTopologySpread": True,
 }

@@ -50,11 +50,12 @@ from . import build, plain
 # field (_EXT_SEL): node_filters' bits 0-3 (NodeAffinity, TaintToleration,
 # VolumeBinding, VolumeZone), vol_filter's bits 0-1 (VolumeRestrictions,
 # NodeVolumeLimits) or spread_filter's mask (PodTopologySpread).  Code 4 is
-# NodePorts, against the live port counts.
+# NodePorts, against the live port counts, code 5 DynamicResources, against
+# the live claim counts and pool columns.
 _PLANE_BASE = {"node_bits": 0, "vol_bits": 4, "spread_ok": 6}
 _EXT_SEL = {name: _PLANE_BASE[plane] + bit for name, (plane, bit) in plain.PLANE_BITS.items()}
 _FILTER_CODES = {"NodeUnschedulable": 0, "NodeName": 1, "NodeResourcesFit": 2, **dict.fromkeys(_EXT_SEL, 3),
-                 "NodePorts": 4}
+                 "NodePorts": 4, "DynamicResources": 5}
 # ImageLocality's score is read from the image_scores plane.
 _SCORERS = ("NodeResourcesFit", "NodeResourcesBalancedAllocation", plain.IL)
 # Image ids per pod image_scores holds in registers.
@@ -184,6 +185,7 @@ def _eval_config(spec: EvalSpec, device: torch.device) -> dict:
         "il": plain.IL in weights,
         "il_weight": int(weights.get(plain.IL, 0)),
         "ports": "NodePorts" in spec.filters,
+        "dra": "DynamicResources" in spec.filters,
         "filter_codes": codes,
         "ext_sel": ext_sel,
         "n_filters": len(spec.filters),
@@ -336,6 +338,7 @@ def eval_chunk(state, pf: dict, spec: EvalSpec, nom, ext=None, pin=None):
             _check("port_wild_triples", pf["port_wild_triples"], i32, (c, s_ports), dev),
             _check("port_is_wild", pf["port_is_wild"], b, (c, s_ports), dev),
         ]
+    dra, dra_dims = _dra_args(state, pf, c, dev) if cfg["dra"] else ([None] * 8, (0, 0, 0))
     il = given["il_scores"]
     if cfg["il"] and il is None:
         raise ValueError("eval_chunk: plane 'il_scores' missing")
@@ -349,7 +352,7 @@ def eval_chunk(state, pf: dict, spec: EvalSpec, nom, ext=None, pin=None):
         *[_ptr(a) for a in feats],
         *[_ptr(a) for a in planes],
         _ptr(cfg["fit_ignored"]), *[_ptr(a) for a in ports], _ptr(il),
-        _ptr(cfg["strat_cols"]), cfg["n_strat"], cfg["most_allocated"],
+        *[_ptr(a) for a in dra], *dra_dims, _ptr(cfg["strat_cols"]), cfg["n_strat"], cfg["most_allocated"],
         _ptr(cfg["bal_cols"]), cfg["n_bal"],
         cfg["score_fit"], cfg["fit_weight"], cfg["score_bal"], cfg["bal_weight"], cfg["il_weight"],
         cfg["filter_codes"], cfg["n_filters"], cfg["ext_sel"], c, n, r, s_ports,
@@ -357,6 +360,30 @@ def eval_chunk(state, pf: dict, spec: EvalSpec, nom, ext=None, pin=None):
     )
     eval_chunk.launches += 1
     return feasible, total, fail
+
+
+def _dra_args(state, pf: dict, c: int, dev) -> tuple[list, tuple]:
+    """DynamicResources' inputs of eval_chunk, checked: the node columns,
+    the chunk's claim slots (None when the batch carries no resolved
+    claim), its pins and missing flags; and (SK, PIN, DC)."""
+    n = state.valid.shape[0]
+    dc, clm = state.dra_cap.shape[0], state.dra_claim_counts.shape[0]
+    i32 = torch.int32
+    pin = pf["dra_pin_ids"].shape[1]
+    args = [
+        _check("dra_cap", state.dra_cap, i32, (dc, n), dev),
+        _check("dra_alloc", state.dra_alloc, i32, (dc, n), dev),
+        _check("dra_claim_counts", state.dra_claim_counts, i32, (clm, n), dev),
+    ]
+    sk = 0
+    if "dra_claim_ids" in pf:
+        sk = pf["dra_claim_ids"].shape[1]
+        args += [_check(key, pf[key], i32, (c, sk), dev) for key in ("dra_claim_ids", "dra_claim_cls", "dra_claim_cnt")]
+    else:
+        args += [None] * 3
+    args += [_check("dra_pin_ids", pf["dra_pin_ids"], i32, (c, pin), dev),
+             _check("dra_missing", pf["dra_missing"], torch.bool, (c,), dev)]
+    return args, (sk, pin, dc)
 
 
 def ipa_eval(state, pf: dict, feasible, total, fail, ipa: IpaSpec):
@@ -415,17 +442,17 @@ def ipa_eval(state, pf: dict, feasible, total, fail, ipa: IpaSpec):
 
 def conflict_pairs(pf: dict, nchunks: int, c: int):
     """(nchunks, C, C) bool chunk-mate conflict table of a batch whose pods
-    carry inter-pod-affinity, topology-spread, volume-id or host-port
-    features."""
+    carry inter-pod-affinity, topology-spread, volume-id, host-port or DRA
+    claim features."""
     if _on_cpu(pf["valid"]):
         return plain.conflict_pairs(pf, nchunks, c)
     dev = pf["valid"].device
     k = nchunks * c
     ipa, spread = "ipa_ra_allmask" in pf, "tps_h_groups" in pf
     vdev, vcsi, vunb = "vol_dev_ids" in pf, "vol_csi_ids" in pf, "vol_unbound" in pf
-    vport = "port_keys" in pf
-    if not (ipa or spread or vdev or vcsi or vunb or vport):
-        raise ValueError("conflict_pairs: the batch carries no affinity, spread, volume or port features")
+    vport, vdra = "port_keys" in pf, "dra_claim_ids" in pf
+    if not (ipa or spread or vdev or vcsi or vunb or vport or vdra):
+        raise ValueError("conflict_pairs: the batch carries no affinity, spread, volume, port or claim features")
     g = pf["ipa_ra_allmask"].shape[1] if ipa else (pf["tps_h_groups"].shape[2] if spread else 0)
     rs = pf["ipa_rs_groups"].shape[1] if ipa else 0
     et = pf["ipa_et_match"].shape[1] if ipa else 0
@@ -434,6 +461,7 @@ def conflict_pairs(pf: dict, nchunks: int, c: int):
     sd = pf["vol_dev_ids"].shape[1] if vdev else 0
     sc = pf["vol_csi_ids"].shape[1] if vcsi else 0
     sp = pf["port_keys"].shape[1] if vport else 0
+    sk = pf["dra_claim_ids"].shape[1] if vdra else 0
     args = [_check("group", pf["group"], torch.int32, (k,), dev)]
     for key, dtype, shape, on in (
         ("ipa_ra_allmask", torch.bool, (k, g), ipa),
@@ -446,11 +474,13 @@ def conflict_pairs(pf: dict, nchunks: int, c: int):
         ("vol_csi_ids", torch.int32, (k, sc), vcsi),
         ("vol_unbound", torch.bool, (k,), vunb),
         ("port_keys", torch.int32, (k, sp), vport),
+        ("dra_claim_ids", torch.int32, (k, sk), vdra),
+        ("dra_claim_unalloc", torch.bool, (k, sk), vdra),
     ):
         args.append(_check(key, pf[key], dtype, shape, dev) if on else None)
     pairs = torch.empty((nchunks, c, c), dtype=torch.bool, device=dev)
     build.launch(
-        "conflict_pairs", *[_ptr(x) for x in args], nchunks, c, g, rs, et, a, ch, sd, sc, sp,
+        "conflict_pairs", *[_ptr(x) for x in args], nchunks, c, g, rs, et, a, ch, sd, sc, sp, sk,
         _ptr(pairs), _stream(dev),
     )
     conflict_pairs.launches += 1
@@ -548,6 +578,18 @@ def resolve_commit(state, dom, pf: dict, picks, pairs, strict: bool):
         _check("port_keys", keys, i32, (c, sp), dev)
         _check("state.port_counts", state.port_counts, i32, (state.port_counts.shape[0], n), dev)
         _check("state.portkey_counts", state.portkey_counts, i32, (state.portkey_counts.shape[0], n), dev)
+    # DRA claim slots: absent when no pod of the batch has a resolved claim.
+    dra = [pf.get(key) for key in ("dra_claim_ids", "dra_claim_cls", "dra_claim_cnt", "dra_claim_first")]
+    sk = 0 if dra[0] is None else dra[0].shape[1]
+    dc, clm = state.dra_alloc.shape[0], state.dra_claim_counts.shape[0]
+    if dra[0] is not None:
+        if sk > 64:
+            raise NotImplementedError(f"resolve_commit: {sk} DRA claim slots per pod exceed 64")
+        for key, t_, dtype in zip(("dra_claim_ids", "dra_claim_cls", "dra_claim_cnt", "dra_claim_first"), dra,
+                                  (i32, i32, i32, torch.bool)):
+            _check(key, t_, dtype, (c, sk), dev)
+        _check("state.dra_claim_counts", state.dra_claim_counts, i32, (clm, n), dev)
+        _check("state.dra_alloc", state.dra_alloc, i32, (dc, n), dev)
     out = torch.empty(c, dtype=i32, device=dev)
     build.launch(
         "resolve_commit",
@@ -560,7 +602,8 @@ def resolve_commit(state, dom, pf: dict, picks, pairs, strict: bool):
         _ptr(dev_ids), _ptr(dev_rw), _ptr(state.dev_counts), _ptr(state.dev_rw_counts),
         _ptr(csi_ids), _ptr(csi_drv), _ptr(state.csivol_counts), _ptr(state.csi_used), _ptr(csi_lim),
         _ptr(triples), _ptr(keys), _ptr(state.port_counts), _ptr(state.portkey_counts),
-        c, n, r, tk, dv, na, sd, sc, dr, sp, _ptr(out), _stream(dev),
+        *[_ptr(x) for x in dra], _ptr(state.dra_claim_counts), _ptr(state.dra_alloc),
+        c, n, r, tk, dv, na, sd, sc, dr, sp, sk, dc, _ptr(out), _stream(dev),
     )
     resolve_commit.launches += 1
     return out
@@ -875,7 +918,8 @@ class PreemptSpec:
     (NodeUnschedulable, NodeName, and the node_filters bits that must be
     set: 1 NodeAffinity, 2 TaintToleration, 4 VolumeBinding, 8
     VolumeZone) and the active ops of the what-if search (node-local:
-    NodePorts, VolumeRestrictions, NodeVolumeLimits; domain:
+    NodePorts, VolumeRestrictions, NodeVolumeLimits, DynamicResources,
+    whose hard filter also joins the release-independent ones; domain:
     InterPodAffinity, PodTopologySpread), with the pass context they read."""
 
     check_unsched: bool
@@ -886,6 +930,7 @@ class PreemptSpec:
     nvl: bool = False
     ipa: bool = False
     pts: bool = False
+    dra: bool = False
     ctx: object = None  # ops.common.PassContext
 
     @property
@@ -923,8 +968,8 @@ def _opt(name: str, t, dtype, shape, dev):
 # The order of search_args' pointer table and its dimensions, shared with
 # kernels/csrc/preempt_search.cuh (enum Ptr, enum Dim).
 _SEARCH_DIMS = ("C", "N", "V", "R", "P", "TK", "DV", "G", "ET", "TS", "PS", "SD", "SC", "QP", "QD", "QC",
-                "DR", "RA", "RS", "K", "bits_mask", "flags", "step", "smem")
-N_SEARCH_PTRS = 84
+                "DR", "RA", "RS", "K", "bits_mask", "flags", "step", "smem", "SK", "QK", "DC", "PIN")
+N_SEARCH_PTRS = 96
 # Per-victim and per-pod id slots, and the representative's terms and
 # constraints, the search kernels hold in registers and static shared memory.
 MAX_SEARCH_SLOTS = 16
@@ -960,14 +1005,16 @@ def _search_args(state, vic: Victims, pf: dict, spec: PreemptSpec, carry, dom=No
     dims = dict.fromkeys(_SEARCH_DIMS, 0)
     dims.update(C=c, N=n, V=v, R=r, P=p, TK=tk, G=g, ET=et, bits_mask=spec.bits_mask, step=step, smem=smem)
     # Bit i: NodeUnschedulable, NodeName, NodePorts, VolumeRestrictions,
-    # NodeVolumeLimits, InterPodAffinity, PodTopologySpread (enum SpecFlag).
+    # NodeVolumeLimits, InterPodAffinity, PodTopologySpread, DynamicResources
+    # (enum SpecFlag).
     dims["flags"] = sum(1 << i for i, on in enumerate(
-        (spec.check_unsched, spec.check_nodename, spec.ports, spec.vr, spec.nvl, spec.ipa, spec.pts)) if on)
+        (spec.check_unsched, spec.check_nodename, spec.ports, spec.vr, spec.nvl, spec.ipa, spec.pts,
+         spec.dra)) if on)
     if r > 16 or v > 64:
         raise NotImplementedError(f"preempt_eval: R={r} > 16 or V={v} > 64 victim slots")
 
     def width(key, dim):
-        t = vf.get(key) if dim in ("TS", "PS", "SD", "SC") else pf.get(key)
+        t = vf.get(key) if dim in ("TS", "PS", "SD", "SC", "SK") else pf.get(key)
         dims[dim] = 0 if t is None else t.shape[-1]
         if dims[dim] > MAX_SEARCH_SLOTS:
             raise NotImplementedError(f"preempt search: {dims[dim]} {key} slots exceed {MAX_SEARCH_SLOTS}")
@@ -980,7 +1027,12 @@ def _search_args(state, vic: Victims, pf: dict, spec: PreemptSpec, carry, dom=No
     qp = width("port_triples", "QP") if spec.ports else 0
     qd = width("vol_dev_ids", "QD") if spec.vr else 0
     qc = width("vol_csi_ids", "QC") if spec.nvl else 0
+    sk = width("dra_kid", "SK") if spec.dra else 0
+    qk = width("dra_claim_ids", "QK") if spec.dra else 0
     dims["DR"] = state.csi_used.shape[0] if spec.nvl else 0
+    dc, clm = state.dra_cap.shape[0], state.dra_claim_counts.shape[0]
+    pin = pf["dra_pin_ids"].shape[1] if spec.dra else 0
+    dims.update(DC=dc if spec.dra else 0, PIN=pin)
     vd, cv, dr = state.dev_counts.shape[0], state.csivol_counts.shape[0], state.csi_used.shape[0]
     npc, npk = state.port_counts.shape[0], state.portkey_counts.shape[0]
     ra = pf["ipa_ra_valid"].shape[1] if spec.ipa else 0
@@ -1045,6 +1097,14 @@ def _search_args(state, vic: Victims, pf: dict, spec: PreemptSpec, carry, dom=No
             _check("carry.cnt", carry.cnt, i32, (n,), dev), _check("carry.flags", carry.flags, u8, (n,), dev)]),
         *([None] * 6 if outs is None else outs),
         *([None] * 2 if scratch is None else scratch),
+        _check("dra_cap", state.dra_cap, i32, (dc, n), dev) if spec.dra else None,
+        _check("dra_alloc", state.dra_alloc, i32, (dc, n), dev) if spec.dra else None,
+        _check("dra_claim_counts", state.dra_claim_counts, i32, (clm, n), dev) if spec.dra else None,
+        vfp("dra_kid", sk, spec.dra), vfp("dra_cid", sk, spec.dra), vfp("dra_cnt", sk, spec.dra),
+        vfp("dra_first", sk, spec.dra),
+        pod("dra_claim_ids", i32, (c, qk), qk > 0), pod("dra_claim_cls", i32, (c, qk), qk > 0),
+        pod("dra_claim_cnt", i32, (c, qk), qk > 0),
+        pod("dra_pin_ids", i32, (c, pin), spec.dra), pod("dra_missing", b, (c,), spec.dra),
     ]
     if len(ptrs) != N_SEARCH_PTRS:
         raise AssertionError(f"search pointer table holds {len(ptrs)} entries, want {N_SEARCH_PTRS}")
@@ -1239,7 +1299,7 @@ def unpack_victims(buf, r: int, n_pdbs: int, pdb_words: int, v: int, inline_allo
     return prio, req, nonzero, start, pdb, allowed, vfeat
 
 
-_MAX_VF_COLS = 8
+_MAX_VF_COLS = 16
 
 
 def scatter_rows(dst, axis: int, rows, src) -> None:

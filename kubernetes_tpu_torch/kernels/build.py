@@ -53,11 +53,12 @@ _P, _I, _L, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
 # never truncates them to 32 bits).
 _SIGNATURES: dict[str, list] = {
     "build_dom": [_P] * 4 + [_I] * 5 + [_P, _P, _P],
-    "eval_chunk": [_P] * 29 + [_P, _I, _I, _P, _I, _I, _L, _I, _L, _L, _L, _I, _L, _I, _I, _I, _I, _P, _P, _P, _P],
+    "eval_chunk": [_P] * 37 + [_I] * 3 + [_P, _I, _I, _P, _I, _I, _L, _I, _L, _L, _L, _I, _L, _I, _I, _I, _I, _P, _P,
+                                         _P, _P],
     "ipa_eval": [_I] * 10 + [_L] + [_P] * 30 + [_I, _P],
     "select_host": [_P, _P, _P, _U, _P, _I, _I, _P, _P, _P, _P],
-    "resolve_commit": [_P, _P, _P, _I] + [_P] * 28 + [_I] * 10 + [_P, _P],
-    "conflict_pairs": [_P] * 11 + [_I] * 10 + [_P, _P],
+    "resolve_commit": [_P, _P, _P, _I] + [_P] * 34 + [_I] * 12 + [_P, _P],
+    "conflict_pairs": [_P] * 13 + [_I] * 11 + [_P, _P],
     "node_filters": [_P] * 36 + [_I] * 23 + [_P],
     "vol_filter": [_P] * 11 + [_I] * 7 + [_P],
     "spread_filter": [_P] * 15 + [_I] * 7 + [_P],

@@ -14,6 +14,38 @@ __device__ __forceinline__ long long floordiv_i64(long long a, long long b) {
   return q;
 }
 
+// DynamicResources' pin and missing-claim check for one pod at a node
+// whose name id is ``name`` (ops/dynamicresources.py _dra_hard): no
+// missing claim, and every pin of the PIN slots (-1 pad) names the node.
+__device__ __forceinline__ bool dra_pins_ok(bool missing, const int* pins, int PIN, int name) {
+  if (missing) return false;
+  for (int p = 0; p < PIN; ++p) {
+    if (pins[p] >= 0 && pins[p] != name) return false;
+  }
+  return true;
+}
+
+// DynamicResources' device demand for one pod's S claim slots at node n
+// (ops/dynamicresources.py _dra_filter): per pool d, the devices of the
+// slots whose claim no pod of the node reserves (count(id) <= 0) sum to
+// ``need``; the pod fits where every pool's need is 0 or
+// alloc(d) + need <= cap[d, n].  ``count`` and ``alloc`` read the live
+// state or, in the preemption search, the state the masked victims leave.
+template <typename Count, typename Alloc>
+__device__ bool dra_demand_fits(const int* ids, const int* cls, const int* cnt, int S, int DC,
+                                const int* cap, long long N, int n, Count count, Alloc alloc) {
+  for (int s = 0; s < S; ++s) {
+    const int d = cls[s];
+    if (ids[s] < 0 || d < 0 || d >= DC) continue;
+    long long need = 0;
+    for (int s2 = 0; s2 < S; ++s2) {
+      if (ids[s2] >= 0 && cls[s2] == d && count(ids[s2]) <= 0) need += cnt[s2];
+    }
+    if (need != 0 && alloc(d) + need > (long long)cap[d * N + n]) return false;
+  }
+  return true;
+}
+
 #define KERNEL_ERROR_STRING(prefix)                                  \
   extern "C" const char* prefix##_error_string(int code) {           \
     return cudaGetErrorString(static_cast<cudaError_t>(code));       \

@@ -1,12 +1,13 @@
 // conflict_pairs: the chunk-mate conflict table of a whole batch.
 //
-// Replaces the inter-pod-affinity, topology-spread, host-port and volume
-// branches of kubernetes_tpu/engine/pass_.py _conflict_pairs (:266-334),
-// evaluated per scan step by the JAX pass:
+// Replaces the inter-pod-affinity, topology-spread, host-port, volume and
+// DRA branches of kubernetes_tpu/engine/pass_.py _conflict_pairs
+// (:266-342), evaluated per scan step by the JAX pass:
 //   pairs[b, i, j] = reads_g[j, group[i]] or (exists a: hard_t[j, own[i, a]])
-//                    or (i and j share a device volume id, a CSI volume id
-//                    or a host-port (proto, port) key) or (vol_unbound[i]
-//                    and vol_unbound[j])
+//                    or (i and j share a device volume id, a CSI volume id,
+//                    a host-port (proto, port) key or a DRA claim id) or
+//                    (vol_unbound[i] and vol_unbound[j]) or (both i and j
+//                    have a slot with an unallocated claim)
 // for pods i != j of chunk b, where reads_g = ipa_ra_allmask or
 // any(ipa_rs_groups) (the groups pod j's required (anti-)affinity reads)
 // or any(tps_h_groups) (the groups pod j's DoNotSchedule spread
@@ -15,7 +16,7 @@
 // batch carries none of its features (G is 0 when no group is read).  The
 // JAX pass builds these with einsums of one-hot matrices and the volume
 // part with an all-pairs id comparison; here each entry is a handful of
-// gathers and an SD^2 + SC^2 + SP^2 id comparison.
+// gathers and an SD^2 + SC^2 + SP^2 + SK^2 id comparison.
 //
 // One thread per (chunk, i, j): nchunks * C * C threads, one launch per
 // batch (features do not change between chunks).
@@ -40,8 +41,10 @@ __global__ void conflict_pairs_kernel(const int* __restrict__ group,            
                                       const int* __restrict__ csi_ids,               // (K, SC)
                                       const unsigned char* __restrict__ unbound,     // (K,)
                                       const int* __restrict__ port_keys,             // (K, SP)
+                                      const int* __restrict__ dra_ids,               // (K, SK)
+                                      const unsigned char* __restrict__ dra_unalloc, // (K, SK)
                                       int nchunks, int C, int G, int RS, int ET, int A, int CH,
-                                      int SD, int SC, int SP,
+                                      int SD, int SC, int SP, int SK,
                                       unsigned char* __restrict__ pairs) {  // (nchunks, C, C)
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long total = (long long)nchunks * C * C;
@@ -77,6 +80,18 @@ __global__ void conflict_pairs_kernel(const int* __restrict__ group,            
       for (int s2 = 0; v >= 0 && !p && s2 < SP; ++s2) p = port_keys[pj * SP + s2] == v;
     }
     if (!p && unbound != nullptr) p = unbound[pi] && unbound[pj];
+    for (int s = 0; !p && dra_ids != nullptr && s < SK; ++s) {
+      const int v = dra_ids[pi * SK + s];
+      for (int s2 = 0; v >= 0 && !p && s2 < SK; ++s2) p = dra_ids[pj * SK + s2] == v;
+    }
+    if (!p && dra_unalloc != nullptr) {
+      bool ui = false, uj = false;
+      for (int s = 0; s < SK; ++s) {
+        ui = ui || dra_unalloc[pi * SK + s];
+        uj = uj || dra_unalloc[pj * SK + s];
+      }
+      p = ui && uj;
+    }
   }
   pairs[idx] = p ? 1 : 0;
 }
@@ -88,9 +103,10 @@ extern "C" int conflict_pairs_launch(const void* group, const void* ra_allmask,
                                      const void* et_anti, const void* own,
                                      const void* tps_groups, const void* dev_ids,
                                      const void* csi_ids, const void* unbound,
-                                     const void* port_keys, int nchunks, int C, int G, int RS,
-                                     int ET, int A, int CH, int SD, int SC, int SP, void* pairs,
-                                     void* stream) {
+                                     const void* port_keys, const void* dra_ids,
+                                     const void* dra_unalloc, int nchunks, int C, int G, int RS,
+                                     int ET, int A, int CH, int SD, int SC, int SP, int SK,
+                                     void* pairs, void* stream) {
   const long long total = (long long)nchunks * C * C;
   const int threads = 256;
   const long long blocks = (total + threads - 1) / threads;
@@ -102,7 +118,8 @@ extern "C" int conflict_pairs_launch(const void* group, const void* ra_allmask,
       static_cast<const unsigned char*>(et_anti), static_cast<const int*>(own),
       static_cast<const unsigned char*>(tps_groups), static_cast<const int*>(dev_ids),
       static_cast<const int*>(csi_ids), static_cast<const unsigned char*>(unbound),
-      static_cast<const int*>(port_keys), nchunks, C, G, RS, ET, A, CH, SD, SC, SP,
+      static_cast<const int*>(port_keys), static_cast<const int*>(dra_ids),
+      static_cast<const unsigned char*>(dra_unalloc), nchunks, C, G, RS, ET, A, CH, SD, SC, SP, SK,
       static_cast<unsigned char*>(pairs));
   return (int)cudaGetLastError();
 }

@@ -6,13 +6,24 @@
 // NodeResourcesFit's filter and score (ops/noderesources.py:58,142, with
 // the LeastAllocated / MostAllocated scorers :110-125) and
 // NodeResourcesBalancedAllocation (:163), NodePorts' filter
-// (ops/nodeports.py:45) against the live port counts, and ImageLocality's
+// (ops/nodeports.py:45) against the live port counts, DynamicResources'
+// filter (ops/dynamicresources.py:53) against the live claim counts and
+// pool columns, and ImageLocality's
 // score (ops/imagelocality.py:53) read from the per-batch plane that
 // image_scores (image_locality.cu) computes: images and node validity do
 // not change within a pass, and the plane's raw 0-100 score is added with
 // the op's weight.  RequestedToCapacityRatio is refused by the Python
 // wrapper before launch.  Filter codes are 3 bits a filter in a 64-bit
-// word (0-2 the trivial filters and fit, 3 a plane, 4 NodePorts).
+// word (0-2 the trivial filters and fit, 3 a plane, 4 NodePorts, 5
+// DynamicResources).
+//
+// DynamicResources at (pod c, node n): no missing claim, every allocation
+// pin names node n, and for every pool d the pod's slots of pool d whose
+// claim no pod of node n reserves yet (dra_claim_counts[kid, n] == 0) sum
+// to a demand that is 0 or fits: dra_alloc[d, n] + need <= dra_cap[d, n].
+// The demand of a slot's pool is summed over the pod's slots where that
+// slot is met, so no per-pool array is held and the pool count is not
+// bounded.
 // NodeAffinity, TaintToleration, VolumeBinding, VolumeZone,
 // VolumeRestrictions, NodeVolumeLimits and PodTopologySpread take code 3:
 // their results are precomputed planes (node_filters' bits 0-3 per batch,
@@ -36,8 +47,9 @@
 // Bound: bytes.  Per chunk it reads the node state once (~0.7 MB at
 // N=8192, R=4) and writes C*N*(1+8) bytes of feasible/total (~4.7 MB at
 // C=64), a few operations per byte; NodePorts adds at most two count reads
-// per want of a port pod, coalesced along the node axis, and ImageLocality
-// C*N bytes of its plane.  The design keeps every node's state
+// per want of a port pod, coalesced along the node axis, ImageLocality
+// C*N bytes of its plane, and DynamicResources per pod up to S*S
+// claim-count reads and two pool reads per claim slot, coalesced likewise.  The design keeps every node's state
 // row in registers for the whole filter/score chain and writes each output
 // once, coalesced along the node axis.
 //
@@ -55,6 +67,7 @@ constexpr int kNodeName = 1;
 constexpr int kFit = 2;
 constexpr int kExt = 3;  // precomputed plane, chosen by ext_sel
 constexpr int kPorts = 4;
+constexpr int kDra = 5;
 // ext_sel values: 0-3 a node_bits bit, 4-5 a vol_bits bit, 6 spread_ok.
 constexpr int kSelVol = 4;
 constexpr int kSelSpread = 6;
@@ -96,6 +109,17 @@ struct EvalArgs {
   const unsigned char* port_is_wild;     // (C, S)
   // ImageLocality's raw score, (C, N), or (C, 1) pinned; null: not scored.
   const unsigned char* il_scores;
+  // DynamicResources: the node columns and the chunk's claim slots (null
+  // when the batch carries no resolved claim), pins and missing flags.
+  const int* dra_cap;                    // (DC, N)
+  const int* dra_alloc;                  // (DC, N)
+  const int* dra_claim_counts;           // (CLM, N)
+  const int* dra_ids;                    // (C, SK), -1 pad
+  const int* dra_cls;                    // (C, SK)
+  const int* dra_cnt;                    // (C, SK)
+  const int* dra_pins;                   // (C, PIN), -1 pad
+  const unsigned char* dra_missing;      // (C,)
+  int SK, PIN, DC;
   // Static profile config.
   const unsigned char* fit_ignored;  // (R,)
   const long long* strat_cols;       // (S, 3): kind, col, weight
@@ -169,6 +193,16 @@ __device__ bool ports_filter(const EvalArgs& a, int c, int n) {
     if (conflict) return false;
   }
   return true;
+}
+
+__device__ bool dra_filter(const EvalArgs& a, int c, int n) {
+  if (!dra_pins_ok(a.dra_missing[c], a.dra_pins + (size_t)c * a.PIN, a.PIN, a.name_id[n])) return false;
+  if (a.dra_ids == nullptr) return true;
+  const size_t o = (size_t)c * a.SK;
+  return dra_demand_fits(
+      a.dra_ids + o, a.dra_cls + o, a.dra_cnt + o, a.SK, a.DC, a.dra_cap, a.N, n,
+      [&](int k) { return a.dra_claim_counts[(size_t)k * a.N + n]; },
+      [&](int d) { return (long long)a.dra_alloc[(size_t)d * a.N + n]; });
 }
 
 __device__ long long fit_score(const EvalArgs& a, int c, int n) {
@@ -257,6 +291,8 @@ __global__ void eval_chunk_kernel(EvalArgs a) {
         ok = fit_filter(a, c, n);
       } else if (code == kPorts) {
         ok = ports_filter(a, c, n);
+      } else if (code == kDra) {
+        ok = dra_filter(a, c, n);
       } else {
         const int sel = (int)((a.ext_sel >> (3 * b)) & 7);
         const size_t o = (size_t)c * a.N + n;
@@ -297,7 +333,9 @@ extern "C" int eval_chunk_launch(
     const void* spread_ok, const void* vol_bits, const void* pin_row, const void* fit_ignored,
     const void* port_counts, const void* portkey_counts, const void* port_triples,
     const void* port_keys, const void* port_wild, const void* port_is_wild, const void* il_scores,
-    const void* strat_cols, int n_strat, int most_allocated,
+    const void* dra_cap, const void* dra_alloc, const void* dra_claim_counts, const void* dra_ids,
+    const void* dra_cls, const void* dra_cnt, const void* dra_pins, const void* dra_missing, int SK,
+    int PIN, int DC, const void* strat_cols, int n_strat, int most_allocated,
     const void* bal_cols, int n_bal, int score_fit, long long fit_weight,
     int score_bal, long long bal_weight, long long il_weight, long long filter_codes,
     int n_filters, long long ext_sel, int C, int N, int R, int S, void* feasible, void* total,
@@ -333,6 +371,17 @@ extern "C" int eval_chunk_launch(
   a.port_wild = static_cast<const int*>(port_wild);
   a.port_is_wild = static_cast<const unsigned char*>(port_is_wild);
   a.il_scores = static_cast<const unsigned char*>(il_scores);
+  a.dra_cap = static_cast<const int*>(dra_cap);
+  a.dra_alloc = static_cast<const int*>(dra_alloc);
+  a.dra_claim_counts = static_cast<const int*>(dra_claim_counts);
+  a.dra_ids = static_cast<const int*>(dra_ids);
+  a.dra_cls = static_cast<const int*>(dra_cls);
+  a.dra_cnt = static_cast<const int*>(dra_cnt);
+  a.dra_pins = static_cast<const int*>(dra_pins);
+  a.dra_missing = static_cast<const unsigned char*>(dra_missing);
+  a.SK = SK;
+  a.PIN = PIN;
+  a.DC = DC;
   a.strat_cols = static_cast<const long long*>(strat_cols);
   a.n_strat = n_strat;
   a.most_allocated = most_allocated;

@@ -10,10 +10,11 @@
 //                            preemptor: the release-independent filters
 //                            (NodeUnschedulable, NodeName, node_filters bits
 //                            of NodeAffinity, TaintToleration, VolumeBinding
-//                            and VolumeZone), the victims below its priority,
-//                            phase 1 (the closed-form fit and the node-local
-//                            search ops — NodePorts, VolumeRestrictions,
-//                            NodeVolumeLimits — with all of them released),
+//                            and VolumeZone, and DynamicResources' hard
+//                            filter), the victims below its priority, phase 1 (the closed-form
+//                            fit and the node-local search ops — NodePorts,
+//                            VolumeRestrictions, NodeVolumeLimits,
+//                            DynamicResources — with all of them released),
 //                            the greedy reprieve in reverse slot order with
 //                            the release carried incrementally (:435-455),
 //                            unless the preemptor is ReadWriteOncePod-blocked
@@ -151,6 +152,7 @@ __global__ void preempt_eval_kernel(Args a) {
   if (bits != 0) {
     base = base && ((at<unsigned char>(a, P_NODE_BITS)[(long long)i0 * N + n] & bits) == bits);
   }
+  if (has_flag(a, S_DRA)) base = base && dra_hard_ok(a, n, i0);
   const int prio = at<int>(a, P_PRIORITY)[i0];
   const int* vp = at<int>(a, P_VIC_PRIO) + (long long)n * V;
   const long long* vr = at<long long>(a, P_VIC_REQ) + (long long)n * V * R;

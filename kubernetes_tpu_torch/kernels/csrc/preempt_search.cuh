@@ -14,7 +14,14 @@
 // driver's attachment when its volume's count less the node's masked slots
 // holding that volume reaches 0 — two victims sharing a volume free it only
 // together, and then each of their slots counts once, as the reference's
-// scatter-add counts them.
+// scatter-add counts them.  DynamicResources (ops/dynamicresources.py:53,
+// released at :335-353): a claim's count is its live count less the node's
+// masked victim slots that move it (first slots, and the count-only slot
+// of an externally charged claim its victim alone reserves), and a pool's
+// dra_alloc less the devices of every masked slot whose claim's count so
+// reaches 0 (two victims sharing a claim both release then, as the
+// reference's scatter-add counts them); its hard filter (a missing claim,
+// a pin elsewhere) joins the release-independent checks.
 #pragma once
 
 #include <math.h>
@@ -50,19 +57,21 @@ enum Ptr {
   P_CARRY_MASK, P_CARRY_REL, P_CARRY_CNT, P_CARRY_FLAGS,
   P_POSSIBLE, P_CRIT, P_VIC_MASK, P_N_VIC, P_REL, P_RELNZ,
   P_GLIST, P_ELIST,
+  P_DRA_CAP, P_DRA_ALLOC, P_DRA_CLAIM_COUNTS, P_VF_DRA_KID, P_VF_DRA_CID, P_VF_DRA_CNT, P_VF_DRA_FIRST,
+  P_POD_DRA_IDS, P_POD_DRA_CLS, P_POD_DRA_CNT, P_POD_DRA_PINS, P_POD_DRA_MISSING,
   P_COUNT
 };
 
 // The dimensions, in the order of _SEARCH_DIMS.
 enum Dim {
   D_C, D_N, D_V, D_R, D_P, D_TK, D_DV, D_G, D_ET, D_TS, D_PS, D_SD, D_SC, D_QP, D_QD, D_QC, D_DR,
-  D_RA, D_RS, D_K, D_BITS_MASK, D_FLAGS, D_STEP, D_SMEM,
+  D_RA, D_RS, D_K, D_BITS_MASK, D_FLAGS, D_STEP, D_SMEM, D_SK, D_QK, D_DC, D_PIN,
   D_COUNT
 };
 
 // D_FLAGS bits: the release-independent checks and the search ops.
 enum SpecFlag {
-  S_UNSCHED = 1, S_NODENAME = 2, S_PORTS = 4, S_VR = 8, S_NVL = 16, S_IPA = 32, S_PTS = 64
+  S_UNSCHED = 1, S_NODENAME = 2, S_PORTS = 4, S_VR = 8, S_NVL = 16, S_IPA = 32, S_PTS = 64, S_DRA = 128
 };
 // Carry flags (plain.F_*).
 enum CarryFlag { F_BASE = 1, F_HARD = 2, F_FEAS = 4, F_REPRIEVE = 8 };
@@ -227,11 +236,58 @@ __device__ bool nvl_ok(const Args& a, int n, int i0, unsigned long long mask) {
   return true;
 }
 
+// DynamicResources' hard filter at node n: no missing claim and no pin
+// elsewhere (deleting pods moves no allocation).
+__device__ bool dra_hard_ok(const Args& a, int n, int i0) {
+  const int PIN = a.d[D_PIN];
+  return dra_pins_ok(at<unsigned char>(a, P_POD_DRA_MISSING)[i0], at<int>(a, P_POD_DRA_PINS) + (long long)i0 * PIN,
+                     PIN, at<int>(a, P_NAME_ID)[n]);
+}
+
+// Claim id's count at node n with the masked victims released.
+__device__ __forceinline__ int dra_count(const Args& a, int n, unsigned long long mask, int id) {
+  return at<int>(a, P_DRA_CLAIM_COUNTS)[(long long)id * a.d[D_N] + n] -
+         held(a, P_VF_DRA_KID, a.d[D_SK], n, mask, id, at<int>(a, P_VF_DRA_FIRST));
+}
+
+// Pool d's devices at node n that the masked victims' crossing claims release.
+__device__ long long dra_released(const Args& a, int n, unsigned long long mask, int d) {
+  const int SK = a.d[D_SK], V = a.d[D_V];
+  const int* kid = at<int>(a, P_VF_DRA_KID);
+  if (kid == nullptr || SK == 0) return 0;
+  const int* cid = at<int>(a, P_VF_DRA_CID);
+  const int* cnt = at<int>(a, P_VF_DRA_CNT);
+  long long out = 0;
+  for (int v = 0; v < V; ++v) {
+    if (!((mask >> v) & 1ULL)) continue;
+    const long long base = ((long long)n * V + v) * SK;
+    for (int b = 0; b < SK; ++b) {
+      const int k = kid[base + b];
+      if (k < 0 || (cid[base + b] > 0 ? cid[base + b] : 0) != d) continue;
+      if (dra_count(a, n, mask, k) == 0) out += cnt[base + b];
+    }
+  }
+  return out;
+}
+
+// DynamicResources on the state released by ``mask`` at node n.
+__device__ bool dra_ok(const Args& a, int n, int i0, unsigned long long mask) {
+  if (!dra_hard_ok(a, n, i0)) return false;
+  const int QK = a.d[D_QK], N = a.d[D_N];
+  if (QK == 0) return true;
+  const long long o = (long long)i0 * QK;
+  return dra_demand_fits(
+      at<int>(a, P_POD_DRA_IDS) + o, at<int>(a, P_POD_DRA_CLS) + o, at<int>(a, P_POD_DRA_CNT) + o, QK, a.d[D_DC],
+      at<int>(a, P_DRA_CAP), N, n, [&](int k) { return dra_count(a, n, mask, k); },
+      [&](int d) { return at<int>(a, P_DRA_ALLOC)[(long long)d * N + n] - dra_released(a, n, mask, d); });
+}
+
 // The node-local search ops at node n on the state released by ``mask``.
 __device__ __forceinline__ bool local_ok(const Args& a, int n, int i0, unsigned long long mask) {
   if (has_flag(a, S_PORTS) && !ports_ok(a, n, i0, mask)) return false;
   if (has_flag(a, S_VR) && !vr_ok(a, n, i0, mask)) return false;
   if (has_flag(a, S_NVL) && !nvl_ok(a, n, i0, mask)) return false;
+  if (has_flag(a, S_DRA) && !dra_ok(a, n, i0, mask)) return false;
   return true;
 }
 

@@ -11,8 +11,11 @@
 // and portkey_counts at its (proto, port) keys, and the device and CSI
 // branches (:211-236): dev_counts and dev_rw_counts at the pod's device
 // ids, and csivol_counts at its CSI volume ids with csi_used[driver] += 1
-// where the volume's count before the chunk was 0.  The port branch applies
-// to strict commits too (the pinned pass's, pass_.py:1040).
+// where the volume's count before the chunk was 0, and the DRA branch
+// (:237-260): dra_claim_counts[kid, row] += 1 at each claim's first slot,
+// and dra_alloc[pool, row] += the slot's devices at every slot whose
+// claim's count before the chunk was 0.  The port branch applies to strict
+// commits too (the pinned pass's, pass_.py:1040).
 //
 // One block per chunk, one thread per pod (C <= 1024).  With chunk > 1:
 //   (a) a valid pod behind an attempting chunk-mate that conflicts with it
@@ -26,15 +29,17 @@
 //       still share one per-driver budget there.
 // Every state read of (a)-(c) happens before the barrier that precedes the
 // commit, so it sees the chunk-start state; so does each committing pod's
-// read of its CSI volumes' counts (one bit per slot), so two mates
-// attaching different volumes of one driver on one node each add 1.  Committed pods then
+// read of its CSI volumes' and its claims' counts (one bit per slot), so
+// two mates attaching different volumes of one driver on one node each add
+// 1, and every slot of one claim sees the count before its first slot
+// moved it.  Committed pods then
 // scatter-add their deltas with atomics: duplicate rows accumulate, and the
 // f32 group_dom adds are exact because the counts stay below 2^24.  Picks
 // come out as -2 (deferred), -1 (invalid or unschedulable) or the row.
 //
 // Bound: operations on a handful of bytes (C*C*R int64 prefix sums plus
-// C*(R+2+2+TK+2A+2SD+2SC+2SP) atomics); one block does the whole chunk, so
-// its time is launch latency.
+// C*(R+2+2+TK+2A+2SD+2SC+2SP+2SK) atomics); one block does the whole chunk,
+// so its time is launch latency.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -78,7 +83,14 @@ struct CommitArgs {
   const int* port_keys;          // (C, SP)
   int* port_counts;              // (P, N)
   int* portkey_counts;           // (PK, N)
-  int C, N, R, TK, DV, A, SD, SC, DR, SP;
+  // DRA claim slots (null when the chunk carries none) and the columns.
+  const int* dra_ids;            // (C, SK), -1 pad
+  const int* dra_cls;            // (C, SK)
+  const int* dra_cnt;            // (C, SK)
+  const unsigned char* dra_first;  // (C, SK)
+  int* dra_claim_counts;         // (CLM, N)
+  int* dra_alloc;                // (DC, N)
+  int C, N, R, TK, DV, A, SD, SC, DR, SP, SK, DC;
   int* out_picks;  // (C,)
 };
 
@@ -142,6 +154,12 @@ __global__ void resolve_commit_kernel(CommitArgs a) {
     const int id = a.csi_ids[(size_t)j * a.SC + s];
     if (id >= 0 && a.csivol_counts[(size_t)id * a.N + p] == 0) fresh |= 1ull << s;
   }
+  // Which claim slots charge their pool: the claim's count before the chunk.
+  unsigned long long dra_fresh = 0;
+  for (int s = 0; att2 && a.dra_ids != nullptr && s < a.SK; ++s) {
+    const int id = a.dra_ids[(size_t)j * a.SK + s];
+    if (id >= 0 && a.dra_claim_counts[(size_t)id * a.N + p] == 0) dra_fresh |= 1ull << s;
+  }
   __syncthreads();  // every read of the chunk-start state is done
   if (att2) {
     const int row = p;
@@ -189,6 +207,14 @@ __global__ void resolve_commit_kernel(CommitArgs a) {
       const int key = a.port_keys[(size_t)j * a.SP + s];
       atomicAdd(a.portkey_counts + (size_t)(key < 0 ? 0 : key) * a.N + row, 1);
     }
+    for (int s = 0; a.dra_ids != nullptr && s < a.SK; ++s) {
+      const size_t o = (size_t)j * a.SK + s;
+      const int id = a.dra_ids[o];
+      if (id < 0) continue;
+      if (a.dra_first[o]) atomicAdd(a.dra_claim_counts + (size_t)id * a.N + row, 1);
+      const int d = a.dra_cls[o];
+      if (((dra_fresh >> s) & 1) && d >= 0 && d < a.DC) atomicAdd(a.dra_alloc + (size_t)d * a.N + row, a.dra_cnt[o]);
+    }
   }
   if (in) a.out_picks[j] = defer ? -2 : (v ? p : -1);
 }
@@ -204,9 +230,11 @@ extern "C" int resolve_commit_launch(
     const void* et_slot, const void* dev_ids, const void* dev_rw, void* dev_counts,
     void* dev_rw_counts, const void* csi_ids, const void* csi_drv, void* csivol_counts,
     void* csi_used, const void* csi_lim, const void* port_triples, const void* port_keys,
-    void* port_counts, void* portkey_counts, int C, int N, int R, int TK, int DV, int A, int SD,
-    int SC, int DR, int SP, void* out_picks, void* stream) {
-  if (C > kMaxChunk || C < 1 || SC > 64) return (int)cudaErrorInvalidValue;
+    void* port_counts, void* portkey_counts, const void* dra_ids, const void* dra_cls,
+    const void* dra_cnt, const void* dra_first, void* dra_claim_counts, void* dra_alloc, int C, int N,
+    int R, int TK, int DV, int A, int SD, int SC, int DR, int SP, int SK, int DC, void* out_picks,
+    void* stream) {
+  if (C > kMaxChunk || C < 1 || SC > 64 || SK > 64) return (int)cudaErrorInvalidValue;
   CommitArgs a;
   a.picks = static_cast<const int*>(picks);
   a.valid = static_cast<const unsigned char*>(valid);
@@ -240,6 +268,14 @@ extern "C" int resolve_commit_launch(
   a.port_keys = static_cast<const int*>(port_keys);
   a.port_counts = static_cast<int*>(port_counts);
   a.portkey_counts = static_cast<int*>(portkey_counts);
+  a.dra_ids = static_cast<const int*>(dra_ids);
+  a.dra_cls = static_cast<const int*>(dra_cls);
+  a.dra_cnt = static_cast<const int*>(dra_cnt);
+  a.dra_first = static_cast<const unsigned char*>(dra_first);
+  a.dra_claim_counts = static_cast<int*>(dra_claim_counts);
+  a.dra_alloc = static_cast<int*>(dra_alloc);
+  a.SK = SK;
+  a.DC = DC;
   a.SP = SP;
   a.SD = SD;
   a.SC = SC;

@@ -1,7 +1,7 @@
 // unpack_victims: the staged victim buffer to the dry-run's per-field arrays.
 //
 // Replaces kubernetes_tpu/preemption.py:94-134 (_unpack_victims), with the
-// feature columns of pack_victims (:832-875).  The host
+// feature columns of pack_victims (:832-913).  The host
 // packs every node's pods into one int64 buffer (N, vu, cols) per slot:
 //   col 0            priority (int32 value)
 //   cols 1..R        requests
@@ -10,7 +10,9 @@
 //   cols R+4..       ceil(P/64) words of PDB-match bits
 //   then             the what-if release features the search reads, by name
 //                    (group, terms, port ids, device ids and rw flags, CSI
-//                    ids and drivers), each int32 values in int64 columns
+//                    ids and drivers, DRA claim ids, pools, device counts
+//                    and first-slot flags), each int32 values in int64
+//                    columns
 //   col cols-1       pdb_allowed[n] on slot 0 of row n < P (the final column)
 // The outputs pad the vu occupied slots up to the pass's victim axis v with
 // the empty-slot sentinels: priority INT32_MAX, requests 0, start +inf, no
@@ -27,7 +29,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kI32Max = 2147483647;
-constexpr int kMaxFeatures = 8;
+constexpr int kMaxFeatures = 16;
 
 // One victim feature field: its output (N, v, width) int32, its first
 // buffer column, its width and its empty-slot fill.

@@ -13,6 +13,7 @@ import dataclasses
 import torch
 
 from ..ops import common as opcommon
+from ..ops import dynamicresources as dra_op
 from ..ops import interpodaffinity as ipa_op
 from ..ops import nodeports as ports_op
 from ..ops import nodeaffinity as na_op
@@ -187,11 +188,12 @@ def conflict_pairs(pf: dict, nchunks: int, c: int):
     """(nchunks, C, C) bool — _conflict_pairs (pass_.py:266-342) with
     gathers in place of the one-hot einsums: pairs[i, j] =
     reads_g[j, group[i]] ∨ ∃a hard_t[j, own[i, a]] ∨ (i and j share a
-    device or CSI volume id) ∨ (both vol_unbound), where reads_g is
+    device or CSI volume id, a host-port key or a DRA claim id) ∨ (both
+    vol_unbound) ∨ (both have an unallocated DRA claim), where reads_g is
     InterPodAffinity's ipa_ra_allmask ∨ any(ipa_rs_groups) and spread's
     any(tps_h_groups) and hard_t = ipa_et_match ∧ ipa_et_anti (each part
-    only when the batch carries its features) ∨ (i and j share a host-port
-    key), over the pods of one chunk, diagonal cleared."""
+    only when the batch carries its features), over the pods of one chunk,
+    diagonal cleared."""
     dev = pf["valid"].device
     reads = None
     if "ipa_ra_allmask" in pf:
@@ -206,7 +208,7 @@ def conflict_pairs(pf: dict, nchunks: int, c: int):
         group = pf["group"].to(torch.int64).clamp(0, g - 1).view(nchunks, 1, c).expand(-1, c, -1)
         # reads.gather(...)[b, j, i] = reads[b, j, group[b, i]]
         pairs = reads.gather(2, group).transpose(1, 2)
-    for key in ("vol_dev_ids", "vol_csi_ids", "port_keys"):
+    for key in ("vol_dev_ids", "vol_csi_ids", "port_keys", "dra_claim_ids"):
         if key in pf:
             ids = pf[key].view(nchunks, c, -1)
             ok = ids >= 0
@@ -216,6 +218,9 @@ def conflict_pairs(pf: dict, nchunks: int, c: int):
     if "vol_unbound" in pf:
         u = pf["vol_unbound"].view(nchunks, c)
         pairs = pairs | (u[:, :, None] & u[:, None, :])
+    if "dra_claim_unalloc" in pf:
+        need = pf["dra_claim_unalloc"].any(dim=1).view(nchunks, c)
+        pairs = pairs | (need[:, :, None] & need[:, None, :])
     if "ipa_et_match" in pf:
         hard = (pf["ipa_et_match"] & pf["ipa_et_anti"]).view(nchunks, c, -1)
         et = hard.shape[2]
@@ -408,6 +413,7 @@ def resolve_commit(state, dom, pf: dict, picks, pairs, strict: bool):
         )
     _commit_volumes(state, pf, att, rows)
     _commit_ports(state, pf, att, rows)
+    _commit_dra(state, pf, att, rows)
     return torch.where(defer, -2, torch.where(valid, picks, -1)).to(torch.int32)
 
 
@@ -423,6 +429,28 @@ def _commit_ports(state, pf: dict, att, rows) -> None:
     for ids, counts in ((triples, state.port_counts), (pf["port_keys"], state.portkey_counts)):
         flat = (ids.clamp(min=0).to(torch.int64) * n + rows[:, None]).reshape(-1)
         counts.view(-1).index_add_(0, flat, act)
+
+
+def _commit_dra(state, pf: dict, att, rows) -> None:
+    """The DRA branch of _commit_chunk (pass_.py:237-260), in place: a
+    claim's count moves at its ``first`` slot, and every slot whose claim
+    was reserved by no pod of the node before the chunk (the count is read
+    before any is written) charges its pool's column of dra_alloc."""
+    kids = pf.get("dra_claim_ids")
+    if kids is None:
+        return
+    n = state.valid.shape[0]
+    act = att[:, None] & (kids >= 0)
+    flat = (kids.clamp(min=0).to(torch.int64) * n + rows[:, None]).reshape(-1)
+    prev = state.dra_claim_counts.view(-1)[flat].view(act.shape)
+    state.dra_claim_counts.view(-1).index_add_(
+        0, flat, (act & pf["dra_claim_first"]).to(torch.int32).reshape(-1))
+    cls = pf["dra_claim_cls"].to(torch.int64)
+    dc = state.dra_alloc.shape[0]
+    newly = act & (prev == 0) & (cls >= 0) & (cls < dc)
+    flat_c = (cls.clamp(0, dc - 1) * n + rows[:, None]).reshape(-1)
+    state.dra_alloc.view(-1).index_add_(
+        0, flat_c, torch.where(newly, pf["dra_claim_cnt"], 0).to(torch.int32).reshape(-1))
 
 
 def _commit_volumes(state, pf: dict, att, rows) -> None:
@@ -498,7 +526,8 @@ I32_MAX = 2**31 - 1
 N_CRIT = 5
 # Empty-slot fills of the victim features (preemption.py:89 _VFEAT_PAD):
 # id columns -1, counts and flags 0.
-VFEAT_PAD = {"group": -1, "terms": -1, "port_triples": -1, "port_keys": -1, "vol_dev_ids": -1, "csi_ids": -1}
+VFEAT_PAD = {"group": -1, "terms": -1, "port_triples": -1, "port_keys": -1, "vol_dev_ids": -1, "csi_ids": -1,
+             "dra_kid": -1}
 # preempt_eval's modes: the whole dry-run in one call (no domain op in the
 # search), or its prologue (the carry) and its criteria tail around a host
 # loop of dom_release and search_step.
@@ -588,6 +617,10 @@ def _prologue(state, vic, pf: dict, spec):
         base &= (want == -1) | (state.name_id == want)
     if spec.bits_mask:
         base &= (pf["node_bits"][i0].to(torch.int32) & spec.bits_mask) == spec.bits_mask
+    if spec.dra:
+        # DynamicResources' unresolvable half: a missing claim or a pin
+        # elsewhere (preemption.py:237-243, 362-366).
+        base &= ~dra_op.hard_filter_fn(state, {key: val[i0 : i0 + 1] for key, val in pf.items()}, spec.ctx)[0]
     lower = vic.prio < pf["priority"][i0].to(torch.int32)
     rel = torch.where(lower[:, :, None], vic.req, 0).sum(dim=1)
     cnt = lower.sum(dim=1).to(torch.int32)
@@ -750,6 +783,36 @@ def _nvl_released(state, vic, tent, pf1) -> torch.Tensor:
     return ok
 
 
+def _dra_released(state, vic, tent, pf1) -> torch.Tensor:
+    """DynamicResources (dynamicresources.py:53) on the state released by
+    ``tent`` (preemption.py:335-353): a claim's count less the node's
+    masked ``first`` victim slots holding it, and each pool's dra_alloc less
+    the devices of every masked slot whose claim's count so reaches 0.
+    dra_claim_counts is read at the wanted and the victims' ids only, never
+    copied."""
+    ok = (~pf1["dra_missing"][:, None] & dra_op.pins_ok(state, pf1))[0]
+    if "dra_claim_ids" not in pf1:
+        return ok
+    n = tent.shape[0]
+    kids = pf1["dra_claim_ids"][0].to(torch.int64)
+    counts = state.dra_claim_counts[kids.clamp(min=0)].to(torch.int64)  # (S, N)
+    alloc = state.dra_alloc.to(torch.int64)
+    vf = vic.vfeat or {}
+    if "dra_kid" in vf:
+        kid = vf["dra_kid"]
+        live = tent[:, :, None] & (kid >= 0)
+        moves = live & (vf["dra_first"] > 0)
+        counts = counts - _held(kids, kid, moves)
+        node = torch.arange(n, device=tent.device)[:, None, None].expand(kid.shape)
+        same = ((kid[:, :, :, None, None] == kid[:, None, None, :, :]) & moves[:, None, None, :, :]).sum(dim=(3, 4))
+        crossed = live & (state.dra_claim_counts[kid.clamp(min=0).to(torch.int64), node].to(torch.int64) - same == 0)
+        flat = (vf["dra_cid"].clamp(min=0).to(torch.int64) * n + node)[crossed]
+        alloc = alloc.reshape(-1).index_add(0, flat, -vf["dra_cnt"].to(torch.int64)[crossed]).view(alloc.shape)
+    _present, demand = dra_op.claim_demand(state, pf1)
+    need = (demand[0][:, :, None] * (counts <= 0)[:, None, :]).sum(dim=0)  # (DC, N)
+    return ok & ((need == 0) | (alloc + need <= state.dra_cap)).all(dim=0)
+
+
 def _search_ok(state, vic, pf1: dict, spec, tent, dom_rel) -> torch.Tensor:
     """(N,) bool: the search ops' filters (preemption.py:391-431 ok_search)
     for the representative ``pf1`` (a one-pod chunk) on the state released
@@ -771,6 +834,8 @@ def _search_ok(state, vic, pf1: dict, spec, tent, dom_rel) -> torch.Tensor:
         ok &= _vr_released(state, vic, tent, pf1)
     if spec.nvl:
         ok &= _nvl_released(state, vic, tent, pf1)
+    if spec.dra:
+        ok &= _dra_released(state, vic, tent, pf1)
     return ok
 
 

@@ -3,5 +3,5 @@
 from . import common  # noqa: F401
 from . import (  # noqa: F401
     imagelocality, interpodaffinity, nodeaffinity, nodeports, noderesources, podtopologyspread,
-    tainttoleration, trivial, unported, volumes,
+    dynamicresources, tainttoleration, trivial, volumes,
 )

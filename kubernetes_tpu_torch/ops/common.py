@@ -13,9 +13,6 @@ where ``pf`` is the feature dict of one chunk of C pods (each leaf (C, …)).
 Unlike the JAX ops, which are traced per pod and vmapped, the plain
 versions here are written over the chunk axis directly.  They are the
 reference for the CUDA kernels (kernels/csrc) and what a CPU tensor runs.
-
-An op that is registered but not yet ported carries only ``is_active``;
-``unported=True`` makes featurization raise when it is active.
 """
 
 from __future__ import annotations
@@ -78,16 +75,14 @@ class OpDef:
     # (state, pf, PassContext) -> (C, N) bool: nodes the op rejects as
     # UnschedulableAndUnresolvable.  Preemption's candidacy check reads it
     # for the ops of the what-if search (InterPodAffinity,
-    # PodTopologySpread; preemption.py:363-366) and nowhere else.
+    # PodTopologySpread, DynamicResources; preemption.py:237-243, 363-366)
+    # and nowhere else.
     hard_filter: Optional[Callable] = None
     # (profile, schema, builder_res_col) -> dict merged into PassContext.static
     static: Optional[Callable] = None
     # (pod, FeaturizeContext) -> bool: does this op do anything for this
     # pod in this cluster?  None ⇒ always active.
     is_active: Optional[Callable] = None
-    # Registered for its is_active predicate only: the op's device half is
-    # a later slice, so an active instance must raise, never be skipped.
-    unported: bool = False
 
 
 # Pad fill per feature key when featurization grows the schema mid-batch and

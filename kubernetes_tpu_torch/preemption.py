@@ -6,23 +6,24 @@ PreemptionEvaluator).  The reference's semantics
 node's pods below the preemptor's priority are released, the preemptor's
 fit is checked in closed form against the released requests and its
 release-dependent filters (NodePorts, InterPodAffinity,
-PodTopologySpread, VolumeRestrictions, NodeVolumeLimits) are evaluated on
-the released state (the what-if search), victims are reprieved
+PodTopologySpread, VolumeRestrictions, NodeVolumeLimits, DynamicResources)
+are evaluated on the released state (the what-if search), victims are reprieved
 most-important-first (SelectVictimsOnNode), and the node is picked by five
 lexicographic criteria (pickOneNodeForPreemption: fewest PDB violations,
 lowest max victim priority, smallest priority sum, fewest victims, latest
 earliest start among the highest-priority victims).  The
 release-independent filters (NodeUnschedulable, NodeName, NodeAffinity,
 TaintToleration, VolumeBinding, VolumeZone) run once on the live state,
-InterPodAffinity's required affinity and PodTopologySpread's missing keys
-exclude nodes outright (their hard filters), and a ReadWriteOncePod-blocked
-preemptor evicts every lower-priority pod with no reprieve.
+InterPodAffinity's required affinity, PodTopologySpread's missing keys and
+DynamicResources' missing claims and allocation pins exclude nodes outright
+(their hard filters), and a ReadWriteOncePod-blocked preemptor evicts every
+lower-priority pod with no reprieve.
 
 The host packs every node's pods into (N, V) victim slots once per batch
 (non-violating first, least important first within each class, with PDB
 budgets consumed most-important-first to classify violating victims), with
 the features the search releases (label group, own affinity terms, host
-ports, device and CSI volumes), ships them as one int64 buffer and unpacks
+ports, device and CSI volumes, DRA claim slots), ships them as one int64 buffer and unpacks
 it on the device (``unpack_victims``); an unchanged node's rows stay
 staged, and dirty rows are written into the device buffer with
 ``scatter_rows``.  The JAX ``lax.scan`` over chunks of preemptors is a host
@@ -42,11 +43,10 @@ defer (-2) and retry next batch.
 
 A reprieve step restores its slot on every node at once before the domain
 tables are rebuilt (preemption.py:441), as the reference does; upstream
-releases per candidate node (ROADMAP §3).  DynamicResources' release is a
-later slice: a dry-run whose active filters include it raises
-NotImplementedError naming it, before any victim is touched.  So does a
-filter this pass cannot evaluate, and a PodDisruptionBudget whose status
-would have to be recomputed from its spec.
+releases per candidate node (ROADMAP §3).  A dry-run whose active filters
+include one this pass cannot evaluate raises NotImplementedError naming
+it, before any victim is touched.  So does a PodDisruptionBudget whose
+status would have to be recomputed from its spec.
 """
 
 from __future__ import annotations
@@ -95,8 +95,6 @@ def refusal(profile, active: frozenset[str] | None) -> str | None:
     """Why the dry-run cannot serve this active filter set, or None when it
     can."""
     names = [n for n in profile.filters if active is None or n in active]
-    if "DynamicResources" in names:
-        return "preemption's release of DynamicResources claims is not yet ported"
     other = [n for n in names if n not in _INVARIANT and n not in _RELEASE_DEPENDENT]
     if other:
         return f"preemption with the filters {other} active is not yet ported"
@@ -117,7 +115,8 @@ def preempt_spec(profile, schema, builder_res_col, active: frozenset[str] | None
         check_unsched="NodeUnschedulable" in f,
         check_nodename="NodeName" in f,
         bits_mask=sum(bit for name, bit in _NODE_BITS.items() if name in f),
-        ports="NodePorts" in f, vr=VR in f, nvl=NVL in f, ipa=IPA in f, pts=PTS in f, ctx=ctx,
+        ports="NodePorts" in f, vr=VR in f, nvl=NVL in f, ipa=IPA in f, pts=PTS in f,
+        dra="DynamicResources" in f, ctx=ctx,
     )
 
 
@@ -316,13 +315,15 @@ class PreemptionEvaluator:
         v = _bucket(vmax)  # floor 8: one victim axis across the common range
         vu = _bucket(vmax, 1)  # the buffer ships only the occupied slots
         n = schema.N
+        dra_slots = self._dra_slots(names, per_node)
         A = dict(
             vic_prio=np.full((n, vu), I32_MAX, np.int32),
             vic_req=np.zeros((n, vu, schema.R), np.int64),
             vic_nonzero=np.zeros((n, vu, 2), np.int64),
             vic_start=np.full((n, vu), np.inf, np.float64),
             vic_pdb=np.zeros((n, vu, n_pdbs), np.bool_),
-            vfeat=self._victim_features(names, per_node, n, vu),
+            vfeat=self._victim_features(names, per_node, n, vu, dra_slots),
+            dra_slots=dra_slots,
             pdbs=pdbs,
             matched_pdbs=matched_pdbs,
         )
@@ -343,9 +344,9 @@ class PreemptionEvaluator:
             self._stage = st_new
         return result
 
-    def _victim_features(self, names: set, per_node: dict, n: int, vu: int) -> dict:
+    def _victim_features(self, names: set, per_node: dict, n: int, vu: int, dra_slots: dict) -> dict:
         """The staging arrays of the what-if release features the active
-        filters read (preemption.py:832-875): ids -1 and flags 0 in empty
+        filters read (preemption.py:832-913): ids -1 and flags 0 in empty
         slots; per-victim slot widths bucketed, terms with floor 8."""
         cache = self.sched.cache
 
@@ -369,7 +370,40 @@ class PreemptionEvaluator:
             sc = slots("csivols", 1)
             vfeat["csi_ids"] = np.full((n, vu, sc), -1, np.int32)
             vfeat["csi_drv"] = np.zeros((n, vu, sc), np.int32)
+        if "DynamicResources" in names:
+            sk = _bucket(max((len(v) for v in dra_slots.values()), default=1), 1)
+            vfeat["dra_kid"] = np.full((n, vu, sk), -1, np.int32)
+            for key in ("dra_cid", "dra_cnt", "dra_first"):
+                vfeat[key] = np.zeros((n, vu, sk), np.int32)
         return vfeat
+
+    def _dra_slots(self, names: set, per_node: dict) -> dict:
+        """(row, slot) → the victim's DRA claim slots (preemption.py:
+        873-907): its own delta's, plus a count-only compensating slot per
+        externally charged claim it alone reserves.  The external
+        allocation's phantom charge holds the claim's count at 1 without
+        the victim, but deleting the sole reserver empties reservedFor and
+        the claim deallocates, so the what-if must see that crossing; the
+        victim's own slots release the pools' charges then."""
+        if "DynamicResources" not in names:
+            return {}
+        cache, builder = self.sched.cache, self.sched.builder
+        cat = builder.dra
+        # The claims that can take such a slot: allocated, never reserved
+        # in-process, reserved by at most one pod.
+        external = {uid: c for uid, c in cat.claims.items()
+                    if c.allocated_node and uid not in cat.local_reserved and len(set(c.reserved_for)) <= 1}
+        out = {}
+        for row, vics in per_node.items():
+            node_name = cache.node_name_at_row(row)
+            for j, p in enumerate(vics):
+                slots = list(cache.pods[p.uid].delta.get("dra_claims", ()))
+                for name in p.spec.resource_claims if external else ():
+                    claim = external.get(f"{p.namespace}/{name}")
+                    if claim is not None and claim.allocated_node == node_name and set(claim.reserved_for) <= {p.uid}:
+                        slots.append((builder.interns.dra_claims.id(claim.uid), 0, 0, False, True))
+                out[(row, j)] = slots
+        return out
 
     def _pack_incremental(self, st: dict) -> dict:
         """Repack only the nodes whose pods_gen moved since the staged pack
@@ -536,6 +570,12 @@ class PreemptionEvaluator:
                     for a, (vid, did) in enumerate(pr.delta.get("csivols", ())):
                         vf["csi_ids"][row, j, a] = vid
                         vf["csi_drv"][row, j, a] = did
+                if "dra_kid" in vf:
+                    for a, (kid, cid, cnt, _unalloc, first) in enumerate(A["dra_slots"][(row, j)]):
+                        vf["dra_kid"][row, j, a] = kid
+                        vf["dra_cid"][row, j, a] = cid
+                        vf["dra_cnt"][row, j, a] = cnt
+                        vf["dra_first"][row, j, a] = int(bool(first))
 
     @staticmethod
     def _pack_buf_rows(A: dict, buf, idx, r: int, n_pdbs: int) -> None:
@@ -700,7 +740,9 @@ class PreemptionEvaluator:
         b["elig"] = torch.from_numpy(elig).to(dev)
         b["spec_picks"] = ctx["result"].picks
         b["sig"] = torch.from_numpy(sigs).to(dev)
-        out, _carry, _prio = fn(ctx["new_state"], b, pack["vic"], inv=ctx["inv"])
+        # Chunks without an eligible pod pick nothing: skip their launches.
+        steps = sorted({i // chunk for i in np.nonzero(elig)[0]})
+        out, _carry, _prio = fn(ctx["new_state"], b, pack["vic"], steps, inv=ctx["inv"])
         return dict(out=out, pack=pack)
 
     def collect_speculative(self, spec: dict, fetched, failed_pods_by_index: dict) -> dict:

@@ -18,18 +18,21 @@ tie-break seeds, conflict-aware chunk packing of affinity batches
 (engine/packing.py), the uniform-batch expansion, the strict tail in two
 rounds, the prefetch of the next batch before the current one completes,
 and the speculative dry-run chained on the main pass's device picks when
-recent batches failed.  Placed pods are assumed first, then VolumeBinding's
-Reserve/PreBind runs in batch order and binds delayed claims
-(framework/hostplugins.py); a pod whose reservation lost a same-batch race
-is forgotten and sent to backoff (scheduler.py:3960-4150).  The
-PV, PVC, StorageClass and CSINode informers feed the volume catalog.
-Gangs, extenders, DRA, journaling, the PreBind wait room and the pipelined
-predispatch are later slices; a pod that would need one raises
-NotImplementedError.
+recent batches failed.  Placed pods are assumed first, then the Reserve
+plugins run in batch order (framework/hostplugins.py: DynamicResources
+allocates and reserves the pod's claims on named devices, VolumeBinding
+binds delayed claims); a pod whose reservation lost a same-batch race has
+its earlier reservations rolled back, is forgotten and is sent to backoff
+(scheduler.py:3960-4150).  The PV, PVC, StorageClass and CSINode informers
+feed the volume catalog, the ResourceClaim and ResourceSlice informers the
+claim catalog (scheduler.py:1737-1910).  Gangs, extenders, journaling, the
+PreBind wait room and the pipelined predispatch are later slices; a pod
+that would need one raises NotImplementedError.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -42,7 +45,8 @@ from .engine.features import build_pod_batch, pin_name, pod_sig
 from .engine.packing import pack_batch
 from .engine.pass_ import PINNED_SAFE_OPS, PassCache, filter_op_names
 from .framework.config import DEFAULT_PROFILE, Profile
-from .framework.hostplugins import VolumeReserve
+from .framework.features import DEFAULT_GATES
+from .framework.hostplugins import DEFAULT_RESERVE_PLUGINS, ReservePlugin
 from .intern import InternTable
 from .kernels import plain
 from .ops import common as opcommon
@@ -85,9 +89,19 @@ class TorchScheduler:
         *,
         queue: SchedulingQueue | None = None,
         inline_preempt_commit: bool | None = None,
+        feature_gates=None,
         _impl: str = "kernel",
     ):
         self.device = resolve_device(device)
+        self.feature_gates = feature_gates or DEFAULT_GATES
+        # With DynamicResourceAllocation off the plugin exists at no
+        # extension point (plugins/registry.go:49, scheduler.py:159-183).
+        self._dra_enabled = self.feature_gates.enabled("DynamicResourceAllocation")
+        if not self._dra_enabled:
+            profile = dataclasses.replace(profile, **{
+                fld: tuple(f for f in getattr(profile, fld) if f != "DynamicResources")
+                for fld in ("filters", "pre_enqueue", "pre_filter", "post_filter", "reserve", "pre_bind")
+            })
         unknown = [
             n for n in (*profile.filters, *(s for s, _ in profile.scorers)) if not opcommon.has(n)
         ]
@@ -108,6 +122,7 @@ class TorchScheduler:
         self.interns = InternTable()
         self.builder = SnapshotBuilder(self.interns, device=self.device)
         self.builder._impl = _impl
+        self.builder.feature_gates = self.feature_gates
         self.cache = Cache(self.builder)
         self.queue = queue if queue is not None else SchedulingQueue()
         self.passes = PassCache(_impl)
@@ -151,8 +166,8 @@ class TorchScheduler:
         self.speculative_batches = 0
         self.pinned_batches = 0
         self.preempted: list[tuple[str, str, str]] = []
-        # VolumeBinding's Reserve/PreBind, run on every placed pod with a claim.
-        self.volume_reserve = VolumeReserve()
+        # The Reserve plugins, in the reference's order (hostplugins.py:148).
+        self.reserve_plugins: list[ReservePlugin] = list(DEFAULT_RESERVE_PLUGINS)
         # Pods whose reservation lost a same-batch race (forgotten, to backoff).
         self.reserve_failures = 0
 
@@ -160,11 +175,29 @@ class TorchScheduler:
 
     def add_node(self, node: t.Node) -> None:
         self.cache.add_node(node)
-        # Replay a CSINode that arrived before its Node (informer races).
+        row = self.cache.row_of(node.name)
+        # Replay a CSINode, ResourceSlices, pending external claim charges
+        # and parked pool corrections that arrived before their Node
+        # (informer races, scheduler.py:1348-1380).
         csinode = self.builder.volumes.csinodes.get(node.name)
         if csinode is not None:
-            self.builder.set_csinode_limits(self.cache.row_of(node.name), csinode)
-        self.queue.on_event(Event.NODE_ADD, self._free_ctx({self.cache.row_of(node.name)}))
+            self.builder.set_csinode_limits(row, csinode)
+        cat = self.builder.dra
+        for nname, cls in cat.slices:
+            if nname == node.name:
+                self.builder.set_dra_cap(row, nname, cls)
+        for uid, charges in list(cat.pending_external.items()):
+            if charges and charges[0][0] == node.name:
+                del cat.pending_external[uid]
+                self.builder.apply_external_claim(row, uid, [(sig, cnt) for _n, sig, cnt in charges], +1)
+                cat.row_charged[uid] = charges
+        for uid in list(cat.pending_corr):
+            claim = cat.claims.get(uid)
+            if claim is not None and claim.allocated_node == node.name and uid in cat.row_charged:
+                corr = cat.pending_corr.pop(uid)
+                cat.corrections[uid] = corr
+                self.builder.apply_dra_correction(row, corr, +1)
+        self.queue.on_event(Event.NODE_ADD, self._free_ctx({row}))
 
     def add_pod(self, pod: t.Pod) -> None:
         """Unassigned pods enter the queue; assigned pods enter the cache
@@ -199,6 +232,18 @@ class TorchScheduler:
                 else:
                     self.queue.reactivate(qp)
         self.nominator.pop(uid, None)
+        # DRA: drop the pod's claim reservations; claims nobody reserves
+        # deallocate (the resourceclaim controller's cleanup), externally
+        # charged ones discharging their phantom row reservation
+        # (scheduler.py:1668-1678).
+        by_claim: dict[tuple[str, str], list[tuple[str, int]]] = {}
+        for cuid, node_name, sig, cnt in self.builder.dra.release_pod(uid):
+            by_claim.setdefault((cuid, node_name), []).append((sig, cnt))
+        for (cuid, node_name), charges in by_claim.items():
+            nrec = self.cache.nodes.get(node_name)
+            if nrec is not None:
+                self.builder.apply_external_claim(nrec.row, cuid, charges, -1)
+        self._drain_dra_corrections()
         rec = self.cache.pods.get(uid)
         if rec is None:
             self.queue.delete(uid)
@@ -274,11 +319,122 @@ class TorchScheduler:
             self.builder.set_csinode_limits(rec.row, t.CSINode(name, {d: 2**31 - 1 for d in old.driver_limits}))
         self.queue.on_event(Event.NODE_UPDATE)
 
-    def _has_reserve_work(self, pod: t.Pod) -> bool:
-        """The profile enables VolumeBinding's Reserve (profile.reserve) and
-        the pod has a claim for it to bind."""
-        rp = self.volume_reserve
-        return rp.name in self.profile.reserve and rp.relevant(pod, self)
+    # -- DRA objects (the ResourceClaim/ResourceSlice informers,
+    # scheduler.py:1737-1812, 1870-1910) ---------------------------------------
+
+    def add_resource_claim(self, claim: t.ResourceClaim) -> None:
+        """ResourceClaim informer.  An externally allocated claim charges its
+        node's row at once as a phantom reservation; a charge for a node not
+        yet cached parks in pending_external, which add_node replays."""
+        cat = self.builder.dra
+        uid = claim.uid
+        deltas = cat.add_claim(claim)
+        neg = [(n, sig, cnt) for n, sig, cnt, sgn in deltas if sgn < 0]
+        pos = [(n, sig, cnt) for n, sig, cnt, sgn in deltas if sgn > 0]
+        if neg and cat.pending_external.pop(uid, None) is None:
+            charged = cat.row_charged.pop(uid, None)
+            if charged is not None:
+                rec = self.cache.nodes.get(charged[0][0])
+                if rec is not None:
+                    self.builder.apply_external_claim(rec.row, uid, [(sig, cnt) for _n, sig, cnt in charged], -1)
+        if pos:
+            rec = self.cache.nodes.get(pos[0][0])  # one node per allocation
+            if rec is None:
+                cat.pending_external[uid] = pos
+            else:
+                self.builder.apply_external_claim(rec.row, uid, [(sig, cnt) for _n, sig, cnt in pos], +1)
+                cat.row_charged[uid] = pos
+        self._drain_new_pools()
+        self._drain_dra_corrections()
+        self.queue.on_event(Event.CLAIM_ADD)
+
+    def _drain_new_pools(self) -> None:
+        """Backfill the cap and alloc columns of selector pools registered
+        since the last drain, on every cached node publishing their class."""
+        cat = self.builder.dra
+        if not cat.new_pools:
+            return
+        sigs, cat.new_pools = list(cat.new_pools), []
+        for sig in sigs:
+            cls, _reqs = cat.pools[sig]
+            for nname, c in list(cat.slices):
+                if c != cls:
+                    continue
+                rec = self.cache.nodes.get(nname)
+                if rec is not None:
+                    self.builder.set_pool_cap(rec.row, nname, sig)
+                    alloc = cat.new_pool_alloc(nname, sig)
+                    if alloc:
+                        self.builder.set_pool_alloc(rec.row, sig, alloc)
+
+    def _drain_dra_corrections(self) -> None:
+        """Apply the queued pool-overlap corrections (ClaimCatalog.
+        corr_events) to the node rows."""
+        cat = self.builder.dra
+        if not cat.corr_events:
+            return
+        events, cat.corr_events = cat.corr_events, []
+        for node_name, charges, sign in events:
+            rec = self.cache.nodes.get(node_name)
+            if rec is not None:
+                self.builder.apply_dra_correction(rec.row, charges, sign)
+
+    def add_resource_slice(self, s: t.ResourceSlice) -> None:
+        """ResourceSlice informer: a node's published devices of one class."""
+        self.builder.dra.add_slice(s)
+        rec = self.cache.nodes.get(s.node_name)
+        if rec is not None:
+            self.builder.set_dra_cap(rec.row, s.node_name, s.device_class)
+        self.queue.on_event(Event.CLAIM_ADD)
+
+    def remove_resource_claim(self, uid: str) -> None:
+        """A deleted claim discharges what it held: a deallocated copy goes
+        through the diffing add path (which reverses external row charges
+        and corrections), then the object is dropped."""
+        cat = self.builder.dra
+        claim = cat.claims.get(uid)
+        if claim is None:
+            return
+        if claim.allocated_node:
+            self.add_resource_claim(
+                dataclasses.replace(claim, allocated_node="", reserved_for=(), allocated_devices=()))
+        cat.claims.pop(uid, None)
+        self.queue.on_event(Event.CLAIM_ADD)
+
+    def remove_resource_slice(self, uid: str) -> None:
+        """``uid`` is "node/device_class"; that node's published devices of
+        the class drop to none.  Allocated charges stay until their claims
+        release."""
+        node_name, device_class = uid.split("/", 1)
+        cat = self.builder.dra
+        key = (node_name, device_class)
+        if cat.slices.pop(key, None) is None:
+            return
+        cat.devices.pop(key, None)
+        cat.device_owner.pop(key, None)
+        cat.epoch += 1
+        rec = self.cache.nodes.get(node_name)
+        if rec is not None:
+            self.builder.set_dra_cap(rec.row, node_name, device_class)
+        self.queue.on_event(Event.CLAIM_ADD)
+
+    def _reserve_for(self, pod: t.Pod) -> list:
+        """The Reserve plugins the profile enables (profile.reserve) that
+        the pod needs (scheduler.py:2124)."""
+        return [rp for rp in self.reserve_plugins if rp.name in self.profile.reserve and rp.relevant(pod, self)]
+
+    def _reserve(self, pod: t.Pod, node_name: str) -> bool:
+        """Run the pod's Reserve plugins in order; on a failure unreserve the
+        earlier ones in reverse (RunReservePluginsUnreserve)."""
+        undos: list = []
+        for rp in self._reserve_for(pod):
+            undo = rp.reserve(pod, node_name, self)
+            if undo is None:
+                for rp2, u2 in reversed(undos):
+                    rp2.unreserve(u2, self)
+                return False
+            undos.append((rp, undo))
+        return True
 
     def _free_ctx(self, rows) -> EventCtx:
         """EventCtx of the free capacity on ``rows`` after the current host
@@ -636,13 +792,14 @@ class TorchScheduler:
             qp.pod.status.nominated_node_name = ""
             placed.append((i, node_name))
         # Phase 2: Reserve + PreBind + bind, in batch order.  A pod that lost
-        # a same-batch race (a static PV or a ReadWriteOncePod claim) bound
-        # nothing; it is forgotten — its delta comes off the host rows,
+        # a same-batch race (a static PV, a ReadWriteOncePod claim, or the
+        # named devices of a claim) holds nothing; it is forgotten — its
+        # delta comes off the host rows,
         # which flush to the device at the next state() — and retries
         # behind backoff (scheduler.py:4091-4150).
         for i, node_name in placed:
             qp = infos[i]
-            if self._has_reserve_work(qp.pod) and self.volume_reserve.reserve(qp.pod, node_name, self) is None:
+            if not self._reserve(qp.pod, node_name):
                 self.cache.forget_pod(qp.pod.uid)
                 self.reserve_failures += 1
                 outcomes.append(ScheduleOutcome(qp.pod, None, 0, int(feas[i])))
@@ -702,9 +859,9 @@ class TorchScheduler:
         for i, res in zip(failed, results):
             qp = infos[i]
             if res is not None:
-                # A pod with Reserve work (a claim to bind) takes the
-                # nominate-and-retry path (scheduler.py:2046).
-                if self.inline_preempt_commit and not self._has_reserve_work(qp.pod) and (
+                # A pod with Reserve work (a claim to bind or allocate) takes
+                # the nominate-and-retry path (scheduler.py:2046).
+                if self.inline_preempt_commit and not self._reserve_for(qp.pod) and (
                     not spec_applied or (spec_inline_ok and self._fits_now(res.node_name, deltas[i]))
                 ):
                     self._commit_preempted(qp, failed_out[i], res, deltas[i])

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .api import types as t
+from .dra import ClaimCatalog
 from .intern import GroupIndex, InternTable, TermIndex
 from .volumes import VolumeCatalog
 
@@ -269,6 +270,8 @@ class SnapshotBuilder:
         self.term_index = TermIndex(self.interns, self.group_index, self.namespace_labels)
         # PV/PVC/StorageClass/CSINode catalog (the volume plugins' host half).
         self.volumes = VolumeCatalog()
+        # ResourceClaim/ResourceSlice catalog (DynamicResources' host half).
+        self.dra = ClaimCatalog()
         self.host = _host_arrays(self.schema)
         self._device: ClusterState | None = None
         # Monotonic host-mutation counter: the validity token of derived
@@ -429,9 +432,10 @@ class SnapshotBuilder:
 
     def feature_version(self) -> tuple:
         """Token identifying everything pod featurization can read besides
-        the pod itself (the JAX builder's, snapshot.py:520-535, minus the
-        DRA catalog's): a catalog mutation (a PV added or provisioned, a
-        claim's user count moved) bumps ``volumes.epoch``."""
+        the pod itself (the JAX builder's, snapshot.py:520-535): a catalog
+        mutation (a PV added or provisioned, a claim's user count moved, a
+        claim or slice added, a claim allocated or reserved) bumps
+        ``volumes.epoch`` or ``dra.epoch``."""
         it = self.interns
         return (
             self.schema,
@@ -441,9 +445,66 @@ class SnapshotBuilder:
             len(it.taints),
             len(it.devices),
             len(it.drivers),
+            len(it.device_classes),
             self.volumes.epoch,
+            self.dra.epoch,
             self.ns_epoch,
         )
+
+    # -- DRA rows (snapshot.py:388-448) -----------------------------------------
+
+    def set_dra_cap(self, row: int, node_name: str, device_class: str) -> None:
+        """Refresh a node row's device-count columns for one class — the
+        bare-class pool and every selector pool of the class — from the
+        claim catalog (ResourceSlice informer)."""
+        self.dra.ensure_pool(device_class, ())
+        for sig in self.dra.pools_by_class.get(device_class, ()):
+            self.set_pool_cap(row, node_name, sig)
+
+    def set_pool_cap(self, row: int, node_name: str, sig: str) -> None:
+        """One pool's cap column for one node (the new-pool backfill)."""
+        cid = self.interns.device_classes.id(sig)
+        self._ensure(DC=cid + 1)
+        self.host["dra_cap"][cid, row] = self.dra.pool_cap(node_name, sig)
+        self._dirty_rows.add(row)
+
+    def apply_dra_correction(self, row: int, charges, sign: int) -> None:
+        """Pool-overlap correction charges (ClaimCatalog.corr_events): a
+        direct dra_alloc adjustment outside the claim-transition system,
+        applied once at allocation and reversed once at deallocation."""
+        cids = [(self.interns.device_classes.id(sig), cnt) for sig, cnt in charges]
+        self._ensure(DC=max((c for c, _ in cids), default=-1) + 1)
+        for cid, cnt in cids:
+            self.host["dra_alloc"][cid, row] += sign * cnt
+        self._dirty_rows.add(row)
+
+    def set_pool_alloc(self, row: int, sig: str, value: int) -> None:
+        """New-pool alloc backfill: owned devices matching a pool that was
+        registered after their allocation."""
+        cid = self.interns.device_classes.id(sig)
+        self._ensure(DC=cid + 1)
+        self.host["dra_alloc"][cid, row] = value
+        self._dirty_rows.add(row)
+
+    def apply_external_claim(self, row: int, claim_uid: str, charges, sign: int) -> None:
+        """Charge or release an externally allocated claim on a node row as
+        a phantom reservation: it rides the per-claim 0↔1 transition that
+        local reservations use (apply_pod_delta, the commit), so a local pod
+        reserving the same claim sees prev ≥ 1 and cannot charge its devices
+        twice, and that pod's removal (2→1) cannot discharge them.
+        ``charges`` lists the claim's (pool sig, count): the claim count
+        moves once, every pool charges."""
+        kid = self.interns.dra_claims.id(claim_uid)
+        cids = [(self.interns.device_classes.id(sig), cnt) for sig, cnt in charges]
+        # Grow before taking the host alias: _ensure swaps self.host.
+        self._ensure(CLM=kid + 1, DC=max((c for c, _ in cids), default=-1) + 1)
+        h = self.host
+        prev = h["dra_claim_counts"][kid, row]
+        h["dra_claim_counts"][kid, row] = prev + sign
+        if (sign > 0 and prev == 0) or (sign < 0 and prev == 1):
+            for cid, cnt in cids:
+                h["dra_alloc"][cid, row] += sign * cnt
+        self._dirty_rows.add(row)
 
     def clear_node_row(self, row: int) -> None:
         h = self.host
@@ -458,12 +519,7 @@ class SnapshotBuilder:
 
     def pod_delta_vectors(self, pod: t.Pod) -> dict:
         """Precompute the row-delta a pod applies when (un)assigned to a node.
-        Mirrors NodeInfo.AddPodInfo / RemovePod (types.go:990,1022).
-
-        Resource claims belong to a later slice: a pod that carries one
-        raises rather than being accounted without it."""
-        if pod.spec.resource_claims:
-            raise NotImplementedError("DynamicResources claims are not yet ported")
+        Mirrors NodeInfo.AddPodInfo / RemovePod (types.go:990,1022)."""
         request = pod.resource_request()
         cols = {r: self.resource_column(r) for r in request if r != t.PODS}
         req_vec = np.zeros(self.schema.R, np.int64)
@@ -524,6 +580,29 @@ class SnapshotBuilder:
                 DR=len(self.interns.drivers),
                 CV=len(self.interns.csivols),
             )
+        # DRA claims (snapshot.py:627-649), deduped by claim and accounted
+        # per distinct claim like CSI volumes: dra_alloc moves only on a
+        # claim's 0↔1 reservation transition on a node.  One slot per
+        # charged pool of each device request: slots of one claim share its
+        # id, ``first`` marks the slot that moves the claim count, every
+        # slot charges its own pool.  Only unallocated claims race over the
+        # free devices (the chunk conflict class); a missing claim is the
+        # op's featurize concern.
+        dra_claims: list[tuple[int, int, int, bool, bool]] = []
+        if pod.spec.resource_claims:
+            seen_claims: set[str] = set()
+            for claim in self.dra.pod_claims(pod):
+                if claim is None or claim.uid in seen_claims:
+                    continue
+                seen_claims.add(claim.uid)
+                kid = self.interns.dra_claims.id(claim.uid)
+                unalloc = not claim.allocated_node
+                first = True
+                for sig, cnt in self.dra.charge_pools(claim):
+                    cid = self.interns.device_classes.id(sig)
+                    self._ensure(DC=cid + 1, CLM=kid + 1)
+                    dra_claims.append((kid, cid, cnt, unalloc, first))
+                    first = False
         host_ports = pod.host_ports()
         if len(host_ports) > POD_PORT_SLOTS:
             raise ValueError(
@@ -547,6 +626,7 @@ class SnapshotBuilder:
             "pvcs": pvc_uids,
             "vol_unbound": vol_unbound,
             "vol_csi_lim": vol_csi_lim,
+            "dra_claims": dra_claims,
         }
 
     def apply_pod_delta(self, row: int, delta: dict, sign: int, device_already: bool) -> None:
@@ -576,6 +656,16 @@ class SnapshotBuilder:
             h["csivol_counts"][vid, row] = prev + sign
             if (sign > 0 and prev == 0) or (sign < 0 and prev == 1):
                 h["csi_used"][did, row] += sign
+        prev_by_kid: dict[int, int] = {}
+        for kid, cid, cnt, _unalloc, first in delta.get("dra_claims", ()):
+            # Every slot of a claim reads the count before its first slot
+            # moved it, so all its pools cross 0↔1 together.
+            if first:
+                prev_by_kid[kid] = h["dra_claim_counts"][kid, row]
+                h["dra_claim_counts"][kid, row] += sign
+            prev = prev_by_kid[kid]
+            if (sign > 0 and prev == 0) or (sign < 0 and prev == 1):
+                h["dra_alloc"][cid, row] += sign * cnt
         if delta["pvcs"]:
             self.volumes.adjust_pvc_users(delta["pvcs"], sign)
         if not device_already:

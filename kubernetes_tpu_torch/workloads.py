@@ -105,6 +105,26 @@ those on the specific hostIP 10.0.0.1 and the rest on the wildcard.  The
 warm-up names every port and hostIP of the measured pods, so no port or
 image table grows in the measured window.  Batch 4096, chunk 64, default
 profile.  Everything is drawn from ``seed`` with numpy.
+
+``dra_claims_5kn_5kpods`` has no harness counterpart: GPU jobs that each
+ask for a device through their own ResourceClaim, the shape of upstream
+scheduler_perf's SchedulingWithResourceClaimTemplateStructured (one claim
+a pod, one device each, devices published per node by ResourceSlices) at
+the headline's 5000 nodes.  Density's nodes over 10 zones; one node in four
+(1250) publishes a ResourceSlice of class gpu.example.com with 8 named
+devices (10000 in all) whose attributes are ``model`` and ``memory`` (int):
+h100 and 80 on even-numbered GPU nodes, a100 and 40 on odd ones.  1024
+claim-less density pods fill first; then 5000 pods of 1 CPU and 2 GiB at
+priority 1, each with its own claim for one device (one in four under the
+selector ``device.attributes["model"].string == "h100"``, a second pool
+beside the bare class pool; one pod in 32 shares its claim with the next
+pod, so the pair must land on one node and the claim is released once),
+about 4850 claims for 5000 of the 10000 devices.  Then a shortage phase:
+256 pods at priority 1000, each with its own selector-less claim for all 8
+devices of a node, which no node has free, so each evicts the claim
+holders of one GPU node.  The claim table is grown to 8192 rows
+(dra_claim_counts: 256 MiB at N = 8192) before any claim is added.  Batch
+1024, chunk 8, default profile.
 """
 
 from __future__ import annotations
@@ -505,3 +525,77 @@ def pod_images_ports(i: int, seed: int = 0) -> t.Pod:
         proto, ip, number = spec["port"]
         pod.spec.containers[0].ports += (t.ContainerPort(host_port=number, protocol=proto, host_ip=ip),)
     return pod
+
+
+# -- dra_claims_5kn_5kpods (no harness counterpart) ---------------------------
+
+DRA_NODES = 5000
+DRA_ZONES = 10
+DRA_GPU_EVERY = 4  # one node in four publishes GPUs
+DRA_GPUS = 8
+DRA_CLASS = "gpu.example.com"
+DRA_H100 = 'device.attributes["model"].string == "h100"'
+DRA_FILL_PODS = 1024
+DRA_MEASURED_PODS = 5000
+DRA_SELECTOR_EVERY = 4  # one pod in four wants an h100
+DRA_SHARE_EVERY = 32  # one pod in 32 shares its claim with the next pod
+DRA_PREEMPTORS = 256
+DRA_CLAIM_TABLE = 8192
+# Any two pods with unallocated claims conflict, so a chunk commits one of
+# them whatever its width; a narrow chunk keeps preemption's dry-run chunk
+# (the scheduler's, at most 64) small, so a batch of preemptors of distinct
+# signatures gets one dry-run per 8 of them rather than per 64, and a batch
+# of 1024 keeps the padding chunks of the preemptors' retries few.
+DRA_BATCH = 1024
+DRA_CHUNK = 8
+
+
+def dra_slices(n: int = DRA_NODES) -> list[t.ResourceSlice]:
+    """The ResourceSlices of the GPU nodes: node-i for i a multiple of 4,
+    the g-th of them h100 (memory 80) when g is even, else a100 (40)."""
+    out = []
+    for g, i in enumerate(range(0, n, DRA_GPU_EVERY)):
+        model, memory = ("h100", 80) if g % 2 == 0 else ("a100", 40)
+        devices = tuple(t.Device(name=f"gpu-{d}", attributes={"model": model, "memory": memory})
+                        for d in range(DRA_GPUS))
+        out.append(t.ResourceSlice(node_name=f"node-{i}", device_class=DRA_CLASS, devices=devices))
+    return out
+
+
+def dra_setup(s, n: int = DRA_NODES, table: int = DRA_CLAIM_TABLE) -> None:
+    """Grow the claim table, publish the slices."""
+    s.builder._ensure(CLM=_bucket(table))
+    for sl in dra_slices(n):
+        s.add_resource_slice(sl)
+
+
+def dra_claim_of(i: int) -> str:
+    """The claim measured pod i names: its own, or its predecessor's."""
+    return f"gpu-claim-{i - 1 if i % DRA_SHARE_EVERY == 1 else i}"
+
+
+def dra_claims(count: int = DRA_MEASURED_PODS) -> list[t.ResourceClaim]:
+    """The measured pods' claims: one device each, one in four h100 only."""
+    out = []
+    for i in range(count):
+        if i % DRA_SHARE_EVERY == 1:
+            continue  # shares pod i - 1's claim
+        sel = (DRA_H100,) if i % DRA_SELECTOR_EVERY == 2 else ()
+        out.append(t.ResourceClaim(name=dra_claim_of(i), requests=(t.DeviceRequest("gpu", DRA_CLASS, 1, sel),)))
+    return out
+
+
+def dra_pod(i: int) -> t.Pod:
+    return (make_pod(f"gpu-{i}").req({"cpu": "1", "memory": "2Gi"}).label("app", "gpu-job").priority(1)
+            .resource_claim(dra_claim_of(i)).obj())
+
+
+def dra_preemptor_claims(count: int = DRA_PREEMPTORS) -> list[t.ResourceClaim]:
+    """The shortage phase's claims: every device of a node each."""
+    return [t.ResourceClaim(name=f"node-claim-{i}", requests=(t.DeviceRequest("gpu", DRA_CLASS, DRA_GPUS),))
+            for i in range(count)]
+
+
+def dra_preemptor(i: int) -> t.Pod:
+    return (make_pod(f"vip-{i}").req({"cpu": "1", "memory": "2Gi"}).label("app", "gpu-trainer").priority(1000)
+            .resource_claim(f"node-claim-{i}").obj())

@@ -5,7 +5,10 @@ without one; ``python3 chip_smoke.py`` runs the same checks (and the
 density, inter-pod-affinity, spread, preemption, daemonset,
 persistent-volume and images/ports workloads at full size) on the H100.  Run them there with ``python -m pytest --noconftest
 tests/test_torch_kernels.py -m cuda`` (tests/conftest.py imports JAX,
-which that machine lacks)."""
+which that machine lacks).  The DRA kernels (eval_chunk's filter code 5,
+the claim commit, the claim pairs, DynamicResources' release in
+preempt_eval and search_step) are held at cuts of the "dra" and
+"search_dra" shapes and of dra_claims_5kn_5kpods."""
 
 import dataclasses
 
@@ -349,12 +352,13 @@ def test_scheduler_images_ports_kernel_path_matches_plain_path(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ["search", "search_pv"])
+@pytest.mark.parametrize("shape", ["search", "search_pv", "search_dra"])
 def test_search_kernels_match_plain_versions_exactly(cuda_device, shape):
     """unpack_victims with the victim features, preempt_eval's three modes,
     dom_release and search_step against their plain versions, step by
     step, at a 500-node cut of each search shape (the path's cluster; a
-    volume cluster with shared CSI claims and device volumes)."""
+    volume cluster with shared CSI claims and device volumes; a DRA cluster
+    with shared, external and selector claims)."""
     import chip_smoke
 
     timing = chip_smoke.check_search_kernels(cuda_device, shape, reps=1, nodes=500)
@@ -394,3 +398,63 @@ def test_scheduler_search_kernel_path_matches_plain_path(cuda_device, inline):
             assert min(counts[k] for k in ("preempt_eval", "dom_release", "search_step", "unpack_victims")) > 0
     assert seen["kernel"] == seen["plain"]
     assert s.preemptions > 0
+
+
+@pytest.mark.cuda
+def test_dra_kernels_match_plain_versions_exactly(cuda_device):
+    """conflict_pairs with claim ids, eval_chunk with DynamicResources and
+    resolve_commit with the claim commit against their plain versions at a
+    600-node cut of the "dra" shape (shared claims inside a chunk, a claim
+    named twice, reserved claims, pins, missing claims)."""
+    import chip_smoke
+
+    timing = chip_smoke.check_dra_kernels(cuda_device, reps=1, nodes=600)
+    assert set(timing) == {"conflict_pairs", "eval_chunk", "resolve_commit"}
+    assert all(t["max_abs_err"] == 0 for t in timing.values())
+
+
+@pytest.mark.cuda
+def test_scheduler_dra_kernel_path_matches_plain_path(cuda_device):
+    """A cut of dra_claims_5kn_5kpods through TorchScheduler on the card
+    (120 nodes, 30 with GPUs; 160 claim pods, then 8 whole-node
+    preemptors): the kernel path binds, allocates, evicts and nominates as
+    the plain path does, and launches the claim kernels."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch import workloads as w
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.queue import SchedulingQueue
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+
+    seen = {}
+    for impl in ("kernel", "plain"):
+        clock = [0.0]
+        s = TorchScheduler(DEFAULT_PROFILE, batch_size=64, chunk_size=8, _impl=impl,
+                           queue=SchedulingQueue(backoff=True, clock=lambda: clock[0]))
+        for n in w.basic_nodes(120, zones=10):
+            s.add_node(n)
+        w.dra_setup(s, 120, 512)
+        for c in w.dra_claims(160):
+            s.add_resource_claim(c)
+        for c in w.dra_preemptor_claims(8):
+            s.add_resource_claim(c)
+        pods = [w.dra_pod(i) for i in range(160)]
+        kernels.reset_launches()
+        out = []
+        for wave in (pods, [w.dra_preemptor(i) for i in range(8)]):
+            for p in wave:
+                s.add_pod(p)
+            for _ in range(100):
+                out += s.schedule_all_pending()
+                expiry = s.queue.next_backoff_expiry()
+                if expiry is None:
+                    break
+                clock[0] = max(clock[0], expiry)
+        seen[impl] = ([(o.pod.name, o.node_name, o.nominated_node, o.victim_uids) for o in out],
+                      sorted(s.cache.pods), {u: (c.allocated_node, c.allocated_devices)
+                                             for u, c in s.builder.dra.claims.items()})
+        assert s.builder.host_mirror_equal()
+        if impl == "kernel":
+            counts = kernels.launch_counts()
+            assert min(counts[k] for k in ("eval_chunk", "resolve_commit", "conflict_pairs", "preempt_eval")) > 0
+    assert seen["kernel"] == seen["plain"]
+    assert s.preemptions > 0 and all(f"default/vip-{i}" in s.cache.pods for i in range(8))

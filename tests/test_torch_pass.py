@@ -187,19 +187,19 @@ def test_crowded_node_defers_into_fused_tail():
 
 
 def test_unported_op_in_pass_raises():
+    """Every op of the default profile is ported (DynamicResources last):
+    a pass with it active builds; truncated mode still raises."""
     jb = JaxBuilder()
-    with pytest.raises(NotImplementedError, match="DynamicResources"):
-        build_pass(TDEF, jb.schema, jb.res_col, frozenset({"NodeResourcesFit", "DynamicResources"}), 8)
+    build_pass(TDEF, jb.schema, jb.res_col, frozenset({"NodeResourcesFit", "DynamicResources"}), 8)
     with pytest.raises(NotImplementedError):
         build_pass(dataclasses.replace(TDEF, percentage_of_nodes_to_score=50), jb.schema, jb.res_col)
 
 
 @pytest.mark.parametrize("key", ["dra_claim_ids", "port_keys"])
 def test_conflict_pair_feature_raises(key):
-    """A batch feature from which the JAX pass derives conflict pairs: DRA
-    claim ids (an unported op) are refused, not read as 'no pairs'; shared
-    host-port keys defer chunk-mates into the fused strict tail exactly as
-    in the JAX pass."""
+    """A batch feature from which the JAX pass derives conflict pairs:
+    shared DRA claim ids and shared host-port keys defer chunk-mates exactly
+    as in the JAX pass (the claims' commit too)."""
     jb, active, jbatch = _setup(3, 16)
     if key == "port_keys":
         keys = np.full((16, 8), -1, np.int32)
@@ -210,13 +210,16 @@ def test_conflict_pair_feature_raises(key):
                                       "group": torch.zeros(16, dtype=torch.int32)}, 2, 8)
         assert int(pairs.sum()) == 2 * sum(n * (n - 1) // 2 for n in (3, 3, 2, 3, 3, 2))
         return
-    jstate = jb.state()
-    tstate = state_from_numpy({f.name: np.asarray(getattr(jstate, f.name))
-                               for f in dataclasses.fields(jstate)}, "cpu")
-    tbatch = {k: np.asarray(jbatch[k]) for k in (*PORT_KEYS, "nominated_row")}
-    tbatch[key] = np.zeros((16, 2), np.int32)
-    with pytest.raises(NotImplementedError, match=key):
-        build_pass(TDEF, jb.schema, jb.res_col, active, 8)(tstate, tbatch, _inv(jb), 0)
+    ids = np.full((16, 2), -1, np.int32)
+    ids[:, 0] = np.arange(16) % 3  # every chunk-mate shares a claim with another
+    jbatch["dra_claim_ids"] = ids
+    jbatch["dra_claim_first"] = ids >= 0
+    jbatch["dra_claim_cls"] = np.where(ids >= 0, 0, -1).astype(np.int32)
+    jbatch["dra_claim_cnt"] = (ids >= 0).astype(np.int32)
+    jbatch["dra_claim_unalloc"] = np.zeros((16, 2), np.bool_)
+    jst, jout, _, _ = _run_both(jb, active, jbatch, 8, 2, _inv(jb), extra=(
+        "dra_claim_ids", "dra_claim_first", "dra_claim_cls", "dra_claim_cnt", "dra_claim_unalloc"))
+    assert (np.asarray(jout.picks) == -2).any() and int(np.asarray(jst.dra_claim_counts).sum()) > 0
 
 
 def test_hash_matches_jax():

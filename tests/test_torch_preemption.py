@@ -517,6 +517,35 @@ def test_preempt_pass_matches_jax(case, chunk):
         assert (picks == -2).any()
 
 
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_speculative_steps_skip_only_empty_chunks(chunk):
+    """The speculative dry-run runs only the chunks holding an eligible pod
+    (``steps``); its picks, victim masks, counts and carries equal the run
+    over every chunk."""
+    t = TorchScheduler(tfit(), batch_size=16, chunk_size=chunk, device="cpu")
+    _cluster(t, tnode, tpod, tt, 7, pdbs=True)
+    k = 16
+    pods = _preemptors(tpod, "mixed", k)
+    tb, _, active = torch_batch(pods, t.builder, t.profile, k)
+    sigs, _ = t.preemption._sig_ids(pods, k)
+    elig = np.zeros(k, np.bool_)
+    elig[4:8] = True
+    elig[13] = True
+    spec_picks = np.where(np.arange(k) % 3 == 0, 2, -1).astype(np.int32)
+    batch = {key: torch.from_numpy(np.ascontiguousarray(v)) for key, v in tb.items() if key != "valid"}
+    batch.update(sig=torch.from_numpy(sigs), elig=torch.from_numpy(elig), spec_picks=torch.from_numpy(spec_picks))
+    pack = t.preemption.pack_victims(t.profile, active)
+    run = tpre.build_preempt_pass(t.profile, t.builder.schema, t.builder.res_col, active, chunk, _impl="plain")
+    state = t.builder.state()
+    steps = sorted({i // chunk for i in np.nonzero(elig)[0]})
+    assert len(steps) < k // chunk
+    every, carry_all, prio_all = run(state, batch, pack["vic"])
+    some, carry_some, prio_some = run(state, batch, pack["vic"], steps)
+    for a, b in zip((*every, *carry_all, prio_all), (*some, *carry_some, prio_some)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert (every.picks.numpy() >= 0).any() and every.vic_mask.numpy().any()
+
+
 def test_victims_from_numpy_carries_the_jax_stage():
     """The JAX evaluator's staged buffer (incremental path, no PDBs)
     unpacked by the port equals the JAX device arrays."""

@@ -366,13 +366,14 @@ def test_victim_pack_after_width_growth_matches_jax():
 
 
 def test_dra_preemption_refused_before_any_victim():
-    """DynamicResources' release is not ported: a dry-run whose active
-    filters include it raises by name."""
+    """DynamicResources' release is ported: a dry-run with it active builds,
+    and a filter outside the default profile's is still refused by name."""
     prof = TProfile(name="dra", filters=("NodeResourcesFit", "DynamicResources"),
                     scorers=(("NodeResourcesFit", 1),))
-    assert "DynamicResources" in tpre.refusal(prof, None)
+    assert tpre.refusal(prof, None) is None and tpre.refusal(TDEF, None) is None
     t = TorchScheduler(TProfile(name="fit", filters=("NodeResourcesFit",), scorers=(("NodeResourcesFit", 1),)),
                        batch_size=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="DynamicResources"):
-        tpre.build_preempt_pass(prof, t.builder.schema, t.builder.res_col, frozenset(prof.filters), 1)
-    assert tpre.refusal(TDEF, frozenset(TDEF.filters) - {"DynamicResources"}) is None
+    spec = tpre.preempt_spec(prof, t.builder.schema, t.builder.res_col, frozenset(prof.filters))
+    assert spec.dra and not spec.domain
+    tpre.build_preempt_pass(prof, t.builder.schema, t.builder.res_col, frozenset(prof.filters), 1)
+    assert "Unknown" in tpre.refusal(dataclasses.replace(prof, filters=prof.filters + ("Unknown",)), None)

@@ -134,7 +134,7 @@ def _aff_port(mkpod):
 
 
 def _sel_claim(mkpod):
-    # A node selector is ported; the resource claim beside it is not.
+    # A node selector and a resource claim (missing here: the pod waits).
     return mkpod("sel").req({"cpu": "1"}).node_selector({"disk": "ssd"}).resource_claim("gpu").obj()
 
 
@@ -142,11 +142,11 @@ def _port(mkpod):
     return mkpod("port").req({"cpu": "1"}).host_port(8080).obj()
 
 
-@pytest.mark.parametrize("build,ported", [(_aff_port, True), (_sel_claim, False), (_port, True)],
+@pytest.mark.parametrize("build,ported", [(_aff_port, True), (_sel_claim, True), (_port, True)],
                          ids=["pod-affinity", "node-selector", "host-port"])
 def test_unported_constraints_raise(build, ported):
     """A constraint the port does not have raises by name; the cases that
-    are now ported schedule as the JAX scheduler does."""
+    are now ported (all three) schedule as the JAX scheduler does."""
     ts = TorchScheduler(TDEF, batch_size=4, device="cpu")
     ts.add_node(tnode("n0").capacity({"cpu": "4", "memory": "8Gi"}).label("zone", "z0").obj())
     ts.add_pod(build(tpod))
@@ -160,7 +160,10 @@ def test_unported_constraints_raise(build, ported):
     key = lambda outs: [(o.pod.name, o.node_name, o.score, o.feasible_nodes) for o in outs]  # noqa: E731
     got = ts.schedule_all_pending()
     assert key(got) == key(js.schedule_all_pending())
-    assert got[0].node_name == "n0" and int(ts.builder.host["port_counts"].sum()) == 1
+    if build is _sel_claim:  # no ssd node and a missing claim: unschedulable
+        assert got[0].node_name is None and got[0].unschedulable_plugins == {"NodeAffinity"}
+    else:
+        assert got[0].node_name == "n0" and int(ts.builder.host["port_counts"].sum()) == 1
     assert ts.builder.host_mirror_equal()
 
 

@@ -14,6 +14,7 @@ import torch
 from kubernetes_tpu.api.wrappers import make_node as jnode
 from kubernetes_tpu.api.wrappers import make_pod as jpod
 from kubernetes_tpu.snapshot import SnapshotBuilder as JaxBuilder
+from kubernetes_tpu_torch.api import types as tt
 from kubernetes_tpu_torch.api.wrappers import make_node as tnode
 from kubernetes_tpu_torch.api.wrappers import make_pod as tpod
 from kubernetes_tpu_torch.snapshot import (
@@ -148,10 +149,13 @@ def test_state_from_numpy_rejects_bad_fields():
 
 
 def test_volume_and_claim_pods_raise():
-    # Volumes are ported: a claim reference (dangling here) is accounted as
-    # a PVC user with no device or CSI attachment.  Resource claims raise.
+    # Volumes and resource claims are ported: a claim reference (dangling
+    # here) is accounted as a PVC user with no device or CSI attachment; a
+    # dangling resource claim has no slot, a known one one per pool.
     tb = SnapshotBuilder(device="cpu")
     delta = tb.pod_delta_vectors(tpod("v").pvc_volume("data").obj())
     assert delta["pvcs"] == ["default/data"] and not delta["devices"] and not delta["csivols"]
-    with pytest.raises(NotImplementedError):
-        tb.pod_delta_vectors(tpod("c").resource_claim("gpu").obj())
+    assert tb.pod_delta_vectors(tpod("c").resource_claim("gpu").obj())["dra_claims"] == []
+    tb.dra.add_claim(tt.ResourceClaim(name="gpu", device_class="gpu.example.com"))
+    slots = tb.pod_delta_vectors(tpod("c").resource_claim("gpu").resource_claim("gpu").obj())["dra_claims"]
+    assert slots == [(0, 0, 1, True, True)]

@@ -547,8 +547,8 @@ def test_preemption_with_volume_op_refused_by_name():
 
 @pytest.mark.parametrize("kind", ["claim", "host-port"])
 def test_dra_and_host_ports_still_refused(kind):
-    """A claim of DRA still raises by name; a host port beside a missing
-    PVC is ported and fails VolumeBinding as in the JAX scheduler."""
+    """A DRA claim and a host port beside a missing PVC are ported: each
+    pod fails as in the JAX scheduler."""
     def build(s, w):
         s.add_node(w.make_node("n1").capacity({"cpu": "4"}).obj())
         pw = w.make_pod("p").req({"cpu": "1"}).pvc_volume("data")
@@ -556,10 +556,6 @@ def test_dra_and_host_ports_still_refused(kind):
 
     t = TorchScheduler(TProfile(), batch_size=4, device="cpu")
     build(t, tw)
-    if kind == "claim":
-        with pytest.raises(NotImplementedError, match="DynamicResources"):
-            t.schedule_batch()
-        return
     j = TPUScheduler(profile=jcommon.registered_subset(JProfile()), batch_size=4)
     build(j, jw)
     got, want = t.schedule_batch(), j.schedule_batch()

@@ -14,7 +14,7 @@ Phases; any failure fails the run (nothing is caught):
      nvcc per source, started together);
   3. hold each kernel against its plain PyTorch version on the card, on
      seeded inputs; exact equality is required, and both are timed with
-     CUDA events (median of 50):
+     CUDA events (median of 20):
      - at the density shapes (C=64 pods, N=8192 node rows, R=4 resources),
        with score ties, zero allocatable, unschedulable nodes, pods
        feasible nowhere, a nominated-pod overlay and duplicate picks:
@@ -85,7 +85,7 @@ Phases; any failure fails the run (nothing is caught):
        phantom charges, the claim table at 8192 rows), runs the same steps
        with DynamicResources' release and hard filter, and so does
        "search_dra_path", dra_claims_5kn_5kpods's own cluster half full
-       of claim pods with its 256 whole-node preemptors at the path's
+       of claim pods with its 128 whole-node preemptors at the path's
        dry-run chunk of 8;
      - at the "dra" shape (C=64, N=8192, a 4096-pod batch with 1-2 claim
        slots a pod over three pools, CLM=8192; shared claims inside a
@@ -95,6 +95,16 @@ Phases; any failure fails the run (nothing is caught):
        resolve_commit strict and not with the claim commit; the same at
        "dra_path", the path's own C=8 over the DRA_BATCH pods it has
        pending on that cluster;
+     - truncated mode: at the "truncate" shape (parity_basic_5kn_10kpods'
+       5000 nodes, N=8192, limit 500) truncate_feasible and select_host in
+       pos mode with 0, 1, 500, 501, 2500 and 5000 feasible nodes, starts
+       at 0, 4999 and 2777, a padding lane, ties on few totals; then
+       truncated chunk-1 steps, the two outputs and the carried start
+       compared at every step: at the IPA shape ("truncate_ipa": eval_chunk,
+       ipa_eval's filter launch, truncate_feasible, its score launch,
+       select_host in pos mode) and the spread_na shape ("truncate_spread":
+       spread_filter, eval_chunk, truncate_feasible, late_scores over the
+       truncated set, select_host in pos mode);
   4. drive each main path through TorchScheduler, with the launch counts
      set to 0 just before and read just after; every pod must bind, the
      host mirror must equal the device state, no node may exceed its
@@ -133,23 +143,31 @@ Phases; any failure fails the run (nothing is caught):
        port; no harness counterpart): no node holds two pods whose host
        ports conflict, and no whole-state upload happens in the window;
      - preemption_default_search_5kn (5000 nodes in 10 zones, 20000 batch
-       pods, a warm-up preemptor, then 1000 service preemptors with a zone
+       pods bound as they arrive, four a node, a warm-up preemptor, then
+       1000 service preemptors with a zone
        spread, an anti-affinity to tier=noisy and host port 8080; default
        profile, backoff waited, nominate-and-retry; no harness
        counterpart): every preemptor binds, every victim is a priority-1
        batch pod, no node holds two port-8080 pods, no service pod shares a
        node with a tier=noisy pod or with a pod keeping app=svc off, the
        service's zone counts differ by at most 1, no whole-state upload;
-     - dra_claims_5kn_5kpods (5000 nodes in 10 zones, one in four
-       publishing 8 GPUs; 1024 fill pods, 5000 pods with their own claims,
-       one in four h100 only, one in 32 sharing a claim; then 256
-       preemptors each wanting a whole GPU node; default profile, backoff
+     - dra_claims_5kn_5kpods at half its depth (2500 nodes in 10 zones,
+       one in four publishing 8 GPUs; 512 fill pods, 2500 pods with their
+       own claims, one in four h100 only, one in 32 sharing a claim; then
+       128 preemptors each wanting a whole GPU node; default profile, backoff
        on a virtual clock; no harness counterpart): every claim pod binds
        or was evicted, every preemptor binds, claims sit on their pods'
        nodes on published devices (h100 ones for h100 claims), shared pairs
        share a node, dra_alloc stays within dra_cap and equals the claim
        catalog's owned devices per pool, victims are priority-1 claim pods
        whose claims were released, no whole-state upload;
+     - parity_basic_5kn_10kpods (basic_5kn_10kpods, harness.py:396-405, in
+       truncated mode: density's 5000 nodes in 3 zones, 2048 + 10000 pods,
+       the default profile with the adaptive percentage of nodes to score,
+       batch 1024, chunk 1): truncate_feasible launches, every pod binds,
+       no node fills and every pod's scan keeps exactly 500 feasible nodes,
+       the scan start moves and every run ends on the same one, no
+       whole-state upload;
      every run of a path must give the same outcome count and send the
      same number of pods to backoff; pods/s, the idle share, deferrals,
      preemptions, the backoff waited and the garbage collector's pauses in
@@ -179,7 +197,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 # Timed calls per kernel and per plain version (the median is kept).
-REPS = 50
+REPS = 20
 
 
 def card_line() -> str:
@@ -585,7 +603,7 @@ def ipa_inputs(seed: int, dev):
     from kubernetes_tpu_torch.kernels import plain
     from kubernetes_tpu_torch.workloads import pod_ipa_heavy
 
-    builder, _cache, rng = ipa_cluster(seed, dev)
+    builder, cache, rng = ipa_cluster(seed, dev)
     # The workload's pods in a shuffled order, so chunks hold same-colour pods.
     order = rng.permutation(4096)
     big, _, big_active = build_pod_batch([pod_ipa_heavy(int(i)) for i in order], builder,
@@ -607,7 +625,7 @@ def ipa_inputs(seed: int, dev):
     ipa = ipa_spec(DEFAULT_PROFILE, schema, builder.res_col, active)
     ipa = dataclasses.replace(ipa, ctx=dataclasses.replace(ipa.ctx, dom=dom))
     base = plain.eval_chunk(state, pf, spec, None)
-    return dict(builder=builder, state=state, dom=dom, pf=pf, big_pf=big_pf, spec=spec,
+    return dict(builder=builder, cache=cache, state=state, dom=dom, pf=pf, big_pf=big_pf, spec=spec,
                 ipa=ipa, base=base, rng=rng)
 
 
@@ -848,7 +866,7 @@ def spread_cluster(shape: str, seed: int, dev):
                .label("app", f"app-{j % 10}").label("ver", f"v{j % 2}")
                .node(f"node-{clean[int(rng.integers(len(clean)))]}").obj())
         cache.add_pod(pod)
-    return builder, rng
+    return builder, cache, rng
 
 
 def spread_mixed_pods(rng, zones: int, n_nodes: int) -> list:
@@ -938,7 +956,7 @@ def spread_inputs(shape: str, seed: int, dev):
     from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
 
     n_nodes, zones, _bound, tmpl = SPREAD_SHAPES[shape]
-    builder, rng = spread_cluster(shape, seed, dev)
+    builder, cache, rng = spread_cluster(shape, seed, dev)
     make = getattr(workloads, tmpl)
     mixed = spread_mixed_pods(rng, zones, n_nodes)
     added = dataclasses.replace(DEFAULT_PROFILE, added_affinity=_added_affinity())
@@ -951,7 +969,7 @@ def spread_inputs(shape: str, seed: int, dev):
             batch, _, active = build_pod_batch(mixed, builder, prof, 32)
             batches[label] = (prof, batch, active)
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    out = {"builder": builder, "state": builder.state(), "rng": rng, "big_active": big_active,
+    out = {"builder": builder, "cache": cache, "state": builder.state(), "rng": rng, "big_active": big_active,
            "big_pf": {k: to(v) for k, v in big.items()}, "mixed": {}}
     for label, (prof, batch, active) in batches.items():
         pf = {k: to(v) for k, v in batch.items()}
@@ -1498,7 +1516,7 @@ def search_inputs(shape: str, dev, nodes: int = 5000):
     the batches want all 8 devices of a node, two h100 devices, a missing
     claim or a claim allocated on node 5, and one in three also keeps
     tier=noisy off its node.  "search_dra_path" is dra_claims_5kn_5kpods's
-    own cluster (dra_path_scheduler) with its 256 whole-node preemptors as
+    own cluster (dra_path_scheduler) with its 128 whole-node preemptors as
     the uniform batch and the first DRA_CHUNK of them as the mixed chunk:
     the path's dry-run chunk."""
     from kubernetes_tpu_torch import workloads as w
@@ -1518,8 +1536,7 @@ def search_inputs(shape: str, dev, nodes: int = 5000):
     for node in w.search_nodes(nodes):
         s.add_node(node)
     if shape == "search":
-        for p in w.search_background(4 * nodes):
-            p.spec.node_name = f"node-{int(p.metadata.name[3:]) // 4}"
+        for p in w.search_fill(4 * nodes):
             s.add_pod(p)
         for i in range(nodes * 3 // 50):
             zone = i % 10 if i < nodes * 3 // 50 - 10 else 0
@@ -2394,13 +2411,14 @@ def dra_inputs(dev, nodes: int = 5000):
 
 def dra_path_scheduler(dev):
     """dra_claims_5kn_5kpods's own cluster in the middle of its burst, at
-    its batch and chunk: its 5000 nodes and slices, the 1024 fill pods
+    its batch and chunk: its 2500 nodes and slices, the 512 fill pods
     bound over all nodes, the measured pods' claims, and the first
     ``DRA_MEASURED_PODS - DRA_BATCH`` measured pods reserved and bound as
     Reserve leaves them (claims allocated to named devices, the selector
     pool's corrections applied), two or four a GPU node (h100-only claims
-    on h100 nodes, a shared claim's pods together), so no node has a whole
-    GPU node free.  Returns the scheduler and the pending measured pods."""
+    on h100 nodes, a shared claim's pods together), so no GPU node but the
+    last, when their count is odd, has all its devices free.  Returns the
+    scheduler and the pending measured pods."""
     from kubernetes_tpu_torch import workloads as w
     from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
     from kubernetes_tpu_torch.scheduler import TorchScheduler
@@ -2415,6 +2433,7 @@ def dra_path_scheduler(dev):
     for claim in w.dra_claims():
         s.add_resource_claim(claim)
     gpu_nodes = w.DRA_NODES // w.DRA_GPU_EVERY
+    gpu_nodes -= gpu_nodes % 2  # an even modulus keeps the index's parity
     bound = w.DRA_MEASURED_PODS - w.DRA_BATCH
     for i in range(bound):
         # i // 2 + 1 is even for the h100 pods (i % 4 == 2), and the GPU
@@ -2431,7 +2450,7 @@ def dra_path_scheduler(dev):
 
 
 def dra_path_inputs(dev):
-    """The "dra_path" shape: dra_path_scheduler's cluster (N=8192,
+    """The "dra_path" shape: dra_path_scheduler's cluster (N=4096,
     CLM=8192) and its pending DRA_BATCH measured pods as one featurized
     batch, as the path's kernels see them."""
     import numpy as np
@@ -2596,6 +2615,219 @@ def check_dra_kernels(dev, reps: int, shape: str = "dra", nodes: int = 5000) -> 
     keys = {key: tuple(big[key].shape) for key in big if key.startswith("dra_")}
     print(f"{shape} shapes: C={c}, N={n}, K={k}, CLM={schema.CLM}, DC={schema.DC}; features {keys}; {stats}")
     return result
+
+
+# -- truncated (parity) mode: parity_basic_5kn_10kpods ---------------------------
+
+
+def truncate_bytes(n: int) -> int:
+    """truncate_feasible: feasible read and written, valid and order_pos
+    read, pos written, the start read and written, the pod's valid flag
+    read and its processed count written: about 11 bytes a row."""
+    return n * (1 + 1 + 1 + 4 + 4) + 8 * 2 + 1 + 4
+
+
+def scan_order(cache, n: int, dev):
+    import torch
+
+    return torch.from_numpy(cache.order_pos(n)).to(dev)
+
+
+def truncated_steps(errs: dict, label: str, state, pods, order, steps, seed_mul: int, start0: int,
+                    filt, score, score_kernel: str) -> tuple:
+    """Truncated chunk-1 steps, one pod each, through the kernels and
+    through their plain versions from the same inputs: ``filt(mod, i)``
+    gives pod i's (feasible, total, fail) after every filter, then
+    truncate_feasible (adaptive percentage), ``score(mod, i, feasible,
+    total, fail)`` adds the scores over the truncated set (the
+    ``score_kernel``), and select_host picks in pos mode; every output and
+    the carried start compared exactly.  Returns the last pod's plain
+    (feasible, total) and the feasible counts kept."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import plain
+
+    mods = {"kernel": kernels, "plain": plain}
+    starts = {impl: torch.tensor([start0], dtype=torch.int64, device=state.valid.device) for impl in mods}
+    owner = {"feasible": "truncate_feasible", "pos": "truncate_feasible", "processed": "truncate_feasible",
+             "start": "truncate_feasible", "total": score_kernel, "fail_mask": score_kernel,
+             "pick": "select_host", "best": "select_host", "feasible_count": "select_host"}
+    kept = []
+    for i, pf in enumerate(pods):
+        outs = {}
+        for impl, mod in mods.items():
+            feasible, total, fail = filt(mod, i)
+            feasible, pos, processed = mod.truncate_feasible(feasible, state.valid, order, starts[impl],
+                                                             pf["valid"], 0)
+            score(mod, i, feasible, total, fail)
+            sel = mod.select_host(feasible, total, steps[i:i + 1], seed_mul, pf["nominated_row"], pos)
+            outs[impl] = dict(zip(owner, (feasible, pos, processed, starts[impl].clone(), total, fail, *sel)))
+        torch.cuda.synchronize()
+        for what, kernel in owner.items():
+            exact(errs, kernel, f"[truncated step, {label} pod {i}] {what}", outs["kernel"][what],
+                  outs["plain"][what])
+        kept.append(int(outs["plain"]["feasible_count"][0]))
+    return (outs["plain"]["feasible"], outs["plain"]["total"]), kept
+
+
+def check_truncate_kernels(dev, reps: int) -> dict:
+    """Phase 3, truncated mode.  At the path's shape (parity_basic_5kn_10kpods'
+    5000 nodes in 3 zones, N=8192, limit 500) truncate_feasible and
+    select_host in pos mode against their plain versions, exactly, with 0,
+    1, 500, 501, 2500 and 5000 feasible nodes, the start at 0, at 4999 and
+    at 2777, on a real pod and a padding lane, and ties on few distinct
+    totals; then truncated chunk-1 steps (every filter, the cut, the
+    scores over the truncated set, the pick in scan order) at the IPA
+    shape (N=1024, eval_chunk → ipa_eval's filter launch → truncate →
+    ipa_eval's score launch) and the spread_na shape (N=1024,
+    node_filters and spread_filter planes → eval_chunk → truncate →
+    late_scores).  Returns {shape: {kernel: timings, bound, error}}."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch import workloads as w
+    from kubernetes_tpu_torch.cache import Cache
+    from kubernetes_tpu_torch.engine.pass_ import eval_spec, late_spec
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.kernels import plain
+    from kubernetes_tpu_torch.snapshot import SnapshotBuilder
+
+    errs: dict[str, float] = {}
+    builder = SnapshotBuilder(device=dev)
+    cache = Cache(builder)
+    for node in w.basic_nodes(w.PARITY_NODES, zones=w.PARITY_ZONES):
+        cache.add_node(node)
+    state = builder.state()
+    n = state.valid.shape[0]
+    order = scan_order(cache, n, dev)
+    nvalid = int(state.valid.sum())
+    limit = int(plain.num_to_find(torch.tensor(nvalid, dtype=torch.int32), 0))
+    if (n, nvalid, limit) != (8192, 5000, 500):
+        raise AssertionError(f"truncate shape: N={n}, {nvalid} nodes, limit {limit}")
+    rng = np.random.default_rng(97)
+    rows = torch.nonzero(state.valid).flatten().cpu().numpy()
+    seed_mul = ((DEFAULT_PROFILE.tie_break_seed & 0xFFFFFFFF) * 2654435761) & 0xFFFFFFFF
+    real, pad = (torch.tensor([v], device=dev) for v in (True, False))
+    cut = 0
+    for count in (0, 1, limit, limit + 1, nvalid // 2, nvalid):
+        feasible = torch.zeros((1, n), dtype=torch.bool, device=dev)
+        feasible[0, torch.from_numpy(rng.choice(rows, count, replace=False)).to(dev)] = True
+        for start in (0, nvalid - 1, 2777):
+            for pod_valid in ((real, pad) if count == nvalid else (real,)):
+                ks = torch.tensor([start], dtype=torch.int64, device=dev)
+                ps = ks.clone()
+                kf, kpos, kproc = kernels.truncate_feasible(feasible.clone(), state.valid, order, ks, pod_valid, 0)
+                pf_, ppos, pproc = plain.truncate_feasible(feasible.clone(), state.valid, order, ps, pod_valid, 0)
+                torch.cuda.synchronize()
+                what = f"[{count} feasible, start {start}, valid {bool(pod_valid[0])}]"
+                for name, a, b in (("feasible", kf, pf_), ("pos", kpos, ppos), ("processed", kproc, pproc),
+                                   ("start", ks, ps)):
+                    exact(errs, "truncate_feasible", f"{what} {name}", a, b)
+                cut += int(feasible.sum()) - int(pf_.sum())
+                # Few distinct totals: many ties, the k-th in scan order.
+                total = torch.from_numpy(rng.integers(0, 3, (1, n))).to(dev)
+                steps = torch.from_numpy(rng.integers(0, 2**32, size=1, dtype=np.int64)).to(dev)
+                ksel = kernels.select_host(pf_, total, steps, seed_mul, None, ppos)
+                psel = plain.select_host(pf_, total, steps, seed_mul, None, ppos)
+                torch.cuda.synchronize()
+                for name, a, b in zip(("pick", "best", "feasible_count"), ksel, psel):
+                    exact(errs, "select_host", f"[pos mode, {what}] {name}", a, b)
+    print(f"truncate_feasible/select_host (pos mode) [truncate]: exact; limit {limit} of {nvalid} nodes, "
+          f"{cut} feasible (case, node) pairs cut")
+    # Timed on every node feasible, the start mid-list.
+    feasible_all = state.valid[None, :].clone()
+    result = {}
+    result["truncate_feasible"] = timed(
+        lambda a: kernels.truncate_feasible(a[0], state.valid, order, a[1], real, 0),
+        lambda a: plain.truncate_feasible(a[0], state.valid, order, a[1], real, 0), reps,
+        lambda: (feasible_all.clone(), torch.tensor([2777], dtype=torch.int64, device=dev)))
+    tf, tpos, _ = plain.truncate_feasible(feasible_all.clone(), state.valid, order,
+                                          torch.tensor([2777], dtype=torch.int64, device=dev), real, 0)
+    total = torch.from_numpy(rng.integers(0, 3, (1, n))).to(dev)
+    steps = torch.from_numpy(rng.integers(0, 2**32, size=1, dtype=np.int64)).to(dev)
+    result["select_host"] = timed(lambda _: kernels.select_host(tf, total, steps, seed_mul, None, tpos),
+                                  lambda _: plain.select_host(tf, total, steps, seed_mul, None, tpos), reps)
+    rows_mode = timed(lambda _: kernels.select_host(tf, total, steps, seed_mul, None),
+                      lambda _: plain.select_host(tf, total, steps, seed_mul, None), reps)
+    print(f"select_host [truncate]: pos mode {result['select_host']['ms']:.4f} ms, row mode "
+          f"{rows_mode['ms']:.4f} ms on the same inputs")
+    set_bound(result["truncate_feasible"], truncate_bytes(n))
+    set_bound(result["select_host"], select_bytes(1, n) + 4 * n)
+    shapes = {"truncate": result}
+
+    # IPA shape: the filter launch, the cut, the score launch.
+    x = ipa_inputs(4321, dev)
+    istate, ipa, spec = x["state"], x["ipa"], x["spec"]
+    iorder = scan_order(x["cache"], istate.valid.shape[0], dev)
+    ipods = [_chunk(x["pf"], i, 1) for i in range(16)]
+    isteps = torch.from_numpy(x["rng"].integers(0, 2**32, size=16, dtype=np.int64)).to(dev)
+
+    def ipa_filt(mod, i):
+        feasible, total, fail = mod.eval_chunk(istate, ipods[i], spec, None)
+        return mod.ipa_eval(istate, ipods[i], feasible, total, fail, ipa, plain.IPA_FILTER)
+
+    def ipa_score(mod, i, feasible, total, fail):
+        mod.ipa_eval(istate, ipods[i], feasible, total, fail, ipa, plain.IPA_SCORE)
+
+    _last, kept = truncated_steps(errs, "ipa", istate, ipods, iorder, isteps, seed_mul, 1234,
+                                  ipa_filt, ipa_score, "ipa_eval")
+    print(f"truncated steps [ipa]: exact; feasible nodes kept per pod {kept}")
+    pf1 = ipods[-1]
+    base = plain.eval_chunk(istate, pf1, spec, None)
+
+    def two_launches(mod):
+        def run(a):
+            mod.ipa_eval(istate, pf1, *a, ipa, plain.IPA_FILTER)
+            mod.ipa_eval(istate, pf1, *a, ipa, plain.IPA_SCORE)
+        return run
+
+    # Both launches of one step, timed together (the cut between them is
+    # truncate_feasible's time).
+    res_ipa = {"ipa_eval": timed(two_launches(kernels), two_launches(plain), reps,
+                                 lambda: tuple(t.clone() for t in base))}
+    # Beside them, the one launch of both phases that full evaluation makes.
+    one = "ipa_eval (one launch, both phases)"
+    res_ipa[one] = timed(lambda a: kernels.ipa_eval(istate, pf1, *a, ipa),
+                         lambda a: plain.ipa_eval(istate, pf1, *a, ipa), reps,
+                         lambda: tuple(t.clone() for t in base))
+    for entry in res_ipa.values():
+        set_bound(entry, ipa_bytes(istate, x["dom"], pf1))
+    shapes["truncate_ipa"] = res_ipa
+
+    # spread_na shape: the planes, eval_chunk, the cut, late_scores.
+    y = spread_inputs("spread_na", 2468, dev)
+    sstate = y["state"]
+    prof, mpf, active = y["mixed"]["default"]
+    sspec = eval_spec(prof, y["builder"].schema, y["builder"].res_col, active)
+    late = late_spec(prof, y["builder"].schema, y["builder"].res_col, active)
+    bits = plain.node_filters(sstate, mpf, sspec.ctx)
+    sorder = scan_order(y["cache"], sstate.valid.shape[0], dev)
+    spods = [_chunk(mpf, i, 1) for i in range(32)]
+    sbits = [bits[i:i + 1].contiguous() for i in range(32)]
+    ssteps = torch.from_numpy(y["rng"].integers(0, 2**32, size=32, dtype=np.int64)).to(dev)
+
+    def spread_filt(mod, i):
+        ok = mod.spread_filter(sstate, spods[i], sbits[i], sspec.ctx)
+        return mod.eval_chunk(sstate, spods[i], sspec, None, (sbits[i], ok))
+
+    def spread_score(mod, i, feasible, total, fail):
+        mod.late_scores(sstate, spods[i], feasible, total, sbits[i], late)
+
+    (f2, t2), kept = truncated_steps(errs, "spread_na", sstate, spods, sorder, ssteps, seed_mul, 500,
+                                     spread_filt, spread_score, "late_scores")
+    print(f"truncated steps [spread_na]: exact; feasible nodes kept per pod {kept}")
+    pf2, b2 = spods[-1], sbits[-1]
+    res_spread = {"late_scores": timed(lambda a: kernels.late_scores(sstate, pf2, f2, a, b2, late),
+                                       lambda a: plain.late_scores(sstate, pf2, f2, a, b2, late), reps,
+                                       lambda: t2.clone())}
+    set_bound(res_spread["late_scores"], late_bytes(sstate, pf2, late, 1))
+    shapes["truncate_spread"] = res_spread
+    for table in shapes.values():
+        for name, entry in table.items():
+            entry["max_abs_err"] = errs[name.split(" ")[0]]
+    return shapes
 
 
 def spread_bytes(state, pf: dict, prefix: str) -> int:
@@ -3007,15 +3239,16 @@ def run_preempt_async(impl: str, trace: bool = False):
 
 def run_search(impl: str, trace: bool = False):
     """preemption_default_search_5kn (no harness counterpart): 5000 nodes
-    in 10 zones filled by 20000 batch pods, the warm-up preemptor, then 1000
-    service preemptors; default profile, nominate-and-retry, the backoff
-    waited on a virtual clock: preemptors a dry-run left without a node are
+    in 10 zones holding 20000 batch pods, bound four a node as they arrive
+    (search_fill), the warm-up preemptor, then 1000 service preemptors;
+    default profile, nominate-and-retry, the backoff waited on a virtual
+    clock: preemptors a dry-run left without a node are
     parked, woken by a later eviction and retried behind backoff, and on
     the wall clock their retries would land in whichever batch a run's
     speed put them."""
     from kubernetes_tpu_torch import workloads as w
 
-    return run_workload(impl, w.search_nodes(), w.search_background(),
+    return run_workload(impl, w.search_nodes(), w.search_fill(),
                         [w.search_preemptor(f"vip-{i}") for i in range(w.SEARCH_MEASURED_PODS)],
                         w.SEARCH_BATCH, w.SEARCH_CHUNK, trace, stages=([w.search_preemptor("warm-vip")],),
                         virtual=True, sched_kw={"inline_preempt_commit": False})
@@ -3111,10 +3344,53 @@ def run_csi(impl: str, trace: bool = False):
     return _pv_run(impl, trace, w.csi_warm, lambda s: w.csi_measured(s, w.CSI_MEASURED_PODS))
 
 
+def run_parity(impl: str, trace: bool = False):
+    """parity_basic_5kn_10kpods (harness.py:396-405 in truncated mode): the
+    density cluster and pods, batch 1024, chunk 1, the default profile with
+    the adaptive percentage of nodes to score."""
+    from kubernetes_tpu_torch import workloads as w
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+
+    profile = dataclasses.replace(DEFAULT_PROFILE, percentage_of_nodes_to_score=w.PARITY_PCT)
+    return run_workload(impl, w.basic_nodes(w.PARITY_NODES, zones=w.PARITY_ZONES), w.warm_pods(w.PARITY_WARM_PODS),
+                        [w.pod_basic(i) for i in range(w.PARITY_MEASURED_PODS)], w.PARITY_BATCH, w.PARITY_CHUNK,
+                        trace, profile=profile)
+
+
+def check_parity(s, outcomes, expected: int, label: str) -> dict:
+    """parity_basic_5kn_10kpods' gates on top of check_density's: no node
+    ever filled (fewer than 17 pods of 900m on each 16-CPU node at the end,
+    so all 5000 stayed feasible), so every pod's scan kept exactly
+    min(500, 5000) = 500 feasible nodes (the pass's feasible count); the
+    scan start moved; no whole-state upload in the window.  The bindings
+    returned carry the final scan start, so every run must end on the same
+    one."""
+    import torch
+
+    from kubernetes_tpu_torch import workloads as w
+    from kubernetes_tpu_torch.kernels import plain
+
+    bind = check_density(s, outcomes, expected, label)
+    h = s.builder.host
+    limit = int(plain.num_to_find(torch.tensor(w.PARITY_NODES, dtype=torch.int32), 0))
+    fullest = int(h["num_pods"][h["valid"]].max())
+    kept = {o.feasible_nodes for o in outcomes}
+    if fullest >= 17 or kept != {min(limit, w.PARITY_NODES)}:
+        raise AssertionError(f"{label}: feasible counts {sorted(kept)} (want {limit}), fullest node {fullest} pods")
+    if s._next_start == 0:
+        raise AssertionError(f"{label}: the scan start never moved")
+    if s.window["full_uploads"]:
+        raise AssertionError(f"{label}: {s.window['full_uploads']} whole-state uploads in the measured window")
+    print(f"{label}: every pod kept {limit} feasible nodes of its scan, fullest node {fullest} pods, final scan "
+          f"start {s._next_start}")
+    return {**bind, "(final scan start)": s._next_start}
+
+
 def run_dra(impl: str, trace: bool = False):
-    """dra_claims_5kn_5kpods (no harness counterpart): 5000 nodes in 10
-    zones, one in four publishing 8 GPUs; 1024 claim-less fill pods, then
-    5000 pods with their own claims, then 256 preemptors each wanting a
+    """dra_claims_5kn_5kpods (no harness counterpart) at half the depth it
+    was written for: 2500 nodes in 10 zones, one in four publishing 8 GPUs;
+    512 claim-less fill pods, then 2500 pods with their own claims, then
+    128 preemptors each wanting a
     whole GPU node; default profile, the backoff waited on a virtual clock
     (a pod whose same-batch reservation lost, such as the second pod of a
     claim-sharing pair placed away from the claim, retries behind it)."""
@@ -3705,6 +3981,7 @@ def _paths():
     # a retried batch of one pod is uniform (expand_rows).
     dra = base + ("conflict_pairs", "preempt_eval", "preempt_pick", "preempt_commit", "unpack_victims",
                   "scatter_rows", "expand_rows")
+    parity = base + ("truncate_feasible",)
     return {
         "density": (run_density, w.DENSITY_WARM_PODS + w.DENSITY_MEASURED_PODS, base, None,
                     check_density, 1),
@@ -3730,6 +4007,8 @@ def _paths():
                                              images, None, check_images_ports, 1),
         "preemption_default_search_5kn": (run_search, w.SEARCH_MEASURED_PODS + 1, search, None, check_search, 1),
         "dra_claims_5kn_5kpods": (run_dra, w.DRA_MEASURED_PODS + w.DRA_PREEMPTORS, dra, None, check_dra, 1),
+        "parity_basic_5kn_10kpods": (run_parity, w.PARITY_WARM_PODS + w.PARITY_MEASURED_PODS, parity, None,
+                                     check_parity, 1),
     }
 
 
@@ -3880,7 +4159,8 @@ def main() -> int:
               "ports_images": check_ports_images_kernels(dev, REPS),
               **{shape: check_search_kernels(dev, shape, REPS)
                  for shape in ("search", "search_pv", "search_dra", "search_dra_path")},
-              **{shape: check_dra_kernels(dev, REPS, shape) for shape in ("dra", "dra_path")}}
+              **{shape: check_dra_kernels(dev, REPS, shape) for shape in ("dra", "dra_path")},
+              **check_truncate_kernels(dev, REPS)}
     for shape, table in shapes.items():
         for name, tm in table.items():
             lib = "" if tm.get("library_ms") is None else f", library {tm['library_ms']:.4f}"
@@ -3921,6 +4201,7 @@ def main() -> int:
         "vol_filter": "kubernetes_tpu/ops/volumes.py:217",
         "image_counts": "kubernetes_tpu/ops/imagelocality.py:63",
         "image_scores": "kubernetes_tpu/ops/imagelocality.py:53",
+        "truncate_feasible": "kubernetes_tpu/engine/pass_.py:510",
     }
     # The top-level numbers of a kernel come from the shapes of the path it
     # was first ported for (density: eval_chunk, select_host,
@@ -3936,7 +4217,8 @@ def main() -> int:
                  **dict.fromkeys(("preempt_eval", "preempt_pick", "preempt_commit", "unpack_victims",
                                   "scatter_rows", "expand_rows"), "preemption_async_5kn"),
                  pinned_fit="daemonset", vol_filter="pv", image_counts="ports_images",
-                 image_scores="ports_images", dom_release="search", search_step="search")
+                 image_scores="ports_images", dom_release="search", search_step="search",
+                 truncate_feasible="truncate")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [], "data_moves_by_path": moves}
     for name in kernels.WRAPPERS:

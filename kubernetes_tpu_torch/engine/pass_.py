@@ -12,6 +12,9 @@ and does no host sync inside the loop:
   eval_chunk      filters + weighted score of the chunk against all N nodes
   ipa_eval        InterPodAffinity's filter and normalized score on top of
                   eval_chunk's result (only when the op is active)
+  truncate_feasible  truncated mode only: the feasible set cut to the first
+                  numFeasibleNodesToFind nodes in rotated scan order, the
+                  scan start advanced on the device
   late_scores     the NodeAffinity, TaintToleration and PodTopologySpread
                   scores, which normalize over the final feasible set
   select_host     one pick per pod (hashed tie-break, nominated fast path)
@@ -43,8 +46,16 @@ bound on the ops' ``PassContext.dom`` and updated in place by the commit.
 The cluster state is also updated IN PLACE: the returned state is the
 same tensors as the input.
 
-Truncated (parity) mode, percentage_of_nodes_to_score != 100, is a later
-slice and raises NotImplementedError.
+Truncated (parity) mode, percentage_of_nodes_to_score != 100 (pass_.py:
+408-432, 510-532, 564-569), runs chunk 1 only: each step is one reference
+scheduling cycle that scans the zone-interleaved node order
+(``inv["order_pos"]``) from a start carried on the device from step to
+step (``inv["scan_start"]``) and keeps the first numFeasibleNodesToFind
+feasible nodes.  The step order is eval_chunk → ipa_eval's filter →
+truncate_feasible → ipa_eval's score → late_scores → select_host in pos
+mode (ties in scan order): the scores normalize over the truncated set,
+as the JAX pass scores after its cut.  ``PassResult.processed`` holds each
+real pod's processedNodes; the caller advances its start by their sum.
 """
 
 from __future__ import annotations
@@ -67,7 +78,9 @@ class PassResult(NamedTuple):
     picks: torch.Tensor  # (K,) i32 — chosen node row, -1 unschedulable, -2 deferred
     scores: torch.Tensor  # (K,) i64 — winning node's total score
     feasible_counts: torch.Tensor  # (K,) i32 — nodes passing all filters
-    processed: torch.Tensor  # (K,) i32 — truncated mode only; zeros here
+    # (K,) i32 — truncated mode: the nodes each pod's scan examined
+    # (processedNodes), 0 on padding lanes; zeros in full evaluation
+    processed: torch.Tensor
     # (K,) i32 bits — bit b set ⟺ filter op b rejected ≥1 node that passed
     # every earlier filter.  Bit order = filter_op_names(profile, active).
     fail_masks: torch.Tensor
@@ -137,13 +150,13 @@ _KERNEL_FNS = (
     kernels.build_dom, kernels.eval_chunk, kernels.ipa_eval, kernels.select_host,
     kernels.resolve_commit, kernels.conflict_pairs, kernels.node_filters,
     kernels.spread_filter, kernels.late_scores, kernels.vol_filter, kernels.image_counts,
-    kernels.image_scores,
+    kernels.image_scores, kernels.truncate_feasible,
 )
 _PLAIN_FNS = (
     plain.build_dom, plain.eval_chunk, plain.ipa_eval, plain.select_host,
     plain.resolve_commit, plain.conflict_pairs, plain.node_filters,
     plain.spread_filter, plain.late_scores, plain.vol_filter, plain.image_counts,
-    plain.image_scores,
+    plain.image_scores, plain.truncate_feasible,
 )
 # Scorers that normalize over the final feasible set, added by late_scores.
 _LATE = (NA, TT, PTS)
@@ -251,6 +264,11 @@ def build_pass(
     (optional scalar): every pod is featurization-identical, which enables
     the all-fail shortcut.
 
+    In truncated mode (percentage_of_nodes_to_score != 100, chunk 1 only)
+    ``inv`` also holds ``order_pos`` ((N,) i32, cache.order_pos) and
+    ``scan_start``, a (1,) i64 tensor on the state's device that the pass
+    advances in place.
+
     ``carry_dom=True`` changes the signature to
     run(state, batch, inv, seed_base, dom_group, dom_et, dom_valid)
     → (state, PassResult, (group_dom, et_dom)): when ``dom_valid`` the
@@ -259,8 +277,10 @@ def build_pass(
 
     ``_impl="plain"`` runs the plain versions of the kernels; it exists
     only to compare the kernels with them."""
-    if profile.percentage_of_nodes_to_score != 100:
-        raise NotImplementedError("truncated (parity) mode is not yet ported")
+    truncated = profile.percentage_of_nodes_to_score != 100
+    if truncated and chunk != 1:
+        raise ValueError("truncated (parity) mode requires chunk_size=1")
+    pct = profile.percentage_of_nodes_to_score or 0
     if _impl not in ("kernel", "plain"):
         raise ValueError(f"_impl must be 'kernel' or 'plain', not {_impl!r}")
     spec = eval_spec(profile, schema, builder_res_col, active)
@@ -269,7 +289,7 @@ def build_pass(
     _ctx, filters, scorers = _pass_ops(profile, schema, builder_res_col, active)
     effective = frozenset(filters) | frozenset(n for n, _ in scorers)
     (dom_fn, eval_fn, ipa_fn, select_fn, commit_fn, pairs_fn, nodes_fn, spread_fn,
-     late_fn, vol_fn, counts_fn, il_fn) = _PLAIN_FNS if _impl == "plain" else _KERNEL_FNS
+     late_fn, vol_fn, counts_fn, il_fn, trunc_fn) = _PLAIN_FNS if _impl == "plain" else _KERNEL_FNS
     do_il = IL in dict(spec.scorers)
     # node_filters runs when eval_chunk reads its bits (NodeAffinity,
     # TaintToleration, VolumeBinding or VolumeZone filters) or spread's
@@ -281,21 +301,34 @@ def build_pass(
     c = chunk
     fuse_tail = chunk > 1 and effective <= PINNED_SAFE_OPS
     seed_mul = ((profile.tie_break_seed & 0xFFFFFFFF) * 2654435761) & 0xFFFFFFFF
+    ipa_filters = ipa0 is not None and IPA in ipa0.filters
 
-    def step(state, dom, ipa, pf, steps, pairs, nom, node_bits, il) -> PassResult:
+    def step(state, dom, ipa, pf, steps, pairs, nom, node_bits, il, scan) -> PassResult:
         spread_ok = spread_fn(state, pf, node_bits, spec.ctx) if spread_filters else None
         vol_bits = vol_fn(state, pf, spec.ctx, do_vr, do_nvl) if do_vr or do_nvl else None
         feasible, total, fails = eval_fn(state, pf, spec, nom, (node_bits, spread_ok, vol_bits, il))
-        if ipa is not None:
-            ipa_fn(state, pf, feasible, total, fails, ipa)
+        pos = None
+        if scan is None:
+            processed = torch.zeros_like(fails)
+            if ipa is not None:
+                ipa_fn(state, pf, feasible, total, fails, ipa)
+        else:
+            # Truncated mode: every filter, the cut, then the scores over
+            # the truncated set (pass_.py:494-540).
+            if ipa_filters:
+                ipa_fn(state, pf, feasible, total, fails, ipa, plain.IPA_FILTER)
+            order_pos, start = scan
+            feasible, pos, processed = trunc_fn(feasible, state.valid, order_pos, start, pf["valid"], pct)
+            if ipa is not None and ipa.weight:
+                ipa_fn(state, pf, feasible, total, fails, ipa, plain.IPA_SCORE)
         if late is not None:
             late_fn(state, pf, feasible, total, node_bits, late)
-        picks, bests, feas = select_fn(feasible, total, steps, seed_mul, pf.get("nominated_row"))
+        picks, bests, feas = select_fn(feasible, total, steps, seed_mul, pf.get("nominated_row"), pos)
         # No spread branch in the commit: spread reads group_counts, which
         # the base commit maintains (pass_.py:166-192).  The device, CSI and
         # host-port branches commit when the chunk carries their features.
         out = commit_fn(state, dom, pf, picks, pairs, c == 1)
-        return PassResult(out, bests, feas, torch.zeros_like(feas), fails)
+        return PassResult(out, bests, feas, processed, fails)
 
     def _run(state, batch, inv, seed_base, dom_group=None, dom_et=None, dom_valid=None):
         dev = state.valid.device
@@ -335,6 +368,9 @@ def build_pass(
         # ImageLocality reads only images and node validity: one plane of
         # the whole batch serves every chunk.
         il = il_fn(state, tb, counts_fn(state, int(inv["image_vocab"]))) if do_il else None
+        # Truncated mode's scan order and its start, carried on the device
+        # from step to step (pass_.py:564-569, 626-628).
+        scan = (_to_device(inv["order_pos"], dev), inv["scan_start"]) if truncated else None
 
         def chunk_of(i: int, src: dict) -> dict:
             return {key: v[i * c : (i + 1) * c] for key, v in src.items()}
@@ -345,7 +381,7 @@ def build_pass(
         def run_chunks(src: dict, idx) -> list[PassResult]:
             return [
                 step(state, dom, ipa, chunk_of(i, src), steps[i * c : (i + 1) * c], pairs[i], nom,
-                     rows_of(node_bits, i), rows_of(il, i))
+                     rows_of(node_bits, i), rows_of(il, i), scan)
                 for i in idx
             ]
 
@@ -361,7 +397,7 @@ def build_pass(
             ext0 = (None if node_bits is None else node_bits[:1], None, None,
                     None if il is None else il[:1])
             feas0_mask, total0, fail0 = eval_fn(state, pf0, spec, nom, ext0)
-            _p0, _b0, feas0 = select_fn(feas0_mask, total0, steps[:1], seed_mul, pf0.get("nominated_row"))
+            _p0, _b0, feas0 = select_fn(feas0_mask, total0, steps[:1], seed_mul, pf0.get("nominated_row"), None)
             if int(feas0[0]) == 0 and bool(tb["valid"][0]):
                 valid = tb["valid"]
                 out = PassResult(
@@ -438,7 +474,7 @@ def build_pinned_pass(
     if not effective <= PINNED_SAFE_OPS:
         raise ValueError(f"pinned pass: {sorted(effective - PINNED_SAFE_OPS)} read more than the own row")
     (_dom_fn, eval_fn, _ipa_fn, _select_fn, commit_fn, _pairs_fn, nodes_fn, _spread_fn,
-     late_fn, _vol_fn, _counts_fn, il_fn) = _PLAIN_FNS if _impl == "plain" else _KERNEL_FNS
+     late_fn, _vol_fn, _counts_fn, il_fn, _trunc_fn) = _PLAIN_FNS if _impl == "plain" else _KERNEL_FNS
     fit_fn = plain.pinned_fit if _impl == "plain" else kernels.pinned_fit
     do_il = IL in dict(spec.scorers)
     need_nodes = bool(set(NODE_FILTER_OPS) & set(spec.filters)) or late is not None

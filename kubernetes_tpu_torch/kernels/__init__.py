@@ -2,8 +2,12 @@
 
   build_dom       csrc/build_dom.cu       per-domain tables, once per pass
   eval_chunk      csrc/eval_chunk.cu      filters + weighted score, (C, N)
-  ipa_eval        csrc/ipa_eval.cu        InterPodAffinity filter + score on top
-  select_host     csrc/select_host.cu     argmax with hashed tie-break
+  ipa_eval        csrc/ipa_eval.cu        InterPodAffinity filter + score on top (truncated mode:
+                                          a filter launch, then a score launch after the cut)
+  select_host     csrc/select_host.cu     argmax with hashed tie-break (truncated mode: ties in
+                                          rotated scan order)
+  truncate_feasible csrc/truncate.cu      truncated mode's cut of the feasible set to the first
+                                          numFeasibleNodesToFind in rotated scan order, per step
   resolve_commit  csrc/resolve_commit.cu  chunk deferral, cumulative fit, commit
   conflict_pairs  csrc/conflict_pairs.cu  chunk-mate conflict table, per batch
   node_filters    csrc/node_filters.cu    NodeAffinity, TaintToleration, VolumeBinding and VolumeZone
@@ -386,14 +390,16 @@ def _dra_args(state, pf: dict, c: int, dev) -> tuple[list, tuple]:
     return args, (sk, pin, dc)
 
 
-def ipa_eval(state, pf: dict, feasible, total, fail, ipa: IpaSpec):
+def ipa_eval(state, pf: dict, feasible, total, fail, ipa: IpaSpec, phase: int = plain.IPA_BOTH):
     """InterPodAffinity's filter and score on top of eval_chunk's
     (feasible (C, N) bool, total (C, N) i64, fail_mask (C,) i32), IN PLACE;
     returns the three tensors.  The domain tables come from
-    ``ipa.ctx.dom``."""
+    ``ipa.ctx.dom``.  ``phase`` IPA_FILTER launches the filter alone (a
+    score weight of 0), IPA_SCORE the score alone (no fail bit)."""
     if _on_cpu(feasible):
-        return plain.ipa_eval(state, pf, feasible, total, fail, ipa)
-    bit = plain.ipa_bit(ipa)
+        return plain.ipa_eval(state, pf, feasible, total, fail, ipa, phase)
+    bit = plain.ipa_bit(ipa) if phase & plain.IPA_FILTER else -1
+    weight = ipa.weight if phase & plain.IPA_SCORE else 0
     dom = ipa.ctx.dom
     dev = feasible.device
     c, n = feasible.shape
@@ -431,7 +437,7 @@ def ipa_eval(state, pf: dict, feasible, total, fail, ipa: IpaSpec):
     elist = torch.empty((c, 2, et), dtype=i32, device=dev)
     raw = torch.empty((c, n), dtype=i64, device=dev)
     build.launch(
-        "ipa_eval", c, n, tk, dv, g, et, ra, rs, npf, bit, int(ipa.weight),
+        "ipa_eval", c, n, tk, dv, g, et, ra, rs, npf, bit, int(weight),
         *[_ptr(a) for a in node_args], *[_ptr(a) for a in pod_args],
         _ptr(feasible), _ptr(total), _ptr(fail), _ptr(glist), _ptr(elist), _ptr(raw),
         smem, _stream(dev),
@@ -487,10 +493,12 @@ def conflict_pairs(pf: dict, nchunks: int, c: int):
     return pairs
 
 
-def select_host(feasible, total, steps, seed_mul: int, nominated_row):
-    """(pick (C,) i32, best (C,) i64, feasible count (C,) i32) per pod."""
+def select_host(feasible, total, steps, seed_mul: int, nominated_row, pos=None):
+    """(pick (C,) i32, best (C,) i64, feasible count (C,) i32) per pod;
+    with ``pos`` ((N,) i32, truncate_feasible's) ties count in rotated
+    scan order."""
     if _on_cpu(feasible):
-        return plain.select_host(feasible, total, steps, seed_mul, nominated_row)
+        return plain.select_host(feasible, total, steps, seed_mul, nominated_row, pos)
     dev = feasible.device
     c, n = feasible.shape
     _check("feasible", feasible, torch.bool, (c, n), dev)
@@ -498,16 +506,45 @@ def select_host(feasible, total, steps, seed_mul: int, nominated_row):
     _check("steps", steps, torch.int64, (c,), dev)
     if nominated_row is not None:
         _check("nominated_row", nominated_row, torch.int32, (c,), dev)
+    if pos is not None:
+        _check("pos", pos, torch.int32, (n,), dev)
     pick = torch.empty(c, dtype=torch.int32, device=dev)
     best = torch.empty(c, dtype=torch.int64, device=dev)
     feas = torch.empty(c, dtype=torch.int32, device=dev)
     build.launch(
         "select_host",
         _ptr(feasible), _ptr(total), _ptr(steps), seed_mul & 0xFFFFFFFF,
-        _ptr(nominated_row), c, n, _ptr(pick), _ptr(best), _ptr(feas), _stream(dev),
+        _ptr(nominated_row), c, n, _ptr(pos), _ptr(pick), _ptr(best), _ptr(feas), _stream(dev),
     )
     select_host.launches += 1
     return pick, best, feas
+
+
+def truncate_feasible(feasible, valid, order_pos, start, pod_valid, pct: int):
+    """Truncated mode's cut (plain.truncate_feasible): ``feasible`` (1, N)
+    cut IN PLACE to the first numFeasibleNodesToFind feasible rows in
+    rotated scan order, ``start`` (1,) i64 advanced IN PLACE; returns
+    (feasible, pos (N,) i32, processed (1,) i32).  One pod a launch
+    (truncated mode runs chunk 1); no host sync."""
+    if _on_cpu(feasible):
+        return plain.truncate_feasible(feasible, valid, order_pos, start, pod_valid, pct)
+    dev = feasible.device
+    c, n = feasible.shape
+    if c != 1:
+        raise ValueError(f"truncate_feasible: one pod a launch (truncated mode runs chunk 1), not {c}")
+    _check("feasible", feasible, torch.bool, (1, n), dev)
+    _check("valid", valid, torch.bool, (n,), dev)
+    _check("order_pos", order_pos, torch.int32, (n,), dev)
+    _check("start", start, torch.int64, (1,), dev)
+    _check("pod_valid", pod_valid, torch.bool, (1,), dev)
+    pos = torch.empty(n, dtype=torch.int32, device=dev)
+    processed = torch.empty(1, dtype=torch.int32, device=dev)
+    build.launch(
+        "truncate_feasible", _ptr(feasible), _ptr(valid), _ptr(order_pos), _ptr(start), _ptr(pod_valid),
+        n, int(pct), _ptr(pos), _ptr(processed), _stream(dev),
+    )
+    truncate_feasible.launches += 1
+    return feasible, pos, processed
 
 
 def resolve_commit(state, dom, pf: dict, picks, pairs, strict: bool):
@@ -1393,6 +1430,7 @@ WRAPPERS = {
     "scatter_rows": scatter_rows,
     "expand_rows": expand_rows,
     "pinned_fit": pinned_fit,
+    "truncate_feasible": truncate_feasible,
 }
 for _fn in WRAPPERS.values():
     _fn.launches = 0

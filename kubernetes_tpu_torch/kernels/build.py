@@ -6,8 +6,9 @@ flags, under ``kernels/_build/`` (listed in .gitignore), then loaded with
 ctypes.  Builds of several sources run as parallel ``nvcc`` processes.
 A library exports one ``<entry>_launch`` per entry point (``spread_eval``,
 ``preempt``, ``preempt_search``, ``rows`` and ``image_locality`` have several;
-``volume_filters`` holds ``vol_filter``) and one ``<name>_error_string``.  There is no fallback: a missing
-compiler, a failed build or a failed load raises.
+``volume_filters`` holds ``vol_filter``, ``truncate`` holds
+``truncate_feasible``) and one ``<name>_error_string``.  There is no
+fallback: a missing compiler, a failed build or a failed load raises.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from pathlib import Path
 KERNELS = (
     "build_dom", "eval_chunk", "ipa_eval", "select_host", "resolve_commit", "conflict_pairs",
     "node_filters", "spread_eval", "preempt", "preempt_search", "victims", "rows", "pinned",
-    "volume_filters", "image_locality",
+    "volume_filters", "image_locality", "truncate",
 )
 # Entry point → the library (source) that holds it.
 _MULTI = {
@@ -35,6 +36,7 @@ _MULTI = {
     "pinned": ("pinned_fit",),
     "volume_filters": ("vol_filter",),
     "image_locality": ("image_counts", "image_scores"),
+    "truncate": ("truncate_feasible",),
 }
 ENTRIES = {name: name for name in KERNELS if name not in _MULTI}
 ENTRIES.update({entry: src for src, entries in _MULTI.items() for entry in entries})
@@ -56,7 +58,8 @@ _SIGNATURES: dict[str, list] = {
     "eval_chunk": [_P] * 37 + [_I] * 3 + [_P, _I, _I, _P, _I, _I, _L, _I, _L, _L, _L, _I, _L, _I, _I, _I, _I, _P, _P,
                                          _P, _P],
     "ipa_eval": [_I] * 10 + [_L] + [_P] * 30 + [_I, _P],
-    "select_host": [_P, _P, _P, _U, _P, _I, _I, _P, _P, _P, _P],
+    "select_host": [_P, _P, _P, _U, _P, _I, _I, _P, _P, _P, _P, _P],
+    "truncate_feasible": [_P] * 5 + [_I, _I] + [_P] * 3,
     "resolve_commit": [_P, _P, _P, _I] + [_P] * 34 + [_I] * 12 + [_P, _P],
     "conflict_pairs": [_P] * 13 + [_I] * 11 + [_P, _P],
     "node_filters": [_P] * 36 + [_I] * 23 + [_P],

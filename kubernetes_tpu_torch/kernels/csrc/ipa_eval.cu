@@ -30,6 +30,14 @@
 //   feasible set, and the last walk zeroes `total` on infeasible nodes and
 //   adds weight x the normalised score (int64 floor division) to the rest.
 //
+// Phases: ``bit`` < 0 skips the filter and ``weight`` 0 the score, so one
+// launch runs either phase or both (the default, one launch a chunk).
+// Truncated mode (engine/pass_.py) launches the filter alone (weight 0),
+// cuts the feasible set with truncate_feasible, then launches the score
+// alone (bit -1), which normalises over the truncated set as the JAX pass
+// scores after its cut (pass_.py:494-540).  Phase A builds only the tables
+// of the phase it runs.
+//
 // Numerics: the JAX op sums counts and weights in f32 at full precision.
 // Every value is an integer count times a weight of at most 100, exact
 // below 2^24, so this kernel's int32/int64 sums are bit-identical to it.

@@ -14,11 +14,20 @@
 // the warp counts, so the (kth+1)-th tie is found without sorting; the
 // walk stops at the tile that holds it.
 //
+// Pos mode (truncated mode, pass_.py:154-159): with ``pos``, each row's
+// place in the rotated scan order (truncate.cu), the (kth+1)-th tie is
+// counted in that order instead, as the reference's feasible list is
+// built in scan order.  JAX sorts the ties' positions; here pass 2 sets
+// the ties' positions in a bitmap in dynamic shared memory (one bit a
+// position, distinct over the node rows: scan_order.cuh), takes the set
+// bit of rank kth (bitmap_select2) and a last walk finds the row holding
+// that position.
+//
 // Bound: bytes.  It reads the chunk's feasible mask and totals once
 // (C*N*9 bytes, ~4.7 MB at C=64, N=8192) and writes 16 bytes per pod.
 #include <stdint.h>
 
-#include "common.cuh"
+#include "scan_order.cuh"
 
 namespace {
 
@@ -38,8 +47,10 @@ __global__ void select_host_kernel(const unsigned char* __restrict__ feasible,
                                    const long long* __restrict__ steps,
                                    unsigned int seed_mul,
                                    const int* __restrict__ nominated_row, int N,
+                                   const int* __restrict__ pos,
                                    int* pick_out, long long* best_out,
                                    int* feas_out) {
+  extern __shared__ unsigned int bits[];  // pos mode: the ties' positions
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -112,8 +123,29 @@ __global__ void select_host_kernel(const unsigned char* __restrict__ feasible,
   const long long best = s_best;
   const int kth = s_kth;
 
+  // Pass 2 in pos mode: the (kth+1)-th tie in rotated scan order.
+  if (s_m > 0 && pos != nullptr) {
+    __shared__ int scratch[33];
+    __shared__ int sel[2];
+    const int words = (N + 31) >> 5;
+    for (int w = tid; w < words; w += kThreads) bits[w] = 0u;
+    __syncthreads();
+    for (int n = tid; n < N; n += kThreads) {
+      if (fe[n] && to[n] == best) {
+        const int p = pos[n];
+        atomicOr(bits + (p >> 5), 1u << (p & 31));
+      }
+    }
+    __syncthreads();
+    bitmap_select2(bits, words, kth, -1, scratch, sel);
+    const int thr = sel[0];
+    for (int n = tid; n < N; n += kThreads) {
+      if (fe[n] && to[n] == best && pos[n] == thr) s_pick = n;
+    }
+    __syncthreads();
+  }
   // Pass 2: the (kth+1)-th tie in row order.
-  if (s_m > 0) {
+  if (s_m > 0 && pos == nullptr) {
     int running = 0;  // ties in the tiles before this one (block-uniform)
     for (int base = 0; base < N; base += kThreads) {
       const int n = base + tid;
@@ -154,13 +186,20 @@ __global__ void select_host_kernel(const unsigned char* __restrict__ feasible,
 extern "C" int select_host_launch(const void* feasible, const void* total,
                                   const void* steps, unsigned int seed_mul,
                                   const void* nominated_row, int C, int N,
-                                  void* pick, void* best, void* feas,
-                                  void* stream) {
-  select_host_kernel<<<C, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+                                  const void* pos, void* pick, void* best,
+                                  void* feas, void* stream) {
+  const int smem = pos != nullptr ? ((N + 31) >> 5) * 4 : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        select_host_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  select_host_kernel<<<C, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned char*>(feasible),
       static_cast<const long long*>(total),
       static_cast<const long long*>(steps), seed_mul,
-      static_cast<const int*>(nominated_row), N, static_cast<int*>(pick),
+      static_cast<const int*>(nominated_row), N, static_cast<const int*>(pos),
+      static_cast<int*>(pick),
       static_cast<long long*>(best), static_cast<int*>(feas));
   return (int)cudaGetLastError();
 }

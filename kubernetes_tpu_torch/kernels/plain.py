@@ -12,6 +12,7 @@ import dataclasses
 
 import torch
 
+from ..cache import NO_POS
 from ..ops import common as opcommon
 from ..ops import dynamicresources as dra_op
 from ..ops import interpodaffinity as ipa_op
@@ -165,21 +166,29 @@ def ipa_bit(ipa) -> int:
     return bit
 
 
-def ipa_eval(state, pf: dict, feasible, total, fail, ipa):
+# ipa_eval's phases: the filter, the score, or both in one launch.  Truncated
+# mode runs the filter, truncates the feasible set, then runs the score over
+# what is left (pass_.py:494-540).
+IPA_FILTER, IPA_SCORE, IPA_BOTH = 1, 2, 3
+
+
+def ipa_eval(state, pf: dict, feasible, total, fail, ipa, phase: int = IPA_BOTH):
     """InterPodAffinity on top of eval_chunk's (feasible, total, fail_mask),
     IN PLACE: the filter (ops/interpodaffinity.py filter_fn) sets the op's
     fail bit for nodes that passed every earlier filter and clears them
     from ``feasible``; the score adds weight × the normalized score on the
-    final feasible set; ``total`` is 0 on every infeasible node.  The
+    final feasible set; ``total`` is 0 on every infeasible node.  ``phase``
+    (IPA_FILTER, IPA_SCORE or IPA_BOTH) picks which of the two run.  The
     domain tables come from ``ipa.ctx.dom``.  Returns the three tensors."""
-    bit = ipa_bit(ipa)
+    bit = ipa_bit(ipa) if phase & IPA_FILTER else -1
+    weight = ipa.weight if phase & IPA_SCORE else 0
     if bit >= 0:
         ok = ipa_op.filter_fn(state, pf, ipa.ctx)
         newly = (feasible & ~ok).any(dim=1)
         fail |= torch.where(newly, 1 << bit, 0).to(torch.int32)
         feasible &= ok
-    if ipa.weight:
-        total += ipa_op.score_fn(state, pf, ipa.ctx, feasible) * ipa.weight
+    if weight:
+        total += ipa_op.score_fn(state, pf, ipa.ctx, feasible) * weight
     total.masked_fill_(~feasible, 0)
     return feasible, total, fail
 
@@ -322,19 +331,28 @@ def hash_u32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def select_host(feasible, total, steps, seed_mul: int, nominated_row):
+def select_host(feasible, total, steps, seed_mul: int, nominated_row, pos=None):
     """(pick (C,) i32, best (C,) i64, feasible count (C,) i32): argmax with
     the hashed uniform tie-break in row order (pass_.py:136-163) and the
     nominated-node fast path (:548-553).  ``steps`` (C,) i64 holds each
-    pod's uint32 step; ``seed_mul`` is tie_break_seed·2654435761 mod 2^32."""
+    pod's uint32 step; ``seed_mul`` is tie_break_seed·2654435761 mod 2^32.
+    With ``pos`` ((N,) i32, truncated mode: each row's place in the
+    rotated scan order, truncate_feasible's) the ties count in that order
+    instead of row order (:154-159)."""
     masked = torch.where(feasible, total, NEG_SCORE)
     best = masked.max(dim=1).values
     ties = feasible & (masked == best[:, None])
     m = ties.sum(dim=1)
     tie_rand = hash_u32(seed_mul + steps)
     kth = tie_rand % torch.clamp(m, min=1)
-    order = torch.cumsum(ties.to(torch.int64), dim=1) - 1
-    pick = torch.argmax((ties & (order == kth[:, None])).to(torch.int32), dim=1)
+    if pos is None:
+        order = torch.cumsum(ties.to(torch.int64), dim=1) - 1
+        pick = torch.argmax((ties & (order == kth[:, None])).to(torch.int32), dim=1)
+    else:
+        tpos = torch.where(ties, pos[None, :], NO_POS)
+        idx = torch.clamp(kth, 0, tpos.shape[1] - 1)[:, None]
+        thr = torch.sort(tpos, dim=1).values.gather(1, idx)
+        pick = torch.argmax((ties & (tpos == thr)).to(torch.int32), dim=1)
     pick = torch.where(m > 0, pick, -1).to(torch.int32)
     if nominated_row is not None:
         safe = torch.clamp(nominated_row, min=0).to(torch.int64)
@@ -342,6 +360,52 @@ def select_host(feasible, total, steps, seed_mul: int, nominated_row):
         pick = torch.where(use, nominated_row, pick).to(torch.int32)
         best = torch.where(use, total.gather(1, safe[:, None])[:, 0], best)
     return pick, best, feasible.sum(dim=1).to(torch.int32)
+
+
+def num_to_find(nvalid: torch.Tensor, pct: int) -> torch.Tensor:
+    """numFeasibleNodesToFind (schedule_one.go:676-702, pass_.py:423-431)
+    of an i32 node count: ``pct`` when non-zero, else the adaptive 50 −
+    nodes/125 percent floored at 5; at least 100 nodes; every node below
+    100."""
+    if pct:
+        percentage = torch.full_like(nvalid, pct)
+    else:
+        percentage = torch.clamp(50 - nvalid // 125, min=5)
+    num = torch.clamp(nvalid * percentage // 100, min=100)
+    return torch.where(nvalid < 100, nvalid, num)
+
+
+def truncate_feasible(feasible, valid, order_pos, start, pod_valid, pct: int):
+    """Truncated (parity) mode's search cut (pass_.py:510-532, 564-569):
+    each pod keeps only its first numFeasibleNodesToFind feasible nodes in
+    rotated zone-interleaved order.  ``feasible`` (C, N) bool is cut IN
+    PLACE; ``valid`` (N,) bool are the node rows, ``order_pos`` (N,) i32
+    each row's place in the cache's node order, ``start`` (1,) i64 the
+    scan start, advanced IN PLACE by the valid pods' processed counts
+    modulo the node count; ``pod_valid`` (C,) bool; ``pct`` the profile's
+    percentage (0: adaptive).  Returns (feasible, pos (N,) i32: each row's
+    place in the rotated order (NO_POS off the node rows), processed (C,)
+    i32: the nodes each pod's scan examined, 0 on padding lanes).  The
+    cutoff is the limit-th smallest feasible pos, found by a sort as the
+    JAX pass does; the start is i64 here (torch has no uint32 arithmetic
+    on the CPU) and every value stays below the node count."""
+    nvalid = valid.sum().to(torch.int32)
+    nv = torch.clamp(nvalid, min=1)
+    limit = num_to_find(nvalid, pct)
+    pos = torch.where(valid, (order_pos.to(torch.int64) - start) % nv, NO_POS).to(torch.int32)
+    n = pos.shape[0]
+    c = feasible.shape[0]
+    total_feas = feasible.sum(dim=1)
+    fpos = torch.sort(torch.where(feasible, pos[None, :], NO_POS), dim=1).values
+    over = total_feas > limit
+    at = lambda rank: torch.clamp(rank, 0, n - 1).to(torch.int64).reshape(1, 1).repeat(c, 1)  # noqa: E731
+    cutoff = fpos.gather(1, at(limit - 1))
+    processed = fpos.gather(1, at(limit))[:, 0]
+    feasible &= ~over[:, None] | (pos[None, :] <= cutoff)
+    processed = torch.where(over, processed, nvalid)
+    processed = torch.where(pod_valid, processed, 0).to(torch.int32)
+    start.copy_((start + processed.sum()) % nv)
+    return feasible, pos, processed
 
 
 def resolve_commit(state, dom, pf: dict, picks, pairs, strict: bool):

@@ -25,9 +25,13 @@ binds delayed claims); a pod whose reservation lost a same-batch race has
 its earlier reservations rolled back, is forgotten and is sent to backoff
 (scheduler.py:3960-4150).  The PV, PVC, StorageClass and CSINode informers
 feed the volume catalog, the ResourceClaim and ResourceSlice informers the
-claim catalog (scheduler.py:1737-1910).  Gangs, extenders, journaling, the
-PreBind wait room and the pipelined predispatch are later slices; a pod
-that would need one raises NotImplementedError.
+claim catalog (scheduler.py:1737-1910).  A profile with
+percentage_of_nodes_to_score != 100 runs truncated (parity) mode at chunk
+1 (scheduler.py:375-385): every pass scans the cache's zone-interleaved
+node order from a rotating start, which the host advances by each batch's
+processedNodes (:3788-3792), and the pinned-batch pass stays off.  Gangs,
+extenders, journaling, the PreBind wait room and the pipelined predispatch
+are later slices; a pod that would need one raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -107,8 +111,11 @@ class TorchScheduler:
         ]
         if unknown:
             raise NotImplementedError(f"plugins {unknown} are not yet ported")
-        if profile.percentage_of_nodes_to_score != 100:
-            raise NotImplementedError("truncated (parity) mode is not yet ported")
+        # Truncated (parity) mode: the reference's search truncation, rotating
+        # start and zone-interleaved order need the sequential scan.
+        self._truncated = profile.percentage_of_nodes_to_score != 100
+        if self._truncated and chunk_size != 1:
+            raise ValueError("percentage_of_nodes_to_score != 100 (parity mode) requires chunk_size=1")
         if batch_size % chunk_size:
             raise ValueError("batch_size must be a multiple of chunk_size")
         self.profile = profile
@@ -133,6 +140,11 @@ class TorchScheduler:
         self._dom_token: tuple | None = None
         # Tie-break cycle counter: the batch's seed base (scheduler.py:374).
         self._cycle = 0
+        # Rotating scan start of truncated mode (schedule_one.go
+        # nextStartNodeIndex, scheduler.py:498), and the cache's node order
+        # on the device with the (generation, N) it was built under.
+        self._next_start = 0
+        self._order_dev: tuple | None = None
         # The next batch, popped and featurized before the current one
         # completes (scheduler.py:3327).
         self._prefetched: tuple | None = None
@@ -515,7 +527,10 @@ class TorchScheduler:
 
     def _full_inv(self) -> dict:
         """Batch invariants plus the nominated-pod overlay (scheduler.py:
-        3081-3104), as device tensors, and the image vocabulary's size."""
+        3081-3104), as device tensors, and the image vocabulary's size; in
+        truncated mode also the scan order (uploaded again only when a node
+        add or update moved the cache's generation) and the scan start, a
+        (1,) i64 device tensor the pass advances."""
         inv = self.builder.batch_invariants()
         s = self.builder.schema
         nom_req = np.zeros((s.N, s.R), np.int64)
@@ -533,6 +548,12 @@ class TorchScheduler:
         out = {k: torch.from_numpy(v).to(self.device) for k, v in inv.items()}
         # The bound of the image ids ImageLocality's counts cover (a host int).
         out["image_vocab"] = len(self.interns.images)
+        if self._truncated:
+            key = (self.cache._generation, s.N)
+            if self._order_dev is None or self._order_dev[0] != key:
+                self._order_dev = (key, torch.from_numpy(self.cache.order_pos(s.N)).to(self.device))
+            out["order_pos"] = self._order_dev[1]
+            out["scan_start"] = torch.tensor([self._next_start], dtype=torch.int64, device=self.device)
         return out
 
     def _to_device(self, batch: dict) -> dict:
@@ -609,7 +630,9 @@ class TorchScheduler:
         )
         state = self.builder.state()
         schema = self.builder.schema
-        if active <= PINNED_SAFE_OPS:
+        # Truncated mode keeps the full pass for its processed counts
+        # (scheduler.py:3492).
+        if not self._truncated and active <= PINNED_SAFE_OPS:
             pins = self._pin_rows(infos)
             if pins is not None:
                 # Pinned fast path: every pod has one candidate row.
@@ -679,10 +702,11 @@ class TorchScheduler:
 
     @staticmethod
     def _fetch(res) -> tuple[np.ndarray, ...]:
-        """One device→host copy for the result arrays."""
+        """One device→host copy for the result arrays: picks, scores,
+        feasible counts, fail masks and processed counts."""
         both = torch.stack(
             [res.picks.to(torch.int64), res.scores, res.feasible_counts.to(torch.int64),
-             res.fail_masks.to(torch.int64)]
+             res.fail_masks.to(torch.int64), res.processed.to(torch.int64)]
         ).cpu().numpy()
         return tuple(both)
 
@@ -691,7 +715,15 @@ class TorchScheduler:
         batch, deltas, active = ctx["batch"], ctx["deltas"], ctx["active"]
         nomrow = ctx["nomrow"]
         new_state = ctx["new_state"]
-        picks, scores, feas, fails = self._fetch(ctx["result"])
+        picks, scores, feas, fails, processed = self._fetch(ctx["result"])
+        if self._truncated:
+            # Advance the rotating start by the batch's processedNodes sum
+            # (scheduler.py:3788-3792): modular sums compose, so it equals
+            # the start the pass carried on the device.
+            self._next_start = (self._next_start + int(processed.sum())) % max(self.cache.node_count(), 1)
+            carried = int(ctx["inv"]["scan_start"][0])
+            if carried != self._next_start:
+                raise RuntimeError(f"scan start: the host's {self._next_start}, the pass's {carried}")
         spec = ctx.get("spec")
         if spec is not None:
             ctx["spec_res"] = (spec["out"].picks.cpu().numpy(), spec["out"].vic_mask.cpu().numpy())
@@ -743,7 +775,7 @@ class TorchScheduler:
                         new_state, self._to_device(sub), ctx["inv"], ctx["cycle0"],
                         dom[0], dom[1], True,
                     )
-                    p2, s2, f2, fl2 = self._fetch(res)
+                    p2, s2, f2, fl2, _pr2 = self._fetch(res)
                     n = len(idx)
                     picks[idx], scores[idx], feas[idx], fails[idx] = p2[:n], s2[:n], f2[:n], fl2[:n]
                     still.extend(i for j, i in enumerate(idx) if p2[j] == -2)

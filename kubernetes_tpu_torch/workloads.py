@@ -72,10 +72,12 @@ high-priority service rolled out onto a cluster full of low-priority batch
 pods, so preemption's what-if search decides.  5000 nodes of 4 CPU, 16 GiB
 and 110 pods over 10 zones; 20000 background pods of 1 CPU and 3 GiB at
 priority 1 with start times 0..19999, labelled app=batch: one in 8 holds
-hostPort 8080 (created first, so the fill binds every pod), one in 8 of the
-others is labelled tier=noisy, and one in 16 carries a required
-anti-affinity to app=svc at the hostname.  Drained
-before a warm-up preemptor of the measured template; then 1000 preemptors
+hostPort 8080, one in 8 of the others is labelled tier=noisy, and one in
+16 carries a required anti-affinity to app=svc at the hostname.  They
+arrive bound, four a node (``search_fill``: bg-i on node i // 4, so every
+even node holds one port holder), as a cluster that has run for a while
+reports them; then a warm-up preemptor of the measured template; then
+1000 preemptors
 of 2 CPU and 4 GiB at priority 1000, labelled app=svc, each with a
 DoNotSchedule zone spread of maxSkew 1 over app=svc, a required
 anti-affinity to tier=noisy at the hostname and hostPort 8080.  Batch 1024,
@@ -110,21 +112,37 @@ profile.  Everything is drawn from ``seed`` with numpy.
 ask for a device through their own ResourceClaim, the shape of upstream
 scheduler_perf's SchedulingWithResourceClaimTemplateStructured (one claim
 a pod, one device each, devices published per node by ResourceSlices) at
-the headline's 5000 nodes.  Density's nodes over 10 zones; one node in four
-(1250) publishes a ResourceSlice of class gpu.example.com with 8 named
-devices (10000 in all) whose attributes are ``model`` and ``memory`` (int):
-h100 and 80 on even-numbered GPU nodes, a100 and 40 on odd ones.  1024
-claim-less density pods fill first; then 5000 pods of 1 CPU and 2 GiB at
+half the headline's 5000 nodes (the name keeps the 5000 nodes and pods it
+was written for; its depth, nodes and pods alike, was halved to keep
+chip_smoke.py within its time limit: its plain run was the longest item
+there).  Density's nodes, 2500 over 10 zones; one node in four (625)
+publishes a ResourceSlice of class gpu.example.com with 8 named devices
+(5000 in all) whose attributes are ``model`` and ``memory`` (int): h100
+and 80 on even-numbered GPU nodes, a100 and 40 on odd ones.  512
+claim-less density pods fill first; then 2500 pods of 1 CPU and 2 GiB at
 priority 1, each with its own claim for one device (one in four under the
 selector ``device.attributes["model"].string == "h100"``, a second pool
 beside the bare class pool; one pod in 32 shares its claim with the next
 pod, so the pair must land on one node and the claim is released once),
-about 4850 claims for 5000 of the 10000 devices.  Then a shortage phase:
-256 pods at priority 1000, each with its own selector-less claim for all 8
+about 2425 claims for 2500 of the 5000 devices.  Then a shortage phase:
+128 pods at priority 1000, each with its own selector-less claim for all 8
 devices of a node, which no node has free, so each evicts the claim
 holders of one GPU node.  The claim table is grown to 8192 rows
-(dra_claim_counts: 256 MiB at N = 8192) before any claim is added.  Batch
+(dra_claim_counts: 128 MiB at N = 4096) before any claim is added.  Batch
 1024, chunk 8, default profile.
+
+``parity_basic_5kn_10kpods`` is upstream's SchedulingBasic 5000-node row
+(the harness's ``basic_5kn_10kpods``, harness.py:396-405) in truncated
+(parity) mode, as upstream's scheduler runs it: density's 5000 nodes of 16
+CPU, 64 GiB and 110 pods over 3 zones (``_basic_nodes``, :273); 2048
+warm-up and 10000 measured pods of 900m CPU and 2 GiB (``_pod_basic``,
+:306); the default profile with percentageOfNodesToScore unset, so the
+adaptive formula scans for 50 − 5000/125 = 10% = 500 feasible nodes
+(schedule_one.go:676-702) in the zone-interleaved node order from a
+rotating start; chunk 1, which truncated mode requires (pass_.py:420-421,
+scheduler.py:381-385), and batch 1024.  No node fills (at most 17 of these
+pods fit one by CPU), so every pod's scan stops at 500 feasible nodes and
+the start advances by about 500 a pod.
 """
 
 from __future__ import annotations
@@ -344,6 +362,14 @@ def search_background(count: int = SEARCH_BG_PODS) -> list[t.Pod]:
     return [p for p in out if p.host_ports()] + [p for p in out if not p.host_ports()]
 
 
+def search_fill(count: int = SEARCH_BG_PODS) -> list[t.Pod]:
+    """The batch fill bound to its nodes: bg-i on node-(i // 4)."""
+    out = search_background(count)
+    for p in out:
+        p.spec.node_name = f"node-{int(p.metadata.name[3:]) // 4}"
+    return out
+
+
 def search_preemptor(name: str) -> t.Pod:
     """A service pod: 2 CPU and 4 GiB at priority 1000, spread over the
     zones with maxSkew 1, kept off tier=noisy nodes, on hostPort 8080."""
@@ -529,17 +555,17 @@ def pod_images_ports(i: int, seed: int = 0) -> t.Pod:
 
 # -- dra_claims_5kn_5kpods (no harness counterpart) ---------------------------
 
-DRA_NODES = 5000
+DRA_NODES = 2500
 DRA_ZONES = 10
 DRA_GPU_EVERY = 4  # one node in four publishes GPUs
 DRA_GPUS = 8
 DRA_CLASS = "gpu.example.com"
 DRA_H100 = 'device.attributes["model"].string == "h100"'
-DRA_FILL_PODS = 1024
-DRA_MEASURED_PODS = 5000
+DRA_FILL_PODS = 512
+DRA_MEASURED_PODS = 2500
 DRA_SELECTOR_EVERY = 4  # one pod in four wants an h100
 DRA_SHARE_EVERY = 32  # one pod in 32 shares its claim with the next pod
-DRA_PREEMPTORS = 256
+DRA_PREEMPTORS = 128
 DRA_CLAIM_TABLE = 8192
 # Any two pods with unallocated claims conflict, so a chunk commits one of
 # them whatever its width; a narrow chunk keeps preemption's dry-run chunk
@@ -548,6 +574,17 @@ DRA_CLAIM_TABLE = 8192
 # of 1024 keeps the padding chunks of the preemptors' retries few.
 DRA_BATCH = 1024
 DRA_CHUNK = 8
+
+
+# -- parity_basic_5kn_10kpods (harness.py:396-405, truncated mode) ------------
+
+PARITY_NODES = 5000
+PARITY_ZONES = 3
+PARITY_WARM_PODS = 2048
+PARITY_MEASURED_PODS = 10000
+PARITY_BATCH = 1024
+PARITY_CHUNK = 1
+PARITY_PCT = None  # percentageOfNodesToScore unset: the adaptive formula
 
 
 def dra_slices(n: int = DRA_NODES) -> list[t.ResourceSlice]:

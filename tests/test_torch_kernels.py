@@ -8,7 +8,9 @@ tests/test_torch_kernels.py -m cuda`` (tests/conftest.py imports JAX,
 which that machine lacks).  The DRA kernels (eval_chunk's filter code 5,
 the claim commit, the claim pairs, DynamicResources' release in
 preempt_eval and search_step) are held at cuts of the "dra" and
-"search_dra" shapes and of dra_claims_5kn_5kpods."""
+"search_dra" shapes and of dra_claims_5kn_5kpods; truncated mode's
+truncate_feasible, select_host's pos mode and ipa_eval's two launches at
+the "truncate" shapes and on a cut of parity_basic_5kn_10kpods."""
 
 import dataclasses
 
@@ -458,3 +460,49 @@ def test_scheduler_dra_kernel_path_matches_plain_path(cuda_device):
             assert min(counts[k] for k in ("eval_chunk", "resolve_commit", "conflict_pairs", "preempt_eval")) > 0
     assert seen["kernel"] == seen["plain"]
     assert s.preemptions > 0 and all(f"default/vip-{i}" in s.cache.pods for i in range(8))
+
+
+@pytest.mark.cuda
+def test_truncate_kernels_match_plain_versions_exactly(cuda_device):
+    """truncate_feasible and select_host in pos mode at the path's shape,
+    and truncated chunk-1 steps with ipa_eval's two launches and
+    late_scores over the truncated set (chip_smoke.check_truncate_kernels)."""
+    import chip_smoke
+
+    shapes = chip_smoke.check_truncate_kernels(cuda_device, reps=1)
+    assert set(shapes) == {"truncate", "truncate_ipa", "truncate_spread"}
+    assert set(shapes["truncate"]) == {"truncate_feasible", "select_host"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pct", [None, 40])
+def test_scheduler_truncated_kernel_path_matches_plain_path(cuda_device, pct):
+    """A cut of parity_basic_5kn_10kpods with pod affinity and spread pods
+    mixed in, through TorchScheduler in truncated mode on the card: the
+    kernel path binds as the plain path does, ends on the same scan start,
+    and launches truncate_feasible and ipa_eval's two phases."""
+    from dataclasses import replace
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch import workloads as w
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+
+    seen = {}
+    for impl in ("kernel", "plain"):
+        s = TorchScheduler(replace(DEFAULT_PROFILE, percentage_of_nodes_to_score=pct), batch_size=64, chunk_size=1,
+                           _impl=impl)
+        for n in w.basic_nodes(300, zones=w.PARITY_ZONES):
+            s.add_node(n)
+        kernels.reset_launches()
+        for i in range(300):
+            s.add_pod(w.pod_basic(i) if i % 3 else w.pod_ipa_heavy(i, anti_colours=40, aff_colours=5))
+        out = s.schedule_all_pending()
+        seen[impl] = ({o.pod.name: o.node_name for o in out}, s._next_start)
+        assert s.builder.host_mirror_equal()
+        if impl == "kernel":
+            counts = kernels.launch_counts()
+            assert counts["truncate_feasible"] == counts["select_host"] > 0
+            assert counts["ipa_eval"] > 0
+    assert seen["kernel"] == seen["plain"]
+    assert all(seen["kernel"][0].values()) and seen["kernel"][1] != 0

@@ -188,11 +188,14 @@ def test_crowded_node_defers_into_fused_tail():
 
 def test_unported_op_in_pass_raises():
     """Every op of the default profile is ported (DynamicResources last):
-    a pass with it active builds; truncated mode still raises."""
+    a pass with it active builds; truncated mode builds at chunk 1 and
+    raises at any other chunk, as the reference asserts."""
     jb = JaxBuilder()
     build_pass(TDEF, jb.schema, jb.res_col, frozenset({"NodeResourcesFit", "DynamicResources"}), 8)
-    with pytest.raises(NotImplementedError):
-        build_pass(dataclasses.replace(TDEF, percentage_of_nodes_to_score=50), jb.schema, jb.res_col)
+    truncated = dataclasses.replace(TDEF, percentage_of_nodes_to_score=50)
+    build_pass(truncated, jb.schema, jb.res_col)
+    with pytest.raises(ValueError, match="chunk_size=1"):
+        build_pass(truncated, jb.schema, jb.res_col, None, 8)
 
 
 @pytest.mark.parametrize("key", ["dra_claim_ids", "port_keys"])

@@ -105,6 +105,21 @@ Phases; any failure fails the run (nothing is caught):
        select_host in pos mode) and the spread_na shape ("truncate_spread":
        spread_filter, eval_chunk, truncate_feasible, late_scores over the
        truncated set, select_host in pos mode);
+     - eval_chunk's RequestedToCapacityRatio, throughput and learned terms,
+       each an entry of its own in the kernels line: RequestedToCapacityRatio at the density shape ("rtcr": the
+       bin-packing shape, a five-point decreasing shape and a
+       three-resource strategy, utilizations on the shape points, zero
+       allocatable, requests over allocatable; a 17-point shape refused
+       before launch); the throughput term, and the throughput and learned
+       terms, at "hetero" (5000 nodes dealt over three accelerator
+       classes, unlabelled nodes and a class the matrix lacks, N=8192) and
+       "hetero_learned" (1000 nodes, N=1024), C=64, 0-110 pods a node and
+       loads up to 120% of allocatable, the learned term with torch.tanh
+       and torch.exp as its plain version; and the filters after
+       InterPodAffinity at "split" (1000 nodes, C=64, affinity and claim
+       pods in one chunk): eval_chunk, ipa_eval's filter, eval_chunk's
+       second launch with DynamicResources on the nodes left, ipa_eval's
+       score, every output after every launch;
   4. drive each main path through TorchScheduler, with the launch counts
      set to 0 just before and read just after; every pod must bind, the
      host mirror must equal the device state, no node may exceed its
@@ -162,12 +177,24 @@ Phases; any failure fails the run (nothing is caught):
        catalog's owned devices per pool, victims are priority-1 claim pods
        whose claims were released, no whole-state upload;
      - parity_basic_5kn_10kpods (basic_5kn_10kpods, harness.py:396-405, in
-       truncated mode: density's 5000 nodes in 3 zones, 2048 + 10000 pods,
+       truncated mode: density's 5000 nodes in 3 zones, 2048 + 5000 pods,
+       half its measured depth,
        the default profile with the adaptive percentage of nodes to score,
        batch 1024, chunk 1): truncate_feasible launches, every pod binds,
        no node fills and every pod's scan keeps exactly 500 feasible nodes,
        the scan start moves and every run ends on the same one, no
        whole-state upload;
+     - hetero_5kn_10kpods and hetero_learned_1kn_5kpods (harness.py:
+       1089, 1099: 5000 / 1000 nodes in 10 zones dealt 5:3:2 over tpu-v4,
+       tpu-v5e and gpu-a100; 2048 + 10000 / 1024 + 5000 pods of the four
+       workload classes naming throughput-aware-scheduler /
+       learned-scorer-scheduler; three profiles registered, batch 4096,
+       chunk 64) and binpack_rtcr_5kn_10kpods (density's nodes and 2048 +
+       10000 pods under upstream's RequestedToCapacityRatio bin-packing
+       strategy; no harness counterpart): eval_chunk's throughput, learned
+       and RequestedToCapacityRatio terms launch on their paths and on no
+       other; the share of each workload class's pods on its best
+       accelerator class and the nodes the bin-packing used are printed;
      every run of a path must give the same outcome count and send the
      same number of pods to backoff; pods/s, the idle share, deferrals,
      preemptions, the backoff waited and the garbage collector's pauses in
@@ -3961,6 +3988,418 @@ def check_images_ports(s, outcomes, expected: int, label: str) -> dict:
     return bind
 
 
+
+# -- RequestedToCapacityRatio, the heterogeneity scorers, the filter range ----------
+
+
+def _term_bytes(state, pf: dict, nom, learned: bool = False) -> int:
+    """eval_chunk with the throughput (and learned) terms: eval_bytes plus
+    topo_vals, the pods' score tables and slots (and requests) read once."""
+    extra = nbytes(state.topo_vals, pf["tp_scores"], pf["tp_slot"])
+    if learned:
+        extra += nbytes(pf["ls_req_cpu"], pf["ls_req_mem"])
+    return eval_bytes(state, pf, nom) + extra
+
+
+def learned_ops(c: int, n: int, hidden: int) -> int:
+    """The learned term's f32 operations per launch: five features (two
+    subtractions, five divisions, three max, one conversion-free gather),
+    2 x 5 x H for the hidden sums, H tanh, 2H for the output sum, four for
+    the sigmoid and two for the rounding (a transcendental counted as one)."""
+    return c * n * (10 + 2 * 5 * hidden + hidden + 2 * hidden + 4 + 2)
+
+
+def check_rtcr_kernels(dev, reps: int) -> dict:
+    """eval_chunk with NodeResourcesFit's RequestedToCapacityRatio strategy
+    at the density shape (C=64, N=8192): the bin-packing shape of
+    binpack_rtcr_5kn_10kpods, a five-point decreasing shape and a
+    three-resource strategy, on the density cluster with nodes whose
+    utilization with pod 0 hits every shape point exactly, or an ulp-size
+    step beside it on byte-scale memory; zero allocatable; requests over
+    allocatable.  Exact against the plain version; a 17-point shape is
+    refused before launch.  Returns the timing of the bin-packing shape."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch import workloads as w
+    from kubernetes_tpu_torch.engine.pass_ import eval_spec
+    from kubernetes_tpu_torch.framework.config import (
+        DEFAULT_PROFILE, REQUESTED_TO_CAPACITY_RATIO, ScoringStrategy,
+    )
+    from kubernetes_tpu_torch.kernels import plain
+
+    builder, pf, nom, _steps, rng = kernel_inputs(2468, dev)
+    state = builder.state().clone()
+    schema, res_col = builder.schema, builder.res_col
+    errs: dict[str, float] = {}
+    n = state.valid.shape[0]
+    # Pod 0's cpu (nonzero) request and memory request put the utilization
+    # of a third of the nodes exactly at a point of the shape, or one byte
+    # beside it.
+    pod_cpu, pod_mem = int(pf["nonzero"][0, 0]), int(pf["nonzero"][0, 1])
+    alloc = state.alloc[:, :2].cpu().numpy()
+    nz = state.nonzero_req.cpu().numpy()
+    pts = np.array([0, 25, 50, 60, 75, 100], np.int64)
+    hit = rng.random(n) < 0.35
+    u = rng.choice(pts, n)
+    nz[hit, 0] = np.maximum(alloc[hit, 0] * u[hit] // 100 - pod_cpu, 0)
+    nz[hit, 1] = np.maximum(alloc[hit, 1] * u[hit] // 100 - pod_mem + rng.integers(-1, 2, int(hit.sum())), 0)
+    state.nonzero_req.copy_(torch.from_numpy(nz).to(dev))
+    shapes = {
+        "binpack": (w.BINPACK_STRATEGY, ),
+        "decreasing": (ScoringStrategy(REQUESTED_TO_CAPACITY_RATIO, (("cpu", 1), ("memory", 1)),
+                                       ((0, 10), (25, 8), (50, 5), (60, 5), (100, 0))),),
+        "three": (ScoringStrategy(REQUESTED_TO_CAPACITY_RATIO, (("cpu", 2), ("memory", 1), ("example.com/gpu", 3)),
+                                  ((0, 0), (50, 8), (100, 10))),),
+    }
+    active = frozenset({"NodeUnschedulable", "NodeName", "NodeResourcesFit", "NodeResourcesBalancedAllocation"})
+    out = None
+    for label, (strategy,) in shapes.items():
+        prof = dataclasses.replace(DEFAULT_PROFILE, scoring_strategy=strategy)
+        spec = eval_spec(prof, schema, res_col, active)
+        for nom_in in (nom, None):
+            ke = kernels.eval_chunk(state, pf, spec, nom_in)
+            pe = plain.eval_chunk(state, pf, spec, nom_in)
+            torch.cuda.synchronize()
+            for what, a, b in zip(("feasible", "total", "fail_mask"), ke, pe):
+                exact(errs, "eval_chunk/rtcr", f"[rtcr {label}] {what}", a, b)
+        print(f"eval_chunk/rtcr [{label}]: exact; {int(pe[1][pe[0]].unique().numel())} distinct totals, "
+              f"{int(pe[0].sum())} feasible pairs")
+        if label == "binpack":
+            out = timed(lambda _: kernels.eval_chunk(state, pf, spec, nom),
+                        lambda _: plain.eval_chunk(state, pf, spec, nom), reps)
+            set_bound(out, eval_bytes(state, pf, nom) + 2 * 8 * 2)
+    long = dataclasses.replace(DEFAULT_PROFILE, scoring_strategy=ScoringStrategy(
+        REQUESTED_TO_CAPACITY_RATIO, (("cpu", 1),), tuple((6 * i, i % 11) for i in range(17))))
+    before = kernels.eval_chunk.launches
+    try:
+        kernels.eval_chunk(state, pf, eval_spec(long, schema, res_col, active), None)
+    except NotImplementedError as e:
+        if "MAX_SHAPE_POINTS" not in str(e):
+            raise
+    else:
+        raise AssertionError("a 17-point shape was not refused")
+    if kernels.eval_chunk.launches != before:
+        raise AssertionError("the refused shape launched")
+    out["max_abs_err"] = errs["eval_chunk/rtcr"]
+    return {"eval_chunk/rtcr": out}
+
+
+def hetero_inputs(dev, nodes: int, seed: int = 97):
+    """A heterogeneity cluster (hetero_nodes: 5:3:2 tpu-v4/tpu-v5e/gpu-a100,
+    one node in ten unlabelled, one in 50 of a class the matrix lacks) with
+    the throughput and learned profiles' 64-pod chunk: the four workload
+    classes, a class the matrix lacks and unlabelled pods, requests from
+    100m to 20 CPU (over allocatable) and 128 MiB to 80 GiB; featurized
+    under a profile with both scorers (twice: the second pass sees the
+    final vocabularies).  The node state is then loaded on the card:
+    0-110 pods a node (some full), cpu and memory in use up to 120% of
+    allocatable, a few nodes with no cpu or no memory."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import workloads as w
+    from kubernetes_tpu_torch.api.wrappers import make_node, make_pod
+    from kubernetes_tpu_torch.cache import Cache
+    from kubernetes_tpu_torch.engine.features import build_pod_batch
+    from kubernetes_tpu_torch.ops.learned import learned_scorer_profile
+    from kubernetes_tpu_torch.ops.throughput import (
+        ACCEL_LABEL_KEY, WORKLOAD_CLASS_LABEL_KEY, preseed_hetero_vocab,
+    )
+    from kubernetes_tpu_torch.snapshot import SnapshotBuilder
+
+    rng = np.random.default_rng(seed)
+    builder = SnapshotBuilder(device=dev)
+    cache = Cache(builder)
+    for key in ("kubernetes.io/hostname", ZONE, "topology.kubernetes.io/region"):
+        builder.ensure_topo_key(key)
+    preseed_hetero_vocab(builder)
+    for i, node in enumerate(w.hetero_nodes(nodes)):
+        if i % 10 == 9:
+            node = make_node(f"node-{i}").capacity({"cpu": "16", "memory": "64Gi", "pods": 110}).zone(
+                f"zone-{i % 10}").obj()
+        elif i % 50 == 7:
+            node.metadata.labels[ACCEL_LABEL_KEY] = "fpga-x"
+        cache.add_node(node)
+    both = dataclasses.replace(learned_scorer_profile(), name="both", scorers=learned_scorer_profile().scorers + (
+        ("ThroughputAware", 3),))
+    classes = ("train-large", "train-small", "serve", "batch", "inference-x", None)
+    pods = []
+    for k in range(64):
+        p = make_pod(f"h{k}").req({"cpu": f"{int(rng.choice([100, 500, 4000, 20000]))}m",
+                                   "memory": f"{int(rng.choice([128, 256, 4096, 81920]))}Mi"})
+        wc = classes[k % len(classes)]
+        if wc is not None:
+            p = p.label(WORKLOAD_CLASS_LABEL_KEY, wc)
+        pods.append(p.label("app", f"app-{k % 10}").obj())
+    for _ in range(2):
+        batch, _, active = build_pod_batch(pods, builder, both, 64)
+    state = builder.state()
+    n = state.valid.shape[0]
+    allowed = state.allowed_pods.cpu().numpy()
+    num = np.minimum(rng.integers(0, 111, n), allowed).astype(np.int32)
+    full = rng.random(n) < 0.05
+    num[full] = allowed[full]
+    alloc = state.alloc.cpu().numpy().copy()
+    alloc[rng.random(n) < 0.02, 0] = 0
+    alloc[rng.random(n) < 0.02, 1] = 0
+    req = (alloc * rng.random(alloc.shape) * 1.2).astype(np.int64)
+    state.num_pods.copy_(torch.from_numpy(num).to(dev))
+    state.alloc.copy_(torch.from_numpy(alloc).to(dev))
+    state.req.copy_(torch.from_numpy(req).to(dev))
+    state.nonzero_req.copy_(torch.from_numpy(np.ascontiguousarray(req[:, :2])).to(dev))
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    pf = {key: to(v) for key, v in batch.items()}
+    pf["nominated_row"] = to(np.full(64, -1, np.int32))
+    return builder, state, pf, active, both
+
+
+def check_hetero_kernels(dev, reps: int, shape: str) -> dict:
+    """eval_chunk with ThroughputAware, and with ThroughputAware and
+    LearnedScorer, at a heterogeneity shape: "hetero" (5000 nodes, N=8192)
+    or "hetero_learned" (1000 nodes, N=1024), C=64 (hetero_inputs); and the
+    learned term alone.  Exact against the plain versions (the learned term
+    with torch.tanh and torch.exp on the card).  Returns the timings of
+    the throughput term and of both terms."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.engine.pass_ import eval_spec
+    from kubernetes_tpu_torch.framework.config import Profile
+    from kubernetes_tpu_torch.kernels import plain
+    from kubernetes_tpu_torch.ops.learned import learned_scorer_profile
+    from kubernetes_tpu_torch.ops.throughput import throughput_aware_profile
+
+    nodes = 5000 if shape == "hetero" else 1000
+    builder, state, pf, active, both = hetero_inputs(dev, nodes)
+    schema, res_col = builder.schema, builder.res_col
+    if not {"ThroughputAware", "LearnedScorer"} <= active:
+        raise AssertionError(f"{shape}: active {sorted(active)}")
+    lp = learned_scorer_profile()
+    only_ls = Profile(name="ls", filters=("NodeUnschedulable",), scorers=(("LearnedScorer", 1),),
+                      throughput_matrix=lp.throughput_matrix, learned_weights=lp.learned_weights)
+    variants = {"throughput": throughput_aware_profile(), "throughput+learned": both, "learned": only_ls}
+    errs: dict[str, float] = {}
+    out = {}
+    for label, prof in variants.items():
+        act = active & (set(prof.filters) | {s for s, _ in prof.scorers})
+        spec = eval_spec(prof, schema, res_col, act)
+        ke = kernels.eval_chunk(state, pf, spec, None)
+        pe = plain.eval_chunk(state, pf, spec, None)
+        torch.cuda.synchronize()
+        name = "eval_chunk/throughput" if label == "throughput" else "eval_chunk/learned"
+        for what, a, b in zip(("feasible", "total", "fail_mask"), ke, pe):
+            exact(errs, name, f"[{shape} {label}] {what}", a, b)
+        if label == "learned":
+            scores = pe[1][pe[0]]
+            print(f"eval_chunk/learned [{shape}]: exact; scores {int(scores.min())}..{int(scores.max())}, "
+                  f"{int(scores.unique().numel())} distinct")
+            continue
+        print(f"eval_chunk/{label} [{shape}]: exact; {int(pe[0].sum())} feasible pairs")
+        tm = timed(lambda _: kernels.eval_chunk(state, pf, spec, None),
+                   lambda _: plain.eval_chunk(state, pf, spec, None), reps)
+        learned = "learned" in label
+        c, n = pf["req"].shape[0], state.valid.shape[0]
+        set_bound(tm, _term_bytes(state, pf, None, learned),
+                  learned_ops(c, n, len(lp.learned_weights[1])) if learned else 0)
+        tm["max_abs_err"] = errs[name]
+        out[name] = tm
+    return out
+
+
+def split_inputs(dev):
+    """The "split" shape: DynamicResources ordered after InterPodAffinity,
+    both active in one chunk.  1000 nodes in 10 zones (N=1024), one in four
+    publishing 4 GPUs; 2000 bound pods with the IPA cluster's colours and
+    (anti-)affinity terms, 200 of them holding a claim; then a 64-pod chunk
+    of ipa_chunk_pods, every third with its own claim for a device (some for
+    two, some shared with the previous pod, one missing), featurized under
+    the default profile (twice)."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import workloads as w
+    from kubernetes_tpu_torch.api import types as t
+    from kubernetes_tpu_torch.api.wrappers import make_pod
+    from kubernetes_tpu_torch.engine.features import build_pod_batch
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+
+    rng = np.random.default_rng(4711)
+    s = TorchScheduler(DEFAULT_PROFILE, batch_size=64, chunk_size=64, device=dev)
+    for node in w.basic_nodes(1000, zones=10):
+        s.add_node(node)
+    gpu = w.DRA_CLASS
+    for i in range(0, 1000, 4):
+        s.add_resource_slice(t.ResourceSlice(node_name=f"node-{i}", device_class=gpu, devices=tuple(
+            t.Device(name=f"gpu-{d}", attributes={"model": "h100", "memory": 80}) for d in range(4))))
+
+    def claim(name, count=1):
+        s.add_resource_claim(t.ResourceClaim(name=name, requests=(t.DeviceRequest("r0", gpu, count),)))
+
+    for j in range(2000):
+        kind = j % 4
+        p = make_pod(f"b{j}").req({"cpu": "100m", "memory": "128Mi"})
+        if kind == 0:
+            p = p.label("color", f"c{j % 1000}").pod_anti_affinity_in("color", [f"c{j % 1000}"], ZONE)
+        elif kind == 1:
+            p = p.label("acolor", f"a{j % 50}").pod_affinity_in("acolor", [f"a{j % 50}"], ZONE)
+        elif kind == 2:
+            p = p.label("app", f"web{j % 4}").pod_anti_affinity_in("app", [f"web{j % 4}"], HOST)
+        if j % 10 == 3:
+            claim(f"held-{j}", 2)
+            s.add_pod(p.resource_claim(f"held-{j}").node(f"node-{4 * int(rng.integers(250))}").obj())
+        else:
+            s.add_pod(p.node(f"node-{int(rng.integers(1000))}").obj())
+    pods = []
+    for k, p in enumerate(ipa_chunk_pods(rng)):
+        if k % 3 == 0:
+            claim(f"own-{k}", 1 + (k % 2))
+            p.spec.resource_claims = (f"own-{k}",)
+        elif k % 9 == 4:
+            p.spec.resource_claims = (f"own-{k - 1}",)
+        elif k == 5:
+            p.spec.resource_claims = ("ghost",)
+        pods.append(p)
+    for _ in range(2):
+        batch, _, active = build_pod_batch(pods, s.builder, s.profile, 64)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    pf = {key: to(v) for key, v in batch.items()}
+    pf["nominated_row"] = to(np.full(64, -1, np.int32))
+    return s.builder, s.builder.state(), pf, active
+
+
+def check_split_kernels(dev, reps: int) -> dict:
+    """The filters after InterPodAffinity (ROADMAP §3): on
+    the "split" shape, eval_chunk (the filters before InterPodAffinity),
+    ipa_eval's filter launch, eval_chunk's second launch with
+    DynamicResources on the nodes it left (fail bit after
+    InterPodAffinity's), ipa_eval's score launch; every output after every
+    launch against the plain versions, exactly.  Returns the timing of the
+    second eval_chunk launch."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.engine.pass_ import after_spec, build_dom, eval_spec, ipa_spec
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.kernels import plain
+
+    builder, state, pf, active = split_inputs(dev)
+    schema, res_col = builder.schema, builder.res_col
+    inv = builder.batch_invariants()
+    to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    dom = build_dom(state, to(inv["et_slot"]), to(inv["et_host"]), schema.DV)
+    spec = eval_spec(DEFAULT_PROFILE, schema, res_col, active)
+    after = after_spec(DEFAULT_PROFILE, schema, res_col, active)
+    ipa = ipa_spec(DEFAULT_PROFILE, schema, res_col, active)
+    ipa = dataclasses.replace(ipa, ctx=dataclasses.replace(ipa.ctx, dom=dom))
+    if after is None or after.filters != ("DynamicResources",):
+        raise AssertionError(f"split shape: active {sorted(active)}, after {after}")
+    errs: dict[str, float] = {}
+    runs = {}
+    for label, mod in (("kernel", kernels), ("plain", plain)):
+        out = list(mod.eval_chunk(state, pf, spec, None))
+        steps = [tuple(x.clone() for x in out)]
+        mod.ipa_eval(state, pf, *out, ipa, plain.IPA_FILTER)
+        steps.append(tuple(x.clone() for x in out))
+        mod.eval_chunk(state, pf, after, None, None, None, tuple(out))
+        steps.append(tuple(x.clone() for x in out))
+        mod.ipa_eval(state, pf, *out, ipa, plain.IPA_SCORE)
+        steps.append(tuple(x.clone() for x in out))
+        runs[label] = steps
+    torch.cuda.synchronize()
+    for i, launch in enumerate(("eval_chunk", "ipa_eval filter", "eval_chunk after", "ipa_eval score")):
+        for what, a, b in zip(("feasible", "total", "fail_mask"), runs["kernel"][i], runs["plain"][i]):
+            exact(errs, "eval_chunk/after_ipa", f"[split, {launch}] {what}", a, b)
+    ipa_bit = 1 << plain.ipa_bit(ipa)
+    dra_bit = 1 << after.bit0
+    fails = runs["plain"][3][2]
+    dra_after = int((runs["plain"][1][0] & ~runs["plain"][2][0]).sum())
+    print(f"split: exact; {int(((fails & ipa_bit) != 0).sum())} pods with InterPodAffinity's bit, "
+          f"{int(((fails & dra_bit) != 0).sum())} with DynamicResources' (bit {after.bit0}), {dra_after} "
+          f"(pod, node) pairs DynamicResources rejected after InterPodAffinity")
+    if not dra_after or not int(((fails & ipa_bit) != 0).sum()):
+        raise AssertionError("the split shape exercises neither filter")
+    fresh = lambda: tuple(x.clone() for x in runs["plain"][1])  # noqa: E731
+    tm = timed(lambda a: kernels.eval_chunk(state, pf, after, None, None, None, a),
+               lambda a: plain.eval_chunk(state, pf, after, None, None, None, a), reps, fresh)
+    c, n = pf["req"].shape[0], state.valid.shape[0]
+    dra = nbytes(state.dra_cap, state.dra_alloc, *(pf[k] for k in ("dra_pin_ids", "dra_missing")))
+    if "dra_claim_ids" in pf:
+        dra += nbytes(*(pf[k] for k in ("dra_claim_ids", "dra_claim_cls", "dra_claim_cnt")))
+    # The feasible set and totals read and written once, the fail mask
+    # read and written, the node validity and names read.
+    set_bound(tm, dra + c * n * (1 + 8) * 2 + c * 4 * 2 + nbytes(state.valid, state.name_id))
+    tm["max_abs_err"] = errs["eval_chunk/after_ipa"]
+    return {"eval_chunk/after_ipa": tm}
+
+
+def run_hetero(impl: str, trace: bool = False):
+    """hetero_5kn_10kpods (harness.py:1089): 5000 nodes in 10 zones dealt
+    5:3:2 tpu-v4/tpu-v5e/gpu-a100, 2048 + 10000 pods naming
+    throughput-aware-scheduler; three profiles, batch 4096, chunk 64."""
+    from kubernetes_tpu_torch import workloads as w
+
+    return run_workload(impl, w.hetero_nodes(w.HETERO_NODES), w.warm_pods(w.HETERO_WARM_PODS, w.pod_hetero),
+                        [w.pod_hetero(i) for i in range(w.HETERO_MEASURED_PODS)], w.HETERO_BATCH, w.HETERO_CHUNK,
+                        trace, setup=w.hetero_warm, sched_kw={"profiles": w.hetero_profiles()})
+
+
+def run_hetero_learned(impl: str, trace: bool = False):
+    """hetero_learned_1kn_5kpods (harness.py:1099): 1000 such nodes,
+    1024 + 5000 pods naming learned-scorer-scheduler."""
+    from kubernetes_tpu_torch import workloads as w
+
+    return run_workload(impl, w.hetero_nodes(w.HETERO_SMALL_NODES),
+                        w.warm_pods(w.HETERO_SMALL_WARM_PODS, w.pod_hetero_learned),
+                        [w.pod_hetero_learned(i) for i in range(w.HETERO_SMALL_MEASURED_PODS)], w.HETERO_BATCH,
+                        w.HETERO_CHUNK, trace, setup=w.hetero_warm, sched_kw={"profiles": w.hetero_profiles()})
+
+
+def run_binpack(impl: str, trace: bool = False):
+    """binpack_rtcr_5kn_10kpods (no harness counterpart): density's 5000
+    nodes and 2048 + 10000 pods under upstream's documented
+    RequestedToCapacityRatio bin-packing strategy; batch 4096, chunk 64."""
+    from kubernetes_tpu_torch import workloads as w
+
+    return run_workload(impl, w.basic_nodes(w.BINPACK_NODES), w.warm_pods(w.BINPACK_WARM_PODS),
+                        [w.pod_basic(i) for i in range(w.BINPACK_MEASURED_PODS)], w.BINPACK_BATCH,
+                        w.BINPACK_CHUNK, trace, profile=w.binpack_profile())
+
+
+def check_hetero(s, outcomes, expected: int, label: str) -> dict:
+    """The heterogeneity paths' gates (check_density's), and the share of
+    each workload class's pods on its matrix-best accelerator class."""
+    from kubernetes_tpu_torch.ops.throughput import (
+        ACCEL_LABEL_KEY, DEFAULT_THROUGHPUT_MATRIX, WORKLOAD_CLASS_LABEL_KEY,
+    )
+
+    bind = check_density(s, outcomes, expected, label)
+    best = {wc: max(row, key=lambda at: at[1])[0] for wc, row in DEFAULT_THROUGHPUT_MATRIX}
+    accel = {name: rec.node.metadata.labels.get(ACCEL_LABEL_KEY) for name, rec in s.cache.nodes.items()}
+    on, total = {}, {}
+    for o in outcomes:
+        wc = o.pod.metadata.labels.get(WORKLOAD_CLASS_LABEL_KEY)
+        total[wc] = total.get(wc, 0) + 1
+        on[wc] = on.get(wc, 0) + int(accel.get(o.node_name) == best.get(wc))
+    shares = {wc: round(on[wc] / total[wc], 4) for wc in sorted(total)}
+    print(f"{label}: share of each workload class's pods on its best accelerator class {shares}")
+    return bind
+
+
+def check_binpack(s, outcomes, expected: int, label: str) -> dict:
+    """binpack_rtcr_5kn_10kpods' gates (check_density's), and how packed the
+    cluster is: the nodes in use against the fewest that could hold the
+    pods."""
+    import numpy as np
+
+    bind = check_density(s, outcomes, expected, label)
+    h = s.builder.host
+    used = int((h["num_pods"][h["valid"]] > 0).sum())
+    print(f"{label}: {used} nodes hold pods, at least {int(np.ceil(expected / 17))} needed by cpu")
+    return bind
+
 # The main paths: (runner, pods bound, kernels that must launch, gate,
 # check, runs through the kernels).  The preemption paths' windows are a
 # few tens of milliseconds, so they run three times through the kernels.
@@ -4009,7 +4448,23 @@ def _paths():
         "dra_claims_5kn_5kpods": (run_dra, w.DRA_MEASURED_PODS + w.DRA_PREEMPTORS, dra, None, check_dra, 1),
         "parity_basic_5kn_10kpods": (run_parity, w.PARITY_WARM_PODS + w.PARITY_MEASURED_PODS, parity, None,
                                      check_parity, 1),
+        "hetero_5kn_10kpods": (run_hetero, w.HETERO_WARM_PODS + w.HETERO_MEASURED_PODS, base, None, check_hetero,
+                               1),
+        "hetero_learned_1kn_5kpods": (run_hetero_learned, w.HETERO_SMALL_WARM_PODS + w.HETERO_SMALL_MEASURED_PODS,
+                                      base, None, check_hetero, 1),
+        "binpack_rtcr_5kn_10kpods": (run_binpack, w.BINPACK_WARM_PODS + w.BINPACK_MEASURED_PODS, base, None,
+                                     check_binpack, 1),
     }
+
+
+# eval_chunk's score terms and its filter range: the paths whose
+# first kernel run must launch them; on every other path they launch
+# nowhere.
+PATH_TERMS = {
+    "hetero_5kn_10kpods": ("throughput",),
+    "hetero_learned_1kn_5kpods": ("learned",),
+    "binpack_rtcr_5kn_10kpods": ("rtcr",),
+}
 
 
 def window_line(s, measured: int, dt: float) -> str:
@@ -4037,6 +4492,7 @@ def drive(path: str, card: str) -> tuple[dict, dict]:
     kernels.reset_launches()
     s, out, measured, dt, _ = runner("kernel")
     launches = kernels.launch_counts()
+    terms = dict(kernels.eval_chunk.term_launches)
     bind_k = check(s, out, expected, f"{path} kernel path")
     if gate is not None:
         gate(out)
@@ -4051,6 +4507,11 @@ def drive(path: str, card: str) -> tuple[dict, dict]:
     for name, count in launches.items():
         if (count == 0) == (name in must):
             raise AssertionError(f"{path} path: {name} launched {count} times")
+    for term, count in terms.items():
+        if (count == 0) == (term in PATH_TERMS.get(path, ())):
+            raise AssertionError(f"{path} path: eval_chunk's {term} launched {count} times")
+    print(f"{path}: eval_chunk launches by term {terms}  [{card}]")
+    launches = {**launches, **{f"eval_chunk/{term}": count for term, count in terms.items()}}
     if launches["search_step"]:
         # A searched dry-run launches preempt_eval twice (prologue, tail) and
         # search_step on the live state, for phase 1 and per reprieve step.
@@ -4160,7 +4621,10 @@ def main() -> int:
               **{shape: check_search_kernels(dev, shape, REPS)
                  for shape in ("search", "search_pv", "search_dra", "search_dra_path")},
               **{shape: check_dra_kernels(dev, REPS, shape) for shape in ("dra", "dra_path")},
-              **check_truncate_kernels(dev, REPS)}
+              **check_truncate_kernels(dev, REPS),
+              "rtcr": check_rtcr_kernels(dev, REPS),
+              **{shape: check_hetero_kernels(dev, REPS, shape) for shape in ("hetero", "hetero_learned")},
+              "split": check_split_kernels(dev, REPS)}
     for shape, table in shapes.items():
         for name, tm in table.items():
             lib = "" if tm.get("library_ms") is None else f", library {tm['library_ms']:.4f}"
@@ -4230,6 +4694,25 @@ def main() -> int:
             "launches": sum(counts.values()) if counts else None, "launches_by_path": counts,
             "max_abs_err": max(t[name]["max_abs_err"] for t in shapes.values() if name in t),
             **{k: top.get(k) for k in keys},
+            "by_shape": {shape: {k: t[name].get(k) for k in keys} for shape, t in shapes.items() if name in t},
+        })
+    # eval_chunk's score terms, each its own entry: the numbers of
+    # eval_chunk launched with the term, and the launches that ran it.  Its
+    # filter range after InterPodAffinity is a mode no main path reaches
+    # (no path has both ops active); the "split" shape's line above gives
+    # its numbers.
+    term_src = {
+        "eval_chunk/rtcr": ("kubernetes_tpu/ops/noderesources.py:125", "rtcr"),
+        "eval_chunk/throughput": ("kubernetes_tpu/ops/throughput.py:149", "hetero"),
+        "eval_chunk/learned": ("kubernetes_tpu/ops/learned.py:154", "hetero_learned"),
+    }
+    for name, (where, shape0) in term_src.items():
+        counts = {path: c.get(name, 0) for path, c in by_path.items()}
+        line["kernels"].append({
+            "name": name, "route": "cuda", "source": f"{csrc}eval_chunk.cu", "replaces": where,
+            "launches": sum(counts.values()) if counts else None, "launches_by_path": counts,
+            "max_abs_err": max(t[name]["max_abs_err"] for t in shapes.values() if name in t),
+            **{k: shapes[shape0][name].get(k) for k in keys},
             "by_shape": {shape: {k: t[name].get(k) for k in keys} for shape, t in shapes.items() if name in t},
         })
     print(json.dumps(line))

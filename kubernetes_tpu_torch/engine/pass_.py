@@ -11,7 +11,12 @@ and does no host sync inside the loop:
                   either filters this pass), bits that eval_chunk reads
   eval_chunk      filters + weighted score of the chunk against all N nodes
   ipa_eval        InterPodAffinity's filter and normalized score on top of
-                  eval_chunk's result (only when the op is active)
+                  eval_chunk's result (only when the op is active); when
+                  the profile orders a filter after it (the default
+                  profile's DynamicResources), its filter launch, then a
+                  second eval_chunk launch with those filters on the nodes
+                  it left, then its score launch, so every fail bit is the
+                  first filter that rejected the node in profile order
   truncate_feasible  truncated mode only: the feasible set cut to the first
                   numFeasibleNodesToFind nodes in rotated scan order, the
                   scan start advanced on the device
@@ -195,18 +200,37 @@ def eval_spec(
     active: frozenset[str] | None = None,
 ) -> kernels.EvalSpec:
     """What eval_chunk evaluates for one (profile, schema, active-op-set):
-    the active filters in fail-bit order, the active (scorer, weight) pairs
-    and the ops' static config — all but InterPodAffinity, which ipa_eval
-    applies on top (ipa_spec), and the scores late_scores adds
-    (late_spec).  NodeAffinity's, TaintToleration's and
-    PodTopologySpread's filters, and the four volume ops', are read from
-    precomputed planes (plain.PLANE_BITS)."""
+    the active filters in fail-bit order up to InterPodAffinity (all of
+    them when it does not filter), the active (scorer, weight) pairs and
+    the ops' static config — all but InterPodAffinity, which ipa_eval
+    applies on top (ipa_spec), the filters after it (after_spec) and the
+    scores late_scores adds (late_spec).  NodeAffinity's,
+    TaintToleration's and PodTopologySpread's filters, and the four volume
+    ops', are read from precomputed planes (plain.PLANE_BITS)."""
     ctx, filters, scorers = _pass_ops(profile, schema, builder_res_col, active)
     return kernels.EvalSpec(
         ctx=ctx,
-        filters=tuple(n for n in filters if n != IPA),
+        filters=filters[: filters.index(IPA)] if IPA in filters else filters,
         scorers=tuple((n, w) for n, w in scorers if n != IPA and n not in _LATE),
     )
+
+
+def after_spec(
+    profile: Profile,
+    schema: Schema,
+    builder_res_col: dict[str, int],
+    active: frozenset[str] | None = None,
+) -> kernels.EvalSpec | None:
+    """The filters a profile orders after an active InterPodAffinity filter
+    (the default profile's DynamicResources), for a second eval_chunk
+    launch on the nodes ipa_eval's filter leaves, their fail bits from the
+    one after InterPodAffinity's on; or None when no filter follows it
+    (then one eval_chunk launch evaluates every filter)."""
+    ctx, filters, _scorers = _pass_ops(profile, schema, builder_res_col, active)
+    if IPA not in filters or filters[-1] == IPA:
+        return None
+    at = filters.index(IPA) + 1
+    return kernels.EvalSpec(ctx=ctx, filters=filters[at:], scorers=(), bit0=at)
 
 
 def late_spec(
@@ -284,6 +308,7 @@ def build_pass(
     if _impl not in ("kernel", "plain"):
         raise ValueError(f"_impl must be 'kernel' or 'plain', not {_impl!r}")
     spec = eval_spec(profile, schema, builder_res_col, active)
+    after = after_spec(profile, schema, builder_res_col, active)
     ipa0 = ipa_spec(profile, schema, builder_res_col, active)
     late = late_spec(profile, schema, builder_res_col, active)
     _ctx, filters, scorers = _pass_ops(profile, schema, builder_res_col, active)
@@ -295,9 +320,10 @@ def build_pass(
     # TaintToleration, VolumeBinding or VolumeZone filters) or spread's
     # inclusion policies do; vol_filter when VolumeRestrictions or
     # NodeVolumeLimits filters.
-    spread_filters = PTS in spec.filters
-    need_nodes = bool(set(NODE_FILTER_OPS) & set(spec.filters)) or PTS in effective
-    do_vr, do_nvl = VR in spec.filters, NVL in spec.filters
+    chain = spec.filters + (after.filters if after is not None else ())
+    spread_filters = PTS in chain
+    need_nodes = bool(set(NODE_FILTER_OPS) & set(chain)) or PTS in effective
+    do_vr, do_nvl = VR in chain, NVL in chain
     c = chunk
     fuse_tail = chunk > 1 and effective <= PINNED_SAFE_OPS
     seed_mul = ((profile.tie_break_seed & 0xFFFFFFFF) * 2654435761) & 0xFFFFFFFF
@@ -306,19 +332,27 @@ def build_pass(
     def step(state, dom, ipa, pf, steps, pairs, nom, node_bits, il, scan) -> PassResult:
         spread_ok = spread_fn(state, pf, node_bits, spec.ctx) if spread_filters else None
         vol_bits = vol_fn(state, pf, spec.ctx, do_vr, do_nvl) if do_vr or do_nvl else None
-        feasible, total, fails = eval_fn(state, pf, spec, nom, (node_bits, spread_ok, vol_bits, il))
+        ext = (node_bits, spread_ok, vol_bits, il)
+        feasible, total, fails = eval_fn(state, pf, spec, nom, ext)
         pos = None
-        if scan is None:
+        if scan is None and after is None:
             processed = torch.zeros_like(fails)
             if ipa is not None:
                 ipa_fn(state, pf, feasible, total, fails, ipa)
         else:
-            # Truncated mode: every filter, the cut, then the scores over
-            # the truncated set (pass_.py:494-540).
+            # Every filter in profile order — InterPodAffinity's, then the
+            # filters after it on what it left — before the scores that
+            # normalize over the feasible set (pass_.py:494-540); in
+            # truncated mode the cut comes between them.
             if ipa_filters:
                 ipa_fn(state, pf, feasible, total, fails, ipa, plain.IPA_FILTER)
-            order_pos, start = scan
-            feasible, pos, processed = trunc_fn(feasible, state.valid, order_pos, start, pf["valid"], pct)
+            if after is not None:
+                eval_fn(state, pf, after, nom, ext, None, (feasible, total, fails))
+            if scan is None:
+                processed = torch.zeros_like(fails)
+            else:
+                order_pos, start = scan
+                feasible, pos, processed = trunc_fn(feasible, state.valid, order_pos, start, pf["valid"], pct)
             if ipa is not None and ipa.weight:
                 ipa_fn(state, pf, feasible, total, fails, ipa, plain.IPA_SCORE)
         if late is not None:

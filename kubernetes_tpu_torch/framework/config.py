@@ -2,9 +2,11 @@
 
 The port's own copy of the profile surface of
 ``kubernetes_tpu/framework/config.py`` (Profile, ScoringStrategy, the
-strategy constants, DEFAULT_PROFILE, fit_only_profile).  Config parsing,
-validation and multiPoint expansion stay with the JAX package until the
-serving slice ports them."""
+strategy constants, DEFAULT_PROFILE, fit_only_profile) and of
+``validate_profile``'s rules for the filter and score lists, the scoring
+strategy and the heterogeneity config.  Config parsing, the rules for the
+other extension points and multiPoint expansion stay with the JAX package
+until the serving slice ports them."""
 
 from __future__ import annotations
 
@@ -135,8 +137,95 @@ class Profile:
     learned_weights: tuple = ()
 
 
-
 DEFAULT_PROFILE = Profile()
+
+
+def validate_profile(profile: Profile) -> list[str]:
+    """Strict config validation (pkg/scheduler/apis/config/validation):
+    the violations of the filter and score lists, the scoring strategy and
+    the heterogeneity config, as messages (empty = valid).  A plugin is
+    known when the port registers its op."""
+    from ..ops import common as opcommon
+
+    errs: list[str] = []
+    if not profile.name:
+        errs.append("profile.name must be non-empty")
+    seen_f: set[str] = set()
+    for name in profile.filters:
+        if not opcommon.has(name) or opcommon.get(name).filter is None:
+            errs.append(f"filters[{name!r}]: unknown plugin")
+        if name in seen_f:
+            errs.append(f"filters[{name!r}]: duplicate entry")
+        seen_f.add(name)
+    seen: set[str] = set()
+    for name, weight in profile.scorers:
+        if not opcommon.has(name) or opcommon.get(name).score is None:
+            errs.append(f"scorers[{name!r}]: unknown plugin")
+        if name in seen:
+            errs.append(f"scorers[{name!r}]: duplicate entry")
+        seen.add(name)
+        # Weight bounds (validation.go validatePluginConfig: weight 1..100).
+        if not 1 <= weight <= 100:
+            errs.append(f"scorers[{name!r}]: weight {weight} outside [1, 100]")
+    pct = profile.percentage_of_nodes_to_score
+    if pct is not None and not 0 <= pct <= 100:
+        errs.append(f"percentage_of_nodes_to_score {pct} outside [0, 100]")
+    strat = profile.scoring_strategy
+    if strat.type not in (LEAST_ALLOCATED, MOST_ALLOCATED, REQUESTED_TO_CAPACITY_RATIO):
+        errs.append(f"scoring_strategy.type {strat.type!r} unknown")
+    if not strat.resources:
+        errs.append("scoring_strategy.resources must be non-empty")
+    for rname, weight in strat.resources:
+        if not 1 <= weight <= 100:
+            errs.append(f"scoring_strategy.resources[{rname!r}]: weight {weight} outside [1, 100]")
+    if strat.type == REQUESTED_TO_CAPACITY_RATIO:
+        # validateFunctionShape: at least 2 points, utilization strictly
+        # increasing in [0, 100], scores in [0, 10].
+        utils = [p[0] for p in strat.shape]
+        if len(strat.shape) < 2 or any(b <= a for a, b in zip(utils, utils[1:])):
+            errs.append("scoring_strategy.shape must be ≥2 points with strictly increasing utilization")
+        for u, score in strat.shape:
+            if not 0 <= u <= 100:
+                errs.append(f"scoring_strategy.shape utilization {u} outside [0, 100]")
+            if not 0 <= score <= 10:
+                errs.append(f"scoring_strategy.shape score {score} outside [0, 10]")
+    if profile.hard_pod_affinity_weight < 0 or profile.hard_pod_affinity_weight > 100:
+        errs.append("hard_pod_affinity_weight outside [0, 100]")
+    # Heterogeneity config: an enabled op without its artifact would score
+    # a constant.
+    scorer_names = {s for s, _w in profile.scorers}
+    seen_classes: set[str] = set()
+    for wclass, row in profile.throughput_matrix:
+        if wclass in seen_classes:
+            errs.append(f"throughput_matrix[{wclass!r}]: duplicate workload class")
+        seen_classes.add(wclass)
+        if not row:
+            errs.append(f"throughput_matrix[{wclass!r}]: empty accelerator row")
+        elif not any(isinstance(tput, int) and tput > 0 for _a, tput in row):
+            # The featurizer divides by the row's maximum.
+            errs.append(f"throughput_matrix[{wclass!r}]: row needs at least one positive throughput")
+        seen_accels: set[str] = set()
+        for accel, tput in row:
+            if accel in seen_accels:
+                errs.append(f"throughput_matrix[{wclass!r}][{accel!r}]: duplicate accelerator")
+            seen_accels.add(accel)
+            if not isinstance(tput, int) or tput < 0:
+                errs.append(f"throughput_matrix[{wclass!r}][{accel!r}]: throughput {tput!r} must be a "
+                            "non-negative int")
+    if "ThroughputAware" in scorer_names and not profile.throughput_matrix:
+        errs.append("scorers[ThroughputAware]: profile.throughput_matrix is empty")
+    if "LearnedScorer" in scorer_names and not profile.learned_weights:
+        errs.append("scorers[LearnedScorer]: profile.learned_weights is empty")
+    if profile.learned_weights:
+        lw = profile.learned_weights
+        if len(lw) != 4 or not (lw[0] and lw[1] and lw[2] is not None):
+            errs.append("learned_weights: want ((w1...), (b1...), (w2...), b2)")
+        else:
+            w1, b1, w2, _b2 = lw
+            hidden = len(b1)
+            if any(len(r) != hidden for r in w1) or len(w2) != hidden:
+                errs.append("learned_weights: inconsistent hidden width")
+    return errs
 
 
 def fit_only_profile() -> Profile:

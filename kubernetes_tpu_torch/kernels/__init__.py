@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels of the batch pass, and their wrappers.
 
   build_dom       csrc/build_dom.cu       per-domain tables, once per pass
-  eval_chunk      csrc/eval_chunk.cu      filters + weighted score, (C, N)
+  eval_chunk      csrc/eval_chunk.cu      filters + weighted score, (C, N); a second launch runs the
+                                          filters ordered after InterPodAffinity on what ipa_eval left
   ipa_eval        csrc/ipa_eval.cu        InterPodAffinity filter + score on top (truncated mode:
                                           a filter launch, then a score launch after the cut)
   select_host     csrc/select_host.cu     argmax with hashed tie-break (truncated mode: ties in
@@ -45,7 +46,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..framework.config import LEAST_ALLOCATED, MOST_ALLOCATED
+from ..framework.config import LEAST_ALLOCATED, MOST_ALLOCATED, REQUESTED_TO_CAPACITY_RATIO
 from ..ops.helpers import log_table
 from . import build, plain
 
@@ -61,10 +62,15 @@ _EXT_SEL = {name: _PLANE_BASE[plane] + bit for name, (plane, bit) in plain.PLANE
 _FILTER_CODES = {"NodeUnschedulable": 0, "NodeName": 1, "NodeResourcesFit": 2, **dict.fromkeys(_EXT_SEL, 3),
                  "NodePorts": 4, "DynamicResources": 5}
 # ImageLocality's score is read from the image_scores plane.
-_SCORERS = ("NodeResourcesFit", "NodeResourcesBalancedAllocation", plain.IL)
+_SCORERS = ("NodeResourcesFit", "NodeResourcesBalancedAllocation", plain.IL, plain.TP, plain.LS)
+_STRATEGIES = {LEAST_ALLOCATED: 0, MOST_ALLOCATED: 1, REQUESTED_TO_CAPACITY_RATIO: 2}
 # Image ids per pod image_scores holds in registers.
 MAX_POD_IMAGES = 16
 _MAX_BALANCED = 8
+# RequestedToCapacityRatio shape points and LearnedScorer hidden units
+# eval_chunk takes (kMaxShape, kMaxHidden in eval_chunk.cu).
+MAX_SHAPE_POINTS = 16
+MAX_HIDDEN = 16
 MAX_CHUNK = 1024  # resolve_commit: one block, one thread per pod
 # Shared memory an ipa_eval block may use for its per-pod tables (of the
 # H100's 227 KB a block can have).
@@ -77,11 +83,14 @@ SPREAD_SMEM_CAP = 200 * 1024
 class EvalSpec:
     """What eval_chunk evaluates for one compiled pass: the pass context
     (profile, schema, static op config), the active filters in fail-bit
-    order and the active (scorer, weight) pairs."""
+    order, the active (scorer, weight) pairs and the fail bit of the first
+    filter (``bit0``; a filter range after InterPodAffinity starts past
+    it)."""
 
     ctx: object  # ops.common.PassContext
     filters: tuple[str, ...]
     scorers: tuple[tuple[str, int], ...]
+    bit0: int = 0
     _device_config: dict = field(default_factory=dict)
 
     def device_config(self, device: torch.device) -> dict:
@@ -152,14 +161,29 @@ def _eval_config(spec: EvalSpec, device: torch.device) -> dict:
     unknown += [n for n, _ in spec.scorers if n not in _SCORERS]
     if unknown:
         raise NotImplementedError(f"eval_chunk kernel does not evaluate {unknown}")
-    if len(spec.filters) > 15:
-        raise ValueError("eval_chunk packs at most 15 filters")
+    if len(spec.filters) > 15 or spec.bit0 + len(spec.filters) > 32:
+        raise ValueError("eval_chunk packs at most 15 filters a launch, fail bits below 32")
     weights = dict(spec.scorers)
     static = spec.ctx.static
     profile = spec.ctx.profile
-    strategy = profile.scoring_strategy.type
-    if "NodeResourcesFit" in weights and strategy not in (LEAST_ALLOCATED, MOST_ALLOCATED):
-        raise NotImplementedError(f"eval_chunk kernel: scoring strategy {strategy} is not yet ported")
+    strategy = profile.scoring_strategy
+    shape = strategy.shape if strategy.type == REQUESTED_TO_CAPACITY_RATIO else ()
+    if "NodeResourcesFit" in weights:
+        if strategy.type not in _STRATEGIES:
+            raise ValueError(f"eval_chunk kernel: unknown scoring strategy {strategy.type!r}")
+        if shape and not 2 <= len(shape) <= MAX_SHAPE_POINTS:
+            raise NotImplementedError(
+                f"eval_chunk kernel: a RequestedToCapacityRatio shape of {len(shape)} points "
+                f"(MAX_SHAPE_POINTS={MAX_SHAPE_POINTS}, at least 2)")
+    learned = static.get("learned_weights") if plain.LS in weights else None
+    hidden = len(learned[1]) if learned else 0
+    if hidden > MAX_HIDDEN:
+        raise NotImplementedError(
+            f"eval_chunk kernel: {hidden} LearnedScorer hidden units (MAX_HIDDEN={MAX_HIDDEN})")
+    lw = [0.0]
+    if learned:
+        w1, b1, w2, b2 = learned
+        lw = [w for row in w1 for w in row] + list(b1) + list(w2) + [b2]
     r = spec.ctx.schema.R
     ignored = torch.zeros(r, dtype=torch.bool)
     for col in static.get("fit_ignored_cols", ()):
@@ -179,7 +203,10 @@ def _eval_config(spec: EvalSpec, device: torch.device) -> dict:
             [list(s) for s in strat] or [[0, 0, 0]], dtype=torch.int64
         ).to(device),
         "n_strat": len(strat),
-        "most_allocated": int(strategy == MOST_ALLOCATED),
+        "strategy": _STRATEGIES.get(strategy.type, 0),
+        "shape": torch.tensor([float(p[0]) for p in shape] + [float(p[1]) for p in shape] or [0.0],
+                              dtype=torch.float64).to(device),
+        "n_shape": len(shape),
         "bal_cols": torch.tensor([c for (c,) in bal] or [0], dtype=torch.int32).to(device),
         "n_bal": len(bal),
         "score_fit": int("NodeResourcesFit" in weights),
@@ -188,6 +215,11 @@ def _eval_config(spec: EvalSpec, device: torch.device) -> dict:
         "bal_weight": int(weights.get("NodeResourcesBalancedAllocation", 0)),
         "il": plain.IL in weights,
         "il_weight": int(weights.get(plain.IL, 0)),
+        "tp_weight": int(weights.get(plain.TP, 0)),
+        "ls_weight": int(weights.get(plain.LS, 0)) if learned else 0,
+        # f32 weights, rounded from the artifact's f64 as JAX's f32(w).
+        "lw": torch.tensor(lw, dtype=torch.float32).to(device),
+        "H": hidden,
         "ports": "NodePorts" in spec.filters,
         "dra": "DynamicResources" in spec.filters,
         "filter_codes": codes,
@@ -253,7 +285,7 @@ def build_dom(state, et_slot, dv: int):
     return group_dom, et_dom
 
 
-def eval_chunk(state, pf: dict, spec: EvalSpec, nom, ext=None, pin=None):
+def eval_chunk(state, pf: dict, spec: EvalSpec, nom, ext=None, pin=None, into=None):
     """Filters + weighted score of one chunk: (feasible (C, N) bool,
     total (C, N) i64, fail_mask (C,) i32).  ``nom`` is the nominated-pod
     overlay (nom_req, nom_cnt, nom_prio) or None; ``ext`` is (node_bits
@@ -262,9 +294,12 @@ def eval_chunk(state, pf: dict, spec: EvalSpec, nom, ext=None, pin=None):
     ImageLocality's score plane (any None when no active op reads it).
     With ``pin`` ((C,) i32 rows in [0, N)), pod c is evaluated on node
     pin[c] alone: feasible and total are (C, 1), the fail bits are those of
-    that node and il_scores is (C, 1)."""
+    that node and il_scores is (C, 1).  With ``into`` (an earlier launch's
+    feasible, total and fail_mask) the filters run on that feasible set
+    only, their fail bits from ``spec.bit0`` on, and the three tensors are
+    updated IN PLACE and returned: the filter range after InterPodAffinity."""
     if _on_cpu(state.valid):
-        return plain.eval_chunk(state, pf, spec, nom, ext, pin)
+        return plain.eval_chunk(state, pf, spec, nom, ext, pin, into)
     dev = state.valid.device
     cfg = spec.device_config(dev)
     n = state.valid.shape[0]
@@ -347,22 +382,53 @@ def eval_chunk(state, pf: dict, spec: EvalSpec, nom, ext=None, pin=None):
     if cfg["il"] and il is None:
         raise ValueError("eval_chunk: plane 'il_scores' missing")
     il = _check("il_scores", il, torch.uint8, (c, width), dev) if cfg["il"] else None
-    feasible = torch.empty((c, width), dtype=b, device=dev)
-    total = torch.empty((c, width), dtype=i64, device=dev)
-    fail = torch.zeros(c, dtype=i32, device=dev)
+    # ThroughputAware and LearnedScorer read the node's class id and the
+    # pod's score table; LearnedScorer also the pod's requests.
+    hetero = [None] * 6
+    tk = dv = 0
+    if cfg["tp_weight"] or cfg["ls_weight"]:
+        tk = state.topo_vals.shape[1]
+        dv = pf["tp_scores"].shape[1]
+        hetero[:3] = [_check("topo_vals", state.topo_vals, i32, (n, tk), dev),
+                      _check("tp_scores", pf["tp_scores"], i64, (c, dv), dev),
+                      _check("tp_slot", pf["tp_slot"], i32, (c,), dev)]
+    if cfg["ls_weight"]:
+        hetero[3:] = [_check("ls_req_cpu", pf["ls_req_cpu"], i64, (c,), dev),
+                      _check("ls_req_mem", pf["ls_req_mem"], i64, (c,), dev), cfg["lw"]]
+    if into is not None:
+        feasible, total, fail = into
+        _check("feasible", feasible, b, (c, width), dev)
+        _check("total", total, i64, (c, width), dev)
+        _check("fail_mask", fail, i32, (c,), dev)
+        feas_in = feasible
+    else:
+        feasible = torch.empty((c, width), dtype=b, device=dev)
+        total = torch.empty((c, width), dtype=i64, device=dev)
+        fail = torch.zeros(c, dtype=i32, device=dev)
+        feas_in = None
     build.launch(
         "eval_chunk",
         *[_ptr(a) for a in args],
         *[_ptr(a) for a in feats],
         *[_ptr(a) for a in planes],
         _ptr(cfg["fit_ignored"]), *[_ptr(a) for a in ports], _ptr(il),
-        *[_ptr(a) for a in dra], *dra_dims, _ptr(cfg["strat_cols"]), cfg["n_strat"], cfg["most_allocated"],
+        *[_ptr(a) for a in dra], *dra_dims, *[_ptr(a) for a in hetero], tk, dv, cfg["H"],
+        _ptr(feas_in), spec.bit0,
+        _ptr(cfg["strat_cols"]), cfg["n_strat"], cfg["strategy"], _ptr(cfg["shape"]), cfg["n_shape"],
         _ptr(cfg["bal_cols"]), cfg["n_bal"],
         cfg["score_fit"], cfg["fit_weight"], cfg["score_bal"], cfg["bal_weight"], cfg["il_weight"],
+        cfg["tp_weight"], cfg["ls_weight"],
         cfg["filter_codes"], cfg["n_filters"], cfg["ext_sel"], c, n, r, s_ports,
         _ptr(feasible), _ptr(total), _ptr(fail), _stream(dev),
     )
     eval_chunk.launches += 1
+    # Launches that ran each of the score terms and the filter range (a subset of the
+    # above; chip_smoke.py reports them per path).
+    terms = eval_chunk.term_launches
+    terms["rtcr"] += int(cfg["score_fit"] and cfg["strategy"] == 2)
+    terms["throughput"] += int(cfg["tp_weight"] != 0)
+    terms["learned"] += int(cfg["ls_weight"] != 0)
+    terms["after_ipa"] += int(into is not None)
     return feasible, total, fail
 
 
@@ -1436,9 +1502,15 @@ for _fn in WRAPPERS.values():
     _fn.launches = 0
 
 
+# eval_chunk's launches by score term or mode (see eval_chunk).
+EVAL_TERMS = ("rtcr", "throughput", "learned", "after_ipa")
+eval_chunk.term_launches = dict.fromkeys(EVAL_TERMS, 0)
+
+
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    eval_chunk.term_launches = dict.fromkeys(EVAL_TERMS, 0)
 
 
 def launch_counts() -> dict[str, int]:

@@ -44,7 +44,9 @@ ENTRIES.update({entry: src for src, entries in _MULTI.items() for entry in entri
 _SRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
 # -fmad=false: no multiply-add contraction, so the f64 BalancedAllocation
-# score rounds like the reference's separate multiply and add.
+# and RequestedToCapacityRatio scores and the f32 LearnedScorer round like
+# the reference's separate multiply and add.  No --use_fast_math: division
+# stays IEEE and tanhf/expf stay the accurate libdevice functions.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -55,8 +57,9 @@ _P, _I, _L, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
 # never truncates them to 32 bits).
 _SIGNATURES: dict[str, list] = {
     "build_dom": [_P] * 4 + [_I] * 5 + [_P, _P, _P],
-    "eval_chunk": [_P] * 37 + [_I] * 3 + [_P, _I, _I, _P, _I, _I, _L, _I, _L, _L, _L, _I, _L, _I, _I, _I, _I, _P, _P,
-                                         _P, _P],
+    "eval_chunk": [_P] * 37 + [_I] * 3 + [_P] * 6 + [_I] * 3 + [_P, _I]
+                  + [_P, _I, _I, _P, _I, _P, _I, _I, _L, _I, _L, _L, _L, _L, _L, _I, _L, _I, _I, _I, _I]
+                  + [_P] * 4,
     "ipa_eval": [_I] * 10 + [_L] + [_P] * 30 + [_I, _P],
     "select_host": [_P, _P, _P, _U, _P, _I, _I, _P, _P, _P, _P, _P],
     "truncate_feasible": [_P] * 5 + [_I, _I] + [_P] * 3,

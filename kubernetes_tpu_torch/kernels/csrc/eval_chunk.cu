@@ -12,10 +12,35 @@
 // score (ops/imagelocality.py:53) read from the per-batch plane that
 // image_scores (image_locality.cu) computes: images and node validity do
 // not change within a pass, and the plane's raw 0-100 score is added with
-// the op's weight.  RequestedToCapacityRatio is refused by the Python
-// wrapper before launch.  Filter codes are 3 bits a filter in a 64-bit
-// word (0-2 the trivial filters and fit, 3 a plane, 4 NodePorts, 5
+// the op's weight.  Filter codes are 3 bits a filter in a 64-bit word (0-2
+// the trivial filters and fit, 3 a plane, 4 NodePorts, 5
 // DynamicResources).
+//
+// Three more score terms:
+// - RequestedToCapacityRatio, NodeResourcesFit's third strategy
+//   (ops/noderesources.py:125 _ratio_scorer): utilization reqd*100/alloc in
+//   f64, jnp.interp's broken-linear interpolation over the shape points
+//   (searchsorted right, the same operation order, the last step one fused
+//   multiply-add as XLA computes it), times 10 truncated to int64; a resource with alloc == 0 is skipped with its weight.  The
+//   shape holds at most kMaxShape points (the wrapper refuses more).
+// - ThroughputAware (ops/throughput.py:149): the pod's (DV,) score table
+//   at the node's accelerator-class id, topo_vals[n, tp_slot[c]], 0 where
+//   the node has none; an exact integer gather.
+// - LearnedScorer (ops/learned.py:154): the 5 -> H -> 1 f32 MLP, tanh then
+//   sigmoid, floor(y*100 + 0.5), in the reference's association order
+//   (each hidden unit b1 + w1[0]x0 + ... + w1[4]x4 left to right, then
+//   b2 + w2[0]h0 + ... left to right) with tanhf, expf and floorf, IEEE
+//   division and no contracted multiply-add (-fmad=false).  H is at most
+//   kMaxHidden.
+//
+// Filter range: a launch with feas_in non-null starts from that
+// feasible set instead of every valid node, sets filter b's fail bit at
+// bit0 + b, ORs into the given fail_mask, adds its scores to the given
+// total and zeroes total where the node left the set.  The pass evaluates
+// the filters a profile orders after InterPodAffinity (DynamicResources in
+// the default profile) with such a second launch on the nodes ipa_eval's
+// filter left, so each fail bit is the first filter that rejected the node
+// in profile order.
 //
 // DynamicResources at (pod c, node n): no missing claim, every allocation
 // pin names node n, and for every pool d the pod's slots of pool d whose
@@ -72,6 +97,15 @@ constexpr int kDra = 5;
 constexpr int kSelVol = 4;
 constexpr int kSelSpread = 6;
 constexpr int kMaxBalanced = 8;
+constexpr int kMaxShape = 16;   // RequestedToCapacityRatio shape points
+constexpr int kMaxHidden = 16;  // LearnedScorer hidden units
+constexpr int kFeatures = 5;    // LearnedScorer input features
+// Scoring strategies of NodeResourcesFit.
+constexpr int kLeast = 0;
+constexpr int kMost = 1;
+constexpr int kRatio = 2;
+// np.spacing(np.finfo(np.float64).eps): jnp.interp's zero-width segment test.
+constexpr double kInterpEps = 4.930380657631324e-32;
 
 struct EvalArgs {
   // Node state.
@@ -120,11 +154,27 @@ struct EvalArgs {
   const int* dra_pins;                   // (C, PIN), -1 pad
   const unsigned char* dra_missing;      // (C,)
   int SK, PIN, DC;
+  // ThroughputAware and LearnedScorer: the node's topology values, the
+  // chunk's score tables and class slot, the learned term's requests and
+  // weights (w1 (5, H) row-major, b1 (H,), w2 (H,), b2).
+  const int* topo_vals;                  // (N, TK)
+  const long long* tp_scores;            // (C, DV)
+  const int* tp_slot;                    // (C,)
+  const long long* ls_req_cpu;           // (C,)
+  const long long* ls_req_mem;           // (C,)
+  const float* lw;                       // (5H + H + H + 1,)
+  int TK, DV, H;
+  // Filter range: the feasible set to start from, (C, N) or (C, 1), and
+  // the fail bit of the first filter; null: every valid node, bit 0.
+  const unsigned char* feas_in;
+  int bit0;
   // Static profile config.
   const unsigned char* fit_ignored;  // (R,)
   const long long* strat_cols;       // (S, 3): kind, col, weight
   int n_strat;
-  int most_allocated;
+  int strategy;                      // kLeast, kMost or kRatio
+  const double* shape;               // (2, n_shape): utilizations, then scores
+  int n_shape;
   const int* bal_cols;  // (B,)
   int n_bal;
   int score_fit;
@@ -132,6 +182,8 @@ struct EvalArgs {
   int score_bal;
   long long bal_weight;
   long long il_weight;
+  long long tp_weight;  // 0: ThroughputAware does not score
+  long long ls_weight;  // 0: LearnedScorer does not score
   long long filter_codes;  // 3 bits per filter, in fail-bit order
   int n_filters;
   long long ext_sel;  // 3 bits per kExt filter (see kSelVol, kSelSpread)
@@ -205,6 +257,76 @@ __device__ bool dra_filter(const EvalArgs& a, int c, int n) {
       [&](int d) { return (long long)a.dra_alloc[(size_t)d * a.N + n]; });
 }
 
+// jnp.interp(util, xs, ys) (constant outside [xs[0], xs[P-1]]) in jnp's
+// operation order; xs are the shape's utilizations, ys its scores.
+__device__ double interp(const double* xs, const double* ys, int P, double util) {
+  int i = 0;
+  while (i < P && xs[i] <= util) ++i;  // searchsorted(xs, util, side="right")
+  i = i < 1 ? 1 : (i > P - 1 ? P - 1 : i);
+  const double df = ys[i] - ys[i - 1];
+  const double dx = xs[i] - xs[i - 1];
+  const double delta = util - xs[i - 1];
+  const bool dx0 = fabs(dx) <= kInterpEps;
+  // One rounding for the last multiply-add, as XLA fuses it (the build's
+  // -fmad=false keeps every other product and sum separate).
+  double f = dx0 ? ys[i - 1] : fma(delta / (dx0 ? 1.0 : dx), df, ys[i - 1]);
+  if (util < xs[0]) f = ys[0];
+  if (util > xs[P - 1]) f = ys[P - 1];
+  return f;
+}
+
+// RequestedToCapacityRatio's score of one resource with al > 0
+// (requested_to_capacity_ratio.go): the shape at the utilization, scaled
+// by MaxNodeScore/10 and truncated; 0 when requested exceeds allocatable.
+__device__ long long ratio_score(const EvalArgs& a, long long al, long long rq) {
+  const double util = ((double)rq * 100.0) / (double)(al > 1 ? al : 1);
+  const double raw = interp(a.shape, a.shape + a.n_shape, a.n_shape, util);
+  return rq <= al ? (long long)(raw * 10.0) : 0;
+}
+
+// The pod's throughput table at the node's accelerator-class id (slot and
+// id clamped into range as JAX's gather clamps), 0 where the node has none.
+__device__ long long tput_gather(const EvalArgs& a, int c, int n) {
+  int slot = a.tp_slot[c];
+  slot = slot < 0 ? 0 : (slot > a.TK - 1 ? a.TK - 1 : slot);
+  int v = a.topo_vals[(size_t)n * a.TK + slot];
+  if (v < 0) return 0;
+  v = v > a.DV - 1 ? a.DV - 1 : v;
+  return a.tp_scores[(size_t)c * a.DV + v];
+}
+
+// LearnedScorer's f32 forward pass for pod c on node n.
+__device__ long long learned_score(const EvalArgs& a, int c, int n) {
+  const int R = a.R, H = a.H;
+  const float alloc_cpu = (float)a.alloc[(size_t)n * R];
+  const float alloc_mem = (float)a.alloc[(size_t)n * R + 1];
+  const float safe_cpu = fmaxf(alloc_cpu, 1.0f);
+  const float safe_mem = fmaxf(alloc_mem, 1.0f);
+  const float req_cpu = (float)a.ls_req_cpu[c];
+  const float req_mem = (float)a.ls_req_mem[c];
+  float x[kFeatures];
+  x[0] = fmaxf((alloc_cpu - req_cpu) / safe_cpu, 0.0f);
+  x[1] = fmaxf((alloc_mem - req_mem) / safe_mem, 0.0f);
+  x[2] = (float)a.num_pods[n] / fmaxf((float)a.allowed_pods[n], 1.0f);
+  x[3] = (float)tput_gather(a, c, n) / 100.0f;
+  x[4] = req_cpu / safe_cpu;
+  const float* w1 = a.lw;
+  const float* b1 = a.lw + kFeatures * H;
+  const float* w2 = b1 + H;
+  float y = w2[H];  // b2
+  for (int j = 0; j < H; ++j) {
+    float acc = b1[j];
+    for (int i = 0; i < kFeatures; ++i) acc = acc + w1[i * H + j] * x[i];
+    y = y + w2[j] * tanhf(acc);
+  }
+  y = 1.0f / (1.0f + expf(-y));
+  return (long long)floorf(y * 100.0f + 0.5f);
+}
+
+// kTerms: the instantiation with the three score terms above
+// (RequestedToCapacityRatio, ThroughputAware, LearnedScorer); launches without them take the other,
+// whose registers stay those of the terms-free chain.
+template <bool kTerms>
 __device__ long long fit_score(const EvalArgs& a, int c, int n) {
   const int R = a.R;
   long long node_score = 0, weight_sum = 0;
@@ -225,9 +347,11 @@ __device__ long long fit_score(const EvalArgs& a, int c, int n) {
     }
     if (al > 0) {  // absent resources skip their weight too
       long long sc = 0;
-      if (rq <= al) {
-        sc = a.most_allocated ? floordiv_i64(rq * 100, al)
-                              : floordiv_i64((al - rq) * 100, al);
+      if (kTerms && a.strategy == kRatio) {
+        sc = ratio_score(a, al, rq);
+      } else if (rq <= al) {
+        sc = a.strategy == kMost ? floordiv_i64(rq * 100, al)
+                                 : floordiv_i64((al - rq) * 100, al);
       }
       node_score += sc * w;
       weight_sum += w;
@@ -271,6 +395,7 @@ __device__ long long balanced_score(const EvalArgs& a, int c, int n) {
   return (long long)((1.0 - stdv) * 100.0);
 }
 
+template <bool kTerms>
 __global__ void eval_chunk_kernel(EvalArgs a) {
   const int c = blockIdx.y;
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
@@ -278,7 +403,8 @@ __global__ void eval_chunk_kernel(EvalArgs a) {
   const int n = pinned ? (j == 0 ? a.pin_row[c] : -1) : j;
   unsigned int bits = 0;
   if (n >= 0 && n < a.N) {
-    bool feas = a.valid[n] != 0;
+    const size_t o = pinned ? (size_t)c : (size_t)c * a.N + n;
+    bool feas = a.valid[n] != 0 && (a.feas_in == nullptr || a.feas_in[o] != 0);
     for (int b = 0; b < a.n_filters; ++b) {
       const int code = (int)((a.filter_codes >> (3 * b)) & 7);
       bool ok;
@@ -295,25 +421,27 @@ __global__ void eval_chunk_kernel(EvalArgs a) {
         ok = dra_filter(a, c, n);
       } else {
         const int sel = (int)((a.ext_sel >> (3 * b)) & 7);
-        const size_t o = (size_t)c * a.N + n;
+        const size_t op = (size_t)c * a.N + n;
         if (sel == kSelSpread) {
-          ok = a.spread_ok[o] != 0;
+          ok = a.spread_ok[op] != 0;
         } else if (sel >= kSelVol) {
-          ok = ((a.vol_bits[o] >> (sel - kSelVol)) & 1) != 0;
+          ok = ((a.vol_bits[op] >> (sel - kSelVol)) & 1) != 0;
         } else {
-          ok = ((a.node_bits[o] >> sel) & 1) != 0;
+          ok = ((a.node_bits[op] >> sel) & 1) != 0;
         }
       }
-      if (feas && !ok) bits |= 1u << b;
+      if (feas && !ok) bits |= 1u << (b + a.bit0);
       feas = feas && ok;
     }
     long long tot = 0;
     if (feas) {
-      if (a.score_fit) tot += fit_score(a, c, n) * a.fit_weight;
+      if (a.score_fit) tot += fit_score<kTerms>(a, c, n) * a.fit_weight;
       if (a.score_bal) tot += balanced_score(a, c, n) * a.bal_weight;
+      if (a.il_scores != nullptr) tot += (long long)a.il_scores[o] * a.il_weight;
+      if (kTerms && a.tp_weight != 0) tot += tput_gather(a, c, n) * a.tp_weight;
+      if (kTerms && a.ls_weight != 0) tot += learned_score(a, c, n) * a.ls_weight;
+      if (a.feas_in != nullptr) tot += a.total[o];  // a filter range adds to the set's scores
     }
-    const size_t o = pinned ? (size_t)c : (size_t)c * a.N + n;
-    if (feas && a.il_scores != nullptr) tot += (long long)a.il_scores[o] * a.il_weight;
     a.feasible[o] = feas ? 1 : 0;
     a.total[o] = tot;
   }
@@ -335,12 +463,18 @@ extern "C" int eval_chunk_launch(
     const void* port_keys, const void* port_wild, const void* port_is_wild, const void* il_scores,
     const void* dra_cap, const void* dra_alloc, const void* dra_claim_counts, const void* dra_ids,
     const void* dra_cls, const void* dra_cnt, const void* dra_pins, const void* dra_missing, int SK,
-    int PIN, int DC, const void* strat_cols, int n_strat, int most_allocated,
-    const void* bal_cols, int n_bal, int score_fit, long long fit_weight,
-    int score_bal, long long bal_weight, long long il_weight, long long filter_codes,
-    int n_filters, long long ext_sel, int C, int N, int R, int S, void* feasible, void* total,
-    void* fail_mask, void* stream) {
-  if (n_bal > kMaxBalanced) return (int)cudaErrorInvalidValue;
+    int PIN, int DC, const void* topo_vals, const void* tp_scores, const void* tp_slot,
+    const void* ls_req_cpu, const void* ls_req_mem, const void* lw, int TK, int DV, int H,
+    const void* feas_in, int bit0, const void* strat_cols, int n_strat, int strategy,
+    const void* shape, int n_shape, const void* bal_cols, int n_bal, int score_fit,
+    long long fit_weight, int score_bal, long long bal_weight, long long il_weight,
+    long long tp_weight, long long ls_weight, long long filter_codes, int n_filters,
+    long long ext_sel, int C, int N, int R, int S, void* feasible, void* total, void* fail_mask,
+    void* stream) {
+  if (n_bal > kMaxBalanced || H > kMaxHidden || bit0 < 0 || bit0 + n_filters > 32) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (strategy == kRatio && (n_shape < 2 || n_shape > kMaxShape)) return (int)cudaErrorInvalidValue;
   EvalArgs a;
   a.valid = static_cast<const unsigned char*>(valid);
   a.name_id = static_cast<const int*>(name_id);
@@ -382,9 +516,22 @@ extern "C" int eval_chunk_launch(
   a.SK = SK;
   a.PIN = PIN;
   a.DC = DC;
+  a.topo_vals = static_cast<const int*>(topo_vals);
+  a.tp_scores = static_cast<const long long*>(tp_scores);
+  a.tp_slot = static_cast<const int*>(tp_slot);
+  a.ls_req_cpu = static_cast<const long long*>(ls_req_cpu);
+  a.ls_req_mem = static_cast<const long long*>(ls_req_mem);
+  a.lw = static_cast<const float*>(lw);
+  a.TK = TK;
+  a.DV = DV;
+  a.H = H;
+  a.feas_in = static_cast<const unsigned char*>(feas_in);
+  a.bit0 = bit0;
   a.strat_cols = static_cast<const long long*>(strat_cols);
   a.n_strat = n_strat;
-  a.most_allocated = most_allocated;
+  a.strategy = strategy;
+  a.shape = static_cast<const double*>(shape);
+  a.n_shape = n_shape;
   a.bal_cols = static_cast<const int*>(bal_cols);
   a.n_bal = n_bal;
   a.score_fit = score_fit;
@@ -392,6 +539,8 @@ extern "C" int eval_chunk_launch(
   a.score_bal = score_bal;
   a.bal_weight = bal_weight;
   a.il_weight = il_weight;
+  a.tp_weight = tp_weight;
+  a.ls_weight = ls_weight;
   a.filter_codes = filter_codes;
   a.n_filters = n_filters;
   a.ext_sel = ext_sel;
@@ -404,7 +553,11 @@ extern "C" int eval_chunk_launch(
   a.fail_mask = static_cast<unsigned int*>(fail_mask);
   const int threads = pin_row != nullptr ? 32 : 256;
   dim3 grid(pin_row != nullptr ? 1 : (N + threads - 1) / threads, C);
-  eval_chunk_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  if (strategy == kRatio || tp_weight != 0 || ls_weight != 0) {
+    eval_chunk_kernel<true><<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  } else {
+    eval_chunk_kernel<false><<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 

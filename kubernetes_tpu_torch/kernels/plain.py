@@ -23,11 +23,18 @@ from ..ops import tainttoleration as taint_op
 from ..ops import volumes as vol_op
 from ..ops.helpers import make_topo_onehot
 from ..ops.imagelocality import image_counts, image_scores  # noqa: F401  (the image_locality.cu pair)
+# The plain versions of eval_chunk's RequestedToCapacityRatio (NodeResourcesFit's
+# score with that strategy), throughput and learned score terms, which
+# eval_chunk below reaches through the ops' score functions.
+from ..ops.learned import score_fn as learned_score  # noqa: F401
+from ..ops.noderesources import score_fn as fit_score  # noqa: F401
+from ..ops.throughput import score_fn as throughput_score  # noqa: F401
 from ..ops.volumes import NVL, VB, VR, VZ
 
 IPA = "InterPodAffinity"
 NA, TT, PTS = "NodeAffinity", "TaintToleration", "PodTopologySpread"
 IL = "ImageLocality"
+TP, LS = "ThroughputAware", "LearnedScorer"
 # Filters eval_chunk reads from a precomputed plane instead of evaluating,
 # and where: NodeAffinity, TaintToleration, VolumeBinding and VolumeZone
 # from node_filters' bits 0-3 (per batch), VolumeRestrictions and
@@ -107,14 +114,18 @@ def pin_view(state, pf: dict, pin, nom=None, planes=()):
     return view, pf, nom, planes, torch.eye(c, dtype=torch.bool, device=idx.device)
 
 
-def eval_chunk(state, pf: dict, spec, nom, ext=None, pin=None):
+def eval_chunk(state, pf: dict, spec, nom, ext=None, pin=None, into=None):
     """(feasible (C, N) bool, total (C, N) i64, fail_mask (C,) i32) of one
     chunk — eval_pod's filter chain and weighted score sum (pass_.py:494-539).
     The EXT_FILTERS ops' results come from ``ext`` (see ext_filter), and
     ImageLocality's raw score from its il_scores plane (image_scores).
     ``total`` is 0 on infeasible nodes (select_host never reads it there).
     With ``pin`` each pod is evaluated on its pinned node alone (see
-    pin_view): (C, 1) outputs and that node's fail bits."""
+    pin_view): (C, 1) outputs and that node's fail bits.  With ``into``
+    (feasible, total, fail_mask of an earlier launch) the filters run on
+    that feasible set only, with fail bits from ``spec.bit0`` on, the
+    scores add to ``total``, and the three tensors are updated IN PLACE and
+    returned."""
     planes = ext_planes(ext)
     il = planes.pop("il_scores")
     c = pf["req"].shape[0]
@@ -128,8 +139,10 @@ def eval_chunk(state, pf: dict, spec, nom, ext=None, pin=None):
     feasible = state.valid[None, :].expand(c, n).clone()
     if own is not None:
         feasible &= own
+    if into is not None:  # a filter range runs only where the earlier launch left nodes
+        feasible &= into[0]
     fail = torch.zeros(c, dtype=torch.int32, device=feasible.device)
-    for bit, name in enumerate(spec.filters):
+    for bit, name in enumerate(spec.filters, spec.bit0):
         if name in EXT_FILTERS:
             ok = ext_filter(name, ext)
         else:
@@ -145,25 +158,25 @@ def eval_chunk(state, pf: dict, spec, nom, ext=None, pin=None):
             total = total + il.to(torch.int64) * weight
         else:
             total = total + opcommon.get(name).score(state, pf, ctx, feasible) * weight
-    total = torch.where(feasible, total, 0)
     if own is not None:
-        return feasible.diagonal()[:, None].clone(), total.diagonal()[:, None].clone(), fail
+        feasible, total = feasible.diagonal()[:, None].clone(), total.diagonal()[:, None].clone()
+    if into is not None:
+        total = total + into[1]
+    total = torch.where(feasible, total, 0)
+    if into is not None:
+        into[0].copy_(feasible)
+        into[1].copy_(total)
+        into[2].bitwise_or_(fail)
+        return into
     return feasible, total, fail
 
 
 def ipa_bit(ipa) -> int:
-    """InterPodAffinity's fail bit for an IpaSpec, or -1 when the op only
-    scores.  ipa_eval runs after eval_chunk, so every filter eval_chunk
-    evaluates must precede InterPodAffinity in the profile's filter order:
-    its bit is then the position after theirs."""
-    if IPA not in ipa.filters:
-        return -1
-    bit = ipa.filters.index(IPA)
-    if bit != len(ipa.filters) - 1:
-        raise NotImplementedError(
-            f"filters {list(ipa.filters[bit + 1:])} after {IPA}: ipa_eval runs after eval_chunk"
-        )
-    return bit
+    """InterPodAffinity's fail bit for an IpaSpec (its place in the
+    profile's filter order), or -1 when the op only scores.  Filters
+    ordered after it run in a second eval_chunk launch on what its filter
+    leaves (engine/pass_.py)."""
+    return ipa.filters.index(IPA) if IPA in ipa.filters else -1
 
 
 # ipa_eval's phases: the filter, the score, or both in one launch.  Truncated

@@ -3,5 +3,5 @@
 from . import common  # noqa: F401
 from . import (  # noqa: F401
     imagelocality, interpodaffinity, nodeaffinity, nodeports, noderesources, podtopologyspread,
-    dynamicresources, tainttoleration, trivial, volumes,
+    dynamicresources, tainttoleration, trivial, volumes, throughput, learned,
 )

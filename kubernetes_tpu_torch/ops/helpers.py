@@ -78,3 +78,39 @@ def log_table(n: int, device) -> torch.Tensor:
                            device=device)
         _LOG_TABLES[key] = tab
     return tab
+
+
+def _two_sum(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(s, e) with s = fl(a + b) and s + e = a + b exactly (Knuth)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _split(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Veltkamp's split of an f64 into two halves of 26 bits each."""
+    t = a * 134217729.0  # 2^27 + 1
+    hi = t - (t - a)
+    return hi, a - hi
+
+
+def fma_f64(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c in f64 with one rounding, as a fused multiply-add gives it,
+    from separately rounded operations only: Dekker's exact product, an
+    exact sum, the low parts added with rounding to odd, then one rounding
+    to nearest (Boldo and Melquiond, "Emulation of FMA and correctly
+    rounded sums: proved algorithms using rounding to odd", IEEE TC 2008).
+    Exact for finite operands whose product neither overflows nor
+    underflows."""
+    p = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    pe = ((ah * bh - p) + ah * bl + al * bh) + al * bl  # a * b = p + pe exactly
+    th, tl = _two_sum(c, p)
+    v, ve = _two_sum(pe, tl)
+    # Round v to odd: an inexact sum with an even last bit moves one ulp
+    # toward the exact value.
+    even = (v.view(torch.int64) & 1) == 0
+    inf = torch.tensor(float("inf"), dtype=v.dtype, device=v.device)
+    v = torch.where((ve != 0) & even, torch.nextafter(v, torch.where(ve > 0, inf, -inf)), v)
+    return th + v

@@ -30,6 +30,7 @@ from ..framework.config import (
 )
 from ..snapshot import FIXED_RESOURCES
 from .common import FeaturizeContext, OpDef, PassContext, register
+from .helpers import fma_f64
 
 # Kind tags for strategy resource columns: where the "requested" number for a
 # resource comes from (resource_allocation.go:89 calculateResourceAllocatableRequest).
@@ -132,8 +133,12 @@ def _most_requested(alloc, reqd):
 
 
 def _interp(x: torch.Tensor, xs: np.ndarray, ys: np.ndarray) -> torch.Tensor:
-    """numpy/jnp.interp in f64 with the same operation order (constant
-    extrapolation outside [xs[0], xs[-1]])."""
+    """jnp.interp in f64 as the reference computes it (constant
+    extrapolation outside [xs[0], xs[-1]]): the same operation order, and
+    the last step ``fp[i-1] + (delta/dx)*df`` rounded once, as XLA fuses it
+    into a multiply-add (``fma_f64``; rounded twice it differs in the last
+    bit, which flips the truncated score of a decreasing shape at some
+    integer utilizations)."""
     xp = torch.tensor(xs, dtype=torch.float64, device=x.device)
     fp = torch.tensor(ys, dtype=torch.float64, device=x.device)
     i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, len(xs) - 1)
@@ -142,7 +147,7 @@ def _interp(x: torch.Tensor, xs: np.ndarray, ys: np.ndarray) -> torch.Tensor:
     delta = x - xp[i - 1]
     eps = np.spacing(np.finfo(np.float64).eps)
     dx0 = dx.abs() <= eps
-    f = torch.where(dx0, fp[i - 1], fp[i - 1] + (delta / torch.where(dx0, 1.0, dx)) * df)
+    f = torch.where(dx0, fp[i - 1], fma_f64(delta / torch.where(dx0, 1.0, dx), df, fp[i - 1]))
     f = torch.where(x < xp[0], fp[0], f)
     return torch.where(x > xp[-1], fp[-1], f)
 

@@ -144,6 +144,9 @@ class SchedulingQueue:
         self._in_active: set[str] = set()
         self._gated: dict[str, QueuedPodInfo] = {}
         self.backoff = backoff
+        # Per-profile PreEnqueue: the scheduler's pod → bool predicate, whether
+        # the pod's profile runs SchedulingGates; None: every profile does.
+        self.gates_apply_to = None
 
     def __len__(self) -> int:
         """Pods in the active queue."""
@@ -156,7 +159,7 @@ class SchedulingQueue:
             self._info[pod.uid] = qp
         qp.pod = pod
         # PreEnqueue: SchedulingGates holds gated pods out of every queue.
-        if pod.spec.scheduling_gates:
+        if pod.spec.scheduling_gates and (self.gates_apply_to is None or self.gates_apply_to(pod)):
             self._gated[pod.uid] = qp
             return
         self._push_active(qp)

@@ -29,7 +29,10 @@ claim catalog (scheduler.py:1737-1910).  A profile with
 percentage_of_nodes_to_score != 100 runs truncated (parity) mode at chunk
 1 (scheduler.py:375-385): every pass scans the cache's zone-interleaved
 node order from a rotating start, which the host advances by each batch's
-processedNodes (:3788-3792), and the pinned-batch pass stays off.  Gangs,
+processedNodes (:3788-3792), and the pinned-batch pass stays off.
+Several profiles register by schedulerName (``profiles=``, scheduler.py:
+150-183): a popped batch splits into one group a profile, in pop order,
+each dispatched and completed under its own profile (:3226-3245).  Gangs,
 extenders, journaling, the PreBind wait room and the pipelined predispatch
 are later slices; a pod that would need one raises NotImplementedError.
 """
@@ -91,6 +94,7 @@ class TorchScheduler:
         chunk_size: int = 1,
         device: str | torch.device | None = None,
         *,
+        profiles: list[Profile] | None = None,
         queue: SchedulingQueue | None = None,
         inline_preempt_commit: bool | None = None,
         feature_gates=None,
@@ -98,22 +102,31 @@ class TorchScheduler:
     ):
         self.device = resolve_device(device)
         self.feature_gates = feature_gates or DEFAULT_GATES
+        # The profile map (profile/profile.go:47, scheduler.py:150-158):
+        # schedulerName → profile; ``profile`` is the default, and a pod
+        # naming no registered scheduler is not ours.
+        by_name = {profile.name: profile}
+        for p in profiles or ():
+            by_name[p.name] = p
         # With DynamicResourceAllocation off the plugin exists at no
-        # extension point (plugins/registry.go:49, scheduler.py:159-183).
+        # extension point of any profile (plugins/registry.go:49,
+        # scheduler.py:159-183).
         self._dra_enabled = self.feature_gates.enabled("DynamicResourceAllocation")
         if not self._dra_enabled:
-            profile = dataclasses.replace(profile, **{
-                fld: tuple(f for f in getattr(profile, fld) if f != "DynamicResources")
+            by_name = {name: dataclasses.replace(p, **{
+                fld: tuple(f for f in getattr(p, fld) if f != "DynamicResources")
                 for fld in ("filters", "pre_enqueue", "pre_filter", "post_filter", "reserve", "pre_bind")
-            })
-        unknown = [
-            n for n in (*profile.filters, *(s for s, _ in profile.scorers)) if not opcommon.has(n)
-        ]
-        if unknown:
-            raise NotImplementedError(f"plugins {unknown} are not yet ported")
-        # Truncated (parity) mode: the reference's search truncation, rotating
-        # start and zone-interleaved order need the sequential scan.
-        self._truncated = profile.percentage_of_nodes_to_score != 100
+            }) for name, p in by_name.items()}
+        for p in by_name.values():
+            unknown = [n for n in (*p.filters, *(s for s, _ in p.scorers)) if not opcommon.has(n)]
+            if unknown:
+                raise NotImplementedError(f"plugins {unknown} are not yet ported")
+        self.profiles: dict[str, Profile] = by_name
+        profile = by_name[profile.name]
+        # Truncated (parity) mode when any profile truncates: the
+        # reference's search truncation, rotating start and zone-interleaved
+        # order need the sequential scan (scheduler.py:379).
+        self._truncated = any(p.percentage_of_nodes_to_score != 100 for p in by_name.values())
         if self._truncated and chunk_size != 1:
             raise ValueError("percentage_of_nodes_to_score != 100 (parity mode) requires chunk_size=1")
         if batch_size % chunk_size:
@@ -132,6 +145,10 @@ class TorchScheduler:
         self.builder.feature_gates = self.feature_gates
         self.cache = Cache(self.builder)
         self.queue = queue if queue is not None else SchedulingQueue()
+        # Per-profile PreEnqueue: SchedulingGates holds a gated pod only when
+        # its profile runs the plugin (scheduler.py:209-211).
+        self.queue.gates_apply_to = lambda pod: "SchedulingGates" in (
+            self._profile_for(pod) or self.profile).pre_enqueue
         self.passes = PassCache(_impl)
         # Carried domain tables: the previous pass's final (group_dom,
         # et_dom) and the (schema, mutation_epoch) token they are valid
@@ -223,7 +240,7 @@ class TorchScheduler:
             self.cache.add_pod(pod)
             self.queue.on_event(Event.POD_ADD)
             return
-        if pod.spec.scheduler_name not in (self.profile.name, "default-scheduler"):
+        if self._profile_for(pod) is None:
             return  # another scheduler's pod (responsibleForPod)
         if pod.uid in self.cache.pods:
             return  # re-delivery of a pod already bound here
@@ -430,10 +447,23 @@ class TorchScheduler:
             self.builder.set_dra_cap(rec.row, node_name, device_class)
         self.queue.on_event(Event.CLAIM_ADD)
 
+    def _profile_for(self, pod: t.Pod) -> Profile | None:
+        """frameworkForPod (schedule_one.go:379, scheduler.py:2284): the
+        profile of the pod's schedulerName; the API default
+        "default-scheduler" falls to the default profile; any other name is
+        not ours."""
+        p = self.profiles.get(pod.spec.scheduler_name)
+        if p is not None:
+            return p
+        if pod.spec.scheduler_name == "default-scheduler":
+            return self.profile
+        return None
+
     def _reserve_for(self, pod: t.Pod) -> list:
-        """The Reserve plugins the profile enables (profile.reserve) that
-        the pod needs (scheduler.py:2124)."""
-        return [rp for rp in self.reserve_plugins if rp.name in self.profile.reserve and rp.relevant(pod, self)]
+        """The Reserve plugins the pod's profile enables (profile.reserve)
+        that the pod needs (scheduler.py:2124)."""
+        enabled = (self._profile_for(pod) or self.profile).reserve
+        return [rp for rp in self.reserve_plugins if rp.name in enabled and rp.relevant(pod, self)]
 
     def _reserve(self, pod: t.Pod, node_name: str) -> bool:
         """Run the pod's Reserve plugins in order; on a failure unreserve the
@@ -481,7 +511,10 @@ class TorchScheduler:
 
     def schedule_batch(self) -> list[ScheduleOutcome]:
         """Pop up to batch_size pods (or take the prefetched batch) and
-        schedule them in one batch pass, then PostFilter the failures."""
+        schedule them in one batch pass, then PostFilter the failures.  With
+        several profiles the popped batch is split by profile in pop order
+        and each group runs its own pass and completion, with no prefetch
+        (scheduler.py:3226-3245)."""
         pre, self._prefetched = self._prefetched, None
         if pre is not None:
             infos, work = pre
@@ -489,14 +522,23 @@ class TorchScheduler:
             infos, work = self.queue.pop_batch(self.batch_size), None
         if not infos:
             return []
-        ctx = self._dispatch_batch(infos, work)
+        if len(self.profiles) > 1:
+            groups: dict[str, list[QueuedPodInfo]] = {}
+            for qp in infos:
+                groups.setdefault((self._profile_for(qp.pod) or self.profile).name, []).append(qp)
+            out: list[ScheduleOutcome] = []
+            for name, group in groups.items():
+                out.extend(self._complete_batch(self._dispatch_batch(group, self.profiles[name])))
+            return out
+        profile = self.profile
+        ctx = self._dispatch_batch(infos, profile, work)
         # Recent batches failed: pack the victims now and chain the dry-run
         # on this pass's device picks (scheduler.py:3298-3316).
         prepacked = None
         if self.chunk_size > 1 and self.preemption.expect_failures and self.preemption.worth_prepacking(
             qp.pod for qp in infos
         ):
-            prepacked = self.preemption.pack_victims(self.profile, ctx["active"])
+            prepacked = self.preemption.pack_victims(profile, ctx["active"])
         ctx["prepacked"] = prepacked
         if prepacked is not None:
             ctx["spec"] = self.preemption.dispatch_speculative(ctx, prepacked)
@@ -505,7 +547,7 @@ class TorchScheduler:
         if not ctx["active"] & {"VolumeBinding", "DynamicResources"}:
             nxt = self.queue.pop_batch(self.batch_size)
             if nxt:
-                self._prefetched = (nxt, self._featurize_batch(nxt))
+                self._prefetched = (nxt, self._featurize_batch(nxt, profile))
         return self._complete_batch(ctx)
 
     def schedule_all_pending(self, max_rounds: int = 10_000, wait_backoff: bool = False) -> list[ScheduleOutcome]:
@@ -568,9 +610,9 @@ class TorchScheduler:
         expand = plain.expand_rows if self._impl == "plain" else kernels.expand_rows
         return {kk: expand(v, k) for kk, v in small.items()}
 
-    def _featurize_batch(self, infos: list[QueuedPodInfo]) -> dict:
+    def _featurize_batch(self, infos: list[QueuedPodInfo], profile: Profile) -> dict:
         batch, deltas, active = build_pod_batch(
-            [qp.pod for qp in infos], self.builder, self.profile, self.batch_size
+            [qp.pod for qp in infos], self.builder, profile, self.batch_size
         )
         return {"batch": batch, "deltas": deltas, "active": active,
                 "version": self.builder.feature_version()}
@@ -610,12 +652,11 @@ class TorchScheduler:
             rows[i] = rec.row if rec is not None else -1
         return rows, nom
 
-    def _dispatch_batch(self, infos: list[QueuedPodInfo], work: dict | None = None) -> dict:
-        profile = self.profile
+    def _dispatch_batch(self, infos: list[QueuedPodInfo], profile: Profile, work: dict | None = None) -> dict:
         if work is not None and work["version"] != self.builder.feature_version():
             work = None  # stale prefetch
         if work is None:
-            work = self._featurize_batch(infos)
+            work = self._featurize_batch(infos, profile)
         self._inject_nomrows(work, infos)
         batch, deltas, active = work["batch"], work["deltas"], work["active"]
         # Invariants may grow TK/DV: after featurization, before the flush.
@@ -711,7 +752,7 @@ class TorchScheduler:
         return tuple(both)
 
     def _complete_batch(self, ctx: dict) -> list[ScheduleOutcome]:
-        infos, profile = ctx["infos"], self.profile
+        infos, profile = ctx["infos"], ctx["profile"]
         batch, deltas, active = ctx["batch"], ctx["deltas"], ctx["active"]
         nomrow = ctx["nomrow"]
         new_state = ctx["new_state"]

@@ -41,6 +41,7 @@ INT_SENTINEL = np.int64(-(2**62))
 POD_PORT_SLOTS = 8
 
 # Fixed resource columns; scalar/extended resources are interned after these.
+RES_CPU, RES_MEMORY = 0, 1  # columns of the first two FIXED_RESOURCES
 FIXED_RESOURCES = (t.CPU, t.MEMORY, t.EPHEMERAL_STORAGE)
 
 

@@ -136,23 +136,53 @@ holders of one GPU node.  The claim table is grown to 8192 rows
 (parity) mode, as upstream's scheduler runs it: density's 5000 nodes of 16
 CPU, 64 GiB and 110 pods over 3 zones (``_basic_nodes``, :273); 2048
 warm-up and 10000 measured pods of 900m CPU and 2 GiB (``_pod_basic``,
-:306); the default profile with percentageOfNodesToScore unset, so the
+:306), run at half its measured depth, 5000 pods (the name keeps the
+10000 it was written for; the cut keeps chip_smoke.py within its time
+with the heterogeneity and bin-packing paths: its plain run was the
+third-longest item there);
+the default profile with percentageOfNodesToScore unset, so the
 adaptive formula scans for 50 − 5000/125 = 10% = 500 feasible nodes
 (schedule_one.go:676-702) in the zone-interleaved node order from a
 rotating start; chunk 1, which truncated mode requires (pass_.py:420-421,
 scheduler.py:381-385), and batch 1024.  No node fills (at most 17 of these
 pods fit one by CPU), so every pod's scan stops at 500 feasible nodes and
 the start advances by about 500 a pod.
+
+The heterogeneity workloads (harness.py:985-1110): nodes of 16 CPU, 64 GiB
+and 110 pods over 10 zones in one region, labelled with an accelerator
+class dealt by node index 5:3:2 over tpu-v4, tpu-v5e and gpu-a100
+(``hetero_accel_for``); pods of 100m CPU and 256 MiB labelled with one of
+10 apps and, in turn, with one of the four workload classes of the
+throughput matrix.  Three profiles are registered, the default,
+``throughput_aware_profile()`` and ``learned_scorer_profile()``; batch
+4096, chunk 64.  The warm-up first pre-seeds the accelerator and workload
+class vocabularies (``preseed_hetero_vocab``).
+``hetero_1kn_5kpods`` (:1079) and ``hetero_5kn_10kpods`` (:1089): 1000
+nodes and 1024 + 5000 pods, 5000 nodes and 2048 + 10000 pods, naming
+``throughput-aware-scheduler``.  ``hetero_learned_1kn_5kpods`` (:1099):
+1000 nodes and 1024 + 5000 pods naming ``learned-scorer-scheduler``.
+
+``binpack_rtcr_5kn_10kpods`` has no harness counterpart: upstream's
+documented bin-packing configuration (kubernetes.io/docs/concepts/
+scheduling-eviction/resource-bin-packing: NodeResourcesFit with the
+RequestedToCapacityRatio strategy, shape (0, 0), (100, 10), cpu and memory
+weight 1) on density's shape: 5000 nodes of 16 CPU, 64 GiB and 110 pods
+over 3 zones, 2048 warm-up and 10000 measured pods of 900m CPU and 2 GiB,
+the default profile otherwise; batch 4096, chunk 64.  The most-requested
+nodes win, so a chunk's pods crowd onto few nodes and defer behind their
+mates.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
 
 from .api import types as t
 from .api.wrappers import make_node, make_pod, make_pv, make_pvc
+from .framework.config import DEFAULT_PROFILE, REQUESTED_TO_CAPACITY_RATIO, Profile, ScoringStrategy
 from .snapshot import _bucket
 
 DENSITY_NODES = 5000
@@ -581,7 +611,7 @@ DRA_CHUNK = 8
 PARITY_NODES = 5000
 PARITY_ZONES = 3
 PARITY_WARM_PODS = 2048
-PARITY_MEASURED_PODS = 10000
+PARITY_MEASURED_PODS = 5000  # half of basic_5kn_10kpods' 10000, see above
 PARITY_BATCH = 1024
 PARITY_CHUNK = 1
 PARITY_PCT = None  # percentageOfNodesToScore unset: the adaptive formula
@@ -636,3 +666,101 @@ def dra_preemptor_claims(count: int = DRA_PREEMPTORS) -> list[t.ResourceClaim]:
 def dra_preemptor(i: int) -> t.Pod:
     return (make_pod(f"vip-{i}").req({"cpu": "1", "memory": "2Gi"}).label("app", "gpu-trainer").priority(1000)
             .resource_claim(f"node-claim-{i}").obj())
+
+
+# -- the heterogeneity workloads (harness.py:985-1110) --------------------------
+
+# Pool deal: 50% tpu-v4, 30% tpu-v5e, 20% gpu-a100, by node index.
+HETERO_POOLS: tuple[tuple[str, int], ...] = (("tpu-v4", 5), ("tpu-v5e", 3), ("gpu-a100", 2))
+HETERO_ZONES = 10
+HETERO_BATCH = 4096
+HETERO_CHUNK = 64
+HETERO_NODES = 5000
+HETERO_WARM_PODS = 2048
+HETERO_MEASURED_PODS = 10000
+HETERO_SMALL_NODES = 1000
+HETERO_SMALL_WARM_PODS = 1024
+HETERO_SMALL_MEASURED_PODS = 5000
+THROUGHPUT_SCHEDULER = "throughput-aware-scheduler"
+LEARNED_SCHEDULER = "learned-scorer-scheduler"
+
+
+def hetero_accel_for(i: int, pools: tuple[tuple[str, int], ...] = HETERO_POOLS) -> str:
+    """Accelerator class of node ``i`` under the weighted pool deal."""
+    total = max(sum(w for _a, w in pools), 1)
+    r = i % total
+    for accel, w in pools:
+        if r < w:
+            return accel
+        r -= w
+    return pools[-1][0]
+
+
+def hetero_nodes(n: int, zones: int = HETERO_ZONES) -> list[t.Node]:
+    """harness.py:_hetero_nodes."""
+    from .ops.throughput import ACCEL_LABEL_KEY
+
+    return [
+        make_node(f"node-{i}")
+        .capacity({"cpu": "16", "memory": "64Gi", "pods": 110})
+        .zone(f"zone-{i % zones}")
+        .region("region-1")
+        .label(ACCEL_LABEL_KEY, hetero_accel_for(i))
+        .obj()
+        for i in range(n)
+    ]
+
+
+def pod_hetero(i: int, scheduler_name: str = THROUGHPUT_SCHEDULER) -> t.Pod:
+    """harness.py:_pod_hetero: one of 10 apps, the four workload classes in
+    turn."""
+    from .ops.throughput import DEFAULT_THROUGHPUT_MATRIX, WORKLOAD_CLASS_LABEL_KEY
+
+    classes = [w for w, _row in DEFAULT_THROUGHPUT_MATRIX]
+    return (
+        make_pod(f"pod-{i}")
+        .req({"cpu": "100m", "memory": "256Mi"})
+        .label("app", f"app-{i % 10}")
+        .label(WORKLOAD_CLASS_LABEL_KEY, classes[i % len(classes)])
+        .scheduler(scheduler_name)
+        .obj()
+    )
+
+
+def pod_hetero_learned(i: int) -> t.Pod:
+    """harness.py:_pod_hetero_learned."""
+    return pod_hetero(i, scheduler_name=LEARNED_SCHEDULER)
+
+
+def hetero_profiles() -> list[Profile]:
+    """The two profiles registered beside the default (harness.py:_hetero_build)."""
+    from .ops.learned import learned_scorer_profile
+    from .ops.throughput import throughput_aware_profile
+
+    return [throughput_aware_profile(), learned_scorer_profile()]
+
+
+def hetero_warm(s) -> None:
+    """The vocabulary pre-seed of harness.py:_hetero_warm, before its warm-up
+    pods arrive."""
+    from .ops.throughput import preseed_hetero_vocab
+
+    preseed_hetero_vocab(s.builder)
+
+
+# -- binpack_rtcr_5kn_10kpods (no harness counterpart) ---------------------------
+
+BINPACK_NODES = 5000
+BINPACK_WARM_PODS = 2048
+BINPACK_MEASURED_PODS = 10000
+BINPACK_BATCH = 4096
+BINPACK_CHUNK = 64
+# kubernetes.io/docs/concepts/scheduling-eviction/resource-bin-packing:
+# utilization 0 scores 0, utilization 100 scores 10 (MaxNodeScore 100).
+BINPACK_STRATEGY = ScoringStrategy(
+    type=REQUESTED_TO_CAPACITY_RATIO, resources=(("cpu", 1), ("memory", 1)), shape=((0, 0), (100, 10)))
+
+
+def binpack_profile(profile: Profile = DEFAULT_PROFILE) -> Profile:
+    """The profile with NodeResourcesFit's bin-packing strategy."""
+    return dataclasses.replace(profile, scoring_strategy=BINPACK_STRATEGY)

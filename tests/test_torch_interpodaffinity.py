@@ -356,15 +356,31 @@ def test_scenario_matches_jax(name):
 
 
 def test_filter_after_interpodaffinity_is_refused():
-    """ipa_eval runs after eval_chunk, so a profile that orders one of
-    eval_chunk's filters after InterPodAffinity is refused, not run with
-    fail bits in the wrong order."""
-    prof = TProfile(name="ipa-first", filters=("InterPodAffinity", "NodeResourcesFit"), scorers=())
-    ts = TorchScheduler(prof, batch_size=4, device="cpu")
-    _zones(ts, tnode)
-    ts.add_pod(tpod("p").req({"cpu": "1"}).label("app", "a").pod_anti_affinity_in("app", ["a"], ZONE).obj())
-    with pytest.raises(NotImplementedError, match="after InterPodAffinity"):
-        ts.schedule_batch()
+    """A profile that orders one of eval_chunk's filters after
+    InterPodAffinity is no longer refused: the filters after it run in a
+    second eval_chunk launch on the nodes its filter left, so fail bits
+    come out in the profile's order.  Here NodeResourcesFit follows
+    InterPodAffinity; the outcomes (bindings, the rejecting plugins of the
+    pods that fail) equal JAX TPUScheduler's with the same profile."""
+    kw = dict(name="ipa-first", filters=("InterPodAffinity", "NodeResourcesFit"), scorers=())
+    outs = []
+    for sched, mknode, mkpod in ((TorchScheduler(TProfile(**kw), batch_size=4, device="cpu"), tnode, tpod),
+                                 (TPUScheduler(profile=JProfile(**kw), batch_size=4), jnode, jpod)):
+        _zones(sched, mknode)
+        sched.add_pod(mkpod("big").req({"cpu": "60"}).label("app", "a").node("n-a0").obj())
+        sched.add_pod(mkpod("p").req({"cpu": "1"}).label("app", "a").pod_anti_affinity_in("app", ["a"], ZONE).obj())
+        # Zone a is excluded by the anti-affinity (bit 0); the remaining
+        # nodes' cpu (bit 1) rejects the second pod everywhere else.
+        sched.add_pod(mkpod("q").req({"cpu": "70"}).obj())
+        sched.add_pod(mkpod("r").req({"cpu": "70"}).label("app", "a").pod_anti_affinity_in(
+            "app", ["a"], ZONE).obj())
+        plugins = (lambda o: o.unschedulable_plugins) if isinstance(sched, TorchScheduler) else (
+            lambda o: o.diagnosis.unschedulable_plugins if o.diagnosis else ())
+        outs.append({o.pod.name: (o.node_name, sorted(plugins(o))) for o in sched.schedule_all_pending()})
+    assert outs[0] == outs[1]
+    assert outs[0]["q"] == (None, ["NodeResourcesFit"])
+    assert outs[0]["r"] == (None, ["InterPodAffinity", "NodeResourcesFit"])
+    assert outs[0]["p"][0] is not None and not outs[0]["p"][0].startswith("n-a")
 
 
 def test_namespace_relabel_refeaturizes():

@@ -10,7 +10,11 @@ the claim commit, the claim pairs, DynamicResources' release in
 preempt_eval and search_step) are held at cuts of the "dra" and
 "search_dra" shapes and of dra_claims_5kn_5kpods; truncated mode's
 truncate_feasible, select_host's pos mode and ipa_eval's two launches at
-the "truncate" shapes and on a cut of parity_basic_5kn_10kpods."""
+the "truncate" shapes and on a cut of parity_basic_5kn_10kpods;
+eval_chunk's RequestedToCapacityRatio, throughput and learned terms at
+the "rtcr", "hetero" and "hetero_learned" shapes and on cuts of
+hetero_5kn_10kpods and binpack_rtcr_5kn_10kpods; eval_chunk's second
+launch after InterPodAffinity at the "split" shape."""
 
 import dataclasses
 
@@ -506,3 +510,82 @@ def test_scheduler_truncated_kernel_path_matches_plain_path(cuda_device, pct):
             assert counts["ipa_eval"] > 0
     assert seen["kernel"] == seen["plain"]
     assert all(seen["kernel"][0].values()) and seen["kernel"][1] != 0
+
+
+@pytest.mark.cuda
+def test_rtcr_kernel_matches_plain_version_exactly(cuda_device):
+    """eval_chunk with RequestedToCapacityRatio (three shapes, utilizations
+    on the shape points) exact; a 17-point shape refused before launch."""
+    import chip_smoke
+
+    timing = chip_smoke.check_rtcr_kernels(cuda_device, reps=1)
+    assert timing["eval_chunk/rtcr"]["max_abs_err"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["hetero", "hetero_learned"])
+def test_hetero_kernels_match_plain_versions_exactly(cuda_device, shape):
+    """eval_chunk's throughput and learned terms exact against the plain
+    versions (torch.tanh and torch.exp on the card)."""
+    import chip_smoke
+
+    timing = chip_smoke.check_hetero_kernels(cuda_device, 1, shape)
+    assert set(timing) == {"eval_chunk/throughput", "eval_chunk/learned"}
+    assert all(t["max_abs_err"] == 0 for t in timing.values())
+
+
+@pytest.mark.cuda
+def test_split_kernels_match_plain_versions_exactly(cuda_device):
+    """The filters after InterPodAffinity: eval_chunk, ipa_eval's filter,
+    eval_chunk's second launch with DynamicResources, ipa_eval's score."""
+    import chip_smoke
+
+    timing = chip_smoke.check_split_kernels(cuda_device, 1)
+    assert timing["eval_chunk/after_ipa"]["max_abs_err"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["hetero", "pinned", "binpack"])
+def test_scheduler_hetero_and_binpack_kernel_paths_match_plain_paths(cuda_device, kind):
+    """Cuts of hetero_5kn_10kpods (with pods of all three profiles; and its
+    pods pinned to their nodes, so eval_chunk runs the terms in pinned
+    mode) and of binpack_rtcr_5kn_10kpods through TorchScheduler on the
+    card: the kernel path binds as the plain path does and launches the
+    path's terms."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch import workloads as w
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+
+    binds = {}
+    for impl in ("kernel", "plain"):
+        if kind in ("hetero", "pinned"):
+            s = TorchScheduler(DEFAULT_PROFILE, batch_size=256, chunk_size=16, profiles=w.hetero_profiles(),
+                               _impl=impl)
+            w.hetero_warm(s)
+            nodes = w.hetero_nodes(300)
+            names = ("default-scheduler", w.THROUGHPUT_SCHEDULER, w.LEARNED_SCHEDULER)
+            pods = [w.pod_hetero(i, names[i % 3]) for i in range(1500)]
+            if kind == "pinned":
+                for i, p in enumerate(pods):
+                    p.spec.affinity = w.daemon_pod(p.name, i % 300).spec.affinity
+        else:
+            s = TorchScheduler(w.binpack_profile(), batch_size=256, chunk_size=16, _impl=impl)
+            nodes = w.basic_nodes(300)
+            pods = [w.pod_basic(i) for i in range(1500)]
+        for n in nodes:
+            s.add_node(n)
+        for p in pods:
+            s.add_pod(p)
+        kernels.reset_launches()
+        binds[impl] = {o.pod.name: o.node_name for o in s.schedule_all_pending()}
+        assert s.builder.host_mirror_equal()
+        if impl == "kernel":
+            terms = kernels.eval_chunk.term_launches
+            if kind != "binpack":
+                assert terms["throughput"] > 0 and terms["learned"] > 0 and terms["rtcr"] == 0
+                assert (s.pinned_batches > 0) == (kind == "pinned")
+            else:
+                assert terms["rtcr"] == kernels.eval_chunk.launches > 0
+    assert binds["kernel"] == binds["plain"]
+    assert all(v is not None for v in binds["kernel"].values())

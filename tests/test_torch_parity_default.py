@@ -12,8 +12,6 @@ import copy
 import dataclasses
 from dataclasses import replace
 
-import pytest
-
 from kubernetes_tpu_torch.api import types as tt
 from kubernetes_tpu_torch.engine.features import build_pod_batch
 from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE as TDEF
@@ -95,8 +93,6 @@ def test_port_default_profile_decision_parity_with_preemption():
     assert s._next_start != 0
 
 
-@pytest.mark.xfail(raises=NotImplementedError, strict=True,
-                   reason="ROADMAP §3 (open): DynamicResources after InterPodAffinity in one batch is refused")
 def test_port_full_surface_parity_volumes_dra_gates():
     _s, got_bind, _want, objs = _drive(volumes=True)
     assert "rw-a" in got_bind and "rw-b" not in got_bind

@@ -193,8 +193,11 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
         with pytest.raises(RuntimeError, match="CUDA"):
             TorchScheduler(TDEF)
     assert TorchScheduler(TDEF, device="cpu").device.type == "cpu"
+    # A plugin with no op in the port (the Go-side TPUBatchScore, which the
+    # sidecar serves) is refused; ThroughputAware is ported.
     with pytest.raises(NotImplementedError):
-        TorchScheduler(TProfile(scorers=(("ThroughputAware", 1),)), device="cpu")
+        TorchScheduler(TProfile(scorers=(("TPUBatchScore", 1),)), device="cpu")
+    TorchScheduler(TProfile(scorers=(("ThroughputAware", 1),)), device="cpu")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

@@ -114,12 +114,19 @@ Phases; any failure fails the run (nothing is caught):
        terms, at "hetero" (5000 nodes dealt over three accelerator
        classes, unlabelled nodes and a class the matrix lacks, N=8192) and
        "hetero_learned" (1000 nodes, N=1024), C=64, 0-110 pods a node and
-       loads up to 120% of allocatable, the learned term with torch.tanh
-       and torch.exp as its plain version; and the filters after
+       loads up to 120% of allocatable, the learned term in XLA's
+       arithmetic in both (ops/learned.py); and the filters after
        InterPodAffinity at "split" (1000 nodes, C=64, affinity and claim
        pods in one chunk): eval_chunk, ipa_eval's filter, eval_chunk's
        second launch with DynamicResources on the nodes left, ipa_eval's
        score, every output after every launch;
+     - the attribution pass's columns modes, each an entry of its own in
+       the kernels line, at C=1 for a pod with NodeAffinity, tolerations,
+       zone spread, (anti-)affinity, a host port and images under the
+       default profile, on 5000 nodes ("cols", N=8192) and 1000 ("cols_1k",
+       N=1024) in 10 zones with tiers, taints, images and bound pods:
+       eval_chunk/cols, ipa_eval/cols (its filter and score phases) and
+       late_scores/cols, and the whole attribution pass's four outputs;
   4. drive each main path through TorchScheduler, with the launch counts
      set to 0 just before and read just after; every pod must bind, the
      host mirror must equal the device state, no node may exceed its
@@ -159,7 +166,7 @@ Phases; any failure fails the run (nothing is caught):
        ports conflict, and no whole-state upload happens in the window;
      - preemption_default_search_5kn (5000 nodes in 10 zones, 20000 batch
        pods bound as they arrive, four a node, a warm-up preemptor, then
-       1000 service preemptors with a zone
+       500 service preemptors (half its 1000) with a zone
        spread, an anti-affinity to tier=noisy and host port 8080; default
        profile, backoff waited, nominate-and-retry; no harness
        counterpart): every preemptor binds, every victim is a priority-1
@@ -195,6 +202,22 @@ Phases; any failure fails the run (nothing is caught):
        and RequestedToCapacityRatio terms launch on their paths and on no
        other; the share of each workload class's pods on its best
        accelerator class and the nodes the bin-packing used are printed;
+     - extender_5kn_1kpods (density's 5000 nodes in 10 zones, tiered
+       1:2:2 and one in five denied; 512 + 1000 density pods, each through
+       the eval-only pass and three in-process extenders: a filter that
+       drops the denied nodes, a prioritizer of weight 5 by tier, an
+       ignorable one that raises on every 100th call; no harness
+       counterpart): no pod on a denied node, and 32 sampled picks equal
+       the host's argmax of plugin total + 5 x tier score; then its
+       PostFilter phase (500 full nodes, 32 preemptors, an extender that
+       keeps or vetoes every candidate): the victims equal the plain run's
+       and the veto evicts nothing;
+     - after default_images_ports_5kn_10kpods' window, its explain phase:
+       provenance armed, one more batch of 1024 mixed pods and an unfit
+       one, then explain_pod of 32 bound, 32 pending and the unfit pod:
+       every record equals the plain run's (diff_records None), every
+       capsule too, and the unfit pod's rejecting plugin is
+       NodeResourcesFit on every node;
      every run of a path must give the same outcome count and send the
      same number of pods to backoff; pods/s, the idle share, deferrals,
      preemptions, the backoff waited and the garbage collector's pauses in
@@ -3267,7 +3290,8 @@ def run_preempt_async(impl: str, trace: bool = False):
 def run_search(impl: str, trace: bool = False):
     """preemption_default_search_5kn (no harness counterpart): 5000 nodes
     in 10 zones holding 20000 batch pods, bound four a node as they arrive
-    (search_fill), the warm-up preemptor, then 1000 service preemptors;
+    (search_fill), the warm-up preemptor, then 500 service preemptors
+    (half the workload's 1000, for the script's time);
     default profile, nominate-and-retry, the backoff waited on a virtual
     clock: preemptors a dry-run left without a node are
     parked, woken by a later eviction and retried behind backoff, and on
@@ -4160,7 +4184,7 @@ def check_hetero_kernels(dev, reps: int, shape: str) -> dict:
     LearnedScorer, at a heterogeneity shape: "hetero" (5000 nodes, N=8192)
     or "hetero_learned" (1000 nodes, N=1024), C=64 (hetero_inputs); and the
     learned term alone.  Exact against the plain versions (the learned term
-    with torch.tanh and torch.exp on the card).  Returns the timings of
+    in XLA's arithmetic on the card, ops/learned.py).  Returns the timings of
     the throughput term and of both terms."""
     import torch
 
@@ -4335,6 +4359,368 @@ def check_split_kernels(dev, reps: int) -> dict:
     return {"eval_chunk/after_ipa": tm}
 
 
+COLS_SHAPES = {"cols": 5000, "cols_1k": 1000}
+
+
+def explain_cluster(s, nodes: int, seed: int) -> None:
+    """The attribution shapes' cluster on a scheduler: ``nodes`` nodes in 10
+    zones with tier labels, a NoSchedule taint "dedicated" on one in 7 and
+    "gpu-only" on one in 11, a PreferNoSchedule taint on one in 5, 50
+    images each from a 400-image Zipf pool, one in 100 unschedulable; two
+    bound pods a node with colours c0-c4, one in 8 holding hostPort 8080,
+    one in 6 with a zone anti-affinity to c4, and a few of colour c9 in
+    zones 0 and 1."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.api import types as t
+    from kubernetes_tpu_torch.api.wrappers import make_node, make_pod
+
+    rng = np.random.default_rng(seed)
+    weights = 1.0 / np.arange(1, 401) ** 1.1
+    weights /= weights.sum()
+    for i in range(nodes):
+        nw = make_node(f"node-{i}").capacity({"cpu": "32", "memory": "128Gi", "pods": 110})
+        nw = nw.zone(f"zone-{i % 10}").label("tier", ("gold", "silver", "bronze", "bronze", "silver")[i % 5])
+        for img in rng.choice(400, 50, replace=False, p=weights):
+            nw = nw.image(f"registry.example/img-{img}:v1", int(rng.integers(50, 900)) << 20)
+        if i % 7 == 3:
+            nw = nw.taint("dedicated", "infra")
+        if i % 11 == 5:
+            nw = nw.taint("gpu-only", "true")
+        if i % 5 == 2:
+            nw = nw.taint("spot", "yes", t.EFFECT_PREFER_NO_SCHEDULE)
+        if i % 100 == 42:
+            nw = nw.unschedulable()
+        s.add_node(nw.obj())
+    for j in range(2 * nodes):
+        if j % 97 == 0:
+            node = f"node-{10 * int(rng.integers(nodes // 10)) + j % 2}"
+            s.add_pod(make_pod(f"held-{j}").req({"cpu": "1"}).label("color", "c9").node(node).obj())
+            continue
+        pw = make_pod(f"held-{j}").req({"cpu": "1", "memory": "2Gi"}).label("color", f"c{j % 5}")
+        if j % 8 == 1:
+            pw = pw.host_port(8080)
+        if j % 6 == 0:
+            pw = pw.pod_anti_affinity_in("color", ["c4"], ZONE)
+        s.add_pod(pw.node(f"node-{int(rng.integers(nodes))}").obj())
+
+
+def explain_pod_full(name: str = "explained"):
+    """A pod with NodeAffinity (required and preferred), tolerations, zone
+    spread (DoNotSchedule and ScheduleAnyway), pod affinity and
+    anti-affinity, a hostPort and images: every op of the default profile
+    but the volume and claim ops scores or filters it."""
+    from kubernetes_tpu_torch.api import types as t
+    from kubernetes_tpu_torch.api.wrappers import make_pod
+
+    return (make_pod(name).req({"cpu": "2", "memory": "4Gi"}).label("color", "c1").label("app", "web")
+            .node_affinity_in(ZONE, [f"zone-{z}" for z in range(8)])
+            .preferred_node_affinity_in("tier", ["gold"], 5).preferred_node_affinity_in("tier", ["silver"], 2)
+            .toleration("dedicated", t.TOLERATION_OP_EQUAL, "infra", t.EFFECT_NO_SCHEDULE)
+            .spread_constraint(1, ZONE, t.DO_NOT_SCHEDULE, "app", ["web"])
+            .spread_constraint(2, ZONE, t.SCHEDULE_ANYWAY, "color", ["c1", "c2"])
+            .pod_anti_affinity_in("color", ["c9"], ZONE).preferred_pod_affinity_in("color", ["c0"], ZONE, 4)
+            .preferred_pod_affinity_in("color", ["c4"], ZONE, 2, anti=True)
+            .host_port(8080).container_image("registry.example/img-0:v1", "registry.example/img-3:v1").obj())
+
+
+def cols_inputs(dev, shape: str):
+    """One attribution shape: the scheduler with explain_cluster, the full
+    pod's featurized batch of one (twice: the second under the final
+    vocabularies), its active ops, the invariants and the state."""
+    from kubernetes_tpu_torch.engine.features import build_pod_batch
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+
+    s = TorchScheduler(DEFAULT_PROFILE, batch_size=8, device=dev)
+    explain_cluster(s, COLS_SHAPES[shape], 71)
+    pod = explain_pod_full()
+    for _ in range(2):
+        batch, _d, active = build_pod_batch([pod], s.builder, DEFAULT_PROFILE, 1)
+    batch["nominated_row"] = __import__("numpy").full(1, -1, "int32")
+    return s, batch, active, s._full_inv(), s.builder.state()
+
+
+def check_cols_kernels(dev, reps: int, shape: str) -> dict:
+    """The attribution pass's three columns modes (eval_chunk_cols,
+    ipa_eval_cols in its two phases, late_scores_cols) at one attribution
+    shape: "cols" (5000 nodes, N=8192) or "cols_1k" (1000 nodes, N=1024),
+    C=1 (cols_inputs).  Each is held against its plain version on the same
+    inputs, exactly, and timed; the whole pass through the kernels against
+    the pass through the plain versions, all four outputs."""
+    import dataclasses as dc
+
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.engine import pass_
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.kernels import plain
+
+    s, batch, active, inv, state = cols_inputs(dev, shape)
+    schema, res_col = s.builder.schema, s.builder.res_col
+    want = set(DEFAULT_PROFILE.filters) | {n for n, _ in DEFAULT_PROFILE.scorers}
+    want -= {"VolumeRestrictions", "NodeVolumeLimits", "VolumeBinding", "VolumeZone", "DynamicResources"}
+    if not want <= active:
+        raise AssertionError(f"{shape}: ops not active: {sorted(want - active)}")
+    errs: dict[str, float] = {}
+    outs = [pass_.build_attribution_pass(DEFAULT_PROFILE, schema, res_col, active, _impl=impl)(state, batch, inv)
+            for impl in ("kernel", "plain")]
+    torch.cuda.synchronize()
+    for what, a, b in zip(("ok_cols", "feasible", "score_cols", "total"), *outs):
+        exact(errs, "attribution", f"[{shape}] {what}", a, b)
+    ok, feas, cols, _total = outs[1]
+    print(f"attribution pass [{shape}]: exact; {int(feas.sum())} feasible of {int(state.valid.sum())} nodes, "
+          f"{int((~ok).any(dim=1).sum())} of {ok.shape[0]} filters reject somewhere, score columns nonzero "
+          f"off the feasible set: {int((cols[:, ~feas] != 0).any(dim=1).sum())} of {cols.shape[0]}")
+    plan = pass_._plan(DEFAULT_PROFILE, schema, res_col, active, "kernel")
+    tb = pass_._one_pod(batch, dev)
+    _dom, ipa, nom, node_bits, il = pass_._setup(plan, state, tb, inv, None)
+    ext = pass_._chunk_planes(plan, state, tb, node_bits, il)
+    names = pass_.filter_op_names(DEFAULT_PROFILE, active)
+    spec = dc.replace(plan.spec, filters=tuple(n for n in names if n != plain.IPA), bit0=0, _device_config={})
+    c, n = 1, state.valid.shape[0]
+    out = {}
+    k_e = kernels.eval_chunk_cols(state, tb, spec, nom, ext)
+    p_e = plain.eval_chunk_cols(state, tb, spec, nom, ext)
+    for what, a, b in zip(("ok_bits", "feasible", "cols", "total"), k_e, p_e):
+        exact(errs, "eval_chunk/cols", f"[{shape}] {what}", a, b)
+    tm = timed(lambda _: kernels.eval_chunk_cols(state, tb, spec, nom, ext),
+               lambda _: plain.eval_chunk_cols(state, tb, spec, nom, ext), reps)
+    planes = sum(nbytes(p) for p in ext if p is not None)
+    set_bound(tm, eval_bytes(state, tb, nom) + planes + c * n * (4 + 8 * len(spec.scorers)))
+    tm["max_abs_err"] = errs["eval_chunk/cols"]
+    out["eval_chunk/cols"] = tm
+    feasible, total = p_e[1], p_e[3]
+
+    def ipa_both(impl, x):
+        f, t_ = x
+        ok_ = impl.ipa_eval_cols(state, tb, f, t_, ipa, plain.IPA_FILTER)
+        return ok_, impl.ipa_eval_cols(state, tb, f, t_, ipa, plain.IPA_SCORE), f, t_
+
+    clone = lambda: (feasible.clone(), total.clone())  # noqa: E731
+    for what, a, b in zip(("ok", "col", "feasible", "total"), ipa_both(kernels, clone()), ipa_both(plain, clone())):
+        exact(errs, "ipa_eval/cols", f"[{shape}] {what}", a, b)
+    tm = timed(lambda x: ipa_both(kernels, x), lambda x: ipa_both(plain, x), reps, setup=clone)
+    set_bound(tm, 2 * ipa_bytes(state, ipa.ctx.dom, tb) + c * n * (1 + 8))
+    tm["max_abs_err"] = errs["ipa_eval/cols"]
+    out["ipa_eval/cols"] = tm
+    f_final, t_final = clone()
+    ipa_both(plain, (f_final, t_final))
+    late = plan.late
+    lclone = lambda: t_final.clone()  # noqa: E731
+    ka = kernels.late_scores_cols(state, tb, f_final, (tk := lclone()), node_bits, late)
+    pa = plain.late_scores_cols(state, tb, f_final, (tp := lclone()), node_bits, late)
+    exact(errs, "late_scores/cols", f"[{shape}] cols", ka, pa)
+    exact(errs, "late_scores/cols", f"[{shape}] total", tk, tp)
+    tm = timed(lambda x: kernels.late_scores_cols(state, tb, f_final, x, node_bits, late),
+               lambda x: plain.late_scores_cols(state, tb, f_final, x, node_bits, late), reps, setup=lclone)
+    set_bound(tm, late_bytes(state, tb, late, c) + 3 * c * n * 8)
+    tm["max_abs_err"] = errs["late_scores/cols"]
+    out["late_scores/cols"] = tm
+    for name in out:
+        print(f"{name} [{shape}]: exact")
+    return out
+
+
+def run_extender(impl: str, trace: bool = False):
+    """extender_5kn_1kpods (no harness counterpart): 5000 tiered nodes in
+    10 zones, one in five denied by the filter extender, 512 warm-up and
+    1000 measured density pods, each scheduled through the eval-only pass
+    and the three extenders of workloads.extender_chain.  The eval-pass
+    outputs of 32 measured pods are kept for the selectHost gate."""
+    from kubernetes_tpu_torch import workloads as w
+
+    nodes = w.extender_nodes()
+    chain = w.extender_chain(nodes)
+    step = w.EXTENDER_MEASURED_PODS // 32
+    sample = {f"pod-{i}" for i in range(0, 32 * step, step)}
+    seen: dict = {}
+
+    def keep_sample(s):
+        orig = s._run_eval_pass
+
+        def run_eval(pod, profile, nomrow):
+            got = orig(pod, profile, nomrow)
+            if pod.name in sample and pod.name not in seen:
+                seen[pod.name] = (got[3].copy(), got[4].copy())
+            return got
+
+        s._run_eval_pass = run_eval
+
+    s, out, measured, dt, spans = run_workload(
+        impl, nodes, w.warm_pods(w.EXTENDER_WARM_PODS), [w.pod_basic(i) for i in range(w.EXTENDER_MEASURED_PODS)],
+        w.EXTENDER_BATCH, 1, trace, setup=keep_sample, sched_kw={"extenders": chain})
+    s.extender_eval, s.extender_chain = seen, chain
+    return s, out, measured, dt, spans
+
+
+def check_extender(s, outcomes, expected: int, label: str) -> dict:
+    """extender_5kn_1kpods' gates on top of check_density's: no pod on a
+    denied node; the ignorable extender raised and was skipped; for each of
+    the 32 sampled pods, the bound node is the first in row order that
+    maximizes the plugin total plus 5 x its tier score among the feasible
+    nodes the filter extender kept, recomputed from that pod's eval-pass
+    outputs."""
+    from kubernetes_tpu_torch import workloads as w
+
+    bind = check_density(s, outcomes, expected, label)
+    deny, tiers, flaky = s.extender_chain
+    on_deny = [p for p, n in bind.items() if n in deny.denied]
+    if on_deny:
+        raise AssertionError(f"{label}: {len(on_deny)} pods on denied nodes, e.g. {on_deny[:3]}")
+    if not flaky.raised:
+        raise AssertionError(f"{label}: the ignorable extender never raised")
+    if len(s.extender_eval) != 32:
+        raise AssertionError(f"{label}: {len(s.extender_eval)} sampled pods, want 32")
+    for name, (feasible, total) in s.extender_eval.items():
+        rows = [int(r) for r in feasible.nonzero()[0]]
+        kept = [(s.cache.node_name_at_row(r), r) for r in rows]
+        kept = [(n, r) for n, r in kept if n not in deny.denied]
+        combined = [int(total[r]) + w.TIER_WEIGHT * w.TIER_SCORES[tiers.tier[n]] for n, r in kept]
+        best = kept[max(range(len(kept)), key=lambda i: (combined[i], -i))][0]
+        if bind[name] != best:
+            raise AssertionError(f"{label}: {name} bound to {bind[name]}, the extenders' best is {best}")
+    print(f"{label}: no pod on the {len(deny.denied)} denied nodes ({len(deny.unresolvable)} reported "
+          f"unresolvable); the ignorable extender raised {flaky.raised} times in {flaky.calls} calls; 32 sampled "
+          f"picks equal the host's argmax of total + {w.TIER_WEIGHT} x tier")
+    return bind
+
+
+def extender_postfilter(s, impl: str) -> dict:
+    """extender_5kn_1kpods' PostFilter phase: 500 nodes of 4 CPU filled by
+    four priority-1 pods each, then 32 preemptors of 2 CPU at priority
+    1000, scheduled through the extender path twice: with an extender that
+    keeps every preemption candidate (every preemptor binds, each evicting
+    two priority-1 pods) and with one that vetoes every candidate (nothing
+    is evicted, every preemptor waits unschedulable).  Returns the victims
+    and bindings of both runs."""
+    from kubernetes_tpu_torch import workloads as w
+    from kubernetes_tpu_torch.api.wrappers import make_pod
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+
+    result = {}
+    for veto in (False, True):
+        ex = w.PreemptExtender(veto)
+        ps = TorchScheduler(DEFAULT_PROFILE, batch_size=64, chunk_size=1, _impl=impl, extenders=[ex])
+        for node in w.basic_nodes(500, w.EXTENDER_ZONES, cpu="4", mem="16Gi"):
+            ps.add_node(node)
+        for j in range(2000):
+            ps.add_pod(make_pod(f"fill-{j}").req({"cpu": "1", "memory": "2Gi"}).priority(1).start_time(float(j))
+                       .node(f"node-{j % 500}").obj())
+        for k in range(32):
+            ps.add_pod(make_pod(f"preemptor-{k}").req({"cpu": "2", "memory": "4Gi"}).priority(1000).obj())
+        out = ps.schedule_all_pending()
+        bound = {o.pod.name: o.node_name for o in out if o.node_name}
+        victims = sorted(ps.preempted)
+        label = f"extender PostFilter ({'veto' if veto else 'accept'}, {impl})"
+        if veto:
+            if victims or bound or len(ps.queue.unschedulable_uids()) != 32 or ex.calls != 32:
+                raise AssertionError(f"{label}: {len(victims)} evicted, {len(bound)} bound, "
+                                     f"{len(ps.queue.unschedulable_uids())} parked, {ex.calls} vetoes")
+        else:
+            prio = {v for v, _p, _n in victims if not v.startswith("default/fill-")}
+            if len(bound) != 32 or len(victims) != 64 or prio or not ps.builder.host_mirror_equal():
+                raise AssertionError(f"{label}: {len(bound)} bound, {len(victims)} victims")
+        print(f"{label}: {len(bound)} preemptors bound, {len(victims)} victims, {ex.calls} extender calls")
+        result["veto" if veto else "accept"] = (victims, bound)
+    return result
+
+
+def explain_mixed_pods(rng, n: int = 1024) -> list:
+    """The explain phase's batch: ``n`` mixed pods (zone affinity and
+    anti-affinity, zone spread with DoNotSchedule and ScheduleAnyway,
+    preferred node affinity, tolerations, host ports, images from the
+    pool), 32 of them needing a zone no node has, and one pod of 999 CPU
+    that fits nowhere."""
+    from kubernetes_tpu_torch import workloads as w
+    from kubernetes_tpu_torch.api import types as t
+    from kubernetes_tpu_torch.api.wrappers import make_pod
+
+    pool, _weights = w.image_pool(0)
+    pods = []
+    for k in range(n):
+        pw = make_pod(f"explain-{k}").req({"cpu": "500m", "memory": "1Gi"}).label("color", f"c{k % 10}")
+        pw = pw.label("app", f"app-{k % 4}")
+        kind = k % 8
+        if k < 32:
+            pw = pw.node_affinity_in(ZONE, ["zone-none"])
+        elif kind == 0:
+            pw = pw.pod_anti_affinity_in("color", [f"c{k % 10}"], ZONE)
+        elif kind == 1:
+            pw = pw.pod_affinity_in("color", [f"c{(k + 1) % 10}"], ZONE)
+        elif kind == 2:
+            pw = pw.spread_constraint(1, ZONE, t.DO_NOT_SCHEDULE, "app", [f"app-{k % 4}"])
+        elif kind == 3:
+            pw = pw.spread_constraint(2, ZONE, t.SCHEDULE_ANYWAY, "color", [f"c{k % 10}"])
+        elif kind == 4:
+            pw = pw.preferred_node_affinity_in(ZONE, [f"zone-{k % 3}"], 1 + k % 7)
+        elif kind == 5:
+            pw = pw.toleration("dedicated", t.TOLERATION_OP_EXISTS, "", "")
+        elif kind == 6:
+            pw = pw.host_port(int(rng.choice([80, 8080, 9100])))
+        else:
+            pw = pw.container_image(*(pool[int(i)][0] for i in rng.choice(len(pool), 2, replace=False)))
+        pods.append(pw.obj())
+    pods.append(make_pod("unfit").req({"cpu": "999"}).obj())
+    return pods
+
+
+def explain_phase(s, impl: str) -> dict:
+    """After default_images_ports_5kn_10kpods' window: arm provenance,
+    schedule one more batch (explain_mixed_pods), then explain 32 bound
+    pods, 32 pending pods and the unfit pod.  Gates: the unfit pod's first
+    rejecting plugin is NodeResourcesFit on every node.  Returns the
+    records, the capsules of the bound pods, the records a second and the
+    attribution pass's device ms (kernel run: one pass of the unfit pod,
+    CUDA events behind the spin kernel; its timing launches are not
+    counted)."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.engine.features import build_pod_batch
+
+    s.arm_provenance()
+    pods = explain_mixed_pods(np.random.default_rng(23))
+    for pod in pods:
+        s.add_pod(pod)
+    s.schedule_all_pending()
+    bound = [p.uid for p in pods if p.uid in s.cache.pods][:32]
+    pending = [p.uid for p in pods if p.uid not in s.cache.pods and p.name != "unfit"][:32]
+    if len(bound) != 32 or len(pending) != 32:
+        raise AssertionError(f"explain phase ({impl}): {len(bound)} bound, {len(pending)} pending")
+    uids = bound + pending + ["default/unfit"]
+    t0 = time.perf_counter()
+    records = {uid: s.explain_pod(uid) for uid in uids}
+    rate = len(uids) / (time.perf_counter() - t0)
+    unfit = records["default/unfit"]
+    if set(unfit["first_reject"]) != set(unfit["nodes"]) or set(unfit["first_reject"].values()) != {
+            "NodeResourcesFit"}:
+        raise AssertionError(f"explain phase ({impl}): the unfit pod's first_reject is not NodeResourcesFit "
+                             f"on every node")
+    for uid in bound:
+        if records[uid]["decision"] is None:
+            raise AssertionError(f"explain phase ({impl}): {uid} has no recorded decision")
+    capsules = {uid: s.provenance.get(uid).as_dict() for uid in bound}
+    attr_ms = None
+    if impl == "kernel":
+        saved = kernels.launch_counts()
+        pod = s.queue._info["default/unfit"].pod
+        batch, _d, active = build_pod_batch([pod], s.builder, s.profile, 1)
+        batch["nominated_row"] = np.full(1, -1, np.int32)
+        tb = {k: torch.from_numpy(np.ascontiguousarray(v)).to(s.device) for k, v in batch.items()}
+        run = s.passes.get_attribution(s.profile, s.builder.schema, s.builder.res_col, active)
+        inv, state = s._full_inv(), s.builder.state()
+        attr_ms, _call = median_ms(lambda _: run(state, tb, inv), 10)
+        for name, count in saved.items():
+            kernels.WRAPPERS[name].launches = count
+    print(f"explain phase ({impl}): {len(records)} records at {rate:.1f} records/s"
+          + ("" if attr_ms is None else f"; attribution pass {attr_ms:.4f} device ms"))
+    return {"records": records, "capsules": capsules, "rate": rate, "attr_ms": attr_ms}
+
+
 def run_hetero(impl: str, trace: bool = False):
     """hetero_5kn_10kpods (harness.py:1089): 5000 nodes in 10 zones dealt
     5:3:2 tpu-v4/tpu-v5e/gpu-a100, 2048 + 10000 pods naming
@@ -4414,6 +4800,9 @@ def _paths():
     # intree: no device, CSI or racing ids, so no conflict table.
     pv = base + ("node_filters", "vol_filter")
     images = base + ("conflict_pairs", "image_counts", "image_scores")
+    # extender: the eval-only pass a pod (no select_host, no commit: the
+    # host's assume flushes as rows).
+    extender = ("build_dom", "eval_chunk", "scatter_rows")
     search = spread + ("ipa_eval", "preempt_eval", "preempt_pick", "preempt_commit", "unpack_victims",
                        "dom_release", "search_step", "scatter_rows", "expand_rows")
     # dra: node-local search ops only (no domain op, no node_filters bit);
@@ -4454,7 +4843,53 @@ def _paths():
                                       base, None, check_hetero, 1),
         "binpack_rtcr_5kn_10kpods": (run_binpack, w.BINPACK_WARM_PODS + w.BINPACK_MEASURED_PODS, base, None,
                                      check_binpack, 1),
+        "extender_5kn_1kpods": (run_extender, w.EXTENDER_WARM_PODS + w.EXTENDER_MEASURED_PODS, extender, None,
+                                check_extender, 1),
     }
+
+
+def compare_postfilter(path: str, got, want, card: str) -> None:
+    """The PostFilter phase's victims and bindings through the kernels
+    against the plain run's."""
+    if got != want:
+        raise AssertionError(f"{path} PostFilter phase: kernel and plain victims or bindings differ")
+    print(f"{path} PostFilter phase: kernel and plain victims and bindings identical  [{card}]")
+
+
+def compare_explain(path: str, got, want, card: str) -> None:
+    """The explain phase through the kernels against the plain run's: every
+    record (diff_records None) and capsule."""
+    from kubernetes_tpu_torch.framework.provenance import diff_records
+
+    for uid, rec in got["records"].items():
+        diff = diff_records(rec, want["records"][uid])
+        if diff is not None:
+            raise AssertionError(f"{path} explain phase: {uid} differs: {diff}")
+    if got["capsules"] != want["capsules"]:
+        raise AssertionError(f"{path} explain phase: kernel and plain capsules differ")
+    print(f"{path} explain phase: diff_records None on all {len(got['records'])} records, "
+          f"{len(got['capsules'])} capsules equal; {got['rate']:.1f} records/s through the kernels, "
+          f"{want['rate']:.1f} through the plain versions; attribution pass {got['attr_ms']:.4f} device ms  "
+          f"[{card}]")
+
+
+# What runs after a path's first kernel run and after its plain run: the
+# phase's name, its runner, the comparison of the kernel run's result with
+# the plain run's, and the kernels it must launch.  Its launches are
+# counted apart from the path's, under "<path>/<phase>".
+PATH_AFTER = {
+    # The explain batch steps chunk 1 (InterPodAffinity), so no
+    # conflict_pairs; one attribution pass an explained pod.
+    "default_images_ports_5kn_10kpods": (
+        "explain", explain_phase, compare_explain,
+        ("build_dom", "eval_chunk", "select_host", "resolve_commit", "image_counts", "image_scores", "ipa_eval",
+         "node_filters", "spread_filter", "late_scores", "eval_chunk/cols", "ipa_eval/cols", "late_scores/cols")),
+    # The eval-only pass a preemptor, then its dry-run.
+    "extender_5kn_1kpods": (
+        "postfilter", extender_postfilter, compare_postfilter,
+        ("build_dom", "eval_chunk", "scatter_rows", "preempt_eval", "preempt_pick", "preempt_commit",
+         "unpack_victims")),
+}
 
 
 # eval_chunk's score terms and its filter range: the paths whose
@@ -4484,19 +4919,21 @@ def drive(path: str, card: str) -> tuple[dict, dict]:
     just before and read just after), again through the kernels where the
     path asks for more runs, traced, and through the plain versions;
     gates, launch counts, and identical bindings (and victims), outcome
-    counts and backoff requeues in every run required.  Returns (launch
-    counts, data moves)."""
+    counts and backoff requeues in every run required.  A phase of
+    PATH_AFTER runs after the first kernel run, with its launches counted
+    from 0 on their own, and after the plain run.  Returns (launch counts
+    by path and phase, data moves of the path's window)."""
     from kubernetes_tpu_torch import kernels
 
     runner, expected, must, gate, check, runs = _paths()[path]
     kernels.reset_launches()
     s, out, measured, dt, _ = runner("kernel")
-    launches = kernels.launch_counts()
     terms = dict(kernels.eval_chunk.term_launches)
     bind_k = check(s, out, expected, f"{path} kernel path")
     if gate is not None:
         gate(out)
     history = (len(out), s.window["to_backoff"])
+    launches = kernels.launch_counts()
     print(f"{path} (kernels): {len(out)} outcomes; {window_line(s, measured, dt)}; deferred {s.deferred}; "
           f"packed batches {s.packed_batches}, planned collisions {s.pack_collisions}, last pack width "
           f"{s.pack_width}; domain tables rebuilt {s.dom_carry_rebuilds}, carried {s.dom_carry_hits}; "
@@ -4504,14 +4941,17 @@ def drive(path: str, card: str) -> tuple[dict, dict]:
           f"dry-runs), {s.pinned_batches} pinned batches; schema N={s.builder.schema.N} G={s.builder.schema.G} "
           f"ET={s.builder.schema.ET} DV={s.builder.schema.DV}; launches {launches}; data moves "
           f"{s.data_moves}  [{card}]")
-    for name, count in launches.items():
-        if (count == 0) == (name in must):
-            raise AssertionError(f"{path} path: {name} launched {count} times")
-    for term, count in terms.items():
-        if (count == 0) == (term in PATH_TERMS.get(path, ())):
-            raise AssertionError(f"{path} path: eval_chunk's {term} launched {count} times")
-    print(f"{path}: eval_chunk launches by term {terms}  [{card}]")
-    launches = {**launches, **{f"eval_chunk/{term}": count for term, count in terms.items()}}
+    launches = check_launches(path, launches, terms, must, PATH_TERMS.get(path, ()), card)
+    by_key = {path: launches}
+    after = PATH_AFTER.get(path)
+    if after is not None:
+        phase, run_after, compare_after, after_must = after
+        kernels.reset_launches()
+        after_k = run_after(s, "kernel")
+        key = f"{path}/{phase}"
+        got = kernels.launch_counts()
+        print(f"{key} (kernels): launches {got}  [{card}]")
+        by_key[key] = check_launches(key, got, dict(kernels.eval_chunk.term_launches), after_must, (), card)
     if launches["search_step"]:
         # A searched dry-run launches preempt_eval twice (prologue, tail) and
         # search_step on the live state, for phase 1 and per reprieve step.
@@ -4538,9 +4978,24 @@ def drive(path: str, card: str) -> tuple[dict, dict]:
     print(f"{path} traced run: {window_line(s3, m3, dt3)}  [{card}]")
     s2, out2, measured2, dt2, _ = runner("plain")
     same("plain run", s2, out2)
+    if after is not None:
+        compare_after(path, after_k, run_after(s2, "plain"), card)
     print(f"{path} (plain versions on the card): identical bindings, victims and requeues; "
           f"{window_line(s2, measured2, dt2)}  [{card}]")
-    return launches, s.data_moves
+    return by_key, s.data_moves
+
+
+def check_launches(label: str, launches: dict, terms: dict, must, must_terms, card: str) -> dict:
+    """Fails unless exactly the kernels in ``must`` and eval_chunk's terms
+    in ``must_terms`` launched; returns the counts with a key a term."""
+    for name, count in launches.items():
+        if (count == 0) == (name in must):
+            raise AssertionError(f"{label}: {name} launched {count} times")
+    for term, count in terms.items():
+        if (count == 0) == (term in must_terms):
+            raise AssertionError(f"{label}: eval_chunk's {term} launched {count} times")
+    print(f"{label}: eval_chunk launches by term {terms}  [{card}]")
+    return {**launches, **{f"eval_chunk/{term}": count for term, count in terms.items()}}
 
 
 # One window of a path in the tree given as argv[1] (its own chip_smoke.py
@@ -4624,7 +5079,8 @@ def main() -> int:
               **check_truncate_kernels(dev, REPS),
               "rtcr": check_rtcr_kernels(dev, REPS),
               **{shape: check_hetero_kernels(dev, REPS, shape) for shape in ("hetero", "hetero_learned")},
-              "split": check_split_kernels(dev, REPS)}
+              "split": check_split_kernels(dev, REPS),
+              **{shape: check_cols_kernels(dev, REPS, shape) for shape in COLS_SHAPES}}
     for shape, table in shapes.items():
         for name, tm in table.items():
             lib = "" if tm.get("library_ms") is None else f", library {tm['library_ms']:.4f}"
@@ -4638,7 +5094,8 @@ def main() -> int:
     moves: dict[str, dict] = {}
     if not args.kernels_only:
         for path in _paths():
-            by_path[path], moves[path] = drive(path, card)
+            counts, moves[path] = drive(path, card)
+            by_path.update(counts)
             print(f"{path} done at {time.perf_counter() - t0:.1f}s")
         print(f"data moves outside the hand kernels, launches per path: {moves}  [{card}]")
 
@@ -4666,7 +5123,11 @@ def main() -> int:
         "image_counts": "kubernetes_tpu/ops/imagelocality.py:63",
         "image_scores": "kubernetes_tpu/ops/imagelocality.py:53",
         "truncate_feasible": "kubernetes_tpu/engine/pass_.py:510",
+        # The attribution pass's columns modes.
+        **dict.fromkeys(("eval_chunk/cols", "ipa_eval/cols", "late_scores/cols"), "kubernetes_tpu/engine/pass_.py:848"),
     }
+    source = {**build.ENTRIES, "eval_chunk/cols": "eval_chunk", "ipa_eval/cols": "ipa_eval",
+              "late_scores/cols": "spread_eval"}
     # The top-level numbers of a kernel come from the shapes of the path it
     # was first ported for (density: eval_chunk, select_host,
     # resolve_commit; IPA: build_dom, ipa_eval, conflict_pairs; spread_na:
@@ -4674,7 +5135,8 @@ def main() -> int:
     # preemption kernels and data moves; daemonset: pinned_fit; pv:
     # vol_filter; ports_images: image_counts, image_scores); "by_shape"
     # holds every shape it was measured at.  "launches" sums the main
-    # paths' first kernel runs, "launches_by_path" splits them.
+    # paths' first kernel runs and their after-phases, "launches_by_path"
+    # splits them (an after-phase under "<path>/<phase>").
     first = {name: "ipa" for name in kernels.WRAPPERS}
     first.update(eval_chunk="density", select_host="density", resolve_commit="density",
                  node_filters="spread_na", spread_filter="spread_na", late_scores="spread_na",
@@ -4682,14 +5144,15 @@ def main() -> int:
                                   "scatter_rows", "expand_rows"), "preemption_async_5kn"),
                  pinned_fit="daemonset", vol_filter="pv", image_counts="ports_images",
                  image_scores="ports_images", dom_release="search", search_step="search",
-                 truncate_feasible="truncate")
+                 truncate_feasible="truncate",
+                 **dict.fromkeys(("eval_chunk/cols", "ipa_eval/cols", "late_scores/cols"), "cols"))
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [], "data_moves_by_path": moves}
     for name in kernels.WRAPPERS:
         top = shapes[first[name]][name]
         counts = {path: c[name] for path, c in by_path.items()}
         line["kernels"].append({
-            "name": name, "route": "cuda", "source": f"{csrc}{build.ENTRIES[name]}.cu",
+            "name": name, "route": "cuda", "source": f"{csrc}{source[name]}.cu",
             "replaces": replaces[name],
             "launches": sum(counts.values()) if counts else None, "launches_by_path": counts,
             "max_abs_err": max(t[name]["max_abs_err"] for t in shapes.values() if name in t),

@@ -100,6 +100,16 @@ def filter_op_names(profile: Profile, active: frozenset[str] | None) -> list[str
     ]
 
 
+def score_op_names(profile: Profile, active: frozenset[str] | None) -> list[tuple[str, int]]:
+    """Score-op (name, weight) row order of build_attribution_pass's score
+    columns (pass_.py:799) — the scorer analog of filter_op_names."""
+    return [
+        (n, w)
+        for n, w in profile.scorers
+        if (active is None or n in active) and opcommon.get(n).score is not None
+    ]
+
+
 class DomTables(NamedTuple):
     """Per-domain aggregate tables (pass_.py:76-93): built once per pass
     and maintained incrementally by the commit."""
@@ -151,17 +161,40 @@ PINNED_SAFE_OPS = frozenset({
     "ThroughputAware", "LearnedScorer",
 })
 
-_KERNEL_FNS = (
+class _Fns(NamedTuple):
+    """The kernels a pass launches, or their plain versions."""
+
+    dom: object
+    eval: object
+    ipa: object
+    select: object
+    commit: object
+    pairs: object
+    nodes: object
+    spread: object
+    late: object
+    vol: object
+    counts: object
+    il: object
+    trunc: object
+    eval_cols: object
+    ipa_cols: object
+    late_cols: object
+
+
+_KERNEL_FNS = _Fns(
     kernels.build_dom, kernels.eval_chunk, kernels.ipa_eval, kernels.select_host,
     kernels.resolve_commit, kernels.conflict_pairs, kernels.node_filters,
     kernels.spread_filter, kernels.late_scores, kernels.vol_filter, kernels.image_counts,
-    kernels.image_scores, kernels.truncate_feasible,
+    kernels.image_scores, kernels.truncate_feasible, kernels.eval_chunk_cols, kernels.ipa_eval_cols,
+    kernels.late_scores_cols,
 )
-_PLAIN_FNS = (
+_PLAIN_FNS = _Fns(
     plain.build_dom, plain.eval_chunk, plain.ipa_eval, plain.select_host,
     plain.resolve_commit, plain.conflict_pairs, plain.node_filters,
     plain.spread_filter, plain.late_scores, plain.vol_filter, plain.image_counts,
-    plain.image_scores, plain.truncate_feasible,
+    plain.image_scores, plain.truncate_feasible, plain.eval_chunk_cols, plain.ipa_eval_cols,
+    plain.late_scores_cols,
 )
 # Scorers that normalize over the final feasible set, added by late_scores.
 _LATE = (NA, TT, PTS)
@@ -265,6 +298,124 @@ def ipa_spec(
     return kernels.IpaSpec(ctx=ctx, filters=filters, weight=weights.get(IPA, 0))
 
 
+class _Plan(NamedTuple):
+    """What one pass launches for a (profile, schema, active-op-set): the
+    specs of eval_chunk, of its launch after InterPodAffinity, of ipa_eval
+    and of late_scores, the kernels (or their plain versions) and which
+    per-pass planes and per-chunk filters run."""
+
+    spec: kernels.EvalSpec
+    after: kernels.EvalSpec | None
+    ipa0: kernels.IpaSpec | None
+    late: kernels.LateSpec | None
+    filters: tuple[str, ...]
+    scorers: tuple[tuple[str, int], ...]
+    effective: frozenset
+    fns: _Fns
+    do_il: bool
+    need_nodes: bool
+    spread_filters: bool
+    do_vr: bool
+    do_nvl: bool
+    ipa_filters: bool
+
+
+def _plan(profile: Profile, schema: Schema, builder_res_col: dict[str, int], active, _impl: str) -> _Plan:
+    if _impl not in ("kernel", "plain"):
+        raise ValueError(f"_impl must be 'kernel' or 'plain', not {_impl!r}")
+    spec = eval_spec(profile, schema, builder_res_col, active)
+    after = after_spec(profile, schema, builder_res_col, active)
+    ipa0 = ipa_spec(profile, schema, builder_res_col, active)
+    _ctx, filters, scorers = _pass_ops(profile, schema, builder_res_col, active)
+    effective = frozenset(filters) | frozenset(n for n, _ in scorers)
+    # node_filters runs when eval_chunk reads its bits (NodeAffinity,
+    # TaintToleration, VolumeBinding or VolumeZone filters) or spread's
+    # inclusion policies do; vol_filter when VolumeRestrictions or
+    # NodeVolumeLimits filters.
+    chain = spec.filters + (after.filters if after is not None else ())
+    return _Plan(
+        spec=spec, after=after, ipa0=ipa0, late=late_spec(profile, schema, builder_res_col, active),
+        filters=filters, scorers=scorers, effective=effective,
+        fns=_PLAIN_FNS if _impl == "plain" else _KERNEL_FNS,
+        do_il=IL in dict(spec.scorers),
+        need_nodes=bool(set(NODE_FILTER_OPS) & set(chain)) or PTS in effective,
+        spread_filters=PTS in chain, do_vr=VR in chain, do_nvl=NVL in chain,
+        ipa_filters=ipa0 is not None and IPA in ipa0.filters,
+    )
+
+
+def _setup(plan: _Plan, state: ClusterState, tb: dict, inv: dict, dom: DomTables | None):
+    """The per-pass inputs of the chunk steps: the domain tables (``dom``,
+    or built from the state), the pass's IpaSpec bound to them, the
+    nominated-pod overlay and the per-batch planes.  NodeAffinity's and
+    TaintToleration's filters read only node state that no commit changes,
+    so one node_filters evaluation serves every chunk; ImageLocality reads
+    only images and node validity, so one image plane of the whole batch
+    does too."""
+    dev = state.valid.device
+    fns = plan.fns
+    if dom is None:
+        dom = build_dom(state, _to_device(inv["et_slot"], dev), _to_device(inv["et_host"], dev),
+                        plan.spec.ctx.schema.DV, fns.dom)
+    nom = None
+    if "nom_req" in inv:
+        nom = tuple(_to_device(inv[key], dev) for key in ("nom_req", "nom_cnt", "nom_prio"))
+    # The ops read the domain tables through PassContext.dom, bound for
+    # this pass (the tables are the same tensors the commit updates).
+    ipa = None
+    if plan.ipa0 is not None:
+        ipa = dataclasses.replace(plan.ipa0, ctx=dataclasses.replace(plan.ipa0.ctx, dom=dom))
+    node_bits = fns.nodes(state, tb, plan.spec.ctx) if plan.need_nodes else None
+    il = fns.il(state, tb, fns.counts(state, int(inv["image_vocab"]))) if plan.do_il else None
+    return dom, ipa, nom, node_bits, il
+
+
+def _chunk_planes(plan: _Plan, state: ClusterState, pf: dict, node_bits, il) -> tuple:
+    """The ``ext`` planes of one chunk: node_filters' rows, spread_filter's
+    and vol_filter's masks (per chunk: the commits change their counts) and
+    the image plane's rows."""
+    fns = plan.fns
+    spread_ok = fns.spread(state, pf, node_bits, plan.spec.ctx) if plan.spread_filters else None
+    vol_bits = fns.vol(state, pf, plan.spec.ctx, plan.do_vr, plan.do_nvl) if plan.do_vr or plan.do_nvl else None
+    return node_bits, spread_ok, vol_bits, il
+
+
+def _evaluate(plan: _Plan, state: ClusterState, ipa, pf: dict, nom, node_bits, il, scan=None, pct: int = 0):
+    """One chunk's filter chain and weighted scores (pass_.py:494-540), the
+    part of a step that the batch pass and the eval pass share: eval_chunk,
+    InterPodAffinity's filter, the filters after it, truncated mode's cut
+    (``scan``: the scan order and start), InterPodAffinity's score and
+    late_scores.  Returns (feasible, total, fail_mask, pos, processed);
+    ``total`` is 0 on infeasible nodes."""
+    eval_fn, ipa_fn, late_fn, trunc_fn = plan.fns.eval, plan.fns.ipa, plan.fns.late, plan.fns.trunc
+    ext = _chunk_planes(plan, state, pf, node_bits, il)
+    feasible, total, fails = eval_fn(state, pf, plan.spec, nom, ext)
+    pos = None
+    if scan is None and plan.after is None:
+        processed = torch.zeros_like(fails)
+        if ipa is not None:
+            ipa_fn(state, pf, feasible, total, fails, ipa)
+    else:
+        # Every filter in profile order — InterPodAffinity's, then the
+        # filters after it on what it left — before the scores that
+        # normalize over the feasible set (pass_.py:494-540); in
+        # truncated mode the cut comes between them.
+        if plan.ipa_filters:
+            ipa_fn(state, pf, feasible, total, fails, ipa, plain.IPA_FILTER)
+        if plan.after is not None:
+            eval_fn(state, pf, plan.after, nom, ext, None, (feasible, total, fails))
+        if scan is None:
+            processed = torch.zeros_like(fails)
+        else:
+            order_pos, start = scan
+            feasible, pos, processed = trunc_fn(feasible, state.valid, order_pos, start, pf["valid"], pct)
+        if ipa is not None and ipa.weight:
+            ipa_fn(state, pf, feasible, total, fails, ipa, plain.IPA_SCORE)
+    if plan.late is not None:
+        late_fn(state, pf, feasible, total, node_bits, plan.late)
+    return feasible, total, fails, pos, processed
+
+
 def build_pass(
     profile: Profile,
     schema: Schema,
@@ -305,58 +456,15 @@ def build_pass(
     if truncated and chunk != 1:
         raise ValueError("truncated (parity) mode requires chunk_size=1")
     pct = profile.percentage_of_nodes_to_score or 0
-    if _impl not in ("kernel", "plain"):
-        raise ValueError(f"_impl must be 'kernel' or 'plain', not {_impl!r}")
-    spec = eval_spec(profile, schema, builder_res_col, active)
-    after = after_spec(profile, schema, builder_res_col, active)
-    ipa0 = ipa_spec(profile, schema, builder_res_col, active)
-    late = late_spec(profile, schema, builder_res_col, active)
-    _ctx, filters, scorers = _pass_ops(profile, schema, builder_res_col, active)
-    effective = frozenset(filters) | frozenset(n for n, _ in scorers)
-    (dom_fn, eval_fn, ipa_fn, select_fn, commit_fn, pairs_fn, nodes_fn, spread_fn,
-     late_fn, vol_fn, counts_fn, il_fn, trunc_fn) = _PLAIN_FNS if _impl == "plain" else _KERNEL_FNS
-    do_il = IL in dict(spec.scorers)
-    # node_filters runs when eval_chunk reads its bits (NodeAffinity,
-    # TaintToleration, VolumeBinding or VolumeZone filters) or spread's
-    # inclusion policies do; vol_filter when VolumeRestrictions or
-    # NodeVolumeLimits filters.
-    chain = spec.filters + (after.filters if after is not None else ())
-    spread_filters = PTS in chain
-    need_nodes = bool(set(NODE_FILTER_OPS) & set(chain)) or PTS in effective
-    do_vr, do_nvl = VR in chain, NVL in chain
+    plan = _plan(profile, schema, builder_res_col, active, _impl)
+    spec = plan.spec
+    eval_fn, select_fn, commit_fn, pairs_fn = plan.fns.eval, plan.fns.select, plan.fns.commit, plan.fns.pairs
     c = chunk
-    fuse_tail = chunk > 1 and effective <= PINNED_SAFE_OPS
+    fuse_tail = chunk > 1 and plan.effective <= PINNED_SAFE_OPS
     seed_mul = ((profile.tie_break_seed & 0xFFFFFFFF) * 2654435761) & 0xFFFFFFFF
-    ipa_filters = ipa0 is not None and IPA in ipa0.filters
 
     def step(state, dom, ipa, pf, steps, pairs, nom, node_bits, il, scan) -> PassResult:
-        spread_ok = spread_fn(state, pf, node_bits, spec.ctx) if spread_filters else None
-        vol_bits = vol_fn(state, pf, spec.ctx, do_vr, do_nvl) if do_vr or do_nvl else None
-        ext = (node_bits, spread_ok, vol_bits, il)
-        feasible, total, fails = eval_fn(state, pf, spec, nom, ext)
-        pos = None
-        if scan is None and after is None:
-            processed = torch.zeros_like(fails)
-            if ipa is not None:
-                ipa_fn(state, pf, feasible, total, fails, ipa)
-        else:
-            # Every filter in profile order — InterPodAffinity's, then the
-            # filters after it on what it left — before the scores that
-            # normalize over the feasible set (pass_.py:494-540); in
-            # truncated mode the cut comes between them.
-            if ipa_filters:
-                ipa_fn(state, pf, feasible, total, fails, ipa, plain.IPA_FILTER)
-            if after is not None:
-                eval_fn(state, pf, after, nom, ext, None, (feasible, total, fails))
-            if scan is None:
-                processed = torch.zeros_like(fails)
-            else:
-                order_pos, start = scan
-                feasible, pos, processed = trunc_fn(feasible, state.valid, order_pos, start, pf["valid"], pct)
-            if ipa is not None and ipa.weight:
-                ipa_fn(state, pf, feasible, total, fails, ipa, plain.IPA_SCORE)
-        if late is not None:
-            late_fn(state, pf, feasible, total, node_bits, late)
+        feasible, total, fails, pos, processed = _evaluate(plan, state, ipa, pf, nom, node_bits, il, scan, pct)
         picks, bests, feas = select_fn(feasible, total, steps, seed_mul, pf.get("nominated_row"), pos)
         # No spread branch in the commit: spread reads group_counts, which
         # the base commit maintains (pass_.py:166-192).  The device, CSI and
@@ -379,29 +487,13 @@ def build_pass(
             else _to_device(step_off, dev).to(torch.int64)
         )
         steps = (int(seed_base) + offs) & 0xFFFFFFFF
-        et_slot = _to_device(inv["et_slot"], dev)
-        et_host = _to_device(inv["et_host"], dev)
+        dom = None
         if carry_dom and bool(dom_valid):
             # The previous pass maintained these tables; skip the rebuild.
-            dom = DomTables(dom_group, dom_et, et_slot, et_host)
-        else:
-            dom = build_dom(state, et_slot, et_host, schema.DV, dom_fn)
-        nom = None
-        if "nom_req" in inv:
-            nom = tuple(_to_device(inv[key], dev) for key in ("nom_req", "nom_cnt", "nom_prio"))
-        # The ops read the domain tables through PassContext.dom, bound for
-        # this pass (the tables are the same tensors the commit updates).
-        ipa = None
-        if ipa0 is not None:
-            ipa = dataclasses.replace(ipa0, ctx=dataclasses.replace(ipa0.ctx, dom=dom))
+            dom = DomTables(dom_group, dom_et, _to_device(inv["et_slot"], dev), _to_device(inv["et_host"], dev))
+        dom, ipa, nom, node_bits, il = _setup(plan, state, tb, inv, dom)
         nchunks = k // c
         pairs = _conflict_pairs(tb, nchunks, c, pairs_fn)
-        # NodeAffinity's and TaintToleration's filters read only node state
-        # that no commit changes: one evaluation serves every chunk.
-        node_bits = nodes_fn(state, tb, spec.ctx) if need_nodes else None
-        # ImageLocality reads only images and node validity: one plane of
-        # the whole batch serves every chunk.
-        il = il_fn(state, tb, counts_fn(state, int(inv["image_vocab"]))) if do_il else None
         # Truncated mode's scan order and its start, carried on the device
         # from step to step (pass_.py:564-569, 626-628).
         scan = (_to_device(inv["order_pos"], dev), inv["scan_start"]) if truncated else None
@@ -471,6 +563,120 @@ def build_pass(
     return run
 
 
+def _one_pod(pf: dict, dev) -> dict:
+    """A featurized one-pod batch (leading axis 1) on the device, valid."""
+    tb = {key: _to_device(v, dev) for key, v in pf.items() if key not in ("uniform_all", "step_offset", "pin_row")}
+    tb["valid"] = torch.ones(1, dtype=torch.bool, device=dev)
+    if "nominated_row" in tb:
+        tb["nominated_row"] = tb["nominated_row"].reshape(1).to(torch.int32)
+    return tb
+
+
+def build_eval_pass(
+    profile: Profile,
+    schema: Schema,
+    builder_res_col: dict[str, int],
+    active: frozenset[str] | None = None,
+    _impl: str = "kernel",
+):
+    """The eval-only one-pod pass (pass_.py:747-796): the filter chain and
+    the weighted scores with NO commit, for the extender path, whose chain
+    filters and prioritizes on the host between this pass and selectHost.
+
+    Returns run(state, pf, inv) → (feasible (N,) bool, total (N,) i64).
+    ``pf`` is the pod's featurized batch of one (numpy arrays or tensors
+    with a leading axis of 1, ``nominated_row`` its own nomination's row or
+    -1); ``inv`` as build_pass takes it.  The launches are a batch pass's at
+    chunk 1 — build_dom, the per-batch planes, eval_chunk, InterPodAffinity's
+    filter and score, the filters after it, late_scores — without
+    select_host, resolve_commit or truncation (the JAX eval pass never
+    truncates).  ``total`` is 0 on infeasible nodes where the JAX pass keeps
+    the raw weighted sum: every caller reads feasible rows only (ROADMAP
+    §3, a designed divergence)."""
+    plan = _plan(dataclasses.replace(profile, percentage_of_nodes_to_score=100), schema, builder_res_col, active,
+                 _impl)
+
+    def run(state: ClusterState, pf: dict, inv: dict):
+        tb = _one_pod(pf, state.valid.device)
+        _dom, ipa, nom, node_bits, il = _setup(plan, state, tb, inv, None)
+        feasible, total, _fails, _pos, _processed = _evaluate(plan, state, ipa, tb, nom, node_bits, il)
+        return feasible[0], total[0]
+
+    return run
+
+
+def build_attribution_pass(
+    profile: Profile,
+    schema: Schema,
+    builder_res_col: dict[str, int],
+    active: frozenset[str] | None = None,
+    _impl: str = "kernel",
+):
+    """The attribution variant of the eval pass, for decision provenance
+    (pass_.py:812-886): the same ops, every intermediate column returned.
+
+    Returns run(state, pf, inv) → (ok_cols (F, N) bool, each filter's own
+    verdict on every node in filter_op_names order; feasible (N,) bool,
+    their conjunction over the valid nodes; score_cols (S, N) i64, each
+    scorer's column before its weight, normalized over the final feasible
+    set, in score_op_names order; total (N,) i64, the weighted sum).  Every
+    entry equals the JAX pass's on every node, infeasible ones included.
+
+    Launches: the per-batch planes, spread_filter and vol_filter, then the
+    columns modes — eval_chunk's (every filter but InterPodAffinity in one
+    launch, its verdict bits, the conjunction and its scorers' columns),
+    ipa_eval's filter (its verdict, ANDed into the conjunction) and score
+    over the final feasible set, and late_scores' (NodeAffinity's,
+    TaintToleration's and PodTopologySpread's columns).  Each adds its
+    weighted columns into ``total``.  A read path: one launch of each per
+    explained pod; scheduling never builds this pass."""
+    plan = _plan(dataclasses.replace(profile, percentage_of_nodes_to_score=100), schema, builder_res_col, active,
+                 _impl)
+    eval_cols, ipa_cols, late_cols = plan.fns.eval_cols, plan.fns.ipa_cols, plan.fns.late_cols
+    names = filter_op_names(profile, active)
+    scored = score_op_names(profile, active)
+    # eval_chunk's columns launch: every filter but InterPodAffinity, in
+    # profile order (the bits name them), and its own scorers.
+    spec = dataclasses.replace(plan.spec, filters=tuple(n for n in names if n != IPA), bit0=0,
+                               _device_config={})
+    late = plan.late
+
+    def run(state: ClusterState, pf: dict, inv: dict):
+        tb = _one_pod(pf, state.valid.device)
+        _dom, ipa, nom, node_bits, il = _setup(plan, state, tb, inv, None)
+        ext = _chunk_planes(plan, state, tb, node_bits, il)
+        bits, feasible, cols, total = eval_cols(state, tb, spec, nom, ext)
+        ok_ipa = col_ipa = None
+        if IPA in names:
+            ok_ipa = ipa_cols(state, tb, feasible, total, ipa, plain.IPA_FILTER)
+        if ipa is not None and ipa.weight:
+            col_ipa = ipa_cols(state, tb, feasible, total, ipa, plain.IPA_SCORE)
+        late_c = late_cols(state, tb, feasible, total, node_bits, late) if late is not None else None
+        rows, b = [], 0
+        for name in names:
+            if name == IPA:
+                rows.append(ok_ipa[0])
+            else:
+                rows.append(((bits[0] >> b) & 1).to(torch.bool))
+                b += 1
+        own = dict(zip((n for n, _ in spec.scorers), cols[:, 0]))
+        score_rows = []
+        for name, _w in scored:
+            if name == IPA:
+                score_rows.append(col_ipa[0])
+            elif name in _LATE:
+                score_rows.append(late_c[_LATE.index(name), 0])
+            else:
+                score_rows.append(own[name])
+        n = state.valid.shape[0]
+        dev = state.valid.device
+        ok_stack = torch.stack(rows) if rows else torch.zeros((0, n), dtype=torch.bool, device=dev)
+        sc_stack = torch.stack(score_rows) if score_rows else torch.zeros((0, n), dtype=torch.int64, device=dev)
+        return ok_stack, feasible[0], sc_stack, total[0]
+
+    return run
+
+
 def build_pinned_pass(
     profile: Profile,
     schema: Schema,
@@ -507,8 +713,8 @@ def build_pinned_pass(
     effective = frozenset(filters) | frozenset(n for n, _ in scorers)
     if not effective <= PINNED_SAFE_OPS:
         raise ValueError(f"pinned pass: {sorted(effective - PINNED_SAFE_OPS)} read more than the own row")
-    (_dom_fn, eval_fn, _ipa_fn, _select_fn, commit_fn, _pairs_fn, nodes_fn, _spread_fn,
-     late_fn, _vol_fn, _counts_fn, il_fn, _trunc_fn) = _PLAIN_FNS if _impl == "plain" else _KERNEL_FNS
+    fns = _PLAIN_FNS if _impl == "plain" else _KERNEL_FNS
+    eval_fn, commit_fn, nodes_fn, late_fn, il_fn = fns.eval, fns.commit, fns.nodes, fns.late, fns.il
     fit_fn = plain.pinned_fit if _impl == "plain" else kernels.pinned_fit
     do_il = IL in dict(spec.scorers)
     need_nodes = bool(set(NODE_FILTER_OPS) & set(spec.filters)) or late is not None
@@ -562,7 +768,8 @@ def build_pinned_pass(
 
 class PassCache:
     """Built-pass cache keyed by (profile, schema, resource columns,
-    batch-active op set, chunk, carry_dom, implementation)."""
+    batch-active op set, and the kind of pass: chunk, carry_dom and
+    implementation for the batch pass; pinned, eval or attribution)."""
 
     def __init__(self, _impl: str = "kernel") -> None:
         self._impl = _impl
@@ -570,6 +777,14 @@ class PassCache:
 
     def __len__(self) -> int:
         return len(self._cache)
+
+    def _memo(self, profile: Profile, schema: Schema, res_col: dict[str, int], active, kind: tuple, build):
+        key = (profile, schema, tuple(sorted(res_col.items())), active, *kind)
+        fn = self._cache.get(key)
+        if fn is None:
+            fn = build()
+            self._cache[key] = fn
+        return fn
 
     def get(
         self,
@@ -580,12 +795,8 @@ class PassCache:
         chunk: int = 1,
         carry_dom: bool = False,
     ):
-        key = (profile, schema, tuple(sorted(res_col.items())), active, chunk, carry_dom)
-        fn = self._cache.get(key)
-        if fn is None:
-            fn = build_pass(profile, schema, res_col, active, chunk, carry_dom, _impl=self._impl)
-            self._cache[key] = fn
-        return fn
+        return self._memo(profile, schema, res_col, active, (chunk, carry_dom), lambda: build_pass(
+            profile, schema, res_col, active, chunk, carry_dom, _impl=self._impl))
 
     def get_pinned(
         self,
@@ -594,9 +805,16 @@ class PassCache:
         res_col: dict[str, int],
         active: frozenset[str] | None = None,
     ):
-        key = (profile, schema, tuple(sorted(res_col.items())), active, "pinned")
-        fn = self._cache.get(key)
-        if fn is None:
-            fn = build_pinned_pass(profile, schema, res_col, active, _impl=self._impl)
-            self._cache[key] = fn
-        return fn
+        return self._memo(profile, schema, res_col, active, ("pinned",), lambda: build_pinned_pass(
+            profile, schema, res_col, active, _impl=self._impl))
+
+    def get_eval(self, profile: Profile, schema: Schema, res_col: dict[str, int], active=None):
+        """The eval-only pass (build_eval_pass), built on first use."""
+        return self._memo(profile, schema, res_col, active, ("eval",), lambda: build_eval_pass(
+            profile, schema, res_col, active, _impl=self._impl))
+
+    def get_attribution(self, profile: Profile, schema: Schema, res_col: dict[str, int], active=None):
+        """The attribution pass (build_attribution_pass), built on first use:
+        only explain_pod asks for one."""
+        return self._memo(profile, schema, res_col, active, ("attribution",), lambda: build_attribution_pass(
+            profile, schema, res_col, active, _impl=self._impl))

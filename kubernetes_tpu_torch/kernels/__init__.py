@@ -301,6 +301,72 @@ def eval_chunk(state, pf: dict, spec: EvalSpec, nom, ext=None, pin=None, into=No
     if _on_cpu(state.valid):
         return plain.eval_chunk(state, pf, spec, nom, ext, pin, into)
     dev = state.valid.device
+    head, conf, cfg, c, width = _eval_args(state, pf, spec, nom, ext, pin)
+    b, i32, i64 = torch.bool, torch.int32, torch.int64
+    if into is not None:
+        feasible, total, fail = into
+        _check("feasible", feasible, b, (c, width), dev)
+        _check("total", total, i64, (c, width), dev)
+        _check("fail_mask", fail, i32, (c,), dev)
+        feas_in = feasible
+    else:
+        feasible = torch.empty((c, width), dtype=b, device=dev)
+        total = torch.empty((c, width), dtype=i64, device=dev)
+        fail = torch.zeros(c, dtype=i32, device=dev)
+        feas_in = None
+    build.launch("eval_chunk", *head, _ptr(feas_in), spec.bit0, *conf, _ptr(feasible), _ptr(total), _ptr(fail),
+                 _stream(dev))
+    eval_chunk.launches += 1
+    # Launches that ran each of the score terms and the filter range (a subset of the
+    # above; chip_smoke.py reports them per path).
+    terms = eval_chunk.term_launches
+    terms["rtcr"] += int(cfg["score_fit"] and cfg["strategy"] == 2)
+    terms["throughput"] += int(cfg["tp_weight"] != 0)
+    terms["learned"] += int(cfg["ls_weight"] != 0)
+    terms["after_ipa"] += int(into is not None)
+    return feasible, total, fail
+
+
+
+
+# The scorers of eval_chunk_cols, in the order of its col_rows fields
+# (kColFit... in eval_chunk.cu).
+_COL_SLOT = {"NodeResourcesFit": 0, "NodeResourcesBalancedAllocation": 1, plain.IL: 2, plain.TP: 3, plain.LS: 4}
+
+
+def eval_chunk_cols(state, pf: dict, spec: EvalSpec, nom, ext=None):
+    """eval_chunk's columns mode, for the attribution pass: (ok_bits (C, N)
+    i32, bit b set where filter b's own verdict passes the node; feasible
+    (C, N) bool, the valid nodes passing every filter; cols
+    (len(spec.scorers), C, N) i64, each scorer's column before its weight;
+    total (C, N) i64, Σ weight × column), every node evaluated.  ``ext`` as
+    eval_chunk takes it; no pinned mode, no filter range."""
+    if _on_cpu(state.valid):
+        return plain.eval_chunk_cols(state, pf, spec, nom, ext)
+    if spec.bit0:
+        raise ValueError("eval_chunk_cols: bits from 0")
+    dev = state.valid.device
+    head, conf, _cfg, c, n = _eval_args(state, pf, spec, nom, ext, None)
+    bits = torch.empty((c, n), dtype=torch.int32, device=dev)
+    feasible = torch.empty((c, n), dtype=torch.bool, device=dev)
+    total = torch.empty((c, n), dtype=torch.int64, device=dev)
+    cols = torch.empty((len(spec.scorers), c, n), dtype=torch.int64, device=dev)
+    # Each scorer's row in cols, 4 bits a scorer in _COL_SLOT order (15: none).
+    rows = dict.fromkeys(range(len(_COL_SLOT)), 15)
+    for k, (name, _w) in enumerate(spec.scorers):
+        rows[_COL_SLOT[name]] = k
+    col_rows = sum(r << (4 * slot) for slot, r in rows.items())
+    build.launch("eval_chunk_cols", *head, _ptr(None), 0, *conf, _ptr(feasible), _ptr(total), _ptr(bits),
+                 _ptr(cols), col_rows, _stream(dev))
+    eval_chunk_cols.launches += 1
+    return bits, feasible, cols, total
+
+
+def _eval_args(state, pf: dict, spec: EvalSpec, nom, ext, pin):
+    """eval_chunk's and eval_chunk_cols's launch arguments, checked: (the
+    inputs up to the LearnedScorer hidden count, the static config after
+    the filter range, the config, C, the output width)."""
+    dev = state.valid.device
     cfg = spec.device_config(dev)
     n = state.valid.shape[0]
     r = cfg["R"]
@@ -395,41 +461,21 @@ def eval_chunk(state, pf: dict, spec: EvalSpec, nom, ext=None, pin=None, into=No
     if cfg["ls_weight"]:
         hetero[3:] = [_check("ls_req_cpu", pf["ls_req_cpu"], i64, (c,), dev),
                       _check("ls_req_mem", pf["ls_req_mem"], i64, (c,), dev), cfg["lw"]]
-    if into is not None:
-        feasible, total, fail = into
-        _check("feasible", feasible, b, (c, width), dev)
-        _check("total", total, i64, (c, width), dev)
-        _check("fail_mask", fail, i32, (c,), dev)
-        feas_in = feasible
-    else:
-        feasible = torch.empty((c, width), dtype=b, device=dev)
-        total = torch.empty((c, width), dtype=i64, device=dev)
-        fail = torch.zeros(c, dtype=i32, device=dev)
-        feas_in = None
-    build.launch(
-        "eval_chunk",
+    head = [
         *[_ptr(a) for a in args],
         *[_ptr(a) for a in feats],
         *[_ptr(a) for a in planes],
         _ptr(cfg["fit_ignored"]), *[_ptr(a) for a in ports], _ptr(il),
         *[_ptr(a) for a in dra], *dra_dims, *[_ptr(a) for a in hetero], tk, dv, cfg["H"],
-        _ptr(feas_in), spec.bit0,
+    ]
+    conf = [
         _ptr(cfg["strat_cols"]), cfg["n_strat"], cfg["strategy"], _ptr(cfg["shape"]), cfg["n_shape"],
         _ptr(cfg["bal_cols"]), cfg["n_bal"],
         cfg["score_fit"], cfg["fit_weight"], cfg["score_bal"], cfg["bal_weight"], cfg["il_weight"],
         cfg["tp_weight"], cfg["ls_weight"],
         cfg["filter_codes"], cfg["n_filters"], cfg["ext_sel"], c, n, r, s_ports,
-        _ptr(feasible), _ptr(total), _ptr(fail), _stream(dev),
-    )
-    eval_chunk.launches += 1
-    # Launches that ran each of the score terms and the filter range (a subset of the
-    # above; chip_smoke.py reports them per path).
-    terms = eval_chunk.term_launches
-    terms["rtcr"] += int(cfg["score_fit"] and cfg["strategy"] == 2)
-    terms["throughput"] += int(cfg["tp_weight"] != 0)
-    terms["learned"] += int(cfg["ls_weight"] != 0)
-    terms["after_ipa"] += int(into is not None)
-    return feasible, total, fail
+    ]
+    return head, conf, cfg, c, width
 
 
 def _dra_args(state, pf: dict, c: int, dev) -> tuple[list, tuple]:
@@ -466,6 +512,21 @@ def ipa_eval(state, pf: dict, feasible, total, fail, ipa: IpaSpec, phase: int = 
         return plain.ipa_eval(state, pf, feasible, total, fail, ipa, phase)
     bit = plain.ipa_bit(ipa) if phase & plain.IPA_FILTER else -1
     weight = ipa.weight if phase & plain.IPA_SCORE else 0
+    _check("fail_mask", fail, torch.int32, (feasible.shape[0],), feasible.device)
+    args, scratch, smem = _ipa_args(state, pf, feasible, total, ipa, bit, weight)
+    build.launch("ipa_eval", *args, _ptr(fail), *_ptr_list(scratch), smem, _stream(feasible.device))
+    ipa_eval.launches += 1
+    return feasible, total, fail
+
+
+def _ptr_list(scratch) -> list:
+    return [_ptr(t) for t in scratch]
+
+
+def _ipa_args(state, pf: dict, feasible, total, ipa: IpaSpec, bit: int, weight: int):
+    """ipa_eval's and ipa_eval_cols' launch arguments up to the fail mask,
+    checked; the scratch (group lists, term lists, raw scores); the shared
+    memory a block needs."""
     dom = ipa.ctx.dom
     dev = feasible.device
     c, n = feasible.shape
@@ -498,18 +559,35 @@ def ipa_eval(state, pf: dict, feasible, total, fail, ipa: IpaSpec, phase: int = 
         pod_args.append(_check(key, pf[key], dtype, shape, dev))
     _check("feasible", feasible, b, (c, n), dev)
     _check("total", total, i64, (c, n), dev)
-    _check("fail_mask", fail, i32, (c,), dev)
-    glist = torch.empty((c, 1 + rs + npf, g), dtype=i32, device=dev)
-    elist = torch.empty((c, 2, et), dtype=i32, device=dev)
-    raw = torch.empty((c, n), dtype=i64, device=dev)
-    build.launch(
-        "ipa_eval", c, n, tk, dv, g, et, ra, rs, npf, bit, int(weight),
-        *[_ptr(a) for a in node_args], *[_ptr(a) for a in pod_args],
-        _ptr(feasible), _ptr(total), _ptr(fail), _ptr(glist), _ptr(elist), _ptr(raw),
-        smem, _stream(dev),
+    scratch = (
+        torch.empty((c, 1 + rs + npf, g), dtype=i32, device=dev),
+        torch.empty((c, 2, et), dtype=i32, device=dev),
+        torch.empty((c, n), dtype=i64, device=dev),
     )
-    ipa_eval.launches += 1
-    return feasible, total, fail
+    args = [c, n, tk, dv, g, et, ra, rs, npf, bit, int(weight),
+            *[_ptr(a) for a in node_args], *[_ptr(a) for a in pod_args], _ptr(feasible), _ptr(total)]
+    return args, scratch, smem
+
+
+def ipa_eval_cols(state, pf: dict, feasible, total, ipa: IpaSpec, phase: int):
+    """ipa_eval's columns mode, for the attribution pass.  IPA_FILTER:
+    InterPodAffinity's own verdict on every node, (C, N) bool, ANDed into
+    ``feasible`` IN PLACE.  IPA_SCORE: its column before its weight,
+    normalized over ``feasible`` and 0 off it, (C, N) i64, weight × column
+    added into ``total`` IN PLACE.  Returns the verdict or the column."""
+    if _on_cpu(feasible):
+        return plain.ipa_eval_cols(state, pf, feasible, total, ipa, phase)
+    if phase not in (plain.IPA_FILTER, plain.IPA_SCORE):
+        raise ValueError("ipa_eval_cols: one phase a launch")
+    dev = feasible.device
+    filt = phase == plain.IPA_FILTER
+    args, scratch, smem = _ipa_args(state, pf, feasible, total, ipa, 0 if filt else -1, 0 if filt else ipa.weight)
+    if not filt and not ipa.weight:
+        raise ValueError("ipa_eval_cols: the score phase needs a weight")
+    ok = torch.empty(feasible.shape, dtype=torch.bool, device=dev) if filt else None
+    build.launch("ipa_eval_cols", *args, _ptr(None), *_ptr_list(scratch), _ptr(ok), smem, _stream(dev))
+    ipa_eval_cols.launches += 1
+    return ok if filt else scratch[2]
 
 
 def conflict_pairs(pf: dict, nchunks: int, c: int):
@@ -853,6 +931,31 @@ def late_scores(state, pf: dict, feasible, total, node_bits, late: LateSpec, pin
     if _on_cpu(feasible):
         return plain.late_scores(state, pf, feasible, total, node_bits, late, pin)
     dev = feasible.device
+    args, _raw = _late_args(state, pf, feasible, total, node_bits, late, pin, torch.empty)
+    build.launch("late_scores", *args, _stream(dev))
+    late_scores.launches += 1
+    return total
+
+
+def late_scores_cols(state, pf: dict, feasible, total, node_bits, late: LateSpec):
+    """late_scores' columns mode, for the attribution pass: (3, C, N) i64,
+    NodeAffinity's, TaintToleration's and PodTopologySpread's columns before
+    their weights, normalized over ``feasible`` and given on every node as
+    the ops give them (a column whose weight is 0 stays 0); weight × column
+    is added into ``total`` IN PLACE on every node."""
+    if _on_cpu(feasible):
+        return plain.late_scores_cols(state, pf, feasible, total, node_bits, late)
+    dev = feasible.device
+    args, raw = _late_args(state, pf, feasible, total, node_bits, late, None, torch.zeros)
+    build.launch("late_scores_cols", *args, _stream(dev))
+    late_scores_cols.launches += 1
+    return raw
+
+
+def _late_args(state, pf: dict, feasible, total, node_bits, late: LateSpec, pin, alloc):
+    """late_scores' and late_scores_cols' launch arguments, checked, up to
+    the stream; and the (3, C, width) i64 raw columns, made by ``alloc``."""
+    dev = feasible.device
     c = feasible.shape[0]
     n = state.valid.shape[0]
     width = n
@@ -888,17 +991,13 @@ def late_scores(state, pf: dict, feasible, total, node_bits, late: LateSpec, pin
         nb = _check("node_bits", node_bits, torch.uint8, (c, n), dev)
     smem = spread_smem_bytes(cs, dv)
     glist = torch.empty((c, max(cs, 1), g), dtype=torch.int32, device=dev)
-    raw = torch.empty((3, c, width), dtype=torch.int64, device=dev)
-    build.launch(
-        "late_scores",
-        *[_ptr(a) for a in node], _ptr(nb), _ptr(feasible), _ptr(total), _ptr(pin),
-        *[_ptr(a) for a in pref], _ptr(intol), *[_ptr(a) for a in soft], _ptr(table),
-        _ptr(glist), _ptr(raw),
-        c, n, ls, ts, tk, dv, g, *dims, tv, cs, max(n, dv) + 1,
-        int(late.na_weight), int(late.taint_weight), int(late.spread_weight), smem, _stream(dev),
-    )
-    late_scores.launches += 1
-    return total
+    raw = alloc((3, c, width), dtype=torch.int64, device=dev)
+    args = [*[_ptr(a) for a in node], _ptr(nb), _ptr(feasible), _ptr(total), _ptr(pin),
+            *[_ptr(a) for a in pref], _ptr(intol), *[_ptr(a) for a in soft], _ptr(table),
+            _ptr(glist), _ptr(raw),
+            c, n, ls, ts, tk, dv, g, *dims, tv, cs, max(n, dv) + 1,
+            int(late.na_weight), int(late.taint_weight), int(late.spread_weight), smem]
+    return args, raw
 
 
 def vol_filter(state, pf: dict, ctx, do_vr: bool, do_nvl: bool):
@@ -1497,6 +1596,10 @@ WRAPPERS = {
     "expand_rows": expand_rows,
     "pinned_fit": pinned_fit,
     "truncate_feasible": truncate_feasible,
+    # The attribution pass's columns modes.
+    "eval_chunk/cols": eval_chunk_cols,
+    "ipa_eval/cols": ipa_eval_cols,
+    "late_scores/cols": late_scores_cols,
 }
 for _fn in WRAPPERS.values():
     _fn.launches = 0

@@ -28,7 +28,9 @@ KERNELS = (
 )
 # Entry point → the library (source) that holds it.
 _MULTI = {
-    "spread_eval": ("spread_filter", "late_scores"),
+    "eval_chunk": ("eval_chunk", "eval_chunk_cols"),
+    "ipa_eval": ("ipa_eval", "ipa_eval_cols"),
+    "spread_eval": ("spread_filter", "late_scores", "late_scores_cols"),
     "preempt": ("preempt_eval", "preempt_pick", "preempt_commit"),
     "preempt_search": ("dom_release", "search_step"),
     "victims": ("unpack_victims",),
@@ -45,8 +47,9 @@ _SRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
 # -fmad=false: no multiply-add contraction, so the f64 BalancedAllocation
 # and RequestedToCapacityRatio scores and the f32 LearnedScorer round like
-# the reference's separate multiply and add.  No --use_fast_math: division
-# stays IEEE and tanhf/expf stay the accurate libdevice functions.
+# the reference's separate multiply and add; the kernels write fma()/fmaf()
+# where the reference's compiled code fuses one.  No --use_fast_math:
+# division stays IEEE.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -60,7 +63,11 @@ _SIGNATURES: dict[str, list] = {
     "eval_chunk": [_P] * 37 + [_I] * 3 + [_P] * 6 + [_I] * 3 + [_P, _I]
                   + [_P, _I, _I, _P, _I, _P, _I, _I, _L, _I, _L, _L, _L, _L, _L, _I, _L, _I, _I, _I, _I]
                   + [_P] * 4,
+    "eval_chunk_cols": [_P] * 37 + [_I] * 3 + [_P] * 6 + [_I] * 3 + [_P, _I]
+                       + [_P, _I, _I, _P, _I, _P, _I, _I, _L, _I, _L, _L, _L, _L, _L, _I, _L, _I, _I, _I, _I]
+                       + [_P] * 4 + [_I, _P],
     "ipa_eval": [_I] * 10 + [_L] + [_P] * 30 + [_I, _P],
+    "ipa_eval_cols": [_I] * 10 + [_L] + [_P] * 31 + [_I, _P],
     "select_host": [_P, _P, _P, _U, _P, _I, _I, _P, _P, _P, _P, _P],
     "truncate_feasible": [_P] * 5 + [_I, _I] + [_P] * 3,
     "resolve_commit": [_P, _P, _P, _I] + [_P] * 34 + [_I] * 12 + [_P, _P],
@@ -69,6 +76,7 @@ _SIGNATURES: dict[str, list] = {
     "vol_filter": [_P] * 11 + [_I] * 7 + [_P],
     "spread_filter": [_P] * 15 + [_I] * 7 + [_P],
     "late_scores": [_P] * 30 + [_I] * 13 + [_L] * 3 + [_I, _P],
+    "late_scores_cols": [_P] * 30 + [_I] * 13 + [_L] * 3 + [_I, _P],
     # preempt_eval and search_step: a pointer table and its length, the
     # dimensions and their count, the stream (preempt_search.cuh).
     "preempt_eval": [_P, _I, _P, _I, _P],

@@ -27,11 +27,12 @@
 //   at the node's accelerator-class id, topo_vals[n, tp_slot[c]], 0 where
 //   the node has none; an exact integer gather.
 // - LearnedScorer (ops/learned.py:154): the 5 -> H -> 1 f32 MLP, tanh then
-//   sigmoid, floor(y*100 + 0.5), in the reference's association order
-//   (each hidden unit b1 + w1[0]x0 + ... + w1[4]x4 left to right, then
-//   b2 + w2[0]h0 + ... left to right) with tanhf, expf and floorf, IEEE
-//   division and no contracted multiply-add (-fmad=false).  H is at most
-//   kMaxHidden.
+//   sigmoid, floor(y*100 + 0.5), in the arithmetic XLA on the CPU gives
+//   the reference's jitted score: its tanh and exp approximations
+//   (xla_tanh, xla_exp_plus_one), its algebraic rewrites, and fmaf()
+//   exactly where its object code fuses a multiply-add; every other
+//   product and sum rounds on its own (-fmad=false), division is IEEE.  H
+//   is at most kMaxHidden.
 //
 // Filter range: a launch with feas_in non-null starts from that
 // feasible set instead of every valid node, sets filter b's fail bit at
@@ -295,7 +296,69 @@ __device__ long long tput_gather(const EvalArgs& a, int c, int n) {
   return a.tp_scores[(size_t)c * a.DV + v];
 }
 
-// LearnedScorer's f32 forward pass for pod c on node n.
+// XLA's f32 tanh on the CPU (ops/learned.py xla_tanh): the input clamped,
+// x*P(x^2)/Q(x^2) with every Horner step one fused multiply-add, x itself
+// below 0.0004 and +-1 from 20 on.
+__device__ float xla_tanh(float x) {
+  const float xc = fminf(fmaxf(x, -7.998811721801758f), 7.998811721801758f);
+  const float x2 = xc * xc;
+  float p = -2.7607683663038313e-16f;
+  p = fmaf(x2, p, 2.0001879384549948e-13f);
+  p = fmaf(x2, p, -8.604671836165423e-11f);
+  p = fmaf(x2, p, 5.122297253024044e-08f);
+  p = fmaf(x2, p, 1.4857223504805006e-05f);
+  p = fmaf(x2, p, 0.0006372619536705315f);
+  p = fmaf(x2, p, 0.004893524572253227f);
+  float q = 1.1982583600911312e-06f;
+  q = fmaf(x2, q, 0.00011853470641653985f);
+  q = fmaf(x2, q, 0.0022684347350150347f);
+  q = fmaf(x2, q, 0.0048935250379145145f);
+  float r = (xc * p) / q;
+  const float ax = fabsf(x);
+  if (ax < 0.00039999998989515007f) r = x;
+  if (ax >= 20.0f) r = copysignf(1.0f, x);
+  return r;
+}
+
+// exp(x) + 1 as XLA's f32 exp followed by + 1 on the CPU (ops/learned.py
+// xla_exp_plus_one): range reduction by floor, a fused Horner polynomial,
+// and the scaling by 2^n fused with the + 1.
+__device__ float xla_exp_plus_one(float x) {
+  x = fminf(fmaxf(x, -87.80000305175781f), 88.80000305175781f);
+  const float n = fminf(fmaxf(floorf(fmaf(x, 1.4426950216293335f, 0.5f)), -127.0f), 127.0f);
+  float r = fmaf(n, -0.693359375f, x);
+  r = fmaf(n, 0.00021219444170128554f, r);
+  float p = 0.00019875691214110702f;
+  p = fmaf(p, r, 0.001398199936375022f);
+  p = fmaf(p, r, 0.008333452045917511f);
+  p = fmaf(p, r, 0.04166579619050026f);
+  p = fmaf(p, r, 0.1666666567325592f);
+  p = fmaf(p, r, 0.5f);
+  const float e = fmaf(p, r * r, r) + 1.0f;
+  return fmaf(e, __int_as_float(((int)n + 127) << 23), 1.0f);
+}
+
+// bias + sum of w[i] * x[i] left to right, each step one fused multiply-add;
+// a zero bias vanishes and the first two products then meet in one fused
+// step (ops/learned.py _affine).
+__device__ float affine(const float* x, const float* w, int k, float bias) {
+  float acc;
+  int i0 = 1;
+  if (bias == 0.0f) {
+    acc = fmaf(x[0], w[0], x[1] * w[1]);
+    i0 = 2;
+  } else {
+    acc = fmaf(x[0], w[0], bias);
+  }
+  for (int i = i0; i < k; ++i) acc = fmaf(x[i], w[i], acc);
+  return acc;
+}
+
+// LearnedScorer's f32 forward pass for pod c on node n, in the arithmetic
+// XLA's vectorized loop gives the reference's jitted score (ops/learned.py
+// pre_floor): each sum is a chain of fused multiply-adds from the bias, a
+// zero bias vanishes (then the first two products meet in one fused
+// step), and the throughput feature's / 100 folds into its weight.
 __device__ long long learned_score(const EvalArgs& a, int c, int n) {
   const int R = a.R, H = a.H;
   const float alloc_cpu = (float)a.alloc[(size_t)n * R];
@@ -308,19 +371,20 @@ __device__ long long learned_score(const EvalArgs& a, int c, int n) {
   x[0] = fmaxf((alloc_cpu - req_cpu) / safe_cpu, 0.0f);
   x[1] = fmaxf((alloc_mem - req_mem) / safe_mem, 0.0f);
   x[2] = (float)a.num_pods[n] / fmaxf((float)a.allowed_pods[n], 1.0f);
-  x[3] = (float)tput_gather(a, c, n) / 100.0f;
+  x[3] = (float)tput_gather(a, c, n);
   x[4] = req_cpu / safe_cpu;
   const float* w1 = a.lw;
   const float* b1 = a.lw + kFeatures * H;
-  const float* w2 = b1 + H;
-  float y = w2[H];  // b2
+  const float* w2 = b1 + H;  // then b2
+  float h[kMaxHidden];
   for (int j = 0; j < H; ++j) {
-    float acc = b1[j];
-    for (int i = 0; i < kFeatures; ++i) acc = acc + w1[i * H + j] * x[i];
-    y = y + w2[j] * tanhf(acc);
+    float w[kFeatures];
+    for (int i = 0; i < kFeatures; ++i) w[i] = i == 3 ? w1[i * H + j] / 100.0f : w1[i * H + j];
+    h[j] = xla_tanh(affine(x, w, kFeatures, b1[j]));
   }
-  y = 1.0f / (1.0f + expf(-y));
-  return (long long)floorf(y * 100.0f + 0.5f);
+  const float y = affine(h, w2, H, w2[H]);
+  const float s = 1.0f / xla_exp_plus_one(-y);
+  return (long long)floorf(fmaf(s, 100.0f, 0.5f));
 }
 
 // kTerms: the instantiation with the three score terms above
@@ -395,6 +459,24 @@ __device__ long long balanced_score(const EvalArgs& a, int c, int n) {
   return (long long)((1.0 - stdv) * 100.0);
 }
 
+// Filter b's own verdict for pod c on node n.
+__device__ __forceinline__ bool filter_ok(const EvalArgs& a, int b, int c, int n) {
+  const int code = (int)((a.filter_codes >> (3 * b)) & 7);
+  if (code == kUnschedulable) return !a.unschedulable[n] || a.tol_unsched[c];
+  if (code == kNodeName) {
+    const int want = a.nodename_id[c];
+    return want == -1 || a.name_id[n] == want;
+  }
+  if (code == kFit) return fit_filter(a, c, n);
+  if (code == kPorts) return ports_filter(a, c, n);
+  if (code == kDra) return dra_filter(a, c, n);
+  const int sel = (int)((a.ext_sel >> (3 * b)) & 7);
+  const size_t op = (size_t)c * a.N + n;
+  if (sel == kSelSpread) return a.spread_ok[op] != 0;
+  if (sel >= kSelVol) return ((a.vol_bits[op] >> (sel - kSelVol)) & 1) != 0;
+  return ((a.node_bits[op] >> sel) & 1) != 0;
+}
+
 template <bool kTerms>
 __global__ void eval_chunk_kernel(EvalArgs a) {
   const int c = blockIdx.y;
@@ -406,30 +488,7 @@ __global__ void eval_chunk_kernel(EvalArgs a) {
     const size_t o = pinned ? (size_t)c : (size_t)c * a.N + n;
     bool feas = a.valid[n] != 0 && (a.feas_in == nullptr || a.feas_in[o] != 0);
     for (int b = 0; b < a.n_filters; ++b) {
-      const int code = (int)((a.filter_codes >> (3 * b)) & 7);
-      bool ok;
-      if (code == kUnschedulable) {
-        ok = !a.unschedulable[n] || a.tol_unsched[c];
-      } else if (code == kNodeName) {
-        const int want = a.nodename_id[c];
-        ok = want == -1 || a.name_id[n] == want;
-      } else if (code == kFit) {
-        ok = fit_filter(a, c, n);
-      } else if (code == kPorts) {
-        ok = ports_filter(a, c, n);
-      } else if (code == kDra) {
-        ok = dra_filter(a, c, n);
-      } else {
-        const int sel = (int)((a.ext_sel >> (3 * b)) & 7);
-        const size_t op = (size_t)c * a.N + n;
-        if (sel == kSelSpread) {
-          ok = a.spread_ok[op] != 0;
-        } else if (sel >= kSelVol) {
-          ok = ((a.vol_bits[op] >> (sel - kSelVol)) & 1) != 0;
-        } else {
-          ok = ((a.node_bits[op] >> sel) & 1) != 0;
-        }
-      }
+      const bool ok = filter_ok(a, b, c, n);
       if (feas && !ok) bits |= 1u << (b + a.bit0);
       feas = feas && ok;
     }
@@ -449,32 +508,110 @@ __global__ void eval_chunk_kernel(EvalArgs a) {
   if ((threadIdx.x & 31) == 0 && warp_bits != 0) atomicOr(a.fail_mask + c, warp_bits);
 }
 
+// Columns mode (the attribution pass, kubernetes_tpu/engine/pass_.py:
+// 812-886): every filter's own verdict as bit b of ok_bits, not masked by
+// the filters before it; feasible, the valid nodes passing them all; each
+// scorer's column before its weight, on every node, in the row of cols
+// that col_rows gives it (4 bits a scorer: fit, balanced, image,
+// throughput, learned; 15 when it does not score); total, the weighted
+// sum.  No scorer here normalizes over the feasible set, so nothing waits
+// for the filters of the other kernels.
+constexpr int kColFit = 0;
+constexpr int kColBal = 1;
+constexpr int kColImage = 2;
+constexpr int kColTput = 3;
+constexpr int kColLearned = 4;
+
+__device__ __forceinline__ void put_col(long long* cols, int col_rows, int kind, size_t plane, size_t o,
+                                        long long v) {
+  cols[(size_t)((col_rows >> (4 * kind)) & 15) * plane + o] = v;
+}
+
+template <bool kTerms>
+__global__ void eval_cols_kernel(EvalArgs a, int* ok_bits, long long* cols, int col_rows) {
+  const int c = blockIdx.y;
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= a.N) return;
+  const size_t o = (size_t)c * a.N + n;
+  const size_t plane = (size_t)a.C * a.N;
+  int bits = 0;
+  bool feas = a.valid[n] != 0;
+  for (int b = 0; b < a.n_filters; ++b) {
+    const bool ok = filter_ok(a, b, c, n);
+    bits |= ok ? 1 << b : 0;
+    feas = feas && ok;
+  }
+  long long tot = 0;
+  if (a.score_fit) {
+    const long long v = fit_score<kTerms>(a, c, n);
+    put_col(cols, col_rows, kColFit, plane, o, v);
+    tot += v * a.fit_weight;
+  }
+  if (a.score_bal) {
+    const long long v = balanced_score(a, c, n);
+    put_col(cols, col_rows, kColBal, plane, o, v);
+    tot += v * a.bal_weight;
+  }
+  if (a.il_scores != nullptr) {
+    const long long v = a.il_scores[o];
+    put_col(cols, col_rows, kColImage, plane, o, v);
+    tot += v * a.il_weight;
+  }
+  if (kTerms && a.tp_weight != 0) {
+    const long long v = tput_gather(a, c, n);
+    put_col(cols, col_rows, kColTput, plane, o, v);
+    tot += v * a.tp_weight;
+  }
+  if (kTerms && a.ls_weight != 0) {
+    const long long v = learned_score(a, c, n);
+    put_col(cols, col_rows, kColLearned, plane, o, v);
+    tot += v * a.ls_weight;
+  }
+  ok_bits[o] = bits;
+  a.feasible[o] = feas ? 1 : 0;
+  a.total[o] = tot;
+}
+
 }  // namespace
 
-extern "C" int eval_chunk_launch(
-    const void* valid, const void* name_id, const void* unschedulable,
-    const void* num_pods, const void* allowed_pods, const void* alloc,
-    const void* req, const void* nonzero_req, const void* nom_req,
-    const void* nom_cnt, const void* nom_prio, const void* nodename_id,
-    const void* tol_unsched, const void* pod_req, const void* pod_nonzero,
-    const void* priority, const void* nominated_row, const void* node_bits,
-    const void* spread_ok, const void* vol_bits, const void* pin_row, const void* fit_ignored,
-    const void* port_counts, const void* portkey_counts, const void* port_triples,
-    const void* port_keys, const void* port_wild, const void* port_is_wild, const void* il_scores,
-    const void* dra_cap, const void* dra_alloc, const void* dra_claim_counts, const void* dra_ids,
-    const void* dra_cls, const void* dra_cnt, const void* dra_pins, const void* dra_missing, int SK,
-    int PIN, int DC, const void* topo_vals, const void* tp_scores, const void* tp_slot,
-    const void* ls_req_cpu, const void* ls_req_mem, const void* lw, int TK, int DV, int H,
-    const void* feas_in, int bit0, const void* strat_cols, int n_strat, int strategy,
-    const void* shape, int n_shape, const void* bal_cols, int n_bal, int score_fit,
-    long long fit_weight, int score_bal, long long bal_weight, long long il_weight,
-    long long tp_weight, long long ls_weight, long long filter_codes, int n_filters,
-    long long ext_sel, int C, int N, int R, int S, void* feasible, void* total, void* fail_mask,
-    void* stream) {
+// The launchers' shared parameters (eval_chunk_launch and
+// eval_chunk_cols_launch differ only in their outputs).
+#define EVAL_PARAMS \
+    const void* valid, const void* name_id, const void* unschedulable, const void* num_pods, \
+    const void* allowed_pods, const void* alloc, const void* req, const void* nonzero_req, \
+    const void* nom_req, const void* nom_cnt, const void* nom_prio, const void* nodename_id, \
+    const void* tol_unsched, const void* pod_req, const void* pod_nonzero, const void* priority, \
+    const void* nominated_row, const void* node_bits, const void* spread_ok, const void* vol_bits, \
+    const void* pin_row, const void* fit_ignored, const void* port_counts, const void* portkey_counts, \
+    const void* port_triples, const void* port_keys, const void* port_wild, const void* port_is_wild, \
+    const void* il_scores, const void* dra_cap, const void* dra_alloc, const void* dra_claim_counts, \
+    const void* dra_ids, const void* dra_cls, const void* dra_cnt, const void* dra_pins, \
+    const void* dra_missing, int SK, int PIN, int DC, const void* topo_vals, const void* tp_scores, \
+    const void* tp_slot, const void* ls_req_cpu, const void* ls_req_mem, const void* lw, int TK, \
+    int DV, int H, const void* feas_in, int bit0, const void* strat_cols, int n_strat, int strategy, \
+    const void* shape, int n_shape, const void* bal_cols, int n_bal, int score_fit, \
+    long long fit_weight, int score_bal, long long bal_weight, long long il_weight, \
+    long long tp_weight, long long ls_weight, long long filter_codes, int n_filters, long long ext_sel, \
+    int C, int N, int R, int S
+#define EVAL_ARGS \
+    valid, name_id, unschedulable, num_pods, allowed_pods, alloc, req, nonzero_req, nom_req, nom_cnt, \
+    nom_prio, nodename_id, tol_unsched, pod_req, pod_nonzero, priority, nominated_row, node_bits, \
+    spread_ok, vol_bits, pin_row, fit_ignored, port_counts, portkey_counts, port_triples, port_keys, \
+    port_wild, port_is_wild, il_scores, dra_cap, dra_alloc, dra_claim_counts, dra_ids, dra_cls, \
+    dra_cnt, dra_pins, dra_missing, SK, PIN, DC, topo_vals, tp_scores, tp_slot, ls_req_cpu, ls_req_mem, \
+    lw, TK, DV, H, feas_in, bit0, strat_cols, n_strat, strategy, shape, n_shape, bal_cols, n_bal, \
+    score_fit, fit_weight, score_bal, bal_weight, il_weight, tp_weight, ls_weight, filter_codes, \
+    n_filters, ext_sel, C, N, R, S
+
+namespace {
+
+// The argument block of a launch, or cudaErrorInvalidValue in *rc.
+EvalArgs make_args(EVAL_PARAMS, int* rc) {
+  *rc = 0;
   if (n_bal > kMaxBalanced || H > kMaxHidden || bit0 < 0 || bit0 + n_filters > 32) {
-    return (int)cudaErrorInvalidValue;
+    *rc = (int)cudaErrorInvalidValue;
   }
-  if (strategy == kRatio && (n_shape < 2 || n_shape > kMaxShape)) return (int)cudaErrorInvalidValue;
+  if (strategy == kRatio && (n_shape < 2 || n_shape > kMaxShape)) *rc = (int)cudaErrorInvalidValue;
   EvalArgs a;
   a.valid = static_cast<const unsigned char*>(valid);
   a.name_id = static_cast<const int*>(name_id);
@@ -548,15 +685,50 @@ extern "C" int eval_chunk_launch(
   a.N = N;
   a.R = R;
   a.S = S;
+  return a;
+}
+
+bool needs_terms(const EvalArgs& a) { return a.strategy == kRatio || a.tp_weight != 0 || a.ls_weight != 0; }
+
+}  // namespace
+
+extern "C" int eval_chunk_launch(EVAL_PARAMS, void* feasible, void* total, void* fail_mask, void* stream) {
+  int rc;
+  EvalArgs a = make_args(EVAL_ARGS, &rc);
+  if (rc != 0) return rc;
   a.feasible = static_cast<unsigned char*>(feasible);
   a.total = static_cast<long long*>(total);
   a.fail_mask = static_cast<unsigned int*>(fail_mask);
   const int threads = pin_row != nullptr ? 32 : 256;
   dim3 grid(pin_row != nullptr ? 1 : (N + threads - 1) / threads, C);
-  if (strategy == kRatio || tp_weight != 0 || ls_weight != 0) {
+  if (needs_terms(a)) {
     eval_chunk_kernel<true><<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   } else {
     eval_chunk_kernel<false><<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Columns mode: feasible (C, N), total (C, N), ok_bits (C, N) i32 and cols
+// (S, C, N) i64, scorer k in row (col_rows >> 4k) & 15; no pin, no filter
+// range.
+extern "C" int eval_chunk_cols_launch(EVAL_PARAMS, void* feasible, void* total, void* ok_bits, void* cols,
+                                      int col_rows, void* stream) {
+  int rc;
+  EvalArgs a = make_args(EVAL_ARGS, &rc);
+  if (rc != 0) return rc;
+  if (pin_row != nullptr || feas_in != nullptr || bit0 != 0) return (int)cudaErrorInvalidValue;
+  a.feasible = static_cast<unsigned char*>(feasible);
+  a.total = static_cast<long long*>(total);
+  a.fail_mask = nullptr;
+  const int threads = 256;
+  dim3 grid((N + threads - 1) / threads, C);
+  int* bits = static_cast<int*>(ok_bits);
+  long long* out = static_cast<long long*>(cols);
+  if (needs_terms(a)) {
+    eval_cols_kernel<true><<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(a, bits, out, col_rows);
+  } else {
+    eval_cols_kernel<false><<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(a, bits, out, col_rows);
   }
   return (int)cudaGetLastError();
 }

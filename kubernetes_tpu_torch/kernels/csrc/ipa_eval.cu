@@ -100,6 +100,8 @@ struct IpaArgs {
   int* glist;      // (C, 1+RS+PF, G): compact group lists
   int* elist;      // (C, 2, ET): hostname existing terms (anti, weighted)
   long long* raw;  // (C, N)
+  // Columns mode: the filter's own verdict on every node (C, N).
+  unsigned char* ok_out;
 };
 
 // Per-node count of the pods of a compact group list.
@@ -162,6 +164,8 @@ __device__ void tally(const IpaArgs& a, const int* list, int len, int slot, int*
   }
 }
 
+// kCols: the columns mode of the attribution pass (see ipa_eval_cols_launch).
+template <bool kCols>
 __global__ void ipa_eval_kernel(IpaArgs a) {
   extern __shared__ int smem[];
   const int T = a.RA + a.RS + a.PF;
@@ -301,7 +305,7 @@ __global__ void ipa_eval_kernel(IpaArgs a) {
   for (int n = tid; n < a.N; n += blockDim.x) {
     const int* tv = a.topo_vals + (size_t)n * a.TK;
     bool f = feas_row[n] != 0;
-    if (filt && f) {
+    if (filt && (kCols || f)) {
       // (1) existing pods' required anti-affinity
       int hit = 0;
       for (int k = 0; k < a.TK; ++k) {
@@ -346,7 +350,10 @@ __global__ void ipa_eval_kernel(IpaArgs a) {
         }
         if (at > 0) ok = false;
       }
-      if (!ok) {
+      if (kCols) {
+        a.ok_out[(size_t)c * a.N + n] = ok ? 1 : 0;
+        f = f && ok;
+      } else if (!ok) {
         f = false;
         s_any_fail = 1;
       }
@@ -377,12 +384,12 @@ __global__ void ipa_eval_kernel(IpaArgs a) {
       raw_row[n] = r;
       mn = r < mn ? r : mn;
       mx = r > mx ? r : mx;
-    } else if (!score && !f) {
+    } else if (!kCols && !score && !f) {
       total_row[n] = 0;
     }
   }
   __syncthreads();
-  if (tid == 0 && s_any_fail) a.fail_mask[c] |= 1u << a.bit;
+  if (!kCols && tid == 0 && s_any_fail) a.fail_mask[c] |= 1u << a.bit;
   if (!score) return;
 
   // ---- Normalisation over the final feasible set. ----
@@ -390,9 +397,14 @@ __global__ void ipa_eval_kernel(IpaArgs a) {
   mx = block_max(mx, red);
   const long long diff = mx - mn;
   for (int n = tid; n < a.N; n += blockDim.x) {
-    if (feas_row[n]) {
-      long long norm = 0;
-      if (diff > 0) norm = floordiv_i64(100LL * (raw_row[n] - mn), diff);
+    long long norm = 0;
+    if (feas_row[n] && diff > 0) norm = floordiv_i64(100LL * (raw_row[n] - mn), diff);
+    if (kCols) {
+      // The column on every node (0 off the feasible set, as the op
+      // gives it), and total unmasked.
+      raw_row[n] = norm;
+      total_row[n] += a.weight * norm;
+    } else if (feas_row[n]) {
       total_row[n] += a.weight * norm;
     } else {
       total_row[n] = 0;
@@ -402,18 +414,24 @@ __global__ void ipa_eval_kernel(IpaArgs a) {
 
 }  // namespace
 
-extern "C" int ipa_eval_launch(
-    int C, int N, int TK, int DV, int G, int ET, int RA, int RS, int PF, int bit,
-    long long weight, const void* topo_vals, const void* group_counts,
-    const void* et_counts, const void* group_dom, const void* et_dom,
-    const void* et_slot, const void* et_host, const void* ra_valid,
-    const void* ra_slot, const void* ra_host, const void* ra_allmask,
-    const void* ra_self, const void* rs_valid, const void* rs_slot,
-    const void* rs_host, const void* rs_groups, const void* pf_valid,
-    const void* pf_slot, const void* pf_host, const void* pf_groups,
-    const void* pf_w, const void* et_match, const void* et_anti,
-    const void* et_w, void* feasible, void* total, void* fail_mask,
-    void* glist, void* elist, void* raw, int smem_bytes, void* stream) {
+#define IPA_PARAMS \
+    int C, int N, int TK, int DV, int G, int ET, int RA, int RS, int PF, int bit, long long weight, \
+    const void* topo_vals, const void* group_counts, const void* et_counts, const void* group_dom, \
+    const void* et_dom, const void* et_slot, const void* et_host, const void* ra_valid, \
+    const void* ra_slot, const void* ra_host, const void* ra_allmask, const void* ra_self, \
+    const void* rs_valid, const void* rs_slot, const void* rs_host, const void* rs_groups, \
+    const void* pf_valid, const void* pf_slot, const void* pf_host, const void* pf_groups, \
+    const void* pf_w, const void* et_match, const void* et_anti, const void* et_w, void* feasible, \
+    void* total, void* fail_mask, void* glist, void* elist, void* raw
+#define IPA_ARGS \
+    C, N, TK, DV, G, ET, RA, RS, PF, bit, weight, topo_vals, group_counts, et_counts, group_dom, \
+    et_dom, et_slot, et_host, ra_valid, ra_slot, ra_host, ra_allmask, ra_self, rs_valid, rs_slot, \
+    rs_host, rs_groups, pf_valid, pf_slot, pf_host, pf_groups, pf_w, et_match, et_anti, et_w, \
+    feasible, total, fail_mask, glist, elist, raw
+
+namespace {
+
+IpaArgs make_args(IPA_PARAMS) {
   IpaArgs a;
   a.C = C;
   a.N = N;
@@ -456,13 +474,39 @@ extern "C" int ipa_eval_launch(
   a.glist = static_cast<int*>(glist);
   a.elist = static_cast<int*>(elist);
   a.raw = static_cast<long long*>(raw);
+  a.ok_out = nullptr;
+  return a;
+}
+
+template <bool kCols>
+int launch(const IpaArgs& a, int smem_bytes, void* stream) {
   if (smem_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ipa_eval_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+        ipa_eval_kernel<kCols>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  ipa_eval_kernel<<<C, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(a);
+  ipa_eval_kernel<kCols><<<a.C, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int ipa_eval_launch(IPA_PARAMS, int smem_bytes, void* stream) {
+  return launch<false>(make_args(IPA_ARGS), smem_bytes, stream);
+}
+
+// Columns mode (the attribution pass, kubernetes_tpu/engine/pass_.py:
+// 812-886), one phase a launch.  The filter phase (bit >= 0, weight 0)
+// writes InterPodAffinity's own verdict on every node into ok_out and ANDs
+// it into feasible, with no fail bit; the score phase (bit -1) normalizes
+// over the given feasible set, writes the column into raw on every node (0
+// off the set, as the op gives it) and adds weight x column into total on
+// every node.
+extern "C" int ipa_eval_cols_launch(IPA_PARAMS, void* ok_out, int smem_bytes, void* stream) {
+  IpaArgs a = make_args(IPA_ARGS);
+  if ((bit >= 0) == (weight != 0) || (bit >= 0 && ok_out == nullptr)) return (int)cudaErrorInvalidValue;
+  a.ok_out = static_cast<unsigned char*>(ok_out);
+  return launch<true>(a, smem_bytes, stream);
 }
 
 KERNEL_ERROR_STRING(ipa_eval)

@@ -279,6 +279,8 @@ struct LsArgs {
   int C;
 };
 
+// kCols: the columns mode of the attribution pass (late_scores_cols_launch).
+template <bool kCols>
 __global__ void late_scores_kernel(LsArgs a) {
   extern __shared__ __align__(8) unsigned char smem_raw[];
   const Cluster& cl = a.cl;
@@ -393,6 +395,34 @@ __global__ void late_scores_kernel(LsArgs a) {
   for (int q = 0; q < K; ++q) any_soft = any_soft || sc.valid[(size_t)c * K + q];
   const long long max_na = red[0], max_tt = red[1];
   const long long sp_min = *n_scored > 0 ? red[2] : 0, sp_max = red[3];
+  if (kCols) {
+    // Every node's columns before their weights, as the ops give them:
+    // NodeAffinity's and TaintToleration's unmasked, spread's 0 off its
+    // scored nodes; written over the raw scores, weighted into total.
+    for (int n = threadIdx.x; n < N; n += blockDim.x) {
+      long long add = 0;
+      if (a.na_w) {
+        raw_na[n] = max_na == 0 ? 0 : floordiv_i64(raw_na[n] * kMaxScore, max_na > 1 ? max_na : 1);
+        add += raw_na[n] * a.na_w;
+      }
+      if (a.tt_w) {
+        raw_tt[n] = max_tt == 0 ? kMaxScore
+            : kMaxScore - floordiv_i64(raw_tt[n] * kMaxScore, max_tt > 1 ? max_tt : 1);
+        add += raw_tt[n] * a.tt_w;
+      }
+      if (a.sp_w) {
+        long long v = 0;
+        if (any_soft && feasible[n] && all_keys(sc, cl, c, n)) {
+          v = sp_max == 0 ? kMaxScore
+              : floordiv_i64(kMaxScore * (sp_max + sp_min - raw_sp[n]), sp_max > 1 ? sp_max : 1);
+        }
+        raw_sp[n] = v;
+        add += v * a.sp_w;
+      }
+      a.total[(size_t)c * N + n] += add;
+    }
+    return;
+  }
   for (int j = threadIdx.x; j < W; j += blockDim.x) {
     const int n = a.pin_row != nullptr ? a.pin_row[c] : j;
     long long* tot = a.total + (size_t)c * W + j;
@@ -475,17 +505,26 @@ extern "C" int spread_filter_launch(
   return (int)cudaGetLastError();
 }
 
-extern "C" int late_scores_launch(
-    const void* label_key, const void* label_pair, const void* label_int, const void* name_id,
-    const void* taint_ids, const void* topo_vals, const void* valid, const void* group_counts,
-    const void* node_bits, const void* feasible, void* total, const void* pin_row,
-    const void* pref_op,
-    const void* pref_key, const void* pref_vals, const void* pref_int, const void* pref_weight,
-    const void* intol_pref, const void* s_valid, const void* s_slot, const void* s_skew,
-    const void* s_mindom, const void* s_self, const void* s_host, const void* s_aff,
-    const void* s_taint, const void* s_groups, const void* log_table, void* glist, void* raw,
-    int C, int N, int LS, int TS, int TK, int DV, int G, int T, int Q, int V, int TV, int K,
-    int L, long long na_w, long long tt_w, long long sp_w, int smem_bytes, void* stream) {
+#define LS_PARAMS \
+    const void* label_key, const void* label_pair, const void* label_int, const void* name_id, \
+    const void* taint_ids, const void* topo_vals, const void* valid, const void* group_counts, \
+    const void* node_bits, const void* feasible, void* total, const void* pin_row, const void* pref_op, \
+    const void* pref_key, const void* pref_vals, const void* pref_int, const void* pref_weight, \
+    const void* intol_pref, const void* s_valid, const void* s_slot, const void* s_skew, \
+    const void* s_mindom, const void* s_self, const void* s_host, const void* s_aff, \
+    const void* s_taint, const void* s_groups, const void* log_table, void* glist, void* raw, int C, \
+    int N, int LS, int TS, int TK, int DV, int G, int T, int Q, int V, int TV, int K, int L, \
+    long long na_w, long long tt_w, long long sp_w, int smem_bytes, void* stream
+#define LS_ARGS \
+    label_key, label_pair, label_int, name_id, taint_ids, topo_vals, valid, group_counts, node_bits, \
+    feasible, total, pin_row, pref_op, pref_key, pref_vals, pref_int, pref_weight, intol_pref, s_valid, \
+    s_slot, s_skew, s_mindom, s_self, s_host, s_aff, s_taint, s_groups, log_table, glist, raw, C, N, \
+    LS, TS, TK, DV, G, T, Q, V, TV, K, L, na_w, tt_w, sp_w, smem_bytes, stream
+
+namespace {
+
+template <bool kCols>
+int launch_late(LS_PARAMS) {
   if (C == 0 || N == 0) return 0;
   LsArgs a;
   a.cl.topo_vals = static_cast<const int*>(topo_vals);
@@ -526,10 +565,23 @@ extern "C" int late_scores_launch(
   a.tt_w = tt_w;
   a.sp_w = sp_w;
   a.C = C;
-  const int rc = prepare(late_scores_kernel, smem_bytes);
+  const int rc = prepare(late_scores_kernel<kCols>, smem_bytes);
   if (rc != 0) return rc;
-  late_scores_kernel<<<C, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(a);
+  late_scores_kernel<kCols><<<C, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int late_scores_launch(LS_PARAMS) { return launch_late<false>(LS_ARGS); }
+
+// Columns mode (the attribution pass, kubernetes_tpu/engine/pass_.py:
+// 812-886): raw (3, C, N), zeroed by the caller, ends holding the three
+// columns before their weights on every node; total gains their weighted
+// sum on every node.  No pinned mode.
+extern "C" int late_scores_cols_launch(LS_PARAMS) {
+  if (pin_row != nullptr) return (int)cudaErrorInvalidValue;
+  return launch_late<true>(LS_ARGS);
 }
 
 KERNEL_ERROR_STRING(spread_eval)

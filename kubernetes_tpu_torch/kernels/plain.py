@@ -171,6 +171,39 @@ def eval_chunk(state, pf: dict, spec, nom, ext=None, pin=None, into=None):
     return feasible, total, fail
 
 
+def eval_chunk_cols(state, pf: dict, spec, nom, ext=None):
+    """Columns mode of eval_chunk, for the attribution pass
+    (pass_.py:812-886): (ok_bits (C, N) i32, bit b set where filter b's
+    own verdict passes the node; feasible (C, N) bool, the valid nodes that
+    pass every filter; cols (len(spec.scorers), C, N) i64, each scorer's
+    column before its weight; total (C, N) i64, Σ weight × column).  Every
+    output covers every node: no verdict is masked by the filters before
+    it and no score by the feasible set (none of eval_chunk's scorers
+    normalizes over it).  Planes as in eval_chunk."""
+    planes = ext_planes(ext)
+    il = planes.pop("il_scores")
+    ctx = dataclasses.replace(spec.ctx, nom=nom)
+    c, n = pf["req"].shape[0], state.valid.shape[0]
+    dev = state.valid.device
+    bits = torch.zeros((c, n), dtype=torch.int32, device=dev)
+    feasible = state.valid[None, :].expand(c, n).clone()
+    for b, name in enumerate(spec.filters):
+        ok = ext_filter(name, ext) if name in EXT_FILTERS else opcommon.get(name).filter(state, pf, ctx)
+        bits |= ok.to(torch.int32) << b
+        feasible &= ok
+    cols = torch.zeros((len(spec.scorers), c, n), dtype=torch.int64, device=dev)
+    total = torch.zeros((c, n), dtype=torch.int64, device=dev)
+    for k, (name, weight) in enumerate(spec.scorers):
+        if name == IL:
+            if il is None:
+                raise ValueError(f"eval_chunk: {IL} needs its il_scores plane")
+            cols[k] = il.to(torch.int64)
+        else:
+            cols[k] = opcommon.get(name).score(state, pf, ctx, feasible)
+        total += cols[k] * weight
+    return bits, feasible, cols, total
+
+
 def ipa_bit(ipa) -> int:
     """InterPodAffinity's fail bit for an IpaSpec (its place in the
     profile's filter order), or -1 when the op only scores.  Filters
@@ -204,6 +237,22 @@ def ipa_eval(state, pf: dict, feasible, total, fail, ipa, phase: int = IPA_BOTH)
         total += ipa_op.score_fn(state, pf, ipa.ctx, feasible) * weight
     total.masked_fill_(~feasible, 0)
     return feasible, total, fail
+
+
+def ipa_eval_cols(state, pf: dict, feasible, total, ipa, phase: int):
+    """Columns mode of ipa_eval, for the attribution pass.  IPA_FILTER:
+    InterPodAffinity's own verdict on every node, (C, N) bool, ANDed into
+    ``feasible`` IN PLACE.  IPA_SCORE: its score column before its weight,
+    normalized over ``feasible`` (0 off it, as the op gives it), (C, N)
+    i64, with weight × column added into ``total`` IN PLACE.  Returns the
+    verdict or the column."""
+    if phase == IPA_FILTER:
+        ok = ipa_op.filter_fn(state, pf, ipa.ctx)
+        feasible &= ok
+        return ok
+    col = ipa_op.score_fn(state, pf, ipa.ctx, feasible)
+    total += col * ipa.weight
+    return col
 
 
 def conflict_pairs(pf: dict, nchunks: int, c: int):
@@ -333,6 +382,27 @@ def late_scores(state, pf: dict, feasible, total, node_bits, late, pin=None):
         total += spread_op.score_fn(state, pf, ctx, feasible, *_node_oks(node_bits)) * late.spread_weight
     total.masked_fill_(~feasible, 0)
     return total
+
+
+def late_scores_cols(state, pf: dict, feasible, total, node_bits, late):
+    """Columns mode of late_scores, for the attribution pass: (3, C, N) i64,
+    NodeAffinity's, TaintToleration's and PodTopologySpread's columns
+    before their weights, normalized over ``feasible`` and given on every
+    node as the ops give them (the first two are not masked: an infeasible
+    node keeps raw·100 // max, or the op's value for a zero max; spread's
+    is 0 off its scored nodes); a column whose weight is 0 stays 0.
+    Weight × column is added into ``total`` IN PLACE."""
+    c, n = feasible.shape
+    cols = torch.zeros((3, c, n), dtype=torch.int64, device=feasible.device)
+    ctx = late.ctx
+    if late.na_weight:
+        cols[0] = na_op.score_fn(state, pf, ctx, feasible)
+    if late.taint_weight:
+        cols[1] = taint_op.score_fn(state, pf, ctx, feasible)
+    if late.spread_weight:
+        cols[2] = spread_op.score_fn(state, pf, ctx, feasible, *_node_oks(node_bits))
+    total += cols[0] * late.na_weight + cols[1] * late.taint_weight + cols[2] * late.spread_weight
+    return cols
 
 
 def hash_u32(x: torch.Tensor) -> torch.Tensor:

@@ -114,3 +114,21 @@ def fma_f64(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     inf = torch.tensor(float("inf"), dtype=v.dtype, device=v.device)
     v = torch.where((ve != 0) & even, torch.nextafter(v, torch.where(ve > 0, inf, -inf)), v)
     return th + v
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c for f32 tensors with one rounding to f32, as a fused
+    multiply-add gives it.  The product is exact in f64 (24 + 24 bits); the
+    sum's f64 rounding error is found exactly (Knuth's two-sum) and the f64
+    sum rounded to odd, so that its rounding to f32 is the correctly rounded
+    f32 of the exact a * b + c (Boldo and Melquiond, IEEE TC 2008: f64 has
+    more than 24 + 1 bits)."""
+    p = a.to(torch.float64) * b.to(torch.float64)
+    c = c.to(torch.float64)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    inf = torch.tensor(float("inf"), dtype=torch.float64, device=s.device)
+    s = torch.where((err != 0) & even, torch.nextafter(s, torch.where(err > 0, inf, -inf)), s)
+    return s.to(torch.float32)

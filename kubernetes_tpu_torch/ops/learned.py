@@ -15,14 +15,27 @@ Input features per (pod, node), all node-axis state or pod features:
   3. normalized throughput  the ThroughputAware table gather / 100
   4. request pressure       pod cpu request / max(node cpu allocatable, 1)
 
-Output: ``floor(sigmoid(tanh(x·W1 + b1)·W2 + b2) · 100 + 0.5)`` in float32.
-The port's plain ``score_fn`` computes it with ``torch.tanh`` and
-``torch.exp``; the ``eval_chunk`` kernel (kernels/csrc/eval_chunk.cu)
-computes the same operations in the same order with ``tanhf``/``expf`` and
-no contracted multiply-adds.  XLA's f32 ``tanh``/``exp`` differ from
-torch's in the last bits on some inputs, so a score whose ``y·100 + 0.5``
-lies within a few ulp of an integer can differ by 1 from JAX's
-(tests/test_torch_learned.py states the tolerance).
+Output: ``floor(sigmoid(tanh(x·W1 + b1)·W2 + b2) · 100 + 0.5)`` in float32,
+computed as XLA on the CPU computes the reference's jitted ``score_fn``
+(read off its ``XLA_FLAGS=--xla_dump_to`` dump, jaxlib 0.9.0): the
+algebraic simplifier drops a zero bias (``0 + a`` is ``a``) and folds the
+throughput feature's ``/ 100`` into its weight (``tput · fl(w / 100)``);
+``tanh`` is XLA's rational approximation (``xla_tanh``) and ``exp`` its
+range-reduced polynomial (``xla_exp_plus_one``); and LLVM contracts every
+multiply whose one use is an add into a fused multiply-add, as the
+object code's vector loop shows (``vfmadd``): each hidden unit's sum, the
+output sum, every Horner step, the exponential's reduction and scaling
+(``e · 2^n + 1`` fused with the sigmoid's ``+ 1``) and the last
+``s · 100 + 0.5``.  The plain version rounds each fused step once with
+``helpers.fma_f32``; the ``eval_chunk`` kernel uses ``fmaf`` at the same
+places and plain operations elsewhere (its build keeps ``-fmad=false``).
+
+XLA's scalar epilogue loop (the last elements of each vectorized loop)
+contracts nine fewer multiply-adds than its vector loop, so the JAX
+package's score of those elements can differ in the last bit before the
+floor: the port computes the vector loop's function on every element
+(ROADMAP §3, logged as a reference fault; tests/test_torch_learned.py holds
+both loops exactly).
 """
 
 from __future__ import annotations
@@ -38,6 +51,7 @@ from ..api import types as t
 from ..framework.config import MAX_NODE_SCORE, Profile
 from ..snapshot import RES_CPU, RES_MEMORY
 from .common import FeaturizeContext, OpDef, PassContext, feature_fill, register
+from .helpers import fma_f32
 from .throughput import DEFAULT_THROUGHPUT_MATRIX, _tp_features, tput_gather
 
 # The committed inference artifact, loaded once per profile.
@@ -136,7 +150,9 @@ def _static(profile: Profile, schema, builder_res_col) -> dict:
 
 
 def features(state, pf) -> list[torch.Tensor]:
-    """The five f32 input features, each broadcastable to (C, N)."""
+    """The five f32 input features, each broadcastable to (C, N); feature 3
+    is the throughput gather unscaled, its division by MaxNodeScore folded
+    into its weights (``pre_floor``)."""
     f32 = torch.float32
     alloc_cpu = state.alloc[:, RES_CPU].to(f32)[None, :]
     alloc_mem = state.alloc[:, RES_MEMORY].to(f32)[None, :]
@@ -149,39 +165,112 @@ def features(state, pf) -> list[torch.Tensor]:
         torch.clamp((alloc_cpu - req_cpu) / safe_cpu, min=0.0),
         torch.clamp((alloc_mem - req_mem) / safe_mem, min=0.0),
         state.num_pods.to(f32)[None, :] / torch.clamp(state.allowed_pods.to(f32)[None, :], min=1.0),
-        # A device tensor, not a Python number: CUDA divides a tensor by a
-        # host scalar as a multiply by its reciprocal, which rounds
-        # differently.
-        tput / torch.tensor(float(MAX_NODE_SCORE), dtype=f32, device=tput.device),
+        tput,
         req_cpu / safe_cpu,
     ]
 
 
-def score_fn(state, pf, ctx: PassContext, feasible):
-    """The plain version of eval_chunk's learned term: (C, N) i64."""
+# XLA's f32 tanh (its rational approximation of Eigen's ptanh): the input
+# clamped to ±7.998811721801758, x·P(x²)/Q(x²) with Horner steps fused, x
+# itself below 0.0004 and ±1 from 20 on.
+_TANH_CLAMP = 7.998811721801758
+_TANH_P = (-2.7607683663038313e-16, 2.0001879384549948e-13, -8.604671836165423e-11, 5.122297253024044e-08,
+           1.4857223504805006e-05, 0.0006372619536705315, 0.004893524572253227)
+_TANH_Q = (1.1982583600911312e-06, 0.00011853470641653985, 0.0022684347350150347, 0.0048935250379145145)
+# XLA's f32 exp: the input clamped to [-87.8, 88.8], n = floor(x·log2(e) +
+# 0.5) clamped to ±127, r = x − n·ln2 in two fused steps, a fused Horner
+# polynomial, e = r + p·r² + 1, then e·2^n.
+_EXP_LO, _EXP_HI = -87.80000305175781, 88.80000305175781
+_LOG2E = 1.4426950216293335
+_LN2_HI, _LN2_LO = 0.693359375, -0.00021219444170128554
+_EXP_P = (0.00019875691214110702, 0.001398199936375022, 0.008333452045917511, 0.04166579619050026,
+          0.1666666567325592, 0.5)
+
+
+def xla_tanh(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 tanh on the CPU, bit for bit (f32 in, f32 out)."""
+    f32 = torch.float32
+    k = lambda v: torch.tensor(v, dtype=f32, device=x.device)  # noqa: E731
+    xc = torch.clamp(x, -_TANH_CLAMP, _TANH_CLAMP)
+    x2 = xc * xc
+    p = k(_TANH_P[0]).expand_as(x2)
+    for c in _TANH_P[1:]:
+        p = fma_f32(x2, p, k(c))
+    q = k(_TANH_Q[0]).expand_as(x2)
+    for c in _TANH_Q[1:]:
+        q = fma_f32(x2, q, k(c))
+    out = (xc * p) / q
+    ax = torch.abs(x)
+    out = torch.where(ax < k(0.00039999998989515007), x, out)
+    return torch.where(ax >= k(20.0), torch.copysign(k(1.0), x), out)
+
+
+def xla_exp_plus_one(x: torch.Tensor) -> torch.Tensor:
+    """exp(x) + 1 as XLA's f32 exp followed by ``+ 1`` computes it on the
+    CPU, bit for bit: the last scaling e·2^n and the ``+ 1`` are one fused
+    multiply-add."""
+    f32 = torch.float32
+    k = lambda v: torch.tensor(v, dtype=f32, device=x.device)  # noqa: E731
+    x = torch.clamp(x, _EXP_LO, _EXP_HI)
+    n = torch.clamp(torch.floor(fma_f32(x, k(_LOG2E), k(0.5))), -127.0, 127.0)
+    r = fma_f32(n, k(-_LN2_HI), x)
+    r = fma_f32(n, k(-_LN2_LO), r)
+    p = k(_EXP_P[0]).expand_as(r)
+    for c in _EXP_P[1:]:
+        p = fma_f32(p, r, k(c))
+    e = fma_f32(p, r * r, r) + k(1.0)
+    two_n = ((n.to(torch.int32) + 127) << 23).view(f32)
+    return fma_f32(e, two_n, k(1.0))
+
+
+def _affine(terms: list, bias: torch.Tensor) -> torch.Tensor:
+    """bias + Σ w·x over ``terms`` [(x, w)] left to right, each step one
+    fused multiply-add; a zero bias vanishes, and the first two products
+    then meet in one fused multiply-add (XLA's ``0 + a → a``, LLVM's fusion
+    of the left product)."""
+    (x0, w0), rest = terms[0], terms[1:]
+    if float(bias) == 0.0:
+        (x1, w1), rest = rest[0], rest[1:]
+        acc = fma_f32(x0, w0, x1 * w1)
+    else:
+        acc = fma_f32(x0, w0, bias)
+    for x, w in rest:
+        acc = fma_f32(x, w, acc)
+    return acc
+
+
+def pre_floor(state, pf, weights) -> torch.Tensor:
+    """(C, N) f32: ``y · 100 + 0.5``, the value the score floors, in XLA's
+    arithmetic (see the module docstring)."""
     c, n = pf["tp_slot"].shape[0], state.valid.shape[0]
     dev = state.valid.device
-    weights = ctx.static.get("learned_weights") if ctx.static else None
-    if not weights:
-        return torch.zeros((c, n), dtype=torch.int64, device=dev)
     w1, b1, w2, b2 = weights
     f32 = torch.float32
 
     def k(v: float) -> torch.Tensor:  # a weight rounded to f32, as JAX's f32(w)
         return torch.tensor(v, dtype=f32, device=dev)
 
-    x = features(state, pf)
+    x = [v.expand(c, n) for v in features(state, pf)]
     hs = []
     for j in range(len(b1)):
-        acc = torch.full((c, n), b1[j], dtype=f32, device=dev)
-        for i in range(len(x)):
-            acc = acc + k(w1[i][j]) * x[i]
-        hs.append(torch.tanh(acc))
-    y = torch.full((c, n), b2, dtype=f32, device=dev)
-    for j in range(len(b1)):
-        y = y + k(w2[j]) * hs[j]
-    y = k(1.0) / (k(1.0) + torch.exp(-y))
-    return torch.floor(y * k(float(MAX_NODE_SCORE)) + k(0.5)).to(torch.int64)
+        # The throughput feature's division by MaxNodeScore folds into its
+        # weight: tput · fl(w / 100).  A device tensor divides, not a Python
+        # number: CUDA divides by a host scalar as a multiply by its
+        # reciprocal, which rounds differently.
+        terms = [(x[i], k(w1[i][j]) / k(float(MAX_NODE_SCORE)) if i == 3 else k(w1[i][j])) for i in range(len(x))]
+        hs.append(xla_tanh(_affine(terms, k(b1[j]))))
+    y = _affine([(hs[j], k(w2[j])) for j in range(len(b1))], k(b2))
+    s = k(1.0) / xla_exp_plus_one(-y)
+    return fma_f32(s, k(float(MAX_NODE_SCORE)), k(0.5))
+
+
+def score_fn(state, pf, ctx: PassContext, feasible):
+    """The plain version of eval_chunk's learned term: (C, N) i64."""
+    weights = ctx.static.get("learned_weights") if ctx.static else None
+    if not weights:
+        return torch.zeros((pf["tp_slot"].shape[0], state.valid.shape[0]), dtype=torch.int64,
+                           device=state.valid.device)
+    return torch.floor(pre_floor(state, pf, weights)).to(torch.int64)
 
 
 feature_fill("ls_req_cpu", 0)

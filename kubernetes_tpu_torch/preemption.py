@@ -683,11 +683,16 @@ class PreemptionEvaluator:
 
     def preempt_batch(
         self, pods: list[t.Pod], batch_rows: dict, active=None, profile=None,
-        prepacked: dict | None = None,
+        prepacked: dict | None = None, candidate_filter=None,
     ) -> list[PreemptionResult | None]:
         """Preemption for the failed pods of one batch (preemption.py:1251);
         ``batch_rows`` are each pod's feature rows.  Chunk-deferred
-        preemptors return None and retry next batch."""
+        preemptors return None and retry next batch.
+        ``candidate_filter(pod, node_name, victims) -> bool`` vetoes a chosen
+        candidate before its victims are deleted: the extenders'
+        ProcessPreemption (preemption.go:249).  Upstream consults them over
+        every candidate before selection; the batched pass selects first and
+        filters the one chosen candidate, as the reference does."""
         sched = self.sched
         profile = profile or sched.profile
         eligible = self._eligibility(pods, batch_rows.get("req"))
@@ -715,7 +720,7 @@ class PreemptionEvaluator:
             sched.builder.state(), batch, pack["vic"], steps, sched.builder.batch_invariants()
         )
         picks, vmasks = (x.cpu().numpy() for x in (out.picks, out.vic_mask))
-        return self._interpret_dryrun(pods, picks, vmasks, pack)
+        return self._interpret_dryrun(pods, picks, vmasks, pack, candidate_filter)
 
     def dispatch_speculative(self, ctx: dict, pack: dict):
         """The dry-run chained on the in-flight main pass's device picks
@@ -754,11 +759,12 @@ class PreemptionEvaluator:
         results = self._interpret_dryrun(pods, picks[idxs], vmasks[idxs], spec["pack"])
         return dict(zip(idxs, results))
 
-    def _interpret_dryrun(self, pods, picks, vmasks, pack) -> list[PreemptionResult | None]:
+    def _interpret_dryrun(self, pods, picks, vmasks, pack, candidate_filter=None) -> list[PreemptionResult | None]:
         """prepareCandidate over fetched results (preemption.py:1459):
         delete the victims (one batched POD_DELETE is the caller's), debit
         their PDBs, nominate the node; consumed victims dedup across the
-        pass's preemptors."""
+        pass's preemptors.  A candidate ``candidate_filter`` vetoes yields
+        None and touches nothing."""
         sched = self.sched
         cache = sched.cache
         pdbs, matched_pdbs = pack["pdbs"], pack["matched_pdbs"]
@@ -779,6 +785,9 @@ class PreemptionEvaluator:
                 and vics[j].spec.priority < pod.spec.priority
                 and vics[j].uid not in consumed
             ]
+            if candidate_filter is not None and not candidate_filter(pod, node_name, victims):
+                results.append(None)
+                continue
             for vic in victims:
                 consumed.add(vic.uid)
                 sched.delete_pod(vic.uid, notify=False)

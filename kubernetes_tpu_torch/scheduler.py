@@ -32,13 +32,21 @@ node order from a rotating start, which the host advances by each batch's
 processedNodes (:3788-3792), and the pinned-batch pass stays off.
 Several profiles register by schedulerName (``profiles=``, scheduler.py:
 150-183): a popped batch splits into one group a profile, in pop order,
-each dispatched and completed under its own profile (:3226-3245).  Gangs,
-extenders, journaling, the PreBind wait room and the pipelined predispatch
-are later slices; a pod that would need one raises NotImplementedError.
+each dispatched and completed under its own profile (:3226-3245).  With
+extenders (``extenders=``, pkg/scheduler/extender.go; scheduler.py:
+2295-2445) a batch schedules pod by pod through the eval-only pass: the
+per-node verdicts and scores come back to the host, the extender chain
+filters and prioritizes, the host picks, assumes, reserves and binds, with
+no prefetch.  Decision provenance (``arm_provenance``, ``explain_pod``;
+scheduler.py:2548-2797) records each live decision and explains a pod
+through the attribution pass against the current state.  Gangs,
+journaling, the PreBind wait room and the pipelined predispatch are later
+slices; a pod that would need one raises NotImplementedError.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from dataclasses import dataclass
 
@@ -98,6 +106,7 @@ class TorchScheduler:
         queue: SchedulingQueue | None = None,
         inline_preempt_commit: bool | None = None,
         feature_gates=None,
+        extenders: list | None = None,
         _impl: str = "kernel",
     ):
         self.device = resolve_device(device)
@@ -199,6 +208,12 @@ class TorchScheduler:
         self.reserve_plugins: list[ReservePlugin] = list(DEFAULT_RESERVE_PLUGINS)
         # Pods whose reservation lost a same-batch race (forgotten, to backoff).
         self.reserve_failures = 0
+        # Out-of-process extenders (pkg/scheduler/extender.go); a non-empty
+        # chain routes scheduling through the per-pod eval-only path.
+        self.extenders = list(extenders or ())
+        # Decision provenance (framework/provenance.py): the ring of live
+        # decisions, None until arm_provenance() (scheduler.py:387-392).
+        self.provenance = None
 
     # -- cluster events --------------------------------------------------------
 
@@ -522,6 +537,9 @@ class TorchScheduler:
             infos, work = self.queue.pop_batch(self.batch_size), None
         if not infos:
             return []
+        if self.extenders:
+            # Extender chain: the per-pod eval-only path (scheduler.py:3219-3224).
+            return [self._schedule_one_extender(qp) for qp in infos]
         if len(self.profiles) > 1:
             groups: dict[str, list[QueuedPodInfo]] = {}
             for qp in infos:
@@ -864,6 +882,8 @@ class TorchScheduler:
             self.nominator.pop(qp.pod.uid, None)  # a placed pod's nomination is spent
             qp.pod.status.nominated_node_name = ""
             placed.append((i, node_name))
+            if self.provenance is not None:
+                self._provenance_capture(qp.pod.uid, node_name, row, i, ctx, batch, scores, feas, fails, profile)
         # Phase 2: Reserve + PreBind + bind, in batch order.  A pod that lost
         # a same-batch race (a static PV, a ReadWriteOncePod claim, or the
         # named devices of a claim) holds nothing; it is forgotten — its
@@ -932,6 +952,14 @@ class TorchScheduler:
         for i, res in zip(failed, results):
             qp = infos[i]
             if res is not None:
+                if self.provenance is not None:
+                    # The pickOneNode rationale onto the preemptor's next
+                    # capsule (scheduler.py:4331-4336); as there, the key
+                    # reads the budgets after the dry-run debited them.
+                    self.provenance.note_preemption(qp.pod.uid, {
+                        "node": res.node_name, "victims": [v.uid for v in res.victims],
+                        "key": self._preempt_key(res.victims),
+                    })
                 # A pod with Reserve work (a claim to bind or allocate) takes
                 # the nominate-and-retry path (scheduler.py:2046).
                 if self.inline_preempt_commit and not self._reserve_for(qp.pod) and (
@@ -1001,3 +1029,250 @@ class TorchScheduler:
         self.cache.finish_binding(qp.pod.uid)
         self.queue.done(qp.pod.uid)
         outcome.node_name = res.node_name
+
+    # -- the extender path (scheduler.py:2295-2499) ------------------------------
+
+    def _resolve_nomrow(self, pod: t.Pod) -> int:
+        """The pod's own nominated node as a row, -1 when unset or unknown
+        (scheduler.py:2458): without it a retrying preemptor's claim in the
+        fit overlay makes its freed node look full to itself."""
+        nn = pod.status.nominated_node_name
+        if nn:
+            rec = self.cache.nodes.get(nn)
+            if rec is not None:
+                return rec.row
+        return -1
+
+    def _run_eval_pass(self, pod: t.Pod, profile: Profile, nomrow: int):
+        """One pod through the eval-only pass (scheduler.py:2469-2499):
+        featurize, run, one fetch.  Returns (batch, deltas, active,
+        feasible (N,) bool, total (N,) i64) with numpy results."""
+        batch, deltas, active = build_pod_batch([pod], self.builder, profile, 1)
+        inv = self._full_inv()
+        state = self.builder.state()
+        run = self.passes.get_eval(profile, self.builder.schema, self.builder.res_col, active)
+        feasible, total = run(state, dict(batch, nominated_row=np.full(1, nomrow, np.int32)), inv)
+        both = torch.stack([feasible.to(torch.int64), total]).cpu().numpy()
+        return batch, deltas, active, both[0].astype(np.bool_), both[1]
+
+    def _schedule_one_extender(self, qp: QueuedPodInfo) -> ScheduleOutcome:
+        """One scheduling cycle with the extender chain (scheduler.py:
+        2295-2445): the eval-only pass, the extenders' filter and
+        prioritize on the host (findNodesThatPassExtenders,
+        schedule_one.go:704; prioritizeNodes, :799), the host selectHost
+        (the highest combined score, the first such node in the
+        extenders' order), assume, the Reserve plugins, the binder
+        extender, bind.  A pod no node survives parks with
+        {"Extender"} (any event wakes it, schedule_one.go:528) after
+        PostFilter preemption, which extenders with a preempt verb may veto
+        (ProcessPreemption, preemption.go:249).  As in the reference, a
+        bind here leaves the pod's nomination in the nominator."""
+        from .extender import run_extender_chain
+
+        profile = self._profile_for(qp.pod) or self.profile
+        nomrow = self._resolve_nomrow(qp.pod) if self.nominator else -1
+        batch, deltas, active, feasible, total = self._run_eval_pass(qp.pod, profile, nomrow)
+        rows = np.nonzero(feasible)[0]
+        names = [self.cache.node_name_at_row(int(r)) for r in rows]
+        scores = {nm: int(total[r]) for nm, r in zip(names, rows)}
+        try:
+            nodes, combined, _unres = run_extender_chain(self.extenders, qp.pod, names, scores)
+        except Exception:
+            # A non-ignorable extender failed: a cycle error, not
+            # unschedulability — retry on a timer (handleSchedulingFailure).
+            self.queue.add_backoff(qp)
+            return ScheduleOutcome(qp.pod, None, 0, len(names))
+        if not nodes:
+            plugins = {"Extender"} if names else set(profile.filters)
+            qp.delta = deltas[0]
+            outcome = ScheduleOutcome(qp.pod, None, 0, len(names), frozenset(plugins))
+            if "DefaultPreemption" in profile.post_filter:
+                prow = {k: [np.asarray(v)[0]] for k, v in batch.items() if k != "valid"}
+                preempt_exts = [ex for ex in self.extenders
+                                if getattr(ex, "supports_preemption", False) and ex.is_interested(qp.pod)]
+
+                def _ext_ok(pod, node_name, victims) -> bool:
+                    want = {v.uid for v in victims}
+                    for ex in preempt_exts:
+                        try:
+                            kept = ex.process_preemption(pod, {node_name: victims})
+                        except Exception:
+                            if ex.ignorable:
+                                continue
+                            return False
+                        # The pass picked a minimal victim set: the node
+                        # survives only if the extender keeps all of it.
+                        if node_name not in kept or set(kept[node_name]) != want:
+                            return False
+                    return True
+
+                res = self.preemption.preempt_batch(
+                    [qp.pod], prow, active, profile=profile,
+                    candidate_filter=_ext_ok if preempt_exts else None,
+                )[0]
+                # A zero-victim candidate is a node only the extender
+                # rejected: only an eviction counts as progress here.
+                if res is not None and res.victims:
+                    self._record_preemption(qp, outcome, res, deltas[0])
+                    if res.node_name in self.cache.nodes:
+                        freed = {self.cache.nodes[res.node_name].row}
+                        self.queue.on_event(Event.POD_DELETE, self._free_ctx(freed))
+                    return outcome
+            self.queue.add_unschedulable(qp, plugins)
+            return outcome
+        best = max(enumerate(nodes), key=lambda p: (combined[p[1]], -p[0]))[1]
+        self.cache.assume_pod(qp.pod, best, device_already=False, delta=deltas[0])
+
+        def _fail_bind(undos) -> ScheduleOutcome:
+            for rp2, u2 in reversed(undos):
+                rp2.unreserve(u2, self)
+            self.cache.forget_pod(qp.pod.uid)
+            self.queue.add_backoff(qp)
+            return ScheduleOutcome(qp.pod, None, 0, len(nodes))
+
+        undos: list = []
+        for rp in self._reserve_for(qp.pod):
+            u = rp.reserve(qp.pod, best, self)
+            if u is None:
+                return _fail_bind(undos)
+            undos.append((rp, u))
+        binder = next((ex for ex in self.extenders if getattr(ex, "bind_verb", "")), None)
+        if binder is not None and not binder.bind(qp.pod, best):
+            return _fail_bind(undos)
+        qp.pod.spec.node_name = best
+        self.cache.finish_binding(qp.pod.uid)
+        self.queue.done(qp.pod.uid)
+        return ScheduleOutcome(qp.pod, best, combined[best], len(nodes))
+
+    # -- decision provenance (scheduler.py:2548-2797) -----------------------------
+
+    def arm_provenance(self, capacity: int = 4096) -> None:
+        """Start recording decision capsules (explain-this-binding).
+        Idempotent; off by default: unarmed runs pay one ``is not None`` test
+        a bind and bind identically."""
+        if self.provenance is None:
+            from .framework.provenance import ProvenanceRing
+
+            self.provenance = ProvenanceRing(capacity)
+
+    @staticmethod
+    def _tie_step_of(i: int, ctx: dict, batch: dict) -> int:
+        """The tie-break step the pass hashed for batch slot ``i``: the
+        batch's cycle base plus the slot's step offset; -1 in the pinned
+        pass (no per-step seed)."""
+        soff = batch.get("step_offset")
+        if soff is None:
+            return -1
+        return (int(ctx.get("cycle0", 0)) + int(np.asarray(soff)[i])) & 0xFFFFFFFF
+
+    def _provenance_capture(self, uid, node_name, row, i, ctx, batch, scores, feas, fails, profile) -> None:
+        """Record one live decision into the armed ring (scheduler.py:2568)."""
+        from .framework.provenance import DecisionCapsule
+
+        cap = DecisionCapsule(
+            uid=uid, node=node_name, row=int(row), score=int(scores[i]), feasn=int(feas[i]),
+            fail_mask=int(fails[i]), tie_step=self._tie_step_of(i, ctx, batch), profile=profile.name,
+            nomrow=int(ctx["nomrow"][i]), kind="pinned" if ctx.get("pinned") else "batch",
+        )
+        cap.preemption = self.provenance.take_pending_preemption(uid)
+        self.provenance.record(cap)
+
+    def _preempt_key(self, victims) -> list[int]:
+        """[PDB violations, max victim priority, priority sum, victim count,
+        negated earliest start] — pickOneNodeForPreemption's ascending key
+        over one candidate (scheduler.py:2923)."""
+        violations = 0
+        for pdb in self.pdbs.values():
+            cnt = sum(1 for v in victims
+                      if v.namespace == pdb.namespace and t.label_selector_matches(pdb.selector, v.metadata.labels))
+            violations += max(0, cnt - pdb.disruptions_allowed)
+        prios = [v.spec.priority for v in victims]
+        max_prio = max(prios) if prios else -1
+        starts = [v.status.start_time for v in victims
+                  if v.spec.priority == max_prio and v.status.start_time is not None]
+        start_key = int(-min(starts) * 1e6) if starts else -(2**61)
+        return [violations, max_prio, sum(prios), len(victims), start_key]
+
+    def _run_attribution_pass(self, pod: t.Pod, profile: Profile, nomrow: int):
+        """One pod through the attribution pass (scheduler.py:2591):
+        featurize, run, one fetch.  Returns (active, ok_cols (F, N),
+        feasible (N,), score_cols (S, N), total (N,)) as numpy arrays."""
+        batch, _deltas, active = build_pod_batch([pod], self.builder, profile, 1)
+        inv = self._full_inv()
+        state = self.builder.state()
+        run = self.passes.get_attribution(profile, self.builder.schema, self.builder.res_col, active)
+        batch["nominated_row"] = np.full(1, nomrow, np.int32)
+        ok, feasible, cols, total = run(state, batch, inv)
+        f = ok.shape[0]
+        both = torch.cat([ok.to(torch.int64), feasible.to(torch.int64)[None], cols, total[None]]).cpu().numpy()
+        return active, both[:f].astype(np.bool_), both[f].astype(np.bool_), both[f + 1 : -1], both[-1]
+
+    def explain_pod(self, uid: str, seq: int | None = None, mode: str | None = None,
+                    pod: t.Pod | None = None) -> dict:
+        """The structured decision record of one pod (scheduler.py:2638-2797):
+        its Filter and Score re-run through the attribution pass against
+        the current state — every filter's verdict on every node with the
+        rejecting plugin named, every scorer's normalized column, the
+        selectHost trace — with the recorded live decision when provenance
+        is armed.  A read path: nothing commits and no queue state moves.
+        The port keeps no journal, so it takes the reference's journal-less
+        branches: ``mode="journal"`` without ``seq`` returns the reference's
+        error, and an explicit ``seq`` explains in current mode."""
+        from .engine.pass_ import filter_op_names, score_op_names
+        from .framework import provenance as prov
+
+        cap = self.provenance.get(uid) if self.provenance is not None else None
+        pr = self.cache.pods.get(uid)
+        if pr is not None:
+            pod = pr.pod
+        else:
+            qp = self.queue._info.get(uid)
+            if qp is not None:
+                pod = qp.pod
+        if pod is None:
+            return {"uid": uid, "error": "unknown pod (not bound, not queued)"}
+        upto = None
+        if seq is not None and seq > 0:
+            upto = seq - 1
+            # An explicit seq targets one decision; a capsule stamped with
+            # another seq describes another bind of this uid.
+            if cap is not None and cap.seq is not None and cap.seq != seq:
+                cap = None
+        if mode == "journal" and upto is None:
+            return {"uid": uid,
+                    "error": "journal mode needs a journaled, provenance-recorded bind (or an explicit seq)"}
+        notes = []
+        if pr is not None:
+            # Already placed: re-filtering the live pod would pin NodeName to
+            # its node.  Strip the binding on a copy; the verdicts still
+            # include the pod's own resources.
+            pod = copy.deepcopy(pod)
+            pod.spec.node_name = ""
+            notes.append("pod already placed: current-mode verdicts include its own committed usage "
+                         "(use journal mode for bit-identity)")
+        profile = self._profile_for(pod) or self.profile
+        nomrow = self._resolve_nomrow(pod)
+        if not self.cache.nodes:
+            return {"uid": uid, "mode": "current", "error": "no nodes"}
+        active, ok_cols, feasible, score_cols, total = self._run_attribution_pass(pod, profile, nomrow)
+        # Real nodes only, in row order (padding rows are never feasible,
+        # so the kth-tie count over the trimmed arrays is unchanged).
+        rows = [r for r in range(total.shape[0]) if self.cache.node_name_at_row(r) is not None]
+        names = [self.cache.node_name_at_row(r) for r in rows]
+        idx = np.asarray(rows, np.int64)
+        pos_of = {r: p for p, r in enumerate(rows)}
+        rec = prov.assemble_record(
+            uid=uid, mode="current", profile=profile, active=active, node_names=names,
+            filter_names=filter_op_names(profile, active), score_ops=score_op_names(profile, active),
+            ok_cols=ok_cols[:, idx] if ok_cols.size else np.zeros((0, len(rows)), bool),
+            feasible=feasible[idx],
+            score_cols=score_cols[:, idx] if score_cols.size else np.zeros((0, len(rows)), np.int64),
+            total=total[idx], nomrow=pos_of.get(int(nomrow), -1), capsule=cap, truncated=self._truncated,
+            tie_step=None,
+        )
+        rec["bound_node"] = pr.node_name if pr is not None else None
+        if self.provenance is None:
+            notes.append("provenance unarmed: no recorded live decision; tie-break trace degrades to kth=0")
+        if notes:
+            rec["note"] = "; ".join(notes)
+        return rec

@@ -77,7 +77,7 @@ hostPort 8080, one in 8 of the others is labelled tier=noisy, and one in
 arrive bound, four a node (``search_fill``: bg-i on node i // 4, so every
 even node holds one port holder), as a cluster that has run for a while
 reports them; then a warm-up preemptor of the measured template; then
-1000 preemptors
+1000 preemptors (run at half that, 500, for the smoke script's time)
 of 2 CPU and 4 GiB at priority 1000, labelled app=svc, each with a
 DoNotSchedule zone spread of maxSkew 1 over app=svc, a required
 anti-affinity to tier=noisy at the hostname and hostPort 8080.  Batch 1024,
@@ -171,6 +171,17 @@ over 3 zones, 2048 warm-up and 10000 measured pods of 900m CPU and 2 GiB,
 the default profile otherwise; batch 4096, chunk 64.  The most-requested
 nodes win, so a chunk's pods crowd onto few nodes and defer behind their
 mates.
+
+``extender_5kn_1kpods`` has no harness counterpart: the shape of
+upstream's test/integration/scheduler/extender_test.go (a filter extender
+and a prioritize extender with a weight), in process, on density's shape:
+5000 nodes of 16 CPU, 64 GiB and 110 pods over 10 zones, labelled tier
+gold, silver or bronze (1:2:2), one in five labelled deny; 512 warm-up and
+1000 measured pods of 900m CPU and 2 GiB; the default profile with three
+extenders (``extender_chain``): one drops the deny nodes, not ignorable;
+one scores gold 10, silver 5, bronze 0 with weight 5; one is ignorable and
+raises on every 100th call.  Every pod schedules through the eval-only
+pass, one at a time.
 """
 
 from __future__ import annotations
@@ -360,7 +371,7 @@ def preemptor(name: str) -> t.Pod:
 SEARCH_NODES = 5000
 SEARCH_ZONES = 10
 SEARCH_BG_PODS = 20000
-SEARCH_MEASURED_PODS = 1000
+SEARCH_MEASURED_PODS = 500  # half of the 1000 preemptors, see above
 SEARCH_BATCH = 1024
 SEARCH_CHUNK = 128
 SEARCH_PORT = 8080
@@ -764,3 +775,171 @@ BINPACK_STRATEGY = ScoringStrategy(
 def binpack_profile(profile: Profile = DEFAULT_PROFILE) -> Profile:
     """The profile with NodeResourcesFit's bin-packing strategy."""
     return dataclasses.replace(profile, scoring_strategy=BINPACK_STRATEGY)
+
+
+# -- extender_5kn_1kpods (no harness counterpart) ---------------------------------
+
+EXTENDER_NODES = 5000
+EXTENDER_ZONES = 10
+EXTENDER_WARM_PODS = 512
+EXTENDER_MEASURED_PODS = 1000
+EXTENDER_BATCH = 256
+TIERS = ("gold", "silver", "silver", "bronze", "bronze")  # dealt 1:2:2
+TIER_SCORES = {"gold": 10, "silver": 5, "bronze": 0}
+TIER_WEIGHT = 5
+DENY_LABEL = "deny"
+FLAKY_EVERY = 100
+
+
+def extender_nodes(n: int = EXTENDER_NODES) -> list[t.Node]:
+    """Density's nodes over 10 zones, each labelled tier=gold/silver/bronze
+    (1:2:2) and one in five labelled deny."""
+    out = basic_nodes(n, EXTENDER_ZONES)
+    for i, node in enumerate(out):
+        node.metadata.labels["tier"] = TIERS[i % 5]
+        if (i // 5) % 5 == 3:
+            node.metadata.labels[DENY_LABEL] = "true"
+    return out
+
+
+class DenyFilterExtender:
+    """A filter extender that is not ignorable: it drops the nodes labelled
+    deny, reporting one in 50 of them as FailedAndUnresolvable and the rest
+    as FailedNodes (upstream test/integration/scheduler/extender_test.go's
+    filter shape, in process)."""
+
+    name = "deny-filter"
+    weight = 1
+    ignorable = False
+    bind_verb = ""
+
+    def __init__(self, nodes) -> None:
+        denied = [node.name for node in nodes if DENY_LABEL in node.metadata.labels]
+        self.unresolvable = set(denied[::50])
+        self.denied = set(denied)
+        self.calls = 0
+
+    def is_interested(self, pod) -> bool:
+        return True
+
+    def filter(self, pod, nodes):
+        from .extender import ExtenderFilterResult
+
+        self.calls += 1
+        keep = [n for n in nodes if n not in self.denied]
+        failed = {n: "denied" for n in nodes if n in self.denied and n not in self.unresolvable}
+        unres = {n: "denied for good" for n in nodes if n in self.unresolvable}
+        return ExtenderFilterResult(node_names=keep, failed_nodes=failed, failed_and_unresolvable_nodes=unres)
+
+    def prioritize(self, pod, nodes):
+        return []
+
+    def bind(self, pod, node) -> bool:
+        return True
+
+
+class TierPrioritizeExtender:
+    """A prioritize extender of weight 5: gold 10, silver 5, bronze 0."""
+
+    name = "tier-prioritize"
+    weight = TIER_WEIGHT
+    ignorable = False
+    bind_verb = ""
+
+    def __init__(self, nodes) -> None:
+        self.tier = {node.name: node.metadata.labels["tier"] for node in nodes}
+        self.calls = 0
+
+    def is_interested(self, pod) -> bool:
+        return True
+
+    def filter(self, pod, nodes):
+        from .extender import ExtenderFilterResult
+
+        return ExtenderFilterResult(node_names=list(nodes))
+
+    def prioritize(self, pod, nodes):
+        from .extender import HostPriority
+
+        self.calls += 1
+        return [HostPriority(n, TIER_SCORES[self.tier[n]]) for n in nodes]
+
+    def bind(self, pod, node) -> bool:
+        return True
+
+
+class FlakyExtender:
+    """An ignorable extender that raises on every 100th call, filter and
+    prioritize counted together; otherwise it passes every node and
+    scores nothing."""
+
+    name = "flaky"
+    weight = 1
+    ignorable = True
+    bind_verb = ""
+
+    def __init__(self) -> None:
+        self.calls = 0
+        self.raised = 0
+
+    def _tick(self) -> None:
+        self.calls += 1
+        if self.calls % FLAKY_EVERY == 0:
+            self.raised += 1
+            raise ConnectionError("extender timed out")
+
+    def is_interested(self, pod) -> bool:
+        return True
+
+    def filter(self, pod, nodes):
+        from .extender import ExtenderFilterResult
+
+        self._tick()
+        return ExtenderFilterResult(node_names=list(nodes))
+
+    def prioritize(self, pod, nodes):
+        self._tick()
+        return []
+
+    def bind(self, pod, node) -> bool:
+        return True
+
+
+def extender_chain(nodes) -> list:
+    """The path's three extenders, in chain order."""
+    return [DenyFilterExtender(nodes), TierPrioritizeExtender(nodes), FlakyExtender()]
+
+
+class PreemptExtender:
+    """An extender with a preempt verb (ProcessPreemption) that keeps every
+    candidate, or vetoes every one."""
+
+    name = "preempt"
+    weight = 1
+    ignorable = False
+    bind_verb = ""
+    supports_preemption = True
+
+    def __init__(self, veto: bool) -> None:
+        self.veto = veto
+        self.calls = 0
+
+    def is_interested(self, pod) -> bool:
+        return True
+
+    def filter(self, pod, nodes):
+        from .extender import ExtenderFilterResult
+
+        return ExtenderFilterResult(node_names=list(nodes))
+
+    def prioritize(self, pod, nodes):
+        return []
+
+    def bind(self, pod, node) -> bool:
+        return True
+
+    def process_preemption(self, pod, node_to_victims):
+        self.calls += 1
+        if self.veto:
+            return {}
+        return {node: [v.uid for v in victims] for node, victims in node_to_victims.items()}

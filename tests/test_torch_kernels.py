@@ -526,7 +526,7 @@ def test_rtcr_kernel_matches_plain_version_exactly(cuda_device):
 @pytest.mark.parametrize("shape", ["hetero", "hetero_learned"])
 def test_hetero_kernels_match_plain_versions_exactly(cuda_device, shape):
     """eval_chunk's throughput and learned terms exact against the plain
-    versions (torch.tanh and torch.exp on the card)."""
+    versions (XLA's arithmetic, ops/learned.py, on the card)."""
     import chip_smoke
 
     timing = chip_smoke.check_hetero_kernels(cuda_device, 1, shape)
@@ -589,3 +589,15 @@ def test_scheduler_hetero_and_binpack_kernel_paths_match_plain_paths(cuda_device
                 assert terms["rtcr"] == kernels.eval_chunk.launches > 0
     assert binds["kernel"] == binds["plain"]
     assert all(v is not None for v in binds["kernel"].values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["cols", "cols_1k"])
+def test_columns_modes_match_plain_versions_exactly(cuda_device, shape):
+    """The attribution pass's columns modes (eval_chunk_cols, ipa_eval_cols,
+    late_scores_cols) and the whole pass against the plain versions."""
+    import chip_smoke
+
+    timing = chip_smoke.check_cols_kernels(cuda_device, 1, shape)
+    assert set(timing) == {"eval_chunk/cols", "ipa_eval/cols", "late_scores/cols"}
+    assert all(t["max_abs_err"] == 0 for t in timing.values())

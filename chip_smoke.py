@@ -7,18 +7,24 @@
         # only: these paths' windows in another tree of the port (DIR, e.g.
         # the parent commit unpacked) and in this one, back to back on one
         # card, three times in the order DIR, this, this, DIR
+    python3 chip_smoke.py --kernels-only --kernels-of DIR
+        # this script's kernel phase (its inputs, shapes and cases) on the
+        # package in DIR: its kernels and wrappers, built from DIR's sources
 
 Phases; any failure fails the run (nothing is caught):
   1. the card's name and power limit, the torch and CUDA versions;
   2. build the CUDA kernels from kubernetes_tpu_torch/kernels/csrc (one
      nvcc per source, started together);
-  3. hold each kernel against its plain PyTorch version on the card, on
-     seeded inputs; exact equality is required, and both are timed with
+  3. time an empty kernel the same way as the kernels (the launch floor),
+     then hold each kernel against its plain PyTorch version on the card,
+     on seeded inputs; exact equality is required, and both are timed with
      CUDA events (median of 20):
      - at the density shapes (C=64 pods, N=8192 node rows, R=4 resources),
        with score ties, zero allocatable, unschedulable nodes, pods
        feasible nowhere, a nominated-pod overlay and duplicate picks:
        build_dom, eval_chunk, select_host, resolve_commit;
+     - at the chunk-1 paths' shape ("c1": one pod of that chunk, N=8192,
+       no nominated overlay): eval_chunk and the strict resolve_commit;
      - at the inter-pod-affinity shapes (C=64, N=1024, G=ET=2048, TK=4,
        DV=16) with zone and hostname terms, required, preferred and
        existing terms, namespace selectors and a selector matching a
@@ -127,6 +133,12 @@ Phases; any failure fails the run (nothing is caught):
        N=1024) in 10 zones with tiers, taints, images and bound pods:
        eval_chunk/cols, ipa_eval/cols (its filter and score phases) and
        late_scores/cols, and the whole attribution pass's four outputs;
+     - untimed exactness cases (check_exact_cases): eval_chunk's int64
+       divisions at multiples of the allocatable and one either side,
+       al = 1, rq = al, rq > al and both sides of 2^53, under both fit
+       strategies; resolve_commit with every optional commit branch under
+       a sparse and a dense conflict table, and with C=33 and C=1024 pods
+       crowding one nearly full row, strict and not;
   4. drive each main path through TorchScheduler, with the launch counts
      set to 0 just before and read just after; every pod must bind, the
      host mirror must equal the device state, no node may exceed its
@@ -224,9 +236,10 @@ Phases; any failure fails the run (nothing is caught):
      each window, the pack width, the host-to-device feature bytes and the
      data moves (scatter_rows and expand_rows launches; torch index_copy_
      and expand calls, which must be 0) are printed;
-  5. print the per-kernel JSON line (launches per path, and the numbers of
-     every shape a kernel was measured at), the card line, and last the
-     device line.
+  5. print the per-kernel JSON line (launches per path, the numbers of
+     every shape a kernel was measured at, and for eval_chunk and
+     resolve_commit the launch floor), the card line, and last the device
+     line.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the
 package is missing.
@@ -545,6 +558,265 @@ def check_kernels(dev, reps: int) -> dict:
     for name in result:
         result[name]["max_abs_err"] = errs[name]
     return result
+
+
+def launch_floor(reps: int) -> dict:
+    """The launch floor: an empty kernel (torch's spin kernel asked for 0
+    cycles) timed as the kernels are (median_ms)."""
+    import torch
+
+    ms, call_ms = median_ms(lambda _: torch.cuda._sleep(0), reps)
+    return dict(ms=ms, call_ms=call_ms)
+
+
+def check_c1_kernels(dev, reps: int) -> dict:
+    """The chunk-1 paths' shapes ("c1"): eval_chunk for one pod of the
+    density chunk against N=8192 rows without a nominated overlay (as the
+    parity path's steps), and resolve_commit's strict commit of that pod at
+    its pick, both against their plain versions, exactly, and timed."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.engine.pass_ import build_dom, eval_spec
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.kernels import plain
+
+    builder, pf, _nom, steps, _rng = kernel_inputs(1234, dev)
+    state, schema = builder.state(), builder.schema
+    ported = {"NodeUnschedulable", "NodeName", "NodeResourcesFit", "NodeResourcesBalancedAllocation"}
+    active = frozenset(ported & (set(DEFAULT_PROFILE.filters) | {s for s, _ in DEFAULT_PROFILE.scorers}))
+    spec = eval_spec(DEFAULT_PROFILE, schema, builder.res_col, active)
+    pf1 = _chunk(pf, 0, 1)
+    errs: dict[str, float] = {}
+    kf, kt, km = kernels.eval_chunk(state, pf1, spec, None)
+    pfe, pt, pm = plain.eval_chunk(state, pf1, spec, None)
+    torch.cuda.synchronize()
+    for what, a, b in (("feasible", kf, pfe), ("total", kt, pt), ("fail_mask", km, pm)):
+        exact(errs, "eval_chunk", f"[c1] {what}", a, b)
+    picks = plain.select_host(pfe, pt, steps[:1], 0, None)[0]
+    et_slot0 = torch.zeros(schema.ET, dtype=torch.int32, device=dev)
+    dom0 = build_dom(state, et_slot0, torch.zeros(schema.ET, dtype=torch.bool, device=dev), schema.DV)
+    sk, dk = state.clone(), clone_dom(dom0)
+    sp, dp = state.clone(), clone_dom(dom0)
+    ok_ = kernels.resolve_commit(sk, dk, pf1, picks, None, True)
+    op_ = plain.resolve_commit(sp, dp, pf1, picks, None, True)
+    torch.cuda.synchronize()
+    exact(errs, "resolve_commit", "[c1] picks", ok_, op_)
+    exact(errs, "resolve_commit", "[c1] group_dom", dk.group_dom, dp.group_dom)
+    for f in ("req", "nonzero_req", "num_pods", "group_counts"):
+        exact(errs, "resolve_commit", f"[c1] state.{f}", getattr(sk, f), getattr(sp, f))
+    print(f"eval_chunk/resolve_commit [c1]: exact; {int(pfe.sum())} feasible nodes, pick {int(op_[0])}")
+    clones = lambda: (state.clone(), clone_dom(dom0))  # noqa: E731
+    result = {
+        "eval_chunk": timed(lambda _: kernels.eval_chunk(state, pf1, spec, None),
+                            lambda _: plain.eval_chunk(state, pf1, spec, None), reps),
+        "resolve_commit": timed(lambda a: kernels.resolve_commit(a[0], a[1], pf1, picks, None, True),
+                                lambda a: plain.resolve_commit(a[0], a[1], pf1, picks, None, True), reps, clones),
+    }
+    set_bound(result["eval_chunk"], eval_bytes(state, pf1, None))
+    set_bound(result["resolve_commit"], commit_bytes(schema, picks, 1, pairs=False))
+    for name in result:
+        result[name]["max_abs_err"] = errs[name]
+    return result
+
+
+# Allocatable values of the division cases: multiples and neighbours of
+# 100, 1, and both sides of 2^53 for the numerator ((al - rq) * 100 or
+# rq * 100) and for the divisor al itself; 0 skips the column's weight.
+DIVISION_ALLOCS = (0, 1, 2, 3, 7, 50, 99, 100, 101, 1000, 2**53 // 100, 2**53 // 100 + 1, 2**53 - 1, 2**53,
+                   2**53 + 1, 2**56 - 3)
+
+
+def division_inputs(dev, c: int):
+    """The density cluster with its first rows rewritten so that, for the
+    chunk's pods, the fit scores' numerators land on multiples of the
+    allocatable, one either side of them, at rq = al and rq > al, and on
+    both sides of the 2^53 switch of floordiv_f64, in every requested
+    column; the pods' requests are 0-3 and 99, and their non-zero requests
+    the same (so NonZeroRequested reads them too)."""
+    import numpy as np
+    import torch
+
+    builder, pf, nom, steps, rng = kernel_inputs(1234, dev)
+    state = builder.state().clone()
+    r = builder.schema.R
+    rows = []
+    for al in DIVISION_ALLOCS:
+        for base in sorted({max(al - 3, 0), max(al - 2, 0), max(al - 1, 0), al, al + 1, 0}):
+            rows.append((al, base))
+    k = len(rows)
+    alloc, req = state.alloc.cpu().numpy(), state.req.cpu().numpy()
+    for i, (al, base) in enumerate(rows):
+        for col in range(r):  # each column a different (al, base) of the list
+            al_c, base_c = rows[(i * (2 * col + 1) + 5 * col) % k]
+            alloc[i, col], req[i, col] = al_c, base_c
+    state.alloc.copy_(torch.from_numpy(alloc))
+    state.req.copy_(torch.from_numpy(req))
+    state.nonzero_req[:k] = state.req[:k, :2]
+    state.valid[:k] = True
+    state.unschedulable[:k] = False
+    state.num_pods[:k] = 0
+    state.allowed_pods[:k] = 1000
+    parts = np.resize(np.array([0, 1, 2, 3, 99, 1, 0, 2], np.int64), c)
+    pf = _chunk(pf, 0, c)
+    preq = np.zeros((c, r), np.int64)
+    for col in range(r):
+        preq[:, col] = np.roll(parts, col)
+    pf["req"] = torch.from_numpy(preq).to(dev)
+    pf["nonzero"] = pf["req"][:, :2].contiguous()
+    nom = tuple(t.clone() for t in nom)
+    return builder, state, pf, nom, k
+
+
+EXACT_CASES = ("division", "branches", "crowd")
+
+
+def check_exact_cases(dev, parts=EXACT_CASES) -> dict:
+    """Exactness cases of eval_chunk and resolve_commit against their plain
+    versions (max_abs_err 0), untimed: "division", the division boundaries
+    under LeastAllocated and MostAllocated, with and without the nominated
+    overlay; "branches", every optional branch of the commit (own terms,
+    devices with rw, CSI with and without vol_csi_lim, ports, claims with
+    first slots and fresh counts) under a sparse and a dense conflict
+    table; "crowd", the cumulative fit with C=33 and C=1024 pods crowding
+    one nearly full row; the commit cases strict and not."""
+    errs: dict[str, float] = {}
+    if "division" in parts:
+        division_case(dev, errs)
+    if "branches" in parts or "crowd" in parts:
+        commit_cases(dev, errs, parts)
+    return {name: {"max_abs_err": err} for name, err in errs.items()}
+
+
+def division_case(dev, errs: dict) -> None:
+    """eval_chunk on division_inputs, both strategies, with and without
+    the nominated overlay, at C=8 (one thread a pair) and C=64 (the node
+    tile)."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.engine.pass_ import eval_spec
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE, MOST_ALLOCATED, ScoringStrategy
+    from kubernetes_tpu_torch.kernels import plain
+
+    most = dataclasses.replace(DEFAULT_PROFILE, scoring_strategy=ScoringStrategy(
+        type=MOST_ALLOCATED, resources=(("cpu", 1), ("memory", 2), ("example.com/gpu", 3))))
+    ported = {"NodeUnschedulable", "NodeName", "NodeResourcesFit", "NodeResourcesBalancedAllocation"}
+    for c in (8, 64):
+        builder, state, pf, nom, k = division_inputs(dev, c)
+        scored = 0
+        for label, prof in (("least", DEFAULT_PROFILE), ("most", most)):
+            active = frozenset(ported & (set(prof.filters) | {s for s, _ in prof.scorers}))
+            spec = eval_spec(prof, builder.schema, builder.res_col, active)
+            for nom_in in (nom, None):
+                got = kernels.eval_chunk(state, pf, spec, nom_in)
+                want = plain.eval_chunk(state, pf, spec, nom_in)
+                torch.cuda.synchronize()
+                for what, a, b in zip(("feasible", "total", "fail_mask"), got, want):
+                    exact(errs, "eval_chunk", f"[division C={c}, {label}] {what}", a, b)
+                scored += int(want[0][:, :k].sum())
+        print(f"eval_chunk [division C={c}]: exact; {k} rewritten rows, {scored} scored (pod, row) pairs on them")
+
+
+def commit_cases(dev, errs: dict, parts) -> None:
+    """resolve_commit's "branches" and "crowd" cases (check_exact_cases)."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.engine.pass_ import build_dom
+    from kubernetes_tpu_torch.kernels import plain
+
+    rng = np.random.default_rng(77)
+    builder, pf64, _nom, _steps, _ = kernel_inputs(1234, dev)
+    base = builder.state()
+    schema, n, r = builder.schema, base.valid.shape[0], builder.schema.R
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    et, dv, tk = 64, schema.DV, schema.TK
+    sizes = dict(dev_counts=16, dev_rw_counts=16, csivol_counts=32, csi_used=4, port_counts=8, portkey_counts=4,
+                 dra_claim_counts=32, dra_alloc=4, et_counts=et)
+    state = dataclasses.replace(base.clone(), **{
+        f: to(rng.integers(0, 2, size=(rows, n)).astype(np.int32) * rng.integers(0, 3, size=(rows, n)).astype(np.int32))
+        for f, rows in sizes.items()})
+    et_slot = to(rng.integers(0, tk, size=et).astype(np.int32))
+    dom0 = build_dom(state, et_slot, torch.zeros(et, dtype=torch.bool, device=dev), dv)
+    hot = rng.choice(np.nonzero(base.valid.cpu().numpy())[0], 6, replace=False)
+
+    def branch_pf(c: int):
+        """c pods with every optional commit feature; picks on six rows."""
+        p = {key: v[:c] if c <= 64 else v.repeat((c + 63) // 64, *([1] * (v.dim() - 1)))[:c].contiguous()
+             for key, v in pf64.items() if key in ("valid", "req", "nonzero", "group")}
+        p.update(
+            ipa_own_terms=to(rng.integers(-1, et, size=(c, 3)).astype(np.int32)),
+            vol_dev_ids=to(rng.integers(-1, 16, size=(c, 2)).astype(np.int32)),
+            vol_dev_rw=to(rng.random((c, 2)) < 0.5),
+            vol_csi_ids=to(rng.integers(-1, 32, size=(c, 3)).astype(np.int32)),
+            vol_csi_drv=to(rng.integers(-1, 5, size=(c, 3)).astype(np.int32)),
+            vol_csi_lim=to(rng.random(c) < 0.3),
+            port_triples=to(rng.integers(-1, 8, size=(c, 2)).astype(np.int32)),
+            port_keys=to(rng.integers(-1, 4, size=(c, 2)).astype(np.int32)),
+            dra_claim_ids=to(rng.integers(-1, 32, size=(c, 3)).astype(np.int32)),
+            dra_claim_cls=to(rng.integers(-1, 5, size=(c, 3)).astype(np.int32)),
+            dra_claim_cnt=to(rng.integers(1, 4, size=(c, 3)).astype(np.int32)),
+            dra_claim_first=to(rng.random((c, 3)) < 0.7),
+        )
+        return p
+
+    def commit_case(label: str, st, p: dict, picks, pairs, strict: bool) -> tuple[int, int]:
+        sk, dk = st.clone(), clone_dom(dom0)
+        sp, dp = st.clone(), clone_dom(dom0)
+        got = kernels.resolve_commit(sk, dk, p, picks, pairs, strict)
+        want = plain.resolve_commit(sp, dp, p, picks, pairs, strict)
+        torch.cuda.synchronize()
+        exact(errs, "resolve_commit", f"[{label}, strict={strict}] picks", got, want)
+        exact(errs, "resolve_commit", f"[{label}] group_dom", dk.group_dom, dp.group_dom)
+        exact(errs, "resolve_commit", f"[{label}] et_dom", dk.et_dom, dp.et_dom)
+        for f in dataclasses.fields(sk):
+            exact(errs, "resolve_commit", f"[{label}] state.{f.name}", getattr(sk, f.name), getattr(sp, f.name))
+        return int((want == -2).sum()), int((want >= 0).sum())
+
+    # Every optional branch, and a dense conflict table, at C=64.
+    p = branch_pf(64)
+    picks = to(rng.choice(hot, 64).astype(np.int32))
+    picks[::11] = -1
+    for density in (0.02, 0.5) if "branches" in parts else ():
+        pairs = to(rng.random((64, 64)) < density)
+        for strict in (False, True):
+            d, m = commit_case(f"branches, pairs {density}", state, p, picks, None if strict else pairs, strict)
+            print(f"resolve_commit [branches, pairs {density}, strict={strict}]: exact; {d} deferred, {m} committed")
+    # C=33 and C=1024 pods crowding one nearly full row (room for a few by
+    # cpu and by pod count), a few elsewhere, some invalid.
+    row = int(hot[0])
+    st = state.clone()
+    st.alloc[row, 0] = 64000
+    st.req[row, 0] = 64000 - 9000
+    st.num_pods[row] = 100
+    st.allowed_pods[row] = 120
+    # The same at C=33 with two more resource columns (R > 4: the cumulative
+    # fit stages its columns four at a time), the last one tight on the row.
+    wide = dataclasses.replace(st.clone(), alloc=torch.cat([st.alloc, st.alloc[:, :2] * 0 + 10**9], 1),
+                               req=torch.cat([st.req, st.req[:, :2] * 0], 1))
+    wide.alloc[row, r + 1] = 1600
+    for c, st_c in ((33, st), (1024, st), (33, wide)) if "crowd" in parts else ():
+        p = branch_pf(c)
+        cpu = rng.choice([0, 500, 1000, 3000], size=c)
+        req = p["req"].clone()
+        req[:, 0] = to(cpu)
+        if st_c is wide:
+            extra = to(rng.choice([0, 700, 1500], size=(c, 2)))
+            req = torch.cat([req, extra], 1).contiguous()
+        p["req"] = req
+        valid = p["valid"].clone()
+        valid[::17] = False
+        p["valid"] = valid
+        pk = np.full(c, row, np.int32)
+        pk[::13] = rng.choice(hot, len(pk[::13]))
+        pk[::29] = -1
+        pairs = to(rng.random((c, c)) < 0.01)
+        label = f"crowd C={c}" + (f", R={r + 2}" if st_c is wide else "")
+        for strict in (False, True):
+            d, m = commit_case(label, st_c, p, to(pk), None if strict else pairs, strict)
+            print(f"resolve_commit [{label}, strict={strict}]: exact; {d} deferred, {m} committed")
 
 
 HOST = "kubernetes.io/hostname"
@@ -4985,6 +5257,42 @@ def drive(path: str, card: str) -> tuple[dict, dict]:
     return by_key, s.data_moves
 
 
+# The kernel-phase shape nearest to each main path's launches (chunk size
+# and node rows), for the redesign queue; a kernel not measured there
+# takes its first shape's numbers.
+PATH_SHAPE = {
+    "density": "density", "ipa": "ipa", "spread_na": "spread_na", "inclusion": "inclusion",
+    "preemption_500n": "preemption_500n", "preemption_async_5kn": "preemption_async_5kn",
+    "daemonset_15kn": "daemonset", "intree_pvs_5kn_2kpods": "pv", "migrated_intree_pvs_5kn_5kpods": "pv",
+    "csi_pvs_5kn_5kpods": "pv", "default_images_ports_5kn_10kpods": "ports_images",
+    "default_images_ports_5kn_10kpods/explain": "c1", "preemption_default_search_5kn": "search",
+    "dra_claims_5kn_5kpods": "dra_path", "parity_basic_5kn_10kpods": "c1", "hetero_5kn_10kpods": "hetero",
+    "hetero_learned_1kn_5kpods": "hetero_learned", "binpack_rtcr_5kn_10kpods": "rtcr",
+    "extender_5kn_1kpods": "c1", "extender_5kn_1kpods/postfilter": "c1",
+}
+
+
+def redesign_queue(entries: list) -> dict:
+    """Each kernel's device ms lost to its bound on the main paths:
+    launches x (ms - bound_ms), at the shape nearest to each path
+    (PATH_SHAPE), on density alone and summed over every path and
+    after-phase; largest first.  eval_chunk's term entries are subsets of
+    its launches and are left out."""
+    density, every = {}, {}
+    for e in entries:
+        if e["launches_by_path"] is None or e["name"] in ("eval_chunk/rtcr", "eval_chunk/throughput",
+                                                          "eval_chunk/learned"):
+            continue
+        for path, n in e["launches_by_path"].items():
+            at = e["by_shape"].get(PATH_SHAPE.get(path, ""), e)
+            lost = n * (at["ms"] - at["bound_ms"])
+            every[e["name"]] = every.get(e["name"], 0.0) + lost
+            if path == "density":
+                density[e["name"]] = lost
+    order = lambda d: dict(sorted(((k, v) for k, v in d.items() if v > 0), key=lambda kv: -kv[1]))  # noqa: E731
+    return {"density_ms": order(density), "all_paths_ms": order(every)}
+
+
 def check_launches(label: str, launches: dict, terms: dict, must, must_terms, card: str) -> dict:
     """Fails unless exactly the kernels in ``must`` and eval_chunk's terms
     in ``must_terms`` launched; returns the counts with a key a term."""
@@ -5040,6 +5348,9 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true", help="stop after the kernel checks")
     ap.add_argument("--compare", metavar="DIR", help="only compare --paths with the port's tree in DIR")
     ap.add_argument("--paths", default="density,daemonset_15kn", help="the paths --compare runs")
+    ap.add_argument("--kernels-of", metavar="DIR",
+                    help="with --kernels-only: run this script's kernel phase on the port's tree in DIR "
+                         "(e.g. the parent commit unpacked), its kernels and wrappers")
     args = ap.parse_args()
 
     import torch
@@ -5047,7 +5358,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    import kubernetes_tpu_torch  # noqa: F401  (fails outside the repository)
+    if args.kernels_of:
+        if not args.kernels_only:
+            ap.error("--kernels-of needs --kernels-only")
+        import os
+
+        sys.path.insert(0, os.path.abspath(args.kernels_of))
+    import kubernetes_tpu_torch  # (fails outside the repository)
     from kubernetes_tpu_torch import kernels
     from kubernetes_tpu_torch.kernels import build
 
@@ -5055,6 +5372,7 @@ def main() -> int:
     dev = torch.device("cuda")
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    print(f"package: {kubernetes_tpu_torch.__file__}")
     if args.compare:
         compare(args.compare, args.paths.split(","), card)
         return 0
@@ -5064,10 +5382,13 @@ def main() -> int:
     print(f"built {sorted(logs) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f}s")
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if any(key in line for key in ("registers", "spill", "entry function")) or "error" in line.lower():
                 print(f"  {name}: {line.strip()}")
 
-    shapes = {"density": check_kernels(dev, REPS), "ipa": check_ipa_kernels(dev, REPS),
+    floor = launch_floor(REPS)
+    print(f"launch floor (an empty kernel): device ms {floor['ms']:.4f}, call ms {floor['call_ms']:.4f}  [{card}]")
+    shapes = {"density": check_kernels(dev, REPS), "c1": check_c1_kernels(dev, REPS),
+              "ipa": check_ipa_kernels(dev, REPS),
               "spread_na": check_spread_kernels(dev, "spread_na", REPS),
               "inclusion": check_spread_kernels(dev, "inclusion", REPS),
               **{shape: check_preempt_kernels(dev, shape, REPS) for shape in PREEMPT_SHAPES},
@@ -5081,6 +5402,7 @@ def main() -> int:
               **{shape: check_hetero_kernels(dev, REPS, shape) for shape in ("hetero", "hetero_learned")},
               "split": check_split_kernels(dev, REPS),
               **{shape: check_cols_kernels(dev, REPS, shape) for shape in COLS_SHAPES}}
+    exact_cases = check_exact_cases(dev)
     for shape, table in shapes.items():
         for name, tm in table.items():
             lib = "" if tm.get("library_ms") is None else f", library {tm['library_ms']:.4f}"
@@ -5155,10 +5477,12 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"{csrc}{source[name]}.cu",
             "replaces": replaces[name],
             "launches": sum(counts.values()) if counts else None, "launches_by_path": counts,
-            "max_abs_err": max(t[name]["max_abs_err"] for t in shapes.values() if name in t),
+            "max_abs_err": max(t[name]["max_abs_err"] for t in (*shapes.values(), exact_cases) if name in t),
             **{k: top.get(k) for k in keys},
             "by_shape": {shape: {k: t[name].get(k) for k in keys} for shape, t in shapes.items() if name in t},
         })
+        if name in ("eval_chunk", "resolve_commit"):
+            line["kernels"][-1]["launch_floor_ms"] = floor["ms"]
     # eval_chunk's score terms, each its own entry: the numbers of
     # eval_chunk launched with the term, and the launches that ran it.  Its
     # filter range after InterPodAffinity is a mode no main path reaches
@@ -5178,6 +5502,8 @@ def main() -> int:
             **{k: shapes[shape0][name].get(k) for k in keys},
             "by_shape": {shape: {k: t[name].get(k) for k in keys} for shape, t in shapes.items() if name in t},
         })
+    if by_path:
+        print(f"redesign queue, launches x (ms - bound_ms): {json.dumps(redesign_queue(line['kernels']))}  [{card}]")
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -71,7 +71,12 @@ _MAX_BALANCED = 8
 # eval_chunk takes (kMaxShape, kMaxHidden in eval_chunk.cu).
 MAX_SHAPE_POINTS = 16
 MAX_HIDDEN = 16
-MAX_CHUNK = 1024  # resolve_commit: one block, one thread per pod
+MAX_CHUNK = 1024  # resolve_commit: one block a chunk
+# eval_chunk's node tile: nodes a block at most and at least, pods a block
+# at most (kTile, kGroup in eval_chunk.cu).
+EVAL_TILE = 128
+EVAL_TILE_MIN = 32
+EVAL_GROUP = 4
 # Shared memory an ipa_eval block may use for its per-pod tables (of the
 # H100's 227 KB a block can have).
 IPA_SMEM_CAP = 200 * 1024
@@ -231,6 +236,35 @@ def _eval_config(spec: EvalSpec, device: torch.device) -> dict:
     }
 
 
+def eval_tile(c: int, n: int, sms: int) -> tuple[int, int]:
+    """(nodes a block, pods a block) of eval_chunk's node-tiled launch for C
+    pods and N node rows on a card with ``sms`` SMs: EVAL_TILE nodes and up
+    to EVAL_GROUP pods a block, halved (the pods first, then the nodes, down
+    to EVAL_TILE_MIN) until the grid has two blocks for each SM or can
+    shrink no further.  More pods a block share each node's staged row; more
+    blocks keep the SMs busy at small C.  A group of one pod takes the
+    kernel's one-thread-a-pair launch (nodes: its block width)."""
+    nodes, pods = EVAL_TILE, max(1, min(c, EVAL_GROUP))
+    while -(-n // nodes) * -(-c // pods) < 2 * sms:
+        if pods > 1:
+            pods //= 2
+        elif nodes > EVAL_TILE_MIN:
+            nodes //= 2
+        else:
+            break
+    return nodes, pods
+
+
+_SMS: dict = {}
+
+
+def _sms(device: torch.device) -> int:
+    """The card's SM count, read once a device."""
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device]
+
+
 def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
@@ -314,8 +348,9 @@ def eval_chunk(state, pf: dict, spec: EvalSpec, nom, ext=None, pin=None, into=No
         total = torch.empty((c, width), dtype=i64, device=dev)
         fail = torch.zeros(c, dtype=i32, device=dev)
         feas_in = None
-    build.launch("eval_chunk", *head, _ptr(feas_in), spec.bit0, *conf, _ptr(feasible), _ptr(total), _ptr(fail),
-                 _stream(dev))
+    tile, group = eval_tile(c, state.valid.shape[0], _sms(dev))
+    build.launch("eval_chunk", *head, _ptr(feas_in), spec.bit0, *conf, tile, group, _ptr(feasible), _ptr(total),
+                 _ptr(fail), _stream(dev))
     eval_chunk.launches += 1
     # Launches that ran each of the score terms and the filter range (a subset of the
     # above; chip_smoke.py reports them per path).
@@ -356,7 +391,8 @@ def eval_chunk_cols(state, pf: dict, spec: EvalSpec, nom, ext=None):
     for k, (name, _w) in enumerate(spec.scorers):
         rows[_COL_SLOT[name]] = k
     col_rows = sum(r << (4 * slot) for slot, r in rows.items())
-    build.launch("eval_chunk_cols", *head, _ptr(None), 0, *conf, _ptr(feasible), _ptr(total), _ptr(bits),
+    tile, _group = eval_tile(c, n, _sms(dev))
+    build.launch("eval_chunk_cols", *head, _ptr(None), 0, *conf, tile, _ptr(feasible), _ptr(total), _ptr(bits),
                  _ptr(cols), col_rows, _stream(dev))
     eval_chunk_cols.launches += 1
     return bits, feasible, cols, total

@@ -14,6 +14,25 @@ __device__ __forceinline__ long long floordiv_i64(long long a, long long b) {
   return q;
 }
 
+// floordiv_i64 without the 64-bit divide routine, for b != 0: the f64
+// quotient floored, then corrected by one step against the exact int64
+// remainder.  Below 2^53 in magnitude both operands convert exactly, the
+// quotient is below 2^53, and rounding it moves its floor by at most one
+// (up), so one step is exact; a remainder a - q*b stays below 2^54.  An
+// operand at or above 2^53 takes floordiv_i64.
+__device__ __forceinline__ long long floordiv_f64(long long a, long long b) {
+  constexpr long long kLim = 1LL << 53;
+  if (a >= kLim || a <= -kLim || b >= kLim || b <= -kLim) return floordiv_i64(a, b);
+  long long q = __double2ll_rd((double)a / (double)b);
+  const long long r = a - q * b;
+  if (b > 0 ? r < 0 : r > 0) {
+    --q;
+  } else if (b > 0 ? r >= b : r <= b) {
+    ++q;
+  }
+  return q;
+}
+
 // DynamicResources' pin and missing-claim check for one pod at a node
 // whose name id is ``name`` (ops/dynamicresources.py _dra_hard): no
 // missing claim, and every pin of the PIN slots (-1 pad) names the node.

@@ -62,22 +62,41 @@
 // engine/pass_.py:941-985): pod c is evaluated on node pin_row[c] alone and
 // the outputs are (C, 1), so its fail bits are those of its own node, as
 // the JAX pass's vmapped own-row evaluation gives them; the ImageLocality
-// plane is then (C, 1) too.
+// plane is then (C, 1) too.  One thread a pod.
 //
-// One thread per (pod, node).  Filters run in profile order from
-// state.valid; a filter's fail bit is set only for nodes that passed every
-// earlier filter (the reference's first-failing plugin per node), OR-reduced
-// per warp and then with one atomicOr per warp into fail_mask[pod].  Scores
-// are computed on feasible nodes only; total is 0 elsewhere.
+// Filters run in profile order from state.valid; a filter's fail bit is
+// set only for nodes that passed every earlier filter (the reference's
+// first-failing plugin per node), OR-reduced per warp and then with one
+// atomicOr per warp into fail_mask[pod].  Scores are computed on feasible
+// nodes only; total is 0 elsewhere.
 //
 // Bound: bytes.  Per chunk it reads the node state once (~0.7 MB at
 // N=8192, R=4) and writes C*N*(1+8) bytes of feasible/total (~4.7 MB at
 // C=64), a few operations per byte; NodePorts adds at most two count reads
 // per want of a port pod, coalesced along the node axis, ImageLocality
 // C*N bytes of its plane, and DynamicResources per pod up to S*S
-// claim-count reads and two pool reads per claim slot, coalesced likewise.  The design keeps every node's state
-// row in registers for the whole filter/score chain and writes each output
-// once, coalesced along the node axis.
+// claim-count reads and two pool reads per claim slot, coalesced likewise.
+// One thread a (pod, node) made every pod of the chunk re-read the same
+// node rows with strided loads and three int64 floor divisions a pair,
+// each a software routine on this card.  So a chunk of several pods takes
+// the node-tiled launch: a block owns a tile of up to kTile nodes and a
+// group of up to kGroup pods.  Every load of the block is issued before its
+// one barrier: each thread its node's scalars and the first kStageR
+// columns of its R-wide alloc, req and nominated rows (into its own column
+// of the tile in shared memory), the threads together the group's pod
+// features and the static config.  Each thread then loops over the group's
+// pods, the per-node part of the fit score (the weight sum of the columns
+// its node has) computed once, and writes feasible and total coalesced
+// along the node axis.  The host picks the tile and group from C and N so
+// that C=1 and C=64 both give the card's SMs two blocks each or more
+// (kernels.eval_tile); where that leaves one pod a block (C=1, or few node
+// tiles), the launch is one thread a pair without the staging
+// (eval_direct_kernel), and the pinned mode one thread a pod.  Every int64
+// floor division is floordiv_f64 (common.cuh): exact, without the 64-bit
+// divide.  On the H100 the time of every mapping is latency (dependent
+// load levels, the per-pair filter and score chain), not the division: the
+// node tile gains where a block shares nodes between pods (C=64 at
+// N=8192), and the one-pair launch ties the first design at a group of one.
 //
 // Arithmetic follows the JAX package: int64 scores with floor division,
 // BalancedAllocation in f64 in the reference's operation order.  The build
@@ -107,6 +126,13 @@ constexpr int kMost = 1;
 constexpr int kRatio = 2;
 // np.spacing(np.finfo(np.float64).eps): jnp.interp's zero-width segment test.
 constexpr double kInterpEps = 4.930380657631324e-32;
+// The node tile: nodes a block at most (its threads), pods a block at most,
+// and the resource columns staged in shared memory (columns past it are
+// read from global memory, so R is not bounded).
+constexpr int kTile = 128;
+constexpr int kGroup = 4;
+constexpr int kStageR = 8;
+constexpr int kStageS = 8;  // fit strategy entries staged (more are read from global memory)
 
 struct EvalArgs {
   // Node state.
@@ -195,33 +221,129 @@ struct EvalArgs {
   unsigned int* fail_mask;  // (C,)
 };
 
-__device__ bool fit_filter(const EvalArgs& a, int c, int n) {
+// One node as a thread sees it: its scalars in registers, its R-wide rows
+// in the block's shared tile (columns below ``staged``, column r at
+// s_*[r * kTile]) or in global memory.
+struct NodeRow {
+  int n;
+  bool valid, unsched;
+  int name, num_pods, allowed, nom_cnt, nom_prio;
+  long long nz0, nz1;       // nonzero_req
+  long long weight_sum;     // NodeResourcesFit: the weights of the columns the node has
+  const long long* s_alloc;
+  const long long* s_req;
+  const long long* s_nreq;
+  const long long* g_alloc;
+  const long long* g_req;
+  const long long* g_nreq;
+  int staged;
+  __device__ long long alloc(int r) const { return r < staged ? s_alloc[r * kTile] : g_alloc[r]; }
+  __device__ long long req(int r) const { return r < staged ? s_req[r * kTile] : g_req[r]; }
+  __device__ long long nreq(int r) const { return r < staged ? s_nreq[r * kTile] : g_nreq[r]; }
+};
+
+// One pod of the chunk: its scalars, its request row staged (columns below
+// ``staged``) or in global memory.
+struct PodRow {
+  int c;
+  int nodename, prio, nomrow;
+  bool tol;
+  long long nz0, nz1;  // pod_nonzero
+  const long long* s_req;
+  const long long* g_req;
+  int staged;
+  __device__ long long req(int r) const { return r < staged ? s_req[r] : g_req[r]; }
+};
+
+// The static config a pair reads, staged in shared memory by the tiled
+// launch (entries below ``strat_staged``, columns below ``ign_staged``;
+// the rest from global memory) or read from global memory.
+struct Cfg {
+  const long long* strat;     // (n_strat, 3): kind, col, weight
+  const int* bal;             // (n_bal,)
+  const unsigned char* ign;   // (R,)
+  int strat_staged, ign_staged;
+  __device__ long long st(const EvalArgs& a, int s, int k) const {
+    return s < strat_staged ? strat[3 * s + k] : a.strat_cols[3 * s + k];
+  }
+  __device__ bool ignored(const EvalArgs& a, int r) const { return (r < ign_staged ? ign[r] : a.fit_ignored[r]) != 0; }
+};
+
+__device__ Cfg global_cfg(const EvalArgs& a) {
+  return Cfg{a.strat_cols, a.bal_cols, a.fit_ignored, a.n_strat, a.R};
+}
+
+// The NodeResourcesFit column a strategy entry scores: its allocatable.
+__device__ __forceinline__ long long strat_alloc(const NodeRow& row, long long kind, int col) {
+  return kind == 0 ? row.alloc(0) : (kind == 1 ? row.alloc(1) : row.alloc(col));
+}
+
+// A node's scalars and global rows; the caller points the staged rows.
+__device__ void load_node(const EvalArgs& a, int n, NodeRow& row) {
+  row.n = n;
+  row.valid = a.valid[n] != 0;
+  row.unsched = a.unschedulable[n] != 0;
+  row.name = a.name_id[n];
+  row.num_pods = a.num_pods[n];
+  row.allowed = a.allowed_pods[n];
+  row.nz0 = a.nonzero_req[(size_t)n * 2];
+  row.nz1 = a.nonzero_req[(size_t)n * 2 + 1];
+  row.g_alloc = a.alloc + (size_t)n * a.R;
+  row.g_req = a.req + (size_t)n * a.R;
+  row.g_nreq = a.nom_req == nullptr ? nullptr : a.nom_req + (size_t)n * a.R;
+  row.nom_cnt = a.nom_req == nullptr ? 0 : a.nom_cnt[n];
+  row.nom_prio = a.nom_req == nullptr ? 0 : a.nom_prio[n];
+  row.staged = 0;
+}
+
+// The per-node part of the fit score: absent resources (alloc <= 0) skip
+// their weight, so the divisor of the weighted sum is the node's alone.
+__device__ void node_weights(const EvalArgs& a, const Cfg& cfg, NodeRow& row) {
+  long long ws = 0;
+  for (int s = 0; a.score_fit && s < a.n_strat; ++s) {
+    if (strat_alloc(row, cfg.st(a, s, 0), (int)cfg.st(a, s, 1)) > 0) ws += cfg.st(a, s, 2);
+  }
+  row.weight_sum = ws;
+}
+
+// Pod c's features read from global memory (pinned and columns launches).
+__device__ PodRow load_pod(const EvalArgs& a, int c) {
+  PodRow p;
+  p.c = c;
+  p.nodename = a.nodename_id == nullptr ? -1 : a.nodename_id[c];
+  p.tol = a.tol_unsched != nullptr && a.tol_unsched[c] != 0;
+  p.prio = a.priority == nullptr ? 0 : a.priority[c];
+  p.nomrow = a.nominated_row == nullptr ? -1 : a.nominated_row[c];
+  p.nz0 = a.pod_nonzero[(size_t)c * 2];
+  p.nz1 = a.pod_nonzero[(size_t)c * 2 + 1];
+  p.g_req = a.pod_req + (size_t)c * a.R;
+  p.s_req = nullptr;
+  p.staged = 0;
+  return p;
+}
+
+__device__ bool fit_filter(const EvalArgs& a, const Cfg& cfg, const NodeRow& row, const PodRow& pod) {
   const int R = a.R;
-  const long long* preq = a.pod_req + (size_t)c * R;
-  const long long* alloc = a.alloc + (size_t)n * R;
-  const long long* req = a.req + (size_t)n * R;
-  bool fits = a.num_pods[n] + 1 <= a.allowed_pods[n];
+  bool fits = row.num_pods + 1 <= row.allowed;
   for (int r = 0; r < R; ++r) {
-    long long rf = a.fit_ignored[r] ? 0 : preq[r];
-    long long free_r = alloc[r] - req[r];
+    long long rf = cfg.ignored(a, r) ? 0 : pod.req(r);
+    long long free_r = row.alloc(r) - row.req(r);
     if (!(rf == 0 || rf <= free_r)) fits = false;
   }
   if (a.nom_req != nullptr) {
-    const int own = a.nominated_row[c];
-    const bool self = own >= 0 && own == n;
-    const long long* nreq = a.nom_req + (size_t)n * R;
+    const bool self = pod.nomrow >= 0 && pod.nomrow == row.n;
     bool fits_nom = true;
     for (int r = 0; r < R; ++r) {
-      long long rf = a.fit_ignored[r] ? 0 : preq[r];
-      long long eff = nreq[r] - (self ? preq[r] : 0);
+      long long rf = cfg.ignored(a, r) ? 0 : pod.req(r);
+      long long eff = row.nreq(r) - (self ? pod.req(r) : 0);
       if (eff < 0) eff = 0;
-      long long free_r = alloc[r] - req[r];
+      long long free_r = row.alloc(r) - row.req(r);
       if (!(rf == 0 || rf <= free_r - eff)) fits_nom = false;
     }
-    int eff_cnt = a.nom_cnt[n] - (self ? 1 : 0);
+    int eff_cnt = row.nom_cnt - (self ? 1 : 0);
     if (eff_cnt < 0) eff_cnt = 0;
-    fits_nom = fits_nom && (a.num_pods[n] + 1 + eff_cnt <= a.allowed_pods[n]);
-    const bool applies = a.priority[c] <= a.nom_prio[n];
+    fits_nom = fits_nom && (row.num_pods + 1 + eff_cnt <= row.allowed);
+    const bool applies = pod.prio <= row.nom_prio;
     fits = fits && (fits_nom || !applies);
   }
   return fits;
@@ -248,8 +370,8 @@ __device__ bool ports_filter(const EvalArgs& a, int c, int n) {
   return true;
 }
 
-__device__ bool dra_filter(const EvalArgs& a, int c, int n) {
-  if (!dra_pins_ok(a.dra_missing[c], a.dra_pins + (size_t)c * a.PIN, a.PIN, a.name_id[n])) return false;
+__device__ bool dra_filter(const EvalArgs& a, int c, int n, int name) {
+  if (!dra_pins_ok(a.dra_missing[c], a.dra_pins + (size_t)c * a.PIN, a.PIN, name)) return false;
   if (a.dra_ids == nullptr) return true;
   const size_t o = (size_t)c * a.SK;
   return dra_demand_fits(
@@ -359,10 +481,10 @@ __device__ float affine(const float* x, const float* w, int k, float bias) {
 // pre_floor): each sum is a chain of fused multiply-adds from the bias, a
 // zero bias vanishes (then the first two products meet in one fused
 // step), and the throughput feature's / 100 folds into its weight.
-__device__ long long learned_score(const EvalArgs& a, int c, int n) {
-  const int R = a.R, H = a.H;
-  const float alloc_cpu = (float)a.alloc[(size_t)n * R];
-  const float alloc_mem = (float)a.alloc[(size_t)n * R + 1];
+__device__ long long learned_score(const EvalArgs& a, const NodeRow& row, int c) {
+  const int H = a.H;
+  const float alloc_cpu = (float)row.alloc(0);
+  const float alloc_mem = (float)row.alloc(1);
   const float safe_cpu = fmaxf(alloc_cpu, 1.0f);
   const float safe_mem = fmaxf(alloc_mem, 1.0f);
   const float req_cpu = (float)a.ls_req_cpu[c];
@@ -370,8 +492,8 @@ __device__ long long learned_score(const EvalArgs& a, int c, int n) {
   float x[kFeatures];
   x[0] = fmaxf((alloc_cpu - req_cpu) / safe_cpu, 0.0f);
   x[1] = fmaxf((alloc_mem - req_mem) / safe_mem, 0.0f);
-  x[2] = (float)a.num_pods[n] / fmaxf((float)a.allowed_pods[n], 1.0f);
-  x[3] = (float)tput_gather(a, c, n);
+  x[2] = (float)row.num_pods / fmaxf((float)row.allowed, 1.0f);
+  x[3] = (float)tput_gather(a, c, row.n);
   x[4] = req_cpu / safe_cpu;
   const float* w1 = a.lw;
   const float* b1 = a.lw + kFeatures * H;
@@ -389,51 +511,47 @@ __device__ long long learned_score(const EvalArgs& a, int c, int n) {
 
 // kTerms: the instantiation with the three score terms above
 // (RequestedToCapacityRatio, ThroughputAware, LearnedScorer); launches without them take the other,
-// whose registers stay those of the terms-free chain.
+// whose registers stay those of the terms-free chain.  The weight sum of
+// the node's columns comes from node_weights.
 template <bool kTerms>
-__device__ long long fit_score(const EvalArgs& a, int c, int n) {
-  const int R = a.R;
-  long long node_score = 0, weight_sum = 0;
+__device__ long long fit_score(const EvalArgs& a, const Cfg& cfg, const NodeRow& row, const PodRow& pod) {
+  long long node_score = 0;
   for (int s = 0; s < a.n_strat; ++s) {
-    const long long kind = a.strat_cols[3 * s];
-    const int col = (int)a.strat_cols[3 * s + 1];
-    const long long w = a.strat_cols[3 * s + 2];
-    long long al, rq;
+    const long long kind = cfg.st(a, s, 0);
+    const int col = (int)cfg.st(a, s, 1);
+    const long long w = cfg.st(a, s, 2);
+    const long long al = strat_alloc(row, kind, col);
+    long long rq;
     if (kind == 0) {  // NonZeroRequested.MilliCPU
-      al = a.alloc[(size_t)n * R];
-      rq = a.nonzero_req[(size_t)n * 2] + a.pod_nonzero[(size_t)c * 2];
+      rq = row.nz0 + pod.nz0;
     } else if (kind == 1) {  // NonZeroRequested.Memory
-      al = a.alloc[(size_t)n * R + 1];
-      rq = a.nonzero_req[(size_t)n * 2 + 1] + a.pod_nonzero[(size_t)c * 2 + 1];
+      rq = row.nz1 + pod.nz1;
     } else {  // Requested column
-      al = a.alloc[(size_t)n * R + col];
-      rq = a.req[(size_t)n * R + col] + a.pod_req[(size_t)c * R + col];
+      rq = row.req(col) + pod.req(col);
     }
     if (al > 0) {  // absent resources skip their weight too
       long long sc = 0;
       if (kTerms && a.strategy == kRatio) {
         sc = ratio_score(a, al, rq);
       } else if (rq <= al) {
-        sc = a.strategy == kMost ? floordiv_i64(rq * 100, al)
-                                 : floordiv_i64((al - rq) * 100, al);
+        sc = a.strategy == kMost ? floordiv_f64(rq * 100, al)
+                                 : floordiv_f64((al - rq) * 100, al);
       }
       node_score += sc * w;
-      weight_sum += w;
     }
   }
-  return weight_sum > 0 ? floordiv_i64(node_score, weight_sum) : 0;
+  return row.weight_sum > 0 ? floordiv_f64(node_score, row.weight_sum) : 0;
 }
 
-__device__ long long balanced_score(const EvalArgs& a, int c, int n) {
-  const int R = a.R;
+__device__ long long balanced_score(const EvalArgs& a, const Cfg& cfg, const NodeRow& row, const PodRow& pod) {
   double f[kMaxBalanced];
   bool p[kMaxBalanced];
   double total = 0.0;
   long long count = 0;
   for (int b = 0; b < a.n_bal; ++b) {
-    const int col = a.bal_cols[b];
-    const long long al = a.alloc[(size_t)n * R + col];
-    const long long rq = a.req[(size_t)n * R + col] + a.pod_req[(size_t)c * R + col];
+    const int col = cfg.bal[b];
+    const long long al = row.alloc(col);
+    const long long rq = row.req(col) + pod.req(col);
     double fr = (double)rq / (double)(al > 1 ? al : 1);
     if (fr > 1.0) fr = 1.0;
     p[b] = al > 0;
@@ -459,53 +577,178 @@ __device__ long long balanced_score(const EvalArgs& a, int c, int n) {
   return (long long)((1.0 - stdv) * 100.0);
 }
 
-// Filter b's own verdict for pod c on node n.
-__device__ __forceinline__ bool filter_ok(const EvalArgs& a, int b, int c, int n) {
-  const int code = (int)((a.filter_codes >> (3 * b)) & 7);
-  if (code == kUnschedulable) return !a.unschedulable[n] || a.tol_unsched[c];
-  if (code == kNodeName) {
-    const int want = a.nodename_id[c];
-    return want == -1 || a.name_id[n] == want;
-  }
-  if (code == kFit) return fit_filter(a, c, n);
-  if (code == kPorts) return ports_filter(a, c, n);
-  if (code == kDra) return dra_filter(a, c, n);
-  const int sel = (int)((a.ext_sel >> (3 * b)) & 7);
-  const size_t op = (size_t)c * a.N + n;
-  if (sel == kSelSpread) return a.spread_ok[op] != 0;
-  if (sel >= kSelVol) return ((a.vol_bits[op] >> (sel - kSelVol)) & 1) != 0;
-  return ((a.node_bits[op] >> sel) & 1) != 0;
+// A pair's bytes of the precomputed planes, read before its filter chain
+// (null planes read as 0).
+struct Planes {
+  unsigned char node_bits, spread_ok, vol_bits;
+};
+
+__device__ __forceinline__ Planes load_planes(const EvalArgs& a, size_t op) {
+  return Planes{a.node_bits == nullptr ? (unsigned char)0 : a.node_bits[op],
+                a.spread_ok == nullptr ? (unsigned char)0 : a.spread_ok[op],
+                a.vol_bits == nullptr ? (unsigned char)0 : a.vol_bits[op]};
 }
 
+// Filter b's own verdict for the pod on the node.
+__device__ __forceinline__ bool filter_ok(const EvalArgs& a, const Cfg& cfg, int b, const NodeRow& row,
+                                          const PodRow& pod, const Planes& pl) {
+  const int code = (int)((a.filter_codes >> (3 * b)) & 7);
+  if (code == kUnschedulable) return !row.unsched || pod.tol;
+  if (code == kNodeName) return pod.nodename == -1 || row.name == pod.nodename;
+  if (code == kFit) return fit_filter(a, cfg, row, pod);
+  if (code == kPorts) return ports_filter(a, pod.c, row.n);
+  if (code == kDra) return dra_filter(a, pod.c, row.n, row.name);
+  const int sel = (int)((a.ext_sel >> (3 * b)) & 7);
+  if (sel == kSelSpread) return pl.spread_ok != 0;
+  if (sel >= kSelVol) return ((pl.vol_bits >> (sel - kSelVol)) & 1) != 0;
+  return ((pl.node_bits >> sel) & 1) != 0;
+}
+
+// One pair: the filter chain (stopping at the first that fails: later
+// verdicts set no bit), the weighted scores, both outputs at ``o``.  The
+// pair's plane bytes, its image score and, in a filter range, its input
+// feasibility and total are loaded first, together.  Returns the pair's
+// fail bits.
 template <bool kTerms>
-__global__ void eval_chunk_kernel(EvalArgs a) {
-  const int c = blockIdx.y;
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool pinned = a.pin_row != nullptr;
-  const int n = pinned ? (j == 0 ? a.pin_row[c] : -1) : j;
+__device__ unsigned int eval_pair(const EvalArgs& a, const Cfg& cfg, const NodeRow& row, const PodRow& pod,
+                                  size_t o) {
+  const Planes pl = load_planes(a, (size_t)pod.c * a.N + row.n);
+  const bool in_range = a.feas_in == nullptr || a.feas_in[o] != 0;
+  const long long total_in = a.feas_in == nullptr ? 0 : a.total[o];
+  const long long il = a.il_scores == nullptr ? 0 : (long long)a.il_scores[o];
   unsigned int bits = 0;
-  if (n >= 0 && n < a.N) {
-    const size_t o = pinned ? (size_t)c : (size_t)c * a.N + n;
-    bool feas = a.valid[n] != 0 && (a.feas_in == nullptr || a.feas_in[o] != 0);
-    for (int b = 0; b < a.n_filters; ++b) {
-      const bool ok = filter_ok(a, b, c, n);
-      if (feas && !ok) bits |= 1u << (b + a.bit0);
-      feas = feas && ok;
+  bool feas = row.valid && in_range;
+  for (int b = 0; feas && b < a.n_filters; ++b) {
+    if (!filter_ok(a, cfg, b, row, pod, pl)) {
+      bits |= 1u << (b + a.bit0);
+      feas = false;
     }
-    long long tot = 0;
-    if (feas) {
-      if (a.score_fit) tot += fit_score<kTerms>(a, c, n) * a.fit_weight;
-      if (a.score_bal) tot += balanced_score(a, c, n) * a.bal_weight;
-      if (a.il_scores != nullptr) tot += (long long)a.il_scores[o] * a.il_weight;
-      if (kTerms && a.tp_weight != 0) tot += tput_gather(a, c, n) * a.tp_weight;
-      if (kTerms && a.ls_weight != 0) tot += learned_score(a, c, n) * a.ls_weight;
-      if (a.feas_in != nullptr) tot += a.total[o];  // a filter range adds to the set's scores
+  }
+  long long tot = 0;
+  if (feas) {
+    if (a.score_fit) tot += fit_score<kTerms>(a, cfg, row, pod) * a.fit_weight;
+    if (a.score_bal) tot += balanced_score(a, cfg, row, pod) * a.bal_weight;
+    tot += il * a.il_weight;
+    if (kTerms && a.tp_weight != 0) tot += tput_gather(a, pod.c, row.n) * a.tp_weight;
+    if (kTerms && a.ls_weight != 0) tot += learned_score(a, row, pod.c) * a.ls_weight;
+    tot += total_in;  // a filter range adds to the set's scores
+  }
+  a.feasible[o] = feas ? 1 : 0;
+  a.total[o] = tot;
+  return bits;
+}
+
+// The node-tiled launch: block (x, y) evaluates nodes [x*T, x*T + T) for
+// pods [y*group, y*group + group) of the chunk, T = blockDim.x.  Every
+// load of the block is issued before its one barrier: each thread its
+// node's scalars and the first kStageR columns of its rows (into its own
+// column of the tile), the threads together the group's pod features and
+// the static config.
+template <bool kTerms>
+__global__ void __launch_bounds__(kTile) eval_chunk_kernel(EvalArgs a, int group) {
+  __shared__ long long s_node[3][kStageR][kTile];  // alloc, req, nom_req columns
+  __shared__ long long s_preq[kGroup][kStageR];
+  __shared__ long long s_pnz[kGroup][2];
+  __shared__ int s_pi[kGroup][4];  // node-name id, toleration, priority, nominated row
+  __shared__ long long s_strat[kStageS * 3];
+  __shared__ int s_bal[kMaxBalanced];
+  __shared__ unsigned char s_ign[kStageR];
+  const int t = threadIdx.x, T = blockDim.x;
+  const int n = blockIdx.x * T + t;
+  const int c0 = blockIdx.y * group;
+  const int pods = min(group, a.C - c0);
+  const int R = a.R;
+  const bool live = n < a.N;
+  NodeRow row;
+  if (live) {
+    load_node(a, n, row);
+#pragma unroll
+    for (int r = 0; r < kStageR; ++r) {
+      if (r < R) {
+        s_node[0][r][t] = row.g_alloc[r];
+        s_node[1][r][t] = row.g_req[r];
+        if (row.g_nreq != nullptr) s_node[2][r][t] = row.g_nreq[r];
+      }
     }
-    a.feasible[o] = feas ? 1 : 0;
-    a.total[o] = tot;
+    row.s_alloc = &s_node[0][0][t];
+    row.s_req = &s_node[1][0][t];
+    row.s_nreq = &s_node[2][0][t];
+    row.staged = kStageR;
+  }
+  const int rs = min(R, kStageR);
+  for (int e = t; e < pods * kStageR; e += T) {
+    const int g = e / kStageR, r = e % kStageR;
+    if (r < rs) s_preq[g][r] = a.pod_req[(size_t)(c0 + g) * R + r];
+  }
+  if (t < pods) {
+    const PodRow p = load_pod(a, c0 + t);
+    s_pnz[t][0] = p.nz0;
+    s_pnz[t][1] = p.nz1;
+    s_pi[t][0] = p.nodename;
+    s_pi[t][1] = p.tol;
+    s_pi[t][2] = p.prio;
+    s_pi[t][3] = p.nomrow;
+  }
+  const int ss = min(a.n_strat, kStageS);
+  if (t < ss * 3) s_strat[t] = a.strat_cols[t];
+  if (t < a.n_bal) s_bal[t] = a.bal_cols[t];
+  if (t < rs) s_ign[t] = a.fit_ignored[t];
+  __syncthreads();
+  const Cfg cfg{s_strat, s_bal, s_ign, ss, rs};
+  if (live) node_weights(a, cfg, row);
+  for (int g = 0; g < pods; ++g) {
+    PodRow pod;
+    pod.c = c0 + g;
+    pod.nodename = s_pi[g][0];
+    pod.tol = s_pi[g][1] != 0;
+    pod.prio = s_pi[g][2];
+    pod.nomrow = s_pi[g][3];
+    pod.nz0 = s_pnz[g][0];
+    pod.nz1 = s_pnz[g][1];
+    pod.s_req = s_preq[g];
+    pod.g_req = a.pod_req + (size_t)pod.c * R;
+    pod.staged = kStageR;
+    const unsigned int bits = live ? eval_pair<kTerms>(a, cfg, row, pod, (size_t)pod.c * a.N + n) : 0u;
+    const unsigned int warp_bits = __reduce_or_sync(0xffffffffu, bits);
+    if ((t & 31) == 0 && warp_bits != 0) atomicOr(a.fail_mask + pod.c, warp_bits);
+  }
+}
+
+// One thread a pair, for launches whose group is one pod (kernels.eval_tile
+// gives a group of one where a grid of larger groups would leave SMs idle):
+// a tile would share no node row between pods, so the node's rows, the
+// pod and the config are read from global memory without the staging and
+// its barrier, which measured slower at those shapes.
+template <bool kTerms>
+__global__ void eval_direct_kernel(EvalArgs a) {
+  const int c = blockIdx.y;
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  unsigned int bits = 0;
+  if (n < a.N) {
+    NodeRow row;
+    load_node(a, n, row);
+    const Cfg cfg = global_cfg(a);
+    node_weights(a, cfg, row);
+    bits = eval_pair<kTerms>(a, cfg, row, load_pod(a, c), (size_t)c * a.N + n);
   }
   const unsigned int warp_bits = __reduce_or_sync(0xffffffffu, bits);
   if ((threadIdx.x & 31) == 0 && warp_bits != 0) atomicOr(a.fail_mask + c, warp_bits);
+}
+
+// Pinned mode: one thread a pod, on its own row; the tile gains nothing
+// (no two pods share a node's reads).
+template <bool kTerms>
+__global__ void eval_pinned_kernel(EvalArgs a) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= a.C) return;
+  const int n = a.pin_row[c];
+  if (n < 0 || n >= a.N) return;
+  NodeRow row;
+  load_node(a, n, row);
+  const Cfg cfg = global_cfg(a);
+  node_weights(a, cfg, row);
+  const unsigned int bits = eval_pair<kTerms>(a, cfg, row, load_pod(a, c), (size_t)c);
+  if (bits != 0) atomicOr(a.fail_mask + c, bits);
 }
 
 // Columns mode (the attribution pass, kubernetes_tpu/engine/pass_.py:
@@ -515,7 +758,9 @@ __global__ void eval_chunk_kernel(EvalArgs a) {
 // that col_rows gives it (4 bits a scorer: fit, balanced, image,
 // throughput, learned; 15 when it does not score); total, the weighted
 // sum.  No scorer here normalizes over the feasible set, so nothing waits
-// for the filters of the other kernels.
+// for the filters of the other kernels.  It keeps one thread per (pod,
+// node) with its rows read from global memory: the attribution pass runs
+// it at C=1, where a tile shares nothing; the block width is the tile's.
 constexpr int kColFit = 0;
 constexpr int kColBal = 1;
 constexpr int kColImage = 2;
@@ -534,21 +779,27 @@ __global__ void eval_cols_kernel(EvalArgs a, int* ok_bits, long long* cols, int 
   if (n >= a.N) return;
   const size_t o = (size_t)c * a.N + n;
   const size_t plane = (size_t)a.C * a.N;
+  NodeRow row;
+  load_node(a, n, row);
+  const Cfg cfg = global_cfg(a);
+  node_weights(a, cfg, row);
+  const PodRow pod = load_pod(a, c);
+  const Planes pl = load_planes(a, o);
   int bits = 0;
-  bool feas = a.valid[n] != 0;
+  bool feas = row.valid;
   for (int b = 0; b < a.n_filters; ++b) {
-    const bool ok = filter_ok(a, b, c, n);
+    const bool ok = filter_ok(a, cfg, b, row, pod, pl);
     bits |= ok ? 1 << b : 0;
     feas = feas && ok;
   }
   long long tot = 0;
   if (a.score_fit) {
-    const long long v = fit_score<kTerms>(a, c, n);
+    const long long v = fit_score<kTerms>(a, cfg, row, pod);
     put_col(cols, col_rows, kColFit, plane, o, v);
     tot += v * a.fit_weight;
   }
   if (a.score_bal) {
-    const long long v = balanced_score(a, c, n);
+    const long long v = balanced_score(a, cfg, row, pod);
     put_col(cols, col_rows, kColBal, plane, o, v);
     tot += v * a.bal_weight;
   }
@@ -563,7 +814,7 @@ __global__ void eval_cols_kernel(EvalArgs a, int* ok_bits, long long* cols, int 
     tot += v * a.tp_weight;
   }
   if (kTerms && a.ls_weight != 0) {
-    const long long v = learned_score(a, c, n);
+    const long long v = learned_score(a, row, c);
     put_col(cols, col_rows, kColLearned, plane, o, v);
     tot += v * a.ls_weight;
   }
@@ -692,43 +943,70 @@ bool needs_terms(const EvalArgs& a) { return a.strategy == kRatio || a.tp_weight
 
 }  // namespace
 
-extern "C" int eval_chunk_launch(EVAL_PARAMS, void* feasible, void* total, void* fail_mask, void* stream) {
+// tile: nodes a block (a multiple of 32, at most kTile); group: pods a
+// block (at most kGroup; 1 takes the one-thread-a-pair launch); both from
+// kernels.eval_tile.  A pinned launch runs one thread a pod and ignores
+// them.
+extern "C" int eval_chunk_launch(EVAL_PARAMS, int tile, int group, void* feasible, void* total, void* fail_mask,
+                                 void* stream) {
   int rc;
   EvalArgs a = make_args(EVAL_ARGS, &rc);
   if (rc != 0) return rc;
+  if (tile < 32 || tile > kTile || tile % 32 != 0 || group < 1 || group > kGroup) {
+    return (int)cudaErrorInvalidValue;
+  }
   a.feasible = static_cast<unsigned char*>(feasible);
   a.total = static_cast<long long*>(total);
   a.fail_mask = static_cast<unsigned int*>(fail_mask);
-  const int threads = pin_row != nullptr ? 32 : 256;
-  dim3 grid(pin_row != nullptr ? 1 : (N + threads - 1) / threads, C);
-  if (needs_terms(a)) {
-    eval_chunk_kernel<true><<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool terms = needs_terms(a);
+  if (pin_row != nullptr) {
+    const int threads = 128;
+    const int blocks = (C + threads - 1) / threads;
+    if (terms) {
+      eval_pinned_kernel<true><<<blocks, threads, 0, s>>>(a);
+    } else {
+      eval_pinned_kernel<false><<<blocks, threads, 0, s>>>(a);
+    }
+  } else if (group == 1) {
+    dim3 grid((N + tile - 1) / tile, C);
+    if (terms) {
+      eval_direct_kernel<true><<<grid, tile, 0, s>>>(a);
+    } else {
+      eval_direct_kernel<false><<<grid, tile, 0, s>>>(a);
+    }
   } else {
-    eval_chunk_kernel<false><<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+    dim3 grid((N + tile - 1) / tile, (C + group - 1) / group);
+    if (terms) {
+      eval_chunk_kernel<true><<<grid, tile, 0, s>>>(a, group);
+    } else {
+      eval_chunk_kernel<false><<<grid, tile, 0, s>>>(a, group);
+    }
   }
   return (int)cudaGetLastError();
 }
 
 // Columns mode: feasible (C, N), total (C, N), ok_bits (C, N) i32 and cols
 // (S, C, N) i64, scorer k in row (col_rows >> 4k) & 15; no pin, no filter
-// range.
-extern "C" int eval_chunk_cols_launch(EVAL_PARAMS, void* feasible, void* total, void* ok_bits, void* cols,
-                                      int col_rows, void* stream) {
+// range; ``tile`` threads a block.
+extern "C" int eval_chunk_cols_launch(EVAL_PARAMS, int tile, void* feasible, void* total, void* ok_bits,
+                                      void* cols, int col_rows, void* stream) {
   int rc;
   EvalArgs a = make_args(EVAL_ARGS, &rc);
   if (rc != 0) return rc;
   if (pin_row != nullptr || feas_in != nullptr || bit0 != 0) return (int)cudaErrorInvalidValue;
+  if (tile < 32 || tile > kTile || tile % 32 != 0) return (int)cudaErrorInvalidValue;
   a.feasible = static_cast<unsigned char*>(feasible);
   a.total = static_cast<long long*>(total);
   a.fail_mask = nullptr;
-  const int threads = 256;
-  dim3 grid((N + threads - 1) / threads, C);
+  dim3 grid((N + tile - 1) / tile, C);
   int* bits = static_cast<int*>(ok_bits);
   long long* out = static_cast<long long*>(cols);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (needs_terms(a)) {
-    eval_cols_kernel<true><<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(a, bits, out, col_rows);
+    eval_cols_kernel<true><<<grid, tile, 0, s>>>(a, bits, out, col_rows);
   } else {
-    eval_cols_kernel<false><<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(a, bits, out, col_rows);
+    eval_cols_kernel<false><<<grid, tile, 0, s>>>(a, bits, out, col_rows);
   }
   return (int)cudaGetLastError();
 }

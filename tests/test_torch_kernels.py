@@ -38,6 +38,33 @@ def test_kernels_match_plain_versions_exactly(cuda_device):
 
 
 @pytest.mark.cuda
+def test_chunk_one_kernels_match_plain_versions_exactly(cuda_device):
+    """eval_chunk and the strict resolve_commit at the chunk-1 paths'
+    shape ("c1": C=1, N=8192)."""
+    import chip_smoke
+
+    timing = chip_smoke.check_c1_kernels(cuda_device, reps=1)
+    assert set(timing) == {"eval_chunk", "resolve_commit"}
+    assert all(t["max_abs_err"] == 0 for t in timing.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("part", ["division", "branches", "crowd"])
+def test_exactness_cases_match_plain_versions(cuda_device, part):
+    """eval_chunk at the division boundaries (multiples of the allocatable
+    and one either side, al = 1, rq = al, rq > al, both sides of 2^53);
+    resolve_commit with every optional commit branch under a sparse and a
+    dense conflict table, and with C=33 and C=1024 pods crowding one nearly
+    full row; each against its plain version with max_abs_err 0."""
+    import chip_smoke
+
+    errs = chip_smoke.check_exact_cases(cuda_device, (part,))
+    want = {"eval_chunk"} if part == "division" else {"resolve_commit"}
+    assert set(errs) == want
+    assert all(e["max_abs_err"] == 0 for e in errs.values())
+
+
+@pytest.mark.cuda
 def test_ipa_kernels_match_plain_versions_exactly(cuda_device):
     import chip_smoke
 

@@ -22,9 +22,22 @@ Phases; any failure fails the run (nothing is caught):
      - at the density shapes (C=64 pods, N=8192 node rows, R=4 resources),
        with score ties, zero allocatable, unschedulable nodes, pods
        feasible nowhere, a nominated-pod overlay and duplicate picks:
-       build_dom, eval_chunk, select_host, resolve_commit;
+       build_dom, eval_chunk, select_host, resolve_commit; and select_host
+       on cases that cross the node-axis slices of a thread block cluster
+       (select_cases: ties straddling every slice start, kth at a slice's
+       first and last tie, the only feasible row in the last slice, ties
+       only below row 5000 of 8192, every row tied, none feasible, totals
+       at ±2^62), 64 pods a launch with nominated rows;
      - at the chunk-1 paths' shape ("c1": one pod of that chunk, N=8192,
-       no nominated overlay): eval_chunk and the strict resolve_commit;
+       no nominated overlay): eval_chunk, select_host in row mode and the
+       strict resolve_commit, and select_host on the slice-crossing cases
+       one pod a launch;
+     - at "ipa_c1" (the explain and search paths' ipa_eval launches: C=1,
+       N=8192, the "cols" cluster with 200 more bound pods whose terms
+       match the pod, a pod with zone and hostname required affinity,
+       anti-affinity and preferred terms): ipa_eval in one launch and in
+       its two truncated-mode launches, on eval_chunk's feasible set, on
+       that set cut to the last slice, on one node and on none;
      - at the inter-pod-affinity shapes (C=64, N=1024, G=ET=2048, TK=4,
        DV=16) with zone and hostname terms, required, preferred and
        existing terms, namespace selectors and a selector matching a
@@ -97,15 +110,17 @@ Phases; any failure fails the run (nothing is caught):
        slots a pod over three pools, CLM=8192; shared claims inside a
        chunk, a claim named twice, claims already reserved, pins, missing
        claims): conflict_pairs with claim ids and racing claims, eval_chunk
-       with DynamicResources (filter code 5), select_host, and
-       resolve_commit strict and not with the claim commit; the same at
-       "dra_path", the path's own C=8 over the DRA_BATCH pods it has
-       pending on that cluster;
+       with DynamicResources (filter code 5), select_host (timed: the
+       claims path's C=8 launches), and resolve_commit strict and not with
+       the claim commit; the same at "dra_path", the path's own C=8 over
+       the DRA_BATCH pods it has pending on that cluster;
      - truncated mode: at the "truncate" shape (parity_basic_5kn_10kpods'
        5000 nodes, N=8192, limit 500) truncate_feasible and select_host in
        pos mode with 0, 1, 500, 501, 2500 and 5000 feasible nodes, starts
        at 0, 4999 and 2777, a padding lane, ties on few totals; then
-       truncated chunk-1 steps, the two outputs and the carried start
+       select_host's pos mode with kth on both sides of the word ranges of
+       its positions' bitmap (pos_cases); truncated chunk-1 steps, the two
+       outputs and the carried start
        compared at every step: at the IPA shape ("truncate_ipa": eval_chunk,
        ipa_eval's filter launch, truncate_feasible, its score launch,
        select_host in pos mode) and the spread_na shape ("truncate_spread":
@@ -236,10 +251,12 @@ Phases; any failure fails the run (nothing is caught):
      each window, the pack width, the host-to-device feature bytes and the
      data moves (scatter_rows and expand_rows launches; torch index_copy_
      and expand calls, which must be 0) are printed;
-  5. print the per-kernel JSON line (launches per path, the numbers of
-     every shape a kernel was measured at, and for eval_chunk and
-     resolve_commit the launch floor), the card line, and last the device
-     line.
+  5. print the redesign queue (launches x (ms - bound_ms) per kernel over
+     every path, at the shapes PATH_SHAPE lists for the path, and the
+     paths whose figure fell back to another shape), the per-kernel JSON
+     line (launches per path, the numbers of every shape a kernel was
+     measured at, and for eval_chunk and resolve_commit the launch floor),
+     the card line, and last the device line.
 
 Exits non-zero, printing no result, when CUDA is unavailable or the
 package is missing.
@@ -513,6 +530,12 @@ def check_kernels(dev, reps: int) -> dict:
             result["select_host"] = timed(
                 lambda _: kernels.select_host(kf, kt, steps, 0, pf["nominated_row"]),
                 lambda _: plain.select_host(pfe, pt, steps, 0, pf["nominated_row"]), reps)
+    # select_host on the slice-crossing cases, 64 pods a launch.
+    seed_mul = ((DEFAULT_PROFILE.tie_break_seed & 0xFFFFFFFF) * 2654435761) & 0xFFFFFFFF
+    crng = np.random.default_rng(1357)
+    cases = select_cases(state.valid.shape[0], int(state.valid.sum()), seed_mul, crng)
+    stacked_select_cases(errs, "density", dev, cases, 64, seed_mul, crng)
+    print(f"select_host [density]: exact; {len(cases)} slice-crossing cases, 64 pods a launch")
     # resolve_commit: duplicate picks on nearly full rows, invalid rows,
     # unschedulable pods and a random conflict table.
     dom0 = build_dom(state, et_slot0, torch.zeros(schema.ET, dtype=torch.bool, device=dev), schema.DV)
@@ -572,8 +595,10 @@ def launch_floor(reps: int) -> dict:
 def check_c1_kernels(dev, reps: int) -> dict:
     """The chunk-1 paths' shapes ("c1"): eval_chunk for one pod of the
     density chunk against N=8192 rows without a nominated overlay (as the
-    parity path's steps), and resolve_commit's strict commit of that pod at
-    its pick, both against their plain versions, exactly, and timed."""
+    parity path's steps), select_host in row mode on its result, and
+    resolve_commit's strict commit of that pod at its pick, each against
+    its plain version, exactly, and timed; then select_host on the
+    slice-crossing cases (select_cases), one pod a launch."""
     import torch
 
     from kubernetes_tpu_torch import kernels
@@ -606,18 +631,145 @@ def check_c1_kernels(dev, reps: int) -> dict:
     for f in ("req", "nonzero_req", "num_pods", "group_counts"):
         exact(errs, "resolve_commit", f"[c1] state.{f}", getattr(sk, f), getattr(sp, f))
     print(f"eval_chunk/resolve_commit [c1]: exact; {int(pfe.sum())} feasible nodes, pick {int(op_[0])}")
+    # select_host in row mode on that pod's evaluation, then the cases that
+    # cross the node-axis slices, one pod a launch.
+    ks = kernels.select_host(kf, kt, steps[:1], 0, None)
+    torch.cuda.synchronize()
+    for what, a, b in zip(("pick", "best", "feasible_count"), ks, plain.select_host(pfe, pt, steps[:1], 0, None)):
+        exact(errs, "select_host", f"[c1] {what}", a, b)
+    seed_mul = ((DEFAULT_PROFILE.tie_break_seed & 0xFFFFFFFF) * 2654435761) & 0xFFFFFFFF
+    cases = select_cases(state.valid.shape[0], int(state.valid.sum()), seed_mul, _rng)
+    for name, feas, total, step in cases:
+        select_case(errs, f"c1, {name}", dev, feas[None], total[None], [step], seed_mul, None)
+    print(f"select_host [c1]: exact; {len(cases)} slice-crossing cases")
     clones = lambda: (state.clone(), clone_dom(dom0))  # noqa: E731
     result = {
         "eval_chunk": timed(lambda _: kernels.eval_chunk(state, pf1, spec, None),
                             lambda _: plain.eval_chunk(state, pf1, spec, None), reps),
+        "select_host": timed(lambda _: kernels.select_host(kf, kt, steps[:1], 0, None),
+                             lambda _: plain.select_host(pfe, pt, steps[:1], 0, None), reps),
         "resolve_commit": timed(lambda a: kernels.resolve_commit(a[0], a[1], pf1, picks, None, True),
                                 lambda a: plain.resolve_commit(a[0], a[1], pf1, picks, None, True), reps, clones),
     }
     set_bound(result["eval_chunk"], eval_bytes(state, pf1, None))
+    set_bound(result["select_host"], select_bytes(1, state.valid.shape[0]))
     set_bound(result["resolve_commit"], commit_bytes(schema, picks, 1, pairs=False))
     for name in result:
         result[name]["max_abs_err"] = errs[name]
     return result
+
+
+# The cluster sizes K whose node-axis slices (ceil(N / K) rows rounded up
+# to 32 a CTA: select_host.cu, ipa_eval.cu) the kernel cases cross.
+SPLITS = (2, 4, 8, 16)
+
+
+def slice_starts(n: int) -> list[int]:
+    """The first rows of the node-axis slices of every cluster size in
+    SPLITS, ascending, without row 0."""
+    out = set()
+    for k in SPLITS:
+        size = -(-(-(-n // k)) // 32) * 32
+        out.update(range(size, n, size))
+    return sorted(out)
+
+
+def tie_step(seed_mul: int, m: int, k: int) -> int:
+    """A tie-break step whose hashed draw picks the (k+1)-th of m ties
+    (pass_.py _hash_u32, in uint32)."""
+    import numpy as np
+
+    if m <= 1:
+        return 0
+    x = (np.arange(1 << 20, dtype=np.uint64) + seed_mul) & 0xFFFFFFFF
+    x = ((x ^ (x >> 16)) * 0x7FEB352D) & 0xFFFFFFFF
+    x = ((x ^ (x >> 15)) * 0x846CA68B) & 0xFFFFFFFF
+    x ^= x >> 16
+    return int(np.nonzero(x % m == k)[0][0])
+
+
+def select_cases(n: int, nvalid: int, seed_mul: int, rng) -> list:
+    """select_host inputs that cross the node-axis slices, as (name,
+    feasible (N,) bool, total (N,) i64, step) numpy cases: ties straddling
+    every slice start of every split with kth at a slice's first and last
+    tie, the only feasible row in the last slice (the last row, the last
+    node row, a slice's first row), ties only below ``nvalid`` (padding
+    above), every row tied, none feasible, and totals at ±2^62."""
+    import numpy as np
+
+    cases = []
+
+    def add(name, feas, total, k=None):
+        m = int((feas & (total == total[feas].max())).sum()) if feas.any() else 0
+        k = int(rng.integers(max(m, 1))) if k is None else k
+        cases.append((name, feas, total.astype(np.int64), tie_step(seed_mul, m, k)))
+
+    starts = slice_starts(n)
+    ties = sorted({r for b in starts for r in (b - 1, b)})
+    feas = rng.random(n) < 0.125
+    feas[ties] = True
+    total = rng.integers(0, 7, n)
+    total[ties] = 7
+    ranks = {0, len(ties) - 1}
+    for i, r in enumerate(ties):
+        if r in starts:
+            ranks |= {i - 1, i}
+    for k in sorted(ranks):
+        add(f"ties straddling the slices, kth {k}", feas, total, k)
+    for row in sorted({n - 1, nvalid - 1, starts[-1], starts[0]}):
+        one = np.zeros(n, bool)
+        one[row] = True
+        add(f"only row {row} feasible", one, rng.integers(-5, 5, n))
+    pad = (rng.random(n) < 0.4) & (np.arange(n) < nvalid)
+    few = rng.integers(0, 3, n)
+    m = int((pad & (few == few[pad].max())).sum())
+    for k in (0, m - 1, None):
+        add(f"ties below row {nvalid}", pad, few, k)
+    for k in (0, n - 1, None):
+        add("every row tied", np.ones(n, bool), np.full(n, 5), k)
+    add("none feasible", np.zeros(n, bool), rng.integers(0, 9, n))
+    big = 2**62
+    add("totals at ±2^62", rng.random(n) < 0.5, rng.choice(np.array([big - 1, big - 2, -big, -big + 1]), n))
+    add("every feasible total -2^62", rng.random(n) < 0.3, np.full(n, -big))
+    return cases
+
+
+def select_case(errs: dict, label: str, dev, feas, total, steps, seed_mul: int, nominated, pos=None) -> None:
+    """select_host on (C, N) numpy inputs against its plain version,
+    exactly; ``nominated`` a (C,) int32 array or None."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import plain
+
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    f, t = to(feas), to(total.astype(np.int64))
+    st = to(np.asarray(steps, np.int64))
+    nom = None if nominated is None else to(np.asarray(nominated, np.int32))
+    ks = kernels.select_host(f, t, st, seed_mul, nom, pos)
+    ps = plain.select_host(f, t, st, seed_mul, nom, pos)
+    torch.cuda.synchronize()
+    for what, a, b in zip(("pick", "best", "feasible_count"), ks, ps):
+        exact(errs, "select_host", f"[{label}] {what}", a, b)
+
+
+def stacked_select_cases(errs: dict, label: str, dev, cases, c: int, seed_mul: int, rng) -> None:
+    """The cases as the rows of (C, N) launches, each pod its own case and
+    step; one pod in four nominates a row, feasible or not."""
+    import numpy as np
+
+    for lo in range(0, len(cases), c):
+        part = [cases[(lo + i) % len(cases)] for i in range(c)]
+        feas = np.stack([p[1] for p in part])
+        total = np.stack([p[2] for p in part])
+        nom = np.full(c, -1, np.int32)
+        for i in range(0, c, 4):
+            rows = np.nonzero(feas[i])[0] if i % 8 == 0 else np.nonzero(~feas[i])[0]
+            if rows.size:
+                nom[i] = rows[int(rng.integers(rows.size))]
+        select_case(errs, f"{label}, cases {lo}-{lo + c - 1}", dev, feas, total, [p[3] for p in part], seed_mul,
+                    nom)
 
 
 # Allocatable values of the division cases: multiples and neighbours of
@@ -2883,6 +3035,7 @@ def check_dra_kernels(dev, reps: int, shape: str = "dra", nodes: int = 5000) -> 
             exact(errs, "select_host", f"[{shape} chunk {i}] {what}", a, b)
         if first is None:
             first = (pf, ps[0])
+            sel = (pe[0], pe[1], steps, seed_mul, pf["nominated_row"])
     et_slot = torch.zeros(schema.ET, dtype=torch.int32, device=dev)
     dom = build_dom(state, et_slot, torch.zeros(schema.ET, dtype=torch.bool, device=dev), schema.DV)
     fields = ("req", "nonzero_req", "num_pods", "group_counts", "dra_claim_counts", "dra_alloc")
@@ -2923,6 +3076,7 @@ def check_dra_kernels(dev, reps: int, shape: str = "dra", nodes: int = 5000) -> 
                                 lambda _: plain.conflict_pairs(big, k // c, c), reps),
         "eval_chunk": timed(lambda _: kernels.eval_chunk(state, pf0, spec, None, None),
                             lambda _: plain.eval_chunk(state, pf0, spec, None, None), reps),
+        "select_host": timed(lambda _: kernels.select_host(*sel), lambda _: plain.select_host(*sel), reps),
         "resolve_commit": timed(
             lambda a: kernels.resolve_commit(a[0], a[1], pfc, pickc, pairc, False),
             lambda a: plain.resolve_commit(a[0], a[1], pfc, pickc, pairc, False), reps,
@@ -2930,6 +3084,7 @@ def check_dra_kernels(dev, reps: int, shape: str = "dra", nodes: int = 5000) -> 
     }
     set_bound(result["conflict_pairs"], nbytes(big["dra_claim_ids"], big["dra_claim_unalloc"]) + k * c)
     set_bound(result["eval_chunk"], eval_bytes(state, pf0, None) + dra_eval_bytes(state, pf0))
+    set_bound(result["select_host"], select_bytes(c, n))
     set_bound(result["resolve_commit"], commit_bytes(schema, pickc, c) + dra_commit_bytes(state, pfc, placed))
     for name in result:
         result[name]["max_abs_err"] = errs[name]
@@ -2991,6 +3146,50 @@ def truncated_steps(errs: dict, label: str, state, pods, order, steps, seed_mul:
                   outs["plain"][what])
         kept.append(int(outs["plain"]["feasible_count"][0]))
     return (outs["plain"]["feasible"], outs["plain"]["total"]), kept
+
+
+def pos_cases(errs: dict, dev, state, order, seed_mul: int, rng) -> int:
+    """select_host's pos mode on truncated feasible sets, at the starts 0,
+    nvalid - 1 and 2777, sparse and dense: kth at the first and last tie
+    and on both sides of the positions' bitmap cut in 2 to 16 equal word
+    ranges, and the only feasible row being the last node row or the row
+    last in scan order.  Returns the number of cases."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.kernels import plain
+
+    n = state.valid.shape[0]
+    valid = state.valid.cpu().numpy()
+    nvalid = int(valid.sum())
+    words = -(-n // 32)
+    bounds = sorted({r * -(-words // k) * 32 for k in SPLITS for r in range(1, k)})
+    real = torch.tensor([True], device=dev)
+    count = 0
+    for start in (0, nvalid - 1, 2777):
+        st = torch.tensor([start], dtype=torch.int64, device=dev)
+        sets = [valid & (rng.random(n) < d) for d in (0.1, 0.4)]
+        for row in (nvalid - 1, int(np.argmax(np.where(valid, (order.cpu().numpy() - start) % nvalid, -1)))):
+            one = np.zeros(n, bool)
+            one[row] = True
+            sets.append(one)
+        for feas in sets:
+            cut, pos, _ = plain.truncate_feasible(torch.from_numpy(feas[None]).to(dev), state.valid, order,
+                                                  st.clone(), real, 0)
+            cut_np, pos_np = cut.cpu().numpy(), pos.cpu().numpy()
+            total = rng.integers(0, 2, (1, n))
+            ties = cut_np[0] & (total[0] == total[0][cut_np[0]].max()) if cut_np.any() else cut_np[0]
+            tpos = np.sort(pos_np[ties])
+            m = tpos.size
+            ranks = {0, max(m - 1, 0)}
+            for b in bounds:
+                i = int(np.searchsorted(tpos, b))
+                ranks |= {k for k in (i - 1, i) if 0 <= k < m}
+            for k in sorted(ranks):
+                select_case(errs, f"pos mode, start {start}, {int(feas.sum())} feasible, kth {k}", dev, cut_np,
+                            total, [tie_step(seed_mul, m, k)], seed_mul, None, pos)
+                count += 1
+    return count
 
 
 def check_truncate_kernels(dev, reps: int) -> dict:
@@ -3058,6 +3257,8 @@ def check_truncate_kernels(dev, reps: int) -> dict:
                     exact(errs, "select_host", f"[pos mode, {what}] {name}", a, b)
     print(f"truncate_feasible/select_host (pos mode) [truncate]: exact; limit {limit} of {nvalid} nodes, "
           f"{cut} feasible (case, node) pairs cut")
+    ncases = pos_cases(errs, dev, state, order, seed_mul, np.random.default_rng(2024))
+    print(f"select_host (pos mode) [truncate]: exact; {ncases} cases across the slices and word ranges")
     # Timed on every node feasible, the start mid-list.
     feasible_all = state.valid[None, :].clone()
     result = {}
@@ -4795,6 +4996,100 @@ def check_cols_kernels(dev, reps: int, shape: str) -> dict:
     return out
 
 
+def ipa_c1_inputs(dev):
+    """The "ipa_c1" shape: explain_cluster's 5000 nodes in 10 zones
+    (N=8192) and bound pods, plus 200 bound pods whose terms match the
+    pod (preferred zone affinity, preferred hostname anti-affinity,
+    required zone affinity: weighted existing terms; required hostname
+    anti-affinity: forbidden nodes), and one pod with required zone and
+    hostname affinity, zone and hostname anti-affinity and preferred zone
+    and hostname terms of both signs, featurized under the final
+    vocabularies.  Returns (state, the pod's batch of one on the device,
+    the IpaSpec bound to the domain tables, the domain tables, eval_chunk's
+    plain result for the pod)."""
+    from kubernetes_tpu_torch.api.wrappers import make_pod
+    from kubernetes_tpu_torch.engine import pass_
+    from kubernetes_tpu_torch.engine.features import build_pod_batch
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.kernels import plain
+    from kubernetes_tpu_torch.scheduler import TorchScheduler
+
+    s = TorchScheduler(DEFAULT_PROFILE, batch_size=8, device=dev)
+    explain_cluster(s, COLS_SHAPES["cols"], 71)
+    for j in range(200):
+        pw = make_pod(f"matcher-{j}").req({"cpu": "100m"}).label("color", "c7")
+        kind = j % 4
+        if kind == 0:
+            pw = pw.preferred_pod_affinity_in("color", ["c1"], ZONE, 7)
+        elif kind == 1:
+            pw = pw.preferred_pod_affinity_in("color", ["c1"], HOST, 9, anti=True)
+        elif kind == 2:
+            pw = pw.pod_affinity_in("color", ["c1"], ZONE)
+        elif j % 40 == 3:
+            pw = pw.pod_anti_affinity_in("color", ["c1"], HOST)
+        s.add_pod(pw.node(f"node-{(j * 37) % COLS_SHAPES['cols']}").obj())
+    pod = (make_pod("ipa-c1").req({"cpu": "2", "memory": "4Gi"}).label("color", "c1")
+           .pod_affinity_in("color", ["c0", "c1"], ZONE).pod_affinity_in("color", ["c1", "c2"], HOST)
+           .pod_anti_affinity_in("color", ["c9"], ZONE).pod_anti_affinity_in("color", ["c3"], HOST)
+           .preferred_pod_affinity_in("color", ["c0"], ZONE, 4).preferred_pod_affinity_in("color", ["c2"], HOST, 3)
+           .preferred_pod_affinity_in("color", ["c4"], ZONE, 2, anti=True)
+           .preferred_pod_affinity_in("color", ["c3"], HOST, 5, anti=True).obj())
+    for _ in range(2):
+        batch, _d, active = build_pod_batch([pod], s.builder, DEFAULT_PROFILE, 1)
+    batch["nominated_row"] = __import__("numpy").full(1, -1, "int32")
+    state, inv = s.builder.state(), s._full_inv()
+    plan = pass_._plan(DEFAULT_PROFILE, s.builder.schema, s.builder.res_col, active, "plain")
+    tb = pass_._one_pod(batch, dev)
+    dom, ipa, nom, node_bits, il = pass_._setup(plan, state, tb, inv, None)
+    ext = pass_._chunk_planes(plan, state, tb, node_bits, il)
+    return state, tb, ipa, dom, plain.eval_chunk(state, tb, plan.spec, nom, ext)
+
+
+def check_ipa_c1_kernels(dev, reps: int) -> dict:
+    """ipa_eval at the "ipa_c1" shape (ipa_c1_inputs: C=1, N=8192, the
+    explain and search paths' launches): both phases in one launch, and
+    the filter launch then the score launch, against the plain version,
+    exactly, on eval_chunk's feasible set, on that set cut to the last
+    slice of 16 that holds node rows (the other slices empty), on one
+    feasible row (min = max) and on none; timed in one launch of both
+    phases on eval_chunk's set."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import plain
+
+    state, tb, ipa, dom, base = ipa_c1_inputs(dev)
+    n = state.valid.shape[0]
+    nvalid = int(state.valid.sum())
+    errs: dict[str, float] = {}
+    last = max(b for b in slice_starts(n) if b < nvalid)
+    rows = torch.arange(n, device=dev)
+    feas0 = base[0]
+    one = feas0 & (rows == int(torch.nonzero(feas0[0]).max()))[None]
+    sets = {"eval_chunk's set": feas0, f"rows {last}-{nvalid - 1} only": feas0 & (rows >= last)[None],
+            "one feasible row": one, "none feasible": torch.zeros_like(feas0)}
+    for name, feas in sets.items():
+        for phases in ((plain.IPA_BOTH,), (plain.IPA_FILTER, plain.IPA_SCORE)):
+            outs = []
+            for mod in (kernels, plain):
+                a = (feas.clone(), base[1].clone(), base[2].clone())
+                for ph in phases:
+                    mod.ipa_eval(state, tb, *a, ipa, ph)
+                outs.append(a)
+            torch.cuda.synchronize()
+            for what, x, y in zip(("feasible", "total", "fail_mask"), *outs):
+                exact(errs, "ipa_eval", f"[ipa_c1, {name}, phases {phases}] {what}", x, y)
+    after = plain.ipa_eval(state, tb, *(t.clone() for t in base), ipa)
+    print(f"ipa_eval [ipa_c1]: exact; {int(feas0.sum())} of {nvalid} nodes feasible before, "
+          f"{int(after[0].sum())} after; {len(sets)} feasible sets, one launch and two")
+    fresh = lambda: tuple(t.clone() for t in base)  # noqa: E731
+    tm = timed(lambda a: kernels.ipa_eval(state, tb, *a, ipa), lambda a: plain.ipa_eval(state, tb, *a, ipa), reps,
+               fresh)
+    set_bound(tm, ipa_bytes(state, dom, tb))
+    tm["max_abs_err"] = errs["ipa_eval"]
+    return {"ipa_eval": tm}
+
+
 def run_extender(impl: str, trace: bool = False):
     """extender_5kn_1kpods (no harness counterpart): 5000 tiered nodes in
     10 zones, one in five denied by the filter extender, 512 warm-up and
@@ -5257,40 +5552,49 @@ def drive(path: str, card: str) -> tuple[dict, dict]:
     return by_key, s.data_moves
 
 
-# The kernel-phase shape nearest to each main path's launches (chunk size
-# and node rows), for the redesign queue; a kernel not measured there
-# takes its first shape's numbers.
+# The kernel-phase shapes nearest to each main path's launches (chunk size
+# and node rows), for the redesign queue, in order: a kernel takes its
+# numbers from the first shape that measured it, or else its first
+# shape's numbers (a fallback the queue reports).  parity reads the pos-mode
+# select_host and truncate_feasible at "truncate", the rest at "c1".
 PATH_SHAPE = {
-    "density": "density", "ipa": "ipa", "spread_na": "spread_na", "inclusion": "inclusion",
-    "preemption_500n": "preemption_500n", "preemption_async_5kn": "preemption_async_5kn",
-    "daemonset_15kn": "daemonset", "intree_pvs_5kn_2kpods": "pv", "migrated_intree_pvs_5kn_5kpods": "pv",
-    "csi_pvs_5kn_5kpods": "pv", "default_images_ports_5kn_10kpods": "ports_images",
-    "default_images_ports_5kn_10kpods/explain": "c1", "preemption_default_search_5kn": "search",
-    "dra_claims_5kn_5kpods": "dra_path", "parity_basic_5kn_10kpods": "c1", "hetero_5kn_10kpods": "hetero",
-    "hetero_learned_1kn_5kpods": "hetero_learned", "binpack_rtcr_5kn_10kpods": "rtcr",
-    "extender_5kn_1kpods": "c1", "extender_5kn_1kpods/postfilter": "c1",
+    "density": ["density"], "ipa": ["ipa"], "spread_na": ["spread_na"], "inclusion": ["inclusion"],
+    "preemption_500n": ["preemption_500n"], "preemption_async_5kn": ["preemption_async_5kn"],
+    "daemonset_15kn": ["daemonset"], "intree_pvs_5kn_2kpods": ["pv"], "migrated_intree_pvs_5kn_5kpods": ["pv"],
+    "csi_pvs_5kn_5kpods": ["pv"], "default_images_ports_5kn_10kpods": ["ports_images"],
+    "default_images_ports_5kn_10kpods/explain": ["c1", "ipa_c1"],
+    "preemption_default_search_5kn": ["search", "ipa_c1"],
+    "dra_claims_5kn_5kpods": ["dra_path"], "parity_basic_5kn_10kpods": ["truncate", "c1"],
+    "hetero_5kn_10kpods": ["hetero"], "hetero_learned_1kn_5kpods": ["hetero_learned"],
+    "binpack_rtcr_5kn_10kpods": ["rtcr"], "extender_5kn_1kpods": ["c1"], "extender_5kn_1kpods/postfilter": ["c1"],
 }
 
 
 def redesign_queue(entries: list) -> dict:
     """Each kernel's device ms lost to its bound on the main paths:
-    launches x (ms - bound_ms), at the shape nearest to each path
+    launches x (ms - bound_ms), at the shapes nearest to each path
     (PATH_SHAPE), on density alone and summed over every path and
-    after-phase; largest first.  eval_chunk's term entries are subsets of
-    its launches and are left out."""
-    density, every = {}, {}
+    after-phase; largest first.  ``fallback`` lists, per kernel, the
+    paths with launches whose figure fell back to the kernel's first
+    shape.  eval_chunk's term entries are subsets of its launches and are
+    left out."""
+    density, every, fallback = {}, {}, {}
     for e in entries:
         if e["launches_by_path"] is None or e["name"] in ("eval_chunk/rtcr", "eval_chunk/throughput",
                                                           "eval_chunk/learned"):
             continue
         for path, n in e["launches_by_path"].items():
-            at = e["by_shape"].get(PATH_SHAPE.get(path, ""), e)
+            at = next((e["by_shape"][s] for s in PATH_SHAPE.get(path, ()) if s in e["by_shape"]), None)
+            if at is None:
+                at = e
+                if n:
+                    fallback.setdefault(e["name"], []).append(path)
             lost = n * (at["ms"] - at["bound_ms"])
             every[e["name"]] = every.get(e["name"], 0.0) + lost
             if path == "density":
                 density[e["name"]] = lost
     order = lambda d: dict(sorted(((k, v) for k, v in d.items() if v > 0), key=lambda kv: -kv[1]))  # noqa: E731
-    return {"density_ms": order(density), "all_paths_ms": order(every)}
+    return {"density_ms": order(density), "all_paths_ms": order(every), "fallback": fallback}
 
 
 def check_launches(label: str, launches: dict, terms: dict, must, must_terms, card: str) -> dict:
@@ -5401,7 +5705,8 @@ def main() -> int:
               "rtcr": check_rtcr_kernels(dev, REPS),
               **{shape: check_hetero_kernels(dev, REPS, shape) for shape in ("hetero", "hetero_learned")},
               "split": check_split_kernels(dev, REPS),
-              **{shape: check_cols_kernels(dev, REPS, shape) for shape in COLS_SHAPES}}
+              **{shape: check_cols_kernels(dev, REPS, shape) for shape in COLS_SHAPES},
+              "ipa_c1": check_ipa_c1_kernels(dev, REPS)}
     exact_cases = check_exact_cases(dev)
     for shape, table in shapes.items():
         for name, tm in table.items():

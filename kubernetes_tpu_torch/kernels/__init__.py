@@ -4,9 +4,10 @@
   eval_chunk      csrc/eval_chunk.cu      filters + weighted score, (C, N); a second launch runs the
                                           filters ordered after InterPodAffinity on what ipa_eval left
   ipa_eval        csrc/ipa_eval.cu        InterPodAffinity filter + score on top (truncated mode:
-                                          a filter launch, then a score launch after the cut)
+                                          a filter launch, then a score launch after the cut);
+                                          one pod over a thread block cluster (cluster_split)
   select_host     csrc/select_host.cu     argmax with hashed tie-break (truncated mode: ties in
-                                          rotated scan order)
+                                          rotated scan order); row mode: one pod over a cluster
   truncate_feasible csrc/truncate.cu      truncated mode's cut of the feasible set to the first
                                           numFeasibleNodesToFind in rotated scan order, per step
   resolve_commit  csrc/resolve_commit.cu  chunk deferral, cumulative fit, commit
@@ -80,6 +81,16 @@ EVAL_GROUP = 4
 # Shared memory an ipa_eval block may use for its per-pod tables (of the
 # H100's 227 KB a block can have).
 IPA_SMEM_CAP = 200 * 1024
+# Thread block clusters (select_host, ipa_eval): at most CLUSTER_MAX CTAs a
+# pod (16 takes the non-portable cluster size), and at least this many
+# node rows a CTA, chosen from the H100 sweeps of K at the paths' shapes
+# (PERF.md §6): select_host's reductions gain from a split only where a
+# pod's rows are many (two a thread of 512 at least) and its clusters fit
+# the card one CTA an SM; ipa_eval's per-node walk gains down to 128 rows
+# a CTA.
+CLUSTER_MAX = 16
+SELECT_ROWS_MIN = 1024
+IPA_ROWS_MIN = 128
 # The same for a spread_filter or late_scores block's domain tables.
 SPREAD_SMEM_CAP = 200 * 1024
 
@@ -146,13 +157,24 @@ def spread_smem_bytes(k: int, dv: int) -> int:
     return nbytes
 
 
+def ipa_smem(ra: int, rs: int, pf: int, tk: int, dv: int, k: int = 1) -> int:
+    """Dynamic shared memory of one ipa_eval CTA in a cluster of ``k``: the
+    preferred terms' weights (int64) and every own term's flags (3 x
+    (RA+RS+PF)), the own-term tallies ((RA+RS+PF) x DV), the forbidden and
+    weighted tables (2 x TK x DV) and the list lengths (1+RS+PF group
+    lists, 2 term lists) and each list's non-empty segments (1 + K ints),
+    as int32; above one CTA a pod, the cluster's summed tables and the K
+    CTAs' lengths besides."""
+    tables, lens = (ra + rs + pf) * dv + 2 * tk * dv, (1 + rs + pf) + 2
+    terms = 8 * pf + 4 * 3 * (ra + rs + pf)
+    return terms + 4 * (tables + lens if k == 1 else 2 * tables + lens + k * lens) + 4 * lens * (1 + k)
+
+
 def ipa_smem_bytes(ra: int, rs: int, pf: int, tk: int, dv: int) -> int:
-    """Dynamic shared memory of one ipa_eval block: the own-term tallies
-    ((RA+RS+PF) x DV), the forbidden and weighted tables (2 x TK x DV) and
-    the list lengths, as int32.  Raises NotImplementedError above
+    """ipa_smem of one block a pod.  Raises NotImplementedError above
     IPA_SMEM_CAP: such a pass needs the tables in device memory, which
     this kernel does not do."""
-    nbytes = 4 * ((ra + rs + pf) * dv + 2 * tk * dv + (1 + rs + pf) + 2)
+    nbytes = ipa_smem(ra, rs, pf, tk, dv)
     if nbytes > IPA_SMEM_CAP:
         raise NotImplementedError(
             f"ipa_eval: {nbytes} bytes of per-pod tables exceed its shared-memory cap "
@@ -253,6 +275,25 @@ def eval_tile(c: int, n: int, sms: int) -> tuple[int, int]:
         else:
             break
     return nodes, pods
+
+
+def cluster_split(c: int, n: int, sms: int, rows_min: int, smem_per_cta=None, one_wave: bool = False) -> int:
+    """K, the CTAs of the thread block cluster that takes one pod of a
+    select_host or ipa_eval launch of C pods over N node rows, on a card
+    with ``sms`` SMs: the smallest of 1, 2, 4, 8, 16 with C x K >= sms (1
+    where C >= sms), halved while a CTA would get fewer than ``rows_min``
+    rows (N // K), while, with ``smem_per_cta`` (K -> a CTA's shared memory
+    in bytes), a CTA would need more than IPA_SMEM_CAP, and, with
+    ``one_wave``, while the grid would hold more CTAs than SMs (C x K >
+    sms).  One CTA a pod is a scheme of its own, picked by shape: the
+    kernel runs it as a plain launch."""
+    k = 1
+    while k < CLUSTER_MAX and c * k < sms:
+        k *= 2
+    while k > 1 and (n // k < rows_min or (smem_per_cta is not None and smem_per_cta(k) > IPA_SMEM_CAP)
+                     or (one_wave and c * k > sms)):
+        k //= 2
+    return k
 
 
 _SMS: dict = {}
@@ -549,8 +590,8 @@ def ipa_eval(state, pf: dict, feasible, total, fail, ipa: IpaSpec, phase: int = 
     bit = plain.ipa_bit(ipa) if phase & plain.IPA_FILTER else -1
     weight = ipa.weight if phase & plain.IPA_SCORE else 0
     _check("fail_mask", fail, torch.int32, (feasible.shape[0],), feasible.device)
-    args, scratch, smem = _ipa_args(state, pf, feasible, total, ipa, bit, weight)
-    build.launch("ipa_eval", *args, _ptr(fail), *_ptr_list(scratch), smem, _stream(feasible.device))
+    args, scratch, smem, k = _ipa_args(state, pf, feasible, total, ipa, bit, weight)
+    build.launch("ipa_eval", *args, _ptr(fail), *_ptr_list(scratch), smem, k, _stream(feasible.device))
     ipa_eval.launches += 1
     return feasible, total, fail
 
@@ -562,7 +603,7 @@ def _ptr_list(scratch) -> list:
 def _ipa_args(state, pf: dict, feasible, total, ipa: IpaSpec, bit: int, weight: int):
     """ipa_eval's and ipa_eval_cols' launch arguments up to the fail mask,
     checked; the scratch (group lists, term lists, raw scores); the shared
-    memory a block needs."""
+    memory a CTA needs; the CTAs a pod (cluster_split)."""
     dom = ipa.ctx.dom
     dev = feasible.device
     c, n = feasible.shape
@@ -571,7 +612,9 @@ def _ipa_args(state, pf: dict, feasible, total, ipa: IpaSpec, bit: int, weight: 
     et = state.et_counts.shape[0]
     dv = dom.group_dom.shape[2]
     ra, rs, npf = (pf[f"ipa_{p}_valid"].shape[1] for p in ("ra", "rs", "pf"))
-    smem = ipa_smem_bytes(ra, rs, npf, tk, dv)
+    ipa_smem_bytes(ra, rs, npf, tk, dv)
+    k = cluster_split(c, n, _sms(dev), IPA_ROWS_MIN, lambda k: ipa_smem(ra, rs, npf, tk, dv, k))
+    smem = ipa_smem(ra, rs, npf, tk, dv, k)
     b, i32, i64 = torch.bool, torch.int32, torch.int64
     node_args = [
         _check("topo_vals", state.topo_vals, i32, (n, tk), dev),
@@ -602,7 +645,7 @@ def _ipa_args(state, pf: dict, feasible, total, ipa: IpaSpec, bit: int, weight: 
     )
     args = [c, n, tk, dv, g, et, ra, rs, npf, bit, int(weight),
             *[_ptr(a) for a in node_args], *[_ptr(a) for a in pod_args], _ptr(feasible), _ptr(total)]
-    return args, scratch, smem
+    return args, scratch, smem, k
 
 
 def ipa_eval_cols(state, pf: dict, feasible, total, ipa: IpaSpec, phase: int):
@@ -617,11 +660,12 @@ def ipa_eval_cols(state, pf: dict, feasible, total, ipa: IpaSpec, phase: int):
         raise ValueError("ipa_eval_cols: one phase a launch")
     dev = feasible.device
     filt = phase == plain.IPA_FILTER
-    args, scratch, smem = _ipa_args(state, pf, feasible, total, ipa, 0 if filt else -1, 0 if filt else ipa.weight)
+    args, scratch, smem, k = _ipa_args(state, pf, feasible, total, ipa, 0 if filt else -1,
+                                       0 if filt else ipa.weight)
     if not filt and not ipa.weight:
         raise ValueError("ipa_eval_cols: the score phase needs a weight")
     ok = torch.empty(feasible.shape, dtype=torch.bool, device=dev) if filt else None
-    build.launch("ipa_eval_cols", *args, _ptr(None), *_ptr_list(scratch), _ptr(ok), smem, _stream(dev))
+    build.launch("ipa_eval_cols", *args, _ptr(None), *_ptr_list(scratch), _ptr(ok), smem, k, _stream(dev))
     ipa_eval_cols.launches += 1
     return ok if filt else scratch[2]
 
@@ -676,7 +720,8 @@ def conflict_pairs(pf: dict, nchunks: int, c: int):
 def select_host(feasible, total, steps, seed_mul: int, nominated_row, pos=None):
     """(pick (C,) i32, best (C,) i64, feasible count (C,) i32) per pod;
     with ``pos`` ((N,) i32, truncate_feasible's) ties count in rotated
-    scan order."""
+    scan order.  In row mode each pod runs on a cluster of cluster_split
+    CTAs, in pos mode on one CTA."""
     if _on_cpu(feasible):
         return plain.select_host(feasible, total, steps, seed_mul, nominated_row, pos)
     dev = feasible.device
@@ -694,7 +739,8 @@ def select_host(feasible, total, steps, seed_mul: int, nominated_row, pos=None):
     build.launch(
         "select_host",
         _ptr(feasible), _ptr(total), _ptr(steps), seed_mul & 0xFFFFFFFF,
-        _ptr(nominated_row), c, n, _ptr(pos), _ptr(pick), _ptr(best), _ptr(feas), _stream(dev),
+        _ptr(nominated_row), c, n, _ptr(pos), _ptr(pick), _ptr(best), _ptr(feas),
+        1 if pos is not None else cluster_split(c, n, _sms(dev), SELECT_ROWS_MIN, one_wave=True), _stream(dev),
     )
     select_host.launches += 1
     return pick, best, feas

@@ -66,9 +66,9 @@ _SIGNATURES: dict[str, list] = {
     "eval_chunk_cols": [_P] * 37 + [_I] * 3 + [_P] * 6 + [_I] * 3 + [_P, _I]
                        + [_P, _I, _I, _P, _I, _P, _I, _I, _L, _I, _L, _L, _L, _L, _L, _I, _L, _I, _I, _I, _I]
                        + [_I] + [_P] * 4 + [_I, _P],
-    "ipa_eval": [_I] * 10 + [_L] + [_P] * 30 + [_I, _P],
-    "ipa_eval_cols": [_I] * 10 + [_L] + [_P] * 31 + [_I, _P],
-    "select_host": [_P, _P, _P, _U, _P, _I, _I, _P, _P, _P, _P, _P],
+    "ipa_eval": [_I] * 10 + [_L] + [_P] * 30 + [_I, _I, _P],
+    "ipa_eval_cols": [_I] * 10 + [_L] + [_P] * 31 + [_I, _I, _P],
+    "select_host": [_P, _P, _P, _U, _P, _I, _I, _P, _P, _P, _P, _I, _P],
     "truncate_feasible": [_P] * 5 + [_I, _I] + [_P] * 3,
     "resolve_commit": [_P, _P, _P, _I] + [_P] * 34 + [_I] * 12 + [_P, _P],
     "conflict_pairs": [_P] * 13 + [_I] * 11 + [_P, _P],

@@ -8,27 +8,45 @@
 // products (gathers are slow on the TPU); here each node gathers
 // tbl[t, topo_vals[n, slot]] directly.
 //
-// One block per pod.
-//   Phase A builds the pod's small tables in shared memory:
+// One pod over a thread block cluster of K CTAs (K from the host's
+// cluster_split: more CTAs a pod where the chunk is small, so a chunk-1
+// step at N=8192 runs on 16 SMs instead of one; K = 1 is one block a pod,
+// a plain launch).  The pod's term flags are staged in shared memory
+// first, so no later loop over the terms waits on device memory.
+//   Phase A builds the pod's small tables in shared memory; CTA r of the
+//   cluster scans groups [r*G/K, (r+1)*G/K) of each mask and existing
+//   terms [r*ET/K, (r+1)*ET/K), into partial tables in its own shared
+//   memory and its own segment of each compact list; after cluster.sync
+//   every CTA sums the K partial tables over distributed shared memory
+//   into its own copy (integer counts: the order of the sum does not
+//   matter) and reads the K segments' lengths:
 //     - compact lists of the groups each own-term mask selects (the required
 //       affinity's all-terms mask, each required anti-affinity term, each
-//       preferred term), written to a global scratch row per pod;
+//       preferred term), written to a global scratch row per pod, one
+//       segment of it per CTA, every mask's loads in flight together
+//       (every CTA walks the non-empty segments);
 //     - the own-term domain tallies tbl[t][d] = sum over the term's groups
-//       of group_dom[g, slot_t, d] (hostname terms are per node instead);
+//       of group_dom[g, slot_t, d] (hostname terms are per node instead),
+//       every term's entries in one strided walk of the block;
 //     - the forbidden table (TK x DV) of existing required anti-affinity
 //       terms matching the pod, and the weighted table (TK x DV) of existing
 //       terms' signed weights times their domain carriers, from et_dom;
 //       hostname existing terms go to compact lists instead.
-//   Phase B walks the nodes: the three filter checks on nodes eval_chunk
+//   Phase B walks the CTA's node slice [r*S, (r+1)*S), S = ceil(N/K)
+//   rounded up to 32: the three filter checks on nodes eval_chunk
 //   left feasible (fail bit at the op's position in the filter order), and
 //   the raw score on the nodes that stay feasible.  Hostname terms sum the
 //   node's group_counts (own terms) or et_counts (existing terms) over
 //   their compact lists.  The lonely-pod rule needs the required-affinity
 //   terms' totals over every key-bearing node first: a block reduction over
-//   the nodes when such a term uses the hostname key.
-//   A block reduction then finds the min and max raw score over the final
-//   feasible set, and the last walk zeroes `total` on infeasible nodes and
-//   adds weight x the normalised score (int64 floor division) to the rest.
+//   the slice, then a sum over the cluster, when such a term uses the
+//   hostname key.
+//   One exchange over the cluster then gives the min and max raw score over
+//   the final feasible set (and whether any node failed the filter: the
+//   first CTA sets the fail bit), and the last walk over the slice zeroes
+//   `total` on infeasible nodes and adds weight x the normalised score
+//   (int64 floor division) to the rest.  No global atomics; a CTA does not
+//   exit before its peers have read its shared memory.
 //
 // Phases: ``bit`` < 0 skips the filter and ``weight`` 0 the score, so one
 // launch runs either phase or both (the default, one launch a chunk).
@@ -50,10 +68,16 @@
 // et_counts) row per used existing term; and read and write the chunk's
 // feasible and total (C x N x 9 bytes each way).  The design reads every
 // mask once per pod, keeps the per-pod tables in shared memory and walks
-// the node axis coalesced.
+// the node axis coalesced.  On the card it is latency-bound: the per-node
+// walk of phase B (chains of dependent loads through the compact lists)
+// takes most of a chunk-1 launch, which is why the node axis is split.
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -97,18 +121,40 @@ struct IpaArgs {
   long long* total;         // (C, N)
   unsigned int* fail_mask;  // (C,)
   // Scratch.
-  int* glist;      // (C, 1+RS+PF, G): compact group lists
-  int* elist;      // (C, 2, ET): hostname existing terms (anti, weighted)
+  int* glist;      // (C, 1+RS+PF, G): compact group lists, a segment of ceil(G/K) a CTA
+  int* elist;      // (C, 2, ET): hostname existing terms (anti, weighted), a segment of ceil(ET/K) a CTA
   long long* raw;  // (C, N)
   // Columns mode: the filter's own verdict on every node (C, N).
   unsigned char* ok_out;
 };
 
-// Per-node count of the pods of a compact group list.
-__device__ __forceinline__ int list_count(const IpaArgs& a, const int* list, int len, int n) {
-  int s = 0;
-  for (int i = 0; i < len; ++i) s += a.group_counts[(size_t)list[i] * a.N + n];
-  return s;
+// A compact list in K segments: segment q starts at list + q * seg and
+// holds lens[q * stride] entries; the nn segments nz[0..nn) are the
+// non-empty ones.
+struct Segs {
+  const int* list;
+  const int* lens;
+  const int* nz;
+  int nn, seg, stride;
+};
+
+// Per-node count of the pods of a segmented group list; four loads in
+// flight at a time.
+__device__ __forceinline__ int list_count(const IpaArgs& a, const Segs& s, int n) {
+  int sum = 0;
+  for (int j = 0; j < s.nn; ++j) {
+    const int q = s.nz[j];
+    const int* l = s.list + q * s.seg;
+    const int len = s.lens[q * s.stride];
+    int i = 0;
+    for (; i + 4 <= len; i += 4) {
+      const int ga = l[i], gb = l[i + 1], gc = l[i + 2], gd = l[i + 3];
+      sum += a.group_counts[(size_t)ga * a.N + n] + a.group_counts[(size_t)gb * a.N + n] +
+             a.group_counts[(size_t)gc * a.N + n] + a.group_counts[(size_t)gd * a.N + n];
+    }
+    for (; i < len; ++i) sum += a.group_counts[(size_t)l[i] * a.N + n];
+  }
+  return sum;
 }
 
 __device__ __forceinline__ long long block_sum(long long v, long long* red) {
@@ -121,84 +167,115 @@ __device__ __forceinline__ long long block_sum(long long v, long long* red) {
   return s;
 }
 
-__device__ __forceinline__ long long block_min(long long v, long long* red) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const long long o = __shfl_down_sync(0xffffffffu, v, off);
-    v = o < v ? o : v;
-  }
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  long long s = red[0];
-  for (int w = 1; w < kWarps; ++w) s = red[w] < s ? red[w] : s;
-  return s;
+// Arrive without ordering earlier memory operations: only to say that this
+// CTA's reads of its peers' shared memory, whose values it has already used,
+// are done.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ long long block_max(long long v, long long* red) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const long long o = __shfl_down_sync(0xffffffffu, v, off);
-    v = o > v ? o : v;
-  }
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  long long s = red[0];
-  for (int w = 1; w < kWarps; ++w) s = red[w] > s ? red[w] : s;
-  return s;
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// Appends the groups of a G-long mask to a compact list.
-__device__ void compact(const unsigned char* mask, int G, int* list, int* len) {
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    if (mask[g]) list[atomicAdd(len, 1)] = g;
-  }
-}
-
-// tbl[d] += sum over the list's groups of group_dom[g, slot, d].
-__device__ void tally(const IpaArgs& a, const int* list, int len, int slot, int* tbl) {
-  for (int i = threadIdx.x; i < len * a.DV; i += blockDim.x) {
+// tbl[d] += sum over the list's groups of group_dom[g, slot, d], for the
+// entries i = start, start + blockDim.x, ... of its len x DV; returns the
+// thread's start in the next term's entries, so the block walks the
+// tallies of every term as one strided loop.
+__device__ int tally(const IpaArgs& a, const int* list, int len, int slot, int* tbl, int start) {
+  const int work = len * a.DV;
+  int i = start;
+  for (; i < work; i += blockDim.x) {
     const int g = list[i / a.DV];
     const int d = i % a.DV;
     const float v = a.group_dom[((size_t)g * a.TK + slot) * a.DV + d];
     if (v != 0.0f) atomicAdd(tbl + d, (int)v);
   }
+  return i - work;
 }
 
 // kCols: the columns mode of the attribution pass (see ipa_eval_cols_launch).
 template <bool kCols>
-__global__ void ipa_eval_kernel(IpaArgs a) {
-  extern __shared__ int smem[];
+__global__ void __launch_bounds__(kThreads) ipa_eval_kernel(IpaArgs a) {
+  // Dynamic shared memory: the preferred terms' weights; each own term's
+  // (valid, slot, hostname) flags; this CTA's partial tables and list
+  // lengths; with K > 1 the cluster's summed tables and every CTA's
+  // lengths after them.
+  extern __shared__ long long smem_ll[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int K = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
   const int T = a.RA + a.RS + a.PF;
   const int NL = 1 + a.RS + a.PF;
-  int* tbl = smem;                    // (T, DV): ra terms, rs terms, pf terms
-  int* forb = tbl + T * a.DV;         // (TK, DV)
-  int* wsum = forb + a.TK * a.DV;     // (TK, DV)
-  int* glen = wsum + a.TK * a.DV;     // (NL,)
-  int* elen = glen + NL;              // (2,)
+  const int NLE = NL + 2;  // the group lists' lengths, then the two term lists'
+  const int ntab = T * a.DV + 2 * a.TK * a.DV;
+  long long* pf_w = smem_ll;        // (PF,)
+  int* t_valid = (int*)(pf_w + a.PF);  // (T,): ra terms, rs terms, pf terms
+  int* t_slot = t_valid + T;
+  int* t_host = t_slot + T;
+  int* part = t_host + T;
+  int* lens = part + ntab;
+  int* fin = K > 1 ? lens + NLE : part;
+  int* alen = K > 1 ? fin + ntab : lens;
+  int* nzn = alen + (K > 1 ? K * NLE : NLE);  // (NLE,): non-empty segments of each list
+  int* nzq = nzn + NLE;                       // (NLE, K): their ranks
+  int* ptbl = part;                   // (T, DV): ra terms, rs terms, pf terms
+  int* pforb = ptbl + T * a.DV;       // (TK, DV)
+  int* pwsum = pforb + a.TK * a.DV;   // (TK, DV)
+  const int* tbl = fin;
+  const int* forb = fin + T * a.DV;
+  const int* wsum = forb + a.TK * a.DV;
   __shared__ long long red[kWarps];
+  __shared__ long long s_mn[kWarps];
+  __shared__ long long s_mx[kWarps];
+  __shared__ long long s_xch[4];  // lonely-pod partial, then (min, max, any fail): read by the cluster
+  __shared__ long long s_all[3];  // the cluster's (min, max, any fail)
+  __shared__ long long s_lonely;
   __shared__ int s_any_fail;
 
-  const int c = blockIdx.x;
+  const int c = blockIdx.x / K;
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const bool filt = a.bit >= 0;
   const bool score = a.weight != 0;
-  const int ntab = T * a.DV + 2 * a.TK * a.DV + NL + 2;
-  for (int i = tid; i < ntab; i += blockDim.x) smem[i] = 0;
+  for (int i = tid; i < ntab + NLE; i += blockDim.x) part[i] = 0;
+  for (int t = tid; t < T; t += blockDim.x) {
+    const unsigned char* valid = t < a.RA ? a.ra_valid + (size_t)c * a.RA + t
+                                 : t < a.RA + a.RS ? a.rs_valid + (size_t)c * a.RS + (t - a.RA)
+                                                   : a.pf_valid + (size_t)c * a.PF + (t - a.RA - a.RS);
+    const int* slot = t < a.RA ? a.ra_slot + (size_t)c * a.RA + t
+                      : t < a.RA + a.RS ? a.rs_slot + (size_t)c * a.RS + (t - a.RA)
+                                        : a.pf_slot + (size_t)c * a.PF + (t - a.RA - a.RS);
+    const unsigned char* host = t < a.RA ? a.ra_host + (size_t)c * a.RA + t
+                                : t < a.RA + a.RS ? a.rs_host + (size_t)c * a.RS + (t - a.RA)
+                                                  : a.pf_host + (size_t)c * a.PF + (t - a.RA - a.RS);
+    t_valid[t] = *valid;
+    t_slot[t] = *slot;
+    t_host[t] = *host;
+    if (t >= a.RA + a.RS) pf_w[t - a.RA - a.RS] = a.pf_w[(size_t)c * a.PF + (t - a.RA - a.RS)];
+  }
   if (tid == 0) s_any_fail = 0;
   __syncthreads();
+  const int* ra_valid = t_valid;
+  const int* ra_slot = t_slot;
+  const int* ra_host = t_host;
+  const int* rs_valid = t_valid + a.RA;
+  const int* rs_slot = t_slot + a.RA;
+  const int* rs_host = t_host + a.RA;
+  const int* pf_valid = t_valid + a.RA + a.RS;
+  const int* pf_slot = t_slot + a.RA + a.RS;
+  const int* pf_host = t_host + a.RA + a.RS;
+
+  const int gseg = (a.G + K - 1) / K;
+  const int g0 = min(a.G, rank * gseg), g1 = min(a.G, g0 + gseg);
+  const int eseg = (a.ET + K - 1) / K;
+  const int e0 = min(a.ET, rank * eseg), e1 = min(a.ET, e0 + eseg);
+  const int size = (((a.N + K - 1) / K + 31) / 32) * 32;
+  const int n0 = min(a.N, rank * size), n1 = min(a.N, n0 + size);
 
   int* glist = a.glist + (size_t)c * NL * a.G;
   int* elist = a.elist + (size_t)c * 2 * a.ET;
-  const unsigned char* ra_valid = a.ra_valid + (size_t)c * a.RA;
-  const int* ra_slot = a.ra_slot + (size_t)c * a.RA;
-  const unsigned char* ra_host = a.ra_host + (size_t)c * a.RA;
-  const unsigned char* rs_valid = a.rs_valid + (size_t)c * a.RS;
-  const int* rs_slot = a.rs_slot + (size_t)c * a.RS;
-  const unsigned char* rs_host = a.rs_host + (size_t)c * a.RS;
-  const unsigned char* pf_valid = a.pf_valid + (size_t)c * a.PF;
-  const int* pf_slot = a.pf_slot + (size_t)c * a.PF;
-  const unsigned char* pf_host = a.pf_host + (size_t)c * a.PF;
-  const long long* pf_w = a.pf_w + (size_t)c * a.PF;
 
   bool any_ra = false, ra_host_any = false;
   for (int t = 0; t < a.RA; ++t) {
@@ -209,65 +286,94 @@ __global__ void ipa_eval_kernel(IpaArgs a) {
   }
   any_ra = any_ra && filt;
 
-  // ---- Phase A: compact group lists, then the own-term tallies. ----
-  if (any_ra) compact(a.ra_allmask + (size_t)c * a.G, a.G, glist, glen);
-  for (int t = 0; t < a.RS; ++t) {
-    if (filt && rs_valid[t]) {
-      compact(a.rs_groups + ((size_t)c * a.RS + t) * a.G, a.G, glist + (size_t)(1 + t) * a.G, glen + 1 + t);
+  // ---- Phase A: this CTA's segments of every compact group list, the
+  // masks' loads all in flight together. ----
+  const int gn = g1 - g0;
+  for (int idx = tid; idx < NL * gn; idx += blockDim.x) {
+    const int l = idx / gn;
+    const int g = g0 + (idx - l * gn);
+    bool on;
+    const unsigned char* mask;
+    if (l == 0) {
+      on = any_ra;
+      mask = a.ra_allmask + (size_t)c * a.G;
+    } else if (l <= a.RS) {
+      on = filt && rs_valid[l - 1];
+      mask = a.rs_groups + ((size_t)c * a.RS + (l - 1)) * a.G;
+    } else {
+      on = score && pf_valid[l - 1 - a.RS];
+      mask = a.pf_groups + ((size_t)c * a.PF + (l - 1 - a.RS)) * a.G;
     }
-  }
-  for (int t = 0; t < a.PF; ++t) {
-    if (score && pf_valid[t]) {
-      compact(a.pf_groups + ((size_t)c * a.PF + t) * a.G, a.G,
-              glist + (size_t)(1 + a.RS + t) * a.G, glen + 1 + a.RS + t);
-    }
+    if (on && mask[g]) glist[(size_t)l * a.G + g0 + atomicAdd(lens + l, 1)] = g;
   }
   // Existing terms matching the pod: domain terms fold into the (TK, DV)
-  // tables, hostname terms into compact lists.
+  // tables, hostname terms into compact list segments.
   const unsigned char* et_match = a.et_match + (size_t)c * a.ET;
   const unsigned char* et_anti = a.et_anti + (size_t)c * a.ET;
   const long long* et_w = a.et_w + (size_t)c * a.ET;
-  for (int e = tid; e < a.ET; e += blockDim.x) {
+  for (int e = e0 + tid; e < e1; e += blockDim.x) {
     if (!et_match[e]) continue;
     const bool host = a.et_host[e] != 0;
     const int slot = a.et_slot[e];
     const float* dom = a.et_dom + (size_t)e * a.DV;
     if (filt && et_anti[e]) {
       if (host) {
-        elist[atomicAdd(elen, 1)] = e;
+        elist[e0 + atomicAdd(lens + NL, 1)] = e;
       } else {
         for (int d = 0; d < a.DV; ++d) {
-          if (dom[d] > 0.5f) atomicAdd(forb + slot * a.DV + d, 1);
+          if (dom[d] > 0.5f) atomicAdd(pforb + slot * a.DV + d, 1);
         }
       }
     }
     const long long w = et_w[e];
     if (score && w != 0) {
       if (host) {
-        elist[a.ET + atomicAdd(elen + 1, 1)] = e;
+        elist[a.ET + e0 + atomicAdd(lens + NL + 1, 1)] = e;
       } else {
         for (int d = 0; d < a.DV; ++d) {
-          if (dom[d] != 0.0f) atomicAdd(wsum + slot * a.DV + d, (int)w * (int)dom[d]);
+          if (dom[d] != 0.0f) atomicAdd(pwsum + slot * a.DV + d, (int)w * (int)dom[d]);
         }
       }
     }
   }
   __syncthreads();
-  for (int t = 0; t < a.RA; ++t) {
-    if (any_ra && ra_valid[t] && !ra_host[t]) tally(a, glist, glen[0], ra_slot[t], tbl + t * a.DV);
-  }
-  for (int t = 0; t < a.RS; ++t) {
-    if (filt && rs_valid[t] && !rs_host[t]) {
-      tally(a, glist + (size_t)(1 + t) * a.G, glen[1 + t], rs_slot[t], tbl + (a.RA + t) * a.DV);
+  // The own-term tallies of this CTA's groups, every term's entries in one
+  // strided walk of the block.
+  for (int t = 0, start = tid; t < T; ++t) {
+    const int l = t < a.RA ? 0 : 1 + (t - a.RA);
+    const bool on = t < a.RA ? any_ra : t < a.RA + a.RS ? filt : score;
+    if (on && t_valid[t] && !t_host[t]) {
+      start = tally(a, glist + (size_t)l * a.G + g0, lens[l], t_slot[t], ptbl + t * a.DV, start);
     }
   }
-  for (int t = 0; t < a.PF; ++t) {
-    if (score && pf_valid[t] && !pf_host[t]) {
-      tally(a, glist + (size_t)(1 + a.RS + t) * a.G, glen[1 + a.RS + t], pf_slot[t],
-            tbl + (a.RA + a.RS + t) * a.DV);
+  // The cluster's tables and every segment's length (the list segments in
+  // device memory are ordered by the same barrier).
+  const auto sync_all = [&]() {
+    if (K > 1) {
+      cluster.sync();
+    } else {
+      __syncthreads();
     }
+  };
+  sync_all();
+  if (K > 1) {
+    for (int i = tid; i < ntab; i += blockDim.x) {
+      int sum = 0;
+      for (int q = 0; q < K; ++q) sum += cluster.map_shared_rank(part, q)[i];
+      fin[i] = sum;
+    }
+    for (int i = tid; i < K * NLE; i += blockDim.x) alen[i] = cluster.map_shared_rank(lens, i / NLE)[i % NLE];
+    __syncthreads();
+  }
+  for (int l = tid; l < NLE; l += blockDim.x) {
+    int nn = 0;
+    for (int q = 0; q < K; ++q) {
+      if (alen[q * NLE + l] > 0) nzq[l * K + nn++] = q;
+    }
+    nzn[l] = nn;
   }
   __syncthreads();
+  const auto segs = [&](int l) { return Segs{glist + (size_t)l * a.G, alen + l, nzq + l * K, nzn[l], gseg, NLE}; };
 
   // The lonely-pod rule: the required-affinity terms' matching pods over
   // every key-bearing node, summed over the valid terms.
@@ -275,16 +381,26 @@ __global__ void ipa_eval_kernel(IpaArgs a) {
   if (any_ra) {
     long long tot = 0;
     if (ra_host_any) {
-      for (int n = tid; n < a.N; n += blockDim.x) {
+      const Segs ra = segs(0);
+      for (int n = n0 + tid; n < n1; n += blockDim.x) {
         int cnt = -1;
         for (int t = 0; t < a.RA; ++t) {
           if (ra_valid[t] && ra_host[t] && a.topo_vals[(size_t)n * a.TK + ra_slot[t]] >= 0) {
-            if (cnt < 0) cnt = list_count(a, glist, glen[0], n);
+            if (cnt < 0) cnt = list_count(a, ra, n);
             tot += cnt;
           }
         }
       }
       tot = block_sum(tot, red);
+      if (tid == 0) s_xch[0] = tot;
+      sync_all();
+      if (warp == 0) {
+        long long x = lane < K ? cluster.map_shared_rank(s_xch, lane)[0] : 0;
+        for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+        if (lane == 0) s_lonely = x;
+      }
+      __syncthreads();
+      tot = s_lonely;
     }
     for (int t = 0; t < a.RA; ++t) {
       if (ra_valid[t] && !ra_host[t]) {
@@ -295,14 +411,14 @@ __global__ void ipa_eval_kernel(IpaArgs a) {
   }
   const bool lonely_ok = counts_empty && a.ra_self[c] != 0;
 
-  // ---- Phase B: filter and raw score per node. ----
+  // ---- Phase B: filter and raw score per node of the slice. ----
   long long mn = kBig, mx = -kBig;
   unsigned char* feas_row = a.feasible + (size_t)c * a.N;
   long long* total_row = a.total + (size_t)c * a.N;
   long long* raw_row = a.raw + (size_t)c * a.N;
   const int* ehost_anti = elist;
   const int* ehost_w = elist + a.ET;
-  for (int n = tid; n < a.N; n += blockDim.x) {
+  for (int n = n0 + tid; n < n1; n += blockDim.x) {
     const int* tv = a.topo_vals + (size_t)n * a.TK;
     bool f = feas_row[n] != 0;
     if (filt && (kCols || f)) {
@@ -313,9 +429,14 @@ __global__ void ipa_eval_kernel(IpaArgs a) {
         if (v >= 0 && v < a.DV) hit += forb[k * a.DV + v];
       }
       bool ok = hit == 0;
-      for (int i = 0; ok && i < elen[0]; ++i) {
-        const int e = ehost_anti[i];
-        if (a.et_counts[(size_t)e * a.N + n] > 0 && tv[a.et_slot[e]] >= 0) ok = false;
+      for (int j = 0; ok && j < nzn[NL]; ++j) {
+        const int q = nzq[NL * K + j];
+        const int* l = ehost_anti + q * eseg;
+        const int len = alen[q * NLE + NL];
+        for (int i = 0; ok && i < len; ++i) {
+          const int e = l[i];
+          if (a.et_counts[(size_t)e * a.N + n] > 0 && tv[a.et_slot[e]] >= 0) ok = false;
+        }
       }
       // (2) incoming required affinity
       if (ok && any_ra) {
@@ -328,7 +449,7 @@ __global__ void ipa_eval_kernel(IpaArgs a) {
           if (v < 0) {
             keys_ok = false;
           } else if (ra_host[t]) {
-            if (cnt < 0) cnt = list_count(a, glist, glen[0], n);
+            if (cnt < 0) cnt = list_count(a, segs(0), n);
             at = cnt;
           } else if (v < a.DV) {
             at = tbl[t * a.DV + v];
@@ -344,7 +465,7 @@ __global__ void ipa_eval_kernel(IpaArgs a) {
         if (v < 0) continue;
         int at = 0;
         if (rs_host[t]) {
-          at = list_count(a, glist + (size_t)(1 + t) * a.G, glen[1 + t], n);
+          at = list_count(a, segs(1 + t), n);
         } else if (v < a.DV) {
           at = tbl[(a.RA + t) * a.DV + v];
         }
@@ -367,7 +488,7 @@ __global__ void ipa_eval_kernel(IpaArgs a) {
         if (v < 0) continue;
         long long at = 0;
         if (pf_host[t]) {
-          at = list_count(a, glist + (size_t)(1 + a.RS + t) * a.G, glen[1 + a.RS + t], n);
+          at = list_count(a, segs(1 + a.RS + t), n);
         } else if (v < a.DV) {
           at = tbl[(a.RA + a.RS + t) * a.DV + v];
         }
@@ -377,9 +498,14 @@ __global__ void ipa_eval_kernel(IpaArgs a) {
         const int v = tv[k];
         if (v >= 0 && v < a.DV) r += wsum[k * a.DV + v];
       }
-      for (int i = 0; i < elen[1]; ++i) {
-        const int e = ehost_w[i];
-        if (tv[a.et_slot[e]] >= 0) r += et_w[e] * (long long)a.et_counts[(size_t)e * a.N + n];
+      for (int j = 0; j < nzn[NL + 1]; ++j) {
+        const int q = nzq[(NL + 1) * K + j];
+        const int* l = ehost_w + q * eseg;
+        const int len = alen[q * NLE + NL + 1];
+        for (int i = 0; i < len; ++i) {
+          const int e = l[i];
+          if (tv[a.et_slot[e]] >= 0) r += et_w[e] * (long long)a.et_counts[(size_t)e * a.N + n];
+        }
       }
       raw_row[n] = r;
       mn = r < mn ? r : mn;
@@ -388,28 +514,75 @@ __global__ void ipa_eval_kernel(IpaArgs a) {
       total_row[n] = 0;
     }
   }
-  __syncthreads();
-  if (!kCols && tid == 0 && s_any_fail) a.fail_mask[c] |= 1u << a.bit;
-  if (!score) return;
 
-  // ---- Normalisation over the final feasible set. ----
-  mn = block_min(mn, red);
-  mx = block_max(mx, red);
-  const long long diff = mx - mn;
-  for (int n = tid; n < a.N; n += blockDim.x) {
-    long long norm = 0;
-    if (feas_row[n] && diff > 0) norm = floordiv_i64(100LL * (raw_row[n] - mn), diff);
-    if (kCols) {
-      // The column on every node (0 off the feasible set, as the op
-      // gives it), and total unmasked.
-      raw_row[n] = norm;
-      total_row[n] += a.weight * norm;
-    } else if (feas_row[n]) {
-      total_row[n] += a.weight * norm;
-    } else {
-      total_row[n] = 0;
+  // ---- One exchange over the cluster: (min, max) over the final feasible
+  // set and whether any node failed the filter. ----
+  for (int off = 16; off > 0; off >>= 1) {
+    const long long omn = __shfl_xor_sync(0xffffffffu, mn, off);
+    const long long omx = __shfl_xor_sync(0xffffffffu, mx, off);
+    mn = omn < mn ? omn : mn;
+    mx = omx > mx ? omx : mx;
+  }
+  if (lane == 0) {
+    s_mn[warp] = mn;
+    s_mx[warp] = mx;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int w = 1; w < kWarps; ++w) {
+      mn = s_mn[w] < mn ? s_mn[w] : mn;
+      mx = s_mx[w] > mx ? s_mx[w] : mx;
+    }
+    s_xch[1] = mn;
+    s_xch[2] = mx;
+    s_xch[3] = s_any_fail;
+  }
+  sync_all();
+  if (warp == 0) {
+    long long xmn = kBig, xmx = -kBig, xf = 0;
+    if (lane < K) {
+      const long long* x = cluster.map_shared_rank(s_xch, lane);
+      xmn = x[1];
+      xmx = x[2];
+      xf = x[3];
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      const long long omn = __shfl_xor_sync(0xffffffffu, xmn, off);
+      const long long omx = __shfl_xor_sync(0xffffffffu, xmx, off);
+      xf |= __shfl_xor_sync(0xffffffffu, xf, off);
+      xmn = omn < xmn ? omn : xmn;
+      xmx = omx > xmx ? omx : xmx;
+    }
+    if (lane == 0) {
+      s_all[0] = xmn;
+      s_all[1] = xmx;
+      s_all[2] = xf;
     }
   }
+  __syncthreads();
+  // The peers are done with this CTA's shared memory once all have read.
+  if (K > 1) cluster_arrive();
+  if (!kCols && rank == 0 && tid == 0 && s_all[2]) a.fail_mask[c] |= 1u << a.bit;
+  if (score) {
+    // ---- Normalisation over the final feasible set, on the slice. ----
+    mn = s_all[0];
+    const long long diff = s_all[1] - mn;
+    for (int n = n0 + tid; n < n1; n += blockDim.x) {
+      long long norm = 0;
+      if (feas_row[n] && diff > 0) norm = floordiv_i64(100LL * (raw_row[n] - mn), diff);
+      if (kCols) {
+        // The column on every node (0 off the feasible set, as the op
+        // gives it), and total unmasked.
+        raw_row[n] = norm;
+        total_row[n] += a.weight * norm;
+      } else if (feas_row[n]) {
+        total_row[n] += a.weight * norm;
+      } else {
+        total_row[n] = 0;
+      }
+    }
+  }
+  if (K > 1) cluster_wait();
 }
 
 }  // namespace
@@ -479,20 +652,43 @@ IpaArgs make_args(IPA_PARAMS) {
 }
 
 template <bool kCols>
-int launch(const IpaArgs& a, int smem_bytes, void* stream) {
-  if (smem_bytes > 48 * 1024) {
+int launch(const IpaArgs& a, int smem_bytes, int K, void* stream) {
+  static int smem_set = 48 * 1024;  // dynamic shared memory allowed so far
+  static bool nonportable = false;
+  if (K < 1 || K > 16 || (K & (K - 1)) != 0) return (int)cudaErrorInvalidValue;
+  if (smem_bytes > smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
         ipa_eval_kernel<kCols>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return (int)err;
+    smem_set = smem_bytes;
   }
-  ipa_eval_kernel<kCols><<<a.C, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(a);
+  if (K > 8 && !nonportable) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(ipa_eval_kernel<kCols>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+    nonportable = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.C * K);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = K;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = K > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, ipa_eval_kernel<kCols>, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int ipa_eval_launch(IPA_PARAMS, int smem_bytes, void* stream) {
-  return launch<false>(make_args(IPA_ARGS), smem_bytes, stream);
+extern "C" int ipa_eval_launch(IPA_PARAMS, int smem_bytes, int K, void* stream) {
+  return launch<false>(make_args(IPA_ARGS), smem_bytes, K, stream);
 }
 
 // Columns mode (the attribution pass, kubernetes_tpu/engine/pass_.py:
@@ -502,11 +698,11 @@ extern "C" int ipa_eval_launch(IPA_PARAMS, int smem_bytes, void* stream) {
 // over the given feasible set, writes the column into raw on every node (0
 // off the set, as the op gives it) and adds weight x column into total on
 // every node.
-extern "C" int ipa_eval_cols_launch(IPA_PARAMS, void* ok_out, int smem_bytes, void* stream) {
+extern "C" int ipa_eval_cols_launch(IPA_PARAMS, void* ok_out, int smem_bytes, int K, void* stream) {
   IpaArgs a = make_args(IPA_ARGS);
   if ((bit >= 0) == (weight != 0) || (bit >= 0 && ok_out == nullptr)) return (int)cudaErrorInvalidValue;
   a.ok_out = static_cast<unsigned char*>(ok_out);
-  return launch<true>(a, smem_bytes, stream);
+  return launch<true>(a, smem_bytes, K, stream);
 }
 
 KERNEL_ERROR_STRING(ipa_eval)

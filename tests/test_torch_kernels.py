@@ -14,7 +14,9 @@ the "truncate" shapes and on a cut of parity_basic_5kn_10kpods;
 eval_chunk's RequestedToCapacityRatio, throughput and learned terms at
 the "rtcr", "hetero" and "hetero_learned" shapes and on cuts of
 hetero_5kn_10kpods and binpack_rtcr_5kn_10kpods; eval_chunk's second
-launch after InterPodAffinity at the "split" shape."""
+launch after InterPodAffinity at the "split" shape; select_host and
+ipa_eval, each pod on a thread block cluster, at the chunk-1 shapes ("c1",
+"ipa_c1") and on cases that cross the cluster's node slices."""
 
 import dataclasses
 
@@ -39,13 +41,26 @@ def test_kernels_match_plain_versions_exactly(cuda_device):
 
 @pytest.mark.cuda
 def test_chunk_one_kernels_match_plain_versions_exactly(cuda_device):
-    """eval_chunk and the strict resolve_commit at the chunk-1 paths'
-    shape ("c1": C=1, N=8192)."""
+    """eval_chunk, select_host in row mode (with the cases that cross the
+    node-axis slices of a thread block cluster) and the strict
+    resolve_commit at the chunk-1 paths' shape ("c1": C=1, N=8192)."""
     import chip_smoke
 
     timing = chip_smoke.check_c1_kernels(cuda_device, reps=1)
-    assert set(timing) == {"eval_chunk", "resolve_commit"}
+    assert set(timing) == {"eval_chunk", "select_host", "resolve_commit"}
     assert all(t["max_abs_err"] == 0 for t in timing.values())
+
+
+@pytest.mark.cuda
+def test_ipa_chunk_one_kernel_matches_plain_version_exactly(cuda_device):
+    """ipa_eval at the "ipa_c1" shape (C=1, N=8192, zone and hostname
+    terms): one launch of both phases and the two launches of truncated
+    mode, on feasible sets that leave slices of the cluster empty."""
+    import chip_smoke
+
+    timing = chip_smoke.check_ipa_c1_kernels(cuda_device, reps=1)
+    assert set(timing) == {"ipa_eval"}
+    assert timing["ipa_eval"]["max_abs_err"] == 0
 
 
 @pytest.mark.cuda
@@ -435,14 +450,15 @@ def test_scheduler_search_kernel_path_matches_plain_path(cuda_device, inline):
 
 @pytest.mark.cuda
 def test_dra_kernels_match_plain_versions_exactly(cuda_device):
-    """conflict_pairs with claim ids, eval_chunk with DynamicResources and
-    resolve_commit with the claim commit against their plain versions at a
-    600-node cut of the "dra" shape (shared claims inside a chunk, a claim
-    named twice, reserved claims, pins, missing claims)."""
+    """conflict_pairs with claim ids, eval_chunk with DynamicResources,
+    select_host and resolve_commit with the claim commit against their
+    plain versions at a 600-node cut of the "dra" shape (shared claims
+    inside a chunk, a claim named twice, reserved claims, pins, missing
+    claims)."""
     import chip_smoke
 
     timing = chip_smoke.check_dra_kernels(cuda_device, reps=1, nodes=600)
-    assert set(timing) == {"conflict_pairs", "eval_chunk", "resolve_commit"}
+    assert set(timing) == {"conflict_pairs", "eval_chunk", "select_host", "resolve_commit"}
     assert all(t["max_abs_err"] == 0 for t in timing.values())
 
 

@@ -10,6 +10,9 @@
     python3 chip_smoke.py --kernels-only --kernels-of DIR
         # this script's kernel phase (its inputs, shapes and cases) on the
         # package in DIR: its kernels and wrappers, built from DIR's sources
+    python3 chip_smoke.py --kernels-only --shapes ports_images,flush
+        # only these groups of the kernel phase (with or without
+        # --kernels-of), no exactness cases and no kernels line
 
 Phases; any failure fails the run (nothing is caught):
   1. the card's name and power limit, the torch and CUDA versions;
@@ -18,7 +21,8 @@ Phases; any failure fails the run (nothing is caught):
   3. time an empty kernel the same way as the kernels (the launch floor),
      then hold each kernel against its plain PyTorch version on the card,
      on seeded inputs; exact equality is required, and both are timed with
-     CUDA events (median of 20):
+     CUDA events (median of 20 kernel calls and of 10 plain calls or
+     fewer); each group of shapes prints when it is done:
      - at the density shapes (C=64 pods, N=8192 node rows, R=4 resources),
        with score ties, zero allocatable, unschedulable nodes, pods
        feasible nowhere, a nominated-pod overlay and duplicate picks:
@@ -76,6 +80,11 @@ Phases; any failure fails the run (nothing is caught):
        node_filters with the volume bits, vol_filter, eval_chunk with the
        volume planes, resolve_commit with the device and CSI commit and
        the attach-limit clash, conflict_pairs with volume ids;
+     - at the "flush" shapes (the extender path's schema: 5000 nodes,
+       N=8192, 512 bound pods): 1, 8 and 64 dirty rows of random values in
+       all 27 fields flushed by SnapshotBuilder.state() in one
+       scatter_rows launch and one copy, against the per-field plain
+       scatter;
      - at the "ports/images" shape (C=64, N=8192 with IM=128 image slots
        from a 400-image pool, a 4096-pod batch one pod in 8 of which asks
        for 1-3 host ports over P=16 triples, prefilled counts):
@@ -84,7 +93,9 @@ Phases; any failure fails the run (nothing is caught):
        conflict_pairs with port keys; and ImageLocality's rounding cases
        (a size x spread product on the 1000 MiB threshold and an ulp below
        it, sums at 23 MiB - 1, 23 MiB, 1000 MiB x n and + 1, an image
-       named twice);
+       named twice); and at "explain_il", the explain phase's batch
+       (1025 pods in 4096 lanes) on that cluster: image_counts and
+       image_scores;
      - at the two search shapes (preempt_search; "search": the
        preemption_default_search_5kn cluster, N=8192, its 20000 background
        pods bound four to a node, 300 app=svc pods skewed over the zones,
@@ -159,7 +170,8 @@ Phases; any failure fails the run (nothing is caught):
      host mirror must equal the device state, no node may exceed its
      allocatable, the path's kernels must launch and no other; a traced run
      gives the device idle share; then the plain versions on the card must
-     bind identically:
+     bind identically (every path's plain run after the last kernel run,
+     PLAIN_WORKERS processes at a time, longest first):
      - density (5000 nodes, 2048 warm-up + 30000 pods, batch 4096, chunk 64);
      - inter-pod affinity (1000 nodes in 10 zones, 1024 + 10000 pods): no
        two pods of one anti-affinity colour share a zone;
@@ -250,7 +262,10 @@ Phases; any failure fails the run (nothing is caught):
      preemptions, the backoff waited and the garbage collector's pauses in
      each window, the pack width, the host-to-device feature bytes and the
      data moves (scatter_rows and expand_rows launches; torch index_copy_
-     and expand calls, which must be 0) are printed;
+     and expand calls, which must be 0; row flushes, their host-to-device
+     copies and victim-buffer scatters: every scatter_rows launch must be
+     one flush or one victim-buffer scatter, and a flush makes at most one
+     copy) are printed;
   5. print the redesign queue (launches x (ms - bound_ms) per kernel over
      every path, at the shapes PATH_SHAPE lists for the path, and the
      paths whose figure fell back to another shape), the per-kernel JSON
@@ -276,8 +291,10 @@ import time
 # (NVIDIA data sheet), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
-# Timed calls per kernel and per plain version (the median is kept).
+# Timed calls per kernel and (at most) per plain version (the median is
+# kept).
 REPS = 20
+PLAIN_REPS = 10
 
 
 def card_line() -> str:
@@ -294,10 +311,13 @@ def median_ms(fn, reps: int, setup=None) -> tuple[float, float]:
     the GPU busy while the host enqueues the call, so they bracket only the
     call's own device work.  Call time: the same events with the GPU idle,
     so they also include the host's launch overhead (what a call costs the
-    main path when the host cannot run ahead)."""
+    main path when the host cannot run ahead).  The spin lasts about 10 ms
+    until a call time is known, then twice the last call time (at least
+    0.5 ms), which still covers the host's enqueue."""
     import torch
 
     dev_times, call_times = [], []
+    spin = 20_000_000  # cycles, ~10 ms
     for r in range(reps + 3):
         for busy, times in ((True, dev_times), (False, call_times)):
             arg = setup() if setup is not None else None
@@ -305,13 +325,16 @@ def median_ms(fn, reps: int, setup=None) -> tuple[float, float]:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             if busy:
-                torch.cuda._sleep(20_000_000)  # ~10 ms of spinning
+                torch.cuda._sleep(spin)
             start.record()
             fn(arg)
             end.record()
             torch.cuda.synchronize()
+            ms = start.elapsed_time(end)
+            if not busy:  # ~2e6 cycles a ms
+                spin = int(min(20_000_000, max(1_000_000, 4e6 * ms)))
             if r >= 3:  # warm-up calls
-                times.append(start.elapsed_time(end))
+                times.append(ms)
     dev_times.sort()
     call_times.sort()
     return dev_times[len(dev_times) // 2], call_times[len(call_times) // 2]
@@ -466,9 +489,10 @@ def check_dom(errs: dict, label: str, state, et_slot, dv: int, reps: int) -> dic
 
 def timed(kernel_fn, plain_fn, reps: int, setup=None, plain_reps: int | None = None) -> dict:
     """Medians of ``reps`` calls of the kernel and of ``plain_reps``
-    (default ``reps``) of its plain version."""
+    (default the smaller of ``reps`` and PLAIN_REPS) of its plain
+    version."""
     ms, call_ms = median_ms(kernel_fn, reps, setup)
-    plain_ms, plain_call_ms = median_ms(plain_fn, plain_reps or reps, setup)
+    plain_ms, plain_call_ms = median_ms(plain_fn, plain_reps or min(reps, PLAIN_REPS), setup)
     return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, plain_call_ms=plain_call_ms)
 
 
@@ -1958,6 +1982,104 @@ def check_preempt_kernels(dev, shape: str, reps: int) -> dict:
         result[name]["max_abs_err"] = errs[name]
         result[name].setdefault("library_ms", None)
     return result
+
+
+FLUSH_ROWS = {"flush": 1, "flush_8": 8, "flush_64": 64}
+
+
+def check_flush_kernels(dev, reps: int) -> dict:
+    """The dirty-row flush at the extender path's schema (its 5000 nodes,
+    N=8192, and 512 bound pods): 1, 8 and 64 dirty rows of random values in
+    all 27 fields, flushed by SnapshotBuilder.state(), every field exact
+    against the per-field plain scatter of the host rows into the state
+    before, and the host mirror equal.  Timed: the flush's device work from
+    sources already on the card (one scatter_fields launch from the packed
+    buffer; in a tree without it, the 27 scatter_rows launches of its
+    flush, summed), the plain per-field loop, and the whole state() flush
+    with its host packing and copies ("state_ms", "state_call_ms").
+    Returns {"flush": ..., "flush_8": ..., "flush_64": ...}, each with the
+    scatter_rows entry."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch import workloads as w
+    from kubernetes_tpu_torch.cache import Cache
+    from kubernetes_tpu_torch.kernels import plain
+    from kubernetes_tpu_torch.snapshot import _NODE_AXIS, SnapshotBuilder
+
+    builder = SnapshotBuilder(device=dev)
+    cache = Cache(builder)
+    nodes = w.extender_nodes()
+    for node in nodes:
+        cache.add_node(node)
+    for j, pod in enumerate(w.warm_pods(w.EXTENDER_WARM_PODS)):
+        pod.spec.node_name = nodes[j % len(nodes)].metadata.name
+        cache.add_pod(pod)
+    state = builder.state()
+    rng = np.random.default_rng(83)
+    one_launch = hasattr(kernels, "scatter_fields")
+    names, axes = list(_NODE_AXIS), list(_NODE_AXIS.values())
+    out = {}
+    for shape, m in FLUSH_ROWS.items():
+        errs: dict[str, float] = {}
+        rows = np.sort(rng.choice(len(nodes), m, replace=False)).astype(np.int64)
+        for name, axis in _NODE_AXIS.items():
+            a = builder.host[name]
+            size = (m,) + a.shape[1:] if axis == 0 else (a.shape[0], m)
+            vals = rng.random(size) < 0.5 if a.dtype == np.bool_ else rng.integers(-(2**20), 2**20, size=size)
+            if axis == 0:
+                a[rows] = vals
+            else:
+                a[:, rows] = vals
+        before = [getattr(state, k).clone() for k in names]
+        idx = torch.from_numpy(rows).to(dev)
+        srcs = [torch.from_numpy(np.ascontiguousarray(builder.host[k][rows] if ax == 0 else builder.host[k][:, rows]))
+                .to(dev) for k, ax in zip(names, axes)]
+        launches0 = kernels.scatter_rows.launches
+        copies0 = getattr(builder, "flush_copies", None)
+        for r in rows:
+            builder._dirty_rows.add(int(r))
+        state = builder.state()
+        torch.cuda.synchronize()
+        launches = kernels.scatter_rows.launches - launches0
+        copies = None if copies0 is None else builder.flush_copies - copies0
+        for k, ax, b, src in zip(names, axes, before, srcs):
+            plain.scatter_rows(b, ax, idx, src)
+            exact(errs, "scatter_rows", f"[{shape}] {k}", getattr(state, k), b)
+        if not builder.host_mirror_equal():
+            raise AssertionError(f"flush [{shape}]: the host mirror differs from the device state")
+        if one_launch and (launches, copies) != (1, 1):
+            raise AssertionError(f"flush [{shape}]: {launches} launches and {copies} copies, want one each")
+        dsts = [getattr(state, k) for k in names]
+        if one_launch:
+            layout = kernels.flush_layout([(d.shape, d.element_size(), ax) for d, ax in zip(dsts, axes)], m)
+            host = np.zeros(layout.nbytes, np.uint8)
+            kernels.pack_rows(host, layout, rows, [builder.host[k] for k in names])
+            dbuf = torch.from_numpy(host).to(dev)
+
+            def device_part(_):
+                kernels.scatter_fields(dsts, axes, dbuf, layout)
+        else:
+            def device_part(_):
+                for d, ax, src in zip(dsts, axes, srcs):
+                    kernels.scatter_rows(d, ax, idx, src)
+
+        def plain_part(_):
+            for d, ax, src in zip(dsts, axes, srcs):
+                plain.scatter_rows(d, ax, idx, src)
+
+        entry = timed(device_part, plain_part, reps)
+        entry["state_ms"], entry["state_call_ms"] = median_ms(
+            lambda _: builder.state(), reps, lambda: [builder._dirty_rows.add(int(r)) for r in rows])
+        entry["library_ms"] = None  # no one PyTorch call scatters 27 tensors
+        entry["max_abs_err"] = errs["scatter_rows"]
+        set_bound(entry, nbytes(idx) + 2 * nbytes(*srcs))
+        print(f"flush [{shape}]: exact over {len(names)} fields, {m} dirty rows; {launches} scatter_rows launches "
+              f"and {'not counted' if copies is None else copies} host-to-device copies a flush; whole "
+              f"state() flush: device ms {entry['state_ms']:.4f}, call ms {entry['state_call_ms']:.4f}")
+        out[shape] = {"scatter_rows": entry}
+    return out
 
 
 # -- preemption's what-if search (preempt_eval's modes, dom_release, search_step) --------
@@ -3664,6 +3786,14 @@ def run_workload(impl: str, nodes, warm, measured, batch: int, chunk: int, trace
     launches1 = kernels.launch_counts()
     for name in ("scatter_rows", "expand_rows"):
         moves[name] = launches1[name] - launches0[name]
+    # Row flushes of the device mirror and their host-to-device copies,
+    # and the victim buffer's row scatters: with the kernels, every
+    # scatter_rows launch is one of the two.
+    moves["flushes"], moves["flush_copies"] = s.builder.flushes, s.builder.flush_copies
+    moves["victim_scatters"] = s.preemption.victim_scatters
+    flushes = max(moves["flushes"], 1)
+    moves["copies_per_flush"] = moves["flush_copies"] / flushes
+    moves["launches_per_flush"] = (moves["scatter_rows"] - moves["victim_scatters"]) / flushes
     s.data_moves = moves
     s.window = window
     if trace:
@@ -4322,7 +4452,7 @@ def image_rounding(dev, errs: dict) -> None:
           f"{below} an ulp below)")
 
 
-def check_ports_images_kernels(dev, reps: int, **sizes) -> dict:
+def check_ports_images_kernels(dev, reps: int, explain: dict | None = None, **sizes) -> dict:
     """Phase 3, the "ports/images" shape (C=64, N=8192, a 4096-pod batch;
     ports_images_inputs): image_counts and image_scores over the batch,
     conflict_pairs with the port keys over its 64 chunks, and per chunk
@@ -4331,7 +4461,8 @@ def check_ports_images_kernels(dev, reps: int, **sizes) -> dict:
     chunks whose picks crowd a few rows (port pods on one row among them);
     then the rounding cases; all against their plain versions, exactly.
     Returns the timings (the batch kernels on the batch, the rest on chunk
-    0) with their bounds."""
+    0) with their bounds.  With ``explain`` (a dict), also the "explain_il"
+    shape into it (check_explain_il)."""
     import numpy as np
     import torch
 
@@ -4411,9 +4542,9 @@ def check_ports_images_kernels(dev, reps: int, **sizes) -> dict:
     result = {
         "image_counts": timed(lambda _: kernels.image_counts(state, vocab),
                               lambda _: plain.image_counts(state, vocab), reps),
-        # The plain plane takes most of a second a call here: 5 calls.
+        # The plain plane takes most of a second a call here: 3 calls.
         "image_scores": timed(lambda _: kernels.image_scores(state, big, pc),
-                              lambda _: plain.image_scores(state, big, pc), reps, plain_reps=5),
+                              lambda _: plain.image_scores(state, big, pc), reps, plain_reps=3),
         "conflict_pairs": timed(lambda _: kernels.conflict_pairs(big, k // c, c),
                                 lambda _: plain.conflict_pairs(big, k // c, c), reps),
         "eval_chunk": timed(lambda _: kernels.eval_chunk(state, pf0, spec, None, (None, None, None, il0)),
@@ -4433,7 +4564,54 @@ def check_ports_images_kernels(dev, reps: int, **sizes) -> dict:
     keys = {key: tuple(big[key].shape) for key in big if key.startswith(("port_", "il_"))}
     print(f"ports/images shapes: C={c}, N={n}, K={k}, P={schema.P}, PK={schema.PK}, IM={schema.IM}, "
           f"image vocabulary {vocab}; features {keys}; {stats}")
+    if explain is not None:
+        explain.update(check_explain_il(dev, builder, reps))
     return result
+
+
+def check_explain_il(dev, builder, reps: int) -> dict:
+    """The "explain_il" shape: image_counts and image_scores of the explain
+    phase's batch (explain_mixed_pods: 1025 pods, one in eight naming two
+    pool images, in a 4096-lane batch, as the images path's batch size
+    pads it) on the "ports/images" cluster, exactly against their plain
+    versions, and timed."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch import workloads as w
+    from kubernetes_tpu_torch.engine.features import build_pod_batch
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.kernels import plain
+
+    pods = explain_mixed_pods(np.random.default_rng(23))
+    for _ in range(2):  # the second pass sees the final vocabularies
+        batch, _, _ = build_pod_batch(pods, builder, DEFAULT_PROFILE, w.IMAGES_BATCH)
+    pf = {key: torch.from_numpy(np.ascontiguousarray(batch[key])).to(dev)
+          for key in ("il_image_ids", "il_ncontainers", "valid")}
+    state = builder.state()
+    vocab = len(builder.interns.images)
+    errs: dict[str, float] = {}
+    kc, pc = kernels.image_counts(state, vocab), plain.image_counts(state, vocab)
+    ks, ps = kernels.image_scores(state, pf, pc), plain.image_scores(state, pf, pc)
+    torch.cuda.synchronize()
+    exact(errs, "image_counts", "[explain_il]", kc, pc)
+    exact(errs, "image_scores", "[explain_il]", ks, ps)
+    naming = int(((pf["il_image_ids"] >= 0).any(dim=1) & pf["valid"]).sum())
+    print(f"image_counts/image_scores [explain_il]: exact; K={ps.shape[0]} lanes, {int(pf['valid'].sum())} pods, "
+          f"{naming} naming images, {int((ps > 0).sum())} pairs scoring")
+    result = {
+        "image_counts": timed(lambda _: kernels.image_counts(state, vocab),
+                              lambda _: plain.image_counts(state, vocab), reps),
+        # The plain plane computes every lane: 3 calls.
+        "image_scores": timed(lambda _: kernels.image_scores(state, pf, pc),
+                              lambda _: plain.image_scores(state, pf, pc), reps, plain_reps=3),
+    }
+    set_bound(result["image_counts"], image_counts_bytes(state, vocab))
+    set_bound(result["image_scores"], image_scores_bytes(state, pf, pc))
+    for name in result:
+        result[name]["max_abs_err"] = errs[name]
+    return {"explain_il": result}
 
 
 def run_images_ports(impl: str, trace: bool = False):
@@ -5482,14 +5660,27 @@ def window_line(s, measured: int, dt: float) -> str:
 
 
 def drive(path: str, card: str) -> tuple[dict, dict]:
-    """Phase 4: one main path through the kernels (launch counts set to 0
-    just before and read just after), again through the kernels where the
-    path asks for more runs, traced, and through the plain versions;
-    gates, launch counts, and identical bindings (and victims), outcome
-    counts and backoff requeues in every run required.  A phase of
-    PATH_AFTER runs after the first kernel run, with its launches counted
-    from 0 on their own, and after the plain run.  Returns (launch counts
-    by path and phase, data moves of the path's window)."""
+    """Phase 4 for one path in this process: drive_kernel, then
+    drive_plain.  Returns (launch counts by path and phase, data moves of
+    the path's window)."""
+    by_key, moves, ref = drive_kernel(path, card)
+    ok, text = drive_plain(path, card, ref)
+    print(text, end="")
+    if not ok:
+        raise AssertionError(f"{path}: the plain run failed")
+    return by_key, moves
+
+
+def drive_kernel(path: str, card: str) -> tuple[dict, dict, dict]:
+    """Phase 4's kernel part: one main path through the kernels (launch
+    counts set to 0 just before and read just after), again through the
+    kernels where the path asks for more runs, and traced; gates, launch
+    counts, and identical bindings (and victims), outcome counts and
+    backoff requeues in every run required.  A phase of PATH_AFTER runs
+    after the first kernel run, with its launches counted from 0 on their
+    own.  Returns (launch counts by path and phase, data moves of the
+    path's window, what the plain run is held to: the first run's
+    bindings, its outcome and requeue counts, the after-phase's result)."""
     from kubernetes_tpu_torch import kernels
 
     runner, expected, must, gate, check, runs = _paths()[path]
@@ -5511,8 +5702,9 @@ def drive(path: str, card: str) -> tuple[dict, dict]:
     launches = check_launches(path, launches, terms, must, PATH_TERMS.get(path, ()), card)
     by_key = {path: launches}
     after = PATH_AFTER.get(path)
+    after_k = None
     if after is not None:
-        phase, run_after, compare_after, after_must = after
+        phase, run_after, _compare, after_must = after
         kernels.reset_launches()
         after_k = run_after(s, "kernel")
         key = f"{path}/{phase}"
@@ -5528,45 +5720,103 @@ def drive(path: str, card: str) -> tuple[dict, dict]:
               f"domain tables  [{card}]")
     if s.data_moves["index_copy_"] or s.data_moves["expand"]:
         raise AssertionError(f"{path} path: data moved outside the hand kernels: {s.data_moves}")
-
-    def same(label, s_, out_):
-        compare_bindings(bind_k, check(s_, out_, expected, f"{path} {label}"))
-        if (len(out_), s_.window["to_backoff"]) != history:
-            raise AssertionError(f"{path} {label}: {len(out_)} outcomes and {s_.window['to_backoff']} "
-                                 f"backoff requeues, the first kernel run {history}")
-
+    moves = s.data_moves
+    if moves["scatter_rows"] != moves["flushes"] + moves["victim_scatters"] or moves["flush_copies"] > moves["flushes"]:
+        raise AssertionError(f"{path} path: scatter_rows launches are not one a flush and one a victim-buffer "
+                             f"scatter, or a flush made more than one copy: {moves}")
+    ref = {"bind": bind_k, "history": history, "after": after_k}
     for rep in range(2, runs + 1):
         s4, out4, m4, dt4, _ = runner("kernel")
-        same(f"kernel run {rep}", s4, out4)
+        same_run(path, f"kernel run {rep}", ref, s4, out4)
         print(f"{path} (kernels, run {rep}): {window_line(s4, m4, dt4)}  [{card}]")
     s3, out3, m3, dt3, spans = runner("kernel", trace=True)
-    same("traced kernel run", s3, out3)
+    same_run(path, "traced kernel run", ref, s3, out3)
     print_trace(path, dt3, spans, card)
     print(f"{path} traced run: {window_line(s3, m3, dt3)}  [{card}]")
-    s2, out2, measured2, dt2, _ = runner("plain")
-    same("plain run", s2, out2)
-    if after is not None:
-        compare_after(path, after_k, run_after(s2, "plain"), card)
-    print(f"{path} (plain versions on the card): identical bindings, victims and requeues; "
-          f"{window_line(s2, measured2, dt2)}  [{card}]")
-    return by_key, s.data_moves
+    return by_key, moves, ref
+
+
+def same_run(path: str, label: str, ref: dict, s_, out_) -> None:
+    """Another run of a path against its first kernel run: the same
+    bindings (and victims), outcome count and backoff requeues."""
+    _runner, expected, _must, _gate, check, _runs = _paths()[path]
+    compare_bindings(ref["bind"], check(s_, out_, expected, f"{path} {label}"))
+    if (len(out_), s_.window["to_backoff"]) != ref["history"]:
+        raise AssertionError(f"{path} {label}: {len(out_)} outcomes and {s_.window['to_backoff']} "
+                             f"backoff requeues, the first kernel run {ref['history']}")
+
+
+def drive_plain(path: str, card: str, ref: dict) -> tuple[bool, str]:
+    """Phase 4's plain part: the path through the plain versions on the
+    card, held to the first kernel run (drive_kernel's ``ref``), then its
+    PATH_AFTER phase, held to the kernel run's.  Returns (passed, what it
+    printed, with the traceback where it failed)."""
+    import contextlib
+    import io
+    import traceback
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runner = _paths()[path][0]
+            s2, out2, measured2, dt2, _ = runner("plain")
+            same_run(path, "plain run", ref, s2, out2)
+            after = PATH_AFTER.get(path)
+            if after is not None:
+                _phase, run_after, compare_after, _must = after
+                compare_after(path, ref["after"], run_after(s2, "plain"), card)
+            print(f"{path} (plain versions on the card): identical bindings, victims and requeues; "
+                  f"{window_line(s2, measured2, dt2)}  [{card}]")
+        return True, buf.getvalue()
+    except Exception:  # reported by the caller, which fails the run
+        return False, buf.getvalue() + traceback.format_exc()
+
+
+# The plain runs go to PLAIN_WORKERS processes once every kernel run is
+# done, longest first (by the kernel part's wall time): they only check
+# bindings, and the card sits idle under a host-bound path, so this keeps
+# the kernel runs alone on the card and cuts the script's wall time.
+PLAIN_WORKERS = 4
+
+
+def plain_runs(refs: dict, order: list, card: str) -> None:
+    """drive_plain of every path in ``order`` on PLAIN_WORKERS spawned
+    processes; prints each path's output as it finishes and fails the run
+    if any path failed, after every process has ended."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor, as_completed
+
+    failed = []
+    with ProcessPoolExecutor(PLAIN_WORKERS, mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {pool.submit(drive_plain, path, card, refs[path]): path for path in order}
+        for fut in as_completed(futures):
+            ok, text = fut.result()
+            print(text, end="", flush=True)
+            if not ok:
+                failed.append(futures[fut])
+    if failed:
+        raise AssertionError(f"plain runs failed: {failed}")
 
 
 # The kernel-phase shapes nearest to each main path's launches (chunk size
 # and node rows), for the redesign queue, in order: a kernel takes its
 # numbers from the first shape that measured it, or else its first
 # shape's numbers (a fallback the queue reports).  parity reads the pos-mode
-# select_host and truncate_feasible at "truncate", the rest at "c1".
+# select_host and truncate_feasible at "truncate", the rest at "c1"; the
+# explain phase reads the image kernels at "explain_il"; the paths that
+# flush rows a pod or a dry-run (extender and its PostFilter phase, search,
+# claims) read scatter_rows at "flush".
 PATH_SHAPE = {
     "density": ["density"], "ipa": ["ipa"], "spread_na": ["spread_na"], "inclusion": ["inclusion"],
     "preemption_500n": ["preemption_500n"], "preemption_async_5kn": ["preemption_async_5kn"],
     "daemonset_15kn": ["daemonset"], "intree_pvs_5kn_2kpods": ["pv"], "migrated_intree_pvs_5kn_5kpods": ["pv"],
     "csi_pvs_5kn_5kpods": ["pv"], "default_images_ports_5kn_10kpods": ["ports_images"],
-    "default_images_ports_5kn_10kpods/explain": ["c1", "ipa_c1"],
-    "preemption_default_search_5kn": ["search", "ipa_c1"],
-    "dra_claims_5kn_5kpods": ["dra_path"], "parity_basic_5kn_10kpods": ["truncate", "c1"],
+    "default_images_ports_5kn_10kpods/explain": ["c1", "ipa_c1", "explain_il"],
+    "preemption_default_search_5kn": ["search", "ipa_c1", "flush"],
+    "dra_claims_5kn_5kpods": ["dra_path", "flush"], "parity_basic_5kn_10kpods": ["truncate", "c1"],
     "hetero_5kn_10kpods": ["hetero"], "hetero_learned_1kn_5kpods": ["hetero_learned"],
-    "binpack_rtcr_5kn_10kpods": ["rtcr"], "extender_5kn_1kpods": ["c1"], "extender_5kn_1kpods/postfilter": ["c1"],
+    "binpack_rtcr_5kn_10kpods": ["rtcr"], "extender_5kn_1kpods": ["c1", "flush"],
+    "extender_5kn_1kpods/postfilter": ["c1", "flush"],
 }
 
 
@@ -5621,7 +5871,9 @@ build.build()
 runner = c._paths()[sys.argv[2]][0]
 _s, _o, n, dt, _ = runner("kernel")
 _s, _o, n2, dt2, spans = runner("kernel", trace=True)
-print(json.dumps({"pods_s": n / dt, "traced_pods_s": n2 / dt2, "featurize_s": spans["featurize_s"]}))
+print(json.dumps({"pods_s": n / dt, "traced_pods_s": n2 / dt2, "featurize_s": spans["featurize_s"],
+                  "other_host_s": spans["other_host_s"],
+                  "device_busy_s": sum(spans["device_ms_by_kernel"].values()) / 1e3}))
 """
 
 
@@ -5629,7 +5881,7 @@ def compare(other: str, paths: list[str], card: str) -> None:
     """Each path's measured window through the kernels, in ``other`` and
     in this tree, each run a fresh process, three times in the order
     other, this, this, other; pods/s untraced and traced, and the traced
-    featurize span."""
+    window's featurize span, other host seconds and device busy seconds."""
     import os
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -5652,6 +5904,9 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true", help="stop after the kernel checks")
     ap.add_argument("--compare", metavar="DIR", help="only compare --paths with the port's tree in DIR")
     ap.add_argument("--paths", default="density,daemonset_15kn", help="the paths --compare runs")
+    ap.add_argument("--shapes", metavar="GROUPS",
+                    help="with --kernels-only: run only these groups of the kernel phase (comma-separated, "
+                         "e.g. ports_images,flush), and print no kernels line")
     ap.add_argument("--kernels-of", metavar="DIR",
                     help="with --kernels-only: run this script's kernel phase on the port's tree in DIR "
                          "(e.g. the parent commit unpacked), its kernels and wrappers")
@@ -5662,6 +5917,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.shapes and not args.kernels_only:
+        ap.error("--shapes needs --kernels-only")
     if args.kernels_of:
         if not args.kernels_only:
             ap.error("--kernels-of needs --kernels-only")
@@ -5688,26 +5945,49 @@ def main() -> int:
         for line in log.splitlines():
             if any(key in line for key in ("registers", "spill", "entry function")) or "error" in line.lower():
                 print(f"  {name}: {line.strip()}")
+        for entry, info in ptxas_entries(log).items():
+            kernel = next((k for k in PTXAS_SHOWN if k in entry), None)
+            if kernel is not None:
+                print(f"ptxas {kernel} ({entry}): {info.get('registers')} registers, {info.get('stack')} bytes "
+                      f"stack frame")
+                if kernel in PTXAS_NO_STACK and info.get("stack") != 0:
+                    raise AssertionError(f"{entry}: {info.get('stack')} bytes of stack frame, want 0")
 
     floor = launch_floor(REPS)
     print(f"launch floor (an empty kernel): device ms {floor['ms']:.4f}, call ms {floor['call_ms']:.4f}  [{card}]")
-    shapes = {"density": check_kernels(dev, REPS), "c1": check_c1_kernels(dev, REPS),
-              "ipa": check_ipa_kernels(dev, REPS),
-              "spread_na": check_spread_kernels(dev, "spread_na", REPS),
-              "inclusion": check_spread_kernels(dev, "inclusion", REPS),
-              **{shape: check_preempt_kernels(dev, shape, REPS) for shape in PREEMPT_SHAPES},
-              "daemonset": check_pinned_kernels(dev, REPS), "pv": check_pv_kernels(dev, REPS),
-              "ports_images": check_ports_images_kernels(dev, REPS),
-              **{shape: check_search_kernels(dev, shape, REPS)
-                 for shape in ("search", "search_pv", "search_dra", "search_dra_path")},
-              **{shape: check_dra_kernels(dev, REPS, shape) for shape in ("dra", "dra_path")},
-              **check_truncate_kernels(dev, REPS),
-              "rtcr": check_rtcr_kernels(dev, REPS),
-              **{shape: check_hetero_kernels(dev, REPS, shape) for shape in ("hetero", "hetero_learned")},
-              "split": check_split_kernels(dev, REPS),
-              **{shape: check_cols_kernels(dev, REPS, shape) for shape in COLS_SHAPES},
-              "ipa_c1": check_ipa_c1_kernels(dev, REPS)}
-    exact_cases = check_exact_cases(dev)
+    def images_group():
+        explain: dict = {}  # check_ports_images_kernels fills "explain_il" on its cluster
+        return {"ports_images": check_ports_images_kernels(dev, REPS, explain), **explain}
+
+    # The kernel phase's checks in their order, each returning its shapes.
+    groups = {
+        "density": lambda: {"density": check_kernels(dev, REPS)}, "c1": lambda: {"c1": check_c1_kernels(dev, REPS)},
+        "ipa": lambda: {"ipa": check_ipa_kernels(dev, REPS)},
+        "spread": lambda: {shape: check_spread_kernels(dev, shape, REPS) for shape in ("spread_na", "inclusion")},
+        "preempt": lambda: {shape: check_preempt_kernels(dev, shape, REPS) for shape in PREEMPT_SHAPES},
+        "flush": lambda: check_flush_kernels(dev, REPS),
+        "daemonset": lambda: {"daemonset": check_pinned_kernels(dev, REPS)},
+        "pv": lambda: {"pv": check_pv_kernels(dev, REPS)},
+        "ports_images": images_group,
+        "search": lambda: {shape: check_search_kernels(dev, shape, REPS)
+                           for shape in ("search", "search_pv", "search_dra", "search_dra_path")},
+        "dra": lambda: {shape: check_dra_kernels(dev, REPS, shape) for shape in ("dra", "dra_path")},
+        "truncate": lambda: check_truncate_kernels(dev, REPS),
+        "rtcr": lambda: {"rtcr": check_rtcr_kernels(dev, REPS)},
+        "hetero": lambda: {shape: check_hetero_kernels(dev, REPS, shape) for shape in ("hetero", "hetero_learned")},
+        "split": lambda: {"split": check_split_kernels(dev, REPS)},
+        "cols": lambda: {shape: check_cols_kernels(dev, REPS, shape) for shape in COLS_SHAPES},
+        "ipa_c1": lambda: {"ipa_c1": check_ipa_c1_kernels(dev, REPS)},
+    }
+    picked = args.shapes.split(",") if args.shapes else list(groups)
+    unknown = sorted(set(picked) - set(groups))
+    if unknown:
+        ap.error(f"--shapes: unknown {unknown}; known {sorted(groups)}")
+    shapes: dict[str, dict] = {}
+    for group in picked:
+        shapes.update(groups[group]())
+        print(f"kernel phase: {group} done at {time.perf_counter() - t0:.1f}s")
+    exact_cases = {} if args.shapes else check_exact_cases(dev)
     for shape, table in shapes.items():
         for name, tm in table.items():
             lib = "" if tm.get("library_ms") is None else f", library {tm['library_ms']:.4f}"
@@ -5717,13 +5997,21 @@ def main() -> int:
                   f"plain {tm['plain_call_ms']:.4f}  [{card}]")
 
     print(f"kernel phase done at {time.perf_counter() - t0:.1f}s")
+    if args.shapes:  # a part of the kernel phase: no kernels line
+        print(card)
+        return 0
     by_path: dict[str, dict] = {}  # empty: the main paths did not run
     moves: dict[str, dict] = {}
     if not args.kernels_only:
+        refs, took = {}, {}
         for path in _paths():
-            counts, moves[path] = drive(path, card)
+            t1 = time.perf_counter()
+            counts, moves[path], refs[path] = drive_kernel(path, card)
+            took[path] = time.perf_counter() - t1
             by_path.update(counts)
-            print(f"{path} done at {time.perf_counter() - t0:.1f}s")
+            print(f"{path} kernel runs done at {time.perf_counter() - t0:.1f}s", flush=True)
+        plain_runs(refs, sorted(refs, key=lambda p: -took[p]), card)
+        print(f"plain runs done at {time.perf_counter() - t0:.1f}s")
         print(f"data moves outside the hand kernels, launches per path: {moves}  [{card}]")
 
     csrc = "kubernetes_tpu_torch/kernels/csrc/"
@@ -5814,6 +6102,35 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
     return 0
+
+
+# Entry functions whose ptxas counts the run prints, and those that must
+# keep no stack frame (no per-thread array indexed at run time).
+PTXAS_SHOWN = ("image_merge_kernel", "image_tile_kernel", "image_pinned_kernel", "scatter_rows_kernel")
+PTXAS_NO_STACK = ("image_merge_kernel", "image_tile_kernel")
+
+
+def ptxas_entries(log: str) -> dict[str, dict]:
+    """Each entry function of an ``nvcc -Xptxas -v`` log: its registers and
+    stack frame bytes."""
+    import re
+
+    out: dict[str, dict] = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            cur["stack"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 def print_trace(label: str, dt: float, spans: dict, card: str) -> None:

@@ -28,7 +28,8 @@
   dom_release     csrc/preempt_search.cu  domain tables of a dry-run's released state, per search step
   search_step     csrc/preempt_search.cu  one step of the dry-run's what-if search, per search step
   unpack_victims  csrc/victims.cu         staged victim buffer → per-field arrays
-  scatter_rows    csrc/rows.cu            dirty node rows of a device tensor ← host rows
+  scatter_rows    csrc/rows.cu            dirty node rows of up to 32 device tensors ← their packed
+                                          host rows (scatter_fields: one launch a flush)
   expand_rows     csrc/rows.cu            row 0 broadcast to K rows (uniform batches)
 
 Each wrapper checks its inputs and launches its kernel on the current CUDA
@@ -45,6 +46,7 @@ import ctypes
 from dataclasses import dataclass, field
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..framework.config import LEAST_ALLOCATED, MOST_ALLOCATED, REQUESTED_TO_CAPACITY_RATIO
@@ -65,8 +67,13 @@ _FILTER_CODES = {"NodeUnschedulable": 0, "NodeName": 1, "NodeResourcesFit": 2, *
 # ImageLocality's score is read from the image_scores plane.
 _SCORERS = ("NodeResourcesFit", "NodeResourcesBalancedAllocation", plain.IL, plain.TP, plain.LS)
 _STRATEGIES = {LEAST_ALLOCATED: 0, MOST_ALLOCATED: 1, REQUESTED_TO_CAPACITY_RATIO: 2}
-# Image ids per pod image_scores holds in registers.
+# Image ids a pod image_scores stages (kMaxImages), its node tile and pod
+# group (kTile, kPodGroup) and the merged lists' entries a row at most
+# (kMaxSlots: a tile's lists in shared memory) in image_locality.cu.
 MAX_POD_IMAGES = 16
+IMAGE_TILE = 32
+IMAGE_GROUP = 32
+IMAGE_SLOTS_MAX = 512
 _MAX_BALANCED = 8
 # RequestedToCapacityRatio shape points and LearnedScorer hidden units
 # eval_chunk takes (kMaxShape, kMaxHidden in eval_chunk.cu).
@@ -294,6 +301,26 @@ def cluster_split(c: int, n: int, sms: int, rows_min: int, smem_per_cta=None, on
                      or (one_wave and c * k > sms)):
         k //= 2
     return k
+
+
+def image_grid(n: int, k: int, im: int, sms: int) -> tuple[int, int, int]:
+    """(P, slices, pods a slice) of image_scores' tiled launch for K pods
+    over N node rows of IM image slots on a card with ``sms`` SMs: P, the
+    merged lists' entries a row, is the power of two at least max(IM, 32)
+    (image_merge's warp holds P / 32 slots a lane); the pods are cut into
+    slices of whole groups (IMAGE_GROUP) so that the (ceil(N /
+    IMAGE_TILE), slices) grid has about four blocks an SM, and no slice is
+    empty."""
+    if im > IMAGE_SLOTS_MAX:
+        raise NotImplementedError(f"image_scores: {im} image slots a node exceed {IMAGE_SLOTS_MAX}")
+    p = 32
+    while p < im:
+        p *= 2
+    tiles = -(-n // IMAGE_TILE)
+    groups = max(1, -(-k // IMAGE_GROUP))
+    slices = max(1, min(-(-4 * sms // tiles), groups))
+    per = -(-groups // slices) * IMAGE_GROUP
+    return p, max(1, -(-k // per)), per
 
 
 _SMS: dict = {}
@@ -1149,8 +1176,6 @@ def image_scores(state, pf: dict, counts, pin=None):
     k, ci = pf["il_image_ids"].shape
     if ci > MAX_POD_IMAGES:
         raise NotImplementedError(f"image_scores: {ci} image slots per pod exceed {MAX_POD_IMAGES}")
-    if pin is None and k > 65535:
-        raise ValueError(f"image_scores: {k} pods exceed the grid's 65535")
     args = [
         _check("image_ids", state.image_ids, torch.int32, (n, im), dev),
         _check("image_sizes", state.image_sizes, torch.int64, (n, im), dev),
@@ -1169,7 +1194,16 @@ def image_scores(state, pf: dict, counts, pin=None):
         None if pin is None else _check("pin", pin, torch.int32, (k,), dev),
     ]
     out = torch.empty((k, n if pin is None else 1), dtype=torch.uint8, device=dev)
-    build.launch("image_scores", *[_ptr(a) for a in args], n, im, vocab, k, ci, _ptr(out), _stream(dev))
+    # Unpinned: image_merge's lists (scratch), then the tiled plane.
+    p = slices = per = 0
+    merged = (None, None, None)
+    if pin is None:
+        p, slices, per = image_grid(n, k, im, _sms(dev))
+        merged = (torch.empty((n, p), dtype=torch.int32, device=dev),
+                  torch.empty((n, p), dtype=torch.int64, device=dev),
+                  torch.empty(n, dtype=torch.int32, device=dev))
+    build.launch("image_scores", *[_ptr(a) for a in args], n, im, vocab, k, ci, *[_ptr(a) for a in merged],
+                 p, slices, per, _ptr(out), _stream(dev))
     image_scores.launches += 1
     return out
 
@@ -1586,31 +1620,142 @@ def unpack_victims(buf, r: int, n_pdbs: int, pdb_words: int, v: int, inline_allo
 _MAX_VF_COLS = 16
 
 
+# scatter_rows' field table (rows.cu FieldDesc, FieldTable): up to
+# MAX_SCATTER_FIELDS fields a launch.
+MAX_SCATTER_FIELDS = 32
+
+
+class _FieldDesc(ctypes.Structure):
+    _fields_ = [("dst", ctypes.c_uint64), ("src", ctypes.c_uint64), ("outer", ctypes.c_int64),
+                ("n", ctypes.c_int64), ("inner", ctypes.c_int), ("word", ctypes.c_int)]
+
+
+class _FieldTable(ctypes.Structure):
+    _fields_ = [("rows", ctypes.c_uint64), ("nrows", ctypes.c_int64), ("nfields", ctypes.c_int),
+                ("pad", ctypes.c_int), ("f", _FieldDesc * MAX_SCATTER_FIELDS)]
+
+
+class FlushSlot(NamedTuple):
+    """One field of a packed row flush: its destination viewed as (outer,
+    n, inner) bytes (axis 0: (1, N, a row's bytes); axis 1: (X, N, the
+    element's bytes)) and the byte offset of its (outer, nrows, inner)
+    rows in the packed buffer."""
+
+    axis: int
+    outer: int
+    n: int
+    inner: int
+    offset: int
+
+
+class FlushLayout(NamedTuple):
+    """A packed row flush: the row index (nrows i64) at offset 0, then each
+    field's rows at an 8-byte aligned offset; ``nbytes`` in all."""
+
+    nrows: int
+    slots: tuple[FlushSlot, ...]
+    nbytes: int
+
+
+def node_view(shape: tuple, itemsize: int, axis: int) -> tuple[int, int, int]:
+    """(outer, n, inner bytes) of a field indexed by node on ``axis``."""
+    if axis == 0 and len(shape) >= 1:
+        inner = itemsize
+        for d in shape[1:]:
+            inner *= d
+        return 1, shape[0], inner
+    if axis == 1 and len(shape) == 2:
+        return shape[0], shape[1], itemsize
+    raise ValueError(f"scatter_rows: axis {axis} of a {len(shape)}-d field")
+
+
+def flush_layout(fields, nrows: int) -> FlushLayout:
+    """The packed buffer of ``nrows`` dirty rows of ``fields``, each a
+    (shape, itemsize, axis) of its destination."""
+    off = 8 * nrows
+    slots = []
+    for shape, itemsize, axis in fields:
+        outer, n, inner = node_view(tuple(shape), itemsize, axis)
+        slots.append(FlushSlot(axis, outer, n, inner, off))
+        off += -(-outer * nrows * inner // 8) * 8
+    return FlushLayout(nrows, tuple(slots), off)
+
+
+def pack_rows(buf: np.ndarray, layout: FlushLayout, rows: np.ndarray, arrays) -> None:
+    """Write the row index ``rows`` (i64) and each host array's rows (axis
+    0) or columns (axis 1) ``rows`` into ``buf`` (u8, at least
+    layout.nbytes) where ``layout`` places them."""
+    m = layout.nrows
+    buf[:8 * m].view(np.int64)[:] = rows
+    for slot, arr in zip(layout.slots, arrays):
+        view = buf[slot.offset:slot.offset + slot.outer * m * slot.inner].view(arr.dtype)
+        if slot.axis == 0:
+            np.take(arr, rows, axis=0, out=view.reshape((m,) + arr.shape[1:]), mode="clip")
+        else:
+            np.take(arr, rows, axis=1, out=view.reshape(slot.outer, m), mode="clip")
+
+
+def field_descs(dsts, layout: FlushLayout, base: int) -> list[tuple[int, int, int, int, int, int]]:
+    """scatter_rows' descriptor of each field: (dst address, src address =
+    ``base`` + its offset, outer, n, inner, word), the word the largest of
+    8, 4, 2, 1 bytes that divides inner and both addresses."""
+    out = []
+    for dst, slot in zip(dsts, layout.slots):
+        d, s = dst.data_ptr(), base + slot.offset
+        word = 8
+        while word > 1 and (slot.inner % word or d % word or s % word):
+            word //= 2
+        out.append((d, s, slot.outer, slot.n, slot.inner, word))
+    return out
+
+
+def _launch_scatter(descs, rows: int, nrows: int, dev) -> None:
+    table = _FieldTable(rows=rows, nrows=nrows, nfields=len(descs))
+    for i, desc in enumerate(descs):
+        table.f[i] = _FieldDesc(*desc)
+    build.launch("scatter_rows", ctypes.c_void_p(ctypes.addressof(table)), _stream(dev))
+    scatter_rows.launches += 1
+
+
 def scatter_rows(dst, axis: int, rows, src) -> None:
     """In place: dst's node rows (axis 0) or node columns (axis 1, a 2-D
     (X, N) field) ``rows`` (i64) ← ``src`` (the same layout with len(rows)
-    in place of N)."""
+    in place of N); one launch with one field."""
     if _on_cpu(dst):
         plain.scatter_rows(dst, axis, rows, src)
         return
     dev = dst.device
     nrows = rows.shape[0]
-    if axis == 0:
-        outer, n = 1, dst.shape[0]
-        inner = dst[0].numel() * dst.element_size() if dst.dim() > 0 and n > 0 else 0
-        want = (nrows,) + tuple(dst.shape[1:])
-    elif axis == 1 and dst.dim() == 2:
-        outer, n = dst.shape
-        inner = dst.element_size()
-        want = (outer, nrows)
-    else:
-        raise ValueError(f"scatter_rows: axis {axis} of a {dst.dim()}-d tensor")
+    outer, n, inner = node_view(tuple(dst.shape), dst.element_size(), axis)
     if not dst.is_contiguous():
         raise ValueError("scatter_rows: destination not contiguous")
     _check("rows", rows, torch.int64, (nrows,), dev)
-    _check("src", src, dst.dtype, want, dev)
-    build.launch("scatter_rows", _ptr(dst), _ptr(src), _ptr(rows), nrows, outer, n, inner, _stream(dev))
-    scatter_rows.launches += 1
+    _check("src", src, dst.dtype, (nrows,) + tuple(dst.shape[1:]) if axis == 0 else (outer, nrows), dev)
+    layout = FlushLayout(nrows, (FlushSlot(axis, outer, n, inner, 0),), 0)
+    _launch_scatter(field_descs([dst], layout, src.data_ptr()), rows.data_ptr(), nrows, dev)
+
+
+def scatter_fields(dsts, axes, buf, layout: FlushLayout) -> None:
+    """In place, one launch: each of ``dsts``' node rows (axis 0) or
+    columns (axis 1) ← its rows in the packed buffer ``buf`` (u8, on the
+    destinations' device), placed as ``layout`` says (pack_rows; the row
+    index is its first nrows i64 words)."""
+    if _on_cpu(buf):
+        plain.scatter_fields(dsts, axes, buf, layout)
+        return
+    dev = buf.device
+    if len(dsts) > MAX_SCATTER_FIELDS:
+        raise NotImplementedError(f"scatter_fields: {len(dsts)} fields exceed {MAX_SCATTER_FIELDS}")
+    if buf.dtype != torch.uint8 or buf.dim() != 1 or not buf.is_contiguous() or buf.numel() < layout.nbytes:
+        raise ValueError(f"scatter_fields: buffer {buf.dtype}{tuple(buf.shape)}, want u8 of {layout.nbytes}")
+    if len(dsts) != len(layout.slots) or len(axes) != len(dsts):
+        raise ValueError("scatter_fields: fields, axes and layout differ in length")
+    for i, (dst, axis, slot) in enumerate(zip(dsts, axes, layout.slots)):
+        if dst.device != dev or not dst.is_contiguous():
+            raise ValueError(f"scatter_fields: field {i} on {dst.device} or not contiguous")
+        if axis != slot.axis or node_view(tuple(dst.shape), dst.element_size(), axis) != slot[1:4]:
+            raise ValueError(f"scatter_fields: field {i} {tuple(dst.shape)} does not match its slot {slot}")
+    _launch_scatter(field_descs(dsts, layout, buf.data_ptr()), buf.data_ptr(), layout.nrows, dev)
 
 
 def expand_rows(src, k: int):

@@ -85,11 +85,11 @@ _SIGNATURES: dict[str, list] = {
     "preempt_pick": [_P] * 6 + [_I] * 3 + [_P] * 3,
     "preempt_commit": [_P, _I, _I, _I] + [_P] * 11,
     "unpack_victims": [_P] + [_I] * 8 + [_P] * 6 + [_I, _P, _P, _P],
-    "scatter_rows": [_P] * 3 + [_L] * 4 + [_P],
+    "scatter_rows": [_P, _P],  # a FieldTable (rows.cu), the stream
     "expand_rows": [_P] * 2 + [_L] * 2 + [_P],
     "pinned_fit": [_P] * 8 + [_I] * 3 + [_P] * 3,
     "image_counts": [_P, _P, _I, _I, _I, _P, _P],
-    "image_scores": [_P] * 8 + [_I] * 5 + [_P, _P],
+    "image_scores": [_P] * 8 + [_I] * 5 + [_P] * 3 + [_I] * 3 + [_P, _P],
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -659,6 +659,18 @@ def scatter_rows(dst, axis: int, rows, src) -> None:
         dst[:, rows] = src
 
 
+def scatter_fields(dsts, axes, buf, layout) -> None:
+    """Each of ``dsts``' node rows (axis 0) or columns (axis 1) ← its rows
+    in the packed buffer ``buf`` (u8; kernels.pack_rows' ``layout``, the row
+    index first), field by field with scatter_rows (snapshot.py:796
+    _scatter_rows over every field)."""
+    m = layout.nrows
+    rows = buf[:8 * m].view(torch.int64)
+    for dst, axis, slot in zip(dsts, axes, layout.slots):
+        src = buf[slot.offset:slot.offset + slot.outer * m * slot.inner].view(dst.dtype)
+        scatter_rows(dst, axis, rows, src.reshape((m,) + tuple(dst.shape[1:]) if axis == 0 else (slot.outer, m)))
+
+
 def expand_rows(src, k: int):
     """(k, ...) copies of row 0 of ``src`` (scheduler.py:44 _expand_uniform)."""
     return src[0].expand((k,) + tuple(src.shape[1:])).clone()

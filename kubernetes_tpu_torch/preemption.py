@@ -233,6 +233,9 @@ class PreemptionEvaluator:
         # Recent batches produced failures: the next batch prepacks victims
         # and chains a speculative dry-run on its device picks.
         self.expect_failures = False
+        # Dirty rows of the staged victim buffer scattered into its device
+        # copy (one scatter_rows launch each).
+        self.victim_scatters = 0
 
     def worth_prepacking(self, pods) -> bool:
         """False when no pod of the batch could ever have victims."""
@@ -471,6 +474,7 @@ class PreemptionEvaluator:
             st["d_buf"], 0, torch.from_numpy(idx).to(dev),
             torch.from_numpy(np.ascontiguousarray(buf[idx])).to(dev),
         )
+        self.victim_scatters += 1
         layout = {"r": r, "n_pdbs": 1, "pdb_words": 1, "v": st["v"], "vf_cols": st["vf_cols"]}
         return dict(st["result"], per_node=st["per_node"],
                     vic=_unpack(st["d_buf"], layout, self.sched._impl))

@@ -6,7 +6,7 @@ between host numpy staging arrays and device tensors.
 
   * Host-driven changes (node add/update/remove, informer pod adds and
     removals) dirty individual rows; ``state()`` ships only the dirty rows
-    and writes them with the ``scatter_rows`` kernel — the analog of the
+    and writes them with one ``scatter_rows`` launch — the analog of the
     generation-diff copy in the reference's UpdateSnapshot (cache.go:186).
   * Device-driven changes (the batch pass commits pods on the card) already
     live on the device; the host applies the same deltas to its staging
@@ -286,12 +286,20 @@ class SnapshotBuilder:
         # Feature gates the featurizers read (framework/features.py); None
         # means the defaults.
         self.feature_gates = None
-        # "plain" flushes dirty rows with the plain version of scatter_rows
+        # "plain" flushes dirty rows with the plain version of scatter_fields
         # (set by a scheduler built with _impl="plain", for comparisons).
         self._impl = "kernel"
         # Whole-state uploads state() made (schema growth, invalidation):
         # each copies every field, csivol_counts (CV x N) included.
         self.full_uploads = 0
+        # Dirty-row flushes and their host-to-device copies (one each on a
+        # GPU); two host buffers taken in turn, each with the event of its
+        # last copy, and the device buffer they go to.
+        self.flushes = 0
+        self.flush_copies = 0
+        self._flush_bufs: list[list] = [[None, None], [None, None]]
+        self._flush_turn = 0
+        self._flush_dev: torch.Tensor | None = None
 
     @property
     def _dirty_all(self) -> bool:
@@ -685,21 +693,48 @@ class SnapshotBuilder:
             self._dirty_rows.clear()
             return self._device
         if self._dirty_rows:
-            from .kernels import plain, scatter_rows  # kernels → ops → snapshot: import at use
-
-            if self._impl == "plain":
-                scatter_rows = plain.scatter_rows
-
-            rows = np.fromiter(sorted(self._dirty_rows), np.int64)
-            idx = torch.from_numpy(rows).to(self.device)
-            for k, ax in _NODE_AXIS.items():
-                src = self.host[k][rows] if ax == 0 else self.host[k][:, rows]
-                scatter_rows(
-                    getattr(self._device, k), ax, idx,
-                    torch.from_numpy(np.ascontiguousarray(src)).to(self.device),
-                )
+            self._flush(np.fromiter(sorted(self._dirty_rows), np.int64))
             self._dirty_rows.clear()
         return self._device
+
+    def _flush(self, rows: np.ndarray) -> None:
+        """One dirty-row flush, as the reference's one jitted program over
+        every field (snapshot.py:796 _scatter_rows): every field's rows and
+        the row index packed into one host buffer (pinned on a GPU), one
+        host-to-device copy, one scatter_rows launch."""
+        from .kernels import flush_layout, pack_rows, plain, scatter_fields  # kernels → ops → snapshot
+
+        names = list(_NODE_AXIS)
+        dsts = [getattr(self._device, k) for k in names]
+        axes = list(_NODE_AXIS.values())
+        layout = flush_layout([(d.shape, d.element_size(), ax) for d, ax in zip(dsts, axes)], len(rows))
+        host = self._flush_host(layout.nbytes)
+        pack_rows(host.numpy(), layout, rows, [self.host[k] for k in names])
+        buf = host
+        if self.device.type != "cpu":
+            if self._flush_dev is None or self._flush_dev.numel() < layout.nbytes:
+                self._flush_dev = torch.empty(host.numel(), dtype=torch.uint8, device=self.device)
+            buf = self._flush_dev[:layout.nbytes]
+            buf.copy_(host, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            self._flush_bufs[self._flush_turn][1] = done
+            self.flush_copies += 1
+        (plain.scatter_fields if self._impl == "plain" else scatter_fields)(dsts, axes, buf, layout)
+        self.flushes += 1
+
+    def _flush_host(self, nbytes: int) -> torch.Tensor:
+        """The next of the two host flush buffers, ``nbytes`` long, once its
+        last copy to the device has left it (its event)."""
+        self._flush_turn ^= 1
+        slot = self._flush_bufs[self._flush_turn]
+        buf, done = slot
+        if done is not None:
+            done.synchronize()
+        if buf is None or buf.numel() < nbytes:
+            buf = torch.empty(_bucket(nbytes, 4096), dtype=torch.uint8, pin_memory=self.device.type == "cuda")
+            slot[:] = [buf, None]
+        return buf[:nbytes]
 
     def absorb_device_state(self, state: ClusterState) -> None:
         """Adopt the post-pass device tensors as the current device mirror."""

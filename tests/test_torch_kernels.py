@@ -16,7 +16,10 @@ the "rtcr", "hetero" and "hetero_learned" shapes and on cuts of
 hetero_5kn_10kpods and binpack_rtcr_5kn_10kpods; eval_chunk's second
 launch after InterPodAffinity at the "split" shape; select_host and
 ipa_eval, each pod on a thread block cluster, at the chunk-1 shapes ("c1",
-"ipa_c1") and on cases that cross the cluster's node slices."""
+"ipa_c1") and on cases that cross the cluster's node slices; image_scores'
+merged lists and node tiles on seeded rows with repeats, -1 slots and ids
+past the vocabulary, and on the explain phase's batch ("explain_il"); the
+one-launch row flush over every field ("flush")."""
 
 import dataclasses
 
@@ -367,6 +370,66 @@ def test_ports_images_kernels_match_plain_versions_exactly(cuda_device):
     timing = chip_smoke.check_ports_images_kernels(cuda_device, reps=1)
     assert set(timing) == {"image_counts", "image_scores", "conflict_pairs", "eval_chunk", "resolve_commit"}
     assert all(t["max_abs_err"] == 0 for t in timing.values())
+
+
+@pytest.mark.cuda
+def test_explain_batch_image_plane_matches_plain_version_exactly(cuda_device):
+    """image_counts and image_scores on the explain phase's 4096-lane batch
+    over the "ports/images" cluster (chip_smoke.check_explain_il), at a
+    cut of that cluster."""
+    import chip_smoke
+
+    explain: dict = {}
+    chip_smoke.check_ports_images_kernels(cuda_device, 1, explain, nodes=500, k=512, bound=600)
+    assert set(explain["explain_il"]) == {"image_counts", "image_scores"}
+    assert all(t["max_abs_err"] == 0 for t in explain["explain_il"].values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,im,k,ci", [(70, 8, 40, 1), (96, 40, 33, 16), (37, 128, 300, 4), (33, 300, 20, 3)])
+def test_image_scores_tiles_match_plain_version_exactly(cuda_device, n, im, k, ci):
+    """image_merge and image_tile on seeded rows: ids repeated in a row,
+    -1 slots among them, ids at or above the vocabulary, pods naming an id
+    twice, unknown ids and padding lanes; N not a multiple of the tile, P
+    from 32 to 512; and the pinned mode on the same rows."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import plain
+
+    rng = np.random.default_rng(n * im)
+    vocab = im
+    ids = rng.integers(-1, vocab + 4, size=(n, im)).astype(np.int32)
+    ids[:, im // 2:] = ids[:, :im - im // 2]  # every id at least twice
+    ids[rng.random((n, im)) < 0.1] = -1
+    sizes = rng.integers(1, 2**34, size=(n, im))
+    pod_ids = rng.integers(-1, vocab + 6, size=(k, ci)).astype(np.int32)
+    if ci > 1:
+        pod_ids[::5, 1] = pod_ids[::5, 0]
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)  # noqa: E731
+    state = SimpleNamespace(image_ids=to(ids), image_sizes=to(sizes), valid=to(rng.random(n) > 0.1))
+    pf = {"il_image_ids": to(pod_ids), "il_ncontainers": to(rng.integers(1, 5, size=k)),
+          "valid": to(rng.random(k) > 0.15)}
+    counts = plain.image_counts(state, vocab)
+    assert torch.equal(kernels.image_counts(state, vocab), counts)
+    got, want = kernels.image_scores(state, pf, counts), plain.image_scores(state, pf, counts)
+    assert torch.equal(got, want) and int((want > 0).sum()) > 0
+    pin = to(rng.integers(-2, n + 2, size=k).astype(np.int32))
+    assert torch.equal(kernels.image_scores(state, pf, None, pin), plain.image_scores(state, pf, None, pin))
+
+
+@pytest.mark.cuda
+def test_flush_matches_per_field_plain_scatter(cuda_device):
+    """The row flush at the extender path's schema, 1, 8 and 64 dirty rows
+    of all 27 fields, one scatter_rows launch and one copy each, exact
+    against the per-field plain scatter (chip_smoke.check_flush_kernels)."""
+    import chip_smoke
+
+    timing = chip_smoke.check_flush_kernels(cuda_device, reps=1)
+    assert set(timing) == set(chip_smoke.FLUSH_ROWS)
+    assert all(t["scatter_rows"]["max_abs_err"] == 0 for t in timing.values())
 
 
 @pytest.mark.cuda

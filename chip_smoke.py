@@ -57,7 +57,10 @@ Phases; any failure fails the run (nothing is caught):
        taints with matching and non-matching tolerations) and on the
        workload's pods: node_filters and conflict_pairs (a 4096-pod batch),
        spread_filter, eval_chunk with the precomputed planes, late_scores,
-       select_host and resolve_commit;
+       select_host and resolve_commit; and at "spread_c1" (the explain and
+       search paths' launches: the inclusion cluster, C=1, N=8192, one pod
+       a launch): spread_filter, late_scores and late_scores/cols on the
+       workload's first 16 pods and the 32 mixed pods under both profiles;
      - at the two preemption shapes (preemption_500n: N=512, 2000 bound
        background pods under two PDBs, one with no disruption left, batch
        512; preemption_async_5kn: N=8192, 5000 bound pods, batch 1024): the
@@ -108,7 +111,8 @@ Phases; any failure fails the run (nothing is caught):
        slot, and preempt_eval's tail, the carry and the released domain
        tables compared after every step, for chunk 1 (a zone affinity, a
        hostname spread), the rank split, a mixed chunk and the speculative
-       mode; and preempt_eval in one launch with the node-local ops alone;
+       mode, and preempt_pick on every tail (timed on the mixed chunk);
+       and preempt_eval in one launch with the node-local ops alone;
        the third search shape, "search_dra" (N=8192, V=8, four claim
        holders a node on half the nodes, one claim shared by two of them,
        externally allocated claims a victim alone reserves, external
@@ -164,7 +168,15 @@ Phases; any failure fails the run (nothing is caught):
        al = 1, rq = al, rq > al and both sides of 2^53, under both fit
        strategies; resolve_commit with every optional commit branch under
        a sparse and a dense conflict table, and with C=33 and C=1024 pods
-       crowding one nearly full row, strict and not;
+       crowding one nearly full row, strict and not; spread_filter,
+       late_scores and late_scores/cols on cases that cross the node-axis
+       slices of a thread block cluster (spread_cases: 5000 nodes, N=8192,
+       one pod a launch at K=16, all pods in one launch and again at K=1):
+       a domain on one slice's rows only, a hostname minimum in the last
+       slice that holds nodes, the zone key missing on the rows where slices meet,
+       minDomains above the domain count, feasible sets on one slice only,
+       on no scored node, on one node and on none, and the 9·log(19) → 26
+       rounding boundary;
   4. drive each main path through TorchScheduler, with the launch counts
      set to 0 just before and read just after; every pod must bind, the
      host mirror must equal the device state, no node may exceed its
@@ -844,7 +856,7 @@ def division_inputs(dev, c: int):
     return builder, state, pf, nom, k
 
 
-EXACT_CASES = ("division", "branches", "crowd")
+EXACT_CASES = ("division", "branches", "crowd", "spread")
 
 
 def check_exact_cases(dev, parts=EXACT_CASES) -> dict:
@@ -855,12 +867,16 @@ def check_exact_cases(dev, parts=EXACT_CASES) -> dict:
     devices with rw, CSI with and without vol_csi_lim, ports, claims with
     first slots and fresh counts) under a sparse and a dense conflict
     table; "crowd", the cumulative fit with C=33 and C=1024 pods crowding
-    one nearly full row; the commit cases strict and not."""
+    one nearly full row; the commit cases strict and not; "spread",
+    spread_filter, late_scores and late_scores/cols on the cases that
+    cross a thread block cluster's node slices (spread_cases)."""
     errs: dict[str, float] = {}
     if "division" in parts:
         division_case(dev, errs)
     if "branches" in parts or "crowd" in parts:
         commit_cases(dev, errs, parts)
+    if "spread" in parts:
+        spread_cases(dev, errs)
     return {name: {"max_abs_err": err} for name, err in errs.items()}
 
 
@@ -1528,11 +1544,193 @@ def rounding_case(dev, errs: dict) -> None:
     print("late_scores [rounding boundary]: exact; 9·log(19) rounds to 26")
 
 
+# The slice-crossing spread cases (spread_cases): 5000 nodes, N=8192, so a
+# chunk-1 launch splits a pod over K=16 CTAs of 512 rows each.
+SLICE_NODES = 5000
+SLICE_ROWS = 512
+LONE_RACK = (3 * SLICE_ROWS, 4 * SLICE_ROWS)  # rack "lone": one slice's rows at every K
+NINE_ROW = 5  # the node holding the nine "nine" pods
+
+
+def spread_slice_inputs(dev):
+    """The cluster of spread_cases: SLICE_NODES nodes in four zones, the
+    nodes on either side of every multiple of 512 without the zone key, rack
+    "lone" on LONE_RACK's rows and racks r0-r2 elsewhere, disk labels,
+    PreferNoSchedule taints, NoSchedule taints (on the last node too);
+    3000 bound pods of four apps, one "every" pod on each node but the
+    last, nine "nine" pods on node 5.  Pods: 12 seeded ones with zone,
+    hostname and rack constraints of both kinds, preferred terms and
+    tolerations; "rack" (a rack domain on one slice), "every" (a hostname
+    minimum of 0 on the last node), "every-honor" (the same with the last
+    node's taint honoured: minimum 1), "mindom" (minDomains 6 over four
+    zones) and "nine" (hostname ScheduleAnyway over the nine pods).
+    Returns (state, the pods' batch on the device, the active ops, the
+    pods' names, the builder)."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.api import types as t
+    from kubernetes_tpu_torch.api.wrappers import make_node, make_pod
+    from kubernetes_tpu_torch.cache import Cache
+    from kubernetes_tpu_torch.engine.features import build_pod_batch
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.snapshot import SnapshotBuilder
+
+    apps = ["web", "db", "cache", "queue"]
+    rng = np.random.default_rng(19)
+    builder = SnapshotBuilder(device=dev)
+    cache = Cache(builder)
+    last = SLICE_NODES - 1
+    for i in range(SLICE_NODES):
+        w = make_node(f"s{i}").capacity({"cpu": "64", "memory": "64Gi", "pods": 200})
+        if i % SLICE_ROWS not in (0, SLICE_ROWS - 1):
+            w = w.zone(f"z{i % 4}")
+        w = w.label("rack", "lone" if LONE_RACK[0] <= i < LONE_RACK[1] else f"r{i % 3}")
+        if i % 3:
+            w = w.label("disk", "ssd" if i % 3 == 1 else "hdd")
+        if i % 5 == 2:
+            w = w.taint("soft", "x", t.EFFECT_PREFER_NO_SCHEDULE)
+        if i % 11 == 4 or i == last:
+            w = w.taint("dedicated", "gpu", t.EFFECT_NO_SCHEDULE)
+        cache.add_node(w.obj())
+    for j in range(3000):
+        cache.add_pod(make_pod(f"b{j}").req({"cpu": "10m"}).label("app", apps[int(rng.integers(4))])
+                      .node(f"s{int(rng.integers(SLICE_NODES))}").obj())
+    for i in range(last):
+        cache.add_pod(make_pod(f"e{i}").req({"cpu": "10m"}).label("app", "every").node(f"s{i}").obj())
+    for j in range(9):
+        cache.add_pod(make_pod(f"nine{j}").req({"cpu": "10m"}).label("app", "nine").node(f"s{NINE_ROW}").obj())
+    pods = []
+    for k in range(12):
+        w = make_pod(f"p{k}").req({"cpu": "10m"}).label("app", apps[k % 4])
+        for _ in range(int(rng.integers(1, 4))):
+            w = w.spread_constraint(
+                int(rng.integers(1, 3)), [ZONE, HOST, "rack"][int(rng.integers(3))],
+                t.DO_NOT_SCHEDULE if rng.integers(2) else t.SCHEDULE_ANYWAY, "app", [apps[int(rng.integers(4))]],
+                node_affinity_policy=t.POLICY_HONOR if rng.integers(2) else t.POLICY_IGNORE,
+                node_taints_policy=t.POLICY_HONOR if rng.integers(2) else t.POLICY_IGNORE)
+        if rng.random() < 0.7:
+            w = w.preferred_node_affinity_in("disk", ["ssd"], weight=int(rng.integers(1, 100)))
+        if rng.random() < 0.5:
+            w = w.preferred_node_affinity_in("rack", ["lone", "r1"], weight=int(rng.integers(1, 100)))
+        if rng.random() < 0.5:
+            w = w.toleration(key="soft", op=t.TOLERATION_OP_EXISTS, effect=t.EFFECT_PREFER_NO_SCHEDULE)
+        pods.append(w.obj())
+    pods.append(make_pod("rack").label("app", "web").spread_constraint(1, "rack", t.DO_NOT_SCHEDULE, "app", ["web"])
+                .spread_constraint(1, "rack", t.SCHEDULE_ANYWAY, "app", ["web"]).obj())
+    pods.append(make_pod("every").label("app", "every")
+                .spread_constraint(1, HOST, t.DO_NOT_SCHEDULE, "app", ["every"])
+                .spread_constraint(2, HOST, t.SCHEDULE_ANYWAY, "app", ["every"]).obj())
+    pods.append(make_pod("every-honor").label("app", "every").spread_constraint(
+        1, HOST, t.DO_NOT_SCHEDULE, "app", ["every"], node_taints_policy=t.POLICY_HONOR).obj())
+    pods.append(make_pod("mindom").label("app", "db").spread_constraint(
+        1, ZONE, t.DO_NOT_SCHEDULE, "app", ["db"], min_domains=6)
+        .spread_constraint(1, ZONE, t.SCHEDULE_ANYWAY, "app", ["db"]).obj())
+    pods.append(make_pod("nine").label("app", "nine").spread_constraint(1, HOST, t.SCHEDULE_ANYWAY, "app", ["nine"])
+                .obj())
+    for _round in range(2):  # the second under the final vocabularies
+        batch, _, active = build_pod_batch(pods, builder, DEFAULT_PROFILE, len(pods))
+    pf = {key: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for key, v in batch.items()}
+    state = builder.state()
+    names = state.name_id.cpu().numpy()
+    if not all(names[i] == builder.interns.node_names.get(f"s{i}") for i in (0, NINE_ROW, last)):
+        raise AssertionError("spread_slice_inputs: node i is not on row i")
+    return state, pf, active, [p.metadata.name for p in pods], builder
+
+
+def spread_cases(dev, errs: dict) -> None:
+    """spread_filter, late_scores and late_scores/cols against their plain
+    versions, exactly, on spread_slice_inputs: each pod alone (C=1: K=16
+    slices of 512 rows) and all in one launch, also with one CTA a pod
+    (K=1 forced: the plain launch's scheme), the filter on the cluster
+    and the scores over the spread filter's feasible set, a random one,
+    one slice's rows only (every other slice without a scored node), the
+    rows missing the zone key (no scored node for a zone constraint), one
+    node (max = min), none, and 17 nodes across the slices (the 9·log(19)
+    rounding boundary: node 5's raw spread score must be 26).  Also
+    checks what the cases claim: only the last node passes "every"'s
+    filter (its hostname minimum, 0, lies in the last slice that holds
+    nodes), every node passes "every-honor"'s, none passes "mindom"'s."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.engine.pass_ import eval_spec, late_spec
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.kernels import plain
+    from kubernetes_tpu_torch.ops import podtopologyspread as spread_op
+
+    state, pf, active, names, builder = spread_slice_inputs(dev)
+    schema = builder.schema
+    spec = eval_spec(DEFAULT_PROFILE, schema, builder.res_col, active)
+    late = late_spec(DEFAULT_PROFILE, schema, builder.res_col, active)
+    if not (late.na_weight and late.taint_weight and late.spread_weight):
+        raise AssertionError(f"spread cases: scores not all active {late}")
+    bits = plain.node_filters(state, pf, spec.ctx)
+    n, c_all = state.valid.shape[0], len(names)
+    k1 = spread_ctas(state, _chunk(pf, 0, 1), 1, schema)
+    if n != 8192 or k1 != {"tps_h": 16, "tps_s": 16}:
+        raise AssertionError(f"spread cases: N={n}, CTAs a pod {k1}, want 8192 rows and 16")
+    rng = np.random.default_rng(23)
+    valid = state.valid.cpu().numpy()
+    rows = np.arange(n)
+    seventeen = np.zeros(n, bool)
+    seventeen[[NINE_ROW] + [int(r) for r in np.linspace(600, SLICE_NODES - 1, 16)]] = True
+    sets = {
+        "one slice only": (rows >= 5 * SLICE_ROWS) & (rows < 6 * SLICE_ROWS),
+        "no key (no scored node)": np.isin(rows % SLICE_ROWS, (0, SLICE_ROWS - 1)),
+        "one node (max = min)": rows == int(rng.integers(SLICE_NODES)),
+        "none": np.zeros(n, bool),
+        "seventeen nodes": seventeen,
+    }
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    launches = [(f"pod {names[i]}", i, 1, False) for i in range(c_all)] + [("all pods", 0, c_all, False),
+                                                                           ("all pods, K=1", 0, c_all, True)]
+    split = kernels.cluster_split
+    for label, i, c, one_cta in launches:
+        kernels.cluster_split = (lambda *_a, **_kw: 1) if one_cta else split
+        try:
+            p, b = _chunk(pf, i, c), bits[i:i + c].contiguous()
+            ks = kernels.spread_filter(state, p, b, spec.ctx)
+            ps = plain.spread_filter(state, p, b, spec.ctx)
+            torch.cuda.synchronize()
+            exact(errs, "spread_filter", f"[spread cases, {label}]", ks, ps)
+            feas_sets = {"the spread filter's": ps & state.valid[None],
+                         "random": to((rng.random((c, n)) < 0.6) & valid[None]),
+                         **{what: to(np.broadcast_to(r & valid, (c, n)).copy()) for what, r in sets.items()}}
+            for what, feas in feas_sets.items():
+                base = torch.where(feas, 7, 0).to(torch.int64)
+                kt = kernels.late_scores(state, p, feas, base.clone(), b, late)
+                pt = plain.late_scores(state, p, feas, base.clone(), b, late)
+                tk, tp = base.clone(), base.clone()
+                kc = kernels.late_scores_cols(state, p, feas, tk, b, late)
+                pc = plain.late_scores_cols(state, p, feas, tp, b, late)
+                torch.cuda.synchronize()
+                exact(errs, "late_scores", f"[spread cases, {label}, {what}]", kt, pt)
+                exact(errs, "late_scores/cols", f"[spread cases, {label}, {what}] cols", kc, pc)
+                exact(errs, "late_scores/cols", f"[spread cases, {label}, {what}] total", tk, tp)
+        finally:
+            kernels.cluster_split = split
+    ok = plain.spread_filter(state, pf, bits, spec.ctx)[:, :SLICE_NODES].cpu().numpy()
+    if not ((ok[names.index("every")] == (np.arange(SLICE_NODES) == SLICE_NODES - 1)).all()
+            and ok[names.index("every-honor")].all() and not ok[names.index("mindom")].any()):
+        raise AssertionError("spread cases: the hostname-minimum or minDomains case is not what it says")
+    nine = names.index("nine")
+    p = _chunk(pf, nine, 1)
+    _scored, raw = spread_op.raw_score(state, p, spec.ctx, to(seventeen[None]), (bits[nine:nine + 1] & 1) != 0,
+                                       (bits[nine:nine + 1] & 2) != 0)
+    if int(raw[0, NINE_ROW]) != 26:
+        raise AssertionError(f"spread cases: raw score {int(raw[0, NINE_ROW])} at the rounding boundary, want 26")
+    print(f"spread cases: exact; {c_all} pods one a launch (CTAs a pod {k1}) and all in one launch "
+          f"({spread_ctas(state, pf, c_all, schema)}, then 1), {len(sets) + 2} feasible sets each; "
+          f"9·log(19) rounds to 26")
+
+
 def _chunk(pf: dict, i: int, c: int) -> dict:
     return {k: v[i * c:(i + 1) * c].contiguous() for k, v in pf.items()}
 
 
-def check_spread_kernels(dev, shape: str, reps: int) -> dict:
+def check_spread_kernels(dev, shape: str, reps: int, c1: dict | None = None) -> dict:
     """Phase 3, one spread shape (spread_na: C=8, N=1024; inclusion: C=8,
     N=8192): node_filters, spread_filter, eval_chunk with their planes,
     late_scores, select_host, resolve_commit and conflict_pairs against
@@ -1540,7 +1738,8 @@ def check_spread_kernels(dev, shape: str, reps: int) -> dict:
     default profile and addedAffinity, the final feasible set and a random
     one) and on the workload's pods; returns each one's timings (on the
     workload's first chunk, and node_filters and conflict_pairs on its
-    4096-pod batch), bound and largest error."""
+    4096-pod batch), bound and largest error.  With ``c1``, fills
+    c1["spread_c1"] from the same inputs (check_spread_c1_kernels)."""
     import numpy as np
     import torch
 
@@ -1669,7 +1868,101 @@ def check_spread_kernels(dev, shape: str, reps: int) -> dict:
         result[name]["max_abs_err"] = errs[name]
     print(f"{shape} shapes: C={c}, N={n}, K={k}, G={schema.G}, TK={schema.TK}, DV={schema.DV}, "
           f"LS={schema.LS}, TS={schema.TS}, TV={schema.TV}; mixed chunks: {stats}; workload chunk: "
-          f"{int(pe0[0].sum())} feasible (pod, node) pairs, spread rejects {int((state.valid & ~ps0).sum())}")
+          f"{int(pe0[0].sum())} feasible (pod, node) pairs, spread rejects {int((state.valid & ~ps0).sum())}, "
+          f"CTAs a pod {spread_ctas(state, pf0, c, schema)}")
+    if c1 is not None:
+        c1["spread_c1"] = check_spread_c1_kernels(dev, x, reps)
+    return result
+
+
+def spread_ctas(state, pf: dict, c: int, schema) -> dict:
+    """The thread block cluster size K a pod of spread_filter and of
+    late_scores at this chunk (kernels.spread_split; None in a tree of the
+    port without it, as --kernels-of may give)."""
+    from kubernetes_tpu_torch import kernels
+
+    if not hasattr(kernels, "spread_split"):
+        return None
+    n, sms = state.valid.shape[0], kernels._sms(state.valid.device)
+    return {prefix: kernels.spread_split(c, n, pf[f"{prefix}_valid"].shape[1], schema.DV, sms)[0]
+            for prefix in ("tps_h", "tps_s")}
+
+
+def check_spread_c1_kernels(dev, x: dict, reps: int) -> dict:
+    """The "spread_c1" shape: the chunk-1 paths' launches of spread_filter,
+    late_scores and late_scores/cols (the explain phase, the search path:
+    C=1 over N=8192) on the inclusion shape's cluster (5000 nodes in 10
+    zones, spread_inputs ``x``), one pod a launch: each against its plain
+    version, exactly, on eval_chunk's feasible set for the workload's
+    first 16 pods and for the 32 mixed pods under both profiles; timed on
+    the workload's first pod (and late_scores on a mixed pod with zone and
+    hostname ScheduleAnyway constraints, printed)."""
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.engine.pass_ import eval_spec, late_spec
+    from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE
+    from kubernetes_tpu_torch.kernels import plain
+
+    builder, state = x["builder"], x["state"]
+    schema, res_col = builder.schema, builder.res_col
+    n = state.valid.shape[0]
+    errs: dict[str, float] = {}
+
+    def one(label, prof, pf, active, bits):
+        spec = eval_spec(prof, schema, res_col, active)
+        late = late_spec(prof, schema, res_col, active)
+        ks = kernels.spread_filter(state, pf, bits, spec.ctx)
+        ps = plain.spread_filter(state, pf, bits, spec.ctx)
+        torch.cuda.synchronize()
+        exact(errs, "spread_filter", f"[spread_c1, {label}]", ks, ps)
+        pe = plain.eval_chunk(state, pf, spec, None, (bits, ps))
+        kt = kernels.late_scores(state, pf, pe[0], pe[1].clone(), bits, late)
+        pt = plain.late_scores(state, pf, pe[0], pe[1].clone(), bits, late)
+        tk, tp = pe[1].clone(), pe[1].clone()
+        kc = kernels.late_scores_cols(state, pf, pe[0], tk, bits, late)
+        pc = plain.late_scores_cols(state, pf, pe[0], tp, bits, late)
+        torch.cuda.synchronize()
+        exact(errs, "late_scores", f"[spread_c1, {label}]", kt, pt)
+        exact(errs, "late_scores/cols", f"[spread_c1, {label}] cols", kc, pc)
+        exact(errs, "late_scores/cols", f"[spread_c1, {label}] total", tk, tp)
+        return late, pe
+
+    big, active = x["big_pf"], x["big_active"]
+    ctx = eval_spec(DEFAULT_PROFILE, schema, res_col, active).ctx
+    bits = plain.node_filters(state, _chunk(big, 0, 16), ctx)
+    runs = [one(f"workload pod {i}", DEFAULT_PROFILE, _chunk(big, i, 1), active, bits[i:i + 1].contiguous())
+            for i in range(16)]
+    for label, (prof, pf, act) in x["mixed"].items():
+        b = plain.node_filters(state, pf, eval_spec(prof, schema, res_col, act).ctx)
+        for i in range(32):
+            got = one(f"{label} pod {i}", prof, _chunk(pf, i, 1), act, b[i:i + 1].contiguous())
+            if label == "default" and i == 1:  # zone and hostname ScheduleAnyway, preferred terms
+                soft = (_chunk(pf, 1, 1), b[1:2].contiguous(), *got)
+    late, pe = runs[0]
+    pf0, bits0 = _chunk(big, 0, 1), bits[:1].contiguous()
+    spec0 = eval_spec(DEFAULT_PROFILE, schema, res_col, active)
+    clone = lambda: pe[1].clone()  # noqa: E731
+    result = {
+        "spread_filter": timed(lambda _: kernels.spread_filter(state, pf0, bits0, spec0.ctx),
+                               lambda _: plain.spread_filter(state, pf0, bits0, spec0.ctx), reps),
+        "late_scores": timed(lambda a: kernels.late_scores(state, pf0, pe[0], a, bits0, late),
+                             lambda a: plain.late_scores(state, pf0, pe[0], a, bits0, late), reps, clone),
+        "late_scores/cols": timed(lambda a: kernels.late_scores_cols(state, pf0, pe[0], a, bits0, late),
+                                  lambda a: plain.late_scores_cols(state, pf0, pe[0], a, bits0, late), reps, clone),
+    }
+    set_bound(result["spread_filter"], spread_bytes(state, pf0, "tps_h") + n)
+    set_bound(result["late_scores"], late_bytes(state, pf0, late, 1))
+    set_bound(result["late_scores/cols"], late_bytes(state, pf0, late, 1) + 3 * n * 8)
+    for name in result:
+        result[name]["max_abs_err"] = errs[name]
+        result[name].setdefault("library_ms", None)
+    pf1, bits1, late1, pe1 = soft
+    ms1, _ = median_ms(lambda a: kernels.late_scores(state, pf1, pe1[0], a, bits1, late1), reps,
+                       lambda: pe1[1].clone())
+    print(f"spread_c1: exact on 16 workload pods and 64 mixed pods, one a launch; CTAs a pod "
+          f"{spread_ctas(state, pf0, 1, schema)}; late_scores on mixed pod 1 (zone and hostname "
+          f"ScheduleAnyway): device ms {ms1:.4f}")
     return result
 
 
@@ -1837,6 +2130,18 @@ def check_main_at(dev, label: str, builder, state, pf_full: dict, active, profil
     return out
 
 
+def pick_cost(possible, pf: dict) -> tuple[int, int]:
+    """preempt_pick: (bytes, operations).  The possible flags and the five
+    criteria read, the pods' mate features read and picks written; the
+    least work of a rank, one comparison sort of the possible nodes' five
+    keys, n log2 n key comparisons."""
+    import math
+
+    n, k = possible.shape[0], pf["sig"].shape[0]
+    n_pos = int(possible.sum())
+    return n * (1 + 5 * 8) + k * (1 + 4 + 4), 5 * n_pos * max(1, math.ceil(math.log2(max(n_pos, 2))))
+
+
 def preempt_eval_bytes(state, vic, pf: dict, possible_mask) -> int:
     """preempt_eval for one representative: each node's state row and its
     victims' priorities read once; the requests, start times and PDB bits
@@ -1860,8 +2165,6 @@ def check_preempt_kernels(dev, shape: str, reps: int) -> dict:
     of the uniform batch (the workloads' mode), a mixed chunk of 64 that
     defers its other-signature mates, and the speculative mode (valid =
     eligible and the main pass's pick < 0)."""
-    import math
-
     import torch
 
     from kubernetes_tpu_torch import kernels
@@ -1921,11 +2224,7 @@ def check_preempt_kernels(dev, shape: str, reps: int) -> dict:
     result["preempt_pick"] = timed(lambda _: kernels.preempt_pick(ek[0], ek[1], pf, True),
                                    lambda _: plain.preempt_pick(ep[0], ep[1], pf, True), reps)
     n = state.valid.shape[0]
-    n_pos = int(ep[0].sum())
-    # The least work of a rank: one comparison sort of the possible nodes'
-    # five keys, n log2 n key comparisons.
-    set_bound(result["preempt_pick"], n * (1 + 5 * 8) + k * (1 + 4 + 4),
-              5 * n_pos * max(1, math.ceil(math.log2(max(n_pos, 2)))))
+    set_bound(result["preempt_pick"], *pick_cost(ep[0], pf))
     carries = lambda: ((state.req.clone(), state.nonzero_req.clone(), state.num_pods.clone()),  # noqa: E731
                        vic.prio.clone())
     result["preempt_commit"] = timed(lambda a: kernels.preempt_commit(a[0], a[1], ek, pk),
@@ -2390,6 +2689,13 @@ def check_search_kernels(dev, shape: str, reps: int, nodes: int = 5000) -> dict:
         torch.cuda.synchronize()
         for what, a, b in zip(("possible", "crit", "vic_mask", "n_vic", "rel", "relnz"), kt, pt):
             exact(errs, "preempt_eval", f"{where} tail {what}", a, b)
+        chunk_mode = pf["sig"].shape[0] > 1
+        pk = kernels.preempt_pick(kt[0], kt[1], pf, chunk_mode)
+        pp = plain.preempt_pick(pt[0], pt[1], pf, chunk_mode)
+        torch.cuda.synchronize()
+        exact(errs, "preempt_pick", f"{where} picks", pk, pp)
+        if label == "mixed chunk":
+            pick_in = (pf, kt, pt, chunk_mode)
         kf = kernels.preempt_eval(state, vic, pf, local)
         pfull = plain.preempt_eval(state, vic, pf, local)
         torch.cuda.synchronize()
@@ -2417,6 +2723,11 @@ def check_search_kernels(dev, shape: str, reps: int, nodes: int = 5000) -> dict:
                                    plain_reps=max(3, reps // 10))
     set_bound(result["preempt_eval"], preempt_eval_bytes(state, vic, full_in, None)
               + search_step_bytes(state, vic, full_in, local, c0) - nbytes(*c0) * 2)
+    # preempt_pick on the mixed chunk's tail (the paths' dry-run chunk).
+    pf, kt, pt, chunk_mode = pick_in
+    result["preempt_pick"] = timed(lambda _: kernels.preempt_pick(kt[0], kt[1], pf, chunk_mode),
+                                   lambda _: plain.preempt_pick(pt[0], pt[1], pf, chunk_mode), reps)
+    set_bound(result["preempt_pick"], *pick_cost(pt[0], pf))
     print(f"search [{shape}]: {steps} search steps checked; K={k} C={c} N={state.valid.shape[0]} V={vic.prio.shape[1]} "
           f"(occupied {vic.occupied}) G={s.builder.schema.G} ET={s.builder.schema.ET} DV={s.builder.schema.DV} "
           f"CV={s.builder.schema.CV} features {sorted(vic.vfeat)}")
@@ -5805,18 +6116,24 @@ def plain_runs(refs: dict, order: list, card: str) -> None:
 # select_host and truncate_feasible at "truncate", the rest at "c1"; the
 # explain phase reads the image kernels at "explain_il"; the paths that
 # flush rows a pod or a dry-run (extender and its PostFilter phase, search,
-# claims) read scatter_rows at "flush".
+# claims) read scatter_rows at "flush"; the explain phase reads the
+# columns modes at "cols" (its records' own pod and cluster); the chunk-1
+# paths (the explain phase, search) read spread_filter and late_scores at
+# "spread_c1"; the
+# claims path reads its dry-runs at "search_dra_path" (C=8, N=4096) and
+# the PostFilter phase its own at "preemption_500n" (500 nodes).
 PATH_SHAPE = {
     "density": ["density"], "ipa": ["ipa"], "spread_na": ["spread_na"], "inclusion": ["inclusion"],
     "preemption_500n": ["preemption_500n"], "preemption_async_5kn": ["preemption_async_5kn"],
     "daemonset_15kn": ["daemonset"], "intree_pvs_5kn_2kpods": ["pv"], "migrated_intree_pvs_5kn_5kpods": ["pv"],
     "csi_pvs_5kn_5kpods": ["pv"], "default_images_ports_5kn_10kpods": ["ports_images"],
-    "default_images_ports_5kn_10kpods/explain": ["c1", "ipa_c1", "explain_il"],
-    "preemption_default_search_5kn": ["search", "ipa_c1", "flush"],
-    "dra_claims_5kn_5kpods": ["dra_path", "flush"], "parity_basic_5kn_10kpods": ["truncate", "c1"],
+    "default_images_ports_5kn_10kpods/explain": ["c1", "ipa_c1", "cols", "spread_c1", "explain_il"],
+    "preemption_default_search_5kn": ["search", "ipa_c1", "spread_c1", "flush"],
+    "dra_claims_5kn_5kpods": ["dra_path", "search_dra_path", "flush"],
+    "parity_basic_5kn_10kpods": ["truncate", "c1"],
     "hetero_5kn_10kpods": ["hetero"], "hetero_learned_1kn_5kpods": ["hetero_learned"],
     "binpack_rtcr_5kn_10kpods": ["rtcr"], "extender_5kn_1kpods": ["c1", "flush"],
-    "extender_5kn_1kpods/postfilter": ["c1", "flush"],
+    "extender_5kn_1kpods/postfilter": ["c1", "preemption_500n", "flush"],
 }
 
 
@@ -5959,11 +6276,17 @@ def main() -> int:
         explain: dict = {}  # check_ports_images_kernels fills "explain_il" on its cluster
         return {"ports_images": check_ports_images_kernels(dev, REPS, explain), **explain}
 
+    def spread_group():
+        c1: dict = {}  # check_spread_kernels fills "spread_c1" on the inclusion cluster
+        out = {shape: check_spread_kernels(dev, shape, REPS, c1 if shape == "inclusion" else None)
+               for shape in ("spread_na", "inclusion")}
+        return {**out, **c1}
+
     # The kernel phase's checks in their order, each returning its shapes.
     groups = {
         "density": lambda: {"density": check_kernels(dev, REPS)}, "c1": lambda: {"c1": check_c1_kernels(dev, REPS)},
         "ipa": lambda: {"ipa": check_ipa_kernels(dev, REPS)},
-        "spread": lambda: {shape: check_spread_kernels(dev, shape, REPS) for shape in ("spread_na", "inclusion")},
+        "spread": spread_group,
         "preempt": lambda: {shape: check_preempt_kernels(dev, shape, REPS) for shape in PREEMPT_SHAPES},
         "flush": lambda: check_flush_kernels(dev, REPS),
         "daemonset": lambda: {"daemonset": check_pinned_kernels(dev, REPS)},

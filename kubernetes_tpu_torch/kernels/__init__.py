@@ -14,9 +14,11 @@
   conflict_pairs  csrc/conflict_pairs.cu  chunk-mate conflict table, per batch
   node_filters    csrc/node_filters.cu    NodeAffinity, TaintToleration, VolumeBinding and VolumeZone
                                           filter bits, per batch
-  spread_filter   csrc/spread_eval.cu     PodTopologySpread's filter, per chunk, before eval_chunk
+  spread_filter   csrc/spread_eval.cu     PodTopologySpread's filter, per chunk, before eval_chunk;
+                                          one pod over a thread block cluster (spread_split)
   late_scores     csrc/spread_eval.cu     NodeAffinity, TaintToleration and spread scores over the
-                                          final feasible set, per chunk, after ipa_eval
+                                          final feasible set, per chunk, after ipa_eval; one pod
+                                          over a cluster, or one CTA a pod pinned
   vol_filter      csrc/volume_filters.cu  VolumeRestrictions + NodeVolumeLimits filter bits, per
                                           chunk, before eval_chunk
   image_counts    csrc/image_locality.cu  valid nodes holding each image id, per batch
@@ -85,21 +87,25 @@ MAX_CHUNK = 1024  # resolve_commit: one block a chunk
 EVAL_TILE = 128
 EVAL_TILE_MIN = 32
 EVAL_GROUP = 4
-# Shared memory an ipa_eval block may use for its per-pod tables (of the
-# H100's 227 KB a block can have).
-IPA_SMEM_CAP = 200 * 1024
-# Thread block clusters (select_host, ipa_eval): at most CLUSTER_MAX CTAs a
-# pod (16 takes the non-portable cluster size), and at least this many
-# node rows a CTA, chosen from the H100 sweeps of K at the paths' shapes
-# (PERF.md §6): select_host's reductions gain from a split only where a
-# pod's rows are many (two a thread of 512 at least) and its clusters fit
-# the card one CTA an SM; ipa_eval's per-node walk gains down to 128 rows
-# a CTA.
+# Shared memory an ipa_eval, spread_filter or late_scores CTA may use for
+# its per-pod tables (of the H100's 227 KB a block can have); each kernel's
+# error names its own.
+SMEM_CAP = 200 * 1024
+IPA_SMEM_CAP = SPREAD_SMEM_CAP = SMEM_CAP
+# Thread block clusters (select_host, ipa_eval, spread_filter, late_scores):
+# at most CLUSTER_MAX CTAs a pod (16 takes the non-portable cluster size),
+# and at least this many node rows a CTA, chosen from the H100 sweeps of K
+# at the paths' shapes (PERF.md §6): select_host's reductions gain from a
+# split only where a pod's rows are many (two a thread of 512 at least) and
+# its clusters fit the card one CTA an SM; ipa_eval's per-node walk gains
+# down to 128 rows a CTA.
 CLUSTER_MAX = 16
 SELECT_ROWS_MIN = 1024
 IPA_ROWS_MIN = 128
-# The same for a spread_filter or late_scores block's domain tables.
-SPREAD_SMEM_CAP = 200 * 1024
+# spread_filter's and late_scores' clusters take at least SPREAD_ROWS_MIN
+# node rows a CTA (the H100 sweep of K at the spread shapes, PERF.md §6).
+SPREAD_ROWS_MIN = 128
+SPREAD_WARPS = 16  # spread_eval.cu's kMaxWarps (its launchers refuse a spread_smem that disagrees)
 
 
 @dataclass
@@ -149,13 +155,25 @@ class LateSpec:
     spread_weight: int
 
 
+def spread_smem(q: int, dv: int, k: int = 1) -> int:
+    """Dynamic shared memory of one spread_filter or late_scores CTA with
+    ``q`` constraints in a cluster of ``k`` (spread_eval.cu's smem_len):
+    the per-constraint int64 (the filter's minima, the score's log weights)
+    and eight staged flags; the partial (Q, DV) count and presence tables,
+    hostname minima and counts and the scored-node count, and above one CTA
+    a pod the cluster's summed copy; the list lengths and the per-warp
+    hostname minima and counts."""
+    part = 2 * q * dv + 2 * q + 1
+    ints = 8 * q + part * (2 if k > 1 else 1) + q + 2 * SPREAD_WARPS * q
+    return 8 * q + 4 * ints
+
+
 def spread_smem_bytes(k: int, dv: int) -> int:
-    """Dynamic shared memory of one spread_filter or late_scores block with
-    ``k`` constraints: the (K, DV) count and presence tables and the
-    per-constraint scalars.  Raises NotImplementedError above
+    """spread_smem of one CTA a pod with ``k`` constraints.  Raises
+    NotImplementedError above
     SPREAD_SMEM_CAP: such a pass needs the tables in device memory, which
     these kernels do not do."""
-    nbytes = 8 * k + 8 * 4 + 4 * (2 * k * dv + 3 * k + 1)
+    nbytes = spread_smem(k, dv)
     if nbytes > SPREAD_SMEM_CAP:
         raise NotImplementedError(
             f"spread_eval: {nbytes} bytes of per-pod domain tables exceed its shared-memory cap "
@@ -286,21 +304,31 @@ def eval_tile(c: int, n: int, sms: int) -> tuple[int, int]:
 
 def cluster_split(c: int, n: int, sms: int, rows_min: int, smem_per_cta=None, one_wave: bool = False) -> int:
     """K, the CTAs of the thread block cluster that takes one pod of a
-    select_host or ipa_eval launch of C pods over N node rows, on a card
-    with ``sms`` SMs: the smallest of 1, 2, 4, 8, 16 with C x K >= sms (1
-    where C >= sms), halved while a CTA would get fewer than ``rows_min``
-    rows (N // K), while, with ``smem_per_cta`` (K -> a CTA's shared memory
-    in bytes), a CTA would need more than IPA_SMEM_CAP, and, with
-    ``one_wave``, while the grid would hold more CTAs than SMs (C x K >
-    sms).  One CTA a pod is a scheme of its own, picked by shape: the
-    kernel runs it as a plain launch."""
+    select_host, ipa_eval, spread_filter or late_scores launch of C pods
+    over N node rows, on a card with ``sms`` SMs: the smallest of 1, 2, 4,
+    8, 16 with C x K >= sms (1 where C >= sms), halved while a CTA would
+    get fewer than ``rows_min`` rows (N // K), while, with
+    ``smem_per_cta`` (K -> a CTA's shared memory in bytes), a CTA would
+    need more than SMEM_CAP, and, with ``one_wave``, while the grid would
+    hold more CTAs than SMs (C x K > sms).  One CTA a pod is a scheme of
+    its own, picked by shape: the kernel runs it as a plain launch."""
     k = 1
     while k < CLUSTER_MAX and c * k < sms:
         k *= 2
-    while k > 1 and (n // k < rows_min or (smem_per_cta is not None and smem_per_cta(k) > IPA_SMEM_CAP)
+    while k > 1 and (n // k < rows_min or (smem_per_cta is not None and smem_per_cta(k) > SMEM_CAP)
                      or (one_wave and c * k > sms)):
         k //= 2
     return k
+
+
+def spread_split(c: int, n: int, q: int, dv: int, sms: int) -> tuple[int, int]:
+    """(K, shared memory a CTA) of a spread_filter or late_scores launch of
+    C pods with ``q`` constraints over N node rows (N = 1 pinned): K from
+    cluster_split with SPREAD_ROWS_MIN under the cap.  Raises
+    NotImplementedError where one CTA's tables pass SPREAD_SMEM_CAP."""
+    spread_smem_bytes(q, dv)
+    k = cluster_split(c, n, sms, SPREAD_ROWS_MIN, lambda k: spread_smem(q, dv, k))
+    return k, spread_smem(q, dv, k)
 
 
 def image_grid(n: int, k: int, im: int, sms: int) -> tuple[int, int, int]:
@@ -1013,18 +1041,18 @@ def spread_filter(state, pf: dict, node_bits, ctx):
     dv = ctx.schema.DV
     c = pf["valid"].shape[0]
     feats, ch = _spread_args(state, pf, "tps_h", c, dev)
-    smem = spread_smem_bytes(ch, dv)
+    k, smem = spread_split(c, n, ch, dv, _sms(dev))
     node = [
         _check("topo_vals", state.topo_vals, torch.int32, (n, tk), dev),
         _check("valid", state.valid, torch.bool, (n,), dev),
         _check("group_counts", state.group_counts, torch.int32, (g, n), dev),
         _check("node_bits", node_bits, torch.uint8, (c, n), dev),
     ]
-    glist = torch.empty((c, ch, g), dtype=torch.int32, device=dev)
+    glist = torch.empty((c * k, ch, g), dtype=torch.int32, device=dev)
     out = torch.empty((c, n), dtype=torch.bool, device=dev)
     build.launch(
         "spread_filter", *[_ptr(a) for a in node], *[_ptr(a) for a in feats], _ptr(glist), _ptr(out),
-        c, n, tk, dv, g, ch, smem, _stream(dev),
+        c, n, tk, dv, g, ch, smem, k, _stream(dev),
     )
     spread_filter.launches += 1
     return out
@@ -1040,7 +1068,7 @@ def late_scores(state, pf: dict, feasible, total, node_bits, late: LateSpec, pin
     if _on_cpu(feasible):
         return plain.late_scores(state, pf, feasible, total, node_bits, late, pin)
     dev = feasible.device
-    args, _raw = _late_args(state, pf, feasible, total, node_bits, late, pin, torch.empty)
+    args, _raw, _glist = _late_args(state, pf, feasible, total, node_bits, late, pin, torch.empty)
     build.launch("late_scores", *args, _stream(dev))
     late_scores.launches += 1
     return total
@@ -1055,7 +1083,7 @@ def late_scores_cols(state, pf: dict, feasible, total, node_bits, late: LateSpec
     if _on_cpu(feasible):
         return plain.late_scores_cols(state, pf, feasible, total, node_bits, late)
     dev = feasible.device
-    args, raw = _late_args(state, pf, feasible, total, node_bits, late, None, torch.zeros)
+    args, raw, _glist = _late_args(state, pf, feasible, total, node_bits, late, None, torch.zeros)
     build.launch("late_scores_cols", *args, _stream(dev))
     late_scores_cols.launches += 1
     return raw
@@ -1063,7 +1091,9 @@ def late_scores_cols(state, pf: dict, feasible, total, node_bits, late: LateSpec
 
 def _late_args(state, pf: dict, feasible, total, node_bits, late: LateSpec, pin, alloc):
     """late_scores' and late_scores_cols' launch arguments, checked, up to
-    the stream; and the (3, C, width) i64 raw columns, made by ``alloc``."""
+    the stream; the (3, C, width) i64 raw columns, made by ``alloc``; and
+    the group lists' device scratch, which the caller holds until the
+    launch."""
     dev = feasible.device
     c = feasible.shape[0]
     n = state.valid.shape[0]
@@ -1098,15 +1128,15 @@ def _late_args(state, pf: dict, feasible, total, node_bits, late: LateSpec, pin,
         soft, cs = _spread_args(state, pf, "tps_s", c, dev)
         table = log_table(max(n, dv), dev)
         nb = _check("node_bits", node_bits, torch.uint8, (c, n), dev)
-    smem = spread_smem_bytes(cs, dv)
-    glist = torch.empty((c, max(cs, 1), g), dtype=torch.int32, device=dev)
+    k, smem = spread_split(c, width, cs, dv, _sms(dev))
+    glist = torch.empty((c * k, cs, g), dtype=torch.int32, device=dev)
     raw = alloc((3, c, width), dtype=torch.int64, device=dev)
     args = [*[_ptr(a) for a in node], _ptr(nb), _ptr(feasible), _ptr(total), _ptr(pin),
             *[_ptr(a) for a in pref], _ptr(intol), *[_ptr(a) for a in soft], _ptr(table),
             _ptr(glist), _ptr(raw),
             c, n, ls, ts, tk, dv, g, *dims, tv, cs, max(n, dv) + 1,
-            int(late.na_weight), int(late.taint_weight), int(late.spread_weight), smem]
-    return args, raw
+            int(late.na_weight), int(late.taint_weight), int(late.spread_weight), smem, k]
+    return args, raw, glist
 
 
 def vol_filter(state, pf: dict, ctx, do_vr: bool, do_nvl: bool):

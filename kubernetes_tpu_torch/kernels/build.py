@@ -74,9 +74,9 @@ _SIGNATURES: dict[str, list] = {
     "conflict_pairs": [_P] * 13 + [_I] * 11 + [_P, _P],
     "node_filters": [_P] * 36 + [_I] * 23 + [_P],
     "vol_filter": [_P] * 11 + [_I] * 7 + [_P],
-    "spread_filter": [_P] * 15 + [_I] * 7 + [_P],
-    "late_scores": [_P] * 30 + [_I] * 13 + [_L] * 3 + [_I, _P],
-    "late_scores_cols": [_P] * 30 + [_I] * 13 + [_L] * 3 + [_I, _P],
+    "spread_filter": [_P] * 15 + [_I] * 8 + [_P],
+    "late_scores": [_P] * 30 + [_I] * 13 + [_L] * 3 + [_I, _I, _P],
+    "late_scores_cols": [_P] * 30 + [_I] * 13 + [_L] * 3 + [_I, _I, _P],
     # preempt_eval and search_step: a pointer table and its length, the
     # dimensions and their count, the stream (preempt_search.cuh).
     "preempt_eval": [_P, _I, _P, _I, _P],

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""The thread block cluster size K of select_host and ipa_eval, swept on a card.
+"""The thread block cluster size K of select_host, ipa_eval, spread_filter
+and late_scores, swept on a card.
 
-    python3 scripts/cluster_sweep.py      # from the repository root, one CUDA card
+    python3 scripts/cluster_sweep.py                # from the repository root, one CUDA card
+    python3 scripts/cluster_sweep.py --only spread  # spread_filter and late_scores alone
 
 At chip_smoke.py's kernel-phase shapes (density "a", C=8 and C=128 at
 N=8192, C=64 at N=512, "c1", a 10000-node cluster at N=16384, the IPA
@@ -13,8 +15,13 @@ plain version and timed (median of 50 calls, CUDA events behind a spin
 kernel, chip_smoke.median_ms), K ascending then descending.  Prints one
 line a shape, then the medians as JSON and the card's name and power
 limit.  cluster_split's row minimums (SELECT_ROWS_MIN, IPA_ROWS_MIN) and
-select_host's one-wave cap were chosen from its output.
+select_host's one-wave cap were chosen from its output.  The spread part
+sweeps spread_filter, late_scores and late_scores_cols at "spread_c1" (a
+workload pod of the inclusion cluster, C=1, N=8192), at "inclusion" (C=8,
+N=8192) and at "spread_na" (C=8, N=1024); SPREAD_ROWS_MIN was chosen from
+it.
 """
+import argparse
 import json
 import os
 import sys
@@ -29,7 +36,10 @@ from kubernetes_tpu_torch.engine.pass_ import eval_spec  # noqa: E402
 from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE  # noqa: E402
 from kubernetes_tpu_torch.kernels import build, plain  # noqa: E402
 
-build.build(("select_host", "ipa_eval"))
+ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+ap.add_argument("--only", choices=("select_ipa", "spread"), help="sweep one part alone")
+args = ap.parse_args()
+build.build(("select_host", "ipa_eval", "spread_eval"))
 dev = torch.device("cuda")
 orig = kernels.cluster_split
 REPS = 50
@@ -57,86 +67,126 @@ def sweep(label, kernel_fn, plain_fn, ks, setup=None, outs=None):
     print(label, {k: [round(x, 4) for x in v] for k, v in res[label].items()}, flush=True)
 
 
-seed_mul = ((DEFAULT_PROFILE.tie_break_seed & 0xFFFFFFFF) * 2654435761) & 0xFFFFFFFF
-builder, pf, nom, steps, _rng = cs.kernel_inputs(1234, dev)
-state, schema = builder.state(), builder.schema
-ported = {"NodeUnschedulable", "NodeName", "NodeResourcesFit", "NodeResourcesBalancedAllocation"}
-active = frozenset(ported & (set(DEFAULT_PROFILE.filters) | {s for s, _ in DEFAULT_PROFILE.scorers}))
-spec = eval_spec(DEFAULT_PROFILE, schema, builder.res_col, active)
-fe, to, _ = plain.eval_chunk(state, pf, spec, nom)
-nomr = pf["nominated_row"]
-sel_out = lambda r, _a: r  # noqa: E731
-sweep("select a (C=64, N=8192)", lambda _: kernels.select_host(fe, to, steps, seed_mul, nomr),
-      lambda _: plain.select_host(fe, to, steps, seed_mul, nomr), (1, 2, 4, 8, 16), outs=sel_out)
-f8, t8, s8 = fe[:8].contiguous(), to[:8].contiguous(), steps[:8].contiguous()
-sweep("select d-like (C=8, N=8192)", lambda _: kernels.select_host(f8, t8, s8, seed_mul, None),
-      lambda _: plain.select_host(f8, t8, s8, seed_mul, None), (1, 2, 4, 8, 16), outs=sel_out)
-big_f = torch.cat([fe, fe]).contiguous()
-big_t = torch.cat([to, to]).contiguous()
-big_s = torch.cat([steps, steps + 1]).contiguous()
-sweep("select async-like (C=128, N=8192)", lambda _: kernels.select_host(big_f, big_t, big_s, seed_mul, None),
-      lambda _: plain.select_host(big_f, big_t, big_s, seed_mul, None), (1, 2, 4), outs=sel_out)
-f5, t5 = fe[:, :512].contiguous(), to[:, :512].contiguous()
-sweep("select 500n-like (C=64, N=512)", lambda _: kernels.select_host(f5, t5, steps, seed_mul, None),
-      lambda _: plain.select_host(f5, t5, steps, seed_mul, None), (1, 2), outs=sel_out)
-pf1 = cs._chunk(pf, 0, 1)
-f1, t1, _ = plain.eval_chunk(state, pf1, spec, None)
-sweep("select c1 (C=1, N=8192)", lambda _: kernels.select_host(f1, t1, steps[:1], 0, None),
-      lambda _: plain.select_host(f1, t1, steps[:1], 0, None), (1, 2, 4, 8, 16), outs=sel_out)
+def select_ipa():
+    seed_mul = ((DEFAULT_PROFILE.tie_break_seed & 0xFFFFFFFF) * 2654435761) & 0xFFFFFFFF
+    builder, pf, nom, steps, _rng = cs.kernel_inputs(1234, dev)
+    state, schema = builder.state(), builder.schema
+    ported = {"NodeUnschedulable", "NodeName", "NodeResourcesFit", "NodeResourcesBalancedAllocation"}
+    active = frozenset(ported & (set(DEFAULT_PROFILE.filters) | {s for s, _ in DEFAULT_PROFILE.scorers}))
+    spec = eval_spec(DEFAULT_PROFILE, schema, builder.res_col, active)
+    fe, to, _ = plain.eval_chunk(state, pf, spec, nom)
+    nomr = pf["nominated_row"]
+    sel_out = lambda r, _a: r  # noqa: E731
+    sweep("select a (C=64, N=8192)", lambda _: kernels.select_host(fe, to, steps, seed_mul, nomr),
+          lambda _: plain.select_host(fe, to, steps, seed_mul, nomr), (1, 2, 4, 8, 16), outs=sel_out)
+    f8, t8, s8 = fe[:8].contiguous(), to[:8].contiguous(), steps[:8].contiguous()
+    sweep("select d-like (C=8, N=8192)", lambda _: kernels.select_host(f8, t8, s8, seed_mul, None),
+          lambda _: plain.select_host(f8, t8, s8, seed_mul, None), (1, 2, 4, 8, 16), outs=sel_out)
+    big_f = torch.cat([fe, fe]).contiguous()
+    big_t = torch.cat([to, to]).contiguous()
+    big_s = torch.cat([steps, steps + 1]).contiguous()
+    sweep("select async-like (C=128, N=8192)", lambda _: kernels.select_host(big_f, big_t, big_s, seed_mul, None),
+          lambda _: plain.select_host(big_f, big_t, big_s, seed_mul, None), (1, 2, 4), outs=sel_out)
+    f5, t5 = fe[:, :512].contiguous(), to[:, :512].contiguous()
+    sweep("select 500n-like (C=64, N=512)", lambda _: kernels.select_host(f5, t5, steps, seed_mul, None),
+          lambda _: plain.select_host(f5, t5, steps, seed_mul, None), (1, 2), outs=sel_out)
+    pf1 = cs._chunk(pf, 0, 1)
+    f1, t1, _ = plain.eval_chunk(state, pf1, spec, None)
+    sweep("select c1 (C=1, N=8192)", lambda _: kernels.select_host(f1, t1, steps[:1], 0, None),
+          lambda _: plain.select_host(f1, t1, steps[:1], 0, None), (1, 2, 4, 8, 16), outs=sel_out)
 
-# Row mode at N=16384 (10000 nodes).  Pos mode runs one CTA a pod: no K.
-from kubernetes_tpu_torch import workloads as w  # noqa: E402
-from kubernetes_tpu_torch.cache import Cache  # noqa: E402
-from kubernetes_tpu_torch.snapshot import SnapshotBuilder  # noqa: E402
+    # Row mode at N=16384 (10000 nodes).  Pos mode runs one CTA a pod: no K.
+    from kubernetes_tpu_torch import workloads as w
+    from kubernetes_tpu_torch.cache import Cache
+    from kubernetes_tpu_torch.snapshot import SnapshotBuilder
 
-rng = np.random.default_rng(5)
-psteps = torch.from_numpy(rng.integers(0, 2**32, size=1, dtype=np.int64)).to(dev)
-qb = SnapshotBuilder(device=dev)
-qcache = Cache(qb)
-for node in w.basic_nodes(10000, zones=w.PARITY_ZONES):
-    qcache.add_node(node)
-qstate = qb.state()
-qtotal = torch.from_numpy(rng.integers(0, 3, (1, qstate.valid.shape[0]))).to(dev)
-q1f = qstate.valid[None, :].clone()
-sweep(f"select row mode (C=1, N={qstate.valid.shape[0]})",
-      lambda _: kernels.select_host(q1f, qtotal, psteps, seed_mul, None),
-      lambda _: plain.select_host(q1f, qtotal, psteps, seed_mul, None), (1, 2, 4, 8, 16), outs=sel_out)
+    rng = np.random.default_rng(5)
+    psteps = torch.from_numpy(rng.integers(0, 2**32, size=1, dtype=np.int64)).to(dev)
+    qb = SnapshotBuilder(device=dev)
+    qcache = Cache(qb)
+    for node in w.basic_nodes(10000, zones=w.PARITY_ZONES):
+        qcache.add_node(node)
+    qstate = qb.state()
+    qtotal = torch.from_numpy(rng.integers(0, 3, (1, qstate.valid.shape[0]))).to(dev)
+    q1f = qstate.valid[None, :].clone()
+    sweep(f"select row mode (C=1, N={qstate.valid.shape[0]})",
+          lambda _: kernels.select_host(q1f, qtotal, psteps, seed_mul, None),
+          lambda _: plain.select_host(q1f, qtotal, psteps, seed_mul, None), (1, 2, 4, 8, 16), outs=sel_out)
 
-# IPA shapes.
-x = cs.ipa_inputs(4321, dev)
-ist, ipf, ipa, base = x["state"], x["pf"], x["ipa"], x["base"]
-fresh = lambda: tuple(t.clone() for t in base)  # noqa: E731
-ipa_out = lambda r, _a: r  # noqa: E731
-ib = plain.ipa_eval(ist, ipf, *fresh(), ipa)
-isteps = torch.from_numpy(rng.integers(0, 2**32, size=64, dtype=np.int64)).to(dev)
-sweep("select b (C=64, N=1024)", lambda _: kernels.select_host(ib[0], ib[1], isteps, seed_mul, None),
-      lambda _: plain.select_host(ib[0], ib[1], isteps, seed_mul, None), (1, 2, 4), outs=sel_out)
-c8f, c8t = ib[0][:8].contiguous(), ib[1][:8].contiguous()
-sweep("select c-like (C=8, N=1024)", lambda _: kernels.select_host(c8f, c8t, isteps[:8], seed_mul, None),
-      lambda _: plain.select_host(c8f, c8t, isteps[:8], seed_mul, None), (1, 2, 4, 8), outs=sel_out)
-sweep("ipa b (C=64, N=1024)", lambda a: kernels.ipa_eval(ist, ipf, *a, ipa),
-      lambda a: plain.ipa_eval(ist, ipf, *a, ipa), (1, 2, 4, 8), setup=fresh, outs=ipa_out)
-p1 = cs._chunk(ipf, 63, 1)
-b1 = plain.eval_chunk(ist, p1, x["spec"], None)
-fresh1 = lambda: tuple(t.clone() for t in b1)  # noqa: E731
-
-
-def two(mod):
-    def run(a):
-        mod.ipa_eval(ist, p1, *a, ipa, plain.IPA_FILTER)
-        return mod.ipa_eval(ist, p1, *a, ipa, plain.IPA_SCORE)
-    return run
+    # IPA shapes.
+    x = cs.ipa_inputs(4321, dev)
+    ist, ipf, ipa, base = x["state"], x["pf"], x["ipa"], x["base"]
+    fresh = lambda: tuple(t.clone() for t in base)  # noqa: E731
+    ipa_out = lambda r, _a: r  # noqa: E731
+    ib = plain.ipa_eval(ist, ipf, *fresh(), ipa)
+    isteps = torch.from_numpy(rng.integers(0, 2**32, size=64, dtype=np.int64)).to(dev)
+    sweep("select b (C=64, N=1024)", lambda _: kernels.select_host(ib[0], ib[1], isteps, seed_mul, None),
+          lambda _: plain.select_host(ib[0], ib[1], isteps, seed_mul, None), (1, 2, 4), outs=sel_out)
+    c8f, c8t = ib[0][:8].contiguous(), ib[1][:8].contiguous()
+    sweep("select c-like (C=8, N=1024)", lambda _: kernels.select_host(c8f, c8t, isteps[:8], seed_mul, None),
+          lambda _: plain.select_host(c8f, c8t, isteps[:8], seed_mul, None), (1, 2, 4, 8), outs=sel_out)
+    sweep("ipa b (C=64, N=1024)", lambda a: kernels.ipa_eval(ist, ipf, *a, ipa),
+          lambda a: plain.ipa_eval(ist, ipf, *a, ipa), (1, 2, 4, 8), setup=fresh, outs=ipa_out)
+    p1 = cs._chunk(ipf, 63, 1)
+    b1 = plain.eval_chunk(ist, p1, x["spec"], None)
+    fresh1 = lambda: tuple(t.clone() for t in b1)  # noqa: E731
 
 
-sweep("ipa tr-ipa two launches (C=1, N=1024)", two(kernels), two(plain), (1, 2, 4, 8), setup=fresh1, outs=ipa_out)
-cstate, ctb, cipa, cdom, cbase = cs.ipa_c1_inputs(dev)
-cfresh = lambda: tuple(t.clone() for t in cbase)  # noqa: E731
-sweep("ipa ipa_c1 (C=1, N=8192)", lambda a: kernels.ipa_eval(cstate, ctb, *a, cipa),
-      lambda a: plain.ipa_eval(cstate, ctb, *a, cipa), (1, 4, 8, 16), setup=cfresh, outs=ipa_out)
-ic8 = cs._chunk(ipf, 0, 8)
-b8 = plain.eval_chunk(ist, ic8, x["spec"], None)
-fresh8 = lambda: tuple(t.clone() for t in b8)  # noqa: E731
-sweep("ipa C=8 (N=1024)", lambda a: kernels.ipa_eval(ist, ic8, *a, ipa),
-      lambda a: plain.ipa_eval(ist, ic8, *a, ipa), (1, 2, 4, 8, 16), setup=fresh8, outs=ipa_out)
+    def two(mod):
+        def run(a):
+            mod.ipa_eval(ist, p1, *a, ipa, plain.IPA_FILTER)
+            return mod.ipa_eval(ist, p1, *a, ipa, plain.IPA_SCORE)
+        return run
+
+
+    sweep("ipa tr-ipa two launches (C=1, N=1024)", two(kernels), two(plain), (1, 2, 4, 8), setup=fresh1, outs=ipa_out)
+    cstate, ctb, cipa, cdom, cbase = cs.ipa_c1_inputs(dev)
+    cfresh = lambda: tuple(t.clone() for t in cbase)  # noqa: E731
+    sweep("ipa ipa_c1 (C=1, N=8192)", lambda a: kernels.ipa_eval(cstate, ctb, *a, cipa),
+          lambda a: plain.ipa_eval(cstate, ctb, *a, cipa), (1, 4, 8, 16), setup=cfresh, outs=ipa_out)
+    ic8 = cs._chunk(ipf, 0, 8)
+    b8 = plain.eval_chunk(ist, ic8, x["spec"], None)
+    fresh8 = lambda: tuple(t.clone() for t in b8)  # noqa: E731
+    sweep("ipa C=8 (N=1024)", lambda a: kernels.ipa_eval(ist, ic8, *a, ipa),
+          lambda a: plain.ipa_eval(ist, ic8, *a, ipa), (1, 2, 4, 8, 16), setup=fresh8, outs=ipa_out)
+
+
+def spread():
+    """spread_filter, late_scores and late_scores_cols at the spread shapes,
+    every K: the filter's verdicts, the scores' total (and columns) held
+    exactly against the plain versions."""
+    from kubernetes_tpu_torch.engine.pass_ import late_spec
+
+    out1 = lambda r, _a: (r,)  # noqa: E731
+    for shape in ("inclusion", "spread_na"):
+        x = cs.spread_inputs(shape, 2468, dev)
+        b, st = x["builder"], x["state"]
+        big, active = x["big_pf"], x["big_active"]
+        spec = eval_spec(DEFAULT_PROFILE, b.schema, b.res_col, active)
+        late = late_spec(DEFAULT_PROFILE, b.schema, b.res_col, active)
+        bits = plain.node_filters(st, big, spec.ctx)
+        chunks = {"spread_c1": 1, shape: 8} if shape == "inclusion" else {shape: 8}
+        for label, c in chunks.items():
+            pf, bc = cs._chunk(big, 0, c), bits[:c].contiguous()
+            ps = plain.spread_filter(st, pf, bc, spec.ctx)
+            fe, to, _ = plain.eval_chunk(st, pf, spec, None, (bc, ps))
+            ks = (1, 2, 4, 8, 16)
+            sweep(f"spread_filter {label} (C={c}, N={st.valid.shape[0]})",
+                  lambda _: kernels.spread_filter(st, pf, bc, spec.ctx),
+                  lambda _: plain.spread_filter(st, pf, bc, spec.ctx), ks, outs=out1)
+            sweep(f"late_scores {label} (C={c}, N={st.valid.shape[0]})",
+                  lambda a: kernels.late_scores(st, pf, fe, a, bc, late),
+                  lambda a: plain.late_scores(st, pf, fe, a, bc, late), ks, setup=lambda: to.clone(), outs=out1)
+            if c == 1:
+                sweep(f"late_scores/cols {label} (C={c}, N={st.valid.shape[0]})",
+                      lambda a: kernels.late_scores_cols(st, pf, fe, a, bc, late),
+                      lambda a: plain.late_scores_cols(st, pf, fe, a, bc, late), ks, setup=lambda: to.clone(),
+                      outs=lambda r, a: (r, a))
+
+
+if args.only in (None, "select_ipa"):
+    select_ipa()
+if args.only in (None, "spread"):
+    spread()
 print(json.dumps({k: {str(kk): vv for kk, vv in v.items()} for k, v in res.items()}))
 print(card)

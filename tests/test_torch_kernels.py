@@ -14,9 +14,10 @@ the "truncate" shapes and on a cut of parity_basic_5kn_10kpods;
 eval_chunk's RequestedToCapacityRatio, throughput and learned terms at
 the "rtcr", "hetero" and "hetero_learned" shapes and on cuts of
 hetero_5kn_10kpods and binpack_rtcr_5kn_10kpods; eval_chunk's second
-launch after InterPodAffinity at the "split" shape; select_host and
-ipa_eval, each pod on a thread block cluster, at the chunk-1 shapes ("c1",
-"ipa_c1") and on cases that cross the cluster's node slices; image_scores'
+launch after InterPodAffinity at the "split" shape; select_host,
+ipa_eval, spread_filter and late_scores, each pod on a thread block
+cluster, at the chunk-1 shapes ("c1", "ipa_c1", "spread_c1") and on cases
+that cross the cluster's node slices; image_scores'
 merged lists and node tiles on seeded rows with repeats, -1 slots and ids
 past the vocabulary, and on the explain phase's batch ("explain_il"); the
 one-launch row flush over every field ("flush")."""
@@ -160,15 +161,38 @@ def test_scheduler_kernel_path_matches_plain_path(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", ["spread_na", "inclusion"])
+@pytest.mark.parametrize("shape", ["spread_na", "inclusion", "spread_c1"])
 def test_spread_kernels_match_plain_versions_exactly(cuda_device, shape):
     """node_filters, spread_filter, late_scores and the extended eval_chunk
-    and conflict_pairs against their plain versions on the mixed chunks."""
+    and conflict_pairs against their plain versions on the mixed chunks;
+    "spread_c1": spread_filter, late_scores and late_scores/cols one pod a
+    launch over the inclusion cluster (C=1, N=8192, 16 CTAs a pod)."""
     import chip_smoke
 
-    timing = chip_smoke.check_spread_kernels(cuda_device, shape, reps=1)
-    assert {"node_filters", "spread_filter", "late_scores", "eval_chunk", "conflict_pairs"} <= set(timing)
+    c1: dict = {}
+    timing = chip_smoke.check_spread_kernels(cuda_device, "inclusion" if shape == "spread_c1" else shape, reps=1,
+                                             c1=c1 if shape == "spread_c1" else None)
+    if shape == "spread_c1":
+        timing = c1["spread_c1"]
+        assert set(timing) == {"spread_filter", "late_scores", "late_scores/cols"}
+    else:
+        assert {"node_filters", "spread_filter", "late_scores", "eval_chunk", "conflict_pairs"} <= set(timing)
     assert all(t["max_abs_err"] == 0 for t in timing.values())
+
+
+@pytest.mark.cuda
+def test_spread_slice_cases_match_plain_versions(cuda_device):
+    """spread_filter, late_scores and late_scores/cols on the cases that
+    cross the node slices of a thread block cluster (chip_smoke.spread_cases:
+    a domain on one slice, a hostname minimum in the last slice, the zone
+    key missing where slices meet, minDomains above the domain count, one
+    slice, no scored node, max = min, the 9·log(19) rounding boundary at
+    K=16), each against its plain version with max_abs_err 0."""
+    import chip_smoke
+
+    errs = chip_smoke.check_exact_cases(cuda_device, ("spread",))
+    assert set(errs) == {"spread_filter", "late_scores", "late_scores/cols"}
+    assert all(e["max_abs_err"] == 0 for e in errs.values())
 
 
 @pytest.mark.cuda
@@ -466,14 +490,14 @@ def test_scheduler_images_ports_kernel_path_matches_plain_path(cuda_device):
 @pytest.mark.parametrize("shape", ["search", "search_pv", "search_dra"])
 def test_search_kernels_match_plain_versions_exactly(cuda_device, shape):
     """unpack_victims with the victim features, preempt_eval's three modes,
-    dom_release and search_step against their plain versions, step by
-    step, at a 500-node cut of each search shape (the path's cluster; a
-    volume cluster with shared CSI claims and device volumes; a DRA cluster
-    with shared, external and selector claims)."""
+    dom_release, search_step and preempt_pick on every tail against their
+    plain versions, step by step, at a 500-node cut of each search shape
+    (the path's cluster; a volume cluster with shared CSI claims and device
+    volumes; a DRA cluster with shared, external and selector claims)."""
     import chip_smoke
 
     timing = chip_smoke.check_search_kernels(cuda_device, shape, reps=1, nodes=500)
-    assert set(timing) == {"unpack_victims", "preempt_eval", "dom_release", "search_step"}
+    assert set(timing) == {"unpack_victims", "preempt_eval", "dom_release", "search_step", "preempt_pick"}
     assert all(t["max_abs_err"] == 0 for t in timing.values())
 
 

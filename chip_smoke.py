@@ -77,12 +77,22 @@ Phases; any failure fails the run (nothing is caught):
        reporting images): node_filters, image_scores, eval_chunk and
        late_scores in pinned mode (each pod on its own node, pins that name
        no node, nominated pins, a preferred zone term, pods naming
-       images), pinned_fit with same-row overflow, and the strict
-       resolve_commit;
+       images), pinned_fit with same-row overflow, the strict
+       resolve_commit, and the pinned pass end to end;
      - at the "pv" shape (C=64, N=8192, a 4096-pod batch of mixed claims):
        node_filters with the volume bits, vol_filter, eval_chunk with the
-       volume planes, resolve_commit with the device and CSI commit and
-       the attach-limit clash, conflict_pairs with volume ids;
+       volume planes, select_host, resolve_commit with the device and CSI
+       commit and the attach-limit clash, conflict_pairs with volume ids,
+       build_dom;
+     - node_filters' cases (nf_cases) on the pv, spread_na and inclusion
+       clusters, tiled and pinned: programs drawn from the cluster's own
+       labels, every op on every pod (selectors, required terms of every
+       operator, added affinity, taints, VolumeBinding and VolumeZone),
+       VolumeBinding's ngroups at 63, 64, 65, 128, 129 and 130 (across the
+       kernel's 64-group mask windows), groups without terms, ngroups 0,
+       infeasible pods; on the pv cluster also with its labels scattered
+       over 32 and 64 slots and through unaligned views (label_layouts:
+       every instantiation of the tiled kernel);
      - at the "flush" shapes (the extender path's schema: 5000 nodes,
        N=8192, 512 bound pods): 1, 8 and 64 dirty rows of random values in
        all 27 fields flushed by SnapshotBuilder.state() in one
@@ -132,7 +142,9 @@ Phases; any failure fails the run (nothing is caught):
      - truncated mode: at the "truncate" shape (parity_basic_5kn_10kpods'
        5000 nodes, N=8192, limit 500) truncate_feasible and select_host in
        pos mode with 0, 1, 500, 501, 2500 and 5000 feasible nodes, starts
-       at 0, 4999 and 2777, a padding lane, ties on few totals; then
+       at 0, 4999 and 2777, a padding lane, ties on few totals, and 501
+       feasible rows at the scan's wrap from start 4999 (also through
+       unaligned views: the kernel's scalar loads), build_dom; then
        select_host's pos mode with kth on both sides of the word ranges of
        its positions' bitmap (pos_cases); truncated chunk-1 steps, the two
        outputs and the carried start
@@ -141,6 +153,13 @@ Phases; any failure fails the run (nothing is caught):
        select_host in pos mode) and the spread_na shape ("truncate_spread":
        spread_filter, eval_chunk, truncate_feasible, late_scores over the
        truncated set, select_host in pos mode);
+     - every kernel a path launches at that path's own shape (PATH_SHAPE):
+       build_dom at every shape's state; eval_chunk, select_host and
+       resolve_commit (check_main_at) at "search" (C=128), "hetero",
+       "hetero_learned" and "rtcr"; select_host at "pv" and
+       "ports_images"; node_filters and conflict_pairs on the search
+       path's preemptor batch, node_filters of the explained pod at "cols";
+       preempt_commit and expand_rows at every search shape;
      - eval_chunk's RequestedToCapacityRatio, throughput and learned terms,
        each an entry of its own in the kernels line: RequestedToCapacityRatio at the density shape ("rtcr": the
        bin-packing shape, a five-point decreasing shape and a
@@ -499,6 +518,130 @@ def check_dom(errs: dict, label: str, state, et_slot, dv: int, reps: int) -> dic
     return out
 
 
+def dom_at(errs: dict, label: str, builder, state, reps: int) -> dict:
+    """build_dom at a path's own shape: its state and its builder's term
+    slots (check_dom)."""
+    import torch
+
+    et_slot = torch.from_numpy(builder.batch_invariants()["et_slot"]).to(state.valid.device)
+    return check_dom(errs, label, state, et_slot, builder.schema.DV, reps)
+
+
+# nf_cases: pods a case batch, VolumeBinding terms a pod, and the group
+# counts drawn (the kernel's mask holds 64 groups a window).
+NF_CASE_PODS = 40
+NF_CASE_TERMS = 130
+NF_CASE_GROUPS = (63, 64, 65, 128, 129, 130, 0, 7)
+
+
+def label_layouts(state, rng) -> list:
+    """(name, state) of each label slot layout node_filters' tiled launch
+    has a path for: the state's own (LS slots, node_tile_kernel<LS>), its
+    labels scattered over 32 slots (node_tile_kernel<32>) and over 64 (the
+    walk in global memory), and its own through views 4 bytes past 16-byte
+    alignment (the walk: no int4 loads)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.snapshot import INT_SENTINEL
+
+    fields = (("label_key_ids", -1), ("label_pair_ids", -1), ("label_int_vals", INT_SENTINEL))
+    n, ls = state.label_key_ids.shape
+    out = [(f"LS={ls}", state)]
+    for width in (w for w in (32, 64) if w > ls):
+        slot = torch.from_numpy(np.argsort(rng.random((n, width)), axis=1)[:, :ls]).to(state.valid.device)
+        wide = {f: torch.full((n, width), fill, dtype=getattr(state, f).dtype, device=state.valid.device)
+                .scatter_(1, slot, getattr(state, f)) for f, fill in fields}
+        out.append((f"LS={width}", dataclasses.replace(state, **wide)))
+    shifted = {f: torch.cat([getattr(state, f).new_zeros(1), getattr(state, f).flatten()])[1:].view(n, ls)
+               for f, _fill in fields}
+    out.append((f"LS={ls}, unaligned", dataclasses.replace(state, **shifted)))
+    return out
+
+
+def nf_cases(errs: dict, dev, label: str, state, layouts: bool = False) -> None:
+    """node_filters, tiled and pinned, against its plain version on
+    programs drawn from the state's own label keys, pairs, integers, names
+    and taint ids: every pod carries every op (node selector pairs, ORed
+    required terms of every operator with up to 5 values, the profile's
+    added affinity, intolerable taints, VolumeBinding and VolumeZone
+    groups); VolumeBinding's ngroups at 63, 64, 65, 128, 129 and 130
+    (groups at and across the kernel's 64-group mask windows, one to three
+    terms a group), a group whose terms are all -1, invalid terms, ngroups
+    0 and infeasible pods; pins repeated and on rows past the node count.
+    With ``layouts``, on each of label_layouts' states too."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import plain
+    from kubernetes_tpu_torch.snapshot import INT_SENTINEL
+
+    rng = np.random.default_rng(1601)
+    k, n = NF_CASE_PODS, state.valid.shape[0]
+    valid = state.valid.cpu().numpy()
+    lk = state.label_key_ids.cpu().numpy()[valid]
+    lp = state.label_pair_ids.cpu().numpy()[valid]
+    li = state.label_int_vals.cpu().numpy()[valid]
+    keys = np.unique(lk[lk >= 0])
+    pairs = np.unique(lp[lp >= 0])
+    names = state.name_id.cpu().numpy()[valid]
+    ints = np.unique(li[(lk >= 0) & (li != INT_SENTINEL)])
+    tv = max(int(state.taint_ids.max()) + 1, 4)
+
+    def pick(pool, shape, pad=0.1):
+        pool = pool if len(pool) else np.array([-1])
+        return np.where(rng.random(shape) < pad, -1, rng.choice(pool, shape)).astype(np.int32)
+
+    def program(prefix, t, q, v, real=1.0):
+        op = rng.integers(0, 9, (k, t, q)).astype(np.int32)  # In .. metadata.name NotIn, False
+        op = np.where(rng.random((k, t, q)) < 1.0 - real, -1, op).astype(np.int32)
+        name_op = (op == 6) | (op == 7)
+        vals = np.where(name_op[..., None], pick(names, (k, t, q, v), 0.3), pick(pairs, (k, t, q, v), 0.3))
+        return {f"{prefix}_op": op, f"{prefix}_key": pick(keys, (k, t, q)), f"{prefix}_vals": vals,
+                f"{prefix}_int": (rng.choice(ints if len(ints) else np.array([0]), (k, t, q))
+                                  + rng.integers(-1, 2, (k, t, q))).astype(np.int64),
+                f"{prefix}_term_valid": rng.random((k, t)) < 0.85}
+
+    pf = {"valid": np.arange(k) < k - 2, "na_sel_pairs": pick(pairs, (k, 2), 0.7),
+          "na_has_required": rng.random(k) < 0.8, "na_has_added": rng.random(k) < 0.5,
+          "taint_intol_hard": rng.random((k, tv)) < 0.1}
+    pf.update(program("na_req", 3, 2, 5))
+    pf.update(program("na_add", 2, 1, 2))
+    for prefix, t, q, real in (("vb", NF_CASE_TERMS, 1, 0.03), ("vz", 2, 2, 1.0)):
+        pf.update(program(prefix, t, q, 2, real))
+        ngroups = (rng.choice(NF_CASE_GROUPS, k) if prefix == "vb" else rng.integers(0, t + 1, k)).astype(np.int32)
+        group = np.where(ngroups[:, None] > 0, np.arange(t)[None, :] % np.maximum(ngroups, 1)[:, None], -1)
+        group = np.where(rng.random((k, t)) < 0.05, -1, group).astype(np.int32)
+        if prefix == "vb":
+            group[0] = np.where(group[0] == 1, -1, group[0])  # group 1 has no term
+        pf[f"{prefix}_group"], pf[f"{prefix}_ngroups"] = group, ngroups
+        pf[f"{prefix}_feasible"] = rng.random(k) < 0.9
+    pf = {key: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for key, v in pf.items()}
+    ctx = SimpleNamespace(profile=SimpleNamespace(added_affinity=object()))
+    pin = torch.from_numpy(rng.choice(np.concatenate([np.flatnonzero(valid)[:8], [n - 1]]), k)
+                           .astype(np.int32)).to(dev)
+    pb = plain.node_filters(state, pf, ctx)
+    names = []
+    for name, st in (label_layouts(state, rng) if layouts else [("", state)]):
+        kb, kp = kernels.node_filters(st, pf, ctx), kernels.node_filters(st, pf, ctx, pin)
+        pp = plain.node_filters(st, pf, ctx, pin)
+        pl = pb if st is state else plain.node_filters(st, pf, ctx)
+        torch.cuda.synchronize()
+        exact(errs, "node_filters", f"[{label} cases{name and ', ' + name}]", kb, pl)
+        exact(errs, "node_filters", f"[{label} cases{name and ', ' + name}, pinned]", kp, pp)
+        exact(errs, "node_filters", f"[{label} cases{name and ', ' + name}, plain]", pl, pb)
+        names.append(name)
+    on = pb[:, torch.from_numpy(valid).to(dev)]
+    print(f"node_filters [{label} cases]: exact, tiled and pinned{' at ' + '; '.join(names) if layouts else ''}; "
+          f"K={k}, VolumeBinding ngroups {sorted(set(pf['vb_ngroups'].tolist()))}; pairs passing bits 0-3: "
+          f"{[int(((on >> b) & 1).sum()) for b in range(4)]} of {on.numel()}")
+
+
 def timed(kernel_fn, plain_fn, reps: int, setup=None, plain_reps: int | None = None) -> dict:
     """Medians of ``reps`` calls of the kernel and of ``plain_reps``
     (default the smaller of ``reps`` and PLAIN_REPS) of its plain
@@ -690,6 +833,7 @@ def check_c1_kernels(dev, reps: int) -> dict:
     set_bound(result["eval_chunk"], eval_bytes(state, pf1, None))
     set_bound(result["select_host"], select_bytes(1, state.valid.shape[0]))
     set_bound(result["resolve_commit"], commit_bytes(schema, picks, 1, pairs=False))
+    result["build_dom"] = dom_at(errs, "c1", builder, state, reps)
     for name in result:
         result[name]["max_abs_err"] = errs[name]
     return result
@@ -1831,10 +1975,12 @@ def check_spread_kernels(dev, shape: str, reps: int, c1: dict | None = None) -> 
     pf0, bits0 = _chunk(big, 0, c), pb[:c].contiguous()
     result, spec0, late0, pe0, pl0, picks0, ps0 = run_chunk("workload chunk", DEFAULT_PROFILE, pf0, active,
                                                               bits0, timing=True)
+    nf_cases(errs, dev, shape, state)
     result["node_filters"] = timed(lambda _: kernels.node_filters(state, big, ctx),
                                    lambda _: plain.node_filters(state, big, ctx), reps)
     result["conflict_pairs"] = timed(lambda _: kernels.conflict_pairs(big, 512, c),
                                      lambda _: plain.conflict_pairs(big, 512, c), reps)
+    result["build_dom"] = dom_at(errs, shape, builder, state, reps)
     # resolve_commit on the workload chunk: its picks, the chunk's pairs.
     et_slot = torch.zeros(schema.ET, dtype=torch.int32, device=dev)
     dom = build_dom(state, et_slot, torch.zeros(schema.ET, dtype=torch.bool, device=dev), schema.DV)
@@ -2038,7 +2184,8 @@ def commit_bytes(schema, picks, c: int, pairs: bool = True) -> int:
 
 def check_main_at(dev, label: str, builder, state, pf_full: dict, active, profile, c: int,
                   errs: dict, reps: int) -> dict:
-    """eval_chunk, select_host and resolve_commit against their plain
+    """eval_chunk (with the planes its filters and scores read:
+    main_planes), select_host and resolve_commit against their plain
     versions at a path's own chunk C and node count: the first C pods of
     ``pf_full`` on ``state`` with every seventh node emptied (feasible
     nodes with tied scores beside full ones), with and without a
@@ -2077,11 +2224,12 @@ def check_main_at(dev, label: str, builder, state, pf_full: dict, active, profil
     nom_prio[claimed] = 700
     nom = (nom_req, nom_cnt, nom_prio)
     spec = eval_spec(profile, schema, builder.res_col, active)
+    ext = main_planes(builder, st, pf, spec)
     seed_mul = ((profile.tie_break_seed & 0xFFFFFFFF) * 2654435761) & 0xFFFFFFFF
     steps = torch.arange(c, dtype=torch.int64, device=dev) + 12345
     for nom_in in (nom, None):
-        ke = kernels.eval_chunk(st, pf, spec, nom_in)
-        pe = plain.eval_chunk(st, pf, spec, nom_in)
+        ke = kernels.eval_chunk(st, pf, spec, nom_in, ext)
+        pe = plain.eval_chunk(st, pf, spec, nom_in, ext)
         torch.cuda.synchronize()
         for what, a, b in zip(("feasible", "total", "fail_mask"), ke, pe):
             exact(errs, "eval_chunk", f"[{label} C={c}] {what}", a, b)
@@ -2095,12 +2243,12 @@ def check_main_at(dev, label: str, builder, state, pf_full: dict, active, profil
               f"{int(pe[0].sum())} feasible (pod, node) pairs, {int((ps[2] == 0).sum())} pods feasible "
               f"nowhere, {int((ps[0] == nomr).sum()) if nomr is not None else 0} on their nominated rows")
     out = {
-        "eval_chunk": timed(lambda _: kernels.eval_chunk(st, pf, spec, nom),
-                            lambda _: plain.eval_chunk(st, pf, spec, nom), reps),
+        "eval_chunk": timed(lambda _: kernels.eval_chunk(st, pf, spec, nom, ext),
+                            lambda _: plain.eval_chunk(st, pf, spec, nom, ext), reps),
         "select_host": timed(lambda _: kernels.select_host(ke[0], ke[1], steps, seed_mul, None),
                              lambda _: plain.select_host(pe[0], pe[1], steps, seed_mul, None), reps),
     }
-    set_bound(out["eval_chunk"], eval_bytes(st, pf, nom))
+    set_bound(out["eval_chunk"], eval_bytes(st, pf, nom) + nbytes(*(x for x in ext if x is not None)))
     set_bound(out["select_host"], select_bytes(c, n))
     full = torch.nonzero((st.alloc[:, 0] - st.req[:, 0] < 2000) & st.valid)[:4, 0]
     rows = torch.cat([full, emptied[:4]]).cpu().numpy()
@@ -2128,6 +2276,25 @@ def check_main_at(dev, label: str, builder, state, pf_full: dict, active, profil
         lambda: (st.clone(), clone_dom(dom0)))
     set_bound(out["resolve_commit"], commit_bytes(schema, picks, c))
     return out
+
+
+def main_planes(builder, state, pf: dict, spec) -> tuple:
+    """The precomputed planes eval_chunk reads for ``spec`` on this chunk
+    (plain versions; None where no filter or score reads one): node_filters'
+    bits, spread_filter's mask, vol_filter's bits, image_scores' plane."""
+    from kubernetes_tpu_torch.kernels import plain
+
+    cfg = spec.device_config(state.valid.device)
+    bits = plain.node_filters(state, pf, spec.ctx) if cfg["node_bits"] or cfg["spread"] else None
+    spread_ok = plain.spread_filter(state, pf, bits, spec.ctx) if cfg["spread"] else None
+    vol = None
+    if cfg["vol_bits"]:
+        vol = plain.vol_filter(state, pf, spec.ctx, "VolumeRestrictions" in spec.filters,
+                               "NodeVolumeLimits" in spec.filters)
+    il = None
+    if cfg["il"]:
+        il = plain.image_scores(state, pf, plain.image_counts(state, len(builder.interns.images)))
+    return bits, spread_ok, vol, il
 
 
 def pick_cost(possible, pf: dict) -> tuple[int, int]:
@@ -2217,6 +2384,7 @@ def check_preempt_kernels(dev, shape: str, reps: int) -> dict:
     _nodes, _per, _cpu, _mem, _k, _pdbs, chunk = PREEMPT_SHAPES[shape]
     result.update(check_main_at(dev, shape, s.builder, state, batches["mixed"][0], batches["mixed"][1],
                                 s.profile, chunk, errs, reps))
+    result["build_dom"] = dom_at(errs, shape, s.builder, state, reps)
     pf, ek, ep, pk, pp = timed_in
     result["preempt_eval"] = timed(lambda _: kernels.preempt_eval(state, vic, pf, spec),
                                    lambda _: plain.preempt_eval(state, vic, pf, spec), reps)
@@ -2610,7 +2778,7 @@ def check_search_kernels(dev, shape: str, reps: int, nodes: int = 5000) -> dict:
 
     from kubernetes_tpu_torch import kernels
     from kubernetes_tpu_torch import preemption as tpre
-    from kubernetes_tpu_torch.engine.pass_ import DomTables, build_dom
+    from kubernetes_tpu_torch.engine.pass_ import DomTables, build_dom, eval_spec
     from kubernetes_tpu_torch.kernels import plain
 
     s, pack, batches, active = search_inputs(shape, dev, nodes)
@@ -2695,7 +2863,7 @@ def check_search_kernels(dev, shape: str, reps: int, nodes: int = 5000) -> dict:
         torch.cuda.synchronize()
         exact(errs, "preempt_pick", f"{where} picks", pk, pp)
         if label == "mixed chunk":
-            pick_in = (pf, kt, pt, chunk_mode)
+            pick_in = (pf, kt, pt, chunk_mode, pk, pp)
         kf = kernels.preempt_eval(state, vic, pf, local)
         pfull = plain.preempt_eval(state, vic, pf, local)
         torch.cuda.synchronize()
@@ -2724,10 +2892,54 @@ def check_search_kernels(dev, shape: str, reps: int, nodes: int = 5000) -> dict:
     set_bound(result["preempt_eval"], preempt_eval_bytes(state, vic, full_in, None)
               + search_step_bytes(state, vic, full_in, local, c0) - nbytes(*c0) * 2)
     # preempt_pick on the mixed chunk's tail (the paths' dry-run chunk).
-    pf, kt, pt, chunk_mode = pick_in
+    pf, kt, pt, chunk_mode, pk, pp = pick_in
     result["preempt_pick"] = timed(lambda _: kernels.preempt_pick(kt[0], kt[1], pf, chunk_mode),
                                    lambda _: plain.preempt_pick(pt[0], pt[1], pf, chunk_mode), reps)
     set_bound(result["preempt_pick"], *pick_cost(pt[0], pf))
+    # preempt_commit of the mixed chunk's picks, and expand_rows of the
+    # uniform batch, at this shape (the search and claims paths' own).
+    carries = lambda: ((state.req.clone(), state.nonzero_req.clone(), state.num_pods.clone()),  # noqa: E731
+                       vic.prio.clone())
+    ck, cp = carries(), carries()
+    mk = kernels.preempt_commit(ck[0], ck[1], kt, pk)
+    mp = plain.preempt_commit(cp[0], cp[1], pt, pp)
+    torch.cuda.synchronize()
+    for what, a, b in (("vic_mask", mk[0], mp[0]), ("n_victims", mk[1], mp[1]), ("req", ck[0][0], cp[0][0]),
+                       ("nonzero_req", ck[0][1], cp[0][1]), ("num_pods", ck[0][2], cp[0][2]),
+                       ("vic_prio", ck[1], cp[1])):
+        exact(errs, "preempt_commit", f"[{shape} mixed chunk] {what}", a, b)
+    result["preempt_commit"] = timed(lambda a: kernels.preempt_commit(a[0], a[1], kt, pk),
+                                     lambda a: plain.preempt_commit(a[0], a[1], pt, pp), reps, carries)
+    rows = int((pp >= 0).sum())
+    r, v = state.req.shape[1], vic.prio.shape[1]
+    set_bound(result["preempt_commit"], c * (4 + v + 4) + rows * (2 * (r + 2) * 8 + r * 8 + 2 * 8 + 4 + 2 * 4
+                                                                  + v * (1 + 4)))
+    row = tb["req"][:1].contiguous()
+    exact(errs, "expand_rows", f"[{shape}] req", kernels.expand_rows(row, k), plain.expand_rows(row, k))
+    result["expand_rows"] = timed(lambda _: kernels.expand_rows(row, k), lambda _: plain.expand_rows(row, k), reps)
+    result["expand_rows"]["library_ms"] = median_ms(lambda _: row.repeat(k, 1), reps)[0]
+    set_bound(result["expand_rows"], nbytes(row) * (k + 1))
+    if shape == "search":
+        # The search path's main pass at its own chunk (128) and its batch
+        # kernels on the preemptor batch.
+        c_main = 128
+        result.update(check_main_at(dev, shape, s.builder, state, tb, batches["uniform"][1], s.profile, c_main,
+                                    errs, reps))
+        ctx = eval_spec(s.profile, s.builder.schema, s.builder.res_col, batches["uniform"][1]).ctx
+        kb = kernels.node_filters(state, tb, ctx)
+        pb = plain.node_filters(state, tb, ctx)
+        kcp = kernels.conflict_pairs(tb, k // c_main, c_main)
+        pcp = plain.conflict_pairs(tb, k // c_main, c_main)
+        torch.cuda.synchronize()
+        exact(errs, "node_filters", f"[{shape} batch]", kb, pb)
+        exact(errs, "conflict_pairs", f"[{shape} batch]", kcp, pcp)
+        result["node_filters"] = timed(lambda _: kernels.node_filters(state, tb, ctx),
+                                       lambda _: plain.node_filters(state, tb, ctx), reps)
+        set_bound(result["node_filters"], nf_bytes(state, tb, ctx))
+        result["conflict_pairs"] = timed(lambda _: kernels.conflict_pairs(tb, k // c_main, c_main),
+                                         lambda _: plain.conflict_pairs(tb, k // c_main, c_main), reps)
+        set_bound(result["conflict_pairs"], search_pair_bytes(tb, c_main))
+        result["build_dom"] = dom_at(errs, shape, s.builder, state, reps)
     print(f"search [{shape}]: {steps} search steps checked; K={k} C={c} N={state.valid.shape[0]} V={vic.prio.shape[1]} "
           f"(occupied {vic.occupied}) G={s.builder.schema.G} ET={s.builder.schema.ET} DV={s.builder.schema.DV} "
           f"CV={s.builder.schema.CV} features {sorted(vic.vfeat)}")
@@ -2800,17 +3012,18 @@ def pinned_inputs(dev):
 
 def check_pinned_kernels(dev, reps: int) -> dict:
     """The pinned-batch pass's kernels against their plain versions at the
-    daemonset_15kn shapes (K=4096, N=16384): node_filters over the batch,
-    image_scores in pinned mode (each pod on its pinned row), eval_chunk
-    (reading that plane) and late_scores in pinned mode (also on a
-    feasible set with holes), pinned_fit, and the strict resolve_commit of
-    the pinned picks over each 1024-lane slice; returns their timings and
-    bounds."""
+    daemonset_15kn shapes (K=4096, N=16384): node_filters and image_scores
+    in pinned mode (each pod on its pinned row), eval_chunk (reading those
+    (K, 1) planes) and late_scores in pinned mode (also on a feasible set
+    with holes), pinned_fit, the strict resolve_commit of the pinned picks
+    over each 1024-lane slice, and the pinned pass end to end (picks,
+    scores, counts, fail masks and the committed state); returns their
+    timings and bounds."""
     import numpy as np
     import torch
 
     from kubernetes_tpu_torch import kernels
-    from kubernetes_tpu_torch.engine.pass_ import DomTables, eval_spec, late_spec
+    from kubernetes_tpu_torch.engine.pass_ import DomTables, build_pinned_pass, eval_spec, late_spec
     from kubernetes_tpu_torch.kernels import plain
 
     s, state, tb, active, nom, pin, rows = pinned_inputs(dev)
@@ -2821,12 +3034,12 @@ def check_pinned_kernels(dev, reps: int) -> dict:
     k, n = pin.shape[0], state.valid.shape[0]
     if plain.IL not in dict(spec.scorers):
         raise AssertionError(f"daemonset shape: ImageLocality does not score ({spec.scorers})")
-    kb = kernels.node_filters(state, tb, spec.ctx)
-    pb = plain.node_filters(state, tb, spec.ctx)
+    kb = kernels.node_filters(state, tb, spec.ctx, pin)
+    pb = plain.node_filters(state, tb, spec.ctx, pin)
     kil = kernels.image_scores(state, tb, None, pin)
     pil = plain.image_scores(state, tb, None, pin)
     torch.cuda.synchronize()
-    exact(errs, "node_filters", "[daemonset]", kb, pb)
+    exact(errs, "node_filters", "[daemonset pinned]", kb, pb)
     exact(errs, "image_scores", "[daemonset pinned]", kil, pil)
     ext = (pb, None, None, pil)
     ke = kernels.eval_chunk(state, tb, spec, nom, ext, pin)
@@ -2864,6 +3077,19 @@ def check_pinned_kernels(dev, reps: int) -> dict:
         exact(errs, "resolve_commit", f"[daemonset lanes {lo}+] (strict) picks", ok_, op_)
     for f in ("req", "nonzero_req", "num_pods", "group_counts"):
         exact(errs, "resolve_commit", f"[daemonset] (strict) state.{f}", getattr(sk, f), getattr(sp, f))
+    # The pinned pass end to end, through the kernels and their plain versions.
+    batch = {key: v for key, v in tb.items() if key != "nominated_row"}
+    batch["pin_row"] = rows.cpu().numpy()
+    batch["nominated_row"] = torch.where(tb["nominated_row"] >= 0, rows, -1).cpu().numpy()
+    inv = {**s.builder.batch_invariants(), "nom_req": nom[0], "nom_cnt": nom[1], "nom_prio": nom[2]}
+    runs = {impl: build_pinned_pass(s.profile, schema, s.builder.res_col, active, _impl=impl)(
+        state.clone(), batch, inv) for impl in ("kernel", "plain")}
+    torch.cuda.synchronize()
+    (kst, kout), (pst, pout) = runs["kernel"], runs["plain"]
+    for f in kout._fields:
+        exact(errs, "node_filters", f"[daemonset pinned pass] {f}", getattr(kout, f), getattr(pout, f))
+    for f in ("req", "nonzero_req", "num_pods", "group_counts"):
+        exact(errs, "node_filters", f"[daemonset pinned pass] state.{f}", getattr(kst, f), getattr(pst, f))
     print(f"pinned [daemonset K={k} N={n}]: exact; {int(own.sum())} pods feasible on their pins, "
           f"{int((picks >= 0).sum())} placed, {int((picks == -2).sum())} deferred, "
           f"{int((rows < 0).sum())} pinned to no node, fail masks {sorted(set(pe[2].tolist()))}, "
@@ -2871,8 +3097,8 @@ def check_pinned_kernels(dev, reps: int) -> dict:
           f"NodeAffinity weight {late.na_weight if late else 0}, taint weight {late.taint_weight if late else 0}")
     sub0 = {key: v[:c] for key, v in tb.items()}
     result = {
-        "node_filters": timed(lambda _: kernels.node_filters(state, tb, spec.ctx),
-                              lambda _: plain.node_filters(state, tb, spec.ctx), reps),
+        "node_filters": timed(lambda _: kernels.node_filters(state, tb, spec.ctx, pin),
+                              lambda _: plain.node_filters(state, tb, spec.ctx, pin), reps),
         "image_scores": timed(lambda _: kernels.image_scores(state, tb, None, pin),
                               lambda _: plain.image_scores(state, tb, None, pin), reps),
         "eval_chunk": timed(lambda _: kernels.eval_chunk(state, tb, spec, nom, ext, pin),
@@ -2891,7 +3117,7 @@ def check_pinned_kernels(dev, reps: int) -> dict:
     node_row = 1 + 4 + 1 + 4 + 4 + 3 * r * 8 + 2 * 8 + (r * 8 + 4 + 4) + 1  # state, overlay, bits
     pod_feats = nbytes(*(tb[key] for key in ("nodename_id", "tolerates_unschedulable", "req", "nonzero",
                                              "priority", "nominated_row"))) + k * 4
-    set_bound(result["node_filters"], nf_bytes(state, tb, spec.ctx))
+    set_bound(result["node_filters"], nf_bytes(state, tb, spec.ctx, pin))
     set_bound(result["image_scores"], image_scores_bytes(state, tb, None, pin))
     set_bound(result["eval_chunk"], k * node_row + pod_feats + k * (1 + 8 + 4) + k)
     # late_scores: the feasible flag and total of each pod; NodeAffinity's
@@ -3165,7 +3391,7 @@ def check_pv_kernels(dev, reps: int) -> dict:
         for what, a, b in zip(("pick", "best", "feasible_count"), ks, ps):
             exact(errs, "select_host", f"[pv chunk {i}] {what}", a, b)
         if first is None:
-            first = (pf, bits, pv, ps[0])
+            first = (pf, bits, pv, ps[0], pe, steps)
     # resolve_commit: the chunk's picks, then a few rows for everyone.
     et_slot = torch.zeros(schema.ET, dtype=torch.int32, device=dev)
     dom = build_dom(state, et_slot, torch.zeros(schema.ET, dtype=torch.bool, device=dev), schema.DV)
@@ -3182,7 +3408,7 @@ def check_pv_kernels(dev, reps: int) -> dict:
         picks = crowded.clone()
         picks[::13] = -1
         commit_cases.append((f"chunk {i}", pf, picks, kp[i]))
-    pf0, _bits0, pv0, picks0 = first
+    pf0, _bits0, pv0, picks0, pe0, steps0 = first
     commit_cases.append(("chunk 0 picks", pf0, picks0, kp[0]))
     placed = None  # the first case's committed picks (not strict): its bound reads them
     for label, pf, picks, pairs in commit_cases:
@@ -3210,6 +3436,9 @@ def check_pv_kernels(dev, reps: int) -> dict:
                                 lambda _: plain.conflict_pairs(big, k // c, c), reps),
         "vol_filter": timed(lambda _: kernels.vol_filter(state, pf0, ctx, True, True),
                             lambda _: plain.vol_filter(state, pf0, ctx, True, True), reps),
+        "select_host": timed(lambda _: kernels.select_host(pe0[0], pe0[1], steps0, seed_mul, pf0["nominated_row"]),
+                             lambda _: plain.select_host(pe0[0], pe0[1], steps0, seed_mul, pf0["nominated_row"]),
+                             reps),
         "eval_chunk": timed(lambda _: kernels.eval_chunk(state, pf0, spec, None, (_bits0, None, pv0)),
                             lambda _: plain.eval_chunk(state, pf0, spec, None, (_bits0, None, pv0)), reps),
         "resolve_commit": timed(
@@ -3220,6 +3449,9 @@ def check_pv_kernels(dev, reps: int) -> dict:
     set_bound(result["node_filters"], nf_bytes(state, big, ctx))
     set_bound(result["conflict_pairs"], vol_pair_bytes(big, c))
     set_bound(result["vol_filter"], vol_filter_bytes(state, pf0, True, True))
+    set_bound(result["select_host"], select_bytes(c, n))
+    result["build_dom"] = dom_at(errs, "pv", builder, state, reps)
+    nf_cases(errs, dev, "pv", state, layouts=True)
     set_bound(result["eval_chunk"], eval_bytes(state, pf0, None) + 2 * c * n)
     set_bound(result["resolve_commit"], commit_bytes(schema, pickc, c) + vol_commit_bytes(state, pfc, placed))
     for name in result:
@@ -3519,6 +3751,7 @@ def check_dra_kernels(dev, reps: int, shape: str = "dra", nodes: int = 5000) -> 
     set_bound(result["eval_chunk"], eval_bytes(state, pf0, None) + dra_eval_bytes(state, pf0))
     set_bound(result["select_host"], select_bytes(c, n))
     set_bound(result["resolve_commit"], commit_bytes(schema, pickc, c) + dra_commit_bytes(state, pfc, placed))
+    result["build_dom"] = dom_at(errs, shape, builder, state, reps)
     for name in result:
         result[name]["max_abs_err"] = errs[name]
         result[name].setdefault("library_ms", None)
@@ -3560,6 +3793,7 @@ def truncated_steps(errs: dict, label: str, state, pods, order, steps, seed_mul:
 
     mods = {"kernel": kernels, "plain": plain}
     starts = {impl: torch.tensor([start0], dtype=torch.int64, device=state.valid.device) for impl in mods}
+    counts = plain.scan_counts(int(state.valid.sum()), 0)
     owner = {"feasible": "truncate_feasible", "pos": "truncate_feasible", "processed": "truncate_feasible",
              "start": "truncate_feasible", "total": score_kernel, "fail_mask": score_kernel,
              "pick": "select_host", "best": "select_host", "feasible_count": "select_host"}
@@ -3569,7 +3803,7 @@ def truncated_steps(errs: dict, label: str, state, pods, order, steps, seed_mul:
         for impl, mod in mods.items():
             feasible, total, fail = filt(mod, i)
             feasible, pos, processed = mod.truncate_feasible(feasible, state.valid, order, starts[impl],
-                                                             pf["valid"], 0)
+                                                             pf["valid"], *counts)
             score(mod, i, feasible, total, fail)
             sel = mod.select_host(feasible, total, steps[i:i + 1], seed_mul, pf["nominated_row"], pos)
             outs[impl] = dict(zip(owner, (feasible, pos, processed, starts[impl].clone(), total, fail, *sel)))
@@ -3595,6 +3829,7 @@ def pos_cases(errs: dict, dev, state, order, seed_mul: int, rng) -> int:
     n = state.valid.shape[0]
     valid = state.valid.cpu().numpy()
     nvalid = int(valid.sum())
+    counts = plain.scan_counts(nvalid, 0)
     words = -(-n // 32)
     bounds = sorted({r * -(-words // k) * 32 for k in SPLITS for r in range(1, k)})
     real = torch.tensor([True], device=dev)
@@ -3608,7 +3843,7 @@ def pos_cases(errs: dict, dev, state, order, seed_mul: int, rng) -> int:
             sets.append(one)
         for feas in sets:
             cut, pos, _ = plain.truncate_feasible(torch.from_numpy(feas[None]).to(dev), state.valid, order,
-                                                  st.clone(), real, 0)
+                                                  st.clone(), real, *counts)
             cut_np, pos_np = cut.cpu().numpy(), pos.cpu().numpy()
             total = rng.integers(0, 2, (1, n))
             ties = cut_np[0] & (total[0] == total[0][cut_np[0]].max()) if cut_np.any() else cut_np[0]
@@ -3656,8 +3891,7 @@ def check_truncate_kernels(dev, reps: int) -> dict:
     state = builder.state()
     n = state.valid.shape[0]
     order = scan_order(cache, n, dev)
-    nvalid = int(state.valid.sum())
-    limit = int(plain.num_to_find(torch.tensor(nvalid, dtype=torch.int32), 0))
+    nvalid, limit = plain.scan_counts(int(state.valid.sum()), 0)
     if (n, nvalid, limit) != (8192, 5000, 500):
         raise AssertionError(f"truncate shape: N={n}, {nvalid} nodes, limit {limit}")
     rng = np.random.default_rng(97)
@@ -3672,8 +3906,10 @@ def check_truncate_kernels(dev, reps: int) -> dict:
             for pod_valid in ((real, pad) if count == nvalid else (real,)):
                 ks = torch.tensor([start], dtype=torch.int64, device=dev)
                 ps = ks.clone()
-                kf, kpos, kproc = kernels.truncate_feasible(feasible.clone(), state.valid, order, ks, pod_valid, 0)
-                pf_, ppos, pproc = plain.truncate_feasible(feasible.clone(), state.valid, order, ps, pod_valid, 0)
+                kf, kpos, kproc = kernels.truncate_feasible(feasible.clone(), state.valid, order, ks, pod_valid,
+                                                            nvalid, limit)
+                pf_, ppos, pproc = plain.truncate_feasible(feasible.clone(), state.valid, order, ps, pod_valid,
+                                                           nvalid, limit)
                 torch.cuda.synchronize()
                 what = f"[{count} feasible, start {start}, valid {bool(pod_valid[0])}]"
                 for name, a, b in (("feasible", kf, pf_), ("pos", kpos, ppos), ("processed", kproc, pproc),
@@ -3688,6 +3924,28 @@ def check_truncate_kernels(dev, reps: int) -> dict:
                 torch.cuda.synchronize()
                 for name, a, b in zip(("pick", "best", "feasible_count"), ksel, psel):
                     exact(errs, "select_host", f"[pos mode, {what}] {name}", a, b)
+    # The start at nvalid - 1 with limit + 1 feasible rows at the wrap of
+    # the scan (positions nvalid - 1, 0, .., limit - 1): the cutoff and
+    # processedNodes straddle it; and the rows through unaligned views
+    # (the kernel's scalar loads).
+    wrap = state.valid & (((order.to(torch.int64) - (nvalid - 1)) % nvalid) <= limit)
+    for label, unaligned in (("wrap", False), ("wrap, unaligned views", True)):
+        feasible = wrap[None, :].clone()
+        if int(feasible.sum()) != limit + 1:
+            raise AssertionError(f"truncate wrap case: {int(feasible.sum())} feasible rows")
+        outs = []
+        for mod in (kernels, plain):
+            st = torch.tensor([nvalid - 1], dtype=torch.int64, device=dev)
+            f, v, o = feasible.clone(), state.valid, order
+            if unaligned:
+                f = torch.cat([torch.zeros((1, 1), dtype=torch.bool, device=dev), f], dim=1)[:, 1:]
+                v = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev), v])[1:]
+                o = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev), o])[1:]
+            outs.append((*mod.truncate_feasible(f, v, o, st, real, nvalid, limit), st))
+        torch.cuda.synchronize()
+        for name, a, b in zip(("feasible", "pos", "processed", "start"), *outs):
+            exact(errs, "truncate_feasible", f"[{label}, start {nvalid - 1}, {limit + 1} feasible] {name}", a, b)
+        cut += int(feasible.sum()) - int(outs[1][0].sum())
     print(f"truncate_feasible/select_host (pos mode) [truncate]: exact; limit {limit} of {nvalid} nodes, "
           f"{cut} feasible (case, node) pairs cut")
     ncases = pos_cases(errs, dev, state, order, seed_mul, np.random.default_rng(2024))
@@ -3696,11 +3954,11 @@ def check_truncate_kernels(dev, reps: int) -> dict:
     feasible_all = state.valid[None, :].clone()
     result = {}
     result["truncate_feasible"] = timed(
-        lambda a: kernels.truncate_feasible(a[0], state.valid, order, a[1], real, 0),
-        lambda a: plain.truncate_feasible(a[0], state.valid, order, a[1], real, 0), reps,
+        lambda a: kernels.truncate_feasible(a[0], state.valid, order, a[1], real, nvalid, limit),
+        lambda a: plain.truncate_feasible(a[0], state.valid, order, a[1], real, nvalid, limit), reps,
         lambda: (feasible_all.clone(), torch.tensor([2777], dtype=torch.int64, device=dev)))
     tf, tpos, _ = plain.truncate_feasible(feasible_all.clone(), state.valid, order,
-                                          torch.tensor([2777], dtype=torch.int64, device=dev), real, 0)
+                                          torch.tensor([2777], dtype=torch.int64, device=dev), real, nvalid, limit)
     total = torch.from_numpy(rng.integers(0, 3, (1, n))).to(dev)
     steps = torch.from_numpy(rng.integers(0, 2**32, size=1, dtype=np.int64)).to(dev)
     result["select_host"] = timed(lambda _: kernels.select_host(tf, total, steps, seed_mul, None, tpos),
@@ -3711,6 +3969,7 @@ def check_truncate_kernels(dev, reps: int) -> dict:
           f"{rows_mode['ms']:.4f} ms on the same inputs")
     set_bound(result["truncate_feasible"], truncate_bytes(n))
     set_bound(result["select_host"], select_bytes(1, n) + 4 * n)
+    result["build_dom"] = dom_at(errs, "truncate", builder, state, reps)
     shapes = {"truncate": result}
 
     # IPA shape: the filter launch, the cut, the score launch.
@@ -3825,47 +4084,89 @@ def program_bytes(pf: dict, prefix: str, rows, fields) -> int:
     return nbytes(*(pf[f"{prefix}_{f}"][rows] for f in fields))
 
 
-def nf_bytes(state, pf: dict, ctx) -> int:
-    """node_filters for this batch's data: the bits written; the selector
-    pairs and flags; all label slots and the programs of the pods with
-    required (or added) terms where there are any, else the label pair
-    slots where some pod has a selector pair; the hard intolerance masks,
-    and the taint slots only where some pod has an intolerable taint."""
+def term_reads(pf: dict, prefix: str, rows, grouped: bool = False):
+    """What the valid terms of the programs ``prefix`` of the pods in
+    ``rows`` read of a node, per pod: (keys, pairs, name) flags (K,) and
+    the distinct (pod, key) pairs of its Gt/Lt requirements (K', 2).
+    In/NotIn read the label pair slots, Exists/DoesNotExist the key slots,
+    Gt/Lt the key slots and the integer of the slot holding the key, the
+    metadata.name operators the node's name id; a pad or False reads
+    nothing.  A grouped program's terms count only in a group below
+    ngroups."""
+    import torch
+
+    op = pf[f"{prefix}_op"]
+    live = pf[f"{prefix}_term_valid"] & rows[:, None]
+    if grouped:
+        group = pf[f"{prefix}_group"]
+        live = live & (group >= 0) & (group < pf[f"{prefix}_ngroups"][:, None])
+    op = torch.where(live[..., None], op, -1)
+    ints = (op == 4) | (op == 5)
+    keys = ((op >= 2) & (op <= 5)).flatten(1).any(dim=1)
+    pairs = ((op >= 0) & (op <= 1)).flatten(1).any(dim=1)
+    name = ((op == 6) | (op == 7)).flatten(1).any(dim=1)
+    pod = torch.arange(op.shape[0], device=op.device)[:, None, None].expand_as(op)
+    int_keys = torch.unique(torch.stack([pod[ints], pf[f"{prefix}_key"][ints]], dim=1), dim=0)
+    return keys, pairs, name, int_keys
+
+
+def nf_bytes(state, pf: dict, ctx, pin=None) -> int:
+    """node_filters for this batch's data: the bits written (K x N, or K
+    pinned); the selector pairs and flags, the intolerance masks and the
+    volume flags and group counts; the programs of the pods with terms to
+    evaluate (required or added terms; feasible volume programs with
+    groups); and of the nodes (every node, or each pod's own row pinned)
+    only what term_reads says their valid terms read, the label pair slots
+    where a pod has a selector pair, and the taint slots where a pod has an
+    intolerable taint.  A pod pinned to no row reads no program and no
+    node."""
+    import torch
+
     k, n = pf["valid"].shape[0], state.valid.shape[0]
-    b = k * n
+    ls, ts = state.label_key_ids.shape[1], state.taint_ids.shape[1]
+    fields = ("op", "key", "vals", "int", "term_valid")
+    b = k if pin is not None else k * n
+    none = torch.zeros(k, dtype=torch.bool, device=state.valid.device)
+    on = ~none if pin is None else (pin >= 0) & (pin < n)
+    keys, pairs, name, taints = none, none, none, none
+    int_keys = []
+    programs = []
     if "na_sel_pairs" in pf:
         sel, has_req = pf["na_sel_pairs"], pf["na_has_required"]
-        fields = ("op", "key", "vals", "int", "term_valid")
         b += nbytes(sel, has_req)
-        prog, evaluates = program_bytes(pf, "na_req", has_req, fields), has_req
+        pairs = pairs | ((sel >= 0).any(dim=1) & on)
+        programs.append(("na_req", has_req & on, False))
         if ctx.profile.added_affinity is not None:
-            has_add = pf["na_has_added"]
-            b += nbytes(has_add)
-            prog += program_bytes(pf, "na_add", has_add, fields)
-            evaluates = has_req | has_add
-        if bool(evaluates.any()):
-            b += prog + label_bytes(state)
-        elif bool((sel >= 0).any()):
-            b += nbytes(state.label_pair_ids)
+            b += nbytes(pf["na_has_added"])
+            programs.append(("na_add", pf["na_has_added"] & on, False))
     if "taint_intol_hard" in pf:
         intol = pf["taint_intol_hard"]
         b += nbytes(intol)
-        if bool(intol.any()):
-            b += nbytes(state.taint_ids)
-    labels = False
+        taints = intol.any(dim=1) & on
     for prefix in ("vb", "vz"):
         if f"{prefix}_op" in pf:
-            # The flags and group counts of every pod; the programs (and so
-            # the label slots) only of feasible pods with a group.
             feas, ngroups = pf[f"{prefix}_feasible"], pf[f"{prefix}_ngroups"]
-            b += nbytes(feas, ngroups)
-            rows = feas & (ngroups > 0)
-            if bool(rows.any()):
-                b += program_bytes(pf, prefix, rows, ("op", "key", "vals", "int", "term_valid", "group"))
-                labels = True
-    if labels and not ("na_sel_pairs" in pf and bool(pf["na_has_required"].any())):
-        b += label_bytes(state)
-    return b
+            rows = feas & (ngroups > 0) & on
+            b += nbytes(feas, ngroups, pf[f"{prefix}_group"][rows])
+            programs.append((prefix, rows, True))
+    for prefix, rows, grouped in programs:
+        b += program_bytes(pf, prefix, rows, fields)
+        rk, rp, rn, ri = term_reads(pf, prefix, rows, grouped)
+        keys, pairs, name = keys | rk, pairs | rp, name | rn
+        int_keys.append(ri)
+    int_keys = torch.unique(torch.cat(int_keys), dim=0) if int_keys else torch.zeros((0, 2))
+    if pin is not None:
+        # Each pod's own row: its slots, name and taints as it needs them,
+        # and one integer a (pod, Gt/Lt key).
+        slots = int(keys.sum()) + int(pairs.sum())
+        return (b + slots * ls * 4 + int(name.sum()) * 4 + int(taints.sum()) * ts * 4
+                + int_keys.shape[0] * 8)
+    # Every node: the key and pair slots, names and taint slots where some
+    # pod needs them, and one integer a node for each distinct Gt/Lt key.
+    slots = int(bool(keys.any())) + int(bool(pairs.any()))
+    distinct = int(torch.unique(int_keys[:, 1]).numel()) if int_keys.shape[0] else 0
+    return (b + slots * n * ls * 4 + int(bool(name.any())) * n * 4 + int(bool(taints.any())) * n * ts * 4
+            + min(distinct, ls) * n * 8)
 
 
 def late_bytes(state, pf: dict, late, c: int) -> int:
@@ -3892,6 +4193,15 @@ def late_bytes(state, pf: dict, late, c: int) -> int:
     if late.spread_weight:
         b += spread_bytes(state, pf, "tps_s")
     return b
+
+
+def search_pair_bytes(pf: dict, c: int) -> int:
+    """conflict_pairs on a batch of any features: every feature array the
+    kernel takes, read once, and the table written once."""
+    keys = ("group", "ipa_ra_allmask", "ipa_rs_groups", "ipa_et_match", "ipa_et_anti", "ipa_own_terms",
+            "tps_h_groups", "vol_dev_ids", "vol_csi_ids", "vol_unbound", "port_keys", "dra_claim_ids",
+            "dra_claim_unalloc")
+    return nbytes(*(pf[key] for key in keys if key in pf)) + pf["valid"].shape[0] * c
 
 
 def spread_pair_bytes(pf: dict, c: int) -> int:
@@ -4818,7 +5128,7 @@ def check_ports_images_kernels(dev, reps: int, explain: dict | None = None, **si
         for what, a, b in zip(("pick", "best", "feasible_count"), ksel, psel):
             exact(errs, "select_host", f"[ports/images chunk {i}] {what}", a, b)
         if first is None:
-            first = (pf, il, psel[0])
+            first = (pf, il, psel[0], pe, steps)
     et_slot = torch.zeros(schema.ET, dtype=torch.int32, device=dev)
     dom = build_dom(state, et_slot, torch.zeros(schema.ET, dtype=torch.bool, device=dev), schema.DV)
     fields = ("req", "nonzero_req", "num_pods", "group_counts", "port_counts", "portkey_counts")
@@ -4829,7 +5139,7 @@ def check_ports_images_kernels(dev, reps: int, explain: dict | None = None, **si
         picks = crowd[torch.from_numpy(rng.integers(0, 4, size=c)).to(dev)]
         picks[::13] = -1
         commit_cases.append((f"chunk {i}", pf, picks, kp[i]))
-    pf0, il0, picks0 = first
+    pf0, il0, picks0, pe0, steps0 = first
     commit_cases.append(("chunk 0 picks", pf0, picks0, kp[0]))
     placed = None
     for label, pf, picks, pairs in commit_cases:
@@ -4860,6 +5170,9 @@ def check_ports_images_kernels(dev, reps: int, explain: dict | None = None, **si
                                 lambda _: plain.conflict_pairs(big, k // c, c), reps),
         "eval_chunk": timed(lambda _: kernels.eval_chunk(state, pf0, spec, None, (None, None, None, il0)),
                             lambda _: plain.eval_chunk(state, pf0, spec, None, (None, None, None, il0)), reps),
+        "select_host": timed(lambda _: kernels.select_host(pe0[0], pe0[1], steps0, seed_mul, pf0["nominated_row"]),
+                             lambda _: plain.select_host(pe0[0], pe0[1], steps0, seed_mul, pf0["nominated_row"]),
+                             reps),
         "resolve_commit": timed(
             lambda a: kernels.resolve_commit(a[0], a[1], pfc, pickc, pairc, False),
             lambda a: plain.resolve_commit(a[0], a[1], pfc, pickc, pairc, False), reps,
@@ -4870,6 +5183,8 @@ def check_ports_images_kernels(dev, reps: int, explain: dict | None = None, **si
     set_bound(result["conflict_pairs"], port_pair_bytes(big, c))
     set_bound(result["eval_chunk"], eval_bytes(state, pf0, None) + port_eval_bytes(state, pf0) + c * n)
     set_bound(result["resolve_commit"], commit_bytes(schema, pickc, c) + port_commit_bytes(pfc, placed))
+    set_bound(result["select_host"], select_bytes(c, n))
+    result["build_dom"] = dom_at(errs, "ports/images", builder, state, reps)
     for name in result:
         result[name]["max_abs_err"] = errs[name]
     keys = {key: tuple(big[key].shape) for key in big if key.startswith(("port_", "il_"))}
@@ -5069,7 +5384,14 @@ def check_rtcr_kernels(dev, reps: int) -> dict:
     if kernels.eval_chunk.launches != before:
         raise AssertionError("the refused shape launched")
     out["max_abs_err"] = errs["eval_chunk/rtcr"]
-    return {"eval_chunk/rtcr": out}
+    # The bin-packing path's eval_chunk, select_host and resolve_commit at
+    # its own chunk, and build_dom of its state.
+    prof = dataclasses.replace(DEFAULT_PROFILE, scoring_strategy=w.BINPACK_STRATEGY)
+    result = check_main_at(dev, "rtcr", builder, state, pf, active, prof, 64, errs, reps)
+    result["build_dom"] = dom_at(errs, "rtcr", builder, state, reps)
+    for name in result:
+        result[name]["max_abs_err"] = errs[name]
+    return {"eval_chunk/rtcr": out, **result}
 
 
 def hetero_inputs(dev, nodes: int, seed: int = 97):
@@ -5191,6 +5513,14 @@ def check_hetero_kernels(dev, reps: int, shape: str) -> dict:
                   learned_ops(c, n, len(lp.learned_weights[1])) if learned else 0)
         tm["max_abs_err"] = errs[name]
         out[name] = tm
+    # The path's eval_chunk (its profile's term), select_host and
+    # resolve_commit at its own chunk, and build_dom of its state.
+    prof = variants["throughput" if shape == "hetero" else "throughput+learned"]
+    act = active & (set(prof.filters) | {s for s, _ in prof.scorers})
+    out.update(check_main_at(dev, shape, builder, state, pf, act, prof, 64, errs, reps))
+    out["build_dom"] = dom_at(errs, shape, builder, state, reps)
+    for name in ("eval_chunk", "select_host", "resolve_commit", "build_dom"):
+        out[name]["max_abs_err"] = errs[name]
     return out
 
 
@@ -5443,6 +5773,15 @@ def check_cols_kernels(dev, reps: int, shape: str) -> dict:
     spec = dc.replace(plan.spec, filters=tuple(n for n in names if n != plain.IPA), bit0=0, _device_config={})
     c, n = 1, state.valid.shape[0]
     out = {}
+    # node_filters of the one explained pod (the attribution pass's launch).
+    kb = kernels.node_filters(state, tb, plan.spec.ctx)
+    pb = plain.node_filters(state, tb, plan.spec.ctx)
+    exact(errs, "node_filters", f"[{shape}]", kb, pb)
+    tm = timed(lambda _: kernels.node_filters(state, tb, plan.spec.ctx),
+               lambda _: plain.node_filters(state, tb, plan.spec.ctx), reps)
+    set_bound(tm, nf_bytes(state, tb, plan.spec.ctx))
+    tm["max_abs_err"] = errs["node_filters"]
+    out["node_filters"] = tm
     k_e = kernels.eval_chunk_cols(state, tb, spec, nom, ext)
     p_e = plain.eval_chunk_cols(state, tb, spec, nom, ext)
     for what, a, b in zip(("ok_bits", "feasible", "cols", "total"), k_e, p_e):

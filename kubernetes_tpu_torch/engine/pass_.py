@@ -380,13 +380,14 @@ def _chunk_planes(plan: _Plan, state: ClusterState, pf: dict, node_bits, il) -> 
     return node_bits, spread_ok, vol_bits, il
 
 
-def _evaluate(plan: _Plan, state: ClusterState, ipa, pf: dict, nom, node_bits, il, scan=None, pct: int = 0):
+def _evaluate(plan: _Plan, state: ClusterState, ipa, pf: dict, nom, node_bits, il, scan=None):
     """One chunk's filter chain and weighted scores (pass_.py:494-540), the
     part of a step that the batch pass and the eval pass share: eval_chunk,
     InterPodAffinity's filter, the filters after it, truncated mode's cut
-    (``scan``: the scan order and start), InterPodAffinity's score and
-    late_scores.  Returns (feasible, total, fail_mask, pos, processed);
-    ``total`` is 0 on infeasible nodes."""
+    (``scan``: the scan order, the start, the node count and
+    numFeasibleNodesToFind), InterPodAffinity's score and late_scores.
+    Returns (feasible, total, fail_mask, pos, processed); ``total`` is 0 on
+    infeasible nodes."""
     eval_fn, ipa_fn, late_fn, trunc_fn = plan.fns.eval, plan.fns.ipa, plan.fns.late, plan.fns.trunc
     ext = _chunk_planes(plan, state, pf, node_bits, il)
     feasible, total, fails = eval_fn(state, pf, plan.spec, nom, ext)
@@ -407,8 +408,8 @@ def _evaluate(plan: _Plan, state: ClusterState, ipa, pf: dict, nom, node_bits, i
         if scan is None:
             processed = torch.zeros_like(fails)
         else:
-            order_pos, start = scan
-            feasible, pos, processed = trunc_fn(feasible, state.valid, order_pos, start, pf["valid"], pct)
+            order_pos, start, nvalid, limit = scan
+            feasible, pos, processed = trunc_fn(feasible, state.valid, order_pos, start, pf["valid"], nvalid, limit)
         if ipa is not None and ipa.weight:
             ipa_fn(state, pf, feasible, total, fails, ipa, plain.IPA_SCORE)
     if plan.late is not None:
@@ -440,9 +441,10 @@ def build_pass(
     the all-fail shortcut.
 
     In truncated mode (percentage_of_nodes_to_score != 100, chunk 1 only)
-    ``inv`` also holds ``order_pos`` ((N,) i32, cache.order_pos) and
+    ``inv`` also holds ``order_pos`` ((N,) i32, cache.order_pos),
     ``scan_start``, a (1,) i64 tensor on the state's device that the pass
-    advances in place.
+    advances in place, and ``scan_nodes``, the host's node count (an int,
+    so the pass needs no device sync for it).
 
     ``carry_dom=True`` changes the signature to
     run(state, batch, inv, seed_base, dom_group, dom_et, dom_valid)
@@ -464,7 +466,7 @@ def build_pass(
     seed_mul = ((profile.tie_break_seed & 0xFFFFFFFF) * 2654435761) & 0xFFFFFFFF
 
     def step(state, dom, ipa, pf, steps, pairs, nom, node_bits, il, scan) -> PassResult:
-        feasible, total, fails, pos, processed = _evaluate(plan, state, ipa, pf, nom, node_bits, il, scan, pct)
+        feasible, total, fails, pos, processed = _evaluate(plan, state, ipa, pf, nom, node_bits, il, scan)
         picks, bests, feas = select_fn(feasible, total, steps, seed_mul, pf.get("nominated_row"), pos)
         # No spread branch in the commit: spread reads group_counts, which
         # the base commit maintains (pass_.py:166-192).  The device, CSI and
@@ -495,8 +497,13 @@ def build_pass(
         nchunks = k // c
         pairs = _conflict_pairs(tb, nchunks, c, pairs_fn)
         # Truncated mode's scan order and its start, carried on the device
-        # from step to step (pass_.py:564-569, 626-628).
-        scan = (_to_device(inv["order_pos"], dev), inv["scan_start"]) if truncated else None
+        # from step to step (pass_.py:564-569, 626-628), and the node count
+        # and numFeasibleNodesToFind, constants of the pass (:422-432), from
+        # the host's node count (no sync).
+        scan = None
+        if truncated:
+            scan = (_to_device(inv["order_pos"], dev), inv["scan_start"],
+                    *plain.scan_counts(int(inv["scan_nodes"]), pct))
 
         def chunk_of(i: int, src: dict) -> dict:
             return {key: v[i * c : (i + 1) * c] for key, v in src.items()}
@@ -687,12 +694,13 @@ def build_pinned_pass(
     """The pinned-batch pass (pass_.py:901-1047): every pod arrives resolved
     to ONE candidate row (``batch["pin_row"]``, -1 when the pin names no
     live node) — its NodeName/metadata.name pin or its live nomination.
-    The whole batch runs in one launch of each kernel: eval_chunk (and
-    late_scores when NodeAffinity or TaintToleration scores) in pinned
-    mode evaluates every pod on its own row alone — filter verdicts, fail
-    bits and scores normalized over that single node, as the JAX pass's
-    vmapped own-row evaluation computes them (a pod whose pin names no
-    node is evaluated on row 0 and then held infeasible, as there;
+    The whole batch runs in one launch of each kernel: node_filters,
+    eval_chunk (and late_scores when NodeAffinity or TaintToleration
+    scores) in pinned mode evaluate every pod on its own row alone —
+    filter verdicts, fail bits and scores normalized over that single
+    node, as the JAX pass's vmapped own-row evaluation computes them (a
+    pod whose pin names no node is evaluated on row 0 and then held
+    infeasible, as there;
     ImageLocality's score comes from image_scores at the pins, its spread
     over the pinned row alone, as the JAX pass's one-row state slice
     computes it);
@@ -736,7 +744,7 @@ def build_pinned_pass(
         nom = None
         if "nom_req" in inv:
             nom = tuple(_to_device(inv[key], dev) for key in ("nom_req", "nom_cnt", "nom_prio"))
-        node_bits = nodes_fn(state, tb, spec.ctx) if need_nodes else None
+        node_bits = nodes_fn(state, tb, spec.ctx, pin) if need_nodes else None
         il = il_fn(state, tb, None, pin) if do_il else None
         own_ok, total, fails = eval_fn(state, tb, spec, nom, (node_bits, None, None, il), pin)
         if late is not None:

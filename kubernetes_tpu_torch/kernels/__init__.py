@@ -10,10 +10,12 @@
                                           rotated scan order); row mode: one pod over a cluster
   truncate_feasible csrc/truncate.cu      truncated mode's cut of the feasible set to the first
                                           numFeasibleNodesToFind in rotated scan order, per step
+                                          (the pass's node count and limit handed in)
   resolve_commit  csrc/resolve_commit.cu  chunk deferral, cumulative fit, commit
   conflict_pairs  csrc/conflict_pairs.cu  chunk-mate conflict table, per batch
   node_filters    csrc/node_filters.cu    NodeAffinity, TaintToleration, VolumeBinding and VolumeZone
-                                          filter bits, per batch
+                                          filter bits, per batch: a tile of nodes by a group of pods,
+                                          or each pod on its own row pinned
   spread_filter   csrc/spread_eval.cu     PodTopologySpread's filter, per chunk, before eval_chunk;
                                           one pod over a thread block cluster (spread_split)
   late_scores     csrc/spread_eval.cu     NodeAffinity, TaintToleration and spread scores over the
@@ -106,6 +108,19 @@ IPA_ROWS_MIN = 128
 # node rows a CTA (the H100 sweep of K at the spread shapes, PERF.md §6).
 SPREAD_ROWS_MIN = 128
 SPREAD_WARPS = 16  # spread_eval.cu's kMaxWarps (its launchers refuse a spread_smem that disagrees)
+# node_filters' tiled launch: nodes a block at most (node_filters.cu's
+# launch bound) and at least, pods a block at most, and the blocks an SM
+# below which nf_tile halves the group, chosen from the H100 sweep at the
+# batch shapes (scripts/shape_sweep.py, PERF.md §6).
+NF_TILE = 128
+NF_TILE_MIN = 32
+NF_GROUP = 32
+NF_BLOCKS_PER_SM = 12
+# truncate_feasible: rows a thread (a register array each: truncate.cu's
+# instantiations) and threads of its one block at most (1024 beat 512 and
+# 256 at the parity shape: scripts/shape_sweep.py, PERF.md §6).
+TRUNC_ROWS = (4, 8, 16, 32)
+TRUNC_THREADS = 1024
 
 
 @dataclass
@@ -331,6 +346,43 @@ def spread_split(c: int, n: int, q: int, dv: int, sms: int) -> tuple[int, int]:
     return k, spread_smem(q, dv, k)
 
 
+def nf_tile(k: int, n: int, sms: int) -> tuple[int, int]:
+    """(nodes a block, pods a block) of node_filters' tiled launch for K
+    pods over N node rows on a card with ``sms`` SMs: NF_TILE nodes and up
+    to NF_GROUP pods a block, halved (the pods first, then the nodes, down
+    to NF_TILE_MIN) until the grid has NF_BLOCKS_PER_SM blocks for each SM
+    or can shrink no further.  More pods a block share each thread's node
+    row in registers; more blocks keep the SMs busy to the end of the
+    launch (at the swept shapes of 4096 pods, 32 pods a block over 8192
+    rows and 16 over 1024).  Raises
+    NotImplementedError where the one-dimensional grid would pass 2^31 - 1
+    blocks."""
+    nodes, pods = NF_TILE, max(1, min(k, NF_GROUP))
+    while -(-n // nodes) * -(-k // pods) < NF_BLOCKS_PER_SM * sms:
+        if pods > 1:
+            pods //= 2
+        elif nodes > NF_TILE_MIN:
+            nodes //= 2
+        else:
+            break
+    if -(-n // nodes) * -(-k // pods) > 2**31 - 1:
+        raise NotImplementedError(f"node_filters: {k} pods over {n} node rows pass 2^31 - 1 blocks")
+    return nodes, pods
+
+
+def trunc_shape(n: int) -> tuple[int, int]:
+    """(threads, rows a thread) of truncate_feasible's one block over N
+    node rows: the fewest rows of TRUNC_ROWS with which TRUNC_THREADS
+    threads cover N, and the threads those rows need, in whole warps.
+    Raises NotImplementedError past TRUNC_THREADS x 32 rows (each thread
+    keeps its rows in registers)."""
+    rows = next((r for r in TRUNC_ROWS if TRUNC_THREADS * r >= n), None)
+    if rows is None:
+        raise NotImplementedError(f"truncate_feasible: {n} node rows exceed {TRUNC_THREADS * TRUNC_ROWS[-1]}")
+    per = -(-n // rows)
+    return max(32, -(-per // 32) * 32), rows
+
+
 def image_grid(n: int, k: int, im: int, sms: int) -> tuple[int, int, int]:
     """(P, slices, pods a slice) of image_scores' tiled launch for K pods
     over N node rows of IM image slots on a card with ``sms`` SMs: P, the
@@ -546,6 +598,7 @@ def _eval_args(state, pf: dict, spec: EvalSpec, nom, ext, pin):
             raise ValueError(f"eval_chunk: pod feature {key!r} missing")
         feats.append(None if t is None else _check(key, t, dtype, shape, dev))
     given = plain.ext_planes(ext)
+    width = n if pin is None else 1  # pinned: (C, 1) planes and outputs, each pod's own node
     planes = []
     for name, dtype, want in (("node_bits", torch.uint8, cfg["node_bits"]),
                               ("spread_ok", b, cfg["spread"]),
@@ -553,13 +606,8 @@ def _eval_args(state, pf: dict, spec: EvalSpec, nom, ext, pin):
         t = given[name]
         if want and t is None:
             raise ValueError(f"eval_chunk: plane {name!r} missing")
-        planes.append(_check(name, t, dtype, (c, n), dev) if want else None)
-    width = n
-    if pin is not None:
-        planes.append(_check("pin", pin, i32, (c,), dev))
-        width = 1
-    else:
-        planes.append(None)
+        planes.append(_check(name, t, dtype, (c, width), dev) if want else None)
+    planes.append(None if pin is None else _check("pin", pin, i32, (c,), dev))
     # NodePorts reads the node counts and the chunk's wants; a batch with
     # no port feature conflicts nowhere (null pointers).
     ports = [None] * 6
@@ -801,14 +849,16 @@ def select_host(feasible, total, steps, seed_mul: int, nominated_row, pos=None):
     return pick, best, feas
 
 
-def truncate_feasible(feasible, valid, order_pos, start, pod_valid, pct: int):
+def truncate_feasible(feasible, valid, order_pos, start, pod_valid, nvalid: int, limit: int):
     """Truncated mode's cut (plain.truncate_feasible): ``feasible`` (1, N)
-    cut IN PLACE to the first numFeasibleNodesToFind feasible rows in
-    rotated scan order, ``start`` (1,) i64 advanced IN PLACE; returns
-    (feasible, pos (N,) i32, processed (1,) i32).  One pod a launch
-    (truncated mode runs chunk 1); no host sync."""
+    cut IN PLACE to the first ``limit`` feasible rows in rotated scan
+    order, ``start`` (1,) i64 advanced IN PLACE; ``nvalid`` and ``limit``
+    are the pass's node count and numFeasibleNodesToFind
+    (plain.scan_counts, host ints); returns (feasible, pos (N,) i32,
+    processed (1,) i32).  One pod a launch (truncated mode runs chunk 1);
+    no host sync."""
     if _on_cpu(feasible):
-        return plain.truncate_feasible(feasible, valid, order_pos, start, pod_valid, pct)
+        return plain.truncate_feasible(feasible, valid, order_pos, start, pod_valid, nvalid, limit)
     dev = feasible.device
     c, n = feasible.shape
     if c != 1:
@@ -818,11 +868,12 @@ def truncate_feasible(feasible, valid, order_pos, start, pod_valid, pct: int):
     _check("order_pos", order_pos, torch.int32, (n,), dev)
     _check("start", start, torch.int64, (1,), dev)
     _check("pod_valid", pod_valid, torch.bool, (1,), dev)
+    threads, rows = trunc_shape(n)
     pos = torch.empty(n, dtype=torch.int32, device=dev)
     processed = torch.empty(1, dtype=torch.int32, device=dev)
     build.launch(
         "truncate_feasible", _ptr(feasible), _ptr(valid), _ptr(order_pos), _ptr(start), _ptr(pod_valid),
-        n, int(pct), _ptr(pos), _ptr(processed), _stream(dev),
+        n, int(nvalid), int(limit), threads, rows, _ptr(pos), _ptr(processed), _stream(dev),
     )
     truncate_feasible.launches += 1
     return feasible, pos, processed
@@ -966,13 +1017,16 @@ def _grouped(pf: dict, prefix: str, k: int, dev) -> tuple[list, tuple]:
     return prog, dims
 
 
-def node_filters(state, pf: dict, ctx):
+def node_filters(state, pf: dict, ctx, pin=None):
     """(K, N) u8 per-batch node filter bits of a batch's K pods: bit 0
     NodeAffinity's filter (with ``ctx.profile``'s added affinity), bit 1
     TaintToleration's, bit 2 VolumeBinding's, bit 3 VolumeZone's; a bit
-    whose features the batch lacks is 1."""
+    whose features the batch lacks is 1.  With ``pin`` ((K,) i32 rows in
+    [0, N)), (K, 1): each pod on its own row alone (the pinned pass).
+    Unpinned, a launch takes nf_tile's tiles of nodes and groups of pods
+    (up to NF_TILE nodes and NF_GROUP pods a block)."""
     if _on_cpu(state.valid):
-        return plain.node_filters(state, pf, ctx)
+        return plain.node_filters(state, pf, ctx, pin)
     dev = state.valid.device
     k, n = pf["valid"].shape[0], state.valid.shape[0]
     ls, ts = state.label_key_ids.shape[1], state.taint_ids.shape[1]
@@ -999,15 +1053,21 @@ def node_filters(state, pf: dict, ctx):
             vols.append((True, *_grouped(pf, prefix, k, dev)))
         else:
             vols.append((False, [None] * 8, (1, 1, 1)))
-    out = torch.empty((k, n), dtype=torch.uint8, device=dev)
+    nt = group = 0
+    if pin is None:
+        nt, group = nf_tile(k, n, _sms(dev))
+        out = torch.empty((k, n), dtype=torch.uint8, device=dev)
+    else:
+        _check("pin", pin, torch.int32, (k,), dev)
+        out = torch.empty((k, 1), dtype=torch.uint8, device=dev)
     build.launch(
         "node_filters",
         *[_ptr(a) for a in _label_args(state, dev)],
         _ptr(sel), _ptr(has_req), *[_ptr(a) for a in req],
         _ptr(has_add), *[_ptr(a) for a in add],
-        _ptr(intol), *[_ptr(a) for _on, prog, _d in vols for a in prog], _ptr(out),
+        _ptr(intol), *[_ptr(a) for _on, prog, _d in vols for a in prog], _ptr(pin), _ptr(out),
         n, ls, ts, k, s, *req_dims, *add_dims, tv, *[d for _on, _p, dims in vols for d in dims],
-        int(do_na), int(do_add), int(do_taint), *[int(on) for on, _p, _d in vols],
+        int(do_na), int(do_add), int(do_taint), *[int(on) for on, _p, _d in vols], nt, group,
         _stream(dev),
     )
     node_filters.launches += 1

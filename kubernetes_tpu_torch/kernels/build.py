@@ -69,10 +69,10 @@ _SIGNATURES: dict[str, list] = {
     "ipa_eval": [_I] * 10 + [_L] + [_P] * 30 + [_I, _I, _P],
     "ipa_eval_cols": [_I] * 10 + [_L] + [_P] * 31 + [_I, _I, _P],
     "select_host": [_P, _P, _P, _U, _P, _I, _I, _P, _P, _P, _P, _I, _P],
-    "truncate_feasible": [_P] * 5 + [_I, _I] + [_P] * 3,
+    "truncate_feasible": [_P] * 5 + [_I] * 5 + [_P] * 3,
     "resolve_commit": [_P, _P, _P, _I] + [_P] * 34 + [_I] * 12 + [_P, _P],
     "conflict_pairs": [_P] * 13 + [_I] * 11 + [_P, _P],
-    "node_filters": [_P] * 36 + [_I] * 23 + [_P],
+    "node_filters": [_P] * 37 + [_I] * 25 + [_P],
     "vol_filter": [_P] * 11 + [_I] * 7 + [_P],
     "spread_filter": [_P] * 15 + [_I] * 8 + [_P],
     "late_scores": [_P] * 30 + [_I] * 13 + [_L] * 3 + [_I, _I, _P],

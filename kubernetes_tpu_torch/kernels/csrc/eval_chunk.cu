@@ -61,8 +61,9 @@
 // Pinned mode (pin_row non-null; the pinned-batch pass, kubernetes_tpu/
 // engine/pass_.py:941-985): pod c is evaluated on node pin_row[c] alone and
 // the outputs are (C, 1), so its fail bits are those of its own node, as
-// the JAX pass's vmapped own-row evaluation gives them; the ImageLocality
-// plane is then (C, 1) too.  One thread a pod.
+// the JAX pass's vmapped own-row evaluation gives them; the planes
+// (node_filters' pinned bits, ImageLocality's scores) are then (C, 1) too.
+// One thread a pod.
 //
 // Filters run in profile order from state.valid; a filter's fail bit is
 // set only for nodes that passed every earlier filter (the reference's
@@ -156,7 +157,7 @@ struct EvalArgs {
   const int* priority;                   // (C,)
   const int* nominated_row;              // (C,)
   // Precomputed filter planes (null when no filter reads them).
-  const unsigned char* node_bits;        // (C, N): bit 0 NodeAffinity, bit 1 TaintToleration
+  const unsigned char* node_bits;        // (C, N), or (C, 1) pinned: bit 0 NodeAffinity, bit 1 TaintToleration
   const unsigned char* spread_ok;        // (C, N): PodTopologySpread
   const unsigned char* vol_bits;         // (C, N): bit 0 VolumeRestrictions, bit 1 NodeVolumeLimits
   const int* pin_row;                    // (C,) pinned mode, else null
@@ -612,7 +613,7 @@ __device__ __forceinline__ bool filter_ok(const EvalArgs& a, const Cfg& cfg, int
 template <bool kTerms>
 __device__ unsigned int eval_pair(const EvalArgs& a, const Cfg& cfg, const NodeRow& row, const PodRow& pod,
                                   size_t o) {
-  const Planes pl = load_planes(a, (size_t)pod.c * a.N + row.n);
+  const Planes pl = load_planes(a, o);
   const bool in_range = a.feas_in == nullptr || a.feas_in[o] != 0;
   const long long total_in = a.feas_in == nullptr ? 0 : a.total[o];
   const long long il = a.il_scores == nullptr ? 0 : (long long)a.il_scores[o];

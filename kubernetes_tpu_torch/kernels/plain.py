@@ -9,6 +9,7 @@ batch pass (kubernetes_tpu/engine/pass_.py) operation by operation.
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 
 import torch
 
@@ -46,9 +47,11 @@ PLANE_BITS = {NA: ("node_bits", 0), TT: ("node_bits", 1), VB: ("node_bits", 2),
 EXT_FILTERS = tuple(PLANE_BITS)
 NODE_FILTER_OPS = (NA, TT, VB, VZ)
 # Pods per block of the plain node_filters (bounds its temporaries), and
-# the elements a block's (pods, T, Q, N, LS) label match may hold.
+# the elements a block's (pods, T, Q, N, LS) label match may hold; the node
+# fields it reads (gathered at the pins in pinned mode).
 _NODE_FILTER_BLOCK = 256
 _NODE_FILTER_ELEMS = 2**28
+_NODE_FILTER_FIELDS = ("label_key_ids", "label_pair_ids", "label_int_vals", "name_id", "taint_ids")
 
 _MASK32 = 0xFFFFFFFF
 NEG_SCORE = -(2**62)
@@ -93,9 +96,11 @@ def ext_filter(name: str, ext) -> torch.Tensor:
 def pin_view(state, pf: dict, pin, nom=None, planes=()):
     """The own-node view of a pinned chunk: the state's node axis gathered
     at ``pin`` (node j of the view is pod j's pin), the nominated overlay
-    and the (C, N) ``planes`` likewise, ``nominated_row`` mapped onto the
-    view (pod c's own node is node c), and the (C, C) diagonal that holds
-    each pod to its own node.  A view's (C, C) results read on the
+    likewise, the (C, 1) ``planes`` (each pod's bytes on its own node, as
+    node_filters and image_scores give them with ``pin``) spread over the
+    view's nodes to be read on the diagonal, ``nominated_row`` mapped onto
+    the view (pod c's own node is node c), and the (C, C) diagonal that
+    holds each pod to its own node.  A view's (C, C) results read on the
     diagonal are the pinned pass's own-row evaluation (pass_.py:951-985)."""
     from ..snapshot import ClusterState, _NODE_AXIS
 
@@ -110,7 +115,7 @@ def pin_view(state, pf: dict, pin, nom=None, planes=()):
     if "nominated_row" in pf:
         pf["nominated_row"] = torch.where(pf["nominated_row"] == pin, local, -1).to(torch.int32)
     nom = None if nom is None else tuple(x.index_select(0, idx) for x in nom)
-    planes = tuple(None if p is None else p.index_select(1, idx) for p in planes)
+    planes = tuple(None if p is None else p.expand(-1, c) for p in planes)
     return view, pf, nom, planes, torch.eye(c, dtype=torch.bool, device=idx.device)
 
 
@@ -130,9 +135,9 @@ def eval_chunk(state, pf: dict, spec, nom, ext=None, pin=None, into=None):
     il = planes.pop("il_scores")
     c = pf["req"].shape[0]
     own = None
-    if pin is not None:
+    if pin is not None:  # the (C, 1) planes are read on the view's diagonal
         state, pf, nom, ext, own = pin_view(state, pf, pin, nom, tuple(planes.values()))
-        if il is not None:  # node j of the view is pod j's own: read on the diagonal
+        if il is not None:
             il = il.expand(-1, c)
     ctx = dataclasses.replace(spec.ctx, nom=nom)
     n = state.valid.shape[0]
@@ -306,17 +311,34 @@ def conflict_pairs(pf: dict, nchunks: int, c: int):
     return (pairs & ~eye).contiguous()
 
 
-def node_filters(state, pf: dict, ctx):
+def node_filters(state, pf: dict, ctx, pin=None):
     """(K, N) u8 per-batch node filters: bit 0 NodeAffinity's filter
     (nodeaffinity.py:285, with the profile's added affinity), bit 1
     TaintToleration's (tainttoleration.py:52), bit 2 VolumeBinding's
     (volumes.py:146), bit 3 VolumeZone's (volumes.py:191); a bit whose
     features the batch does not carry is 1.  They read only node state no
-    commit changes, so one evaluation serves every chunk of the batch."""
+    commit changes, so one evaluation serves every chunk of the batch.
+    With ``pin`` ((K,) i32 rows), (K, 1): each pod on its own row alone,
+    through a view of the label and taint rows gathered at the pins (pod c
+    against node c of the view), as the JAX pinned pass evaluates each pod
+    on its one-row slice (pass_.py:941-993)."""
     k, n = pf["valid"].shape[0], state.valid.shape[0]
-    out = torch.empty((k, n), dtype=torch.uint8, device=state.valid.device)
+    dev = state.valid.device
     ops = ((na_op.filter_fn, "na_sel_pairs"), (taint_op.filter_fn, "taint_intol_hard"),
            (vol_op.vb_filter, "vb_op"), (vol_op.vz_filter, "vz_op"))
+
+    def bits_of(view, sub: dict, m: int, width: int, own: bool) -> torch.Tensor:
+        bits = torch.zeros((m, width), dtype=torch.uint8, device=dev)
+        for b, (fn, key) in enumerate(ops):
+            ok = fn(view, sub, ctx, own) if key in sub else torch.ones((m, width), dtype=torch.bool, device=dev)
+            bits |= ok.to(torch.uint8) << b
+        return bits
+
+    if pin is not None:
+        idx = pin.to(torch.int64)
+        view = SimpleNamespace(**{f: getattr(state, f).index_select(0, idx) for f in _NODE_FILTER_FIELDS})
+        return bits_of(view, pf, k, 1, True)
+    out = torch.empty((k, n), dtype=torch.uint8, device=dev)
     widest = max((pf[key].shape[1] * pf[key].shape[2] for key in ("na_req_op", "na_add_op", "vb_op", "vz_op")
                   if key in pf), default=1)
     per_pod = widest * n * state.label_key_ids.shape[1]
@@ -324,11 +346,7 @@ def node_filters(state, pf: dict, ctx):
     for lo in range(0, k, block):
         sub = {key: v[lo : lo + block] for key, v in pf.items()}
         m = sub["valid"].shape[0]
-        bits = torch.zeros((m, n), dtype=torch.uint8, device=out.device)
-        for b, (fn, key) in enumerate(ops):
-            ok = fn(state, sub, ctx) if key in sub else torch.ones((m, n), dtype=torch.bool, device=out.device)
-            bits |= ok.to(torch.uint8) << b
-        out[lo : lo + m] = bits
+        out[lo : lo + m] = bits_of(state, sub, m, n, False)
     return out
 
 
@@ -458,30 +476,38 @@ def num_to_find(nvalid: torch.Tensor, pct: int) -> torch.Tensor:
     return torch.where(nvalid < 100, nvalid, num)
 
 
-def truncate_feasible(feasible, valid, order_pos, start, pod_valid, pct: int):
+def scan_counts(nvalid: int, pct: int) -> tuple[int, int]:
+    """(nvalid, numFeasibleNodesToFind) of a truncated pass: constants of
+    the pass (node validity does not change inside it, so every step of
+    the JAX pass computes the same two from its state), handed to every
+    truncate_feasible launch as host ints.  ``nvalid`` is the node count:
+    the host's own (the cache's), so no device sync is needed."""
+    return nvalid, int(num_to_find(torch.tensor(nvalid, dtype=torch.int32), pct))
+
+
+def truncate_feasible(feasible, valid, order_pos, start, pod_valid, nvalid: int, limit: int):
     """Truncated (parity) mode's search cut (pass_.py:510-532, 564-569):
     each pod keeps only its first numFeasibleNodesToFind feasible nodes in
     rotated zone-interleaved order.  ``feasible`` (C, N) bool is cut IN
     PLACE; ``valid`` (N,) bool are the node rows, ``order_pos`` (N,) i32
     each row's place in the cache's node order, ``start`` (1,) i64 the
     scan start, advanced IN PLACE by the valid pods' processed counts
-    modulo the node count; ``pod_valid`` (C,) bool; ``pct`` the profile's
-    percentage (0: adaptive).  Returns (feasible, pos (N,) i32: each row's
-    place in the rotated order (NO_POS off the node rows), processed (C,)
-    i32: the nodes each pod's scan examined, 0 on padding lanes).  The
-    cutoff is the limit-th smallest feasible pos, found by a sort as the
-    JAX pass does; the start is i64 here (torch has no uint32 arithmetic
-    on the CPU) and every value stays below the node count."""
-    nvalid = valid.sum().to(torch.int32)
-    nv = torch.clamp(nvalid, min=1)
-    limit = num_to_find(nvalid, pct)
+    modulo the node count; ``pod_valid`` (C,) bool; ``nvalid`` and
+    ``limit`` the pass's node count and numFeasibleNodesToFind
+    (scan_counts).  Returns (feasible, pos (N,) i32: each row's place in
+    the rotated order (NO_POS off the node rows), processed (C,) i32: the
+    nodes each pod's scan examined, 0 on padding lanes).  The cutoff is the
+    limit-th smallest feasible pos, found by a sort as the JAX pass does;
+    the start is i64 here (torch has no uint32 arithmetic on the CPU) and
+    every value stays below the node count."""
+    nv = max(nvalid, 1)
     pos = torch.where(valid, (order_pos.to(torch.int64) - start) % nv, NO_POS).to(torch.int32)
     n = pos.shape[0]
     c = feasible.shape[0]
     total_feas = feasible.sum(dim=1)
     fpos = torch.sort(torch.where(feasible, pos[None, :], NO_POS), dim=1).values
     over = total_feas > limit
-    at = lambda rank: torch.clamp(rank, 0, n - 1).to(torch.int64).reshape(1, 1).repeat(c, 1)  # noqa: E731
+    at = lambda rank: torch.full((c, 1), min(max(rank, 0), n - 1), dtype=torch.int64, device=pos.device)  # noqa: E731
     cutoff = fpos.gather(1, at(limit - 1))
     processed = fpos.gather(1, at(limit))[:, 0]
     feasible &= ~over[:, None] | (pos[None, :] <= cutoff)

@@ -56,14 +56,18 @@ def domain_tables(state, slots: torch.Tensor, counts: torch.Tensor, dv: int):
     return vals, key_present, masked, tbl[:, :, :dv]
 
 
-def gather_mask(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def gather_mask(table: torch.Tensor, ids: torch.Tensor, own: bool = False) -> torch.Tensor:
     """table[c, ids] with -1-padded ids contributing False/0 (helpers.py:63).
 
     ``table`` (C, V) per-pod vocabulary masks; ``ids`` (N, S) node slot ids.
-    Returns (C, N, S)."""
+    Returns (C, N, S); with ``own``, ``ids`` is (C, S), row c pod c's own
+    node's, and the result (C, 1, S)."""
     safe = ids.clamp(min=0).to(torch.int64)
+    zero = torch.zeros((), dtype=table.dtype, device=table.device)
+    if own:
+        return torch.where(ids >= 0, table.gather(1, safe), zero)[:, None]
     got = table[:, safe]  # (C, N, S)
-    return torch.where(ids[None] >= 0, got, torch.zeros((), dtype=table.dtype, device=table.device))
+    return torch.where(ids[None] >= 0, got, zero)
 
 
 _LOG_TABLES: dict = {}

@@ -234,25 +234,35 @@ def featurize(pod: t.Pod, fctx: FeaturizeContext) -> dict:
     return feats
 
 
-def eval_terms(state, ops, keys, vals, ints) -> torch.Tensor:
+def _node_axes(state, own: bool):
+    """The label key, pair and integer slots and the name ids, shaped
+    against a (C, T, Q) requirement axis: every node, (1, 1, 1, N, LS) and
+    (1, 1, 1, N); or, ``own``, each pod's own row of a gathered view whose
+    node c is pod c's, (C, 1, 1, 1, LS) and (C, 1, 1, 1)."""
+    fields = (state.label_key_ids, state.label_pair_ids, state.label_int_vals, state.name_id)
+    if own:
+        return tuple(f[:, None, None, None] for f in fields)
+    return tuple(f[None, None, None] for f in fields)
+
+
+def eval_terms(state, ops, keys, vals, ints, own: bool = False) -> torch.Tensor:
     """Evaluate a chunk's requirement programs on every node (nodeaffinity.py:162):
-    ops/keys/ints (C, T, Q), vals (C, T, Q, V) → (C, T, N) term matches."""
-    lk = state.label_key_ids  # (N, LS)
-    lp = state.label_pair_ids
-    li = state.label_int_vals
-    keymatch = lk[None, None, None] == keys[..., None, None]  # (C, T, Q, N, LS)
+    ops/keys/ints (C, T, Q), vals (C, T, Q, V) → (C, T, N) term matches; with
+    ``own``, pod c on node c of a gathered view only → (C, T, 1)."""
+    lk, lp, li, name = _node_axes(state, own)
+    keymatch = lk == keys[..., None, None]  # (C, T, Q, N, LS)
     has_key = keymatch.any(-1)  # (C, T, Q, N)
     vmask = vals >= 0
     pair_any = torch.zeros(has_key.shape, dtype=torch.bool, device=lk.device)
     name_any = torch.zeros(has_key.shape, dtype=torch.bool, device=lk.device)
     for v in range(vals.shape[-1]):  # over V, so no (C, T, Q, V, N, LS) tensor
         want = vals[..., v]
-        hit = (lp[None, None, None] == want[..., None, None]).any(-1)
+        hit = (lp == want[..., None, None]).any(-1)
         pair_any |= hit & vmask[..., v, None]
-        name_any |= (state.name_id[None, None, None] == want[..., None]) & vmask[..., v, None]
+        name_any |= (name == want[..., None]) & vmask[..., v, None]
     # Per-slot integer label value; one slot holds a given key, so a masked
     # sum extracts it (INT_SENTINEL marks non-integer values).
-    label_int = torch.where(keymatch, li[None, None, None], 0).sum(-1)
+    label_int = torch.where(keymatch, li, 0).sum(-1)
     int_ok = has_key & (label_int != int(INT_SENTINEL))
     op = ops[..., None]
     result = torch.ones(has_key.shape, dtype=torch.bool, device=lk.device)
@@ -268,22 +278,24 @@ def eval_terms(state, ops, keys, vals, ints) -> torch.Tensor:
     return result.all(dim=2)  # AND over Q → (C, T, N)
 
 
-def _any_term(state, pf, prefix: str) -> torch.Tensor:
+def _any_term(state, pf, prefix: str, own: bool = False) -> torch.Tensor:
     match = eval_terms(state, pf[f"{prefix}_op"], pf[f"{prefix}_key"], pf[f"{prefix}_vals"],
-                       pf[f"{prefix}_int"])
+                       pf[f"{prefix}_int"], own)
     return (match & pf[f"{prefix}_term_valid"][:, :, None]).any(dim=1)  # (C, N)
 
 
-def filter_fn(state, pf, ctx: PassContext):
+def filter_fn(state, pf, ctx: PassContext, own: bool = False):
     """(C, N) bool: nodeSelector, required affinity and the profile's added
-    affinity (nodeaffinity.py:285)."""
+    affinity (nodeaffinity.py:285); with ``own``, (C, 1): pod c on node c
+    of a gathered view (the pinned pass's own-row evaluation)."""
     lp = state.label_pair_ids  # (N, LS)
+    lp = lp[:, None, None] if own else lp[None, None]
     sel = pf["na_sel_pairs"]  # (C, S)
-    sel_hit = (lp[None, None] == sel[:, :, None, None]).any(-1)  # (C, S, N)
+    sel_hit = (lp == sel[:, :, None, None]).any(-1)  # (C, S, N)
     ok = (sel_hit | (sel < 0)[:, :, None]).all(dim=1)
-    ok &= torch.where(pf["na_has_required"][:, None], _any_term(state, pf, "na_req"), True)
+    ok &= torch.where(pf["na_has_required"][:, None], _any_term(state, pf, "na_req", own), True)
     if ctx.profile.added_affinity is not None:
-        ok &= torch.where(pf["na_has_added"][:, None], _any_term(state, pf, "na_add"), True)
+        ok &= torch.where(pf["na_has_added"][:, None], _any_term(state, pf, "na_add", own), True)
     return ok
 
 

@@ -51,9 +51,10 @@ def featurize(pod: t.Pod, fctx: FeaturizeContext) -> dict:
     return {"taint_intol_hard": intol_hard, "taint_intol_pref": intol_pref}
 
 
-def filter_fn(state, pf, ctx: PassContext):
-    """(C, N) bool: no intolerable hard taint on the node."""
-    return ~gather_mask(pf["taint_intol_hard"], state.taint_ids).any(dim=2)
+def filter_fn(state, pf, ctx: PassContext, own: bool = False):
+    """(C, N) bool: no intolerable hard taint on the node; with ``own``,
+    (C, 1): pod c on node c of a gathered view."""
+    return ~gather_mask(pf["taint_intol_hard"], state.taint_ids, own).any(dim=2)
 
 
 def raw_score(state, pf) -> torch.Tensor:

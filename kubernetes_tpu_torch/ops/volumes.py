@@ -78,11 +78,12 @@ class _GroupedProgram(_Program):
         return out
 
 
-def eval_grouped(state, pf, prefix: str) -> torch.Tensor:
+def eval_grouped(state, pf, prefix: str, own: bool = False) -> torch.Tensor:
     """(C, N) bool: every group of each pod's program has ≥1 valid matching
-    term (ops/volumes.py:78 _eval_grouped); a group with no terms fails."""
+    term (ops/volumes.py:78 _eval_grouped); a group with no terms fails.
+    With ``own``, (C, 1): pod c on node c of a gathered view."""
     match = eval_terms(state, pf[f"{prefix}_op"], pf[f"{prefix}_key"], pf[f"{prefix}_vals"],
-                       pf[f"{prefix}_int"])  # (C, T, N)
+                       pf[f"{prefix}_int"], own)  # (C, T, N)
     match &= pf[f"{prefix}_term_valid"][:, :, None]
     groups = pf[f"{prefix}_group"]  # (C, T), -1 pads
     n_groups = pf[f"{prefix}_ngroups"]  # (C,)
@@ -140,8 +141,8 @@ def _vb_featurize(pod: t.Pod, fctx: FeaturizeContext) -> dict:
     return feats
 
 
-def vb_filter(state, pf, ctx: PassContext) -> torch.Tensor:
-    return pf["vb_feasible"][:, None] & eval_grouped(state, pf, "vb")
+def vb_filter(state, pf, ctx: PassContext, own: bool = False) -> torch.Tensor:
+    return pf["vb_feasible"][:, None] & eval_grouped(state, pf, "vb", own)
 
 
 def _pvc_active(pod: t.Pod, fctx: FeaturizeContext) -> bool:
@@ -177,8 +178,8 @@ def _vz_featurize(pod: t.Pod, fctx: FeaturizeContext) -> dict:
     return feats
 
 
-def vz_filter(state, pf, ctx: PassContext) -> torch.Tensor:
-    return pf["vz_feasible"][:, None] & eval_grouped(state, pf, "vz")
+def vz_filter(state, pf, ctx: PassContext, own: bool = False) -> torch.Tensor:
+    return pf["vz_feasible"][:, None] & eval_grouped(state, pf, "vz", own)
 
 
 # --------------------------------------------------------------------------

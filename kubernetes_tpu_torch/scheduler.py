@@ -614,6 +614,7 @@ class TorchScheduler:
                 self._order_dev = (key, torch.from_numpy(self.cache.order_pos(s.N)).to(self.device))
             out["order_pos"] = self._order_dev[1]
             out["scan_start"] = torch.tensor([self._next_start], dtype=torch.int64, device=self.device)
+            out["scan_nodes"] = self.cache.node_count()
         return out
 
     def _to_device(self, batch: dict) -> dict:

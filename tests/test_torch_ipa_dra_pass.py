@@ -114,6 +114,7 @@ def test_dra_after_ipa_pass_matches_jax(chunk, percentage, seed):
         inv["order_pos"] = tinv["order_pos"] = j.cache.order_pos(s.N)
         inv["scan_start"] = np.uint32(0)
         tinv["scan_start"] = torch.zeros(1, dtype=torch.int64)
+        tinv["scan_nodes"] = j.cache.node_count()
     jrun = jax_build_pass(jp, s, jb.res_col, active, chunk, carry_dom=True)
     jst, jout, _jdom = jrun(jstate, jbatch, inv, np.uint32(9), jnp.zeros((s.G, s.TK, s.DV), jnp.float32),
                             jnp.zeros((s.ET, s.DV), jnp.float32), np.bool_(False))

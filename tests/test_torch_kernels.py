@@ -46,12 +46,12 @@ def test_kernels_match_plain_versions_exactly(cuda_device):
 @pytest.mark.cuda
 def test_chunk_one_kernels_match_plain_versions_exactly(cuda_device):
     """eval_chunk, select_host in row mode (with the cases that cross the
-    node-axis slices of a thread block cluster) and the strict
-    resolve_commit at the chunk-1 paths' shape ("c1": C=1, N=8192)."""
+    node-axis slices of a thread block cluster), the strict resolve_commit
+    and build_dom at the chunk-1 paths' shape ("c1": C=1, N=8192)."""
     import chip_smoke
 
     timing = chip_smoke.check_c1_kernels(cuda_device, reps=1)
-    assert set(timing) == {"eval_chunk", "select_host", "resolve_commit"}
+    assert set(timing) == {"eval_chunk", "select_host", "resolve_commit", "build_dom"}
     assert all(t["max_abs_err"] == 0 for t in timing.values())
 
 
@@ -248,13 +248,14 @@ def test_preempt_kernels_match_plain_versions_exactly(cuda_device, shape):
     """preempt_eval, preempt_pick, preempt_commit, unpack_victims,
     scatter_rows and expand_rows against their plain versions: chunk 1,
     the rank split, a deferring mixed chunk and the speculative mode, with
-    PDBs at the 500-node shape; and eval_chunk, select_host and
-    resolve_commit at the path's own chunk and node count."""
+    PDBs at the 500-node shape; and eval_chunk, select_host,
+    resolve_commit and build_dom at the path's own chunk and node count."""
     import chip_smoke
 
     timing = chip_smoke.check_preempt_kernels(cuda_device, shape, reps=1)
     assert set(timing) == {"preempt_eval", "preempt_pick", "preempt_commit", "unpack_victims",
-                           "scatter_rows", "expand_rows", "eval_chunk", "select_host", "resolve_commit"}
+                           "scatter_rows", "expand_rows", "eval_chunk", "select_host", "resolve_commit",
+                           "build_dom"}
     assert all(t["max_abs_err"] == 0 for t in timing.values())
 
 
@@ -295,8 +296,8 @@ def test_scheduler_preemption_kernel_path_matches_plain_path(cuda_device, chunk)
 @pytest.mark.cuda
 def test_pinned_kernels_match_plain_versions_exactly(cuda_device):
     """node_filters, image_scores, eval_chunk and late_scores in pinned
-    mode, pinned_fit and the strict resolve_commit against their plain
-    versions at the daemonset_15kn shapes."""
+    mode, pinned_fit, the strict resolve_commit and the pinned pass end to
+    end against their plain versions at the daemonset_15kn shapes."""
     import chip_smoke
 
     timing = chip_smoke.check_pinned_kernels(cuda_device, reps=1)
@@ -335,14 +336,17 @@ def test_scheduler_daemonset_kernel_path_matches_plain_path(cuda_device):
 
 @pytest.mark.cuda
 def test_pv_kernels_match_plain_versions_exactly(cuda_device):
-    """node_filters with VolumeBinding's and VolumeZone's bits, vol_filter,
-    eval_chunk reading the volume planes, resolve_commit with the device and
-    CSI commit and the attach-limit clash, and conflict_pairs with volume
-    ids, at the "pv" shape (chip_smoke.check_pv_kernels)."""
+    """node_filters with VolumeBinding's and VolumeZone's bits (and on the
+    cases of every op with groups at the mask's windows, tiled and
+    pinned), vol_filter, eval_chunk reading the volume planes, select_host,
+    resolve_commit with the device and CSI commit and the attach-limit
+    clash, conflict_pairs with volume ids and build_dom, at the "pv" shape
+    (chip_smoke.check_pv_kernels)."""
     import chip_smoke
 
     timing = chip_smoke.check_pv_kernels(cuda_device, reps=1)
-    assert set(timing) == {"node_filters", "conflict_pairs", "vol_filter", "eval_chunk", "resolve_commit"}
+    assert set(timing) == {"node_filters", "conflict_pairs", "vol_filter", "eval_chunk", "select_host",
+                           "resolve_commit", "build_dom"}
     assert all(t["max_abs_err"] == 0 for t in timing.values())
 
 
@@ -392,7 +396,8 @@ def test_ports_images_kernels_match_plain_versions_exactly(cuda_device):
     import chip_smoke
 
     timing = chip_smoke.check_ports_images_kernels(cuda_device, reps=1)
-    assert set(timing) == {"image_counts", "image_scores", "conflict_pairs", "eval_chunk", "resolve_commit"}
+    assert set(timing) == {"image_counts", "image_scores", "conflict_pairs", "eval_chunk", "select_host",
+                           "resolve_commit", "build_dom"}
     assert all(t["max_abs_err"] == 0 for t in timing.values())
 
 
@@ -493,11 +498,18 @@ def test_search_kernels_match_plain_versions_exactly(cuda_device, shape):
     dom_release, search_step and preempt_pick on every tail against their
     plain versions, step by step, at a 500-node cut of each search shape
     (the path's cluster; a volume cluster with shared CSI claims and device
-    volumes; a DRA cluster with shared, external and selector claims)."""
+    volumes; a DRA cluster with shared, external and selector claims), with
+    preempt_commit and expand_rows; on the path's cluster also its main
+    pass's kernels at chunk 128, node_filters, conflict_pairs and
+    build_dom."""
     import chip_smoke
 
     timing = chip_smoke.check_search_kernels(cuda_device, shape, reps=1, nodes=500)
-    assert set(timing) == {"unpack_victims", "preempt_eval", "dom_release", "search_step", "preempt_pick"}
+    want = {"unpack_victims", "preempt_eval", "dom_release", "search_step", "preempt_pick", "preempt_commit",
+            "expand_rows"}
+    if shape == "search":
+        want |= {"eval_chunk", "select_host", "resolve_commit", "node_filters", "conflict_pairs", "build_dom"}
+    assert set(timing) == want
     assert all(t["max_abs_err"] == 0 for t in timing.values())
 
 
@@ -545,7 +557,7 @@ def test_dra_kernels_match_plain_versions_exactly(cuda_device):
     import chip_smoke
 
     timing = chip_smoke.check_dra_kernels(cuda_device, reps=1, nodes=600)
-    assert set(timing) == {"conflict_pairs", "eval_chunk", "select_host", "resolve_commit"}
+    assert set(timing) == {"conflict_pairs", "eval_chunk", "select_host", "resolve_commit", "build_dom"}
     assert all(t["max_abs_err"] == 0 for t in timing.values())
 
 
@@ -605,7 +617,7 @@ def test_truncate_kernels_match_plain_versions_exactly(cuda_device):
 
     shapes = chip_smoke.check_truncate_kernels(cuda_device, reps=1)
     assert set(shapes) == {"truncate", "truncate_ipa", "truncate_spread"}
-    assert set(shapes["truncate"]) == {"truncate_feasible", "select_host"}
+    assert set(shapes["truncate"]) == {"truncate_feasible", "select_host", "build_dom"}
 
 
 @pytest.mark.cuda
@@ -656,11 +668,14 @@ def test_rtcr_kernel_matches_plain_version_exactly(cuda_device):
 @pytest.mark.parametrize("shape", ["hetero", "hetero_learned"])
 def test_hetero_kernels_match_plain_versions_exactly(cuda_device, shape):
     """eval_chunk's throughput and learned terms exact against the plain
-    versions (XLA's arithmetic, ops/learned.py, on the card)."""
+    versions (XLA's arithmetic, ops/learned.py, on the card), and the
+    path's eval_chunk, select_host, resolve_commit and build_dom at its
+    shape."""
     import chip_smoke
 
     timing = chip_smoke.check_hetero_kernels(cuda_device, 1, shape)
-    assert set(timing) == {"eval_chunk/throughput", "eval_chunk/learned"}
+    assert set(timing) == {"eval_chunk/throughput", "eval_chunk/learned", "eval_chunk", "select_host",
+                           "resolve_commit", "build_dom"}
     assert all(t["max_abs_err"] == 0 for t in timing.values())
 
 
@@ -725,9 +740,10 @@ def test_scheduler_hetero_and_binpack_kernel_paths_match_plain_paths(cuda_device
 @pytest.mark.parametrize("shape", ["cols", "cols_1k"])
 def test_columns_modes_match_plain_versions_exactly(cuda_device, shape):
     """The attribution pass's columns modes (eval_chunk_cols, ipa_eval_cols,
-    late_scores_cols) and the whole pass against the plain versions."""
+    late_scores_cols), node_filters of the explained pod and the whole pass
+    against the plain versions."""
     import chip_smoke
 
     timing = chip_smoke.check_cols_kernels(cuda_device, 1, shape)
-    assert set(timing) == {"eval_chunk/cols", "ipa_eval/cols", "late_scores/cols"}
+    assert set(timing) == {"eval_chunk/cols", "ipa_eval/cols", "late_scores/cols", "node_filters"}
     assert all(t["max_abs_err"] == 0 for t in timing.values())

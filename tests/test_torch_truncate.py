@@ -143,7 +143,8 @@ def _run(j, t, pct, start, jrun=None, trun=None, seed_base=3):
                         jnp.zeros((s.G, s.TK, s.DV), jnp.float32), jnp.zeros((s.ET, s.DV), jnp.float32),
                         np.bool_(False))
     scan_start = torch.tensor([start], dtype=torch.int64)
-    tinv = dict(t.b.batch_invariants(), order_pos=t.cache.order_pos(s.N), scan_start=scan_start)
+    tinv = dict(t.b.batch_invariants(), order_pos=t.cache.order_pos(s.N), scan_start=scan_start,
+                scan_nodes=t.cache.node_count())
     tst, tout, _ = trun(tstate, t.batch, tinv, seed_base, None, None, False)
     for f in ("picks", "scores", "feasible_counts", "processed", "fail_masks"):
         np.testing.assert_array_equal(getattr(tout, f).numpy().astype(np.int64),
@@ -229,7 +230,8 @@ def test_plain_truncate_and_pos_select_edges():
     order_pos[:10] = torch.tensor([3, 7, 0, 9, 1, 5, 2, 8, 4, 6], dtype=torch.int32)
     feasible = valid[None, :].clone()
     start = torch.tensor([9], dtype=torch.int64)
-    f, pos, processed = plain.truncate_feasible(feasible, valid, order_pos, start, torch.tensor([True]), 0)
+    f, pos, processed = plain.truncate_feasible(feasible, valid, order_pos, start, torch.tensor([True]),
+                                                *plain.scan_counts(10, 0))
     # Below 100 nodes every node is scanned and kept.
     assert f.sum() == 10 and processed.tolist() == [10] and int(start[0]) == (9 + 10) % 10
     assert pos[:10].tolist() == [(p - 9) % 10 for p in order_pos[:10].tolist()]

@@ -67,7 +67,9 @@ Phases; any failure fails the run (nothing is caught):
        victim pack through unpack_victims, then preempt_eval, preempt_pick
        and preempt_commit on a chunk-1 dry-run, the uniform batch's rank
        split, a mixed 64-pod chunk whose other-signature mates defer, and
-       the speculative mode; scatter_rows into fields of both node axes and
+       the speculative mode (preempt_pick also timed on the 500-node
+       chunk-1 dry-run, "preemption_500n_c1": the PostFilter phase's
+       launches); scatter_rows into fields of both node axes and
        into the victim buffer, expand_rows of every feature (their library
        yardsticks index_copy_ and repeat timed beside them); and the main
        pass's eval_chunk, select_host and resolve_commit at the path's own
@@ -121,7 +123,8 @@ Phases; any failure fails the run (nothing is caught):
        slot, and preempt_eval's tail, the carry and the released domain
        tables compared after every step, for chunk 1 (a zone affinity, a
        hostname spread), the rank split, a mixed chunk and the speculative
-       mode, and preempt_pick on every tail (timed on the mixed chunk);
+       mode, and preempt_pick on every tail (timed on the mixed chunk, and
+       on the chunk-1 tail at N=8192 as "search_c1");
        and preempt_eval in one launch with the node-local ops alone;
        the third search shape, "search_dra" (N=8192, V=8, four claim
        holders a node on half the nodes, one claim shared by two of them,
@@ -195,7 +198,12 @@ Phases; any failure fails the run (nothing is caught):
        slice that holds nodes, the zone key missing on the rows where slices meet,
        minDomains above the domain count, feasible sets on one slice only,
        on no scored node, on one node and on none, and the 9·log(19) → 26
-       rounding boundary;
+       rounding boundary; preempt_pick in every mode and cluster size
+       pick_split chooses (pick_cases: N from 1 to 20000, C from 1 to 1024;
+       no node possible, every node tied, ties across slice boundaries,
+       keys differing only in the start key, keys at ±2^62 and -2^61 with
+       violations at the sentinel, a few possible nodes under many mates,
+       two signatures; the mates valid and in the speculative view);
   4. drive each main path through TorchScheduler, with the launch counts
      set to 0 just before and read just after; every pod must bind, the
      host mirror must equal the device state, no node may exceed its
@@ -559,6 +567,97 @@ def label_layouts(state, rng) -> list:
                for f, _fill in fields}
     out.append((f"LS={ls}, unaligned", dataclasses.replace(state, **shifted)))
     return out
+
+
+# pick_cases: node rows (one case a mode and cluster size pick_split picks,
+# 20000 past what 16 slices of one network hold) and chunk sizes.
+PICK_CASE_N = (1, 31, 500, 1000, 2000, 4096, 5000, 8192, 12000, 20000)
+PICK_CASE_C = (1, 8, 64, 512, 1024)
+PICK_CASE_KINDS = ("drawn", "none possible", "all tied", "ties across slices", "start key only", "extremes",
+                   "few possible", "mixed signatures")
+
+
+def pick_case(rng, n: int, c: int, kind: str):
+    """(possible, crit, valid, sig) of one synthetic preempt_pick case over
+    ``n`` node rows and ``c`` mates, numpy: criteria drawn from few values
+    (ties), or as ``kind`` says: no node possible; every node tied; equal
+    keys on the rows either side of every boundary of 512, 313 and 750
+    rows; keys differing only in the start key (drawn over ±2^61); keys at
+    ±2^62, 2^62 - 1, 0 and -2^61 (violations 2^62 on some possible nodes:
+    the rank split's sentinel); a handful of possible nodes under many
+    eligible mates; two signatures with the representative's mates
+    deferring the rest."""
+    import numpy as np
+
+    crit = np.stack([rng.integers(0, 2, n), rng.integers(0, 3, n), rng.integers(0, 4, n),
+                     rng.integers(0, 3, n), rng.integers(-3, 0, n)]).astype(np.int64)
+    possible = rng.random(n) < 0.8
+    if kind == "none possible":
+        possible[:] = False
+    elif kind == "all tied":
+        crit[:] = 7
+        possible[:] = True
+    elif kind == "ties across slices":
+        for step in (512, 313, 750):
+            edge = np.arange(step, n, step)
+            for e in edge:
+                crit[:, max(0, e - 2):e + 2] = crit[:, e - 1:e]
+    elif kind == "start key only":
+        crit[:4] = 1
+        crit[4] = rng.integers(-(2**61), 2**61, n)
+    elif kind == "extremes":
+        crit = rng.choice(np.array([-(2**62), 2**62, 2**62 - 1, 0, -(2**61)]), (5, n)).astype(np.int64)
+    elif kind == "few possible":
+        possible[:] = False
+        possible[rng.choice(n, min(n, 3), replace=False)] = True
+    valid = rng.random(c) < 0.9
+    sig = (rng.integers(0, 2, c) if kind == "mixed signatures" else np.zeros(c)).astype(np.int32)
+    return possible, crit, valid, sig
+
+
+def pick_cases(errs: dict, dev) -> None:
+    """preempt_pick against its plain version on synthetic cases
+    (pick_case) at every N of PICK_CASE_N and C of PICK_CASE_C, each with
+    the mates valid and in the speculative view (elig, spec_picks), chunk
+    mode as the dry-run sets it (C > 1); the (mode, K) pairs these launch
+    must be every pair pick_split can give."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import plain
+
+    names = {kernels.PICK_ARGMIN: "argmin", kernels.PICK_SPLIT: "split", kernels.PICK_TILED: "tiled"}
+    rng = np.random.default_rng(1801)
+    seen: dict = {}
+    for n in PICK_CASE_N:
+        for c in PICK_CASE_C:
+            mode, k, _s, threads = kernels.pick_split(c, n)
+            for kind in PICK_CASE_KINDS:
+                possible, crit, valid, sig = pick_case(rng, n, c, kind)
+                base = {"sig": torch.from_numpy(sig).to(dev)}
+                views = {"valid": {**base, "valid": torch.from_numpy(valid).to(dev)},
+                         "speculative": {**base, "elig": torch.from_numpy(valid).to(dev),
+                                         "spec_picks": torch.from_numpy(
+                                             np.where(rng.random(c) < 0.3, 5, -1).astype(np.int32)).to(dev)}}
+                p_d, c_d = torch.from_numpy(possible).to(dev), torch.from_numpy(crit).to(dev)
+                for view, pf in views.items():
+                    got = kernels.preempt_pick(p_d, c_d, pf, c > 1)
+                    want = plain.preempt_pick(p_d, c_d, pf, c > 1)
+                    torch.cuda.synchronize()
+                    exact(errs, "preempt_pick", f"[pick_cases {names[mode]} K={k} N={n} C={c} {kind}, {view}]",
+                          got, want)
+                entry = seen.setdefault((names[mode], k), {"n": set(), "threads": set(), "cases": 0})
+                entry["n"].add(n)
+                entry["threads"].add(threads)
+                entry["cases"] += 2
+    every = {(names[m], k) for m in names for k in (1, 2, 4, 8, 16)
+             if m != kernels.PICK_TILED or k == kernels.CLUSTER_MAX}
+    if set(seen) != every:
+        raise AssertionError(f"pick_cases: launched {sorted(seen)}, pick_split gives {sorted(every)}")
+    for (mode, k), e in sorted(seen.items()):
+        print(f"preempt_pick [pick_cases {mode} K={k}]: exact on {e['cases']} cases at N "
+              f"{sorted(e['n'])}, {sorted(e['threads'])} threads a CTA")
 
 
 def nf_cases(errs: dict, dev, label: str, state, layouts: bool = False) -> None:
@@ -1000,7 +1099,7 @@ def division_inputs(dev, c: int):
     return builder, state, pf, nom, k
 
 
-EXACT_CASES = ("division", "branches", "crowd", "spread")
+EXACT_CASES = ("division", "branches", "crowd", "spread", "pick")
 
 
 def check_exact_cases(dev, parts=EXACT_CASES) -> dict:
@@ -1013,7 +1112,9 @@ def check_exact_cases(dev, parts=EXACT_CASES) -> dict:
     table; "crowd", the cumulative fit with C=33 and C=1024 pods crowding
     one nearly full row; the commit cases strict and not; "spread",
     spread_filter, late_scores and late_scores/cols on the cases that
-    cross a thread block cluster's node slices (spread_cases)."""
+    cross a thread block cluster's node slices (spread_cases); "pick",
+    preempt_pick in every mode and cluster size pick_split chooses
+    (pick_cases)."""
     errs: dict[str, float] = {}
     if "division" in parts:
         division_case(dev, errs)
@@ -1021,6 +1122,8 @@ def check_exact_cases(dev, parts=EXACT_CASES) -> dict:
         commit_cases(dev, errs, parts)
     if "spread" in parts:
         spread_cases(dev, errs)
+    if "pick" in parts:
+        pick_cases(errs, dev)
     return {name: {"max_abs_err": err} for name, err in errs.items()}
 
 
@@ -2298,15 +2401,14 @@ def main_planes(builder, state, pf: dict, spec) -> tuple:
 
 
 def pick_cost(possible, pf: dict) -> tuple[int, int]:
-    """preempt_pick: (bytes, operations).  The possible flags and the five
-    criteria read, the pods' mate features read and picks written; the
-    least work of a rank, one comparison sort of the possible nodes' five
-    keys, n log2 n key comparisons."""
-    import math
-
-    n, k = possible.shape[0], pf["sig"].shape[0]
-    n_pos = int(possible.sum())
-    return n * (1 + 5 * 8) + k * (1 + 4 + 4), 5 * n_pos * max(1, math.ceil(math.log2(max(n_pos, 2))))
+    """preempt_pick: (bytes, operations).  A byte of ``possible`` a node
+    row, the five int64 criteria of the possible nodes only, the mates'
+    fields (valid, or elig and spec_picks; sig) and the picks written.  No
+    operations term: the least work is a top-C selection, which the bytes
+    bound."""
+    c = pf["sig"].shape[0]
+    mates = c * (1 + 4) if "elig" in pf else c
+    return possible.shape[0] + int(possible.sum()) * 5 * 8 + mates + c * 4 + c * 4, 0
 
 
 def preempt_eval_bytes(state, vic, pf: dict, possible_mask) -> int:
@@ -2325,13 +2427,28 @@ def preempt_eval_bytes(state, vic, pf: dict, possible_mask) -> int:
     return node + slots + out + vic.allowed.numel() * 8
 
 
-def check_preempt_kernels(dev, shape: str, reps: int) -> dict:
+def pick_c1(c1_in, reps: int, errs: dict) -> dict:
+    """preempt_pick timed on a chunk-1 dry-run's (pf, kernel criteria,
+    plain criteria), beside its bound."""
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import plain
+
+    pf, ek, ep = c1_in
+    out = timed(lambda _: kernels.preempt_pick(ek[0], ek[1], pf, False),
+                lambda _: plain.preempt_pick(ep[0], ep[1], pf, False), reps)
+    set_bound(out, *pick_cost(ep[0], pf))
+    out["max_abs_err"] = errs["preempt_pick"]
+    return out
+
+
+def check_preempt_kernels(dev, shape: str, reps: int, extra: dict | None = None) -> dict:
     """preempt_eval, preempt_pick, preempt_commit, unpack_victims,
     scatter_rows and expand_rows against their plain versions at one
     preemption shape: the chunk-1 dry-run of one preemptor, the rank split
     of the uniform batch (the workloads' mode), a mixed chunk of 64 that
     defers its other-signature mates, and the speculative mode (valid =
-    eligible and the main pass's pick < 0)."""
+    eligible and the main pass's pick < 0).  With ``extra``, preempt_pick
+    timed on the chunk-1 dry-run too, as ``extra[shape + "_c1"]``."""
     import torch
 
     from kubernetes_tpu_torch import kernels
@@ -2380,6 +2497,8 @@ def check_preempt_kernels(dev, shape: str, reps: int) -> dict:
               f"{int(mp[1].sum())} victims")
         if label == "rank split":
             timed_in = (pf, ek, ep, pk, pp)
+        if label == "chunk1":
+            c1_in = (pf, ek, ep)
     # The main pass's kernels at the path's own chunk and node count.
     _nodes, _per, _cpu, _mem, _k, _pdbs, chunk = PREEMPT_SHAPES[shape]
     result.update(check_main_at(dev, shape, s.builder, state, batches["mixed"][0], batches["mixed"][1],
@@ -2393,6 +2512,8 @@ def check_preempt_kernels(dev, shape: str, reps: int) -> dict:
                                    lambda _: plain.preempt_pick(ep[0], ep[1], pf, True), reps)
     n = state.valid.shape[0]
     set_bound(result["preempt_pick"], *pick_cost(ep[0], pf))
+    if extra is not None:
+        extra[f"{shape}_c1"] = {"preempt_pick": pick_c1(c1_in, reps, errs)}
     carries = lambda: ((state.req.clone(), state.nonzero_req.clone(), state.num_pods.clone()),  # noqa: E731
                        vic.prio.clone())
     result["preempt_commit"] = timed(lambda a: kernels.preempt_commit(a[0], a[1], ek, pk),
@@ -2764,14 +2885,16 @@ def dom_release_bytes(dom, state, vic, carry) -> int:
             + masked * (4 + ts * 4 + state.topo_vals.shape[1] * 4))
 
 
-def check_search_kernels(dev, shape: str, reps: int, nodes: int = 5000) -> dict:
+def check_search_kernels(dev, shape: str, reps: int, nodes: int = 5000, extra: dict | None = None) -> dict:
     """unpack_victims (with the victim features), preempt_eval in its three
     modes, dom_release and search_step against their plain versions at one
     search shape, step by step (the carry and the released domain tables
     after every step equal), for the chunk-1 dry-run, the uniform batch's
     rank split, the mixed chunk and the speculative mode, with the default
     profile's filters (the domain ops) and with the node-local ops alone
-    (FULL); then each timed with CUDA events beside its bound."""
+    (FULL); then each timed with CUDA events beside its bound.  With
+    ``extra``, preempt_pick timed on the chunk-1 tail too, as
+    ``extra[shape + "_c1"]``."""
     import dataclasses
 
     import torch
@@ -2864,6 +2987,8 @@ def check_search_kernels(dev, shape: str, reps: int, nodes: int = 5000) -> dict:
         exact(errs, "preempt_pick", f"{where} picks", pk, pp)
         if label == "mixed chunk":
             pick_in = (pf, kt, pt, chunk_mode, pk, pp)
+        if label == "chunk1":
+            c1_in = (pf, kt, pt)
         kf = kernels.preempt_eval(state, vic, pf, local)
         pfull = plain.preempt_eval(state, vic, pf, local)
         torch.cuda.synchronize()
@@ -2896,6 +3021,8 @@ def check_search_kernels(dev, shape: str, reps: int, nodes: int = 5000) -> dict:
     result["preempt_pick"] = timed(lambda _: kernels.preempt_pick(kt[0], kt[1], pf, chunk_mode),
                                    lambda _: plain.preempt_pick(pt[0], pt[1], pf, chunk_mode), reps)
     set_bound(result["preempt_pick"], *pick_cost(pt[0], pf))
+    if extra is not None:
+        extra[f"{shape}_c1"] = {"preempt_pick": pick_c1(c1_in, reps, errs)}
     # preempt_commit of the mixed chunk's picks, and expand_rows of the
     # uniform batch, at this shape (the search and claims paths' own).
     carries = lambda: ((state.req.clone(), state.nonzero_req.clone(), state.num_pods.clone()),  # noqa: E731
@@ -6460,7 +6587,8 @@ def plain_runs(refs: dict, order: list, card: str) -> None:
 # paths (the explain phase, search) read spread_filter and late_scores at
 # "spread_c1"; the
 # claims path reads its dry-runs at "search_dra_path" (C=8, N=4096) and
-# the PostFilter phase its own at "preemption_500n" (500 nodes).
+# the PostFilter phase its own at "preemption_500n" (500 nodes), its
+# chunk-1 preempt_pick at "preemption_500n_c1".
 PATH_SHAPE = {
     "density": ["density"], "ipa": ["ipa"], "spread_na": ["spread_na"], "inclusion": ["inclusion"],
     "preemption_500n": ["preemption_500n"], "preemption_async_5kn": ["preemption_async_5kn"],
@@ -6472,7 +6600,7 @@ PATH_SHAPE = {
     "parity_basic_5kn_10kpods": ["truncate", "c1"],
     "hetero_5kn_10kpods": ["hetero"], "hetero_learned_1kn_5kpods": ["hetero_learned"],
     "binpack_rtcr_5kn_10kpods": ["rtcr"], "extender_5kn_1kpods": ["c1", "flush"],
-    "extender_5kn_1kpods/postfilter": ["c1", "preemption_500n", "flush"],
+    "extender_5kn_1kpods/postfilter": ["c1", "preemption_500n_c1", "preemption_500n", "flush"],
 }
 
 
@@ -6621,18 +6749,29 @@ def main() -> int:
                for shape in ("spread_na", "inclusion")}
         return {**out, **c1}
 
+    def preempt_group():
+        c1: dict = {}  # preempt_pick on the 500-node chunk-1 dry-run (the PostFilter phase's launches)
+        out = {shape: check_preempt_kernels(dev, shape, REPS, c1 if shape == "preemption_500n" else None)
+               for shape in PREEMPT_SHAPES}
+        return {**out, **c1}
+
+    def search_group():
+        c1: dict = {}  # preempt_pick on the search cluster's chunk-1 tail (N=8192)
+        out = {shape: check_search_kernels(dev, shape, REPS, extra=c1 if shape == "search" else None)
+               for shape in ("search", "search_pv", "search_dra", "search_dra_path")}
+        return {**out, **c1}
+
     # The kernel phase's checks in their order, each returning its shapes.
     groups = {
         "density": lambda: {"density": check_kernels(dev, REPS)}, "c1": lambda: {"c1": check_c1_kernels(dev, REPS)},
         "ipa": lambda: {"ipa": check_ipa_kernels(dev, REPS)},
         "spread": spread_group,
-        "preempt": lambda: {shape: check_preempt_kernels(dev, shape, REPS) for shape in PREEMPT_SHAPES},
+        "preempt": preempt_group,
         "flush": lambda: check_flush_kernels(dev, REPS),
         "daemonset": lambda: {"daemonset": check_pinned_kernels(dev, REPS)},
         "pv": lambda: {"pv": check_pv_kernels(dev, REPS)},
         "ports_images": images_group,
-        "search": lambda: {shape: check_search_kernels(dev, shape, REPS)
-                           for shape in ("search", "search_pv", "search_dra", "search_dra_path")},
+        "search": search_group,
         "dra": lambda: {shape: check_dra_kernels(dev, REPS, shape) for shape in ("dra", "dra_path")},
         "truncate": lambda: check_truncate_kernels(dev, REPS),
         "rtcr": lambda: {"rtcr": check_rtcr_kernels(dev, REPS)},
@@ -6768,7 +6907,8 @@ def main() -> int:
 
 # Entry functions whose ptxas counts the run prints, and those that must
 # keep no stack frame (no per-thread array indexed at run time).
-PTXAS_SHOWN = ("image_merge_kernel", "image_tile_kernel", "image_pinned_kernel", "scatter_rows_kernel")
+PTXAS_SHOWN = ("image_merge_kernel", "image_tile_kernel", "image_pinned_kernel", "scatter_rows_kernel",
+               "preempt_pick_kernel")
 PTXAS_NO_STACK = ("image_merge_kernel", "image_tile_kernel")
 
 

@@ -27,7 +27,8 @@
   image_scores    csrc/image_locality.cu  ImageLocality's raw score plane of the batch, per batch
   preempt_eval    csrc/preempt.cu         preemption dry-run of a chunk's representative, per node:
                                           whole, or its prologue and criteria tail around the search
-  preempt_pick    csrc/preempt.cu         lexicographic node rank and each mate's pick
+  preempt_pick    csrc/preempt.cu         each mate's pick in one launch: the lexicographic argmin at
+                                          chunk 1, else a top-C selection over a cluster (pick_split)
   preempt_commit  csrc/preempt.cu         release at the picked rows, victims consumed
   dom_release     csrc/preempt_search.cu  domain tables of a dry-run's released state, per search step
   search_step     csrc/preempt_search.cu  one step of the dry-run's what-if search, per search step
@@ -116,6 +117,13 @@ NF_TILE = 128
 NF_TILE_MIN = 32
 NF_GROUP = 32
 NF_BLOCKS_PER_SM = 12
+# preempt_pick's modes (preempt.cu kArgmin, kSplit, kTiled), the node rows
+# a CTA of its cluster takes before K doubles, and its widest bitonic
+# network (kPickMax: threads a CTA, a slice's rows in split mode, a tile's
+# in tiled mode).
+PICK_ARGMIN, PICK_SPLIT, PICK_TILED = 0, 1, 2
+PICK_ROWS = 512
+PICK_WIDTH = 1024
 # truncate_feasible: rows a thread (a register array each: truncate.cu's
 # instantiations) and threads of its one block at most (1024 beat 512 and
 # 256 at the parity shape: scripts/shape_sweep.py, PERF.md §6).
@@ -334,6 +342,26 @@ def cluster_split(c: int, n: int, sms: int, rows_min: int, smem_per_cta=None, on
                      or (one_wave and c * k > sms)):
         k //= 2
     return k
+
+
+def pick_split(c: int, n: int) -> tuple[int, int, int, int]:
+    """(mode, K, S, threads) of preempt_pick's one launch for C mates over
+    N node rows: K, the CTAs of its cluster, the smallest of 1, 2, 4, 8, 16
+    with K x PICK_ROWS >= N (16 above that); S = ceil(N / K) rows a CTA.
+    PICK_ARGMIN where only rank 0 is read (min(C, N) <= 1: chunk 1, or one
+    row), its threads S rounded up to a warp, at most PICK_ROWS; else
+    PICK_SPLIT where a slice fits one bitonic network (S <= PICK_WIDTH),
+    its threads S rounded up to a power of two, at least a warp; else
+    PICK_TILED, PICK_WIDTH threads walking the slice in tiles."""
+    k = 1
+    while k < CLUSTER_MAX and k * PICK_ROWS < n:
+        k *= 2
+    s = -(-n // k)
+    if min(c, n) <= 1:
+        return PICK_ARGMIN, k, s, max(32, min(PICK_ROWS, -(-s // 32) * 32))
+    if s <= PICK_WIDTH:
+        return PICK_SPLIT, k, s, max(32, 1 << (s - 1).bit_length())
+    return PICK_TILED, k, s, PICK_WIDTH
 
 
 def spread_split(c: int, n: int, q: int, dv: int, sms: int) -> tuple[int, int]:
@@ -1617,7 +1645,8 @@ def search_step(state, vic: Victims, pf: dict, spec: PreemptSpec, carry: SearchC
 
 def preempt_pick(possible, crit, pf: dict, chunk_mode: bool):
     """(C,) i32 picks of a chunk's mates from preempt_eval's criteria (-2
-    deferred at chunk > 1)."""
+    deferred at chunk > 1): one launch in the mode and cluster
+    ``pick_split`` gives."""
     if _on_cpu(possible):
         return plain.preempt_pick(possible, crit, pf, chunk_mode)
     dev = possible.device
@@ -1626,11 +1655,17 @@ def preempt_pick(possible, crit, pf: dict, chunk_mode: bool):
     _check("possible", possible, torch.bool, (n,), dev)
     _check("crit", crit, torch.int64, (plain.N_CRIT, n), dev)
     sig = _check("sig", pf["sig"], torch.int32, (c,), dev)
-    order_at = torch.empty(c, dtype=torch.int32, device=dev)
+    mates = _mate_ptrs(pf, c, dev)
     picks = torch.empty(c, dtype=torch.int32, device=dev)
+    if c == 0:
+        return picks
+    mode, k, s, threads = pick_split(c, n)
+    cp = min(c, n)
+    order_at = None if mode == PICK_ARGMIN else torch.empty(cp, dtype=torch.int32, device=dev)
+    lists = torch.empty((k, 2, min(cp, s)), dtype=torch.int32, device=dev) if mode == PICK_TILED else None
     build.launch(
-        "preempt_pick", _ptr(possible), _ptr(crit), *[_ptr(a) for a in _mate_ptrs(pf, c, dev)],
-        _ptr(sig), int(chunk_mode), c, n, _ptr(order_at), _ptr(picks), _stream(dev),
+        "preempt_pick", _ptr(possible), _ptr(crit), *[_ptr(a) for a in mates], _ptr(sig), int(chunk_mode), c, n,
+        mode, k, threads, _ptr(order_at), _ptr(lists), _ptr(picks), _stream(dev),
     )
     preempt_pick.launches += 1
     return picks

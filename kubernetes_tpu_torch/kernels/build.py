@@ -82,7 +82,7 @@ _SIGNATURES: dict[str, list] = {
     "preempt_eval": [_P, _I, _P, _I, _P],
     "dom_release": [_P] * 7 + [_I] * 8 + [_P] * 3,
     "search_step": [_P, _I, _P, _I, _P],
-    "preempt_pick": [_P] * 6 + [_I] * 3 + [_P] * 3,
+    "preempt_pick": [_P] * 6 + [_I] * 6 + [_P] * 4,
     "preempt_commit": [_P, _I, _I, _I] + [_P] * 11,
     "unpack_victims": [_P] + [_I] * 8 + [_P] * 6 + [_I, _P, _P, _P],
     "scatter_rows": [_P, _P],  # a FieldTable (rows.cu), the stream

@@ -84,6 +84,19 @@ def test_exactness_cases_match_plain_versions(cuda_device, part):
 
 
 @pytest.mark.cuda
+def test_pick_cases_match_plain_version_exactly(cuda_device):
+    """preempt_pick's one launch in every mode and cluster size pick_split
+    chooses (argmin and split at K = 1, 2, 4, 8, 16, tiled at 16), on
+    chip_smoke.pick_cases' synthetic cases, against its plain version with
+    max_abs_err 0."""
+    import chip_smoke
+
+    errs = chip_smoke.check_exact_cases(cuda_device, ("pick",))
+    assert set(errs) == {"preempt_pick"}
+    assert errs["preempt_pick"]["max_abs_err"] == 0
+
+
+@pytest.mark.cuda
 def test_ipa_kernels_match_plain_versions_exactly(cuda_device):
     import chip_smoke
 

@@ -204,6 +204,13 @@ Phases; any failure fails the run (nothing is caught):
        keys differing only in the start key, keys at ±2^62 and -2^61 with
        violations at the sentinel, a few possible nodes under many mates,
        two signatures; the mates valid and in the speculative view);
+     - build_dom in every (R, K) class kernels.dom_split gives (dom_cases,
+       the "dom" group, untimed: R = 1 at K = 1, 2, 4, 8, 16, R > 1 at K =
+       1; the domain values in registers and from topo_vals; slices
+       ending short, N = 1 and 5, G = 0, ET = 0, R shrunk by its tables,
+       slots outside [0, TK), hostname ids inside and past DV, a warp's
+       lanes on one cell, sums near 2^24, unaligned views), exact against
+       its plain version;
   4. drive each main path through TorchScheduler, with the launch counts
      set to 0 just before and read just after; every pod must bind, the
      host mirror must equal the device state, no node may exceed its
@@ -518,8 +525,11 @@ def check_dom(errs: dict, label: str, state, et_slot, dv: int, reps: int) -> dic
     torch.cuda.synchronize()
     exact(errs, "build_dom", f"[{label}] group_dom", kg, pg)
     exact(errs, "build_dom", f"[{label}] et_dom", ke, pe)
+    (g, n), et, tk = state.group_counts.shape, state.et_counts.shape[0], state.topo_vals.shape[1]
+    split = getattr(kernels, "dom_split", None)  # (a tree from before dom_split: one block a row)
+    geometry = "" if split is None else f", (R, K, S, threads) {split(g + et, n, tk, dv, kernels._sms(kg.device))}"
     print(f"build_dom [{label}]: exact; {int(pg.sum())} group and {int(pe.sum())} term "
-          f"carriers in domains")
+          f"carriers in domains; G={g} ET={et} N={n} TK={tk} DV={dv}{geometry}")
     out = timed(lambda _: kernels.build_dom(state, et_slot, dv),
                 lambda _: plain.build_dom(state, et_slot, dv), reps)
     set_bound(out, *dom_cost(state, et_slot, kg, ke))
@@ -533,6 +543,106 @@ def dom_at(errs: dict, label: str, builder, state, reps: int) -> dict:
 
     et_slot = torch.from_numpy(builder.batch_invariants()["et_slot"]).to(state.valid.device)
     return check_dom(errs, label, state, et_slot, builder.schema.DV, reps)
+
+
+# dom_cases: (label, G, ET, N, TK, DV) of each shape, chosen so that
+# kernels.dom_split gives every K with R = 1 and K = 1 with R > 1 on the
+# H100 (132 SMs), slices ending short, the largest tables, R shrunk by
+# them, and both sources of a node's domain values (kernels.dom_columns:
+# registers at TK = 4, topo_vals else), each with R = 1 and R > 1; and the
+# kinds of input each shape gets.
+DOM_CASE_SHAPES = (
+    ("K=16", 3, 2, 16384 + 37, 4, 8), ("K=8 c1", 8, 8, 8192, 4, 8), ("K=8", 20, 6, 8192 + 5, 4, 16),
+    ("K=4", 3, 2, 4096 + 3, 4, 8), ("K=2", 3, 2, 2048 + 1, 4, 8), ("K=1", 3, 2, 301, 4, 8),
+    ("K=1 N=1", 2, 3, 1, 4, 8), ("K=1 N=5", 2, 3, 5, 4, 8), ("G=0", 0, 5, 8192 + 2, 4, 8),
+    ("ET=0", 5, 0, 4099, 4, 8), ("R>1", 400, 300, 1030, 4, 16), ("R>1 ipa", 2048, 2048, 1024, 4, 16),
+    ("R>1 odd", 901, 300, 777, 4, 8), ("R>1 large DV", 600, 200, 600, 4, 3000),
+    ("R>1 TK=3", 400, 300, 1030, 3, 16), ("R shrunk to 1", 600, 200, 64, 4, 13000),
+    ("DV 13000", 3, 2, 8192 + 11, 4, 13000),
+    ("DV at the cap", 2, 2, 4096 + 3, 4, 14528), ("TK=3", 3, 2, 8192 + 11, 3, 15000),
+    ("TK=3 DV at the cap", 3, 2, 8192 + 11, 3, 19370), ("TK=8", 3, 2, 4099, 8, 16),
+)
+DOM_CASE_KINDS = ("drawn", "one domain", "near 2^24", "unaligned")
+
+
+def dom_case(rng, g: int, et: int, n: int, tk: int, dv: int, kind: str):
+    """(group_counts, et_counts, topo_vals, et_slot) of one build_dom case,
+    numpy: topology values over [-1, DV + 3) (missing keys and ids past
+    DV), key 0 the hostname (the node's row: inside [0, DV) on the first
+    rows), slots over [-1, TK + 1), most counts 0; or as ``kind`` says:
+    every count on one domain (every lane of a warp on one cell), or each
+    key's domain 0 summing to 2^24 - 7 over the nodes."""
+    import numpy as np
+
+    topo = rng.integers(-1, dv + 3, (n, tk)).astype(np.int32)
+    topo[:, 0] = np.arange(n)
+    gc = np.where(rng.random((g, n)) < 0.3, rng.integers(1, 9, (g, n)), 0).astype(np.int32)
+    ec = np.where(rng.random((et, n)) < 0.3, rng.integers(1, 9, (et, n)), 0).astype(np.int32)
+    slot = rng.integers(-1, tk + 2, et).astype(np.int32)
+    if kind == "one domain":
+        topo[:] = 1
+        gc[:] = rng.integers(1, 4, (g, n))
+        ec[:] = rng.integers(1, 4, (et, n))
+        slot[:] = tk - 1
+    elif kind == "near 2^24":
+        topo[:] = 0
+        per = (2**24 - 7) // n
+        gc[:] = per
+        ec[:] = per
+        gc[:, -1] = ec[:, -1] = 2**24 - 7 - per * (n - 1)
+        slot[:] = 0
+    return gc, ec, topo, slot
+
+
+def dom_cases(errs: dict, dev) -> None:
+    """build_dom against its plain version, exactly, on dom_case's inputs
+    at every shape of DOM_CASE_SHAPES and kind of DOM_CASE_KINDS
+    ("unaligned": the drawn counts and topology through views 4 bytes past
+    16-byte alignment, the kernel's scalar loads); the (R, K) classes these
+    launch must be every class dom_split can give (R = 1 at K = 1, 2, 4, 8,
+    16 and R > 1 at K = 1), with the domain values from both sources
+    (kernels.dom_columns)."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import plain
+
+    def unaligned(t):
+        return torch.cat([t.new_zeros(1), t.flatten()])[1:].view(t.shape)
+
+    rng = np.random.default_rng(1901)
+    seen: dict = {}
+    sms = kernels._sms(dev)
+    for label, g, et, n, tk, dv in DOM_CASE_SHAPES:
+        r, k, s, threads = kernels.dom_split(g + et, n, tk, dv, sms)
+        source = kernels.dom_columns(tk)
+        for kind in DOM_CASE_KINDS:
+            gc, ec, topo, slot = (torch.from_numpy(a).to(dev) for a in
+                                  dom_case(rng, g, et, n, tk, dv, "drawn" if kind == "unaligned" else kind))
+            if kind == "unaligned":
+                gc, ec, topo = unaligned(gc), unaligned(ec), unaligned(topo)
+            state = SimpleNamespace(group_counts=gc, et_counts=ec, topo_vals=topo)
+            kg, ke = kernels.build_dom(state, slot, dv)
+            pg, pe = plain.build_dom(state, slot, dv)
+            torch.cuda.synchronize()
+            where = f"[dom_cases {label} R={r} K={k} {kind}]"
+            exact(errs, "build_dom", f"{where} group_dom", kg, pg)
+            exact(errs, "build_dom", f"{where} et_dom", ke, pe)
+        cls = ("R=1" if r == 1 else "R>1", k)
+        entry = seen.setdefault(cls, {"shapes": [], "columns": set()})
+        entry["shapes"].append(f"{label} (R={r}, S={s}, {threads} threads)")
+        entry["columns"].add(source)
+    every = {("R=1", k) for k in (1, 2, 4, 8, 16)} | {("R>1", 1)}
+    sources = set().union(*(e["columns"] for e in seen.values()))
+    if set(seen) != every or sources != {"registers", "topo_vals"}:
+        raise AssertionError(f"dom_cases: launched {sorted(seen)} with domain values from {sorted(sources)}, "
+                             f"dom_split gives {sorted(every)} with registers and topo_vals")
+    for (rc, k), e in sorted(seen.items()):
+        print(f"build_dom [dom_cases {rc} K={k}]: exact on {len(DOM_CASE_KINDS)} kinds at {e['shapes']}, "
+              f"domain values from {sorted(e['columns'])}")
 
 
 # nf_cases: pods a case batch, VolumeBinding terms a pod, and the group
@@ -6761,6 +6871,15 @@ def main() -> int:
                for shape in ("search", "search_pv", "search_dra", "search_dra_path")}
         return {**out, **c1}
 
+    dom_errs: dict[str, float] = {}
+
+    def dom_group():  # untimed exactness cases: no shapes
+        if args.kernels_of and not hasattr(kernels, "dom_split"):
+            print("dom_cases: skipped, the package of --kernels-of has no dom_split (one block a table row)")
+            return {}
+        dom_cases(dom_errs, dev)
+        return {}
+
     # The kernel phase's checks in their order, each returning its shapes.
     groups = {
         "density": lambda: {"density": check_kernels(dev, REPS)}, "c1": lambda: {"c1": check_c1_kernels(dev, REPS)},
@@ -6779,6 +6898,7 @@ def main() -> int:
         "split": lambda: {"split": check_split_kernels(dev, REPS)},
         "cols": lambda: {shape: check_cols_kernels(dev, REPS, shape) for shape in COLS_SHAPES},
         "ipa_c1": lambda: {"ipa_c1": check_ipa_c1_kernels(dev, REPS)},
+        "dom": dom_group,
     }
     picked = args.shapes.split(",") if args.shapes else list(groups)
     unknown = sorted(set(picked) - set(groups))
@@ -6789,6 +6909,7 @@ def main() -> int:
         shapes.update(groups[group]())
         print(f"kernel phase: {group} done at {time.perf_counter() - t0:.1f}s")
     exact_cases = {} if args.shapes else check_exact_cases(dev)
+    exact_cases.update({name: {"max_abs_err": err} for name, err in dom_errs.items()})
     for shape, table in shapes.items():
         for name, tm in table.items():
             lib = "" if tm.get("library_ms") is None else f", library {tm['library_ms']:.4f}"

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels of the batch pass, and their wrappers.
 
-  build_dom       csrc/build_dom.cu       per-domain tables, once per pass
+  build_dom       csrc/build_dom.cu       per-domain tables, once per pass: R table rows a CTA, the
+                                          node axis over a thread block cluster (dom_split)
   eval_chunk      csrc/eval_chunk.cu      filters + weighted score, (C, N); a second launch runs the
                                           filters ordered after InterPodAffinity on what ipa_eval left
   ipa_eval        csrc/ipa_eval.cu        InterPodAffinity filter + score on top (truncated mode:
@@ -129,6 +130,23 @@ PICK_WIDTH = 1024
 # 256 at the parity shape: scripts/shape_sweep.py, PERF.md §6).
 TRUNC_ROWS = (4, 8, 16, 32)
 TRUNC_THREADS = 1024
+# build_dom: threads a CTA at most (build_dom.cu kMaxThreads), the nodes a
+# thread takes a step (kVec: one 16-byte load of counts), the shared memory
+# a block may have on the H100 (kMaxSmem: the tables of its R rows), the
+# rows whose counts a thread loads together with R > 1 (kPass: two passes
+# of them in flight under kWave's bound of 64 registers), and the CTAs an SM
+# with R > 1 (kWave, their launch bound: R makes the grid one wave of
+# them).  K grows until the grid has DOM_CTAS_PER_SM CTAs an SM, and halves
+# while a CTA would take fewer than DOM_ROWS_MIN node rows (DOM_WAVE,
+# DOM_ROWS_MIN and DOM_CTAS_PER_SM chosen from the H100 sweeps,
+# scripts/cluster_sweep.py --only dom, PERF.md §6).
+DOM_THREADS = 256
+DOM_VEC = 4
+DOM_SMEM_CAP = 227 * 1024
+DOM_PASS = 2
+DOM_WAVE = 4
+DOM_ROWS_MIN = 1024
+DOM_CTAS_PER_SM = 2
 
 
 @dataclass
@@ -364,6 +382,49 @@ def pick_split(c: int, n: int) -> tuple[int, int, int, int]:
     return PICK_TILED, k, s, PICK_WIDTH
 
 
+def dom_columns(tk: int) -> str:
+    """Where build_dom reads a node's domain values: "registers" with TK =
+    4 (a node's topology row is one 16-byte load; a thread loads its nodes'
+    rows at its first non-zero count of a step and keeps them for all the
+    CTA's rows), else "topo_vals" (read as a count needs it)."""
+    return "registers" if tk == 4 else "topo_vals"
+
+
+def dom_slices(n: int, k: int) -> tuple[int, int]:
+    """(S, threads) of build_dom's K slices of N node rows: S = ceil(N / K)
+    rounded up to DOM_VEC (slices start on a 16-byte load), and the
+    threads that give each of S's nodes one lane of DOM_VEC, whole warps, at
+    most DOM_THREADS (a wider slice is walked in steps)."""
+    per = -(-n // k)
+    s = -(-per // DOM_VEC) * DOM_VEC
+    return s, min(DOM_THREADS, max(32, -(-s // (DOM_VEC * 32)) * 32))
+
+
+def dom_split(rows: int, n: int, tk: int, dv: int, sms: int) -> tuple[int, int, int, int]:
+    """(R, K, S, threads) of build_dom's one launch over ``rows`` table rows
+    (G group rows, then ET term rows) and N node rows, TK topology keys and
+    DV domain values, on a card with ``sms`` SMs.  R is the table rows a
+    CTA, K the CTAs of the thread block cluster that splits the node axis,
+    S the node rows a CTA.  R = ceil(rows / (DOM_WAVE x sms)), so that the
+    grid is about one wave of DOM_WAVE CTAs an SM.  With R = 1, K is the
+    smallest of 1, 2, 4, 8, 16 with rows x K >= DOM_CTAS_PER_SM x sms,
+    halved while ceil(N / K) would fall below DOM_ROWS_MIN; with R > 1, K =
+    1.  S and threads from dom_slices.  R then shrinks (to 1 at most) while
+    its tables, max(TK, 1) x DV int32 a row, pass DOM_SMEM_CAP.  Raises
+    NotImplementedError where one row's table passes DOM_SMEM_CAP, all a
+    block may have."""
+    row_bytes = max(tk, 1) * dv * 4
+    if rows and row_bytes > DOM_SMEM_CAP:
+        raise NotImplementedError(f"build_dom: a table of {max(tk, 1)} x {dv} cells passes {DOM_SMEM_CAP} bytes")
+    r, k = max(1, -(-rows // (DOM_WAVE * sms))), 1
+    if r == 1:
+        while k < CLUSTER_MAX and rows * k < DOM_CTAS_PER_SM * sms:
+            k *= 2
+        while k > 1 and -(-n // k) < DOM_ROWS_MIN:
+            k //= 2
+    return max(1, min(r, DOM_SMEM_CAP // max(row_bytes, 1))), k, *dom_slices(n, k)
+
+
 def spread_split(c: int, n: int, q: int, dv: int, sms: int) -> tuple[int, int]:
     """(K, shared memory a CTA) of a spread_filter or late_scores launch of
     C pods with ``q`` constraints over N node rows (N = 1 pinned): K from
@@ -471,13 +532,15 @@ def _on_cpu(t: torch.Tensor) -> bool:
 
 def build_dom(state, et_slot, dv: int):
     """(group_dom (G, TK, DV) f32, et_dom (ET, DV) f32): the per-domain
-    aggregate tables of the state's group and term carrier counts."""
+    aggregate tables of the state's group and term carrier counts, in one
+    launch of the geometry dom_split gives."""
     if _on_cpu(state.group_counts):
         return plain.build_dom(state, et_slot, dv)
     dev = state.group_counts.device
     g, n = state.group_counts.shape
     et = state.et_counts.shape[0]
     tk = state.topo_vals.shape[1]
+    r, k, s, threads = dom_split(g + et, n, tk, dv, _sms(dev))
     i32 = torch.int32
     args = [
         _check("group_counts", state.group_counts, i32, (g, n), dev),
@@ -488,8 +551,8 @@ def build_dom(state, et_slot, dv: int):
     group_dom = torch.empty((g, tk, dv), dtype=torch.float32, device=dev)
     et_dom = torch.empty((et, dv), dtype=torch.float32, device=dev)
     build.launch(
-        "build_dom", *[_ptr(a) for a in args], g, et, n, tk, dv, _ptr(group_dom), _ptr(et_dom),
-        _stream(dev),
+        "build_dom", *[_ptr(a) for a in args], g, et, n, tk, dv, r, k, s, threads, _ptr(group_dom),
+        _ptr(et_dom), _stream(dev),
     )
     build_dom.launches += 1
     return group_dom, et_dom

@@ -59,7 +59,7 @@ _P, _I, _L, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
 # argtypes of each launcher (pointers and the stream as c_void_p so ctypes
 # never truncates them to 32 bits).
 _SIGNATURES: dict[str, list] = {
-    "build_dom": [_P] * 4 + [_I] * 5 + [_P, _P, _P],
+    "build_dom": [_P] * 4 + [_I] * 9 + [_P, _P, _P],
     "eval_chunk": [_P] * 37 + [_I] * 3 + [_P] * 6 + [_I] * 3 + [_P, _I]
                   + [_P, _I, _I, _P, _I, _P, _I, _I, _L, _I, _L, _L, _L, _L, _L, _I, _L, _I, _I, _I, _I]
                   + [_I, _I] + [_P] * 4,

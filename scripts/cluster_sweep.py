@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""The thread block cluster size K of select_host, ipa_eval, spread_filter
-and late_scores, swept on a card.
+"""The thread block cluster size K of select_host, ipa_eval, spread_filter,
+late_scores and build_dom, swept on a card.
 
     python3 scripts/cluster_sweep.py                # from the repository root, one CUDA card
     python3 scripts/cluster_sweep.py --only spread  # spread_filter and late_scores alone
+    python3 scripts/cluster_sweep.py --only dom     # build_dom alone
 
 At chip_smoke.py's kernel-phase shapes (density "a", C=8 and C=128 at
 N=8192, C=64 at N=512, "c1", a 10000-node cluster at N=16384, the IPA
@@ -19,7 +20,14 @@ select_host's one-wave cap were chosen from its output.  The spread part
 sweeps spread_filter, late_scores and late_scores_cols at "spread_c1" (a
 workload pod of the inclusion cluster, C=1, N=8192), at "inclusion" (C=8,
 N=8192) and at "spread_na" (C=8, N=1024); SPREAD_ROWS_MIN was chosen from
-it.
+it.  The dom part sweeps build_dom's K (R = 1) on the "c1" state (G = ET =
+8, N = 8192, TK = 4, DV = 8, the builder's term slots), on seeded
+counts (three in ten non-zero) of 16 rows over N = 4096, 2048, 1024 and
+512 and on the "inclusion" and "spread_na" states (72 rows over N = 8192
+and 1024), and its rows a CTA R (K = 1) on the "ipa" state (G = ET = 2048, N =
+1024, DV = 16); kernels.dom_split is forced in place, S and threads from
+kernels.dom_slices.  DOM_ROWS_MIN and DOM_CTAS_PER_SM (K), and DOM_WAVE (the
+R it gives at the IPA shape, 8) were chosen from it.
 """
 import argparse
 import json
@@ -37,9 +45,10 @@ from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE  # noqa: E402
 from kubernetes_tpu_torch.kernels import build, plain  # noqa: E402
 
 ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-ap.add_argument("--only", choices=("select_ipa", "spread"), help="sweep one part alone")
+ap.add_argument("--only", choices=("select_ipa", "spread", "dom"), help="sweep one part alone")
 args = ap.parse_args()
-build.build(("select_host", "ipa_eval", "spread_eval"))
+build.build({None: ("select_host", "ipa_eval", "spread_eval", "build_dom"), "select_ipa": ("select_host", "ipa_eval"),
+             "spread": ("spread_eval",), "dom": ("build_dom",)}[args.only])
 dev = torch.device("cuda")
 orig = kernels.cluster_split
 REPS = 50
@@ -184,9 +193,56 @@ def spread():
                       outs=lambda r, a: (r, a))
 
 
+def dom():
+    """build_dom at every K (R = 1) at few rows, and at R = 2 to 16 rows a
+    CTA (K = 1) at the IPA shape, each held exactly against plain."""
+    from types import SimpleNamespace
+
+    orig_dom = kernels.dom_split
+
+    def force_dom(r, k):
+        kernels.dom_split = lambda rows, n, tk, dv, sms: (r, k, *kernels.dom_slices(n, k))
+
+    def dom_sweep(label, state, et_slot, dv, geometries):
+        run = lambda _: kernels.build_dom(state, et_slot, dv)  # noqa: E731
+        want = plain.build_dom(state, et_slot, dv)
+        for r, k in list(geometries) + list(reversed(geometries)):
+            force_dom(r, k)
+            errs = {}
+            for i, (x, y) in enumerate(zip(run(None), want)):
+                torch.cuda.synchronize()
+                cs.exact(errs, label, f"R={r} K={k} out {i}", x, y)
+            ms, _ = cs.median_ms(run, REPS)
+            res.setdefault(label, {}).setdefault(f"R={r} K={k}", []).append(ms)
+            kernels.dom_split = orig_dom
+        print(label, {g: [round(x, 4) for x in v] for g, v in res[label].items()}, flush=True)
+
+    ks = [(1, k) for k in (1, 2, 4, 8, 16)]
+    builder, *_ = cs.kernel_inputs(1234, dev)
+    slot = torch.from_numpy(builder.batch_invariants()["et_slot"]).to(dev)
+    dom_sweep("build_dom c1 (G=ET=8, N=8192)", builder.state(), slot, builder.schema.DV, ks)
+    rng = np.random.default_rng(7)
+    for n in (4096, 2048, 1024, 512):
+        gc, ec, topo, eslot = cs.dom_case(rng, 8, 8, n, 4, 8, "drawn")
+        to = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        st = SimpleNamespace(group_counts=to(gc), et_counts=to(ec), topo_vals=to(topo))
+        dom_sweep(f"build_dom drawn (G=ET=8, N={n})", st, to(eslot), 8, ks)
+    for shape in ("inclusion", "spread_na"):
+        x = cs.spread_inputs(shape, 2468, dev)
+        b = x["builder"]
+        slot = torch.from_numpy(b.batch_invariants()["et_slot"]).to(dev)
+        dom_sweep(f"build_dom {shape} (G={b.schema.G}, ET={b.schema.ET}, N={b.schema.N})", x["state"], slot,
+                  b.schema.DV, ks)
+    x = cs.ipa_inputs(4321, dev)
+    dom_sweep("build_dom ipa (G=ET=2048, N=1024)", x["state"], x["dom"].et_slot, x["builder"].schema.DV,
+              [(r, 1) for r in (1, 2, 4, 8, 16)])
+
+
 if args.only in (None, "select_ipa"):
     select_ipa()
 if args.only in (None, "spread"):
     spread()
+if args.only in (None, "dom"):
+    dom()
 print(json.dumps({k: {str(kk): vv for kk, vv in v.items()} for k, v in res.items()}))
 print(card)

@@ -20,7 +20,9 @@ cluster, at the chunk-1 shapes ("c1", "ipa_c1", "spread_c1") and on cases
 that cross the cluster's node slices; image_scores'
 merged lists and node tiles on seeded rows with repeats, -1 slots and ids
 past the vocabulary, and on the explain phase's batch ("explain_il"); the
-one-launch row flush over every field ("flush")."""
+one-launch row flush over every field ("flush"); build_dom's one launch at
+every (R, K) class dom_split gives (dom_cases).  dom_split's geometry is
+plain Python and its tests run everywhere."""
 
 import dataclasses
 
@@ -94,6 +96,89 @@ def test_pick_cases_match_plain_version_exactly(cuda_device):
     errs = chip_smoke.check_exact_cases(cuda_device, ("pick",))
     assert set(errs) == {"preempt_pick"}
     assert errs["preempt_pick"]["max_abs_err"] == 0
+
+
+@pytest.mark.cuda
+def test_dom_cases_match_plain_version_exactly(cuda_device):
+    """build_dom's one launch at every (R, K) class dom_split gives (R = 1
+    at K = 1, 2, 4, 8, 16, R > 1 at K = 1), with the domain values in
+    registers and from topo_vals, on chip_smoke.dom_cases' inputs (slices ending short, N = 1
+    and N = 5, G = 0, ET = 0, slots outside [0, TK), hostname ids inside
+    and past DV, a warp on one cell, sums near 2^24, unaligned views),
+    against its plain version with max_abs_err 0."""
+    import chip_smoke
+
+    errs: dict = {}
+    chip_smoke.dom_cases(errs, cuda_device)
+    assert errs == {"build_dom": 0.0}
+
+
+# dom_split at the paths' shapes and around its limits on a 132-SM card:
+# (table rows, node rows, TK, DV).
+DOM_SHAPES = [
+    (16, 8192, 4, 8), (4096, 1024, 4, 16), (16, 512, 4, 8), (8, 1024, 4, 16), (16, 5776, 4, 8),
+    (0, 0, 4, 8), (0, 10, 4, 8), (1, 1, 4, 8), (3, 5, 1, 1), (131, 8192, 4, 8), (132, 8192, 4, 8),
+    (133, 100, 4, 8), (300, 1030, 4, 3000), (20000, 16384, 8, 64), (5, 50000, 4, 14528), (5, 8192, 4, 14000),
+    (2, 70000, 16, 100), (40, 2049, 3, 7), (528, 100, 4, 8), (529, 100, 4, 8), (4000, 64, 4, 3000),
+]
+
+
+@pytest.mark.parametrize("rows,n,tk,dv", DOM_SHAPES)
+def test_dom_split_geometry(rows, n, tk, dv):
+    """K a power of two at most 16 (1 with R > 1), R the smallest that
+    makes the grid one wave of DOM_WAVE CTAs an SM unless the tables cut it
+    (R x max(TK, 1) x DV x 4 bytes within DOM_SMEM_CAP), threads in whole
+    warps, and a grid of ceil(rows / R) x K CTAs covering every table row
+    once and, over each cluster's slices and their steps of DOM_VEC nodes a
+    thread, every node row once."""
+    import numpy as np
+
+    from kubernetes_tpu_torch import kernels as k_
+
+    sms = 132
+    r, k, s, threads = k_.dom_split(rows, n, tk, dv, sms)
+    assert k in (1, 2, 4, 8, 16) and r >= 1 and (r == 1 or k == 1)
+    assert r * max(tk, 1) * dv * 4 <= k_.DOM_SMEM_CAP
+    cap = k_.DOM_SMEM_CAP // (max(tk, 1) * dv * 4)
+    assert r == min(cap, max(1, -(-rows // (k_.DOM_WAVE * sms))))
+    assert r == cap or -(-rows // r) <= k_.DOM_WAVE * sms  # one wave unless the tables cut R
+    assert threads % 32 == 0 and 32 <= threads <= k_.DOM_THREADS and s % k_.DOM_VEC == 0
+    assert k == 1 or -(-n // k) >= k_.DOM_ROWS_MIN
+    row_hits = np.zeros(rows, int)
+    for cta in range(-(-rows // r)):
+        row_hits[cta * r:min(rows, cta * r + r)] += 1
+    assert (row_hits == 1).all()
+    node_hits = np.zeros(n, int)
+    for rank in range(k):
+        s0, s1 = min(n, rank * s), min(n, rank * s + s)
+        for base in range(s0, s1, k_.DOM_VEC * threads):
+            nodes = base + np.arange(k_.DOM_VEC * threads)
+            node_hits[nodes[nodes < s1]] += 1
+    assert (node_hits == 1).all()
+
+
+def test_dom_split_maps_the_path_shapes():
+    """"c1" (G = ET = 8, N = 8192, TK = 4, DV = 8): one row a CTA over a
+    cluster of 8 CTAs of 1024 node rows (256 threads, one step); "ipa" (G =
+    ET = 2048, N = 1024, DV = 16): K = 1 and 8 rows a CTA (four passes of
+    DOM_PASS), 512 CTAs: one wave of DOM_WAVE an SM."""
+    from kubernetes_tpu_torch import kernels as k_
+
+    assert k_.dom_split(16, 8192, 4, 8, 132) == (1, 8, 1024, 256)
+    assert k_.dom_split(4096, 1024, 4, 16, 132) == (8, 1, 1024, 256)
+    assert -(-4096 // 8) <= k_.DOM_WAVE * 132
+
+
+@pytest.mark.parametrize("tk,dv", [(4, 14528), (1, 58112), (8, 7264), (58112, 1), (0, 58112)])
+def test_dom_split_takes_every_table_a_block_holds(tk, dv):
+    """Every (TK, DV) whose one-row table fits a block's 227 KB is taken,
+    at R = 1; one cell more is refused before launch."""
+    from kubernetes_tpu_torch import kernels as k_
+
+    for rows, n in ((1, 1), (16, 8192), (4096, 1024)):
+        assert k_.dom_split(rows, n, tk, dv, 132)[0] == 1
+        with pytest.raises(NotImplementedError):
+            k_.dom_split(rows, n, tk, dv + 1, 132)
 
 
 @pytest.mark.cuda

@@ -125,7 +125,9 @@ Phases; any failure fails the run (nothing is caught):
        hostname spread), the rank split, a mixed chunk and the speculative
        mode, and preempt_pick on every tail (timed on the mixed chunk, and
        on the chunk-1 tail at N=8192 as "search_c1");
-       and preempt_eval in one launch with the node-local ops alone;
+       and preempt_eval in one launch with the node-local ops alone (and,
+       at "search", its prologue and its tail on the rank split's carry
+       timed as "search_prologue" and "search_tail");
        the third search shape, "search_dra" (N=8192, V=8, four claim
        holders a node on half the nodes, one claim shared by two of them,
        externally allocated claims a victim alone reserves, external
@@ -211,6 +213,16 @@ Phases; any failure fails the run (nothing is caught):
        slots outside [0, TK), hostname ids inside and past DV, a warp's
        lanes on one cell, sums near 2^24, unaligned views), exact against
        its plain version;
+     - preempt_eval at every lane count kernels.eval_lanes gives (eval_cases,
+       the "eval" group, untimed: V = 1, 2, 3, 8, 16, 33, 64 over 333 node
+       rows, R = 1 and 4, 0-3 PDBs; the closed-form fit alone, NodePorts,
+       VolumeRestrictions, NodeVolumeLimits, DynamicResources and all four,
+       with ids shared between victims, crossing volumes and claims,
+       count-only claim slots, phantom charges, pins elsewhere; ties at the
+       top priority with infinite starts, no victim below, a
+       ReadWriteOncePod-blocked, late (C = 1024) or missing representative,
+       the speculative view), exact against its plain version in FULL,
+       PROLOGUE and TAIL;
   4. drive each main path through TorchScheduler, with the launch counts
      set to 0 just before and read just after; every pod must bind, the
      host mirror must equal the device state, no node may exceed its
@@ -768,6 +780,215 @@ def pick_cases(errs: dict, dev) -> None:
     for (mode, k), e in sorted(seen.items()):
         print(f"preempt_pick [pick_cases {mode} K={k}]: exact on {e['cases']} cases at N "
               f"{sorted(e['n'])}, {sorted(e['threads'])} threads a CTA")
+
+
+# eval_cases: victim slots (V 1, 2, 3, 8, 16, 33, 64: every lane count
+# kernels.eval_lanes gives), the op families of the node-local search, and
+# the kinds of case; the tables' id ranges are small, so victims of a node
+# share ports, devices, volumes and claims.
+EVAL_CASE_V = (1, 2, 3, 8, 16, 33, 64)
+EVAL_CASE_OPS = ("fit", "ports", "vr", "nvl", "dra", "all")
+EVAL_CASE_KINDS = ("drawn", "ties", "none below", "rwop", "late", "none valid", "speculative")
+EVAL_IDS = {"P": 8, "PK": 4, "VD": 4, "DR": 2, "CV": 6, "DC": 3, "CLM": 6}
+
+
+def eval_case(rng, n: int, v: int, r: int, p: int, ops: str, kind: str, dev):
+    """(state, vic, pf, spec) of one synthetic preempt_eval case over ``n``
+    node rows and ``v`` victim slots (a node's first 0..V occupied, the
+    rest the pack's empty-slot sentinels), ``r`` resources and ``p`` PDBs,
+    on ``dev``.  The representative (priority 6) meets victims of priority
+    0-9 on nodes whose requests are their victims' plus a little, a pod
+    count near its limit, unschedulable and invalid rows, a NodeName and
+    node_filters bits.  ``ops``: the closed-form fit alone, one op family
+    of the search or all four: NodePorts (specific and wildcard slots,
+    victims sharing triples), VolumeRestrictions (read-write and read-only
+    devices), NodeVolumeLimits (volumes shared by victims, the driver's
+    attachments crossing, volumes no victim holds) and DynamicResources
+    (shared claims, a count-only slot, phantom charges, pins elsewhere, a
+    missing claim); every live count is the victims' holdings plus an
+    outside share on one cell in ten.  ``kind``: "ties" (priorities 2-3,
+    nine starts in ten infinite), "none below" (no victim below the
+    priority), "rwop" (a ReadWriteOncePod-blocked representative), "late"
+    (C = 1024, the first valid mate at 1000), "none valid" (C = 1024, no
+    valid mate), "speculative" (elig and spec_picks), else drawn."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.kernels import PreemptSpec, Victims
+    from kubernetes_tpu_torch.snapshot import Schema, _host_arrays, state_from_numpy
+
+    on = {op: ops in (op, "all") for op in ("ports", "vr", "nvl", "dra")}
+    ids = EVAL_IDS
+    c = 1024 if kind in ("late", "none valid") else 8
+    occ = rng.integers(0, v + 1, n)
+    used = np.arange(v)[None, :] < occ[:, None]  # (n, v)
+    lo, hi = (2, 4) if kind == "ties" else (0, 10)
+    prio = np.where(used, rng.integers(lo, hi, (n, v)), 2**31 - 1).astype(np.int32)
+    req = np.where(used[:, :, None], rng.integers(0, 4, (n, v, r)), 0).astype(np.int64)
+    nonzero = np.where(used[:, :, None], rng.integers(0, 5, (n, v, 2)), 0).astype(np.int64)
+    start = rng.integers(0, 12, (n, v)) * 0.5
+    start = np.where(rng.random((n, v)) < (0.9 if kind == "ties" else 0.2), np.inf, start)
+    start = np.where(used, start, np.inf)
+    pdb = used[:, :, None] & (rng.random((n, v, p)) < 0.4)
+    allowed = rng.integers(0, 3, p).astype(np.int64)
+
+    def slots(width: int, lo_: int, hi_: int, pad: int):
+        return np.where(used[:, :, None], rng.integers(lo_, hi_, (n, v, width)), pad).astype(np.int32)
+
+    def held(col, rows: int, gate=None) -> np.ndarray:
+        """(rows, n): the node's slots holding each id (gated), plus an
+        outside share on one cell in ten."""
+        out = np.zeros((rows, n), np.int64)
+        node = np.broadcast_to(np.arange(n)[:, None, None], col.shape)
+        keep = (col >= 0) if gate is None else (col >= 0) & gate
+        np.add.at(out, (col[keep], node[keep]), 1)
+        return (out + (rng.random((rows, n)) < 0.1)).astype(np.int32)
+
+    f = _host_arrays(Schema(N=n, R=r, LS=1, TS=1, TK=1, G=1, ET=1, IM=1, **ids))
+    f["valid"] = rng.random(n) < 0.95
+    f["name_id"] = np.arange(n, dtype=np.int32)
+    f["unschedulable"] = rng.random(n) < 0.1
+    f["num_pods"] = (occ + rng.integers(0, 3, n)).astype(np.int32)
+    f["allowed_pods"] = (f["num_pods"] + rng.integers(-1, 3, n)).astype(np.int32)
+    f["req"] = req.sum(axis=1) + rng.integers(0, 3, (n, r))
+    f["alloc"] = f["req"] + rng.integers(-2, 3, (n, r))
+    vf = {}
+    if on["ports"]:
+        vf["port_triples"] = slots(2, -1, ids["P"], -1)
+        keys = rng.integers(-1, ids["PK"], (n, v, 2))
+        vf["port_keys"] = np.where(vf["port_triples"] >= 0, keys, -1).astype(np.int32)
+        f["port_counts"] = held(vf["port_triples"], ids["P"])
+        keys = np.where(vf["port_triples"] >= 0, np.maximum(vf["port_keys"], 0), -1)
+        f["portkey_counts"] = held(keys, ids["PK"])
+    if on["vr"]:
+        vf["vol_dev_ids"] = slots(2, -1, ids["VD"], -1)
+        vf["vol_dev_rw"] = np.where(vf["vol_dev_ids"] >= 0, rng.integers(0, 2, (n, v, 2)), 0).astype(np.int32)
+        f["dev_counts"] = held(vf["vol_dev_ids"], ids["VD"])
+        f["dev_rw_counts"] = held(vf["vol_dev_ids"], ids["VD"], vf["vol_dev_rw"] > 0)
+    if on["nvl"]:
+        vf["csi_ids"] = slots(2, -1, ids["CV"], -1)
+        drv = (vf["csi_ids"] + (rng.random((n, v, 2)) < 0.1)) % ids["DR"]  # a volume's driver, now and then not
+        vf["csi_drv"] = np.where(vf["csi_ids"] >= 0, drv, 0).astype(np.int32)
+        f["csivol_counts"] = held(vf["csi_ids"], ids["CV"])
+        f["csi_used"] = held(np.where(vf["csi_ids"] >= 0, vf["csi_drv"], -1), ids["DR"]) // 2
+        f["csi_limit"] = (f["csi_used"] + rng.integers(0, 3, (ids["DR"], n))).astype(np.int32)
+    if on["dra"]:
+        vf["dra_kid"] = slots(2, -1, ids["CLM"], -1)
+        vf["dra_cid"] = np.where(vf["dra_kid"] >= 0, rng.integers(-1, ids["DC"], (n, v, 2)), 0).astype(np.int32)
+        vf["dra_cnt"] = np.where(vf["dra_kid"] >= 0, rng.integers(0, 3, (n, v, 2)), 0).astype(np.int32)
+        vf["dra_first"] = np.where(vf["dra_kid"] >= 0, rng.random((n, v, 2)) < 0.8, 0).astype(np.int32)
+        f["dra_claim_counts"] = held(vf["dra_kid"], ids["CLM"], vf["dra_first"] > 0)
+        pool = np.zeros((ids["DC"], n), np.int64)
+        node = np.broadcast_to(np.arange(n)[:, None, None], vf["dra_kid"].shape)
+        keep = vf["dra_kid"] >= 0
+        np.add.at(pool, (np.maximum(vf["dra_cid"], 0)[keep], node[keep]), vf["dra_cnt"][keep])
+        f["dra_alloc"] = (pool + rng.integers(0, 2, (ids["DC"], n))).astype(np.int32)
+        f["dra_cap"] = (f["dra_alloc"] + rng.integers(0, 4, (ids["DC"], n))).astype(np.int32)
+    state = state_from_numpy(f, dev)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    vic = Victims(to(prio), to(req), to(nonzero), to(start), to(pdb), to(allowed), {k: to(a) for k, a in vf.items()})
+    first = {"late": 1000, "none valid": c}.get(kind, int(rng.integers(0, 3)))
+    valid = np.zeros(c, np.bool_)
+    valid[first:first + 1] = True
+    valid[first + 1:] = rng.random(max(0, c - first - 1)) < 0.7
+    pf = {
+        "priority": np.full(c, 0 if kind == "none below" else 6, np.int32),
+        "req": rng.integers(0, 4, (c, r)) * (rng.random((c, r)) < 0.7),
+        "nodename_id": np.where(rng.random(c) < 0.2, rng.integers(0, n, c), -1).astype(np.int32),
+        "tolerates_unschedulable": rng.random(c) < 0.5,
+        "node_bits": np.where(rng.random((c, n)) < 0.8, 15, rng.integers(0, 16, (c, n))).astype(np.uint8),
+        "vr_rwop_ok": np.full(c, kind != "rwop"),
+        "port_triples": rng.integers(-1, ids["P"], (c, 2)).astype(np.int32),
+        "port_keys": rng.integers(-1, ids["PK"], (c, 2)).astype(np.int32),
+        "port_wild_triples": rng.integers(-1, ids["P"], (c, 2)).astype(np.int32),
+        "port_is_wild": rng.random((c, 2)) < 0.4,
+        "vol_dev_ids": rng.integers(-1, ids["VD"], (c, 2)).astype(np.int32),
+        "vol_dev_rw": rng.random((c, 2)) < 0.5,
+        "vol_csi_ids": rng.integers(-1, ids["CV"], (c, 2)).astype(np.int32),
+        "vol_csi_drv": rng.integers(-1, ids["DR"] + 1, (c, 2)).astype(np.int32),
+        "dra_claim_ids": rng.integers(-1, ids["CLM"], (c, 2)).astype(np.int32),
+        "dra_claim_cls": rng.integers(-1, ids["DC"] + 1, (c, 2)).astype(np.int32),
+        "dra_claim_cnt": rng.integers(1, 4, (c, 2)).astype(np.int32),
+        "dra_pin_ids": np.where(rng.random((c, 2)) < 0.1, rng.integers(0, n, (c, 2)), -1).astype(np.int32),
+        "dra_missing": rng.random(c) < 0.05,
+    }
+    pf["req"] = pf["req"].astype(np.int64)
+    if kind == "speculative":
+        pf["elig"] = valid
+        pf["spec_picks"] = np.where(rng.random(c) < 0.4, 3, -1).astype(np.int32)
+    else:
+        pf["valid"] = valid
+    keep = {"ports": ("port_triples", "port_keys", "port_wild_triples", "port_is_wild"),
+            "vr": ("vol_dev_ids", "vol_dev_rw"), "nvl": ("vol_csi_ids", "vol_csi_drv"),
+            "dra": ("dra_claim_ids", "dra_claim_cls", "dra_claim_cnt", "dra_pin_ids", "dra_missing")}
+    for op, keys in keep.items():
+        for key in keys if not on[op] else ():
+            del pf[key]
+    if not on["vr"]:
+        del pf["vr_rwop_ok"]
+    spec = PreemptSpec(check_unsched=True, check_nodename=True, bits_mask=int(rng.choice([0, 1, 5, 15])),
+                       ports=on["ports"], vr=on["vr"], nvl=on["nvl"], dra=on["dra"])
+    return state, vic, {k: to(a) for k, a in pf.items()}, spec
+
+
+def eval_carry(rng, carry, v: int):
+    """A drawn TAIL carry from a PROLOGUE carry: each masked slot kept with
+    probability 0.7, the release and count as they were, random flags."""
+    import torch
+
+    keep = torch.from_numpy(rng.random((carry.mask.shape[0], v)) < 0.7).to(carry.mask.device)
+    bits = (keep.to(torch.int64) << torch.arange(v, device=keep.device)).sum(dim=1)
+    flags = torch.from_numpy(rng.integers(0, 16, carry.mask.shape[0]).astype("uint8")).to(carry.mask.device)
+    return carry._replace(mask=carry.mask & bits, flags=flags)
+
+
+def eval_cases(errs: dict, dev) -> None:
+    """preempt_eval against its plain version on eval_case's inputs (333
+    node rows, not a multiple of any block's nodes) in FULL, PROLOGUE and
+    TAIL (on the prologue's carry and on a drawn one), at every V of
+    EVAL_CASE_V with R = 1 and 4 and 0-3 PDBs, every op family of
+    EVAL_CASE_OPS and every kind of EVAL_CASE_KINDS; the lane counts these
+    launch must be every one eval_lanes gives (1, 2, 4, 8, 16, 32)."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch import kernels
+    from kubernetes_tpu_torch.kernels import plain
+
+    rng = np.random.default_rng(2001)
+    names = ("possible", "crit", "vic_mask", "n_vic", "rel", "relnz")
+    seen: dict = {}
+    for v in EVAL_CASE_V:
+        for i, ops in enumerate(EVAL_CASE_OPS):
+            for kind in EVAL_CASE_KINDS:
+                r, p = (1, 4)[i % 2], int(rng.integers(0, 4))
+                state, vic, pf, spec = eval_case(rng, 333, v, r, p, ops, kind, dev)
+                where = f"[eval_cases V={v} R={r} P={p} {ops} {kind}]"
+                got, want = kernels.preempt_eval(state, vic, pf, spec), plain.preempt_eval(state, vic, pf, spec)
+                for what, a, b in zip(names, got, want):
+                    exact(errs, "preempt_eval", f"{where} {what}", a, b)
+                kc = kernels.preempt_eval(state, vic, pf, spec, plain.PROLOGUE)
+                pc = plain.preempt_eval(state, vic, pf, spec, plain.PROLOGUE)
+                for what, a, b in zip(("mask", "rel", "cnt", "flags"), kc, pc):
+                    exact(errs, "preempt_eval", f"{where} carry.{what}", a, b)
+                for label, carry in (("prologue", pc), ("drawn", eval_carry(rng, pc, v))):
+                    kt = kernels.preempt_eval(state, vic, pf, spec, plain.TAIL,
+                                              carry._replace(rel=carry.rel.clone()))
+                    pt = plain.preempt_eval(state, vic, pf, spec, plain.TAIL, carry)
+                    for what, a, b in zip(names, kt, pt):
+                        exact(errs, "preempt_eval", f"{where} tail ({label} carry) {what}", a, b)
+                torch.cuda.synchronize()
+                lanes = kernels.eval_lanes(v)
+                entry = seen.setdefault(lanes, {"v": set(), "cases": 0, "possible": 0})
+                entry["v"].add(v)
+                entry["cases"] += 1
+                entry["possible"] += int(want[0].sum())
+    every = {kernels.eval_lanes(v) for v in range(1, 65)}
+    if set(seen) != every:
+        raise AssertionError(f"eval_cases: launched L {sorted(seen)}, eval_lanes gives {sorted(every)}")
+    for lanes, e in sorted(seen.items()):
+        print(f"preempt_eval [eval_cases L={lanes}]: exact in FULL, PROLOGUE and TAIL on {e['cases']} cases at V "
+              f"{sorted(e['v'])}, {e['possible']} possible nodes")
 
 
 def nf_cases(errs: dict, dev, label: str, state, layouts: bool = False) -> None:
@@ -2537,6 +2758,31 @@ def preempt_eval_bytes(state, vic, pf: dict, possible_mask) -> int:
     return node + slots + out + vic.allowed.numel() * 8
 
 
+def prologue_bytes(state, vic, pf: dict) -> int:
+    """preempt_eval's PROLOGUE: each node's valid, unschedulable, name and
+    node_filters bytes and its victims' priorities read once, the lower
+    slots' requests, the carry written."""
+    import torch
+
+    n, v = vic.prio.shape
+    r = vic.req.shape[2]
+    lower = int((vic.prio < pf["priority"][int(torch.argmax(pf["valid"].to(torch.int32)))]).sum())
+    return n * (1 + 1 + 4 + 1) + n * v * 4 + lower * r * 8 + n * (8 + r * 8 + 4 + 1)
+
+
+def tail_bytes(vic, carry) -> int:
+    """preempt_eval's TAIL: the carry's mask and flags read, the masked
+    slots' priorities, start times, non-zero requests and PDB bits, the
+    criteria, victim mask, count and non-zero release written (the release
+    is the carry's own rows)."""
+    import torch
+
+    n, v = vic.prio.shape
+    p = vic.pdb.shape[2]
+    masked = int(torch.stack([((carry.mask >> j) & 1) for j in range(v)]).sum())
+    return n * (8 + 1) + masked * (4 + 8 + 2 * 8 + p) + n * (1 + 5 * 8 + v + 4 + 2 * 8)
+
+
 def pick_c1(c1_in, reps: int, errs: dict) -> dict:
     """preempt_pick timed on a chunk-1 dry-run's (pf, kernel criteria,
     plain criteria), beside its bound."""
@@ -3085,6 +3331,9 @@ def check_search_kernels(dev, shape: str, reps: int, nodes: int = 5000, extra: d
             plain.search_step(state, vic, pf, spec, pc, step, dom, DomTables(*pd, dom.et_slot, dom.et_host))
             same_carry("search_step")
             steps += 1
+        if label == "rank split":
+            clone = lambda c: kernels.SearchCarry(*(x.clone() for x in c))  # noqa: E731
+            tail_in = (pf, clone(kc), clone(pc))
         kt = kernels.preempt_eval(state, vic, pf, spec, plain.TAIL, kc)
         pt = plain.preempt_eval(state, vic, pf, spec, plain.TAIL, pc)
         torch.cuda.synchronize()
@@ -3133,6 +3382,17 @@ def check_search_kernels(dev, shape: str, reps: int, nodes: int = 5000, extra: d
     set_bound(result["preempt_pick"], *pick_cost(pt[0], pf))
     if extra is not None:
         extra[f"{shape}_c1"] = {"preempt_pick": pick_c1(c1_in, reps, errs)}
+        # preempt_eval's two launches around a search (the rank split's
+        # prologue and its tail on the carry the search left).
+        pf, kcarry, pcarry = tail_in
+        pro = timed(lambda _: kernels.preempt_eval(state, vic, pf, spec, plain.PROLOGUE),
+                    lambda _: plain.preempt_eval(state, vic, pf, spec, plain.PROLOGUE), reps)
+        set_bound(pro, prologue_bytes(state, vic, pf))
+        tail = timed(lambda _: kernels.preempt_eval(state, vic, pf, spec, plain.TAIL, kcarry),
+                     lambda _: plain.preempt_eval(state, vic, pf, spec, plain.TAIL, pcarry), reps)
+        set_bound(tail, tail_bytes(vic, pcarry))
+        for key, entry in ((f"{shape}_prologue", pro), (f"{shape}_tail", tail)):
+            extra[key] = {"preempt_eval": {**entry, "max_abs_err": errs["preempt_eval"], "library_ms": None}}
     # preempt_commit of the mixed chunk's picks, and expand_rows of the
     # uniform batch, at this shape (the search and claims paths' own).
     carries = lambda: ((state.req.clone(), state.nonzero_req.clone(), state.num_pods.clone()),  # noqa: E731
@@ -6880,6 +7140,15 @@ def main() -> int:
         dom_cases(dom_errs, dev)
         return {}
 
+    eval_errs: dict[str, float] = {}
+
+    def eval_group():  # untimed exactness cases: no shapes
+        if args.kernels_of and not hasattr(kernels, "eval_split"):
+            print("eval_cases: skipped, the package of --kernels-of has no eval_split (one thread a node)")
+            return {}
+        eval_cases(eval_errs, dev)
+        return {}
+
     # The kernel phase's checks in their order, each returning its shapes.
     groups = {
         "density": lambda: {"density": check_kernels(dev, REPS)}, "c1": lambda: {"c1": check_c1_kernels(dev, REPS)},
@@ -6899,6 +7168,7 @@ def main() -> int:
         "cols": lambda: {shape: check_cols_kernels(dev, REPS, shape) for shape in COLS_SHAPES},
         "ipa_c1": lambda: {"ipa_c1": check_ipa_c1_kernels(dev, REPS)},
         "dom": dom_group,
+        "eval": eval_group,
     }
     picked = args.shapes.split(",") if args.shapes else list(groups)
     unknown = sorted(set(picked) - set(groups))
@@ -6909,7 +7179,9 @@ def main() -> int:
         shapes.update(groups[group]())
         print(f"kernel phase: {group} done at {time.perf_counter() - t0:.1f}s")
     exact_cases = {} if args.shapes else check_exact_cases(dev)
-    exact_cases.update({name: {"max_abs_err": err} for name, err in dom_errs.items()})
+    for errs in (dom_errs, eval_errs):
+        for name, err in errs.items():
+            exact_cases[name] = {"max_abs_err": max(err, exact_cases.get(name, {}).get("max_abs_err", 0.0))}
     for shape, table in shapes.items():
         for name, tm in table.items():
             lib = "" if tm.get("library_ms") is None else f", library {tm['library_ms']:.4f}"
@@ -7029,7 +7301,7 @@ def main() -> int:
 # Entry functions whose ptxas counts the run prints, and those that must
 # keep no stack frame (no per-thread array indexed at run time).
 PTXAS_SHOWN = ("image_merge_kernel", "image_tile_kernel", "image_pinned_kernel", "scatter_rows_kernel",
-               "preempt_pick_kernel")
+               "preempt_pick_kernel", "preempt_eval_kernel")
 PTXAS_NO_STACK = ("image_merge_kernel", "image_tile_kernel")
 
 

@@ -147,6 +147,15 @@ DOM_PASS = 2
 DOM_WAVE = 4
 DOM_ROWS_MIN = 1024
 DOM_CTAS_PER_SM = 2
+# preempt_eval: threads a block at most (preempt.cu kEvalMaxThreads, the
+# launch bound), the blocks an SM the grid aims for (threads halve, to a
+# warp, until it has them), the lanes of a node's group at most (a warp),
+# and the shared memory a block may hold (its node groups' id spans and
+# counters).
+EVAL_THREADS = 256
+EVAL_BLOCKS_PER_SM = 2
+EVAL_LANES_MAX = 32
+EVAL_SMEM_CAP = 200 * 1024
 
 
 @dataclass
@@ -380,6 +389,57 @@ def pick_split(c: int, n: int) -> tuple[int, int, int, int]:
     if s <= PICK_WIDTH:
         return PICK_SPLIT, k, s, max(32, 1 << (s - 1).bit_length())
     return PICK_TILED, k, s, PICK_WIDTH
+
+
+def eval_lanes(v: int) -> int:
+    """L, the lanes of preempt_eval's group a node for V victim slots: the
+    power of two at least V, at most EVAL_LANES_MAX (at V > 32 each lane
+    owns two slots, lane and lane + 32)."""
+    lanes = 1
+    while lanes < min(v, EVAL_LANES_MAX):
+        lanes *= 2
+    return lanes
+
+
+def eval_split(n: int, v: int, sms: int, node_bytes: int = 0, warp_bytes: int = 0) -> tuple[int, int, int, int]:
+    """(L, nodes a block, threads, blocks) of preempt_eval's one launch over
+    N node rows of V victim slots on a card with ``sms`` SMs: L from
+    eval_lanes; EVAL_THREADS threads a block, halved (down to a warp: each
+    warp finds the representative) while the grid would have fewer than
+    EVAL_BLOCKS_PER_SM blocks an SM or its shared memory (eval_smem:
+    ``node_bytes`` a node's group, ``warp_bytes`` a warp) would pass
+    EVAL_SMEM_CAP; threads / L nodes a block, and ceil(N / nodes) blocks."""
+    lanes = eval_lanes(v)
+    threads = EVAL_THREADS
+
+    def smem(t):
+        return t // 32 * warp_bytes + t // lanes * node_bytes
+
+    while threads > 32 and (-(-n // (threads // lanes)) < EVAL_BLOCKS_PER_SM * sms or smem(threads) > EVAL_SMEM_CAP):
+        threads //= 2
+    if smem(threads) > EVAL_SMEM_CAP:
+        raise NotImplementedError(f"preempt_eval: a node's {node_bytes} bytes of victim ids exceed {EVAL_SMEM_CAP}")
+    nodes = threads // lanes
+    return lanes, nodes, threads, -(-n // nodes)
+
+
+def eval_smem(dims: dict, mode: int) -> tuple[int, int]:
+    """(bytes a node's group, bytes a warp) of preempt_eval's shared memory
+    (preempt.cu EvalLayout): a node's V x R int64 requests (not in TAIL);
+    in FULL also its V x width id spans of the active ops (port triples and
+    keys; device ids and gates; CSI ids, drivers, live counts and held
+    counts; claim ids, pools, devices, first flags, live and held counts)
+    and a counter a representative slot (two a port slot, three a CSI or
+    claim slot), int32 each, the group's ints rounded up to even; a warp's
+    copy of the representative's op slots in FULL (four ints a port slot,
+    two a device or CSI slot, three a claim slot)."""
+    d = dims
+    node = 0 if mode == plain.TAIL else 2 * d["V"] * d["R"]
+    if mode != plain.FULL:
+        return 4 * node, 0
+    node += d["V"] * (2 * d["PS"] + 2 * d["SD"] + 4 * d["SC"] + 6 * d["SK"]) + 2 * d["QP"] + d["QD"] \
+        + 3 * d["QC"] + 3 * d["QK"]
+    return 4 * (node + node % 2), 4 * (4 * d["QP"] + 2 * d["QD"] + 2 * d["QC"] + 3 * d["QK"])
 
 
 def dom_columns(tk: int) -> str:
@@ -1610,11 +1670,11 @@ def _search_args(state, vic: Victims, pf: dict, spec: PreemptSpec, carry, dom=No
     return ptrs, [dims[d] for d in _SEARCH_DIMS]
 
 
-def _launch_search(entry: str, ptrs: list, dims: list, dev) -> None:
+def _launch_search(entry: str, ptrs: list, dims: list, dev, *geometry: int) -> None:
     table = (ctypes.c_void_p * len(ptrs))(*[None if t is None else t.data_ptr() for t in ptrs])
     ints = (ctypes.c_int * len(dims))(*dims)
     build.launch(entry, ctypes.cast(table, ctypes.c_void_p), len(ptrs), ctypes.cast(ints, ctypes.c_void_p),
-                 len(dims), _stream(dev))
+                 len(dims), *geometry, _stream(dev))
 
 
 def preempt_eval(state, vic: Victims, pf: dict, spec: PreemptSpec, mode: int = plain.FULL, carry=None):
@@ -1623,7 +1683,8 @@ def preempt_eval(state, vic: Victims, pf: dict, spec: PreemptSpec, mode: int = p
     (5, N) i64, vic_mask (N, V) bool, n_vic (N,) i32, rel (N, R) i64,
     relnz (N, 2) i64), the node-local search ops inside the reprieve loop;
     PROLOGUE: the SearchCarry that search_step advances; TAIL: FULL's
-    outputs from that carry (``rel`` is the carry's)."""
+    outputs from that carry (``rel`` is the carry's).  One launch, a group
+    of lanes a node in the geometry ``eval_split`` gives."""
     if _on_cpu(state.valid):
         return plain.preempt_eval(state, vic, pf, spec, mode, carry)
     dev = state.valid.device
@@ -1643,7 +1704,8 @@ def preempt_eval(state, vic: Victims, pf: dict, spec: PreemptSpec, mode: int = p
                 torch.empty((n, 2), dtype=i64, device=dev)]
     ptrs, dims = _search_args(state, vic, pf, spec, carry if mode == plain.TAIL or mode == plain.PROLOGUE else None,
                               outs=outs, step=mode)
-    _launch_search("preempt_eval", ptrs, dims, dev)
+    lanes, _nodes, threads, _blocks = eval_split(n, v, _sms(dev), *eval_smem(dict(zip(_SEARCH_DIMS, dims)), mode))
+    _launch_search("preempt_eval", ptrs, dims, dev, lanes, threads)
     preempt_eval.launches += 1
     return carry if mode == plain.PROLOGUE else tuple(outs)
 

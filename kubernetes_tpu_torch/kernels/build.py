@@ -78,8 +78,9 @@ _SIGNATURES: dict[str, list] = {
     "late_scores": [_P] * 30 + [_I] * 13 + [_L] * 3 + [_I, _I, _P],
     "late_scores_cols": [_P] * 30 + [_I] * 13 + [_L] * 3 + [_I, _I, _P],
     # preempt_eval and search_step: a pointer table and its length, the
-    # dimensions and their count, the stream (preempt_search.cuh).
-    "preempt_eval": [_P, _I, _P, _I, _P],
+    # dimensions and their count (preempt_search.cuh), for preempt_eval
+    # its lanes a node and threads a block (kernels.eval_split), the stream.
+    "preempt_eval": [_P, _I, _P, _I, _I, _I, _P],
     "dom_release": [_P] * 7 + [_I] * 8 + [_P] * 3,
     "search_step": [_P, _I, _P, _I, _P],
     "preempt_pick": [_P] * 6 + [_I] * 6 + [_P] * 4,

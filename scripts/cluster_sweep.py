@@ -5,6 +5,7 @@ late_scores and build_dom, swept on a card.
     python3 scripts/cluster_sweep.py                # from the repository root, one CUDA card
     python3 scripts/cluster_sweep.py --only spread  # spread_filter and late_scores alone
     python3 scripts/cluster_sweep.py --only dom     # build_dom alone
+    python3 scripts/cluster_sweep.py --only eval    # preempt_eval's block size alone
 
 At chip_smoke.py's kernel-phase shapes (density "a", C=8 and C=128 at
 N=8192, C=64 at N=512, "c1", a 10000-node cluster at N=16384, the IPA
@@ -27,7 +28,14 @@ counts (three in ten non-zero) of 16 rows over N = 4096, 2048, 1024 and
 and 1024), and its rows a CTA R (K = 1) on the "ipa" state (G = ET = 2048, N =
 1024, DV = 16); kernels.dom_split is forced in place, S and threads from
 kernels.dom_slices.  DOM_ROWS_MIN and DOM_CTAS_PER_SM (K), and DOM_WAVE (the
-R it gives at the IPA shape, 8) were chosen from it.
+R it gives at the IPA shape, 8) were chosen from it.  The eval part sweeps
+preempt_eval's threads a block (32, 64, 128, 256: 256 / L to 32 / L node
+groups of L lanes) in FULL at the rank split of "preemption_500n" and
+"preemption_async_5kn" and with the node-local ops of "search",
+"search_pv", "search_dra" and "search_dra_path" (chip_smoke.py's inputs),
+kernels.eval_split forced in place, and at eval_split's own geometry
+PROLOGUE, TAIL (on the prologue's carry) and FULL with the closed-form
+fit alone; EVAL_THREADS and EVAL_BLOCKS_PER_SM were chosen from it.
 """
 import argparse
 import json
@@ -45,10 +53,11 @@ from kubernetes_tpu_torch.framework.config import DEFAULT_PROFILE  # noqa: E402
 from kubernetes_tpu_torch.kernels import build, plain  # noqa: E402
 
 ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-ap.add_argument("--only", choices=("select_ipa", "spread", "dom"), help="sweep one part alone")
+ap.add_argument("--only", choices=("select_ipa", "spread", "dom", "eval"), help="sweep one part alone")
 args = ap.parse_args()
-build.build({None: ("select_host", "ipa_eval", "spread_eval", "build_dom"), "select_ipa": ("select_host", "ipa_eval"),
-             "spread": ("spread_eval",), "dom": ("build_dom",)}[args.only])
+build.build({None: ("select_host", "ipa_eval", "spread_eval", "build_dom", "preempt"),
+             "select_ipa": ("select_host", "ipa_eval"), "spread": ("spread_eval",), "dom": ("build_dom",),
+             "eval": ("preempt", "node_filters")}[args.only])
 dev = torch.device("cuda")
 orig = kernels.cluster_split
 REPS = 50
@@ -238,11 +247,71 @@ def dom():
               [(r, 1) for r in (1, 2, 4, 8, 16)])
 
 
+def eval_threads():
+    """preempt_eval in FULL at every block size, held exactly against plain."""
+    import dataclasses
+
+    from kubernetes_tpu_torch import preemption as tpre
+    from kubernetes_tpu_torch.kernels import PreemptSpec
+
+    orig_split = kernels.eval_split
+
+    def force_threads(t):
+        def split(n, v, sms, node_bytes=0, block_bytes=0):
+            lanes = kernels.eval_lanes(v)
+            return lanes, t // lanes, t, -(-n // (t // lanes))
+        kernels.eval_split = split
+
+    def eval_sweep(label, state, vic, pf, spec):
+        run = lambda _: kernels.preempt_eval(state, vic, pf, spec)  # noqa: E731
+        want = plain.preempt_eval(state, vic, pf, spec)
+        lanes = kernels.eval_lanes(vic.prio.shape[1])
+        threads = [t for t in (32, 64, 128, 256) if t >= lanes]
+        for t in threads + threads[::-1]:
+            force_threads(t)
+            errs = {}
+            got = run(None)
+            torch.cuda.synchronize()
+            for i, (x, y) in enumerate(zip(got, want)):
+                cs.exact(errs, label, f"threads={t} out {i}", x, y)
+            ms, _ = cs.median_ms(run, REPS)
+            res.setdefault(label, {}).setdefault(f"threads={t}", []).append(ms)
+            kernels.eval_split = orig_split
+        # The other modes and the closed form alone, at eval_split's geometry.
+        fit = dataclasses.replace(spec, ports=False, vr=False, nvl=False, dra=False)
+        carry = plain.preempt_eval(state, vic, pf, spec, plain.PROLOGUE)
+        for mode, fn in (("PROLOGUE", lambda _: kernels.preempt_eval(state, vic, pf, spec, plain.PROLOGUE)),
+                         ("TAIL", lambda _: kernels.preempt_eval(state, vic, pf, spec, plain.TAIL, carry)),
+                         ("FULL, fit alone", lambda _: kernels.preempt_eval(state, vic, pf, fit))):
+            res[label].setdefault(mode, []).append(cs.median_ms(fn, REPS)[0])
+        n = state.valid.shape[0]
+        print(label, f"L={lanes}, eval_split {orig_split(n, vic.prio.shape[1], kernels._sms(dev))}",
+              {g: [round(x, 4) for x in v] for g, v in res[label].items()}, flush=True)
+
+    for shape in ("preemption_500n", "preemption_async_5kn"):
+        s, pack, batches = cs.preempt_inputs(shape, dev)
+        tb, _ = batches["uniform"]
+        pf = {**tb, "valid": torch.ones(tb["sig"].shape[0], dtype=torch.bool, device=dev)}
+        spec = PreemptSpec(check_unsched=True, check_nodename=True, bits_mask=0)
+        eval_sweep(f"preempt_eval {shape} (N={s.builder.schema.N})", s.builder.state(), pack["vic"], pf, spec)
+    for shape in ("search", "search_pv", "search_dra", "search_dra_path"):
+        s, pack, batches, active = cs.search_inputs(shape, dev)
+        state = s.builder.state()
+        spec = tpre.preempt_spec(s.profile, s.builder.schema, s.builder.res_col, active)
+        local = dataclasses.replace(spec, ipa=False, pts=False)
+        tb, _ = batches["uniform"]
+        pf = {**tb, "valid": torch.ones(tb["sig"].shape[0], dtype=torch.bool, device=dev)}
+        pf["node_bits"] = kernels.node_filters(state, pf, spec.ctx)
+        eval_sweep(f"preempt_eval {shape} (N={s.builder.schema.N})", state, pack["vic"], pf, local)
+
+
 if args.only in (None, "select_ipa"):
     select_ipa()
 if args.only in (None, "spread"):
     spread()
 if args.only in (None, "dom"):
     dom()
+if args.only in (None, "eval"):
+    eval_threads()
 print(json.dumps({k: {str(kk): vv for kk, vv in v.items()} for k, v in res.items()}))
 print(card)

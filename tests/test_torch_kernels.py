@@ -182,6 +182,91 @@ def test_dom_split_takes_every_table_a_block_holds(tk, dv):
 
 
 @pytest.mark.cuda
+def test_eval_cases_match_plain_version_exactly(cuda_device):
+    """preempt_eval's one launch at every lane count eval_lanes gives (1,
+    2, 4, 8, 16, 32), in FULL, PROLOGUE and TAIL, on chip_smoke.eval_cases'
+    inputs (every op family alone and together, ties, no victim below, a
+    ReadWriteOncePod-blocked, late or missing representative, the
+    speculative view), against its plain version with max_abs_err 0."""
+    import chip_smoke
+
+    errs: dict = {}
+    chip_smoke.eval_cases(errs, cuda_device)
+    assert errs == {"preempt_eval": 0.0}
+
+
+# eval_split at the paths' shapes and around its limits on a 132-SM card:
+# (node rows, victim slots).
+EVAL_SHAPES = [
+    (4096, 8), (512, 8), (8192, 8), (0, 8), (1, 1), (333, 3), (5000, 33), (100, 64), (70000, 16), (7, 2),
+    (20000, 64), (1056, 4), (1057, 4), (2112, 8),
+]
+
+
+@pytest.mark.parametrize("n,v", EVAL_SHAPES)
+def test_eval_split_geometry(n, v):
+    """L a power of two at most 32 with L >= min(V, 32), the smallest such;
+    each slot owned once (lane v % L, its j = v // L below 2, two only at L
+    = 32); threads whole warps from 32 to EVAL_THREADS, halved only while
+    the grid was short of EVAL_BLOCKS_PER_SM blocks an SM, threads / L
+    nodes a block; the grid covers every node row once."""
+    import numpy as np
+
+    from kubernetes_tpu_torch import kernels as k_
+
+    sms = 132
+    lanes, nodes, threads, blocks = k_.eval_split(n, v, sms)
+    assert lanes in (1, 2, 4, 8, 16, 32) and lanes >= min(v, 32) and (lanes == 1 or lanes // 2 < v)
+    owners = {(s % lanes, s // lanes) for s in range(v)}
+    assert len(owners) == v and all(j < (2 if lanes == 32 else 1) for _lane, j in owners)
+    assert threads % 32 == 0 and 32 <= threads <= k_.EVAL_THREADS and nodes == threads // lanes
+    assert threads == k_.EVAL_THREADS or -(-n // (2 * nodes)) < k_.EVAL_BLOCKS_PER_SM * sms
+    assert threads == 32 or blocks >= k_.EVAL_BLOCKS_PER_SM * sms
+    hits = np.zeros(n, int)
+    for b in range(blocks):
+        rows = b * nodes + np.arange(nodes)
+        hits[rows[rows < n]] += 1
+    assert (hits == 1).all() and blocks * nodes - n < nodes
+
+
+def test_eval_split_maps_the_path_shapes():
+    """"se-dra-p" (N = 4096, V = 8) and "500n" (N = 512, V = 8): 8 lanes a
+    node; the claims path's 4096 rows over 512 blocks of 64 threads (8
+    nodes a block), the 500-node path's 512 rows over 128 one-warp blocks
+    (4 nodes a block)."""
+    from kubernetes_tpu_torch import kernels as k_
+
+    assert k_.eval_split(4096, 8, 132) == (8, 8, 64, 512)
+    assert k_.eval_split(512, 8, 132) == (8, 4, 32, 128)
+
+
+def test_eval_split_bounds_shared_memory():
+    """A node's group takes 8 bytes a victim request (not in TAIL) and, in
+    FULL, 4 an id span entry and counter, rounded to 8; a warp 4 a
+    representative slot's id in FULL (eval_smem, preempt.cu EvalLayout);
+    at the widest tables (V = 64, every width 16) a block keeps within
+    EVAL_SMEM_CAP by taking fewer nodes, and every width the dry-run takes
+    fits."""
+    from kubernetes_tpu_torch import kernels as k_
+    from kubernetes_tpu_torch.kernels import plain
+
+    dims = dict.fromkeys(k_._SEARCH_DIMS, 0)
+    dims.update(V=8, R=4, PS=1, SD=2, SC=3, SK=2, QP=1, QD=2, QC=3, QK=1)
+    node, warp = k_.eval_smem(dims, plain.FULL)
+    assert node == 4 * (8 * 4 * 2 + 8 * (2 + 4 + 12 + 12) + 2 + 2 + 9 + 3) and warp == 4 * (4 + 4 + 6 + 3)
+    assert k_.eval_smem({**dims, "QD": 1}, plain.FULL)[0] == node  # 319 ints, rounded up to 320
+    assert k_.eval_smem(dims, plain.PROLOGUE) == (8 * 4 * 8, 0) and k_.eval_smem(dims, plain.TAIL) == (0, 0)
+    dims.update(R=16, PS=16, SD=16, SC=16, SK=16, QP=16, QD=16, QC=16, QK=16)
+    for v in (1, 2, 3, 8, 16, 32, 33, 64):
+        node, warp = k_.eval_smem({**dims, "V": v}, plain.FULL)
+        for n in (1, 100, 8192):
+            lanes, nodes, threads, _blocks = k_.eval_split(n, v, 132, node, warp)
+            assert threads // 32 * warp + nodes * node <= k_.EVAL_SMEM_CAP and nodes == threads // lanes
+    node, warp = k_.eval_smem({**dims, "V": 64}, plain.FULL)
+    assert k_.eval_split(8192, 64, 132, node, warp)[1:3] == (2, 64)  # two groups of 32 lanes a block
+
+
+@pytest.mark.cuda
 def test_ipa_kernels_match_plain_versions_exactly(cuda_device):
     import chip_smoke
 
